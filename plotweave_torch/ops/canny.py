@@ -1,0 +1,114 @@
+"""Canny edge detection, bit-compatible with OpenCV's L1 path (twin of
+``plotweave/ops/canny.py``).
+
+3×3 Sobel (replicate border) → L1 magnitude → Q15 sector non-maximum
+suppression with OpenCV's strict / non-strict comparisons per sector →
+double threshold → hysteresis.  The hysteresis grows the strong pixels
+through the candidates, ``edges = cand & dilate8(edges)``, until nothing
+changes, on the int32 bitboards of ``ops/thinning.py``.  Growth is monotone
+and bounded by ``cand``, so the fixpoint is unique and any sweep schedule run
+to "no change" gives it: :func:`hysteresis` runs kernel K5 on a CUDA tensor
+and :func:`hysteresis_plain` on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .thinning import _nbr_bits, _shift_rows, pack_bitboards, unpack_bitboards
+
+_TG22 = 13573  # tan(22.5°) in Q15
+_SHIFT = 15
+
+
+def _nbr(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """out[..., i, j] = x[..., i+dy, j+dx]; reads beyond the border are 0."""
+    h, w = x.shape[-2], x.shape[-1]
+    p = torch.nn.functional.pad(x, (1, 1, 1, 1))
+    return p[..., 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+
+
+def _sobel_pair(img: torch.Tensor):
+    """3×3 Sobel dx, dy with a replicate border, int16 (|g| ≤ 1020)."""
+    x = img.to(torch.int16)
+    h, w = img.shape[-2], img.shape[-1]
+    rows = torch.arange(-1, h + 1, device=img.device).clamp(0, h - 1)
+    cols = torch.arange(-1, w + 1, device=img.device).clamp(0, w - 1)
+    p = x.index_select(-2, rows).index_select(-1, cols)
+
+    def at(dy, dx):
+        return p[..., 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+
+    gx = (at(-1, 1) + 2 * at(0, 1) + at(1, 1)) - (at(-1, -1) + 2 * at(0, -1) + at(1, -1))
+    gy = (at(1, -1) + 2 * at(1, 0) + at(1, 1)) - (at(-1, -1) + 2 * at(-1, 0) + at(-1, 1))
+    return gx, gy
+
+
+def _dilate8(e: torch.Tensor) -> torch.Tensor:
+    row = e | _nbr_bits(e, 1) | _nbr_bits(e, -1)
+    return row | _shift_rows(row, 1) | _shift_rows(row, -1)
+
+
+def hysteresis_plain(cand: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
+    """Plain fixpoint of ``edges = cand & dilate8(edges)`` from ``strong``."""
+    edges = strong
+    while True:
+        new = cand & _dilate8(cand & _dilate8(edges))
+        if not bool((new != edges).any()):
+            return new
+        edges = new
+
+
+def hysteresis(cand: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
+    """Hysteresis on (..., H, NW) int32 bitboards: kernel K5 for CUDA
+    tensors, :func:`hysteresis_plain` for CPU tensors, else raise."""
+    if cand.is_cuda:
+        from .kernels import hysteresis_cuda  # noqa: PLC0415
+
+        return hysteresis_cuda(cand, strong)
+    if cand.device.type != "cpu":
+        raise ValueError(f"hysteresis: no kernel for device {cand.device}")
+    return hysteresis_plain(cand, strong)
+
+
+def canny_candidates(img: torch.Tensor, low: int, high: int):
+    """Sobel, sector NMS and the double threshold of (..., H, W) uint8 →
+    (candidate, strong) int32 bitboards: the hysteresis inputs."""
+    if low > high:
+        low, high = high, low
+    # L1 magnitude ≤ 2040, so the thresholds clamp into int16 range losslessly
+    low, high = min(low, 2041), min(high, 2041)
+    gx, gy = _sobel_pair(img)
+    mag = gx.abs() + gy.abs()
+
+    # sector NMS; magnitude beyond the border reads as 0
+    m_l, m_r = _nbr(mag, 0, -1), _nbr(mag, 0, 1)
+    m_u, m_d = _nbr(mag, -1, 0), _nbr(mag, 1, 0)
+    m_ul, m_ur = _nbr(mag, -1, -1), _nbr(mag, -1, 1)
+    m_dl, m_dr = _nbr(mag, 1, -1), _nbr(mag, 1, 1)
+
+    # the Q15 sector products need 32 bits; everything else stays int16
+    ax = gx.abs().to(torch.int32)
+    ay = gy.abs().to(torch.int32) << _SHIFT
+    tg22x = ax * _TG22
+    tg67x = tg22x + (ax << (_SHIFT + 1))
+
+    horiz = ay < tg22x
+    vert = ay > tg67x
+    sign_neg = (gx ^ gy) < 0  # gradient along the anti-diagonal
+
+    keep_h = (mag > m_l) & (mag >= m_r)
+    keep_v = (mag > m_u) & (mag >= m_d)
+    keep_d = torch.where(sign_neg, (mag > m_ur) & (mag > m_dl), (mag > m_ul) & (mag > m_dr))
+    keep = torch.where(horiz, keep_h, torch.where(vert, keep_v, keep_d))
+
+    cand = (mag > low) & keep
+    strong = cand & (mag > high)
+    return pack_bitboards(cand), pack_bitboards(strong)
+
+
+def canny_packed(img: torch.Tensor, low: int, high: int):
+    """(..., H, W) uint8 → (dense uint8 0/255 edges, int32 bitboard edges)."""
+    edges_b = hysteresis(*canny_candidates(img, low, high))
+    edges = unpack_bitboards(edges_b, img.shape[-1])
+    return (edges != 0).to(torch.uint8) * 255, edges_b

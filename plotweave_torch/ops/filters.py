@@ -1,0 +1,63 @@
+"""Separable Q8 Gaussian blur for uint8 images (twin of ``plotweave/ops/filters.py``).
+
+The taps are OpenCV's fixed-point kernel (sum 256); one ``(acc + 2^15) >> 16``
+rounding after both passes makes it bit-identical to cv2 for ksize ≤ 7.  The
+row pass runs in int32 (PyTorch has no uint16 ``+`` on the CPU); its values
+are the JAX uint16 pass's, at most 256·255 = 65280.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# canonical sigma=0 small kernels (Q8 numerators over 256)
+_SMALL_TAB = {
+    1: [256],
+    3: [64, 128, 64],
+    5: [16, 64, 96, 64, 16],
+    7: [8, 28, 56, 72, 56, 28, 8],
+}
+
+
+def gaussian_kernel_q8(ksize: int, sigma: float = 0.0) -> np.ndarray:
+    """Q8 integer Gaussian taps (sum 256)."""
+    if sigma <= 0 and ksize in _SMALL_TAB:
+        return np.asarray(_SMALL_TAB[ksize], dtype=np.int32)
+    s = sigma if sigma > 0 else 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    x = np.arange(ksize, dtype=np.float64) - (ksize - 1) * 0.5
+    k = np.exp(-(x * x) / (2.0 * s * s))
+    k /= k.sum()
+    q = np.rint(k * 256.0).astype(np.int32)
+    q[ksize // 2] += 256 - q.sum()
+    return q
+
+
+def reflect101_index(n: int, r: int, device=None) -> torch.Tensor:
+    """Indices of a length-n axis padded by r on both sides with the
+    reflect-101 border (numpy's ``mode="reflect"``, repeated for any r)."""
+    i = np.arange(-r, n + r)
+    if n == 1:
+        return torch.zeros(i.size, dtype=torch.long, device=device)
+    period = 2 * (n - 1)
+    i = np.abs(i) % period
+    i = np.where(i >= n, period - i, i)
+    return torch.from_numpy(i).to(device)
+
+
+def gaussian_blur_u8(img: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
+    """Blur (..., H, W) uint8 with a reflect-101 border; bit-exact for ksize ≤ 7."""
+    kq = gaussian_kernel_q8(ksize, sigma)
+    r = ksize // 2
+    if r == 0:
+        return img
+    h, w = img.shape[-2], img.shape[-1]
+    p = img.to(torch.int32).index_select(-1, reflect101_index(w, r, img.device))
+    tmp = torch.zeros(img.shape, dtype=torch.int32, device=img.device)
+    for i in range(ksize):
+        tmp = tmp + int(kq[i]) * p[..., :, i : i + w]
+    p = tmp.index_select(-2, reflect101_index(h, r, img.device))
+    acc = torch.zeros(img.shape, dtype=torch.int32, device=img.device)
+    for i in range(ksize):
+        acc = acc + int(kq[i]) * p[..., i : i + h, :]
+    return ((acc + (1 << 15)) >> 16).clamp(0, 255).to(torch.uint8)

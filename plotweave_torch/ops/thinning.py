@@ -1,0 +1,163 @@
+"""Zhang–Suen thinning on bit-packed boards (twin of ``plotweave/ops/thinning.py``).
+
+Bitboards hold 32 pixels per word, LSB-first, exactly as the JAX package's
+``uint32`` boards.  PyTorch's CPU build lacks shifts and ``~`` on ``uint32``,
+so every public function here takes and returns the same bits as
+``torch.int32``: ``<<`` wraps as on ``uint32``, and a logical right shift is
+``(x >> n) & ((1 << (32 - n)) - 1)`` (:func:`lsr`).  Tests move boards
+between the two packages with :func:`bitboards_from_jax` /
+:func:`bitboards_to_jax`.
+
+:func:`zhang_suen_packed` is the fixpoint: on a CUDA tensor it runs the
+hand-written kernel (``ops/kernels.py``), on a CPU tensor the plain version
+below.  Iterations past the fixpoint are no-ops, and one convergence flag
+covers every layer, as in the JAX ``while_loop``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def bitboards_from_jax(a: np.ndarray) -> torch.Tensor:
+    """JAX ``uint32`` bitboards → the same bits as a CPU ``int32`` tensor."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32).copy())
+
+
+def bitboards_to_jax(t: torch.Tensor) -> np.ndarray:
+    """``int32`` bitboards (any device) → the same bits as ``uint32`` numpy."""
+    return t.detach().cpu().numpy().view(np.uint32)
+
+
+def lsr(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of int32-held uint32 bits (``>>`` is arithmetic)."""
+    if n == 0:
+        return x
+    return (x >> n) & ((1 << (32 - n)) - 1)
+
+
+def pack_bitboards(binary: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) 0/nonzero → (..., H, ceil(W/32)) int32 bitboards, LSB-first."""
+    w = binary.shape[-1]
+    x = (binary > 0).to(torch.int64)
+    pad = (-w) % 32
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    xr = x.reshape(*x.shape[:-1], -1, 32)
+    weights = torch.ones(32, dtype=torch.int64, device=binary.device) << torch.arange(
+        32, dtype=torch.int64, device=binary.device
+    )
+    return (xr * weights).sum(dim=-1).to(torch.int32)  # int64 → int32 wraps
+
+
+def unpack_bitboards(packed: torch.Tensor, width: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bitboards` → (..., H, width) int32 0/1."""
+    shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
+    bits = (packed[..., :, None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], -1)[..., :width]
+
+
+def _shift_words(p: torch.Tensor, d: int) -> torch.Tensor:
+    """Word-axis shift on the last axis: out[..., k] = p[..., k+d], zero fill."""
+    nw = p.shape[-1]
+    z = torch.zeros_like(p[..., : abs(d)])
+    if d > 0:
+        return torch.cat([p[..., d:], z], dim=-1)
+    return torch.cat([z, p[..., : nw + d]], dim=-1)
+
+
+def _shift_rows(p: torch.Tensor, d: int) -> torch.Tensor:
+    """Row-axis shift: out[..., r, :] = p[..., r+d, :], zero fill."""
+    if d == 0:
+        return p
+    z = torch.zeros_like(p[..., : abs(d), :])
+    if d > 0:
+        return torch.cat([p[..., d:, :], z], dim=-2)
+    return torch.cat([z, p[..., : p.shape[-2] + d, :]], dim=-2)
+
+
+def _nbr_bits(p: torch.Tensor, dx: int) -> torch.Tensor:
+    """Column-neighbour board: bit j of the result = bit j+dx of the row,
+    carrying across word boundaries (east ``dx=+1`` is a right shift)."""
+    if dx == 0:
+        return p
+    if dx > 0:
+        return lsr(p, 1) | (_shift_words(p, 1) << 31)
+    return (p << 1) | lsr(_shift_words(p, -1), 31)
+
+
+def _fa(a, b, c):
+    """Bitboard full adder: (sum, carry)."""
+    ab = a ^ b
+    return ab ^ c, (a & b) | (c & ab)
+
+
+def _subpass_bits(x: torch.Tensor, first: bool, rotated: bool) -> torch.Tensor:
+    # P2..P9 as (dy, dx): the textbook ring, or its 180° rotation (stage 04)
+    ring = [(-1, 0), (-1, 1), (0, 1), (1, 1), (1, 0), (1, -1), (0, -1), (-1, -1)]
+    if rotated:
+        ring = [(-dy, -dx) for dy, dx in ring]
+    rows = {dy: _shift_rows(x, dy) for dy in (-1, 0, 1)}
+    n = [_nbr_bits(rows[dy], dx) for dy, dx in ring]
+
+    # B = sum of the 8 neighbour bits, bit-sliced through carry-save adders
+    s1, c1 = _fa(n[0], n[1], n[2])
+    s2, c2 = _fa(n[3], n[4], n[5])
+    s3, c3 = n[6] ^ n[7], n[6] & n[7]
+    b0, c4 = _fa(s1, s2, s3)
+    s5, c5 = _fa(c1, c2, c3)
+    b1, c6 = s5 ^ c4, s5 & c4
+    b2, b3 = c5 ^ c6, c5 & c6
+    b_ok = (b1 | b2 | b3) & ~(b3 | (b2 & b1 & b0))  # 2 <= B <= 6
+
+    # A == 1: exactly one 0->1 transition around the ring
+    any_, two = ~n[0] & n[1], torch.zeros_like(x)
+    for i in range(1, 8):
+        t = ~n[i] & n[(i + 1) % 8]
+        two = two | (any_ & t)
+        any_ = any_ | t
+    a1 = any_ & ~two
+
+    p2, p4, p6, p8 = n[0], n[2], n[4], n[6]
+    if first:
+        dir_ok = ~(p2 & p4 & p6) & ~(p4 & p6 & p8)
+    else:
+        dir_ok = ~(p2 & p4 & p8) & ~(p2 & p6 & p8)
+    return x & ~(a1 & b_ok & dir_ok)
+
+
+def zhang_suen_packed_plain(packed: torch.Tensor, max_iter: int = 120, rotated: bool = True) -> torch.Tensor:
+    """Plain PyTorch fixpoint: at most ``max_iter`` iterations of both
+    subpasses, stopping after the first iteration that changes no layer."""
+    x = packed
+    for _ in range(max_iter):
+        x2 = _subpass_bits(_subpass_bits(x, True, rotated), False, rotated)
+        changed = bool((x2 != x).any())
+        x = x2
+        if not changed:
+            break
+    return x
+
+
+def zhang_suen_packed(packed: torch.Tensor, max_iter: int = 120, rotated: bool = True) -> torch.Tensor:
+    """The fixpoint on (..., H, NW) int32 bitboards → the packed skeleton.
+
+    A CUDA tensor runs kernel K6 (``ops/kernels.py``); a CPU tensor runs
+    :func:`zhang_suen_packed_plain`; any other device raises."""
+    if packed.is_cuda:
+        from .kernels import zhang_suen_packed_cuda  # noqa: PLC0415
+
+        return zhang_suen_packed_cuda(packed, max_iter, rotated)
+    if packed.device.type != "cpu":
+        raise ValueError(f"zhang_suen_packed: no kernel for device {packed.device}")
+    return zhang_suen_packed_plain(packed, max_iter, rotated)
+
+
+def zhang_suen(binary: torch.Tensor, max_iter: int = 120, rotated: bool = True) -> torch.Tensor:
+    """Thin (..., H, W) 0/nonzero images to 1-px skeletons; int32 0/1.
+
+    ``rotated=True`` with 120 iterations is stage 04's thinner;
+    ``rotated=False`` with 48 is stage 08's."""
+    x = zhang_suen_packed(pack_bitboards(binary), max_iter=max_iter, rotated=rotated)
+    return unpack_bitboards(x, binary.shape[-1])

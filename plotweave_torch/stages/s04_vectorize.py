@@ -1,0 +1,71 @@
+"""[04] Vectorization: edges → skeleton → centerline polylines →
+<layer>/contours.pkl (twin of ``plotweave/stages/s04_vectorize.py``).
+
+In a chained run the skeletons come from the fused chain's blob; otherwise
+the edges are read from disk and thinned here, layer-batched, on the raster
+device.  Tracing runs on the host per layer (shared ``plotweave.vector``).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from plotweave.config import PipelineConfig
+from plotweave.stages.common import chain_key, layer_dir
+from plotweave.utils import fetch_derived_artifact, read_image, save_pickle, thread_map
+from plotweave.utils.io import save_pickle_async
+from plotweave.vector.trace import trace_skeleton_fast
+
+from ..ops.thinning import zhang_suen
+from ..utils.devices import raster_device
+
+
+def _thin_batched(edges: torch.Tensor) -> torch.Tensor:
+    """(L, H, W) edges → (L, H, W) uint8 0/1 skeletons (stage 04's thinner)."""
+    return zhang_suen(edges, max_iter=120, rotated=True).to(torch.uint8)
+
+
+def run(cfg: PipelineConfig) -> None:
+    names = list(cfg.color_names)
+
+    t0 = time.perf_counter()
+    fused = fetch_derived_artifact(chain_key(cfg, "skels"), pop=True)
+    if fused is not None:
+        packed_skels, w = fused
+        skeletons = np.unpackbits(packed_skels, axis=-1)[..., :w]
+        print(f"[vectorize] thinning (fused-chain handoff, {len(names)} layers)")
+    else:
+        edge_imgs = []
+        for name in names:
+            p = os.path.join(cfg.output_dir, name, "edges.png")
+            if not os.path.exists(p):
+                raise FileNotFoundError(f"Edges not found: {p}")
+            edge_imgs.append(read_image(p, gray=True))
+        batch = torch.from_numpy(np.stack(edge_imgs, axis=0)).to(raster_device(cfg))
+        skeletons = _thin_batched(batch).cpu().numpy()
+        print(f"[vectorize] thinning (batched, {len(names)} layers): {time.perf_counter() - t0:.2f}s")
+
+    min_len = int(cfg.thinning_min_segment_len)
+
+    # inside a pipeline chain the contours.pkl dumps go write-behind; the
+    # runner's finally flushes them before it returns.  A stage run alone
+    # writes synchronously.
+    from ..pipeline import chain_hint  # noqa: PLC0415
+
+    save = save_pickle_async if chain_hint() else save_pickle
+
+    def trace_one(args):
+        name, skel = args
+        t1 = time.perf_counter()
+        paths = trace_skeleton_fast(skel)  # 0/1 uint8: tracers accept any nonzero
+        paths = [p for p in paths if len(p) >= min_len]
+        out = os.path.join(layer_dir(cfg, name), "contours.pkl")
+        save(paths, out)
+        return f"[{name}] traced {len(paths)} polylines in {time.perf_counter() - t1:.2f}s → {out}"
+
+    for line in thread_map(trace_one, list(zip(names, skeletons))):
+        print(line)

@@ -1,0 +1,234 @@
+"""The port's runner end to end on the CPU, and its device and build policy.
+
+The four e2e golden configs run through ``plotweave_torch.pipeline`` with
+``raster_device="cpu"`` (the plain PyTorch versions), and the stage 02–04
+artifacts and ``plot_stream.bin`` must equal the golden reference-run bytes.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import subprocess
+import sys
+import tarfile
+import threading
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from plotweave.config import PipelineConfig, load_config
+
+GOLDEN = Path(__file__).parent / "golden" / "e2e"
+REPO = Path(__file__).resolve().parent.parent
+CONFIGS = [
+    ("base_cfg.json", "ref_artifacts.tar.gz"),
+    ("base_cfg2.json", "ref_artifacts2.tar.gz"),
+    ("cfg3_8layers.json", "ref_artifacts3.tar.gz"),
+    ("cfg4_gray1layer.json", "ref_artifacts4.tar.gz"),
+]
+
+
+def _write_cfg(cfg_name: str, out: Path, **extra) -> Path:
+    cfg = json.loads((GOLDEN / cfg_name).read_text())
+    cfg.update(input_image=str(GOLDEN / Path(cfg["input_image"]).name), output_dir=str(out), **extra)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "config.json").write_text(json.dumps(cfg))
+    return out / "config.json"
+
+
+@pytest.fixture(scope="module", params=CONFIGS, ids=["default", "variant", "8layers", "gray1layer"])
+def runs(request, tmp_path_factory):
+    from plotweave_torch.pipeline import run_pipeline
+
+    cfg_name, tar_name = request.param
+    base = tmp_path_factory.mktemp("torch_e2e")
+    with tarfile.open(GOLDEN / tar_name) as tf:
+        tf.extractall(base / "ref", filter="data")
+    cfg = load_config(str(_write_cfg(cfg_name, base / "mine", raster_device="cpu")))
+    times = run_pipeline(cfg, 1, 13)
+    return base / "ref", base / "mine", list(cfg.color_names), times
+
+
+@pytest.mark.parametrize("fname", ["mask.png", "edges.png"])
+def test_raster_artifacts_identical(runs, fname):
+    import cv2
+
+    ref, mine, layers, _ = runs
+    for layer in layers:
+        a = cv2.imread(str(ref / layer / fname), cv2.IMREAD_GRAYSCALE)
+        b = cv2.imread(str(mine / layer / fname), cv2.IMREAD_GRAYSCALE)
+        assert a is not None and b is not None
+        np.testing.assert_array_equal(a, b, err_msg=f"{layer}/{fname}")
+
+
+def test_contours_identical(runs):
+    ref, mine, layers, _ = runs
+    for layer in layers:
+        a = pickle.loads((ref / layer / "contours.pkl").read_bytes())
+        b = pickle.loads((mine / layer / "contours.pkl").read_bytes())
+        assert len(a) == len(b), layer
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+def test_stream_byte_identical(runs):
+    ref, mine, _, times = runs
+    assert (ref / "plot_stream.bin").read_bytes() == (mine / "plot_stream.bin").read_bytes()
+    assert sorted(times) == sorted(
+        ["s01_resize", "s02_color_extract", "s03_edge_detect", "s04_vectorize", "s05_scale",
+         "s06_preview_scaled", "s07_sort", "s08_dedup_intra", "s09_preview_intra",
+         "s10_dedup_cross", "s11_preview_cross", "s12_plot_order", "s13_build_stream"]
+    )
+
+
+def test_resumed_stages_03_04_identical(tmp_path):
+    """Steps 3 and 4 alone (no fused blob) run their own raster programs."""
+    from plotweave_torch.pipeline import run_pipeline
+
+    cfg = load_config(str(_write_cfg("base_cfg2.json", tmp_path / "a", raster_device="cpu")))
+    run_pipeline(cfg, 1, 4)
+    rel = [f"{n}/{p}" for n in cfg.color_names for p in ("edges.png", "contours.pkl")]
+    fused = {r: (tmp_path / "a" / r).read_bytes() for r in rel}
+    for n in cfg.color_names:
+        (tmp_path / "a" / n / "edges.png").unlink()
+    run_pipeline(cfg, 3, 4)
+    for r in rel:
+        assert (tmp_path / "a" / r).read_bytes() == fused[r], r
+
+
+def test_cli_subprocess_imports_no_jax(tmp_path):
+    cfg_path = _write_cfg("base_cfg.json", tmp_path / "out")
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = ['plotweave_torch', {str(GOLDEN / 'testimg.png')!r}, '--output', "
+        f"{str(tmp_path / 'out')!r}, '--config', {str(cfg_path)!r}, '--end-step', '13', "
+        "'--raster-device', 'cpu']\n"
+        "runpy.run_module('plotweave_torch', run_name='__main__')\n"
+        "assert 'jax' not in sys.modules, 'plotweave_torch imported jax'\n"
+        "print('NO_JAX_OK')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "NO_JAX_OK" in res.stdout
+    with tarfile.open(GOLDEN / "ref_artifacts.tar.gz") as tf:
+        tf.extractall(tmp_path / "ref", filter="data")
+    assert (tmp_path / "out" / "plot_stream.bin").read_bytes() == (tmp_path / "ref" / "plot_stream.bin").read_bytes()
+
+
+def test_auto_raster_device_raises_without_cuda(tmp_path, monkeypatch):
+    from plotweave_torch.pipeline import run_pipeline
+    from plotweave_torch.utils.devices import raster_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="raster_device='auto'"):
+        raster_device(PipelineConfig())
+    assert raster_device(PipelineConfig(raster_device="cpu")) == torch.device("cpu")
+    with pytest.raises(ValueError):
+        raster_device(PipelineConfig(raster_device="tpu"))
+    cfg = load_config(str(_write_cfg("base_cfg.json", tmp_path / "auto")))
+    with pytest.raises(RuntimeError, match="raster_device='auto'"):
+        run_pipeline(cfg, 1, 4)
+
+
+@pytest.mark.parametrize(
+    "override",
+    [{"extraction_mode": "swatch"}, {"kmeans_init": "device"}, {"shard_rows": 2}, {"shard_auto_mpx": 0.01}],
+    ids=["swatch", "device-kmeans", "shard-rows", "shard-auto"],
+)
+def test_unported_modes_raise(tmp_path, override):
+    from plotweave_torch.pipeline import run_pipeline
+
+    cfg = load_config(str(_write_cfg("base_cfg.json", tmp_path / "x", raster_device="cpu", **override)))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        run_pipeline(cfg, 1, 4)
+
+
+def test_batch_runner_not_ported():
+    from plotweave_torch.pipeline import run_pipeline_batch
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        run_pipeline_batch([])
+
+
+def test_chain_thread_joined_when_mask_write_fails(tmp_path, monkeypatch):
+    from plotweave_torch.pipeline import run_pipeline
+    from plotweave_torch.stages import s02_color_extract as s02
+
+    def broken_write(path, img):
+        raise OSError("disk full")
+
+    cfg = load_config(str(_write_cfg("base_cfg.json", tmp_path / "w", raster_device="cpu")))
+    run_pipeline(cfg, 1, 1)
+    monkeypatch.setattr(s02, "write_image", broken_write)
+    with pytest.raises(OSError, match="disk full"):
+        run_pipeline(cfg, 2, 4)
+    assert not [t for t in threading.enumerate() if t.name == "pw-chain-fetch"]
+
+
+def test_runner_flushes_under_resolved_output_dir(tmp_path, monkeypatch):
+    import plotweave_torch.pipeline as pipeline
+
+    real = tmp_path / "real"
+    real.mkdir()
+    (tmp_path / "link").symlink_to(real)
+    scopes = []
+    monkeypatch.setattr(pipeline, "flush_pending_saves", scopes.append)
+    cfg = load_config(str(_write_cfg("base_cfg.json", tmp_path / "link", raster_device="cpu")))
+    pipeline.run_pipeline(cfg, 1, 1)
+    assert scopes == [str(real.resolve())]
+    assert (real / "resized.png").exists()
+
+
+def test_kernel_module_imports_without_nvcc(tmp_path):
+    code = (
+        "import sys\n"
+        "import plotweave_torch.ops.kernels as k\n"
+        "assert k.LAUNCHES == {'zhang_suen_packed': 0, 'hysteresis': 0}\n"
+        "try:\n"
+        "    k.build()\n"
+        "except RuntimeError as e:\n"
+        "    assert 'nvcc' in str(e), e\n"
+        "    print('NO_NVCC_OK')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO), PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
+    env.pop("CUDA_PATH", None)
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "NO_NVCC_OK" in res.stdout
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    from plotweave_torch.ops.kernels import hysteresis_cuda, zhang_suen_packed_cuda
+
+    b = torch.zeros((1, 4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        zhang_suen_packed_cuda(b)
+    with pytest.raises(ValueError, match="CUDA"):
+        hysteresis_cuda(b, b)
+
+
+def test_s08_thinner_without_native_library(monkeypatch):
+    """Stage 08's thinner falls back to the port's Zhang–Suen (standard ring,
+    48 iterations), which must match the JAX thinner and the native one."""
+    from plotweave.native.api import thin_native
+    from plotweave.ops.thinning import zhang_suen as jax_zhang_suen
+    from plotweave_torch.stages import s08_dedup_intra as s08
+
+    from test_torch_ops import blob_stack
+
+    roi = blob_stack(41, 1, 37, 53)[0]
+    thinner = s08.make_thinner(PipelineConfig(raster_device="cpu"))
+    with_native = thinner(roi)
+    monkeypatch.setattr(s08, "thin_native", lambda *a, **k: None)
+    without = thinner(roi)
+    assert without.dtype == np.uint8 and without.any()
+    np.testing.assert_array_equal(without, np.asarray(jax_zhang_suen(roi, 48, False)).astype(np.uint8) * 255)
+    native = thin_native(roi, max_iter=48, rotated=False)
+    if native is not None:
+        np.testing.assert_array_equal(with_native, without)
