@@ -1,0 +1,152 @@
+"""Fused raster front-end: image → per-layer edges + skeletons (twin of
+``plotweave/ops/frontend.py``).
+
+Lab conversion and the nearest of k centres (kernel K7 on the card), one-hot
+masks packed to bitboards, four packed morphology programs (kernel K2), the
+Q8 blur, Canny (hysteresis: kernel K5) and Zhang–Suen thinning: the packed
+fixpoint K6 by default, or the dense tile-halo kernel K12 with
+``pallas_thinning=True``.  Leading batch dims are allowed on the default
+route.  Everything runs on the device of the image; after the labels the
+chain is integer, so from the same labels its bytes are the same on either
+device.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .canny import canny_packed
+from .colorspace import _M, _WHITE, bgr_to_lab_u8
+from .filters import gaussian_blur_u8
+from .morphology import _valid_bits, morph_bits
+from .thinning import pack_bitboards, unpack_bitboards, zhang_suen_dense, zhang_suen_packed
+
+
+def _centers_on(centers, device: torch.device, k: int) -> torch.Tensor:
+    """(k, 3) float32 centres on ``device``: arrays are placed there, a tensor
+    must already be there."""
+    if isinstance(centers, torch.Tensor):
+        if centers.device != device:
+            raise ValueError(f"centers are on {centers.device}, the image on {device}")
+        c = centers.to(torch.float32)
+    else:
+        c = torch.as_tensor(centers, dtype=torch.float32, device=device)
+    if c.dim() != 2 or c.shape[1] != 3 or c.shape[0] < k:
+        raise ValueError(f"expected at least {k} centers of shape (k, 3), got {tuple(c.shape)}")
+    return c[:k].contiguous()
+
+
+def assign_nearest_plain(image: torch.Tensor, centers: torch.Tensor, k: int) -> torch.Tensor:
+    """Nearest-Lab-centre label per pixel: (..., H, W, 3) uint8 + (k, 3)
+    float32 → (..., H, W) int32; a running (best, argbest) pair with strict
+    ``<``, so the first minimum wins (== argmin)."""
+    lab = bgr_to_lab_u8(image)
+    c = [[float(v) for v in row] for row in centers.cpu().tolist()]
+
+    def dist(i):
+        d0, d1, d2 = lab[..., 0] - c[i][0], lab[..., 1] - c[i][1], lab[..., 2] - c[i][2]
+        return d0 * d0 + d1 * d1 + d2 * d2
+
+    best_d = dist(0)
+    best = torch.zeros(image.shape[:-1], dtype=torch.int32, device=image.device)
+    for i in range(1, k):
+        d = dist(i)
+        best = torch.where(d < best_d, i, best)
+        best_d = torch.minimum(best_d, d)
+    return best
+
+
+def nearest_gaps(pixels: np.ndarray, centers) -> np.ndarray:
+    """(n, 3) uint8 BGR → the float64 gap between the squared Lab distances
+    of each pixel's two nearest centres.  Labels from float32 arithmetic may
+    differ between devices or packages only where this gap is tiny (the
+    near-tie rule of the tests and ``chip_smoke.py``)."""
+    rgb = pixels[..., ::-1].astype(np.float64) / 255.0
+    lin = np.where(rgb <= 0.04045, rgb / 12.92, ((rgb + 0.055) / 1.055) ** 2.4)
+    xyz = lin @ _M.astype(np.float64).T / _WHITE.astype(np.float64)
+    d = 6.0 / 29.0
+    f = np.where(xyz > d**3, np.cbrt(xyz), xyz / (3 * d * d) + 4.0 / 29.0)
+    lab = np.stack([(116.0 * f[..., 1] - 16.0) * 255.0 / 100.0, 500.0 * (f[..., 0] - f[..., 1]) + 128.0,
+                    200.0 * (f[..., 1] - f[..., 2]) + 128.0], axis=-1)
+    dist = np.sort(((lab[:, None, :] - np.asarray(centers, np.float64)) ** 2).sum(-1), axis=-1)
+    return dist[:, 1] - dist[:, 0]
+
+
+def assign_nearest(image: torch.Tensor, centers, k: int) -> torch.Tensor:
+    """:func:`assign_nearest_plain` on the image's device: kernel K7 for a
+    CUDA image, the plain version for a CPU image, else raise."""
+    c = _centers_on(centers, image.device, k)
+    if image.is_cuda:
+        from .kernels import assign_nearest_cuda  # noqa: PLC0415
+
+        return assign_nearest_cuda(image, c)
+    if image.device.type != "cpu":
+        raise ValueError(f"assign_nearest: no kernel for device {image.device}")
+    return assign_nearest_plain(image, c, k)
+
+
+def frontend_from_labels(
+    labels: torch.Tensor,  # (..., H, W) int32
+    k: int,
+    *,
+    extract_iters: int = 1,
+    edge_kernel: int = 3,
+    edge_iters: int = 1,
+    blur_kernel: int = 7,
+    low: int = 22,
+    high: int = 70,
+    thin_iters: int = 120,
+    pallas_thinning: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The front-end after :func:`assign_nearest` → (edges, skeletons), each
+    (..., k, H, W) uint8; see :func:`raster_frontend` for the parameters."""
+    w = labels.shape[-1]
+    masks_b = pack_bitboards(labels[..., None, :, :] == torch.arange(k, device=labels.device)[:, None, None])
+    valid = _valid_bits(w, labels.device)
+    masks_b = morph_bits(masks_b, valid, "rect", 3, extract_iters, "ed")
+    masks_b = morph_bits(masks_b, valid, "rect", 3, extract_iters, "de")
+    masks_b = morph_bits(masks_b, valid, "ellipse", edge_kernel, edge_iters, "ed")
+    masks_b = morph_bits(masks_b, valid, "ellipse", edge_kernel, edge_iters, "de")
+    masks = unpack_bitboards(masks_b, w).to(torch.uint8) * 255
+    # the hysteresis board feeds the packed thinner in the same encoding
+    edges, edges_b = canny_packed(gaussian_blur_u8(masks, blur_kernel), low, high)
+    if pallas_thinning:
+        skel = zhang_suen_dense(edges, max_iter=thin_iters, rotated=True).to(torch.uint8)
+    else:
+        skel_b = zhang_suen_packed(edges_b, max_iter=thin_iters, rotated=True)
+        skel = unpack_bitboards(skel_b, w).to(torch.uint8)
+    return edges, skel
+
+
+def raster_frontend(
+    image: torch.Tensor,  # (..., H, W, 3) uint8 BGR; leading batch dims allowed
+    centers,  # (k, 3) float32 Lab centres: an array, or a tensor on the image's device
+    *,
+    k: int = 4,
+    extract_iters: int = 1,
+    edge_kernel: int = 3,
+    edge_iters: int = 1,
+    blur_kernel: int = 7,
+    low: int = 22,
+    high: int = 70,
+    thin_iters: int = 120,
+    pallas_thinning: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (edges (..., k, H, W) uint8 0/255, skeletons (..., k, H, W)
+    uint8 0/1), on the image's device.
+
+    ``pallas_thinning=True`` thins with the dense tile-halo fixpoint
+    (:func:`ops.thinning.zhang_suen_dense`, kernel K12, the port of
+    ``zhang_suen_pallas``) instead of the packed one; the skeletons are the
+    same.  Like the JAX kernel it takes no batch dims and raises
+    ``ValueError`` for a batched image.  The keyword keeps its JAX name so a
+    call site ports by its import alone."""
+    labels = assign_nearest(image, centers, k)
+    return frontend_from_labels(
+        labels, k, extract_iters=extract_iters, edge_kernel=edge_kernel, edge_iters=edge_iters,
+        blur_kernel=blur_kernel, low=low, high=high, thin_iters=thin_iters,
+        pallas_thinning=pallas_thinning,
+    )

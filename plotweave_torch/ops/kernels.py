@@ -1,18 +1,27 @@
-"""Hand-written CUDA kernels K5 and K6: build, binding and wrappers.
+"""Hand-written CUDA kernels: build, binding and wrappers.
 
-Port of ``plotweave/ops/pallas_kernels.py``.  The sources are
-``plotweave_torch/csrc/bitboard_fixpoints.cu`` (design and bound are noted
-there); they are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, under ``plotweave_torch/_build/``
-keyed on a hash of the sources and flags, and loaded with ctypes.  Importing
-this module compiles and loads nothing, so it imports where there is no
-``nvcc`` and no card.
+- K2 ``morph_bits_cuda`` (``csrc/morph_bits.cu``): one packed dilation or
+  erosion per launch; replaces the XLA fusion of ``morph_bits``.
+- K5 ``hysteresis_cuda`` and K6 ``zhang_suen_packed_cuda``
+  (``csrc/bitboard_fixpoints.cu``): the bitboard fixpoints; K6 replaces
+  ``zhang_suen_packed_pallas``.
+- K7 ``assign_nearest_cuda`` (``csrc/assign_nearest.cu``): Lab and the
+  nearest centre in one pass; replaces the XLA fusion of ``assign_nearest``.
+- K12 ``zhang_suen_dense_cuda`` (``csrc/zs_dense.cu``): dense tile-halo
+  Zhang–Suen; replaces ``zhang_suen_pallas``.
 
-Each wrapper takes CUDA ``int32`` bitboards (the bits of the JAX package's
-``uint32`` boards), launches on ``torch.cuda.current_stream()``, raises on any
-launch error, and counts its launches in :data:`LAUNCHES` (one per call into
-the library).  The plain versions live beside their callers
-(``ops/thinning.py``, ``ops/canny.py``); nothing here falls back to them.
+Each source notes its design and bound.  Each is compiled with ``nvcc`` for
+``sm_90a`` into a shared library of its own with a plain C interface, at
+first use, under ``plotweave_torch/_build/`` keyed on a hash of the source
+and its flags, and loaded with ctypes.  Importing this module compiles and
+loads nothing, so it imports where there is no ``nvcc`` and no card.
+
+Bitboards are CUDA ``int32`` tensors (the bits of the JAX package's ``uint32``
+boards).  Each wrapper launches on ``torch.cuda.current_stream()``, raises on
+a tensor it does not take and on any launch error, and counts its launches in
+:data:`LAUNCHES` (one per call into its library).  The plain versions live
+beside their callers (``ops/morphology.py``, ``ops/canny.py``,
+``ops/thinning.py``, ``ops/frontend.py``); nothing here falls back to them.
 """
 
 from __future__ import annotations
@@ -25,33 +34,51 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
+from .morphology import structuring_element
+from .thinning import _dense_planes
+
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "bitboard_fixpoints.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [
+_SM90A = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# one library per source, each with its own flags: K7's float arithmetic
+# must not be contracted into FMAs
+NVCC_FLAGS = {
+    "bitboard_fixpoints": _SM90A,  # K5, K6
+    "morph_bits": _SM90A,  # K2
+    "assign_nearest": _SM90A + ["--fmad=false"],  # K7
+    "zs_dense": _SM90A,  # K12
+}
 
 # iterations per host check of the convergence flags
 ZS_CHUNK = 8
 HYSTERESIS_CHUNK = 32  # even: the sweeps ping-pong between two buffers
 
-# launches per wrapper, counted where each wrapper calls into the library
-LAUNCHES = {"zhang_suen_packed": 0, "hysteresis": 0}
+# launches per wrapper, counted where each wrapper calls into its library
+LAUNCHES = {"zhang_suen_packed": 0, "hysteresis": 0, "morph_bits": 0, "assign_nearest": 0,
+            "zhang_suen_dense": 0}
 
-build_log = ""  # nvcc's output (ptxas register and spill report) of the last build
+build_log: dict = {}  # library → nvcc's output (ptxas register and spill report) of its last build
 
-_lib = None
-_lock = threading.Lock()  # guards the library load and the launch counts
+_libs: dict = {}
+_lock = threading.Lock()  # guards the library loads and the launch counts
 
 
 def reset_launches() -> None:
     with _lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    with _lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -65,40 +92,65 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists; return its path."""
-    global build_log
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"bitboard_fixpoints-{key}.so"
-    if out.exists():
-        return out
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built, keyed on a hash of
+    its source and flags."""
+    flags = NVCC_FLAGS[name]
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{key}.so"
+
+
+def build(names=None) -> dict:
+    """Compile the libraries ``names`` (default: all) that are not built yet,
+    one ``nvcc`` per source, all started together; return {name: path}.
+    Raises after every ``nvcc`` has ended if any of them failed."""
+    names = list(NVCC_FLAGS) if names is None else list(names)
+    paths = {name: library_path(name) for name in names}
+    todo = [name for name in names if not paths[name].exists()]
+    if not todo:
+        return paths
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-    os.replace(tmp, out)
-    return out
+    jobs = {}
+    for name in todo:
+        tmp = paths[name].with_name(f"{paths[name].name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS[name], "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+    failed = []
+    for name, (proc, tmp) in jobs.items():
+        build_log[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu: nvcc failed ({proc.returncode}):\n{build_log[name]}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
-def load():
-    """The bound library, built on first use."""
-    global _lib
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_SIGNATURES = {
+    "bitboard_fixpoints": {"pw_zs_packed_run": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+                           "pw_hysteresis_run": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "morph_bits": {"pw_morph_bits_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "assign_nearest": {"pw_assign_nearest": [_P, _P, _P, _I, _L, _P]},
+    "zs_dense": {"pw_zs_dense_run": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+}
+
+
+def load(name: str):
+    """The bound library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.pw_zs_packed_run.argtypes = [p, p, p, i, i, i, i, i, p]
-            lib.pw_zs_packed_run.restype = i
-            lib.pw_hysteresis_run.argtypes = [p, p, p, p, i, i, i, i, p]
-            lib.pw_hysteresis_run.restype = i
-            lib.pw_error_string.argtypes = [i]
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _I
+            lib.pw_error_string.argtypes = [_I]
             lib.pw_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+            _libs[name] = lib
+    return _libs[name]
 
 
 def _check(name: str, *boards: torch.Tensor):
@@ -122,16 +174,16 @@ def _check(name: str, *boards: torch.Tensor):
     return (first.numel() // (h * nw) if h * nw else 0), h, nw
 
 
-def _raise_on(name: str, err: int) -> None:
+def _raise_on(lib, name: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} ({load().pw_error_string(err).decode()})")
+        raise RuntimeError(f"{name}: CUDA error {err} ({lib.pw_error_string(err).decode()})")
 
 
 def zhang_suen_packed_cuda(packed: torch.Tensor, max_iter: int = 120, rotated: bool = True) -> torch.Tensor:
     """K6: the Zhang–Suen fixpoint of ``ops.thinning.zhang_suen_packed`` on
     CUDA bitboards; returns a new board."""
     k, h, nw = _check("zhang_suen_packed", packed)
-    lib = load()
+    lib = load("bitboard_fixpoints")
     with torch.cuda.device(packed.device):
         a = packed.clone()
         b = torch.empty_like(a)
@@ -142,9 +194,8 @@ def zhang_suen_packed_cuda(packed: torch.Tensor, max_iter: int = 120, rotated: b
             flags = torch.zeros(n, dtype=torch.int32, device=a.device)
             err = lib.pw_zs_packed_run(a.data_ptr(), b.data_ptr(), flags.data_ptr(),
                                        k, h, nw, n, int(rotated), stream)
-            with _lock:
-                LAUNCHES["zhang_suen_packed"] += 1
-            _raise_on("zhang_suen_packed", err)
+            _count("zhang_suen_packed")
+            _raise_on(lib, "zhang_suen_packed", err)
             done += n
             if not int(flags[-1].item()):
                 break
@@ -155,7 +206,7 @@ def hysteresis_cuda(cand: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
     """K5: the hysteresis fixpoint of ``ops.canny.hysteresis`` on CUDA
     bitboards; returns a new board."""
     k, h, nw = _check("hysteresis", cand, strong)
-    lib = load()
+    lib = load("bitboard_fixpoints")
     with torch.cuda.device(cand.device):
         e0 = strong.clone()
         e1 = torch.empty_like(e0)
@@ -165,9 +216,103 @@ def hysteresis_cuda(cand: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
             flags = torch.zeros(HYSTERESIS_CHUNK, dtype=torch.int32, device=e0.device)
             err = lib.pw_hysteresis_run(cand.data_ptr(), e0.data_ptr(), e1.data_ptr(),
                                         flags.data_ptr(), k, h, nw, HYSTERESIS_CHUNK, stream)
-            with _lock:
-                LAUNCHES["hysteresis"] += 1
-            _raise_on("hysteresis", err)
+            _count("hysteresis")
+            _raise_on(lib, "hysteresis", err)
             if not int(flags[-1].item()):
                 return e0
     raise RuntimeError("hysteresis: no fixpoint within the sweeps cand allows")
+
+
+def element_rows(shape: str, ksize: int):
+    """The structuring element as K2 takes it: (dy0, [one mask per row of
+    taps, bit dx + 31 set for each tap]).  Raises for |dx| > 31."""
+    se = structuring_element(shape, ksize)
+    r = se.shape[0] // 2
+    ys, xs = np.nonzero(se)
+    if len(xs) == 0 or np.abs(xs - r).max() > 31:
+        raise ValueError(f"morph_bits: {shape} {ksize}: the kernel takes 1 to 63 columns (|dx| <= 31)")
+    rows = [0] * se.shape[0]
+    for y, x in zip(ys.tolist(), xs.tolist()):
+        rows[y] |= 1 << (x - r + 31)
+    return -r, rows
+
+
+def morph_bits_cuda(x: torch.Tensor, valid: torch.Tensor, shape: str, ksize: int,
+                    iterations: int, program: str) -> torch.Tensor:
+    """K2: ``ops.morphology.morph_bits``'s program on CUDA bitboards, one
+    launch per elementary op over two ping-pong buffers; returns ``x`` itself
+    when the program is empty, else a new board."""
+    k, h, nw = _check("morph_bits", x)
+    if not (valid.is_cuda and valid.device == x.device and valid.dtype == torch.int32
+            and valid.is_contiguous() and tuple(valid.shape) == (nw,)):
+        raise ValueError(f"morph_bits: valid must be a contiguous ({nw},) int32 tensor on {x.device}")
+    dy0, rows = element_rows(shape, ksize)
+    masks = (ctypes.c_ulonglong * len(rows))(*rows)
+    ops = [op for op in program for _ in range(iterations)]
+    if not ops:
+        return x
+    lib = load("morph_bits")
+    with torch.cuda.device(x.device):
+        bufs = [torch.empty_like(x), torch.empty_like(x)]
+        stream = torch.cuda.current_stream().cuda_stream
+        src = x
+        for j, op in enumerate(ops):
+            dst = bufs[j % 2]
+            err = lib.pw_morph_bits_run(src.data_ptr(), dst.data_ptr(), valid.data_ptr(), masks, dy0,
+                                        len(rows), int(op != "d"), k, h, nw, stream)
+            _count("morph_bits")
+            _raise_on(lib, "morph_bits", err)
+            src = dst
+    return src
+
+
+def assign_nearest_cuda(image: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """K7: ``ops.frontend.assign_nearest`` of a CUDA (..., H, W, 3) uint8
+    image and (k, 3) float32 centres on its device → (..., H, W) int32."""
+    if not image.is_cuda:
+        raise ValueError(f"assign_nearest: expected a CUDA tensor, got {image.device}")
+    if image.dtype != torch.uint8 or image.dim() < 1 or image.shape[-1] != 3 or not image.is_contiguous():
+        raise ValueError(f"assign_nearest: expected a contiguous (..., 3) uint8 image, got "
+                         f"{image.dtype} {tuple(image.shape)}")
+    if not (centers.device == image.device and centers.dtype == torch.float32 and centers.dim() == 2
+            and centers.shape[1] == 3 and centers.is_contiguous()):
+        raise ValueError(f"assign_nearest: expected contiguous (k, 3) float32 centers on {image.device}")
+    lib = load("assign_nearest")
+    with torch.cuda.device(image.device):
+        labels = torch.empty(image.shape[:-1], dtype=torch.int32, device=image.device)
+        err = lib.pw_assign_nearest(image.data_ptr(), centers.data_ptr(), labels.data_ptr(),
+                                    centers.shape[0], labels.numel(), torch.cuda.current_stream().cuda_stream)
+        _count("assign_nearest")
+        _raise_on(lib, "assign_nearest", err)
+    return labels
+
+
+def zhang_suen_dense_cuda(binary: torch.Tensor, max_iter: int = 120, rotated: bool = True) -> torch.Tensor:
+    """K12: ``ops.thinning.zhang_suen_dense`` on a CUDA (k, H, W) or (H, W)
+    0/nonzero tensor → int32 0/1 of the same shape."""
+    if not binary.is_cuda:
+        raise ValueError(f"zhang_suen_dense: expected a CUDA tensor, got {binary.device}")
+    planes, squeeze = _dense_planes(binary, "zhang_suen_dense")
+    k, h, w = planes.shape
+    if planes.numel() >= 2**31 or k > 65535 or h > 32 * 65535:
+        raise ValueError(f"zhang_suen_dense: {tuple(planes.shape)} exceeds the kernel's grid")
+    lib = load("zs_dense")
+    with torch.cuda.device(binary.device):
+        a = (planes > 0).to(torch.uint8).contiguous()
+        b = torch.empty_like(a)
+        stream = torch.cuda.current_stream().cuda_stream
+        done = 0
+        while done < max_iter:
+            n = min(ZS_CHUNK, max_iter - done)
+            flags = torch.zeros(n, dtype=torch.int32, device=a.device)
+            err = lib.pw_zs_dense_run(a.data_ptr(), b.data_ptr(), flags.data_ptr(), k, h, w, n,
+                                      int(rotated), stream)
+            _count("zhang_suen_dense")
+            _raise_on(lib, "zhang_suen_dense", err)
+            if n % 2:  # an odd chunk leaves the result in b
+                a, b = b, a
+            done += n
+            if not int(flags[-1].item()):
+                break
+        out = a.to(torch.int32)
+    return out[0] if squeeze else out

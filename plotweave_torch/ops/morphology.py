@@ -4,7 +4,8 @@ Erode and dilate on 0/255 masks are AND/OR algebra on the int32 bitboards of
 ``ops/thinning.py``.  Dilation ORs the board shifted over the structuring
 element (the zero fill is OpenCV's non-feeding border); erosion is
 ``~dilate(~x & valid) & valid``, so bits beyond the image read as set and do
-not constrain it.
+not constrain it.  :func:`morph_bits` runs kernel K2 on a CUDA tensor and
+:func:`morph_bits_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -68,8 +69,8 @@ def _valid_bits(w: int, device=None) -> torch.Tensor:
     return torch.from_numpy(words.copy()).to(device)
 
 
-def morph_bits(x: torch.Tensor, valid: torch.Tensor, shape: str, ksize: int,
-               iterations: int, program: str) -> torch.Tensor:
+def morph_bits_plain(x: torch.Tensor, valid: torch.Tensor, shape: str, ksize: int,
+                     iterations: int, program: str) -> torch.Tensor:
     """A morphology program on bitboards: each char of ``program`` is 'e'
     (erode) or 'd' (dilate), repeated ``iterations`` times."""
     se = structuring_element(shape, ksize)
@@ -80,3 +81,18 @@ def morph_bits(x: torch.Tensor, valid: torch.Tensor, shape: str, ksize: int,
             else:
                 x = (~_dilate_bits((~x) & valid, se)) & valid
     return x
+
+
+def morph_bits(x: torch.Tensor, valid: torch.Tensor, shape: str, ksize: int,
+               iterations: int, program: str) -> torch.Tensor:
+    """:func:`morph_bits_plain`'s program on (..., H, NW) int32 bitboards
+    (``valid`` from :func:`_valid_bits`).  A CUDA tensor runs kernel K2
+    (``ops/kernels.py``); a CPU tensor the plain version; any other device
+    raises."""
+    if x.is_cuda:
+        from .kernels import morph_bits_cuda  # noqa: PLC0415
+
+        return morph_bits_cuda(x, valid, shape, ksize, iterations, program)
+    if x.device.type != "cpu":
+        raise ValueError(f"morph_bits: no kernel for device {x.device}")
+    return morph_bits_plain(x, valid, shape, ksize, iterations, program)

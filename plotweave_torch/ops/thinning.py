@@ -12,6 +12,10 @@ between the two packages with :func:`bitboards_from_jax` /
 hand-written kernel (``ops/kernels.py``), on a CPU tensor the plain version
 below.  Iterations past the fixpoint are no-ops, and one convergence flag
 covers every layer, as in the JAX ``while_loop``.
+
+:func:`zhang_suen_dense` is the same thinning on dense 0/1 pixels, the
+front-end's ``pallas_thinning=True`` route: kernel K12 on a CUDA tensor,
+:func:`zhang_suen_dense_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -93,11 +97,13 @@ def _fa(a, b, c):
     return ab ^ c, (a & b) | (c & ab)
 
 
+# P2..P9 as (dy, dx): N, NE, E, SE, S, SW, W, NW (the textbook ring); stage
+# 04 uses its 180° rotation
+_RING = [(-1, 0), (-1, 1), (0, 1), (1, 1), (1, 0), (1, -1), (0, -1), (-1, -1)]
+
+
 def _subpass_bits(x: torch.Tensor, first: bool, rotated: bool) -> torch.Tensor:
-    # P2..P9 as (dy, dx): the textbook ring, or its 180° rotation (stage 04)
-    ring = [(-1, 0), (-1, 1), (0, 1), (1, 1), (1, 0), (1, -1), (0, -1), (-1, -1)]
-    if rotated:
-        ring = [(-dy, -dx) for dy, dx in ring]
+    ring = [(-dy, -dx) for dy, dx in _RING] if rotated else _RING
     rows = {dy: _shift_rows(x, dy) for dy in (-1, 0, 1)}
     n = [_nbr_bits(rows[dy], dx) for dy, dx in ring]
 
@@ -161,3 +167,59 @@ def zhang_suen(binary: torch.Tensor, max_iter: int = 120, rotated: bool = True) 
     ``rotated=False`` with 48 is stage 08's."""
     x = zhang_suen_packed(pack_bitboards(binary), max_iter=max_iter, rotated=rotated)
     return unpack_bitboards(x, binary.shape[-1])
+
+
+def _subpass_dense(x: torch.Tensor, first: bool, rotated: bool) -> torch.Tensor:
+    """One subpass on (k, H, W) int32 0/1 planes with a zero border
+    (``plotweave/ops/thinning.py::_subpass``)."""
+    h, w = x.shape[-2], x.shape[-1]
+    pad = torch.nn.functional.pad(x, (1, 1, 1, 1))
+    ring = [(-dy, -dx) for dy, dx in _RING] if rotated else _RING
+    p = [pad[..., 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w] for dy, dx in ring]
+    b = sum(p)
+    a = sum(((p[i] == 0) & (p[(i + 1) % 8] == 1)).to(torch.int32) for i in range(8))
+    if first:
+        dir_ok = ((p[0] * p[2] * p[4]) == 0) & ((p[2] * p[4] * p[6]) == 0)
+    else:
+        dir_ok = ((p[0] * p[2] * p[6]) == 0) & ((p[0] * p[4] * p[6]) == 0)
+    kill = (x == 1) & (a == 1) & (b >= 2) & (b <= 6) & dir_ok
+    return torch.where(kill, 0, x)
+
+
+def _dense_planes(binary: torch.Tensor, name: str):
+    """(k, H, W) or (H, W) 0/nonzero → ((k, H, W) planes, squeeze flag), as
+    ``zhang_suen_pallas`` takes them; more leading dims raise."""
+    if binary.dim() not in (2, 3):
+        raise ValueError(f"{name}: expected (k, H, W) or (H, W), got {tuple(binary.shape)}")
+    squeeze = binary.dim() == 2
+    return (binary[None] if squeeze else binary), squeeze
+
+
+def zhang_suen_dense_plain(binary: torch.Tensor, max_iter: int = 120, rotated: bool = True) -> torch.Tensor:
+    """Plain dense-pixel fixpoint (``plotweave/ops/thinning.py::zhang_suen_dense``),
+    the plain version of kernel K12: at most ``max_iter`` iterations of both
+    subpasses, stopping after the first iteration that changes no layer."""
+    x, squeeze = _dense_planes(binary, "zhang_suen_dense")
+    x = (x > 0).to(torch.int32)
+    for _ in range(max_iter):
+        x2 = _subpass_dense(_subpass_dense(x, True, rotated), False, rotated)
+        changed = bool((x2 != x).any())
+        x = x2
+        if not changed:
+            break
+    return x[0] if squeeze else x
+
+
+def zhang_suen_dense(binary: torch.Tensor, max_iter: int = 120, rotated: bool = True) -> torch.Tensor:
+    """Thin (k, H, W) or (H, W) 0/nonzero images; int32 0/1 of the same shape
+    (``plotweave/ops/pallas_kernels.py::zhang_suen_pallas``).
+
+    A CUDA tensor runs kernel K12 (``ops/kernels.py``); a CPU tensor runs
+    :func:`zhang_suen_dense_plain`; any other device raises."""
+    if binary.is_cuda:
+        from .kernels import zhang_suen_dense_cuda  # noqa: PLC0415
+
+        return zhang_suen_dense_cuda(binary, max_iter, rotated)
+    if binary.device.type != "cpu":
+        raise ValueError(f"zhang_suen_dense: no kernel for device {binary.device}")
+    return zhang_suen_dense_plain(binary, max_iter, rotated)

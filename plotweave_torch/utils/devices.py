@@ -17,9 +17,9 @@ import torch
 CHOICES = ("auto", "cpu")
 
 
-def raster_device(cfg) -> torch.device:
-    """The device the stage 02–04 raster chain runs on for ``cfg``."""
-    mode = str(getattr(cfg, "raster_device", "auto") or "auto").lower()
+def device_for(mode: str) -> torch.device:
+    """``"auto"`` → the CUDA card (raises without one); ``"cpu"`` → the host."""
+    mode = str(mode or "auto").lower()
     if mode == "cpu":
         return torch.device("cpu")
     if mode != "auto":
@@ -31,6 +31,11 @@ def raster_device(cfg) -> torch.device:
             "run the plain PyTorch versions on the host"
         )
     return torch.device("cuda")
+
+
+def raster_device(cfg) -> torch.device:
+    """The device the stage 02–04 raster chain runs on for ``cfg``."""
+    return device_for(getattr(cfg, "raster_device", "auto"))
 
 
 def add_raster_device_flag(parser) -> None:

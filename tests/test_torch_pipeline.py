@@ -189,7 +189,8 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     code = (
         "import sys\n"
         "import plotweave_torch.ops.kernels as k\n"
-        "assert k.LAUNCHES == {'zhang_suen_packed': 0, 'hysteresis': 0}\n"
+        "assert k.LAUNCHES == {'zhang_suen_packed': 0, 'hysteresis': 0, 'morph_bits': 0, "
+        "'assign_nearest': 0, 'zhang_suen_dense': 0}\n"
         "try:\n"
         "    k.build()\n"
         "except RuntimeError as e:\n"
@@ -204,13 +205,19 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    from plotweave_torch.ops.kernels import hysteresis_cuda, zhang_suen_packed_cuda
+    from plotweave_torch.ops import kernels
 
     b = torch.zeros((1, 4, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        zhang_suen_packed_cuda(b)
+        kernels.zhang_suen_packed_cuda(b)
     with pytest.raises(ValueError, match="CUDA"):
-        hysteresis_cuda(b, b)
+        kernels.hysteresis_cuda(b, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.morph_bits_cuda(b, torch.zeros(2, dtype=torch.int32), "rect", 3, 1, "ed")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.assign_nearest_cuda(torch.zeros((4, 4, 3), dtype=torch.uint8), torch.zeros((4, 3)))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.zhang_suen_dense_cuda(torch.zeros((1, 4, 4), dtype=torch.uint8))
 
 
 def test_s08_thinner_without_native_library(monkeypatch):
