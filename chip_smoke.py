@@ -9,28 +9,45 @@ Phases:
 
 1. probe: torch / CUDA / card / nvcc / OpenCV / g++;
 2. build the kernels with nvcc, one library per source, all at once (K2
-   packed morphology, K5 hysteresis, K6 packed Zhang–Suen, K7 Lab + nearest
-   centre, K12 dense Zhang–Suen), and the shared native host library with g++;
-3. each kernel vs its plain version on the card: K5, K6 and K2 byte-equal on
-   seeded random boards, K6 and K12 against ``tests/golden/thinning_cases.npz``,
-   K12 byte-equal to its plain version and to K6, K7 over all 2^24 BGR colours
-   with the near-tie rule;
+   packed morphology, K5 hysteresis and K6 packed Zhang–Suen, K7 Lab +
+   nearest centre, K12 dense Zhang–Suen), and the port's native host library
+   with g++, which must load;
+3. each kernel vs its plain version on the card: K5 and K6 on both routes
+   (resident in a thread block cluster of 16 CTAs, and multi-launch), each
+   named to the wrapper, byte-equal on seeded random boards and ``thinning_cases.npz``, on a
+   1 × 4400 × 4400 layer (too large for a cluster: the multi-launch route),
+   and K5 on a full-size spiral of weak pixels with one strong seed against
+   OpenCV's connected components; K2 byte-equal on seeded random boards,
+   K12 against ``thinning_cases.npz``, its plain version and K6, K7 over all
+   2^24 BGR colours with the near-tie rule;
 4. ``chain_from_clean`` at 4 × 1500 × 2000 on the card vs on the CPU, with
-   device times (CUDA events) of the chain, K5 and K6 and their plain versions;
+   device times (CUDA events) of the chain, and of K5 and K6 on each route
+   beside their plain versions; the resident route makes one launch per
+   call;
 5. ``plotweave_torch.pipeline.main`` steps 1–13 on a seeded synthetic
-   2000 × 1500 image and on the four configs of ``tests/golden/e2e``, with
-   ``--raster-device auto`` (the card) and ``cpu``; every mask.png,
-   edges.png, contours.pkl and plot_stream.bin must be byte-equal, and the
-   card run must launch the main path's kernels (K2, K5, K6);
+   2000 × 1500 image and on the four configs of ``tests/golden/e2e``, and
+   steps 1–4 on a seeded 4400 × 4400 image (``max_dimension`` 4400, so K5
+   and K6 take the multi-launch route), with ``--raster-device auto`` (the
+   card) and ``cpu``; every mask.png, edges.png, contours.pkl and
+   plot_stream.bin must be byte-equal.  The launch counts are set to 0 just
+   before the synthetic image's card run and read just after it (K2, K5 and
+   K6 resident must each have launched), and likewise around the 4400 ×
+   4400 card run (K2, and K5 and K6 by the multi-launch route);
 6. ``raster_frontend`` on a seeded 2000 × 1500 image, k = 4, through both
    thinning routes on the card and on the CPU: labels by the near-tie rule,
    edges and skeletons byte-equal from the same labels, with device times
    of each route and of K2, K7 and K12 beside their plain versions;
 7. ``plotweave_torch.entry.entry("auto")`` once.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the repo
-beside it, it exits non-zero and prints no result.
+The line before the last is ``{"kernels": [...]}``, with each kernel's
+launches in the one run of phase 5 or 6 that drives it (the synthetic
+2000 × 1500 image for K2 and the resident K5 and K6, the 4400 × 4400 image
+for the multi-launch K5 and K6, the front-end call for K7 and K12), its
+device time, its plain version's, and its bound: the larger of its bytes
+(each input read once, each output written once) at 3.35 TB/s and its
+operations, counted for these inputs, at the card's rate for their type.  The last
+line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without
+the repo beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -53,7 +70,32 @@ EDGE_PARAMS = (3, 1, 1, 5, 22, 70)  # (mk, oi, ci, bk, lo, hi): the default conf
 FRONTEND_SHAPE = (1500, 2000)  # H, W: bench.py --frontend's image size
 BENCH_CENTERS = [[40, 128, 128], [110, 140, 120], [180, 150, 140], [240, 128, 126]]  # bench.py:509-511
 NEAR_TIE = 0.01  # a label may differ only where the two nearest centres are this close (float64)
-MAIN_PATH_KERNELS = ("morph_bits", "hysteresis", "zhang_suen_packed")  # K2, K5, K6
+MAIN_PATH_KERNELS = ("morph_bits", "hysteresis", "zhang_suen_packed")  # K2, K5, K6 (resident)
+MULTI_KERNELS = ("hysteresis_multi", "zhang_suen_packed_multi")  # K5, K6 on layers too large for a cluster
+BIG_SIDE = 4400  # px: a layer of 4400 rows of 138 words does not fit one cluster's shared memory
+PATH_RUNS = {"main": "main path, synthetic 2000x1500, steps 1-13, card run",
+             "big": f"main path, synthetic {BIG_SIDE}x{BIG_SIDE}, steps 1-4, card run",
+             "front-end": "raster_frontend 2000x1500 k=4, one call per thinning route"}
+
+# the card's peaks (H100 SXM): HBM bytes/s, float32 outside the tensor cores,
+# INT32 lanes (132 SMs x 64 lanes x 1.98 GHz)
+HBM_BPS, FP32_OPS, INT32_OPS = 3.35e12, 67e12, 132 * 64 * 1.98e9
+# integer operations per 32-pixel word, counted from
+# csrc/bitboard_fixpoints.cu with a three-input logic op (LOP3) or a funnel
+# shift as one: zs_word per subpass (6 shifts, 16 for the neighbour count,
+# 23 for the transitions, 4 for the direction test and the clear); one
+# hysteresis update (6 shifts, 3 ORs of three rows, the OR and AND with cand)
+ZS_OPS_PER_WORD = 49
+HYST_OPS_PER_WORD = 10
+K7_FLOPS_PER_PX = 120  # BGR -> XYZ -> Lab (3 cbrtf) and 4 squared distances
+
+
+def bound(nbytes: float, ops: float, rate: float) -> dict:
+    """The least time for the work: the larger of bytes at the HBM rate and
+    operations at ``rate``."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
 
 
 def fail(msg: str) -> None:
@@ -135,8 +177,8 @@ def phase_probe() -> dict:
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
-    if not (ROOT / "plotweave_torch").is_dir() or not (ROOT / "plotweave").is_dir():
-        fail(f"run from the root of a plotweave checkout (no packages beside {__file__})")
+    if not (ROOT / "plotweave_torch").is_dir():
+        fail(f"run from the root of a plotweave checkout (no plotweave_torch beside {__file__})")
     sys.path.insert(0, str(ROOT))
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -155,12 +197,12 @@ def phase_probe() -> dict:
         print("cv2:", cv2.__version__)
     except ImportError:
         fail("OpenCV (cv2) is missing: the host stages of the main path need it")
-    print("g++:", shutil.which("g++") or "absent (the native library falls back to Python)")
+    print("g++:", shutil.which("g++") or "absent")
     return {"name": name, "smi": smi}
 
 
 def phase_build() -> None:
-    from plotweave.native.loader import get_lib
+    from plotweave_torch.native.loader import get_lib, library_path
     from plotweave_torch.ops import kernels
 
     t0 = time.perf_counter()
@@ -173,16 +215,44 @@ def phase_build() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip())
-    # the shared host library (g++), built here so that no timed stage pays for it
+    # the port's native host library (g++), built here so that no timed stage pays for it
     t0 = time.perf_counter()
-    print(f"native host library: {'loaded' if get_lib() is not None else 'absent'} "
-          f"in {time.perf_counter() - t0:.1f} s")
+    check(get_lib() is not None, "the port's native host library did not build or load")
+    print(f"native host library: {library_path().relative_to(ROOT)} loaded in {time.perf_counter() - t0:.1f} s")
 
 
-def phase_kernels_vs_plain() -> None:
+ROUTES = {"resident": "resident", "multi-launch": "multi"}  # name → K5's and K6's ``route``
+
+
+def launched(before: dict, after: dict) -> set:
+    return {n for n in after if after[n] > before[n]}
+
+
+def spiral(h: int, w: int, step: int = 4):
+    """A rectangular spiral of 1-px lines ``step`` px apart, from (0, 0)
+    inwards, cut once half way in: (uint8 0/1 image, number of rings)."""
+    import numpy as np
+
+    img = np.zeros((h, w), np.uint8)
+    t, l, b, r, start, rings = 0, 0, h - 1, w - 1, 0, 0
+    while t <= b and l <= r:
+        img[t, start : r + 1] = 1
+        img[t : b + 1, r] = 1
+        img[b, l : r + 1] = 1
+        img[t + step : b + 1, l] = 1
+        start, rings = l, rings + 1
+        t, l, b, r = t + step, l + step, b - step, r - step
+    cut = (rings // 2) * step  # the top row of the middle ring
+    img[cut, cut + step : w - cut - step] = 0
+    return img, rings
+
+
+def phase_kernels_vs_plain(stats: dict) -> None:
+    import cv2
     import numpy as np
     import torch
 
+    from plotweave_torch.ops import kernels
     from plotweave_torch.ops.canny import canny_candidates, hysteresis_plain
     from plotweave_torch.ops.kernels import hysteresis_cuda, zhang_suen_packed_cuda
     from plotweave_torch.ops.thinning import pack_bitboards, unpack_bitboards, zhang_suen_packed_plain
@@ -190,29 +260,94 @@ def phase_kernels_vs_plain() -> None:
     dev = torch.device("cuda")
     z = np.load(GOLDEN / "thinning_cases.npz")
     n_cases = len([f for f in z.files if f.startswith("edges_")])
-    for t in range(n_cases):
-        edges = torch.from_numpy(z[f"edges_{t}"]).to(dev)
-        for key, rotated, it in ((f"skel04_{t}", True, 120), (f"skel08_{t}", False, 48)):
-            got = unpack_bitboards(zhang_suen_packed_cuda(pack_bitboards(edges), it, rotated), edges.shape[-1])
-            check(np.array_equal(got.cpu().numpy(), z[key].astype(np.int32)), f"K6 vs golden {key}")
-    print(f"K6 == thinning_cases.npz: {n_cases} cases x 2 rings")
+    shapes = [(1, 1, 40), (1, 37, 33), (2, 64, 31), (3, 100, 95), (5, 50, 257), (8, 73, 130), (4, 200, 1),
+              (6, 20, 3000)]
+    runs = ((True, 120), (False, 48), (True, 2), (True, 3), (False, 11))  # 2, 3, 11 stop at max_iter
+    expect = {"resident": {"zhang_suen_packed", "hysteresis"},
+              "multi-launch": {"zhang_suen_packed_multi", "hysteresis_multi"}}
+    for name, route in ROUTES.items():
+        rng = np.random.default_rng(7)
+        before = dict(kernels.LAUNCHES)
+        for t in range(n_cases):
+            edges = torch.from_numpy(z[f"edges_{t}"]).to(dev)
+            for key, rotated, it in ((f"skel04_{t}", True, 120), (f"skel08_{t}", False, 48)):
+                got = zhang_suen_packed_cuda(pack_bitboards(edges), it, rotated, route=route)
+                got = unpack_bitboards(got, edges.shape[-1])
+                check(np.array_equal(got.cpu().numpy(), z[key].astype(np.int32)), f"K6 {name} vs golden {key}")
+        for k, h, w in shapes:
+            x = torch.from_numpy(random_boards(rng, k, h, w)).to(dev)
+            b = pack_bitboards(x)
+            for rotated, it in runs:
+                ref = zhang_suen_packed_plain(b, it, rotated)
+                check(torch.equal(zhang_suen_packed_cuda(b, it, rotated, route=route), ref),
+                      f"K6 {name} {k}x{h}x{w} rot={rotated} it={it}")
+            cand, strong = canny_candidates(x, 20, 60)
+            check(torch.equal(hysteresis_cuda(cand, strong, route=route), hysteresis_plain(cand, strong)),
+                  f"K5 {name} {k}x{h}x{w}")
+            # strong outside cand: the first sweep drops it
+            strong2 = pack_bitboards(torch.from_numpy(rng.random((k, h, w)) < 0.01).to(dev))
+            check(torch.equal(hysteresis_cuda(cand, strong2, route=route), hysteresis_plain(cand, strong2)),
+                  f"K5 {name} {k}x{h}x{w}, strong not in cand")
+        # long weak chains: full columns of cand, one strong pixel
+        cand = torch.full((2, 300, 4), -1, dtype=torch.int32, device=dev)
+        strong = torch.zeros_like(cand)
+        strong[0, 0, 0] = 1
+        check(torch.equal(hysteresis_cuda(cand, strong, route=route), hysteresis_plain(cand, strong)),
+              f"K5 {name} long chain")
+        got = launched(before, kernels.LAUNCHES)
+        check(got == expect[name], f"{name}: launched {sorted(got)}, expected {sorted(expect[name])}")
+        print(f"K6 and K5 {name} == plain: thinning_cases.npz ({n_cases} x 2 rings), {len(shapes)} random "
+              f"shapes x {len(runs)} (ring, max_iter), K5 with strong outside cand and a 300-row chain")
 
-    rng = np.random.default_rng(7)
-    shapes = [(1, 1, 40), (1, 37, 33), (2, 64, 31), (3, 100, 95), (5, 50, 257), (8, 73, 130), (4, 200, 1)]
-    for k, h, w in shapes:
-        x = torch.from_numpy(random_boards(rng, k, h, w)).to(dev)
-        b = pack_bitboards(x)
-        for rotated, it in ((True, 120), (False, 48), (True, 2)):  # it=2 stops at max_iter
-            ref = zhang_suen_packed_plain(b, it, rotated)
-            check(torch.equal(zhang_suen_packed_cuda(b, it, rotated), ref), f"K6 {k}x{h}x{w} rot={rotated} it={it}")
-        cand, strong = canny_candidates(x, 20, 60)
-        check(torch.equal(hysteresis_cuda(cand, strong), hysteresis_plain(cand, strong)), f"K5 {k}x{h}x{w}")
-    # long weak chains: hysteresis needs many chunks of sweeps
-    cand = torch.full((2, 300, 4), -1, dtype=torch.int32, device=dev)
-    strong = torch.zeros_like(cand)
-    strong[0, 0, 0] = 1
-    check(torch.equal(hysteresis_cuda(cand, strong), hysteresis_plain(cand, strong)), "K5 long chain")
-    print(f"K6 == plain, K5 == plain: {len(shapes)} random shapes (k 1-8, ragged W, H=1, max_iter hit)")
+    # a layer larger than one cluster holds takes the multi-launch route by size
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(random_boards(rng, 1, BIG_SIDE, BIG_SIDE)).to(dev)
+    b = pack_bitboards(x)
+    check(kernels.fixpoint_route("zhang_suen_packed", BIG_SIDE, b.shape[-1]) == "multi"
+          and kernels.fixpoint_route("hysteresis", BIG_SIDE, b.shape[-1]) == "multi", "the big layer fits a cluster")
+    before = dict(kernels.LAUNCHES)
+    check(torch.equal(zhang_suen_packed_cuda(b, 120, True), zhang_suen_packed_plain(b, 120, True)),
+          f"K6 1x{BIG_SIDE}x{BIG_SIDE}")
+    cand, strong = canny_candidates(x, 20, 60)
+    check(torch.equal(hysteresis_cuda(cand, strong), hysteresis_plain(cand, strong)), f"K5 1x{BIG_SIDE}x{BIG_SIDE}")
+    got = launched(before, kernels.LAUNCHES)
+    check(got == set(MULTI_KERNELS), f"1x{BIG_SIDE}x{BIG_SIDE}: launched {sorted(got)}")
+    print(f"K6 and K5 at 1x{BIG_SIDE}x{BIG_SIDE} == plain, by the multi-launch route "
+          f"(K6 {kernels.STATS['zhang_suen_packed_multi']} iterations, K5 {kernels.STATS['hysteresis_multi']} sweeps "
+          f"launched; launches {({n: kernels.LAUNCHES[n] - before[n] for n in MULTI_KERNELS})})")
+
+    # a full-size long weak chain: a spiral of cand with one strong seed at its outer end
+    h, w = FRONTEND_SHAPE
+    img, rings = spiral(h, w)
+    _, labels = cv2.connectedComponents(img, connectivity=8)
+    expected = (labels == labels[0, 0]).astype(np.uint8)
+    cand = pack_bitboards(torch.from_numpy(img[None]).to(dev))
+    seed = np.zeros_like(img)
+    seed[0, 0] = 1
+    strong = pack_bitboards(torch.from_numpy(seed[None]).to(dev))
+    ref = pack_bitboards(torch.from_numpy(expected[None]).to(dev))
+    out = {}
+    for name, route in ROUTES.items():
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = hysteresis_cuda(cand, strong, route=route)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(torch.equal(got, ref), f"K5 {name}: spiral != OpenCV's connected component of the seed")
+        n = sum(kernels.LAUNCHES[k] - before[k] for k in ("hysteresis", "hysteresis_multi"))
+        if route == "multi":
+            out[name] = {"ms": wall * 1e3, "launches": n, "sweeps": kernels.STATS["hysteresis_multi"]}
+        else:
+            rounds, sweeps = kernels.STATS["hysteresis"][0].tolist()
+            out[name] = {"ms": cuda_ms(lambda: hysteresis_cuda(cand, strong, route=route), 3), "launches": n,
+                         "rounds": rounds, "sweeps": sweeps}
+    stats["K5 spiral"] = out
+    print(f"K5 spiral {h}x{w} ({rings} rings, {int(img.sum())} weak px, {int(expected.sum())} reached from the "
+          f"seed) == OpenCV's connected component on every route: " + "; ".join(
+              f"{name} {o['ms']:.3f} ms, {o['launches']} launches, "
+              + (f"{o['sweeps']} sweeps" if name == "multi-launch" else f"{o['rounds']} rounds, most sweeps of a CTA {o['sweeps']}")
+              for name, o in out.items()))
 
 
 def phase_new_kernels_vs_plain(stats: dict) -> None:
@@ -278,6 +413,7 @@ def phase_chain(stats: dict) -> None:
     import numpy as np
     import torch
 
+    from plotweave_torch.ops import kernels
     from plotweave_torch.ops.bitpack import bitunpack_rows
     from plotweave_torch.ops.canny import canny_candidates, hysteresis_plain
     from plotweave_torch.ops.filters import gaussian_blur_u8
@@ -303,40 +439,60 @@ def phase_chain(stats: dict) -> None:
     mk, oi, ci, bk, lo, hi = EDGE_PARAMS
     m = _binary_morph_u8(bitunpack_rows(torch.from_numpy(packed).to(cuda), w) * 255, w, oi, ci, "ellipse", mk)
     cand, strong = canny_candidates(gaussian_blur_u8(m, bk), lo, hi)
-    edges_k = hysteresis_cuda(cand, strong)
     edges_p = hysteresis_plain(cand, strong)
-    skel_k = zhang_suen_packed_cuda(edges_k, 120, True)
     skel_p = zhang_suen_packed_plain(edges_p, 120, True)
-    stats["K5"] = {"max_abs_err": max_abs_err(edges_k, edges_p),
-                   "ms": cuda_ms(lambda: hysteresis_cuda(cand, strong), 20),
-                   "plain_ms": cuda_ms(lambda: hysteresis_plain(cand, strong), 3)}
-    stats["K6"] = {"max_abs_err": max_abs_err(skel_k, skel_p),
-                   "ms": cuda_ms(lambda: zhang_suen_packed_cuda(edges_k, 120, True), 20),
-                   "plain_ms": cuda_ms(lambda: zhang_suen_packed_plain(edges_k, 120, True), 3)}
-    check(stats["K5"]["max_abs_err"] == 0 and stats["K6"]["max_abs_err"] == 0, "kernel != plain at full size")
+    plain = {"K5": cuda_ms(lambda: hysteresis_plain(cand, strong), 3),
+             "K6": cuda_ms(lambda: zhang_suen_packed_plain(edges_p, 120, True), 3)}
+    board = edges_p.numel() * 4
+    times = {}
+    for name, route in ROUTES.items():
+        before = dict(kernels.LAUNCHES)
+        edges_k = hysteresis_cuda(cand, strong, route=route)
+        skel_k = zhang_suen_packed_cuda(edges_p, 120, True, route=route)
+        n = {key: kernels.LAUNCHES[key] - before[key] for key in kernels.LAUNCHES}
+        err = {"K5": max_abs_err(edges_k, edges_p), "K6": max_abs_err(skel_k, skel_p)}
+        check(err == {"K5": 0, "K6": 0}, f"{name}: kernel != plain at {k}x{h}x{w}: {err}")
+        if route == "resident":
+            check(n["hysteresis"] == 1 and n["zhang_suen_packed"] == 1 and sum(n.values()) == 2,
+                  f"{name}: the resident route made {n} launches, not one per call")
+            k6_iters = kernels.STATS["zhang_suen_packed"].tolist()
+            k5_stats = kernels.STATS["hysteresis"].tolist()
+        else:
+            print(f"chain {name}: launches {({key: c for key, c in n.items() if c})}")
+        times[name] = {"K5": cuda_ms(lambda: hysteresis_cuda(cand, strong, route=route), 20),
+                       "K6": cuda_ms(lambda: zhang_suen_packed_cuda(edges_p, 120, True, route=route), 20)}
+    words = edges_p.numel()
+    bounds = {"K5": bound(3 * board, words * HYST_OPS_PER_WORD, INT32_OPS),
+              "K6": bound(2 * board, sum(k6_iters) * (words // k) * 2 * ZS_OPS_PER_WORD, INT32_OPS)}
+    for key in ("K5", "K6"):
+        stats[key] = {"max_abs_err": 0, "ms": times["resident"][key], "plain_ms": plain[key], **bounds[key]}
+        stats[key + " multi"] = {"max_abs_err": 0, "ms": times["multi-launch"][key], "plain_ms": plain[key],
+                                 **bounds[key]}
+    stats["chain routes"] = times
     chain_ms = cuda_ms(lambda: chain_from_clean(packed, w, *EDGE_PARAMS, device=cuda), 5)
     print(f"chain device time {chain_ms:.3f} ms/call (CUDA events, H2D of the masks included); "
           f"CPU plain version {cpu_s * 1e3:.1f} ms wall")
-    for name in ("K5", "K6"):
-        s = stats[name]
-        print(f"{name} at {k}x{h}x{w}: kernel {s['ms']:.4f} ms, plain PyTorch on the card "
-              f"{s['plain_ms']:.4f} ms, max_abs_err {s['max_abs_err']}")
+    print(f"K6 iterations per layer {k6_iters}; K5 (rounds, most sweeps of a CTA) per layer {k5_stats}")
+    for key in ("K5", "K6"):
+        s = stats[key]
+        print(f"{key} at {k}x{h}x{w}: " + ", ".join(f"{name} {times[name][key]:.4f} ms" for name in ROUTES)
+              + f"; plain PyTorch on the card {plain[key]:.4f} ms; bound {s['bound_ms']:.5f} ms by {s['bound_by']}")
 
 
-def run_main(image: str, out: Path, device: str, config: Path | None = None) -> dict:
-    """The CLI entry point, steps 1–13; its stage log goes to ``<out>.log``."""
+def run_main(image: str, out: Path, device: str, config: Path | None = None, end_step: int = 13) -> dict:
+    """The CLI entry point, steps 1 to ``end_step``; its stage log goes to ``<out>.log``."""
     from plotweave_torch.pipeline import main
 
-    argv = [image, "--output", str(out), "--end-step", "13", "--raster-device", device]
+    argv = [image, "--output", str(out), "--end-step", str(end_step), "--raster-device", device]
     if config is not None:
         argv += ["--config", str(config)]
     with open(f"{out}.log", "w") as log, contextlib.redirect_stdout(log):
         return main(argv)
 
 
-def same_artifacts(a: Path, b: Path, names) -> list:
+def same_artifacts(a: Path, b: Path, names, stream: bool = True) -> list:
     """Relative paths of the compared artifacts that differ between two runs."""
-    rel = ["plot_stream.bin"] + [f"{n}/{f}" for n in names for f in ("mask.png", "edges.png", "contours.pkl")]
+    rel = ["plot_stream.bin"] * stream + [f"{n}/{f}" for n in names for f in ("mask.png", "edges.png", "contours.pkl")]
     return [r for r in rel if (a / r).read_bytes() != (b / r).read_bytes()]
 
 
@@ -344,9 +500,9 @@ def phase_main_path(work: Path) -> dict:
     import cv2
     import numpy as np
 
-    from plotweave.config import PipelineConfig
-    from plotweave.stream.decoder import StreamDecoder, replay
+    from plotweave_torch.config import PipelineConfig
     from plotweave_torch.ops import kernels
+    from plotweave_torch.stream.decoder import StreamDecoder, replay
 
     img, _ = synthetic_image(2, 1500, 2000)
     image = str(work / "synthetic.png")
@@ -357,8 +513,10 @@ def phase_main_path(work: Path) -> dict:
     t0 = time.perf_counter()
     times_cuda = run_main(image, work / "synthetic_cuda", "auto")
     wall_cuda = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    check(all(launches[n] > 0 for n in MAIN_PATH_KERNELS), f"main path did not launch K2, K5 and K6: {launches}")
+    first = dict(kernels.LAUNCHES)
+    check(all(first[n] > 0 for n in MAIN_PATH_KERNELS), f"main path did not launch K2, K5 and K6: {first}")
+    check(first["hysteresis_multi"] == first["zhang_suen_packed_multi"] == 0,
+          f"main path at 2000x1500 left the resident route: {first}")
     t0 = time.perf_counter()
     times_cpu = run_main(image, work / "synthetic_cpu", "cpu")
     wall_cpu = time.perf_counter() - t0
@@ -370,7 +528,7 @@ def phase_main_path(work: Path) -> dict:
     replay(dec, *man["image_size"])
     check(dec.stats.eof_seen and dec.stats.off_canvas_steps == 0, "plot_stream.bin does not decode cleanly")
     print(f"main path, synthetic 2000x1500: card == CPU ({len(data)} stream bytes, decodes to EOF); "
-          f"launches {launches}; wall {wall_cuda:.2f} s (card) vs {wall_cpu:.2f} s (cpu)")
+          f"launches {first}; wall {wall_cuda:.2f} s (card) vs {wall_cpu:.2f} s (cpu)")
     print("  stage wall seconds (card | cpu): " + ", ".join(
         f"{m[:3]} {times_cuda[m]:.3f}|{times_cpu[m]:.3f}" for m in times_cuda))
 
@@ -397,7 +555,29 @@ def phase_main_path(work: Path) -> dict:
         golden = (ref / "plot_stream.bin").read_bytes() == (work / f"{cfg_name}_auto" / "plot_stream.bin").read_bytes()
         print(f"main path, {cfg_name}: card == CPU; plot_stream.bin == golden: {golden}; "
               f"card stage seconds {sum(runs['auto'].values()):.3f}")
-    return launches
+
+    # steps 1-4 on an image whose layers do not fit one cluster: K5 and K6
+    # take the multi-launch route
+    img, _ = synthetic_image(4, BIG_SIDE, BIG_SIDE)
+    image = str(work / "big.png")
+    cv2.imwrite(image, img)
+    runs = {}
+    for device in ("auto", "cpu"):
+        out = work / f"big_{device}"
+        out.mkdir()
+        (out / "config.json").write_text(json.dumps({"max_dimension": BIG_SIDE}))
+        if device == "auto":
+            kernels.reset_launches()
+        runs[device] = run_main(image, out, device, out / "config.json", end_step=4)
+        if device == "auto":
+            big = dict(kernels.LAUNCHES)
+    check(all(big[n] > 0 for n in MULTI_KERNELS + ("morph_bits",))
+          and big["hysteresis"] == big["zhang_suen_packed"] == 0, f"{BIG_SIDE}x{BIG_SIDE}: launches {big}")
+    diff = same_artifacts(work / "big_auto", work / "big_cpu", names, stream=False)
+    check(not diff, f"{BIG_SIDE}x{BIG_SIDE} steps 1-4: card run != CPU run: {diff}")
+    print(f"main path, steps 1-4 on {BIG_SIDE}x{BIG_SIDE} (max_dimension {BIG_SIDE}): card == CPU, K5 and K6 by "
+          f"the multi-launch route; launches {big}; card stage seconds {sum(runs['auto'].values()):.3f}")
+    return {"main": first, "big": big}
 
 
 def phase_frontend(stats: dict) -> dict:
@@ -465,12 +645,25 @@ def phase_frontend(stats: dict) -> dict:
         return b
 
     k2 = unpack_bitboards(morph_all(kernels.morph_bits_cuda), w)
+    taps = sum(bin(m).count("1") for shape, ksize, program in programs
+               for m in kernels.element_rows(shape, ksize)[1] for _ in program)
+    board = masks_b.numel() * 4
     stats["K2"] = {"max_abs_err": max_abs_err(k2, unpack_bitboards(morph_all(morph_bits_plain), w)),
                    "ms": cuda_ms(lambda: morph_all(kernels.morph_bits_cuda), 20),
-                   "plain_ms": cuda_ms(lambda: morph_all(morph_bits_plain), 5)}
-    stats["K12"] = {"max_abs_err": max_abs_err(kernels.zhang_suen_dense_cuda(edges), zhang_suen_dense_plain(edges)),
+                   "plain_ms": cuda_ms(lambda: morph_all(morph_bits_plain), 5),
+                   # a funnel shift and an OR per tap and word
+                   **bound(2 * board + valid.numel() * 4, masks_b.numel() * 2 * taps, INT32_OPS)}
+    stats["K7"].update(bound(img.numel() + k7.numel() * 4, k7.numel() * K7_FLOPS_PER_PX, FP32_OPS))
+    k12 = kernels.zhang_suen_dense_cuda(edges)
+    # the iterations these edges need, per layer (K6 runs the same fixpoint),
+    # at the bit-sliced count of 32 pixels a word: the least work of the function
+    kernels.zhang_suen_packed_cuda(pack_bitboards(edges), 120, True)
+    iters = kernels.STATS["zhang_suen_packed"].tolist()
+    stats["K12"] = {"max_abs_err": max_abs_err(k12, zhang_suen_dense_plain(edges)),
                     "ms": cuda_ms(lambda: kernels.zhang_suen_dense_cuda(edges), 10),
-                    "plain_ms": cuda_ms(lambda: zhang_suen_dense_plain(edges), 2)}
+                    "plain_ms": cuda_ms(lambda: zhang_suen_dense_plain(edges), 2),
+                    **bound(edges.numel() * edges.element_size() + k12.numel() * 4,
+                            sum(iters) * h * -(-w // 32) * 2 * ZS_OPS_PER_WORD, INT32_OPS)}
     check(stats["K2"]["max_abs_err"] == 0 and stats["K12"]["max_abs_err"] == 0, "K2 or K12 != plain at full size")
     mpx = h * w / 1e6
     for route, name in ((False, "K6 route"), (True, "K12 route")):
@@ -479,7 +672,8 @@ def phase_frontend(stats: dict) -> dict:
     for name, what in (("K7", f"{h}x{w} px"), ("K2", "4 programs of one call"), ("K12", f"4x{h}x{w}")):
         st = stats[name]
         print(f"{name} at {what}: kernel {st['ms']:.4f} ms, plain PyTorch on the card {st['plain_ms']:.4f} ms, "
-              f"max_abs_err {st['max_abs_err']}")
+              f"max_abs_err {st['max_abs_err']}, bound {st['bound_ms']:.5f} ms by {st['bound_by']}")
+    print(f"K12's edges need {iters} iterations per layer")
     return {"assign_nearest": launches[False]["assign_nearest"],
             "zhang_suen_dense": launches[True]["zhang_suen_dense"]}
 
@@ -503,28 +697,31 @@ def main() -> None:
 
     phase_build()
     stats: dict = {}
-    phase_kernels_vs_plain()
+    phase_kernels_vs_plain(stats)
     phase_new_kernels_vs_plain(stats)
     phase_chain(stats)
     with tempfile.TemporaryDirectory(prefix="pw_smoke_") as tmp:
-        launches = phase_main_path(Path(tmp))
-    launches.update(phase_frontend(stats))
+        paths = phase_main_path(Path(tmp))
+    paths["front-end"] = phase_frontend(stats)
     phase_entry()
 
-    table = [
-        {"name": "K2 morph_bits", "route": "cuda", "source": "plotweave_torch/csrc/morph_bits.cu",
-         "replaces": "plotweave/ops/morphology.py:133", "launches": launches["morph_bits"], **stats["K2"]},
-        {"name": "K5 hysteresis", "route": "cuda", "source": "plotweave_torch/csrc/bitboard_fixpoints.cu",
-         "replaces": "plotweave/ops/canny.py:133", "launches": launches["hysteresis"], **stats["K5"]},
-        {"name": "K6 zhang_suen_packed", "route": "cuda", "source": "plotweave_torch/csrc/bitboard_fixpoints.cu",
-         "replaces": "plotweave/ops/pallas_kernels.py:179", "launches": launches["zhang_suen_packed"],
-         **stats["K6"]},
-        {"name": "K7 assign_nearest", "route": "cuda", "source": "plotweave_torch/csrc/assign_nearest.cu",
-         "replaces": "plotweave/ops/frontend.py:24", "launches": launches["assign_nearest"], **stats["K7"]},
-        {"name": "K12 zhang_suen_dense", "route": "cuda", "source": "plotweave_torch/csrc/zs_dense.cu",
-         "replaces": "plotweave/ops/pallas_kernels.py:99", "launches": launches["zhang_suen_dense"],
-         **stats["K12"]},
-    ]
+    # (name, path whose run counted its launches, launch name, source, TPU kernel, stats key)
+    src = "plotweave_torch/csrc/bitboard_fixpoints.cu"
+    rows = [("K2 morph_bits", "main", "morph_bits", "plotweave_torch/csrc/morph_bits.cu",
+             "plotweave/ops/morphology.py:133", "K2"),
+            ("K5 hysteresis, resident", "main", "hysteresis", src, "plotweave/ops/canny.py:133", "K5"),
+            ("K5 hysteresis, multi-launch", "big", "hysteresis_multi", src, "plotweave/ops/canny.py:133", "K5 multi"),
+            ("K6 zhang_suen_packed, resident", "main", "zhang_suen_packed", src,
+             "plotweave/ops/pallas_kernels.py:179", "K6"),
+            ("K6 zhang_suen_packed, multi-launch", "big", "zhang_suen_packed_multi", src,
+             "plotweave/ops/pallas_kernels.py:179", "K6 multi"),
+            ("K7 assign_nearest", "front-end", "assign_nearest", "plotweave_torch/csrc/assign_nearest.cu",
+             "plotweave/ops/frontend.py:24", "K7"),
+            ("K12 zhang_suen_dense", "front-end", "zhang_suen_dense", "plotweave_torch/csrc/zs_dense.cu",
+             "plotweave/ops/pallas_kernels.py:99", "K12")]
+    print("launches counted in: " + "; ".join(f"{name}: {PATH_RUNS[path]}" for name, path, *_ in rows))
+    table = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+              "launches": paths[path][count], **stats[key]} for name, path, count, source, replaces, key in rows]
     print(json.dumps({"kernels": table}))
     print(info["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

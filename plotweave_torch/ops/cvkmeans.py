@@ -1,9 +1,8 @@
 """Bit-exact replication of ``cv2.kmeans`` (KMEANS_PP_CENTERS path).
 
-Carried over verbatim from ``plotweave/ops/cvkmeans.py``: that module is
-numpy plus ``plotweave.native``, but importing it runs
-``plotweave/ops/__init__.py``, which imports the jax ops.  Only the native
-import is absolute here.  Keep the two files identical otherwise.
+Copy of ``plotweave/ops/cvkmeans.py``, over the port's own native library
+(``plotweave_torch/native``); the port imports nothing of ``plotweave``.
+Keep the two files identical otherwise.
 
 The reference clusters the Lab subsample with ``cv2.kmeans`` seeded by
 OpenCV's thread-local ``theRNG()`` (reference 02_color_extract.py:46-49);
@@ -254,7 +253,7 @@ def cv_kmeans(
     if N < K:
         raise ValueError("need N >= K samples")
 
-    from plotweave.native.api import cv_kmeans_native  # noqa: PLC0415
+    from ..native.api import cv_kmeans_native  # noqa: PLC0415
 
     out = cv_kmeans_native(data, K, max_count, epsilon, attempts, state)
     if out is not None:
@@ -266,7 +265,7 @@ def assign_labels(lab_u8: np.ndarray, centers: np.ndarray) -> np.ndarray:
     """All-pixel nearest-center assignment with the reference's numpy
     semantics (02_color_extract.py:52-55): float32 ``((t0²+t1²)+t2²)``,
     argmin first-wins.  ``lab_u8`` is (N, dims) uint8, returns (N,) uint8."""
-    from plotweave.native.api import km_assign_native  # noqa: PLC0415
+    from ..native.api import km_assign_native  # noqa: PLC0415
 
     lab_u8 = np.ascontiguousarray(lab_u8, dtype=np.uint8)
     centers = np.ascontiguousarray(centers, dtype=np.float32)

@@ -4,7 +4,13 @@
   erosion per launch; replaces the XLA fusion of ``morph_bits``.
 - K5 ``hysteresis_cuda`` and K6 ``zhang_suen_packed_cuda``
   (``csrc/bitboard_fixpoints.cu``): the bitboard fixpoints; K6 replaces
-  ``zhang_suen_packed_pallas``.
+  ``zhang_suen_packed_pallas``.  Each has two routes, chosen by size before
+  any launch unless the caller names one: a layer that fits in one thread
+  block cluster's shared memory runs the whole fixpoint resident there, one
+  launch per call (launch names ``zhang_suen_packed``, ``hysteresis``); a
+  larger layer runs the multi-launch kernels, one launch per subpass or
+  sweep and one host check per chunk (``zhang_suen_packed_multi``,
+  ``hysteresis_multi``).
 - K7 ``assign_nearest_cuda`` (``csrc/assign_nearest.cu``): Lab and the
   nearest centre in one pass; replaces the XLA fusion of ``assign_nearest``.
 - K12 ``zhang_suen_dense_cuda`` (``csrc/zs_dense.cu``): dense tile-halo
@@ -18,9 +24,9 @@ loads nothing, so it imports where there is no ``nvcc`` and no card.
 
 Bitboards are CUDA ``int32`` tensors (the bits of the JAX package's ``uint32``
 boards).  Each wrapper launches on ``torch.cuda.current_stream()``, raises on
-a tensor it does not take and on any launch error, and counts its launches in
-:data:`LAUNCHES` (one per call into its library).  The plain versions live
-beside their callers (``ops/morphology.py``, ``ops/canny.py``,
+a tensor it does not take and on any launch error, and counts in
+:data:`LAUNCHES` every kernel launch that its call into the library makes.
+The plain versions live beside their callers (``ops/morphology.py``, ``ops/canny.py``,
 ``ops/thinning.py``, ``ops/frontend.py``); nothing here falls back to them.
 """
 
@@ -56,13 +62,26 @@ NVCC_FLAGS = {
     "zs_dense": _SM90A,  # K12
 }
 
-# iterations per host check of the convergence flags
+# the multi-launch routes: iterations per host check of the convergence flags
 ZS_CHUNK = 8
 HYSTERESIS_CHUNK = 32  # even: the sweeps ping-pong between two buffers
 
-# launches per wrapper, counted where each wrapper calls into its library
-LAUNCHES = {"zhang_suen_packed": 0, "hysteresis": 0, "morph_bits": 0, "assign_nearest": 0,
-            "zhang_suen_dense": 0}
+# the resident routes: CTAs per thread block cluster (``kCluster`` in
+# csrc/bitboard_fixpoints.cu), and the shared memory one CTA may take (227 KB
+# on Hopper)
+CLUSTER_SIZE = 16
+MAX_SMEM = 232448
+ROUTES = ("resident", "multi")
+
+# kernel launches per wrapper and route, counted where each wrapper calls into its library
+LAUNCHES = {"zhang_suen_packed": 0, "zhang_suen_packed_multi": 0, "hysteresis": 0,
+            "hysteresis_multi": 0, "morph_bits": 0, "assign_nearest": 0, "zhang_suen_dense": 0}
+
+# what the last call of each fixpoint route took: for the resident routes a
+# device tensor, K6 (k,) iterations per layer, K5 (k, 2) rounds and the most
+# sweeps one CTA ran per layer; for the multi-launch routes the iterations
+# or sweeps launched.  Only read by ``chip_smoke.py``.
+STATS: dict = {}
 
 build_log: dict = {}  # library → nvcc's output (ptxas register and spill report) of its last build
 
@@ -76,9 +95,9 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, n: int = 1) -> None:
     with _lock:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:
@@ -131,8 +150,10 @@ def build(names=None) -> dict:
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
-    "bitboard_fixpoints": {"pw_zs_packed_run": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-                           "pw_hysteresis_run": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "bitboard_fixpoints": {"pw_zs_cluster_run": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+                           "pw_hysteresis_cluster_run": [_P, _P, _P, _P, _I, _I, _I, _P],
+                           "pw_zs_packed_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                           "pw_hysteresis_run": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "morph_bits": {"pw_morph_bits_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
     "assign_nearest": {"pw_assign_nearest": [_P, _P, _P, _I, _L, _P]},
     "zs_dense": {"pw_zs_dense_run": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
@@ -179,46 +200,109 @@ def _raise_on(lib, name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({lib.pw_error_string(err).decode()})")
 
 
-def zhang_suen_packed_cuda(packed: torch.Tensor, max_iter: int = 120, rotated: bool = True) -> torch.Tensor:
+def resident_smem_bytes(kernel: str, h: int, nw: int) -> int:
+    """Shared memory one CTA of the resident route takes for a layer of
+    ``h`` rows of ``nw`` words (``csrc/bitboard_fixpoints.cu``'s layout):
+    rows of ``nw + 2`` words, ``ceil(h / CLUSTER_SIZE)`` of each board, K6
+    two boards and a zero row, K5 two boards, four published rows and a zero
+    row; two int flags."""
+    rpc = -(-h // CLUSTER_SIZE)
+    rows = 2 * rpc + (1 if kernel == "zhang_suen_packed" else 5)
+    return rows * (nw + 2) * 4 + 8
+
+
+def resident(kernel: str, h: int, nw: int) -> bool:
+    """Whether a layer fits the resident route."""
+    return resident_smem_bytes(kernel, h, nw) <= MAX_SMEM
+
+
+def fixpoint_route(kernel: str, h: int, nw: int, route: str | None = None) -> str:
+    """The route of K5 or K6 for a layer: ``route`` when given (one of
+    :data:`ROUTES`), else ``"resident"`` where the layer fits, else
+    ``"multi"``.  Raises for a resident route that does not fit."""
+    if route is None:
+        return "resident" if resident(kernel, h, nw) else "multi"
+    if route not in ROUTES:
+        raise ValueError(f"{kernel}: route {route!r} is none of {ROUTES}")
+    if route == "resident" and not resident(kernel, h, nw):
+        raise ValueError(f"{kernel}: a layer of {h} rows of {nw} words does not fit one cluster")
+    return route
+
+
+def _check_grid(name: str, k: int, h: int) -> None:
+    if k > 65535 or h > 65535:
+        raise ValueError(f"{name}: {k} layers of {h} rows exceed the multi-launch kernels' grid")
+
+
+def zhang_suen_packed_cuda(packed: torch.Tensor, max_iter: int = 120, rotated: bool = True,
+                           route: str | None = None) -> torch.Tensor:
     """K6: the Zhang–Suen fixpoint of ``ops.thinning.zhang_suen_packed`` on
-    CUDA bitboards; returns a new board."""
+    CUDA bitboards, by :func:`fixpoint_route`; returns a new board."""
     k, h, nw = _check("zhang_suen_packed", packed)
+    route = fixpoint_route("zhang_suen_packed", h, nw, route)
+    if max_iter <= 0 or packed.numel() == 0:
+        return packed.clone()
     lib = load("bitboard_fixpoints")
     with torch.cuda.device(packed.device):
-        a = packed.clone()
-        b = torch.empty_like(a)
         stream = torch.cuda.current_stream().cuda_stream
-        done = 0
-        while done < max_iter:
-            n = min(ZS_CHUNK, max_iter - done)
-            flags = torch.zeros(n, dtype=torch.int32, device=a.device)
-            err = lib.pw_zs_packed_run(a.data_ptr(), b.data_ptr(), flags.data_ptr(),
-                                       k, h, nw, n, int(rotated), stream)
+        out = torch.empty_like(packed)
+        if route == "resident":
+            iters = torch.empty(k, dtype=torch.int32, device=packed.device)
+            err = lib.pw_zs_cluster_run(packed.data_ptr(), out.data_ptr(), iters.data_ptr(), k, h, nw,
+                                        max_iter, int(rotated), stream)
             _count("zhang_suen_packed")
             _raise_on(lib, "zhang_suen_packed", err)
-            done += n
-            if not int(flags[-1].item()):
+            STATS["zhang_suen_packed"] = iters
+            return out
+        _check_grid("zhang_suen_packed", k, h)
+        b = torch.empty_like(packed)
+        flags = torch.empty(ZS_CHUNK, dtype=torch.int32, device=packed.device)
+        src, done = packed, 0
+        while done < max_iter:
+            n = min(ZS_CHUNK, max_iter - done)
+            err = lib.pw_zs_packed_run(src.data_ptr(), out.data_ptr(), b.data_ptr(), flags.data_ptr(),
+                                       k, h, nw, n, int(rotated), stream)
+            _count("zhang_suen_packed_multi", 2 * n)  # two subpasses per iteration
+            _raise_on(lib, "zhang_suen_packed_multi", err)
+            src, done = out, done + n
+            if not int(flags[n - 1].item()):
                 break
-    return a
+        STATS["zhang_suen_packed_multi"] = done
+    return out
 
 
-def hysteresis_cuda(cand: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
+def hysteresis_cuda(cand: torch.Tensor, strong: torch.Tensor, route: str | None = None) -> torch.Tensor:
     """K5: the hysteresis fixpoint of ``ops.canny.hysteresis`` on CUDA
-    bitboards; returns a new board."""
+    bitboards, by :func:`fixpoint_route`; returns a new board."""
     k, h, nw = _check("hysteresis", cand, strong)
+    route = fixpoint_route("hysteresis", h, nw, route)
+    if cand.numel() == 0:
+        return cand.clone()
     lib = load("bitboard_fixpoints")
     with torch.cuda.device(cand.device):
-        e0 = strong.clone()
-        e1 = torch.empty_like(e0)
         stream = torch.cuda.current_stream().cuda_stream
-        # every sweep but the last adds a bit of cand, so this bounds the loop
-        for _ in range(0, 32 * cand.numel() + HYSTERESIS_CHUNK, HYSTERESIS_CHUNK):
-            flags = torch.zeros(HYSTERESIS_CHUNK, dtype=torch.int32, device=e0.device)
-            err = lib.pw_hysteresis_run(cand.data_ptr(), e0.data_ptr(), e1.data_ptr(),
-                                        flags.data_ptr(), k, h, nw, HYSTERESIS_CHUNK, stream)
+        if route == "resident":
+            out = torch.empty_like(cand)
+            stats = torch.zeros((k, 2), dtype=torch.int32, device=cand.device)
+            err = lib.pw_hysteresis_cluster_run(cand.data_ptr(), strong.data_ptr(), out.data_ptr(),
+                                                stats.data_ptr(), k, h, nw, stream)
             _count("hysteresis")
             _raise_on(lib, "hysteresis", err)
+            STATS["hysteresis"] = stats
+            return out
+        _check_grid("hysteresis", k, h)
+        e0, e1 = torch.empty_like(cand), torch.empty_like(cand)
+        flags = torch.empty(HYSTERESIS_CHUNK, dtype=torch.int32, device=cand.device)
+        init, done = strong, 0
+        # every sweep but the last adds a bit of cand, so this bounds the loop
+        while done <= 32 * cand.numel():
+            err = lib.pw_hysteresis_run(cand.data_ptr(), init.data_ptr(), e0.data_ptr(), e1.data_ptr(),
+                                        flags.data_ptr(), k, h, nw, HYSTERESIS_CHUNK, stream)
+            _count("hysteresis_multi", HYSTERESIS_CHUNK)
+            _raise_on(lib, "hysteresis_multi", err)
+            init, done = e0, done + HYSTERESIS_CHUNK
             if not int(flags[-1].item()):
+                STATS["hysteresis_multi"] = done
                 return e0
     raise RuntimeError("hysteresis: no fixpoint within the sweeps cand allows")
 
@@ -307,7 +391,7 @@ def zhang_suen_dense_cuda(binary: torch.Tensor, max_iter: int = 120, rotated: bo
             flags = torch.zeros(n, dtype=torch.int32, device=a.device)
             err = lib.pw_zs_dense_run(a.data_ptr(), b.data_ptr(), flags.data_ptr(), k, h, w, n,
                                       int(rotated), stream)
-            _count("zhang_suen_dense")
+            _count("zhang_suen_dense", n)  # one launch per iteration
             _raise_on(lib, "zhang_suen_dense", err)
             if n % 2:  # an odd chunk leaves the result in b
                 a, b = b, a

@@ -1,11 +1,10 @@
 """Pipeline runner + CLI of the port: ``python -m plotweave_torch <img> --output DIR``.
 
-The step titles, the preflight table, presets and the config save/load are
-the JAX package's (``plotweave.pipeline`` and ``plotweave.config`` import no
-jax).  Each step runs the port's stage module where there is one
-(``plotweave_torch/stages``) and the shared ``plotweave.stages`` module
-otherwise; ``plotweave.pipeline.stage_runner`` is not used, since it would
-import the JAX stage modules.
+``STEPS``, ``MAX_STEP``, :func:`missing_for_step` (the preflight table) and
+:func:`load_preset` are copied from ``plotweave/pipeline.py``; presets are
+the port's own (``plotweave_torch/presets/<name>.json``).  Every step runs
+the port's stage module (``plotweave_torch/stages``); the port imports
+nothing of ``plotweave``.
 """
 
 from __future__ import annotations
@@ -18,24 +17,80 @@ import os
 import sys
 import threading
 import time
-from typing import Dict
+from typing import Dict, List, Tuple
 
-from plotweave.config import PipelineConfig, load_config, save_config
-from plotweave.pipeline import MAX_STEP, STEPS, load_preset, missing_for_step
-from plotweave.utils.io import flush_pending_saves
-
+from .config import PipelineConfig, load_config, save_config
 from .utils.devices import add_raster_device_flag
+from .utils.io import flush_pending_saves
 
-# stages with a module in plotweave_torch/stages; the rest are shared as they are
-PORTED = frozenset({
-    "s01_resize", "s02_color_extract", "s03_edge_detect", "s04_vectorize",
-    "s07_sort", "s08_dedup_intra", "s12_plot_order",
-})
+STEPS: List[Tuple[str, str]] = [
+    ("Image resize", "s01_resize"),
+    ("Color extraction", "s02_color_extract"),
+    ("Edge detection", "s03_edge_detect"),
+    ("Vectorization", "s04_vectorize"),
+    ("Scale vectors", "s05_scale"),
+    ("Scaled vector preview", "s06_preview_scaled"),
+    ("Sort contours", "s07_sort"),
+    ("Intra-layer dedup", "s08_dedup_intra"),
+    ("Preview after intra-dedup", "s09_preview_intra"),
+    ("Cross-layer dedup", "s10_dedup_cross"),
+    ("Final preview", "s11_preview_cross"),
+    ("Optimize plot order", "s12_plot_order"),
+    ("Build stream", "s13_build_stream"),
+    ("Preview stream", "s14_preview_stream"),
+]
+MAX_STEP = len(STEPS)
 
 
 def stage_module(module_name: str):
-    package = "plotweave_torch.stages" if module_name in PORTED else "plotweave.stages"
-    return importlib.import_module(f"{package}.{module_name}")
+    return importlib.import_module(f"plotweave_torch.stages.{module_name}")
+
+
+def missing_for_step(step_idx: int, outdir: str, color_names: List[str]) -> List[str]:
+    """Expected-but-missing artifacts when starting at ``step_idx`` (1-based);
+    prerequisite table per reference pipeline.py:114-145."""
+    need: List[str] = []
+    J = os.path.join
+    if step_idx >= 2:
+        need.append(J(outdir, "resized.png"))
+    if step_idx >= 3:
+        need += [J(outdir, c, "mask.png") for c in color_names]
+    if step_idx >= 4:
+        need += [J(outdir, c, "edges.png") for c in color_names]
+    if step_idx >= 5:
+        need += [J(outdir, c, "contours.pkl") for c in color_names]
+    if step_idx >= 6:
+        need += [J(outdir, c, "contours_scaled.pkl") for c in color_names]
+    if step_idx >= 8:
+        need += [J(outdir, c, "contours_sorted.pkl") for c in color_names]
+    if step_idx >= 9:
+        need += [J(outdir, c, "lines_intra.pkl") for c in color_names]
+    if step_idx >= 11:
+        need += [J(outdir, c, "lines_cross.pkl") for c in color_names]
+    if step_idx >= 12:
+        need += [J(outdir, c, "taps_cross.pkl") for c in color_names]
+    if step_idx >= 13:
+        need.append(J(outdir, "vector_manifest.json"))
+    if step_idx >= 14:
+        need.append(J(outdir, "plot_stream.bin"))
+    return [p for p in need if not os.path.exists(p)]
+
+
+def load_preset(name: str) -> dict:
+    """Config overrides for a named preset (plotweave_torch/presets/<name>.json)
+    or an explicit JSON path."""
+    path = name
+    if not os.path.isfile(path):
+        path = os.path.join(os.path.dirname(__file__), "presets", f"{name}.json")
+    if not os.path.isfile(path):
+        avail = sorted(
+            os.path.splitext(f)[0]
+            for f in os.listdir(os.path.join(os.path.dirname(__file__), "presets"))
+            if f.endswith(".json")
+        )
+        raise SystemExit(f"unknown preset {name!r}; available: {', '.join(avail)}")
+    with open(path, "r", encoding="utf-8") as f:
+        return json.load(f)
 
 
 # The steps the current run_pipeline call will run (1-based), per thread:
@@ -115,7 +170,7 @@ def parse_args(argv=None):
     ap.add_argument("input_image", nargs="?", help="Input raster image")
     ap.add_argument("--output", dest="output_dir", help="Output directory")
     ap.add_argument("--config", dest="config_path", help="Existing config.json to load")
-    ap.add_argument("--preset", help="named config preset (plotweave/presets/<name>.json) or a JSON path")
+    ap.add_argument("--preset", help="named config preset (plotweave_torch/presets/<name>.json) or a JSON path")
     ap.add_argument("--start-step", type=int, default=1, help=f"1..{MAX_STEP}")
     ap.add_argument("--end-step", type=int, default=MAX_STEP, help=f"1..{MAX_STEP}")
     ap.add_argument("--pixels-per-mm", type=int, dest="pixels_per_mm")

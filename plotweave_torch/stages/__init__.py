@@ -1,7 +1,9 @@
-"""The port's pipeline stages.
+"""The port's 14 pipeline stages.
 
-Stages 01–04 are ported (02 runs the raster chain on the raster device);
-07, 08 and 12 are shims over the shared host code that keep it off the JAX
-device paths.  Stages 05, 06, 09, 10, 11, 13 and 14 are ``plotweave.stages``
-as they are (``plotweave_torch/pipeline.py`` picks each step's module).
+Stages 01–04 are the port's own (02 runs the raster chain on the raster
+device, 03 and 04 take its blob); 05–14 are copies of the JAX package's host
+stages over the port's copies of ``vector``, ``stream``, ``viz`` and the
+native library, with the JAX device planner and refiner left out (07 and 12
+run the host paths at every size) and stage 08's fallback thinner on the
+port's ``ops.thinning.zhang_suen``.
 """

@@ -5,8 +5,8 @@ from __future__ import annotations
 
 import os
 
-from plotweave.config import PipelineConfig
-from plotweave.utils import read_image, write_image
+from ..config import PipelineConfig
+from ..utils import read_image, write_image
 
 
 def run(cfg: PipelineConfig) -> None:

@@ -19,17 +19,16 @@ from typing import List
 import numpy as np
 import torch
 
-from plotweave.config import PipelineConfig
-from plotweave.stages.common import chain_key, darkness_rank, edge_params, layer_dir
-from plotweave.utils import read_image, register_derived_artifact, save_json, thread_map, write_image
-
+from ..config import PipelineConfig
 from ..ops.bitpack import bitpack_rows, bitunpack_rows
 from ..ops.canny import canny_packed
 from ..ops.cvkmeans import assign_labels, cv_kmeans
 from ..ops.filters import gaussian_blur_u8
 from ..ops.morphology import _valid_bits, morph_bits
 from ..ops.thinning import pack_bitboards, unpack_bitboards, zhang_suen_packed
+from ..utils import read_image, register_derived_artifact, save_json, thread_map, write_image
 from ..utils.devices import raster_device
+from .common import chain_key, darkness_rank, edge_params, layer_dir
 
 
 def _binary_morph_u8(masks: torch.Tensor, w: int, open_iters: int, close_iters: int,

@@ -13,14 +13,13 @@ import os
 import numpy as np
 import torch
 
-from plotweave.config import PipelineConfig
-from plotweave.stages.common import chain_key, edge_params, layer_dir, palette_bgr
-from plotweave.utils import (fetch_derived_artifact, read_image, register_derived_artifact,
-                             thread_map, write_image)
-
+from ..config import PipelineConfig
 from ..ops.canny import canny_packed
 from ..ops.filters import gaussian_blur_u8
+from ..utils import (fetch_derived_artifact, read_image, register_derived_artifact,
+                     thread_map, write_image)
 from ..utils.devices import raster_device
+from .common import chain_key, edge_params, layer_dir, palette_bgr
 from .s02_color_extract import _binary_morph_u8
 
 

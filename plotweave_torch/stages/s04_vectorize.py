@@ -3,7 +3,7 @@
 
 In a chained run the skeletons come from the fused chain's blob; otherwise
 the edges are read from disk and thinned here, layer-batched, on the raster
-device.  Tracing runs on the host per layer (shared ``plotweave.vector``).
+device.  Tracing runs on the host per layer (``vector/trace.py``).
 """
 
 from __future__ import annotations
@@ -14,14 +14,13 @@ import time
 import numpy as np
 import torch
 
-from plotweave.config import PipelineConfig
-from plotweave.stages.common import chain_key, layer_dir
-from plotweave.utils import fetch_derived_artifact, read_image, save_pickle, thread_map
-from plotweave.utils.io import save_pickle_async
-from plotweave.vector.trace import trace_skeleton_fast
-
+from ..config import PipelineConfig
 from ..ops.thinning import zhang_suen
+from ..utils import fetch_derived_artifact, read_image, save_pickle, thread_map
 from ..utils.devices import raster_device
+from ..utils.io import save_pickle_async
+from ..vector.trace import trace_skeleton_fast
+from .common import chain_key, layer_dir
 
 
 def _thin_batched(edges: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,33 @@
-"""[07] Greedy travel-order sorting: the shared stage with the JAX device
-planner switched off (``planner_device_min_n=0``); the host C++ planner
-orders every layer.  The GPU planner is a later port (ROADMAP.md, Queue 2: K9)."""
+"""[07] Greedy travel-order sorting: contours_scaled.pkl → contours_sorted.pkl
+(reference 07_sort_contours.py).
+
+Copy of ``plotweave/stages/s07_sort.py``; the port imports nothing of ``plotweave``.
+"""
 
 from __future__ import annotations
 
-import dataclasses
+import os
+import time
 
-from plotweave.config import PipelineConfig
-from plotweave.stages import s07_sort
+from ..config import PipelineConfig
+from ..utils import load_pickle, save_pickle
+from ..vector.sort import sort_contours
+from .common import layer_dir
 
 
 def run(cfg: PipelineConfig) -> None:
-    s07_sort.run(dataclasses.replace(cfg, planner_device_min_n=0))
+    for name in cfg.color_names:
+        d = layer_dir(cfg, name)
+        src = os.path.join(d, "contours_scaled.pkl")
+        if not os.path.exists(src):
+            src = os.path.join(d, "contours.pkl")
+        if not os.path.exists(src):
+            print(f"[sort] skip (missing): {src}")
+            continue
+        contours = load_pickle(src)
+        t0 = time.perf_counter()
+        ordered = sort_contours(contours)
+        save_pickle(ordered, os.path.join(d, "contours_sorted.pkl"))
+        print(
+            f"[sort] {name}: contours={len(ordered)}, time={time.perf_counter() - t0:.2f}s"
+        )

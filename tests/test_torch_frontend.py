@@ -187,6 +187,8 @@ def test_entry_subprocess_imports_no_jax():
         "fn, args = entry('cpu')\n"
         "edges, skel = fn(*args)\n"
         "assert 'jax' not in sys.modules, 'plotweave_torch imported jax'\n"
+        "bad = [m for m in sys.modules if m == 'plotweave' or m.startswith('plotweave.')]\n"
+        "assert not bad, f'plotweave_torch imported {bad}'\n"
         "print('NO_JAX_OK', tuple(skel.shape))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

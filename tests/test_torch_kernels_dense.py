@@ -155,3 +155,45 @@ def test_build_raises_when_nvcc_fails(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="zs_dense.cu: nvcc failed"):
         kernels.build(["zs_dense", "morph_bits"])
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+@pytest.mark.parametrize("kernel, k, h, w, resident", [
+    ("zhang_suen_packed", 4, 1500, 2000, True),  # the main path's chain: one launch per call
+    ("hysteresis", 4, 1500, 2000, True),
+    ("zhang_suen_packed", 4, 2000, 2000, True),  # the default max_dimension
+    ("hysteresis", 4, 2000, 2000, True),
+    ("zhang_suen_packed", 1, 4400, 4400, False),  # too large for one cluster: the multi-launch route
+    ("hysteresis", 1, 4400, 4400, False),
+    ("hysteresis", 1, 3800, 3800, False),  # K5 holds three more rows than K6 per CTA
+    ("zhang_suen_packed", 1, 3800, 3800, True),
+])
+def test_fixpoint_route_by_size(kernel, k, h, w, resident):
+    """The route of K5 and K6 is chosen by the shared memory a CTA of the
+    resident route would take, before any launch (``csrc/bitboard_fixpoints.cu``
+    lays out ceil(h / 16) rows of nw + 2 words per board)."""
+    nw = -(-w // 32)
+    rpc = -(-h // 16)
+    rows = 2 * rpc + (1 if kernel == "zhang_suen_packed" else 5)
+    assert kernels.resident_smem_bytes(kernel, h, nw) == rows * (nw + 2) * 4 + 8
+    assert kernels.resident(kernel, h, nw) is resident
+    assert (kernels.resident_smem_bytes(kernel, h, nw) <= kernels.MAX_SMEM) is resident
+    assert kernels.fixpoint_route(kernel, h, nw) == ("resident" if resident else "multi")
+
+
+@pytest.mark.parametrize("kernel", ["zhang_suen_packed", "hysteresis"])
+@pytest.mark.parametrize("h, w, route, expect", [
+    (1500, 2000, "multi", "multi"),  # a named route overrides the size
+    (1500, 2000, "resident", "resident"),
+    (4400, 4400, "multi", "multi"),
+    (4400, 4400, "resident", ValueError),  # does not fit one cluster
+    (1500, 2000, "cluster", ValueError),  # no such route
+])
+def test_fixpoint_route_named(kernel, h, w, route, expect):
+    """A caller may name K5's and K6's route; a resident route that does not
+    fit raises before any launch, never falling back."""
+    nw = -(-w // 32)
+    if expect is ValueError:
+        with pytest.raises(ValueError):
+            kernels.fixpoint_route(kernel, h, nw, route)
+    else:
+        assert kernels.fixpoint_route(kernel, h, nw, route) == expect

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from plotweave.config import PipelineConfig, load_config
+from plotweave_torch.config import PipelineConfig, load_config
 
 GOLDEN = Path(__file__).parent / "golden" / "e2e"
 REPO = Path(__file__).resolve().parent.parent
@@ -109,6 +109,8 @@ def test_cli_subprocess_imports_no_jax(tmp_path):
         "'--raster-device', 'cpu']\n"
         "runpy.run_module('plotweave_torch', run_name='__main__')\n"
         "assert 'jax' not in sys.modules, 'plotweave_torch imported jax'\n"
+        "bad = [m for m in sys.modules if m == 'plotweave' or m.startswith('plotweave.')]\n"
+        "assert not bad, f'plotweave_torch imported {bad}'\n"
         "print('NO_JAX_OK')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -189,8 +191,8 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     code = (
         "import sys\n"
         "import plotweave_torch.ops.kernels as k\n"
-        "assert k.LAUNCHES == {'zhang_suen_packed': 0, 'hysteresis': 0, 'morph_bits': 0, "
-        "'assign_nearest': 0, 'zhang_suen_dense': 0}\n"
+        "assert k.LAUNCHES == {'zhang_suen_packed': 0, 'zhang_suen_packed_multi': 0, 'hysteresis': 0, "
+        "'hysteresis_multi': 0, 'morph_bits': 0, 'assign_nearest': 0, 'zhang_suen_dense': 0}\n"
         "try:\n"
         "    k.build()\n"
         "except RuntimeError as e:\n"
@@ -223,19 +225,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 def test_s08_thinner_without_native_library(monkeypatch):
     """Stage 08's thinner falls back to the port's Zhang–Suen (standard ring,
     48 iterations), which must match the JAX thinner and the native one."""
-    from plotweave.native.api import thin_native
     from plotweave.ops.thinning import zhang_suen as jax_zhang_suen
-    from plotweave_torch.stages import s08_dedup_intra as s08
+    from plotweave_torch.native import api
+    from plotweave_torch.vector.dedup_intra import _default_thinner
 
     from test_torch_ops import blob_stack
 
     roi = blob_stack(41, 1, 37, 53)[0]
-    thinner = s08.make_thinner(PipelineConfig(raster_device="cpu"))
-    with_native = thinner(roi)
-    monkeypatch.setattr(s08, "thin_native", lambda *a, **k: None)
-    without = thinner(roi)
+    with_native = _default_thinner(roi)
+    native = api.thin_native(roi, max_iter=48, rotated=False)
+    monkeypatch.setattr(api, "thin_native", lambda *a, **k: None)
+    without = _default_thinner(roi)
     assert without.dtype == np.uint8 and without.any()
     np.testing.assert_array_equal(without, np.asarray(jax_zhang_suen(roi, 48, False)).astype(np.uint8) * 255)
-    native = thin_native(roi, max_iter=48, rotated=False)
     if native is not None:
         np.testing.assert_array_equal(with_native, without)
