@@ -17,9 +17,14 @@ Phases:
    named to the wrapper, byte-equal on seeded random boards and ``thinning_cases.npz``, on a
    1 × 4400 × 4400 layer (too large for a cluster: the multi-launch route),
    and K5 on a full-size spiral of weak pixels with one strong seed against
-   OpenCV's connected components; K2 byte-equal on seeded random boards,
-   K12 against ``thinning_cases.npz``, its plain version and K6, K7 over all
-   2^24 BGR colours with the near-tie rule;
+   OpenCV's connected components; K2 byte-equal to its plain version on
+   step lists (the front-end's 8 steps, the main path's open+close, mixed
+   rect/ellipse/cross at ksize 3/5/7, iterations 0-3, a list long enough
+   for two launches) on seeded random boards of odd shapes; K12 against
+   ``thinning_cases.npz``, its plain version and K6 on both rings, with
+   ``max_iter`` 1, 7, 8, 9, 48, 120, inputs that need more than one launch
+   (a filled square, dilated spiral rings), uint8, int32 and (H, W) inputs;
+   K7 over all 2^24 BGR colours with the near-tie rule;
 4. ``chain_from_clean`` at 4 × 1500 × 2000 on the card vs on the CPU, with
    device times (CUDA events) of the chain, and of K5 and K6 on each route
    beside their plain versions; the resident route makes one launch per
@@ -30,13 +35,16 @@ Phases:
    and K6 take the multi-launch route), with ``--raster-device auto`` (the
    card) and ``cpu``; every mask.png, edges.png, contours.pkl and
    plot_stream.bin must be byte-equal.  The launch counts are set to 0 just
-   before the synthetic image's card run and read just after it (K2, K5 and
-   K6 resident must each have launched), and likewise around the 4400 ×
-   4400 card run (K2, and K5 and K6 by the multi-launch route);
+   before the synthetic image's card run and read just after it (K2 once,
+   K5 and K6 resident must each have launched), and likewise around the
+   4400 × 4400 card run (K2 once, and K5 and K6 by the multi-launch route);
 6. ``raster_frontend`` on a seeded 2000 × 1500 image, k = 4, through both
    thinning routes on the card and on the CPU: labels by the near-tie rule,
-   edges and skeletons byte-equal from the same labels, with device times
-   of each route and of K2, K7 and K12 beside their plain versions;
+   edges and skeletons byte-equal from the same labels, K2 one launch per
+   call and K12 at most two, with device times of each route and of K2, K7
+   and K12 beside their plain versions, K2's and K12's kernel time alone
+   (``torch.profiler``, and CUDA events around a loop of bare launches) and
+   K2's host time per call;
 7. ``plotweave_torch.entry.entry("auto")`` once.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
@@ -71,6 +79,8 @@ FRONTEND_SHAPE = (1500, 2000)  # H, W: bench.py --frontend's image size
 BENCH_CENTERS = [[40, 128, 128], [110, 140, 120], [180, 150, 140], [240, 128, 126]]  # bench.py:509-511
 NEAR_TIE = 0.01  # a label may differ only where the two nearest centres are this close (float64)
 MAIN_PATH_KERNELS = ("morph_bits", "hysteresis", "zhang_suen_packed")  # K2, K5, K6 (resident)
+# stage 03's mask open and close at the default config (ellipse 3, 1 and 1): K2's step list on the main path
+MAIN_PATH_STEPS = (("ellipse", 3, "e"), ("ellipse", 3, "d"), ("ellipse", 3, "d"), ("ellipse", 3, "e"))
 MULTI_KERNELS = ("hysteresis_multi", "zhang_suen_packed_multi")  # K5, K6 on layers too large for a cluster
 BIG_SIDE = 4400  # px: a layer of 4400 rows of 138 words does not fit one cluster's shared memory
 PATH_RUNS = {"main": "main path, synthetic 2000x1500, steps 1-13, card run",
@@ -121,6 +131,66 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled_ms(fn, name: str, reps: int):
+    """Device milliseconds per call of ``fn`` in the kernels whose name holds
+    ``name``, from ``torch.profiler``'s CUDA activity; None where the trace
+    shows no device time for them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:  # a measurement only: say so and go on
+        print(f"  torch.profiler failed: {e}")
+        return None
+    us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if name in e.key)
+    return us / reps / 1e3 if us else None
+
+
+def bare_k2(x, valid, steps):
+    """One launch of K2's kernel on ``steps`` with nothing of the wrapper's
+    host work around it (one segment)."""
+    import torch
+
+    from plotweave_torch.ops import kernels
+
+    table, radii = kernels._step_table(steps, x.device)
+    (start, stop, band, radius), = kernels.morph_schedule(radii, x.shape[-2], x.shape[-1])
+    lib, out = kernels.load("morph_bits"), torch.empty_like(x)
+    args = (x.data_ptr(), out.data_ptr(), valid.data_ptr(), table.data_ptr(), start, stop - start, radius, band,
+            *x.shape, torch.cuda.current_stream().cuda_stream)
+
+    def launch(keep=(x, out, valid, table)):  # the tensors live as long as the launches
+        check(lib.pw_morph_steps_run(*args) == 0, "K2: a bare launch failed")
+
+    return launch
+
+
+def bare_k12(planes):
+    """The first launch of K12's kernel on uint8 (k, H, W) planes, ZS_CHUNK
+    iterations, with nothing of the wrapper's host work around it."""
+    import torch
+
+    from plotweave_torch.ops import kernels
+
+    lib, planes = kernels.load("zs_dense"), planes.contiguous()
+    out = torch.empty(planes.shape, dtype=torch.int32, device=planes.device)
+    flags = torch.zeros(kernels.ZS_CHUNK, dtype=torch.int32, device=planes.device)
+    args = (planes.data_ptr(), 0, None, out.data_ptr(), flags.data_ptr(), *planes.shape, kernels.ZS_CHUNK, 1,
+            torch.cuda.current_stream().cuda_stream)
+
+    def launch(keep=(planes, out, flags)):  # the tensors live as long as the launches
+        check(lib.pw_zs_tiles_run(*args) == 0, "K12: a bare launch failed")
+
+    return launch
 
 
 def max_abs_err(a, b) -> int:
@@ -355,29 +425,61 @@ def phase_new_kernels_vs_plain(stats: dict) -> None:
     import numpy as np
     import torch
 
-    from plotweave_torch.ops.frontend import assign_nearest_plain
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.ops.frontend import assign_nearest_plain, frontend_steps
     from plotweave_torch.ops.kernels import (
-        assign_nearest_cuda, morph_bits_cuda, zhang_suen_dense_cuda, zhang_suen_packed_cuda)
-    from plotweave_torch.ops.morphology import _valid_bits, morph_bits_plain
+        assign_nearest_cuda, morph_steps_cuda, zhang_suen_dense_cuda, zhang_suen_packed_cuda)
+    from plotweave_torch.ops.morphology import (
+        _valid_bits, morph_bits, morph_bits_plain, morph_program, morph_steps_plain)
     from plotweave_torch.ops.thinning import pack_bitboards, unpack_bitboards, zhang_suen_dense_plain
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(11)
     shapes = [(1, 1, 40), (1, 37, 33), (2, 64, 31), (3, 100, 95), (5, 50, 257), (8, 73, 130)]
+    # K2 on step lists; W = 1, 31, 32, 33 and 2000 (nw = 1 for the first three), H not a multiple of the band
+    lists = {"front-end": frontend_steps(), "main path": MAIN_PATH_STEPS}
+    for it in range(4):
+        lists[f"rect 3 ed x{it}"] = morph_program("rect", 3, it, "ed")
+    for i, shape in enumerate(("rect", "ellipse", "cross")):
+        for j, ksize in enumerate((3, 5, 7)):
+            lists[f"{shape} {ksize} x{1 + (i + j) % 3}"] = (morph_program(shape, ksize, 1 + (i + j) % 3, "ed")
+                                                           + morph_program(shape, ksize, 1, "de"))
+    elements = [(shape, ksize) for shape in ("rect", "ellipse", "cross") for ksize in (3, 5, 7)]
+    for i in range(3):
+        picks = rng.choice(len(elements), 6)
+        lists[f"mixed {i}"] = tuple((*elements[p], "ed"[int(rng.integers(2))]) for p in picks)
+    k2_shapes = shapes + [(1, 45, 1), (2, 33, 32), (1, 97, 2000), (4, 70, 63), (3, 129, 2000)]
     n = 0
-    for k, h, w in shapes:
-        b = pack_bitboards(torch.from_numpy(rng.random((k, h, w)) < 0.6).to(dev))
-        valid = _valid_bits(w, dev)
-        for shape in ("rect", "ellipse", "cross"):
-            for ksize in (3, 5, 7):
-                for program in ("ed", "de", "e", "d"):
-                    it = 1 + n % 2
-                    n += 1
-                    check(torch.equal(morph_bits_cuda(b, valid, shape, ksize, it, program),
-                                      morph_bits_plain(b, valid, shape, ksize, it, program)),
-                          f"K2 {k}x{h}x{w} {shape} {ksize} {program}x{it}")
-    print(f"K2 == plain: {n} programs (rect/ellipse/cross, ksize 3/5/7, ed/de/e/d, iterations 1-2, "
-          f"k 1-8, ragged W, H=1)")
+    for k, h, w in k2_shapes:
+        for dense in (False, True):
+            if dense:  # uniformly random words, the padding bits beyond W included
+                b = torch.from_numpy(rng.integers(0, 2**32, (k, h, -(-w // 32)), dtype=np.uint64)
+                                     .astype(np.uint32).view(np.int32)).to(dev)
+            else:
+                b = pack_bitboards(torch.from_numpy(random_boards(rng, k, h, w)).to(dev))
+            valid = _valid_bits(w, dev)
+            for name, steps in lists.items():
+                n += 1
+                got = morph_steps_cuda(b, valid, steps)
+                check(torch.equal(got, morph_steps_plain(b, valid, steps)), f"K2 {k}x{h}x{w} {name}: {steps}")
+                check((got is b) == (not steps), f"K2 {name}: an empty list returns its input, else a new board")
+            for shape, ksize, program, it in (("rect", 3, "ed", 1), ("ellipse", 5, "de", 2), ("cross", 7, "e", 3)):
+                check(torch.equal(morph_bits(b, valid, shape, ksize, it, program),  # K2 on a CUDA board
+                                  morph_bits_plain(b, valid, shape, ksize, it, program)),
+                      f"K2 {k}x{h}x{w} morph_bits {shape} {ksize} {program}x{it}")
+    # a list whose halo does not fit one block: two launches
+    steps = morph_program("cross", 63, 4, "ed")
+    b = pack_bitboards(torch.from_numpy(random_boards(rng, 1, 100, 2000)).to(dev))
+    valid = _valid_bits(2000, dev)
+    segments = kernels.morph_schedule(kernels._step_table(steps, dev)[1], 100, b.shape[-1])
+    before = kernels.LAUNCHES["morph_bits"]
+    got = morph_steps_cuda(b, valid, steps)
+    check(len(segments) == 2 and kernels.LAUNCHES["morph_bits"] - before == 2,
+          f"K2: 8 radius-31 steps at 2000 px: segments {segments}, launches {kernels.LAUNCHES['morph_bits'] - before}")
+    check(torch.equal(got, morph_steps_plain(b, valid, steps)), "K2: 8 radius-31 steps at 2000 px (two launches)")
+    print(f"K2 == plain: {len(lists)} step lists x {len(k2_shapes)} shapes x 2 boards ({n} lists; front-end, main "
+          f"path, rect/ellipse/cross at ksize 3/5/7, iterations 0-3, mixed), morph_bits programs, and 8 radius-31 "
+          f"steps in two launches {segments}")
 
     z = np.load(GOLDEN / "thinning_cases.npz")
     n_cases = len([f for f in z.files if f.startswith("edges_")])
@@ -386,17 +488,39 @@ def phase_new_kernels_vs_plain(stats: dict) -> None:
         for key, rotated, it in ((f"skel04_{t}", True, 120), (f"skel08_{t}", False, 48)):
             got = zhang_suen_dense_cuda(edges, it, rotated)
             check(np.array_equal(got.cpu().numpy(), z[key].astype(np.int32)), f"K12 vs golden {key}")
-    print(f"K12 == thinning_cases.npz: {n_cases} cases x 2 rings")
-    for k, h, w in shapes + [(4, 200, 1)]:
-        x = torch.from_numpy(random_boards(rng, k, h, w)).to(dev)
-        # 3 and 11 stop at max_iter after an odd chunk
-        for rotated, it in ((True, 120), (False, 48), (True, 3), (False, 11)):
-            got = zhang_suen_dense_cuda(x, it, rotated)
-            check(torch.equal(got, zhang_suen_dense_plain(x, it, rotated)), f"K12 {k}x{h}x{w} rot={rotated} it={it}")
-            k6 = unpack_bitboards(zhang_suen_packed_cuda(pack_bitboards(x), it, rotated), w)
-            check(torch.equal(got, k6), f"K12 != K6 {k}x{h}x{w} rot={rotated} it={it}")
-        check(torch.equal(zhang_suen_dense_cuda(x[0]), zhang_suen_dense_cuda(x)[0]), f"K12 (H, W) input {h}x{w}")
-    print(f"K12 == plain == unpack(K6): {len(shapes) + 1} random shapes x 4 (ring, max_iter), (H, W) input")
+            k6 = unpack_bitboards(zhang_suen_packed_cuda(pack_bitboards(edges), it, rotated), edges.shape[-1])
+            check(torch.equal(got, k6), f"K12 != K6 on golden {key}")
+    print(f"K12 == thinning_cases.npz == unpack(K6): {n_cases} cases x 2 rings")
+    # inputs that need more than one launch: a filled square, spiral rings dilated to 5 px
+    square = np.zeros((230, 261), np.uint8)
+    square[13:213, 30:230] = 255
+    rings = torch.nn.functional.max_pool2d(torch.from_numpy(spiral(190, 301, step=9)[0][None].astype(np.float32)),
+                                           5, 1, 2)[0].to(torch.uint8).numpy()
+    inputs = [(f"random {k}x{h}x{w}", random_boards(rng, k, h, w)) for k, h, w in shapes + [(4, 200, 1), (2, 130, 700)]]
+    inputs += [("square 200x200 in 230x261", square[None]), ("dilated spiral 190x301", rings[None] * 7)]
+    runs = ((True, 120), (False, 48), (True, 1), (True, 7), (True, 8), (True, 9), (False, 9))
+    launches = {}
+    for name, x_np in inputs:
+        x8 = torch.from_numpy(x_np).to(dev)
+        # int32 input: the zeros become -3, which binarises to 0 as well
+        for kind, x in (("uint8", x8), ("int32", x8.to(torch.int32) - 3 * (x8 == 0).to(torch.int32))):
+            for rotated, it in runs:
+                before = kernels.LAUNCHES["zhang_suen_dense"]
+                got = zhang_suen_dense_cuda(x, it, rotated)
+                launches[(name, rotated, it)] = kernels.LAUNCHES["zhang_suen_dense"] - before
+                check(torch.equal(got, zhang_suen_dense_plain(x, it, rotated)),
+                      f"K12 {name} {kind} rot={rotated} it={it}")
+                if kind == "uint8":
+                    k6 = unpack_bitboards(zhang_suen_packed_cuda(pack_bitboards(x), it, rotated), x.shape[-1])
+                    check(torch.equal(got, k6), f"K12 != K6 {name} rot={rotated} it={it}")
+            check(torch.equal(zhang_suen_dense_cuda(x[0]), zhang_suen_dense_cuda(x)[0]), f"K12 (H, W) input {name}")
+    check(all(n == 1 for (_, _, it), n in launches.items() if it <= kernels.ZS_CHUNK),
+          f"K12: max_iter <= {kernels.ZS_CHUNK} takes more than one launch: {launches}")
+    square_launches = launches[("square 200x200 in 230x261", True, 120)]
+    check(square_launches > 1, "K12: the filled square converged in one launch")
+    print(f"K12 == plain == unpack(K6): {len(inputs)} inputs (uint8 and int32) x {len(runs)} (ring, max_iter), (H, W) "
+          f"inputs; one launch where max_iter <= {kernels.ZS_CHUNK}; the filled square took {square_launches} "
+          f"launches at max_iter 120, the dilated spiral {launches[('dilated spiral 190x301', True, 120)]}")
 
     # every BGR colour once, against the bench's centres
     v = torch.arange(2**24, dtype=torch.int32, device=dev)
@@ -515,6 +639,7 @@ def phase_main_path(work: Path) -> dict:
     wall_cuda = time.perf_counter() - t0
     first = dict(kernels.LAUNCHES)
     check(all(first[n] > 0 for n in MAIN_PATH_KERNELS), f"main path did not launch K2, K5 and K6: {first}")
+    check(first["morph_bits"] == 1, f"main path: K2 made {first['morph_bits']} launches, not one: {first}")
     check(first["hysteresis_multi"] == first["zhang_suen_packed_multi"] == 0,
           f"main path at 2000x1500 left the resident route: {first}")
     t0 = time.perf_counter()
@@ -571,7 +696,7 @@ def phase_main_path(work: Path) -> dict:
         runs[device] = run_main(image, out, device, out / "config.json", end_step=4)
         if device == "auto":
             big = dict(kernels.LAUNCHES)
-    check(all(big[n] > 0 for n in MULTI_KERNELS + ("morph_bits",))
+    check(all(big[n] > 0 for n in MULTI_KERNELS) and big["morph_bits"] == 1
           and big["hysteresis"] == big["zhang_suen_packed"] == 0, f"{BIG_SIDE}x{BIG_SIDE}: launches {big}")
     diff = same_artifacts(work / "big_auto", work / "big_cpu", names, stream=False)
     check(not diff, f"{BIG_SIDE}x{BIG_SIDE} steps 1-4: card run != CPU run: {diff}")
@@ -587,8 +712,8 @@ def phase_frontend(stats: dict) -> dict:
 
     from plotweave_torch.ops import kernels
     from plotweave_torch.ops.frontend import (
-        assign_nearest, assign_nearest_plain, frontend_from_labels, raster_frontend)
-    from plotweave_torch.ops.morphology import _valid_bits, morph_bits_plain
+        assign_nearest, assign_nearest_plain, frontend_from_labels, frontend_steps, raster_frontend)
+    from plotweave_torch.ops.morphology import _valid_bits, morph_steps_plain
     from plotweave_torch.ops.thinning import pack_bitboards, unpack_bitboards, zhang_suen_dense_plain
 
     h, w = FRONTEND_SHAPE
@@ -613,6 +738,10 @@ def phase_frontend(stats: dict) -> dict:
     for route, names in need.items():
         check(all(launches[route][n] > 0 for n in names), f"front-end route {route}: {names} not all launched: "
               f"{launches[route]}")
+        check(launches[route]["morph_bits"] == 1, f"front-end route {route}: K2 made {launches[route]['morph_bits']} "
+              f"launches, not one")
+    check(launches[True]["zhang_suen_dense"] <= 2,
+          f"front-end dense route: K12 made {launches[True]['zhang_suen_dense']} launches, more than two")
     check(torch.equal(out[True][0], out[False][0]) and torch.equal(out[True][1], out[False][1]),
           "front-end: the K12 route's output != the K6 route's on the card")
     labels = assign_nearest(img, c, 4)
@@ -636,44 +765,63 @@ def phase_frontend(stats: dict) -> dict:
                        plain_ms=cuda_ms(lambda: assign_nearest_plain(img, c, 4), 5))
     masks_b = pack_bitboards(k7[None, :, :] == torch.arange(4, device=cuda)[:, None, None])
     valid = _valid_bits(w, cuda)
-    programs = [("rect", 3, "ed"), ("rect", 3, "de"), ("ellipse", 3, "ed"), ("ellipse", 3, "de")]
+    steps = frontend_steps()
 
-    def morph_all(fn):
-        b = masks_b
-        for shape, ksize, program in programs:
-            b = fn(b, valid, shape, ksize, 1, program)
-        return b
+    def k2_call():
+        return kernels.morph_steps_cuda(masks_b, valid, steps)
 
-    k2 = unpack_bitboards(morph_all(kernels.morph_bits_cuda), w)
-    taps = sum(bin(m).count("1") for shape, ksize, program in programs
-               for m in kernels.element_rows(shape, ksize)[1] for _ in program)
+    def k12_call():
+        return kernels.zhang_suen_dense_cuda(edges)
+
+    k2 = unpack_bitboards(k2_call(), w)
+    taps = sum(bin(m).count("1") for shape, ksize, _ in steps for m in kernels.element_rows(shape, ksize)[1])
     board = masks_b.numel() * 4
-    stats["K2"] = {"max_abs_err": max_abs_err(k2, unpack_bitboards(morph_all(morph_bits_plain), w)),
-                   "ms": cuda_ms(lambda: morph_all(kernels.morph_bits_cuda), 20),
-                   "plain_ms": cuda_ms(lambda: morph_all(morph_bits_plain), 5),
+    stats["K2"] = {"max_abs_err": max_abs_err(k2, unpack_bitboards(morph_steps_plain(masks_b, valid, steps), w)),
+                   "ms": cuda_ms(k2_call, 20),
+                   "plain_ms": cuda_ms(lambda: morph_steps_plain(masks_b, valid, steps), 5),
                    # a funnel shift and an OR per tap and word
                    **bound(2 * board + valid.numel() * 4, masks_b.numel() * 2 * taps, INT32_OPS)}
     stats["K7"].update(bound(img.numel() + k7.numel() * 4, k7.numel() * K7_FLOPS_PER_PX, FP32_OPS))
-    k12 = kernels.zhang_suen_dense_cuda(edges)
+    k12 = k12_call()
+    k12_iters = kernels.STATS["zhang_suen_dense"]
     # the iterations these edges need, per layer (K6 runs the same fixpoint),
     # at the bit-sliced count of 32 pixels a word: the least work of the function
     kernels.zhang_suen_packed_cuda(pack_bitboards(edges), 120, True)
     iters = kernels.STATS["zhang_suen_packed"].tolist()
     stats["K12"] = {"max_abs_err": max_abs_err(k12, zhang_suen_dense_plain(edges)),
-                    "ms": cuda_ms(lambda: kernels.zhang_suen_dense_cuda(edges), 10),
+                    "ms": cuda_ms(k12_call, 10),
                     "plain_ms": cuda_ms(lambda: zhang_suen_dense_plain(edges), 2),
                     **bound(edges.numel() * edges.element_size() + k12.numel() * 4,
                             sum(iters) * h * -(-w // 32) * 2 * ZS_OPS_PER_WORD, INT32_OPS)}
     check(stats["K2"]["max_abs_err"] == 0 and stats["K12"]["max_abs_err"] == 0, "K2 or K12 != plain at full size")
+
+    # K2's host time per call (no sync: the card keeps up), and the kernels' device time alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        k2_call()
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    alone = {"K2": (profiled_ms(k2_call, "morph_steps", 20), cuda_ms(bare_k2(masks_b, valid, steps), 200)),
+             "K12": (profiled_ms(k12_call, "zs_tiles", 10), cuda_ms(bare_k12(edges), 50))}
+    stats["K2 alone"] = {"host_us": host_us, "profiler_ms": alone["K2"][0], "bare_ms": alone["K2"][1]}
+    stats["K12 alone"] = {"profiler_ms": alone["K12"][0], "bare_ms": alone["K12"][1]}
+
     mpx = h * w / 1e6
     for route, name in ((False, "K6 route"), (True, "K12 route")):
         print(f"front-end {name}: {route_ms[route]:.3f} ms/call (CUDA events), {mpx / route_ms[route] * 1e3:.1f} Mpx/s")
     print(f"front-end on the CPU (plain versions, labels + both routes): {cpu_s * 1e3:.1f} ms wall")
-    for name, what in (("K7", f"{h}x{w} px"), ("K2", "4 programs of one call"), ("K12", f"4x{h}x{w}")):
+    for name, what in (("K7", f"{h}x{w} px"), ("K2", "the front-end's 8 steps, one call"), ("K12", f"4x{h}x{w}")):
         st = stats[name]
         print(f"{name} at {what}: kernel {st['ms']:.4f} ms, plain PyTorch on the card {st['plain_ms']:.4f} ms, "
               f"max_abs_err {st['max_abs_err']}, bound {st['bound_ms']:.5f} ms by {st['bound_by']}")
-    print(f"K12's edges need {iters} iterations per layer")
+    for name, (prof_ms, bare_ms) in alone.items():
+        print(f"{name} kernel alone: " + (f"{prof_ms:.4f} ms a call by torch.profiler" if prof_ms is not None
+                                          else "not measured by torch.profiler (no device time in its trace)")
+              + f"; {bare_ms:.4f} ms a launch by CUDA events around a loop of bare launches")
+    print(f"K2 wrapper host time: {host_us:.1f} us a call (perf_counter over 50 calls, no sync)")
+    print(f"K12's edges need {iters} iterations per layer; a dense call launched {k12_iters} iterations in "
+          f"{launches[True]['zhang_suen_dense']} launch(es)")
     return {"assign_nearest": launches[False]["assign_nearest"],
             "zhang_suen_dense": launches[True]["zhang_suen_dense"]}
 

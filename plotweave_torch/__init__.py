@@ -13,7 +13,7 @@ It runs the default main path, image → ``plot_stream.bin``:
   (``ops/frontend.py``) as plain tensor functions, with hand-written CUDA
   kernels (``ops/kernels.py``, ``csrc/``) for the packed morphology, the two
   bit-packed fixpoints (Canny hysteresis, Zhang–Suen thinning), the fused
-  Lab + nearest-centre assign and the dense tile-halo Zhang–Suen.
+  Lab + nearest-centre assign and the dense, bit-sliced Zhang–Suen.
 - ``stages``   — all 14 stages: 01–04 the port's own, 05–14 copies of the
   JAX package's host stages.
 - ``pipeline`` — the in-process runner and CLI (``python -m plotweave_torch``).

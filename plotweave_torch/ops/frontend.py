@@ -2,9 +2,10 @@
 ``plotweave/ops/frontend.py``).
 
 Lab conversion and the nearest of k centres (kernel K7 on the card), one-hot
-masks packed to bitboards, four packed morphology programs (kernel K2), the
+masks packed to bitboards, four packed morphology programs as one step list
+(kernel K2, one launch), the
 Q8 blur, Canny (hysteresis: kernel K5) and Zhang–Suen thinning: the packed
-fixpoint K6 by default, or the dense tile-halo kernel K12 with
+fixpoint K6 by default, or the dense kernel K12 with
 ``pallas_thinning=True``.  Leading batch dims are allowed on the default
 route.  Everything runs on the device of the image; after the labels the
 chain is integer, so from the same labels its bytes are the same on either
@@ -21,7 +22,7 @@ import torch
 from .canny import canny_packed
 from .colorspace import _M, _WHITE, bgr_to_lab_u8
 from .filters import gaussian_blur_u8
-from .morphology import _valid_bits, morph_bits
+from .morphology import _valid_bits, morph_program, morph_steps
 from .thinning import pack_bitboards, unpack_bitboards, zhang_suen_dense, zhang_suen_packed
 
 
@@ -88,6 +89,15 @@ def assign_nearest(image: torch.Tensor, centers, k: int) -> torch.Tensor:
     return assign_nearest_plain(image, c, k)
 
 
+def frontend_steps(extract_iters: int = 1, edge_kernel: int = 3, edge_iters: int = 1) -> tuple:
+    """The front-end's four morphology programs (the JAX package's four
+    ``morph_bits`` calls), rect open and close, then ellipse open and close,
+    as one step list."""
+    return (morph_program("rect", 3, extract_iters, "ed") + morph_program("rect", 3, extract_iters, "de")
+            + morph_program("ellipse", edge_kernel, edge_iters, "ed")
+            + morph_program("ellipse", edge_kernel, edge_iters, "de"))
+
+
 def frontend_from_labels(
     labels: torch.Tensor,  # (..., H, W) int32
     k: int,
@@ -105,11 +115,8 @@ def frontend_from_labels(
     (..., k, H, W) uint8; see :func:`raster_frontend` for the parameters."""
     w = labels.shape[-1]
     masks_b = pack_bitboards(labels[..., None, :, :] == torch.arange(k, device=labels.device)[:, None, None])
-    valid = _valid_bits(w, labels.device)
-    masks_b = morph_bits(masks_b, valid, "rect", 3, extract_iters, "ed")
-    masks_b = morph_bits(masks_b, valid, "rect", 3, extract_iters, "de")
-    masks_b = morph_bits(masks_b, valid, "ellipse", edge_kernel, edge_iters, "ed")
-    masks_b = morph_bits(masks_b, valid, "ellipse", edge_kernel, edge_iters, "de")
+    steps = frontend_steps(extract_iters, edge_kernel, edge_iters)
+    masks_b = morph_steps(masks_b, _valid_bits(w, labels.device), steps)
     masks = unpack_bitboards(masks_b, w).to(torch.uint8) * 255
     # the hysteresis board feeds the packed thinner in the same encoding
     edges, edges_b = canny_packed(gaussian_blur_u8(masks, blur_kernel), low, high)
@@ -138,7 +145,7 @@ def raster_frontend(
     """Returns (edges (..., k, H, W) uint8 0/255, skeletons (..., k, H, W)
     uint8 0/1), on the image's device.
 
-    ``pallas_thinning=True`` thins with the dense tile-halo fixpoint
+    ``pallas_thinning=True`` thins with the dense fixpoint
     (:func:`ops.thinning.zhang_suen_dense`, kernel K12, the port of
     ``zhang_suen_pallas``) instead of the packed one; the skeletons are the
     same.  Like the JAX kernel it takes no batch dims and raises

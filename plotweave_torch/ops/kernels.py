@@ -1,7 +1,11 @@
 """Hand-written CUDA kernels: build, binding and wrappers.
 
-- K2 ``morph_bits_cuda`` (``csrc/morph_bits.cu``): one packed dilation or
-  erosion per launch; replaces the XLA fusion of ``morph_bits``.
+- K2 ``morph_steps_cuda`` (``csrc/morph_bits.cu``): a whole sequence of
+  packed dilations and erosions in one launch, each block holding a band of
+  rows and the sequence's halo in shared memory; replaces the XLA fusion of
+  ``morph_bits`` and chains of its calls.  :func:`morph_schedule` splits a
+  sequence whose halo does not fit into segments, one launch each, before
+  any launch (the defaults are one segment).
 - K5 ``hysteresis_cuda`` and K6 ``zhang_suen_packed_cuda``
   (``csrc/bitboard_fixpoints.cu``): the bitboard fixpoints; K6 replaces
   ``zhang_suen_packed_pallas``.  Each has two routes, chosen by size before
@@ -13,14 +17,17 @@
   ``hysteresis_multi``).
 - K7 ``assign_nearest_cuda`` (``csrc/assign_nearest.cu``): Lab and the
   nearest centre in one pass; replaces the XLA fusion of ``assign_nearest``.
-- K12 ``zhang_suen_dense_cuda`` (``csrc/zs_dense.cu``): dense tile-halo
-  Zhang–Suen; replaces ``zhang_suen_pallas``.
+- K12 ``zhang_suen_dense_cuda`` (``csrc/zs_dense.cu``): dense Zhang–Suen,
+  packed to 32 pixels a word on load and bit-sliced in shared memory, up to
+  :data:`ZS_CHUNK` iterations per launch on tiles with a halo of two rows
+  per iteration; replaces ``zhang_suen_pallas``.
 
 Each source notes its design and bound.  Each is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library of its own with a plain C interface, at
-first use, under ``plotweave_torch/_build/`` keyed on a hash of the source
-and its flags, and loaded with ctypes.  Importing this module compiles and
-loads nothing, so it imports where there is no ``nvcc`` and no card.
+first use, under ``plotweave_torch/_build/`` keyed on a hash of the source,
+the headers of ``csrc/`` and its flags, and loaded with ctypes.  Importing
+this module compiles and loads nothing, so it imports where there is no
+``nvcc`` and no card.
 
 Bitboards are CUDA ``int32`` tensors (the bits of the JAX package's ``uint32``
 boards).  Each wrapper launches on ``torch.cuda.current_stream()``, raises on
@@ -33,6 +40,7 @@ The plain versions live beside their callers (``ops/morphology.py``, ``ops/canny
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -62,9 +70,20 @@ NVCC_FLAGS = {
     "zs_dense": _SM90A,  # K12
 }
 
-# the multi-launch routes: iterations per host check of the convergence flags
+# the multi-launch routes and K12: iterations per host check of the
+# convergence flags (K12: per launch, ``kT`` in csrc/zs_dense.cu)
 ZS_CHUNK = 8
 HYSTERESIS_CHUNK = 32  # even: the sweeps ping-pong between two buffers
+
+# K12's tile of output, rows x 32-pixel words (``kTR``, ``kTW`` in
+# csrc/zs_dense.cu); its halo is 2 * ZS_CHUNK rows and one word on each side
+ZS_TILE_ROWS, ZS_TILE_WORDS = 64, 16
+
+# K2's band of output rows per block (fewer for a shorter layer, or for a
+# single step that does not fit a full band), and the static shared memory
+# of its masks: two steps of at most 63 rows of taps, 8 bytes each
+MORPH_BAND = 32
+MORPH_MASK_BYTES = 2 * 63 * 8
 
 # the resident routes: CTAs per thread block cluster (``kCluster`` in
 # csrc/bitboard_fixpoints.cu), and the shared memory one CTA may take (227 KB
@@ -79,8 +98,8 @@ LAUNCHES = {"zhang_suen_packed": 0, "zhang_suen_packed_multi": 0, "hysteresis": 
 
 # what the last call of each fixpoint route took: for the resident routes a
 # device tensor, K6 (k,) iterations per layer, K5 (k, 2) rounds and the most
-# sweeps one CTA ran per layer; for the multi-launch routes the iterations
-# or sweeps launched.  Only read by ``chip_smoke.py``.
+# sweeps one CTA ran per layer; for the multi-launch routes and K12 the
+# iterations or sweeps launched.  Only read by ``chip_smoke.py``.
 STATS: dict = {}
 
 build_log: dict = {}  # library → nvcc's output (ptxas register and spill report) of its last build
@@ -113,9 +132,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built, keyed on a hash of
-    its source and flags."""
-    flags = NVCC_FLAGS[name]
-    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    its source, the headers of ``csrc/`` and its flags."""
+    data = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    key = hashlib.sha256(data + " ".join(NVCC_FLAGS[name]).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
 
@@ -154,9 +173,9 @@ _SIGNATURES = {
                            "pw_hysteresis_cluster_run": [_P, _P, _P, _P, _I, _I, _I, _P],
                            "pw_zs_packed_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                            "pw_hysteresis_run": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
-    "morph_bits": {"pw_morph_bits_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "morph_bits": {"pw_morph_steps_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
     "assign_nearest": {"pw_assign_nearest": [_P, _P, _P, _I, _L, _P]},
-    "zs_dense": {"pw_zs_dense_run": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "zs_dense": {"pw_zs_tiles_run": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
 }
 
 
@@ -307,9 +326,10 @@ def hysteresis_cuda(cand: torch.Tensor, strong: torch.Tensor, route: str | None 
     raise RuntimeError("hysteresis: no fixpoint within the sweeps cand allows")
 
 
+@functools.lru_cache(maxsize=None)
 def element_rows(shape: str, ksize: int):
-    """The structuring element as K2 takes it: (dy0, [one mask per row of
-    taps, bit dx + 31 set for each tap]).  Raises for |dx| > 31."""
+    """The structuring element as K2 takes it: (dy0, (one mask per row of
+    taps, bit dx + 31 set for each tap)).  Raises for |dx| > 31."""
     se = structuring_element(shape, ksize)
     r = se.shape[0] // 2
     ys, xs = np.nonzero(se)
@@ -318,32 +338,87 @@ def element_rows(shape: str, ksize: int):
     rows = [0] * se.shape[0]
     for y, x in zip(ys.tolist(), xs.tolist()):
         rows[y] |= 1 << (x - r + 31)
-    return -r, rows
+    return -r, tuple(rows)
 
 
-def morph_bits_cuda(x: torch.Tensor, valid: torch.Tensor, shape: str, ksize: int,
-                    iterations: int, program: str) -> torch.Tensor:
-    """K2: ``ops.morphology.morph_bits``'s program on CUDA bitboards, one
-    launch per elementary op over two ping-pong buffers; returns ``x`` itself
-    when the program is empty, else a new board."""
+def morph_smem_bytes(band: int, radius: int, nw: int) -> int:
+    """Shared memory one block of K2 takes (``csrc/morph_bits.cu``): two
+    boards of ``band + 2 * radius`` rows and the valid row, each of ``nw +
+    2`` words, and the masks of two steps."""
+    return (2 * (band + 2 * radius) + 1) * (nw + 2) * 4 + MORPH_MASK_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def morph_schedule(radii: tuple, h: int, nw: int) -> tuple:
+    """K2's launches for steps of row radii ``radii`` on layers of ``h``
+    rows of ``nw`` words: ((first step, end step, band rows, summed radius),
+    ...), one launch each.  Consecutive steps share a launch while a block
+    of :data:`MORPH_BAND` rows (fewer for a shorter layer) and their summed
+    radius fits :data:`MAX_SMEM`; a step that does not fit alone takes a
+    shorter band, and raises where no band fits."""
+    full = max(1, min(MORPH_BAND, h))
+    segments, start = [], 0
+    while start < len(radii):
+        stop, radius = start, 0
+        while stop < len(radii) and morph_smem_bytes(full, radius + radii[stop], nw) <= MAX_SMEM:
+            radius, stop = radius + radii[stop], stop + 1
+        band = full
+        if stop == start:
+            radius, stop = radii[start], start + 1
+            band = ((MAX_SMEM - MORPH_MASK_BYTES) // ((nw + 2) * 4) - 1) // 2 - 2 * radius
+            if band < 1:
+                raise ValueError(f"morph_bits: a step of row radius {radius} on rows of {nw} words does not fit "
+                                 f"one block's shared memory")
+        segments.append((start, stop, band, radius))
+        start = stop
+    return tuple(segments)
+
+
+_tables: dict = {}  # (steps, device) → K2's step table on the device and the steps' row radii
+
+
+def _step_table(steps: tuple, device: torch.device):
+    """K2's step table (``csrc/morph_bits.cu``): per step (erode, row radius,
+    rows of taps, index of its first mask), then the masks, int64 on
+    ``device``; built once per step list and device."""
+    key = (steps, device)
+    if key not in _tables:
+        heads, masks, radii = [], [], []
+        for shape, ksize, op in steps:
+            dy0, rows = element_rows(shape, ksize)
+            heads += [int(op != "d"), -dy0, len(rows), 4 * len(steps) + len(masks)]
+            masks += rows
+            radii.append(-dy0)
+        _tables[key] = torch.tensor(heads + masks, dtype=torch.int64, device=device), tuple(radii)
+    return _tables[key]
+
+
+def morph_steps_cuda(x: torch.Tensor, valid: torch.Tensor, steps) -> torch.Tensor:
+    """K2: ``ops.morphology.morph_steps_plain``'s step list on CUDA
+    bitboards, one launch per segment of :func:`morph_schedule` (one at the
+    defaults); returns ``x`` itself for an empty list, else a new board."""
     k, h, nw = _check("morph_bits", x)
     if not (valid.is_cuda and valid.device == x.device and valid.dtype == torch.int32
             and valid.is_contiguous() and tuple(valid.shape) == (nw,)):
         raise ValueError(f"morph_bits: valid must be a contiguous ({nw},) int32 tensor on {x.device}")
-    dy0, rows = element_rows(shape, ksize)
-    masks = (ctypes.c_ulonglong * len(rows))(*rows)
-    ops = [op for op in program for _ in range(iterations)]
-    if not ops:
+    steps = tuple(steps)
+    if not steps:
         return x
+    table, radii = _step_table(steps, x.device)
+    if x.numel() == 0:
+        return x.clone()
+    if k > 65535:
+        raise ValueError(f"morph_bits: {k} layers exceed the kernel's grid")
+    segments = morph_schedule(radii, h, nw)
     lib = load("morph_bits")
     with torch.cuda.device(x.device):
-        bufs = [torch.empty_like(x), torch.empty_like(x)]
         stream = torch.cuda.current_stream().cuda_stream
+        bufs = [torch.empty_like(x) for _ in range(min(2, len(segments)))]
         src = x
-        for j, op in enumerate(ops):
+        for j, (start, stop, band, radius) in enumerate(segments):
             dst = bufs[j % 2]
-            err = lib.pw_morph_bits_run(src.data_ptr(), dst.data_ptr(), valid.data_ptr(), masks, dy0,
-                                        len(rows), int(op != "d"), k, h, nw, stream)
+            err = lib.pw_morph_steps_run(src.data_ptr(), dst.data_ptr(), valid.data_ptr(), table.data_ptr(), start,
+                                         stop - start, radius, band, k, h, nw, stream)
             _count("morph_bits")
             _raise_on(lib, "morph_bits", err)
             src = dst
@@ -373,30 +448,45 @@ def assign_nearest_cuda(image: torch.Tensor, centers: torch.Tensor) -> torch.Ten
 
 def zhang_suen_dense_cuda(binary: torch.Tensor, max_iter: int = 120, rotated: bool = True) -> torch.Tensor:
     """K12: ``ops.thinning.zhang_suen_dense`` on a CUDA (k, H, W) or (H, W)
-    0/nonzero tensor → int32 0/1 of the same shape."""
+    0/nonzero tensor → int32 0/1 of the same shape.  Each launch runs up to
+    :data:`ZS_CHUNK` iterations; the host reads one flag per launch where
+    another may follow, and launches again only while the last iteration
+    changed a pixel."""
     if not binary.is_cuda:
         raise ValueError(f"zhang_suen_dense: expected a CUDA tensor, got {binary.device}")
     planes, squeeze = _dense_planes(binary, "zhang_suen_dense")
     k, h, w = planes.shape
-    if planes.numel() >= 2**31 or k > 65535 or h > 32 * 65535:
+    if planes.numel() >= 2**31 or k > 65535 or -(-h // ZS_TILE_ROWS) > 65535:
         raise ValueError(f"zhang_suen_dense: {tuple(planes.shape)} exceeds the kernel's grid")
-    lib = load("zs_dense")
+    # the kernel reads bytes and binarises them (v != 0) as it packs them
+    if planes.dtype == torch.uint8:
+        src = planes.contiguous()
+    elif planes.dtype == torch.bool:
+        src = planes.contiguous().view(torch.uint8)
+    else:
+        src = (planes > 0).view(torch.uint8)
     with torch.cuda.device(binary.device):
-        a = (planes > 0).to(torch.uint8).contiguous()
-        b = torch.empty_like(a)
-        stream = torch.cuda.current_stream().cuda_stream
-        done = 0
-        while done < max_iter:
-            n = min(ZS_CHUNK, max_iter - done)
-            flags = torch.zeros(n, dtype=torch.int32, device=a.device)
-            err = lib.pw_zs_dense_run(a.data_ptr(), b.data_ptr(), flags.data_ptr(), k, h, w, n,
-                                      int(rotated), stream)
-            _count("zhang_suen_dense", n)  # one launch per iteration
-            _raise_on(lib, "zhang_suen_dense", err)
-            if n % 2:  # an odd chunk leaves the result in b
-                a, b = b, a
-            done += n
-            if not int(flags[-1].item()):
-                break
-        out = a.to(torch.int32)
+        out = torch.empty((k, h, w), dtype=torch.int32, device=binary.device)
+        if out.numel():
+            lib = load("zs_dense")
+            stream = torch.cuda.current_stream().cuda_stream
+            flags = torch.empty(max(max_iter, 1), dtype=torch.int32, device=binary.device)  # zeroed per launch
+            # the packed state between launches; none where one launch runs every iteration
+            state = torch.empty((2 if max_iter > ZS_CHUNK else 0, k, h, -(-w // 32)), dtype=torch.int32,
+                                device=binary.device)
+            packed_in, done, j = 0, 0, 0
+            while True:
+                n = max(0, min(ZS_CHUNK, max_iter - done))
+                last = done + n >= max_iter
+                dst = None if last else state[j % 2]
+                err = lib.pw_zs_tiles_run(src.data_ptr(), packed_in, None if dst is None else dst.data_ptr(),
+                                          out.data_ptr(), flags.data_ptr() + 4 * done, k, h, w, n, int(rotated),
+                                          stream)
+                _count("zhang_suen_dense")
+                _raise_on(lib, "zhang_suen_dense", err)
+                done, j = done + n, j + 1
+                if last or not int(flags[done - 1].item()):
+                    break
+                src, packed_in = dst, 1
+            STATS["zhang_suen_dense"] = done
     return out[0] if squeeze else out

@@ -4,11 +4,15 @@ Erode and dilate on 0/255 masks are AND/OR algebra on the int32 bitboards of
 ``ops/thinning.py``.  Dilation ORs the board shifted over the structuring
 element (the zero fill is OpenCV's non-feeding border); erosion is
 ``~dilate(~x & valid) & valid``, so bits beyond the image read as set and do
-not constrain it.  :func:`morph_bits` runs kernel K2 on a CUDA tensor and
-:func:`morph_bits_plain` on a CPU tensor.
+not constrain it.  A step list ((shape, ksize, op), ...) chains such ops;
+:func:`morph_steps` runs it through kernel K2 on a CUDA tensor and
+:func:`morph_steps_plain` on a CPU tensor, and :func:`morph_bits` is one
+program of the JAX package's signature as a step list.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -60,8 +64,10 @@ def _dilate_bits(x: torch.Tensor, se: np.ndarray) -> torch.Tensor:
     return acc
 
 
+@functools.lru_cache(maxsize=None)
 def _valid_bits(w: int, device=None) -> torch.Tensor:
-    """int32 word mask with bits [0, w) set (padding bits beyond w zero)."""
+    """int32 word mask with bits [0, w) set (padding bits beyond w zero);
+    made once per (w, device), so callers must not write to it."""
     nw = -(-w // 32)
     bits = (np.arange(nw * 32) < w).astype(np.uint64).reshape(nw, 32)
     weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
@@ -69,30 +75,48 @@ def _valid_bits(w: int, device=None) -> torch.Tensor:
     return torch.from_numpy(words.copy()).to(device)
 
 
+def morph_program(shape: str, ksize: int, iterations: int, program: str) -> tuple:
+    """``morph_bits``'s program as a step list: ((shape, ksize, op), ...),
+    each char of ``program`` ('e' erode, 'd' dilate) repeated ``iterations``
+    times."""
+    return tuple((shape, ksize, op) for op in program for _ in range(iterations))
+
+
+def morph_steps_plain(x: torch.Tensor, valid: torch.Tensor, steps) -> torch.Tensor:
+    """A step list on bitboards, each step (shape, ksize, op) one dilation
+    (op 'd') or erosion (any other op) by its element, in order: the chained
+    calls of the JAX package's ``morph_bits``."""
+    for shape, ksize, op in steps:
+        se = structuring_element(shape, ksize)
+        if op == "d":
+            x = _dilate_bits(x, se)
+        else:
+            x = (~_dilate_bits((~x) & valid, se)) & valid
+    return x
+
+
 def morph_bits_plain(x: torch.Tensor, valid: torch.Tensor, shape: str, ksize: int,
                      iterations: int, program: str) -> torch.Tensor:
     """A morphology program on bitboards: each char of ``program`` is 'e'
     (erode) or 'd' (dilate), repeated ``iterations`` times."""
-    se = structuring_element(shape, ksize)
-    for op in program:
-        for _ in range(iterations):
-            if op == "d":
-                x = _dilate_bits(x, se)
-            else:
-                x = (~_dilate_bits((~x) & valid, se)) & valid
-    return x
+    return morph_steps_plain(x, valid, morph_program(shape, ksize, iterations, program))
+
+
+def morph_steps(x: torch.Tensor, valid: torch.Tensor, steps) -> torch.Tensor:
+    """:func:`morph_steps_plain`'s step list on (..., H, NW) int32 bitboards
+    (``valid`` from :func:`_valid_bits`).  A CUDA tensor runs kernel K2
+    (``ops/kernels.py``), the whole list in one launch at the defaults; a CPU
+    tensor the plain version; any other device raises."""
+    if x.is_cuda:
+        from .kernels import morph_steps_cuda  # noqa: PLC0415
+
+        return morph_steps_cuda(x, valid, steps)
+    if x.device.type != "cpu":
+        raise ValueError(f"morph_bits: no kernel for device {x.device}")
+    return morph_steps_plain(x, valid, steps)
 
 
 def morph_bits(x: torch.Tensor, valid: torch.Tensor, shape: str, ksize: int,
                iterations: int, program: str) -> torch.Tensor:
-    """:func:`morph_bits_plain`'s program on (..., H, NW) int32 bitboards
-    (``valid`` from :func:`_valid_bits`).  A CUDA tensor runs kernel K2
-    (``ops/kernels.py``); a CPU tensor the plain version; any other device
-    raises."""
-    if x.is_cuda:
-        from .kernels import morph_bits_cuda  # noqa: PLC0415
-
-        return morph_bits_cuda(x, valid, shape, ksize, iterations, program)
-    if x.device.type != "cpu":
-        raise ValueError(f"morph_bits: no kernel for device {x.device}")
-    return morph_bits_plain(x, valid, shape, ksize, iterations, program)
+    """:func:`morph_bits_plain`'s program through :func:`morph_steps`."""
+    return morph_steps(x, valid, morph_program(shape, ksize, iterations, program))

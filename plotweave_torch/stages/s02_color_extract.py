@@ -24,7 +24,7 @@ from ..ops.bitpack import bitpack_rows, bitunpack_rows
 from ..ops.canny import canny_packed
 from ..ops.cvkmeans import assign_labels, cv_kmeans
 from ..ops.filters import gaussian_blur_u8
-from ..ops.morphology import _valid_bits, morph_bits
+from ..ops.morphology import _valid_bits, morph_program, morph_steps
 from ..ops.thinning import pack_bitboards, unpack_bitboards, zhang_suen_packed
 from ..utils import read_image, register_derived_artifact, save_json, thread_map, write_image
 from ..utils.devices import raster_device
@@ -33,15 +33,12 @@ from .common import chain_key, darkness_rank, edge_params, layer_dir
 
 def _binary_morph_u8(masks: torch.Tensor, w: int, open_iters: int, close_iters: int,
                      shape: str = "rect", ksize: int = 3) -> torch.Tensor:
-    """Open/close on binary masks through the packed morphology; 0/255 uint8."""
+    """Open/close on binary masks through the packed morphology, one step
+    list (K2: one launch on the card); 0/255 uint8."""
     if open_iters <= 0 and close_iters <= 0:
         return (masks > 0).to(torch.uint8) * 255
-    b = pack_bitboards(masks)
-    valid = _valid_bits(w, masks.device)
-    if open_iters > 0:
-        b = morph_bits(b, valid, shape, ksize, open_iters, "ed")
-    if close_iters > 0:
-        b = morph_bits(b, valid, shape, ksize, close_iters, "de")
+    steps = morph_program(shape, ksize, open_iters, "ed") + morph_program(shape, ksize, close_iters, "de")
+    b = morph_steps(pack_bitboards(masks), _valid_bits(w, masks.device), steps)
     return unpack_bitboards(b, w).to(torch.uint8) * 255
 
 

@@ -215,7 +215,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.hysteresis_cuda(b, b)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.morph_bits_cuda(b, torch.zeros(2, dtype=torch.int32), "rect", 3, 1, "ed")
+        kernels.morph_steps_cuda(b, torch.zeros(2, dtype=torch.int32), (("rect", 3, "e"),))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.assign_nearest_cuda(torch.zeros((4, 4, 3), dtype=torch.uint8), torch.zeros((4, 3)))
     with pytest.raises(ValueError, match="CUDA"):
