@@ -8,10 +8,11 @@ stage 02→04 chain, the fused raster front-end and the main path, image →
 Phases:
 
 1. probe: torch / CUDA / card / nvcc / OpenCV / g++;
-2. build the kernels with nvcc, one library per source, all at once (K2
-   packed morphology, K5 hysteresis and K6 packed Zhang–Suen, K7 Lab +
-   nearest centre, K12 dense Zhang–Suen), and the port's native host library
-   with g++, which must load;
+2. build the kernels with nvcc, one library per source, all at once (K1 the
+   layout conversions, K2 packed morphology, K3+K4 blur, Sobel, NMS and
+   thresholds, K5 hysteresis and K6 packed Zhang–Suen, K7 Lab + nearest
+   centre, K12 dense Zhang–Suen), and the port's native host library with
+   g++, which must load;
 3. each kernel vs its plain version on the card: K5 and K6 on both routes
    (resident in a thread block cluster of 16 CTAs, and multi-launch), each
    named to the wrapper, byte-equal on seeded random boards and ``thinning_cases.npz``, on a
@@ -24,38 +25,54 @@ Phases:
    ``thinning_cases.npz``, its plain version and K6 on both rings, with
    ``max_iter`` 1, 7, 8, 9, 48, 120, inputs that need more than one launch
    (a filled square, dilated spiral rings), uint8, int32 and (H, W) inputs;
-   K7 over all 2^24 BGR colours with the near-tie rule;
-4. ``chain_from_clean`` at 4 × 1500 × 2000 on the card vs on the CPU, with
-   device times (CUDA events) of the chain, and of K5 and K6 on each route
-   beside their plain versions; the resident route makes one launch per
-   call;
+   K7 over all 2^24 BGR colours with the near-tie rule, and its one-hot
+   boards byte-equal to the packed one-hot of its own labels (also on ragged
+   widths, batches, k = 1 and 8, and an image off a 16-byte boundary); K1's
+   conversions (rows ↔ boards, boards → dense uint8 and int32, dense uint8,
+   bool and int32 → boards, labels → boards, into a blob at an odd offset)
+   on ragged widths (W mod 32 and mod 8 ≠ 0, W < 32, H = 1) and at
+   4 × 1500 × 2000; K3+K4 byte-equal to its plain version on seeded gray
+   images and on binary boards, ``ksize`` 1, 3, 4, 5, 7, 9, 63 and 301,
+   ``sigma`` > 0, thresholds swapped, above 2041 and 0, shapes smaller than
+   the radius, its blur-only mode, and 1 × 4400 × 4400;
+4. ``chain_from_clean`` at 4 × 1500 × 2000 on the card vs on the CPU: its
+   launches (three K1, one each of K2, K3+K4, K5 and K6), a
+   ``torch.profiler`` trace of one call whose device kernels must all be the
+   port's own (copies and memsets apart), device times (CUDA events) of the
+   chain, of K1 and K3+K4, and of K5 and K6 on each route, beside their
+   plain versions on the card and the count of device kernels those launch;
 5. ``plotweave_torch.pipeline.main`` steps 1–13 on a seeded synthetic
    2000 × 1500 image and on the four configs of ``tests/golden/e2e``, and
    steps 1–4 on a seeded 4400 × 4400 image (``max_dimension`` 4400, so K5
    and K6 take the multi-launch route), with ``--raster-device auto`` (the
    card) and ``cpu``; every mask.png, edges.png, contours.pkl and
    plot_stream.bin must be byte-equal.  The launch counts are set to 0 just
-   before the synthetic image's card run and read just after it (K2 once,
-   K5 and K6 resident must each have launched), and likewise around the
-   4400 × 4400 card run (K2 once, and K5 and K6 by the multi-launch route);
+   before the synthetic image's card run and read just after it (the
+   chain's launches exactly: K1 three times, K2, K3+K4 and the resident K5
+   and K6 once), and likewise around the 4400 × 4400 card run (K5 and K6 by
+   the multi-launch route);
 6. ``raster_frontend`` on a seeded 2000 × 1500 image, k = 4, through both
    thinning routes on the card and on the CPU: labels by the near-tie rule,
-   edges and skeletons byte-equal from the same labels, K2 one launch per
-   call and K12 at most two, with device times of each route and of K2, K7
-   and K12 beside their plain versions, K2's and K12's kernel time alone
-   (``torch.profiler``, and CUDA events around a loop of bare launches) and
-   K2's host time per call;
+   edges and skeletons byte-equal from the same labels, the launches of each
+   route (K7, K2, K3+K4, K5 once each, then K6 and two K1, or K12 in at most
+   two launches and three K1), a ``torch.profiler`` trace of one call per
+   route whose device kernels must all be the port's own, with device times
+   of each route and of every kernel at the front-end's shapes beside its
+   plain version, K2's, K3+K4's, K7's and K12's kernel time alone
+   (``torch.profiler``; K2 and K12 also by CUDA events around a loop of bare
+   launches) and K2's host time per call;
 7. ``plotweave_torch.entry.entry("auto")`` once.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
 launches in the one run of phase 5 or 6 that drives it (the synthetic
-2000 × 1500 image for K2 and the resident K5 and K6, the 4400 × 4400 image
-for the multi-launch K5 and K6, the front-end call for K7 and K12), its
-device time, its plain version's, and its bound: the larger of its bytes
-(each input read once, each output written once) at 3.35 TB/s and its
-operations, counted for these inputs, at the card's rate for their type.  The last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without
-the repo beside it, it exits non-zero and prints no result.
+2000 × 1500 image for K1, K2, K3+K4 and the resident K5 and K6, the
+4400 × 4400 image for the multi-launch K5 and K6, the front-end calls for
+K7, K12 and K1's dense side), its device time, its plain version's, and its
+bound: the larger of its bytes (each input read once, each output written
+once) at 3.35 TB/s and its operations, counted for these inputs, at the
+card's rate for their type.  The last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA card, or without the repo beside it, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -78,14 +95,22 @@ EDGE_PARAMS = (3, 1, 1, 5, 22, 70)  # (mk, oi, ci, bk, lo, hi): the default conf
 FRONTEND_SHAPE = (1500, 2000)  # H, W: bench.py --frontend's image size
 BENCH_CENTERS = [[40, 128, 128], [110, 140, 120], [180, 150, 140], [240, 128, 126]]  # bench.py:509-511
 NEAR_TIE = 0.01  # a label may differ only where the two nearest centres are this close (float64)
-MAIN_PATH_KERNELS = ("morph_bits", "hysteresis", "zhang_suen_packed")  # K2, K5, K6 (resident)
+# K1, K2, K3+K4, K5, K6 (resident): every device step of the chain between the upload and the blob
+MAIN_PATH_KERNELS = ("bitpack", "morph_bits", "edge_candidates", "hysteresis", "zhang_suen_packed")
+# launches of one chain call: rows -> boards, K2, K3+K4, K5, K6, and boards -> rows for edges and skeletons
+CHAIN_LAUNCHES = {"bitpack": 3, "morph_bits": 1, "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 1}
+# the kernels of plotweave_torch/csrc by a part of their names, as a profiler's trace shows them
+OWN_KERNELS = ("rows_to_boards", "boards_to_rows", "boards_to_dense", "dense_to_boards", "labels_to_boards",
+               "morph_steps", "edge_tiles", "hysteresis_cluster", "hysteresis_sweep", "zs_cluster", "zs_subpass",
+               "assign_nearest", "zs_tiles")
 # stage 03's mask open and close at the default config (ellipse 3, 1 and 1): K2's step list on the main path
 MAIN_PATH_STEPS = (("ellipse", 3, "e"), ("ellipse", 3, "d"), ("ellipse", 3, "d"), ("ellipse", 3, "e"))
 MULTI_KERNELS = ("hysteresis_multi", "zhang_suen_packed_multi")  # K5, K6 on layers too large for a cluster
 BIG_SIDE = 4400  # px: a layer of 4400 rows of 138 words does not fit one cluster's shared memory
 PATH_RUNS = {"main": "main path, synthetic 2000x1500, steps 1-13, card run",
              "big": f"main path, synthetic {BIG_SIDE}x{BIG_SIDE}, steps 1-4, card run",
-             "front-end": "raster_frontend 2000x1500 k=4, one call per thinning route"}
+             "front-end": "raster_frontend 2000x1500 k=4, one call on the default route",
+             "front-end dense": "raster_frontend 2000x1500 k=4, one call with pallas_thinning=True"}
 
 # the card's peaks (H100 SXM): HBM bytes/s, float32 outside the tensor cores,
 # INT32 lanes (132 SMs x 64 lanes x 1.98 GHz)
@@ -97,7 +122,14 @@ HBM_BPS, FP32_OPS, INT32_OPS = 3.35e12, 67e12, 132 * 64 * 1.98e9
 # hysteresis update (6 shifts, 3 ORs of three rows, the OR and AND with cand)
 ZS_OPS_PER_WORD = 49
 HYST_OPS_PER_WORD = 10
-K7_FLOPS_PER_PX = 120  # BGR -> XYZ -> Lab (3 cbrtf) and 4 squared distances
+# K3+K4, from csrc/edge_candidates.cu: per pixel 2 ksize multiply-adds and 4 operations of rounding and
+# clamping for the blur, 12 for Sobel, 3 for the magnitude, 18 for the NMS and thresholds
+EDGE_OPS_FIXED = 37
+# K7, float operations per pixel from csrc/assign_nearest.cu: the gamma is a 256-entry table, so no powf;
+# XYZ 15, 3 divisions by the white point, 3 compares, Lab 9; 9 per centre (3 differences, 3 squares, 2 adds,
+# the compare); per XYZ value a cbrtf (20: exponent split, polynomial, two Newton steps) where it exceeds
+# (6/29)^3, else a division and an add
+K7_FLOPS_FIXED, K7_FLOPS_PER_CENTER, CBRT_FLOPS, LINEAR_FLOPS = 30, 9, 20, 2
 
 
 def bound(nbytes: float, ops: float, rate: float) -> dict:
@@ -133,26 +165,88 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled_ms(fn, name: str, reps: int):
-    """Device milliseconds per call of ``fn`` in the kernels whose name holds
-    ``name``, from ``torch.profiler``'s CUDA activity; None where the trace
-    shows no device time for them."""
+TRACE_CALLS = 3  # calls inside one profiler window: the trace may miss the device work right after it starts
+TRACE_PAUSE = 0.02  # seconds between them, so that each call's device events stand apart in time
+
+
+def traced(fn, calls: int = TRACE_CALLS) -> list:
+    """``torch.profiler``'s CUDA activity over ``calls`` calls of ``fn``: one
+    list of device kernel events per call the trace caught, in time order
+    (the events of a call lie within microseconds, the calls TRACE_PAUSE
+    apart).  The trace may miss the device work that runs right after it
+    starts, so a 1 MB upload and a pause come first, and only the last list
+    is sure to be a whole call.  Copies and memsets are left out."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+    host = torch.zeros(1 << 20, dtype=torch.uint8)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        host.to("cuda")
+        for _ in range(calls):
             torch.cuda.synchronize()
+            time.sleep(TRACE_PAUSE)
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and not e.name.startswith(("Memcpy", "Memset"))), key=lambda e: e.time_range.start)
+    groups: list = []
+    for e in events:
+        if not groups or e.time_range.start - groups[-1][-1].time_range.end > TRACE_PAUSE * 1e6 / 2:
+            groups.append([])
+        groups[-1].append(e)
+    return groups
+
+
+def device_us(e) -> float:
+    return getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+
+
+def profiled_ms(fn, name: str, reps: int):
+    """Device milliseconds per call of ``fn`` in the kernels whose name holds
+    ``name``, from ``torch.profiler``'s CUDA activity: the mean over the
+    whole calls the trace caught (all but the first); None where it caught
+    none."""
+    try:
+        groups = traced(fn, reps + 1)[1:]
     except RuntimeError as e:  # a measurement only: say so and go on
         print(f"  torch.profiler failed: {e}")
         return None
-    us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-             for e in prof.key_averages() if name in e.key)
-    return us / reps / 1e3 if us else None
+    us = sum(device_us(e) for g in groups for e in g if name in e.name)
+    return us / len(groups) / 1e3 if us else None
+
+
+def device_kernels(fn) -> dict:
+    """{kernel name: launches} of the device kernels one call of ``fn`` runs
+    (the last call of a trace; empty where the trace caught nothing)."""
+    counts: dict = {}
+    for e in (traced(fn) or [[]])[-1]:
+        counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
+
+
+def only_own_kernels(fn, what: str, expect: dict) -> dict:
+    """Fail if a trace of TRACE_CALLS calls of ``fn`` shows a device kernel
+    that is not one of ``plotweave_torch/csrc``'s, or if the last call's
+    kernels are not ``expect`` ({part of the name: launches}) in any of three
+    traces (a trace that lost events is taken again); returns those."""
+    for attempt in range(3):
+        groups = traced(fn)
+        foreign = sorted({e.name for g in groups for e in g if not any(own in e.name for own in OWN_KERNELS)})
+        check(not foreign, f"{what}: device kernels that are not the port's own: {foreign}")
+        short: dict = {}
+        for e in (groups or [[]])[-1]:
+            own = next(own for own in OWN_KERNELS if own in e.name)
+            short[own] = short.get(own, 0) + 1
+        if short == expect:
+            break
+        print(f"  {what}: trace {attempt + 1} shows {short} in its last call, expected {expect}")
+    check(short == expect, f"{what}: the trace's last call ran {short}, expected {expect}")
+    print(f"{what}: every device kernel in the trace of {len(groups)} calls is the port's own, and the last call "
+          f"ran {short} (torch.profiler)")
+    return short
 
 
 def bare_k2(x, valid, steps):
@@ -294,8 +388,12 @@ def phase_build() -> None:
 ROUTES = {"resident": "resident", "multi-launch": "multi"}  # name → K5's and K6's ``route``
 
 
+FIXPOINT_KERNELS = ("hysteresis", "zhang_suen_packed") + MULTI_KERNELS  # K5 and K6 on either route
+
+
 def launched(before: dict, after: dict) -> set:
-    return {n for n in after if after[n] > before[n]}
+    """The routes of K5 and K6 launched between two readings of the counts."""
+    return {n for n in FIXPOINT_KERNELS if after[n] > before[n]}
 
 
 def spiral(h: int, w: int, step: int = 4):
@@ -426,9 +524,9 @@ def phase_new_kernels_vs_plain(stats: dict) -> None:
     import torch
 
     from plotweave_torch.ops import kernels
-    from plotweave_torch.ops.frontend import assign_nearest_plain, frontend_steps
+    from plotweave_torch.ops.frontend import assign_nearest_plain, frontend_steps, onehot_boards_plain
     from plotweave_torch.ops.kernels import (
-        assign_nearest_cuda, morph_steps_cuda, zhang_suen_dense_cuda, zhang_suen_packed_cuda)
+        assign_boards_cuda, assign_nearest_cuda, morph_steps_cuda, zhang_suen_dense_cuda, zhang_suen_packed_cuda)
     from plotweave_torch.ops.morphology import (
         _valid_bits, morph_bits, morph_bits_plain, morph_program, morph_steps_plain)
     from plotweave_torch.ops.thinning import pack_bitboards, unpack_bitboards, zhang_suen_dense_plain
@@ -529,21 +627,150 @@ def phase_new_kernels_vs_plain(stats: dict) -> None:
     got = assign_nearest_cuda(img, c)
     ref = assign_nearest_plain(img, c, 4)
     flips = near_tie_flips(img, BENCH_CENTERS, got, ref, "K7 vs plain, all 2^24 colours")
+    check(torch.equal(assign_boards_cuda(img, c), onehot_boards_plain(got, 4)),
+          "K7 boards != the one-hot boards of its labels, all 2^24 colours")
     stats["K7"] = {"max_abs_err": flips}
-    print(f"K7 == plain up to near ties: {flips} of 16777216 labels flip (near-tie rule {NEAR_TIE})")
+    print(f"K7 == plain up to near ties: {flips} of 16777216 labels flip (near-tie rule {NEAR_TIE}); its boards == "
+          f"the one-hot boards of its labels")
+
+
+def random_words(rng, shape, dev):
+    """int32 boards of uniformly random bits, the padding bits beyond W included."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
+
+
+def phase_layout_and_edge_kernels(stats: dict) -> None:
+    """K1's conversions, K3+K4 and K7's boards against their plain versions
+    on the card, on ragged and tiny shapes (byte-equal: all integer)."""
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import bitpack, kernels, thinning
+    from plotweave_torch.ops.canny import canny_candidates, canny_candidates_plain, edge_candidates_plain
+    from plotweave_torch.ops.filters import gaussian_blur_u8, gaussian_blur_u8_plain
+    from plotweave_torch.ops.frontend import assign_nearest_plain, onehot_boards_plain
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    # W mod 32 and mod 8 != 0, W < 32, W < 8, H = 1, whole words, and the main path's width
+    shapes = [(1, 1, 40), (2, 5, 13), (3, 17, 31), (1, 4, 64), (2, 9, 33), (1, 7, 7), (2, 3, 100), (1, 1, 1),
+              (3, 2, 257), (2, 3, 2000), (2, 2, 3, 45), CHAIN_SHAPE]
+    for shape in shapes:
+        *lead, w = shape
+        nw, wb = -(-w // 32), -(-w // 8)
+        u8 = torch.from_numpy((rng.random(shape) < 0.5) * rng.integers(1, 256, shape)).to(torch.uint8).to(dev)
+        i32 = u8.to(torch.int32) - 7 * (u8 % 3 == 0).to(torch.int32)  # zeros and a third of the rest go <= 0
+        for name, dense in (("uint8", u8), ("bool", u8 > 127), ("int32", i32)):
+            check(torch.equal(kernels.dense_to_boards_cuda(dense), thinning.pack_bitboards_plain(dense)),
+                  f"K1 dense -> boards {name} {shape}")
+        boards = random_words(rng, (*lead, nw), dev)  # padding bits set: every conversion must drop them
+        rows = torch.from_numpy(rng.integers(0, 256, (*lead, wb), dtype=np.uint8)).to(dev)
+        check(torch.equal(kernels.rows_to_boards_cuda(rows, w), bitpack.rows_to_boards_plain(rows, w)),
+              f"K1 rows -> boards {shape}")
+        ref_rows = bitpack.boards_to_rows_plain(boards, w)
+        check(torch.equal(kernels.boards_to_rows_cuda(boards, w), ref_rows), f"K1 boards -> rows {shape}")
+        check(np.array_equal(ref_rows.cpu().numpy(),
+                             np.packbits(thinning.unpack_bitboards_plain(boards, w).cpu().numpy() > 0, axis=-1)),
+              f"plain boards -> rows != np.packbits {shape}")
+        # into the second half of a blob that is not 4-byte aligned there, leaving the first half alone
+        blob = torch.full((2 * ref_rows.numel() + 3,), 0xAB, dtype=torch.uint8, device=dev)
+        half = blob[ref_rows.numel() + 3:]
+        kernels.boards_to_rows_cuda(boards, w, out=half)
+        check(torch.equal(half, ref_rows.reshape(-1)) and bool((blob[: ref_rows.numel() + 3] == 0xAB).all()),
+              f"K1 boards -> rows into a blob {shape}")
+        for value, dtype in ((255, torch.uint8), (1, torch.uint8), (1, torch.int32)):
+            ref = thinning.unpack_bitboards_plain(boards, w).to(dtype) * value
+            check(torch.equal(kernels.boards_to_dense_cuda(boards, w, value, dtype), ref),
+                  f"K1 boards -> dense {dtype} x{value} {shape}")
+        # the public functions on CUDA tensors
+        check(torch.equal(bitpack.bitpack_rows(u8), bitpack.bitpack_rows_plain(u8))
+              and torch.equal(bitpack.bitunpack_rows(rows, w), bitpack.bitunpack_rows_plain(rows, w))
+              and torch.equal(bitpack.bitpack_rows(u8.reshape(-1, w)[0]),
+                              bitpack.bitpack_rows_plain(u8.reshape(-1, w)[0]))
+              and torch.equal(thinning.unpack_bitboards(boards, w), thinning.unpack_bitboards_plain(boards, w))
+              and torch.equal(thinning.pack_bitboards(u8), thinning.pack_bitboards_plain(u8)),
+              f"K1 through bitpack_rows, bitunpack_rows, pack_bitboards, unpack_bitboards {shape}")
+        if len(shape) >= 3:
+            labels = torch.from_numpy(rng.integers(0, 5, shape).astype(np.int32)).to(dev)
+            check(torch.equal(kernels.labels_to_boards_cuda(labels, 4), onehot_boards_plain(labels, 4)),
+                  f"K1 labels -> boards {shape}")
+    print(f"K1 == plain: rows <-> boards, boards -> dense (uint8 x255, x1, int32), dense (uint8, bool, int32) -> "
+          f"boards, labels -> boards, into a blob at an odd offset, {len(shapes)} shapes incl. {CHAIN_SHAPE}")
+
+    # K3+K4: gray images and binary boards; ksize 1-9 and even, one sigma > 0, radii beyond the axis,
+    # thresholds swapped, above 2041 and 0
+    gray_shapes = [(1, 1, 1), (1, 2, 2), (2, 3, 40), (1, 40, 3), (3, 37, 33), (2, 64, 100), (1, 33, 257),
+                   (2, 2, 45, 70)]
+    cases = [(ks, 0.0, lo, hi) for ks in (1, 3, 5, 7, 9) for lo, hi in ((22, 70), (70, 22))]
+    cases += [(5, 1.4, 22, 70), (7, 0.0, 5, 3000), (3, 0.0, 0, 0), (4, 0.0, 30, 90), (9, 2.0, 2500, 2100)]
+    n = 0
+    for shape in gray_shapes:
+        *lead, h, w = shape
+        gray = torch.from_numpy(np.clip(random_boards(rng, int(np.prod(lead)), h, w).reshape(shape) // 2 + 40
+                                        + rng.integers(-40, 41, shape), 0, 255).astype(np.uint8)).to(dev)
+        board = random_words(rng, (*lead, h, -(-w // 32)), dev)  # the padding bits must not be read
+        for ks, sigma, lo, hi in cases:
+            for what, x in (("gray", gray), ("board", board)):
+                n += 1
+                got = kernels.edge_candidates_cuda(x, w, ks, lo, hi, sigma)
+                ref = edge_candidates_plain(x, w, ks, lo, hi, sigma)
+                check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                      f"K3+K4 {what} {shape} ksize {ks} sigma {sigma} thresholds {lo}, {hi}")
+            check(torch.equal(gaussian_blur_u8(gray, ks, sigma), gaussian_blur_u8_plain(gray, ks, sigma)),
+                  f"K3+K4 blur only {shape} ksize {ks} sigma {sigma}")
+        got, ref = canny_candidates(gray, 30, 90), canny_candidates_plain(gray, 30, 90)
+        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), f"K3+K4 canny_candidates {shape}")
+    # radii whose halo takes a smaller tile (and more than 48 KB of shared memory)
+    for ks, shape in ((63, (1, 100, 300)), (301, (2, 50, 70))):
+        gray = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        tile = kernels.edge_schedule(ks, shape[-2], -(-shape[-1] // 32))
+        got, ref = kernels.edge_candidates_cuda(gray, None, ks, 1, 3), edge_candidates_plain(gray, shape[-1], ks, 1, 3)
+        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]) and bool(ref[0].any()),
+              f"K3+K4 ksize {ks} {shape}, tile {tile}")
+        check(torch.equal(gaussian_blur_u8(gray, ks), gaussian_blur_u8_plain(gray, ks)), f"K3+K4 blur ksize {ks}")
+        print(f"K3+K4 ksize {ks} on {shape}: tile {tile}, {kernels.edge_smem_bytes(*tile, ks)} B of shared memory")
+    x = torch.from_numpy(random_boards(rng, 1, BIG_SIDE, BIG_SIDE)).to(dev)
+    xb = thinning.pack_bitboards(x)
+    for ks in (5, 7):
+        got = kernels.edge_candidates_cuda(xb, BIG_SIDE, ks, 22, 70)
+        ref = edge_candidates_plain(x, BIG_SIDE, ks, 22, 70)
+        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), f"K3+K4 1x{BIG_SIDE}x{BIG_SIDE} ksize {ks}")
+    print(f"K3+K4 == plain: {n} (input, ksize, sigma, thresholds) cases on {len(gray_shapes)} shapes from gray "
+          f"images and boards, blur only, canny_candidates, ksize 63 and 301, 1x{BIG_SIDE}x{BIG_SIDE} from a board")
+
+    # K7's boards: byte-equal to the packed one-hot of its own labels, ragged widths, batches, k = 8,
+    # and an image that does not start on a 16-byte boundary
+    pens = torch.tensor([[30, 128, 128], [60, 150, 100], [90, 110, 160], [120, 170, 170], [150, 90, 120],
+                         [180, 140, 200], [210, 120, 90], [245, 128, 128]], dtype=torch.float32, device=dev)
+    bench = torch.tensor(BENCH_CENTERS, dtype=torch.float32, device=dev)
+    for shape in ((1, 1, 3), (5, 33, 3), (37, 45, 3), (2, 19, 257, 3), (3, 2, 8, 300, 3), (64, 2000, 3)):
+        for c in (bench, pens, bench[:1]):
+            buf = torch.from_numpy(rng.integers(0, 256, int(np.prod(shape)) + 5, dtype=np.uint8)).to(dev)
+            for off in (0, 5):
+                img = buf[off : off + int(np.prod(shape))].view(shape)
+                labels = kernels.assign_nearest_cuda(img, c)
+                check(torch.equal(kernels.assign_boards_cuda(img, c), onehot_boards_plain(labels, len(c))),
+                      f"K7 boards != the one-hot boards of its labels, {shape} k={len(c)} offset {off}")
+                check(torch.equal(labels, kernels.assign_nearest_cuda(img.clone(), c)),
+                      f"K7 labels depend on the image's alignment, {shape} k={len(c)} offset {off}")
+                near_tie_flips(img.reshape(-1, 3), c.cpu().numpy(), labels.reshape(-1),
+                               assign_nearest_plain(img, c, len(c)).reshape(-1), f"K7 {shape} k={len(c)}")
+    print("K7 boards == one-hot boards of K7's labels: 6 shapes x k = 4, 8, 1, aligned and 5 bytes off")
 
 
 def phase_chain(stats: dict) -> None:
     import numpy as np
     import torch
 
-    from plotweave_torch.ops import kernels
-    from plotweave_torch.ops.bitpack import bitunpack_rows
-    from plotweave_torch.ops.canny import canny_candidates, hysteresis_plain
-    from plotweave_torch.ops.filters import gaussian_blur_u8
+    from plotweave_torch.ops import bitpack, kernels
+    from plotweave_torch.ops.canny import canny_candidates_plain, edge_candidates_plain, hysteresis_plain
+    from plotweave_torch.ops.filters import gaussian_blur_u8_plain
     from plotweave_torch.ops.kernels import hysteresis_cuda, zhang_suen_packed_cuda
-    from plotweave_torch.ops.thinning import zhang_suen_packed_plain
-    from plotweave_torch.stages.s02_color_extract import _binary_morph_u8, chain_from_clean
+    from plotweave_torch.ops.thinning import dense_from_boards_plain, zhang_suen_packed_plain
+    from plotweave_torch.stages.s02_color_extract import chain_from_clean, open_close_boards
 
     k, h, w = CHAIN_SHAPE
     _, bins = synthetic_image(1, h, w)
@@ -554,15 +781,80 @@ def phase_chain(stats: dict) -> None:
     t0 = time.perf_counter()
     ref = chain_from_clean(packed, w, *EDGE_PARAMS, device=cpu)
     cpu_s = time.perf_counter() - t0
+    kernels.reset_launches()
     got = chain_from_clean(packed, w, *EDGE_PARAMS, device=cuda)
+    torch.cuda.synchronize()
+    n = {key: c for key, c in kernels.LAUNCHES.items() if c}
+    check(n == CHAIN_LAUNCHES, f"one chain call launched {n}, expected {CHAIN_LAUNCHES}")
     check(torch.equal(got.cpu(), ref), "chain_from_clean: card != CPU at 4x1500x2000")
     nz = int(np.unpackbits(ref.numpy()).sum())
-    print(f"chain {k}x{h}x{w}: card == CPU ({ref.numel()} blob bytes, {nz} set bits)")
+    print(f"chain {k}x{h}x{w}: card == CPU ({ref.numel()} blob bytes, {nz} set bits); launches {n}")
+    stats["chain trace"] = only_own_kernels(
+        lambda: chain_from_clean(packed, w, *EDGE_PARAMS, device=cuda), f"chain {k}x{h}x{w}, one call",
+        {"rows_to_boards": 1, "morph_steps": 1, "edge_tiles": 1, "hysteresis_cluster": 1, "zs_cluster": 1,
+         "boards_to_rows": 2})
 
     # the kernels' inputs at the main path's shapes, as the chain makes them
     mk, oi, ci, bk, lo, hi = EDGE_PARAMS
-    m = _binary_morph_u8(bitunpack_rows(torch.from_numpy(packed).to(cuda), w) * 255, w, oi, ci, "ellipse", mk)
-    cand, strong = canny_candidates(gaussian_blur_u8(m, bk), lo, hi)
+    rows = torch.from_numpy(packed).to(cuda)
+    masks_b = bitpack.rows_to_boards(rows, w)
+    m = open_close_boards(masks_b, w, oi, ci, "ellipse", mk)
+    cand, strong = kernels.edge_candidates_cuda(m, w, bk, lo, hi)
+    cand_p, strong_p = edge_candidates_plain(m, w, bk, lo, hi)
+    check(torch.equal(masks_b, bitpack.rows_to_boards_plain(rows, w)), f"K1 rows -> boards != plain at {k}x{h}x{w}")
+    check(torch.equal(cand, cand_p) and torch.equal(strong, strong_p), f"K3+K4 != plain at {k}x{h}x{w}")
+    board_bytes, row_bytes = masks_b.numel() * 4, rows.numel()
+    blob = torch.empty((2, *rows.shape), dtype=torch.uint8, device=cuda)
+
+    def k1_chain():  # the chain's three conversions
+        b = kernels.rows_to_boards_cuda(rows, w)
+        kernels.boards_to_rows_cuda(b, w, out=blob[0])
+        kernels.boards_to_rows_cuda(cand, w, out=blob[1])
+
+    def k1_chain_plain():
+        bitpack.rows_to_boards_plain(rows, w)
+        torch.cat([bitpack.boards_to_rows_plain(masks_b, w), bitpack.boards_to_rows_plain(cand, w)])
+
+    def k34():
+        return kernels.edge_candidates_cuda(m, w, bk, lo, hi)
+
+    stats["K1 rows"] = {"max_abs_err": 0, "ms": cuda_ms(k1_chain, 20), "plain_ms": cuda_ms(k1_chain_plain, 3),
+                        "rows_to_boards_ms": cuda_ms(lambda: kernels.rows_to_boards_cuda(rows, w), 20),
+                        "boards_to_rows_ms": cuda_ms(lambda: kernels.boards_to_rows_cuda(cand, w, out=blob[1]), 20),
+                        "rows_to_boards_plain_ms": cuda_ms(lambda: bitpack.rows_to_boards_plain(rows, w), 3),
+                        "boards_to_rows_plain_ms": cuda_ms(lambda: bitpack.boards_to_rows_plain(cand, w), 3),
+                        "plain_device_kernels": sum(device_kernels(k1_chain_plain).values()),
+                        **bound(3 * (board_bytes + row_bytes), 0, INT32_OPS)}
+    stats["K3+K4"] = {"max_abs_err": 0, "ms": cuda_ms(k34, 20),
+                      "plain_ms": cuda_ms(lambda: edge_candidates_plain(m, w, bk, lo, hi), 3),
+                      "alone_ms": profiled_ms(k34, "edge_tiles", 20),
+                      "plain_device_kernels": sum(
+                          device_kernels(lambda: edge_candidates_plain(m, w, bk, lo, hi)).values()),
+                      **bound(3 * board_bytes, k * h * w * (2 * bk + EDGE_OPS_FIXED), INT32_OPS)}
+    # the two halves of the plain version apart: the blur (K3) of the dense mask, then Sobel, NMS, thresholds (K4)
+    dense_m = dense_from_boards_plain(m, w, 255)
+    blurred = gaussian_blur_u8_plain(dense_m, bk)
+    check(torch.equal(kernels.gaussian_blur_cuda(dense_m, bk), blurred), f"K3+K4 blur only != plain at {k}x{h}x{w}")
+    stats["K3+K4"].update(
+        blur_only_ms=cuda_ms(lambda: kernels.gaussian_blur_cuda(dense_m, bk), 20),
+        k3_plain_ms=cuda_ms(lambda: gaussian_blur_u8_plain(dense_m, bk), 3),
+        k3_plain_device_kernels=sum(device_kernels(lambda: gaussian_blur_u8_plain(dense_m, bk)).values()),
+        k4_plain_ms=cuda_ms(lambda: canny_candidates_plain(blurred, lo, hi), 3),
+        k4_plain_device_kernels=sum(device_kernels(lambda: canny_candidates_plain(blurred, lo, hi)).values()))
+    st = stats["K3+K4"]
+    print(f"  plain K3 (blur, ksize {bk}) {st['k3_plain_ms']:.4f} ms in {st['k3_plain_device_kernels']} device "
+          f"kernels, plain K4 (Sobel, NMS, thresholds) {st['k4_plain_ms']:.4f} ms in {st['k4_plain_device_kernels']}; "
+          f"the kernel's blur-only mode on the dense mask {st['blur_only_ms']:.4f} ms a call")
+    for key, what in (("K1 rows", "rows -> boards and two boards -> rows, the chain's three launches"),
+                      ("K3+K4", f"from a board, ksize {bk}")):
+        st = stats[key]
+        print(f"{key} at {k}x{h}x{w} ({what}): kernel {st['ms']:.4f} ms, plain PyTorch on the card "
+              f"{st['plain_ms']:.4f} ms in {st['plain_device_kernels']} device kernels, bound "
+              f"{st['bound_ms']:.5f} ms by {st['bound_by']}" + (f", kernel alone {st['alone_ms']:.4f} ms (torch.profiler)"
+                                     if st.get("alone_ms") else ""))
+    st = stats["K1 rows"]
+    print(f"  K1 alone: rows -> boards {st['rows_to_boards_ms']:.4f} ms (plain {st['rows_to_boards_plain_ms']:.4f}), "
+          f"boards -> rows {st['boards_to_rows_ms']:.4f} ms (plain {st['boards_to_rows_plain_ms']:.4f})")
     edges_p = hysteresis_plain(cand, strong)
     skel_p = zhang_suen_packed_plain(edges_p, 120, True)
     plain = {"K5": cuda_ms(lambda: hysteresis_plain(cand, strong), 3),
@@ -593,7 +885,8 @@ def phase_chain(stats: dict) -> None:
         stats[key + " multi"] = {"max_abs_err": 0, "ms": times["multi-launch"][key], "plain_ms": plain[key],
                                  **bounds[key]}
     stats["chain routes"] = times
-    chain_ms = cuda_ms(lambda: chain_from_clean(packed, w, *EDGE_PARAMS, device=cuda), 5)
+    chain_ms = cuda_ms(lambda: chain_from_clean(packed, w, *EDGE_PARAMS, device=cuda), 20)
+    stats["chain ms"] = chain_ms
     print(f"chain device time {chain_ms:.3f} ms/call (CUDA events, H2D of the masks included); "
           f"CPU plain version {cpu_s * 1e3:.1f} ms wall")
     print(f"K6 iterations per layer {k6_iters}; K5 (rounds, most sweeps of a CTA) per layer {k5_stats}")
@@ -639,7 +932,8 @@ def phase_main_path(work: Path) -> dict:
     wall_cuda = time.perf_counter() - t0
     first = dict(kernels.LAUNCHES)
     check(all(first[n] > 0 for n in MAIN_PATH_KERNELS), f"main path did not launch K2, K5 and K6: {first}")
-    check(first["morph_bits"] == 1, f"main path: K2 made {first['morph_bits']} launches, not one: {first}")
+    check({n: first[n] for n in CHAIN_LAUNCHES} == CHAIN_LAUNCHES,
+          f"main path: the chain's launches are {first}, expected {CHAIN_LAUNCHES}")
     check(first["hysteresis_multi"] == first["zhang_suen_packed_multi"] == 0,
           f"main path at 2000x1500 left the resident route: {first}")
     t0 = time.perf_counter()
@@ -696,13 +990,30 @@ def phase_main_path(work: Path) -> dict:
         runs[device] = run_main(image, out, device, out / "config.json", end_step=4)
         if device == "auto":
             big = dict(kernels.LAUNCHES)
-    check(all(big[n] > 0 for n in MULTI_KERNELS) and big["morph_bits"] == 1
-          and big["hysteresis"] == big["zhang_suen_packed"] == 0, f"{BIG_SIDE}x{BIG_SIDE}: launches {big}")
+    check(all(big[n] > 0 for n in MULTI_KERNELS) and big["morph_bits"] == 1 and big["bitpack"] == 3
+          and big["edge_candidates"] == 1 and big["hysteresis"] == big["zhang_suen_packed"] == 0,
+          f"{BIG_SIDE}x{BIG_SIDE}: launches {big}")
     diff = same_artifacts(work / "big_auto", work / "big_cpu", names, stream=False)
     check(not diff, f"{BIG_SIDE}x{BIG_SIDE} steps 1-4: card run != CPU run: {diff}")
     print(f"main path, steps 1-4 on {BIG_SIDE}x{BIG_SIDE} (max_dimension {BIG_SIDE}): card == CPU, K5 and K6 by "
           f"the multi-launch route; launches {big}; card stage seconds {sum(runs['auto'].values()):.3f}")
     return {"main": first, "big": big}
+
+
+def k7_flops(img, k: int) -> float:
+    """The float operations K7's function needs on this image: the fixed
+    part and the distances per pixel, and per XYZ value a cbrtf or the linear
+    branch, counted from the data."""
+    import torch
+
+    from plotweave_torch.ops.colorspace import _D, _M, _WHITE, _div, _srgb_gamma_inv
+
+    bgr = _div(img.to(torch.float32), 255.0)
+    lin = [_srgb_gamma_inv(bgr[..., 2 - c]) for c in range(3)]
+    cbrts = sum(int((_div(float(m[0]) * lin[0] + float(m[1]) * lin[1] + float(m[2]) * lin[2], float(white))
+                     > _D**3).sum()) for m, white in zip(_M, _WHITE))
+    px = img.numel() // 3
+    return px * (K7_FLOPS_FIXED + k * K7_FLOPS_PER_CENTER) + cbrts * CBRT_FLOPS + (3 * px - cbrts) * LINEAR_FLOPS
 
 
 def phase_frontend(stats: dict) -> dict:
@@ -711,10 +1022,13 @@ def phase_frontend(stats: dict) -> dict:
     import torch
 
     from plotweave_torch.ops import kernels
+    from plotweave_torch.ops.canny import edge_candidates_plain
     from plotweave_torch.ops.frontend import (
-        assign_nearest, assign_nearest_plain, frontend_from_labels, frontend_steps, raster_frontend)
+        assign_boards_plain, assign_nearest, assign_nearest_plain, frontend_from_labels, frontend_steps,
+        onehot_boards_plain, raster_frontend)
     from plotweave_torch.ops.morphology import _valid_bits, morph_steps_plain
-    from plotweave_torch.ops.thinning import pack_bitboards, unpack_bitboards, zhang_suen_dense_plain
+    from plotweave_torch.ops.thinning import (
+        dense_from_boards_plain, pack_bitboards_plain, unpack_bitboards_plain, zhang_suen_dense_plain)
 
     h, w = FRONTEND_SHAPE
     img_np, _ = synthetic_image(3, h, w)
@@ -734,14 +1048,17 @@ def phase_frontend(stats: dict) -> dict:
         out[route] = raster_frontend(img, c, k=4, pallas_thinning=route)
         torch.cuda.synchronize()
         launches[route] = dict(kernels.LAUNCHES)
-    need = {False: ("assign_nearest", "morph_bits", "hysteresis", "zhang_suen_packed"), True: ("zhang_suen_dense",)}
-    for route, names in need.items():
-        check(all(launches[route][n] > 0 for n in names), f"front-end route {route}: {names} not all launched: "
-              f"{launches[route]}")
-        check(launches[route]["morph_bits"] == 1, f"front-end route {route}: K2 made {launches[route]['morph_bits']} "
-              f"launches, not one")
-    check(launches[True]["zhang_suen_dense"] <= 2,
-          f"front-end dense route: K12 made {launches[True]['zhang_suen_dense']} launches, more than two")
+    # K7, K2, K3+K4, K5, then K6 and two K1 (edges, skeletons), or K1, K12 and two more K1
+    need = {False: {"assign_nearest": 1, "morph_bits": 1, "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 1,
+                    "bitpack": 2},
+            True: {"assign_nearest": 1, "morph_bits": 1, "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 0,
+                   "bitpack": 3}}
+    for route, counts in need.items():
+        check(all(launches[route][n] == v for n, v in counts.items()),
+              f"front-end route {route}: launches {launches[route]}, expected {counts}")
+    check(launches[False]["zhang_suen_dense"] == 0 and 1 <= launches[True]["zhang_suen_dense"] <= 2,
+          f"front-end: K12 made {launches[False]['zhang_suen_dense']} launches on the default route and "
+          f"{launches[True]['zhang_suen_dense']} on the dense route (expected 0, and 1 or 2)")
     check(torch.equal(out[True][0], out[False][0]) and torch.equal(out[True][1], out[False][1]),
           "front-end: the K12 route's output != the K6 route's on the card")
     labels = assign_nearest(img, c, 4)
@@ -755,15 +1072,31 @@ def phase_frontend(stats: dict) -> dict:
     edges, skel = out[False]
     print(f"front-end {h}x{w} k=4: card == CPU from the same labels, both routes; K12 route == K6 route; "
           f"{int(edges.count_nonzero())} edge px, {int(skel.count_nonzero())} skeleton px; "
-          f"launches default {launches[False]}, dense {launches[True]['zhang_suen_dense']} K12")
+          f"launches default {launches[False]}, dense {launches[True]}")
+    common = {"assign_nearest": 1, "morph_steps": 1, "edge_tiles": 1, "hysteresis_cluster": 1, "boards_to_dense": 2}
+    for route, name, rest in ((False, "default route", {"zs_cluster": 1}),
+                              (True, "dense route",
+                               {"zs_tiles": launches[True]["zhang_suen_dense"], "dense_to_boards": 1})):
+        stats[f"front-end trace {route}"] = only_own_kernels(
+            lambda route=route: raster_frontend(img, c, k=4, pallas_thinning=route),
+            f"front-end {h}x{w}, {name}, one call", {**common, **rest})
 
     # device times at the front-end's shapes
-    route_ms = {route: cuda_ms(lambda route=route: raster_frontend(img, c, k=4, pallas_thinning=route), 5)
+    route_ms = {route: cuda_ms(lambda route=route: raster_frontend(img, c, k=4, pallas_thinning=route), 20)
                 for route in (False, True)}
-    k7 = kernels.assign_nearest_cuda(img, c)
-    stats["K7"].update(ms=cuda_ms(lambda: kernels.assign_nearest_cuda(img, c), 20),
-                       plain_ms=cuda_ms(lambda: assign_nearest_plain(img, c, 4), 5))
-    masks_b = pack_bitboards(k7[None, :, :] == torch.arange(4, device=cuda)[:, None, None])
+    stats["front-end ms"] = route_ms
+    masks_b = kernels.assign_boards_cuda(img, c)
+    check(torch.equal(masks_b, onehot_boards_plain(labels, 4)), "K7 boards != the one-hot boards of its labels")
+    px = h * w
+    stats["K7"].update(ms=cuda_ms(lambda: kernels.assign_boards_cuda(img, c), 20),
+                       plain_ms=cuda_ms(lambda: assign_boards_plain(img, c, 4), 5),
+                       labels_ms=cuda_ms(lambda: kernels.assign_nearest_cuda(img, c), 20),
+                       labels_plain_ms=cuda_ms(lambda: assign_nearest_plain(img, c, 4), 5),
+                       alone_ms=profiled_ms(lambda: kernels.assign_boards_cuda(img, c), "assign_nearest", 20),
+                       labels_alone_ms=profiled_ms(lambda: kernels.assign_nearest_cuda(img, c), "assign_nearest", 20))
+    flops = k7_flops(img, 4)
+    stats["K7"].update(bound(img.numel() + masks_b.numel() * 4, flops, FP32_OPS))
+    stats["K7"]["labels_bound"] = bound(img.numel() + px * 4, flops, FP32_OPS)
     valid = _valid_bits(w, cuda)
     steps = frontend_steps()
 
@@ -773,20 +1106,55 @@ def phase_frontend(stats: dict) -> dict:
     def k12_call():
         return kernels.zhang_suen_dense_cuda(edges)
 
-    k2 = unpack_bitboards(k2_call(), w)
+    k2_b = k2_call()
+    k2 = unpack_bitboards_plain(k2_b, w)
     taps = sum(bin(m).count("1") for shape, ksize, _ in steps for m in kernels.element_rows(shape, ksize)[1])
     board = masks_b.numel() * 4
-    stats["K2"] = {"max_abs_err": max_abs_err(k2, unpack_bitboards(morph_steps_plain(masks_b, valid, steps), w)),
+    stats["K2"] = {"max_abs_err": max_abs_err(k2, unpack_bitboards_plain(morph_steps_plain(masks_b, valid, steps), w)),
                    "ms": cuda_ms(k2_call, 20),
                    "plain_ms": cuda_ms(lambda: morph_steps_plain(masks_b, valid, steps), 5),
                    # a funnel shift and an OR per tap and word
                    **bound(2 * board + valid.numel() * 4, masks_b.numel() * 2 * taps, INT32_OPS)}
-    stats["K7"].update(bound(img.numel() + k7.numel() * 4, k7.numel() * K7_FLOPS_PER_PX, FP32_OPS))
-    k12 = k12_call()
+
+    # K3+K4 at the front-end's blur (ksize 7) and K1's dense side at 4 x H x W
+    def k34():
+        return kernels.edge_candidates_cuda(k2_b, w, 7, 22, 70)
+
+    got, plain = k34(), edge_candidates_plain(k2_b, w, 7, 22, 70)
+    check(torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]), "K3+K4 != plain at the front-end's shapes")
+    stats["K3+K4 front-end"] = {"ms": cuda_ms(k34, 20), "alone_ms": profiled_ms(k34, "edge_tiles", 20),
+                                "plain_ms": cuda_ms(lambda: edge_candidates_plain(k2_b, w, 7, 22, 70), 3),
+                                **bound(3 * board, 4 * px * (2 * 7 + EDGE_OPS_FIXED), INT32_OPS)}
+    edges_b = kernels.dense_to_boards_cuda(edges)
+    check(torch.equal(edges_b, pack_bitboards_plain(edges))
+          and torch.equal(kernels.boards_to_dense_cuda(edges_b, w, 255), edges),
+          "K1 != plain at the front-end's shapes")
+
+    def k1_dense():  # the default route's two conversions
+        kernels.boards_to_dense_cuda(edges_b, w, 255)
+        kernels.boards_to_dense_cuda(k2_b, w, 1)
+
+    def k1_dense_plain():
+        dense_from_boards_plain(edges_b, w, 255)
+        dense_from_boards_plain(k2_b, w, 1)
+
+    stats["K1 dense"] = {"max_abs_err": 0, "ms": cuda_ms(k1_dense, 20), "plain_ms": cuda_ms(k1_dense_plain, 3),
+                         "plain_device_kernels": sum(device_kernels(k1_dense_plain).values()),
+                         "alone_ms": profiled_ms(k1_dense, "boards_to_dense", 20),
+                         **bound(2 * (board + edges.numel()), 0, INT32_OPS)}
+    skel32 = k12_call()
+    stats["K1 pack"] = {"max_abs_err": 0,
+                        "ms": cuda_ms(lambda: kernels.dense_to_boards_cuda(edges), 20),
+                        "plain_ms": cuda_ms(lambda: pack_bitboards_plain(edges), 3),
+                        "int32_ms": cuda_ms(lambda: kernels.dense_to_boards_cuda(skel32), 20),
+                        "int32_plain_ms": cuda_ms(lambda: pack_bitboards_plain(skel32), 3),
+                        "plain_device_kernels": sum(device_kernels(lambda: pack_bitboards_plain(edges)).values()),
+                        **bound(board + edges.numel(), 0, INT32_OPS)}
+    k12 = skel32
     k12_iters = kernels.STATS["zhang_suen_dense"]
     # the iterations these edges need, per layer (K6 runs the same fixpoint),
     # at the bit-sliced count of 32 pixels a word: the least work of the function
-    kernels.zhang_suen_packed_cuda(pack_bitboards(edges), 120, True)
+    kernels.zhang_suen_packed_cuda(edges_b, 120, True)
     iters = kernels.STATS["zhang_suen_packed"].tolist()
     stats["K12"] = {"max_abs_err": max_abs_err(k12, zhang_suen_dense_plain(edges)),
                     "ms": cuda_ms(k12_call, 10),
@@ -811,10 +1179,23 @@ def phase_frontend(stats: dict) -> dict:
     for route, name in ((False, "K6 route"), (True, "K12 route")):
         print(f"front-end {name}: {route_ms[route]:.3f} ms/call (CUDA events), {mpx / route_ms[route] * 1e3:.1f} Mpx/s")
     print(f"front-end on the CPU (plain versions, labels + both routes): {cpu_s * 1e3:.1f} ms wall")
-    for name, what in (("K7", f"{h}x{w} px"), ("K2", "the front-end's 8 steps, one call"), ("K12", f"4x{h}x{w}")):
+    st = stats["K7"]
+    print(f"K7 at {h}x{w} px, k=4: boards {st['ms']:.4f} ms a call ({st['alone_ms'] or float('nan'):.4f} alone), plain "
+          f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.5f} ms by {st['bound_by']}; labels {st['labels_ms']:.4f} ms "
+          f"a call ({st['labels_alone_ms'] or float('nan'):.4f} alone), plain {st['labels_plain_ms']:.4f} ms, bound "
+          f"{st['labels_bound']['bound_ms']:.5f} ms by {st['labels_bound']['bound_by']}; {flops / px:.1f} float "
+          f"operations a pixel")
+    for name, what in (("K2", "the front-end's 8 steps, one call"), ("K12", f"4x{h}x{w}"),
+                       ("K3+K4 front-end", f"4x{h}x{w} from a board, ksize 7"),
+                       ("K1 dense", f"two boards -> dense uint8 at 4x{h}x{w}"),
+                       ("K1 pack", f"dense uint8 -> boards at 4x{h}x{w}")):
         st = stats[name]
         print(f"{name} at {what}: kernel {st['ms']:.4f} ms, plain PyTorch on the card {st['plain_ms']:.4f} ms, "
-              f"max_abs_err {st['max_abs_err']}, bound {st['bound_ms']:.5f} ms by {st['bound_by']}")
+              f"bound {st['bound_ms']:.5f} ms by {st['bound_by']}"
+              + (f", alone {st['alone_ms']:.4f} ms (torch.profiler)" if st.get("alone_ms") else "")
+              + (f", plain in {st['plain_device_kernels']} device kernels" if "plain_device_kernels" in st else ""))
+    st = stats["K1 pack"]
+    print(f"  K1 dense int32 -> boards (K12's output): {st['int32_ms']:.4f} ms, plain {st['int32_plain_ms']:.4f} ms")
     for name, (prof_ms, bare_ms) in alone.items():
         print(f"{name} kernel alone: " + (f"{prof_ms:.4f} ms a call by torch.profiler" if prof_ms is not None
                                           else "not measured by torch.profiler (no device time in its trace)")
@@ -822,8 +1203,7 @@ def phase_frontend(stats: dict) -> dict:
     print(f"K2 wrapper host time: {host_us:.1f} us a call (perf_counter over 50 calls, no sync)")
     print(f"K12's edges need {iters} iterations per layer; a dense call launched {k12_iters} iterations in "
           f"{launches[True]['zhang_suen_dense']} launch(es)")
-    return {"assign_nearest": launches[False]["assign_nearest"],
-            "zhang_suen_dense": launches[True]["zhang_suen_dense"]}
+    return launches
 
 
 def phase_entry() -> None:
@@ -847,25 +1227,36 @@ def main() -> None:
     stats: dict = {}
     phase_kernels_vs_plain(stats)
     phase_new_kernels_vs_plain(stats)
+    phase_layout_and_edge_kernels(stats)
     phase_chain(stats)
     with tempfile.TemporaryDirectory(prefix="pw_smoke_") as tmp:
         paths = phase_main_path(Path(tmp))
-    paths["front-end"] = phase_frontend(stats)
+    launches = phase_frontend(stats)
+    paths["front-end"], paths["front-end dense"] = launches[False], launches[True]
     phase_entry()
 
     # (name, path whose run counted its launches, launch name, source, TPU kernel, stats key)
     src = "plotweave_torch/csrc/bitboard_fixpoints.cu"
-    rows = [("K2 morph_bits", "main", "morph_bits", "plotweave_torch/csrc/morph_bits.cu",
+    k1 = "plotweave_torch/csrc/bitpack.cu"
+    rows = [("K1 bitpack, rows <-> boards (the chain's three launches)", "main", "bitpack", k1,
+             "plotweave/ops/bitpack.py:15", "K1 rows"),
+            ("K1 bitpack, boards -> dense (the front-end's two launches)", "front-end", "bitpack", k1,
+             "plotweave/ops/thinning.py:178", "K1 dense"),
+            ("K1 bitpack, dense -> boards (one of the dense route's three K1 launches)", "front-end dense",
+             "bitpack", k1, "plotweave/ops/thinning.py:166", "K1 pack"),
+            ("K2 morph_bits", "main", "morph_bits", "plotweave_torch/csrc/morph_bits.cu",
              "plotweave/ops/morphology.py:133", "K2"),
+            ("K3+K4 edge_candidates", "main", "edge_candidates", "plotweave_torch/csrc/edge_candidates.cu",
+             "plotweave/ops/canny.py:59", "K3+K4"),
             ("K5 hysteresis, resident", "main", "hysteresis", src, "plotweave/ops/canny.py:133", "K5"),
             ("K5 hysteresis, multi-launch", "big", "hysteresis_multi", src, "plotweave/ops/canny.py:133", "K5 multi"),
             ("K6 zhang_suen_packed, resident", "main", "zhang_suen_packed", src,
              "plotweave/ops/pallas_kernels.py:179", "K6"),
             ("K6 zhang_suen_packed, multi-launch", "big", "zhang_suen_packed_multi", src,
              "plotweave/ops/pallas_kernels.py:179", "K6 multi"),
-            ("K7 assign_nearest", "front-end", "assign_nearest", "plotweave_torch/csrc/assign_nearest.cu",
+            ("K7 assign_nearest (boards)", "front-end", "assign_nearest", "plotweave_torch/csrc/assign_nearest.cu",
              "plotweave/ops/frontend.py:24", "K7"),
-            ("K12 zhang_suen_dense", "front-end", "zhang_suen_dense", "plotweave_torch/csrc/zs_dense.cu",
+            ("K12 zhang_suen_dense", "front-end dense", "zhang_suen_dense", "plotweave_torch/csrc/zs_dense.cu",
              "plotweave/ops/pallas_kernels.py:99", "K12")]
     print("launches counted in: " + "; ".join(f"{name}: {PATH_RUNS[path]}" for name, path, *_ in rows))
     table = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -488,14 +488,17 @@ int pw_zs_cluster_run(const uint32_t* in, uint32_t* out, int* iters, int k, int 
 }
 
 // K5, resident: the hysteresis fixpoint of (cand, strong) into `out`;
-// stats[2 layer] gets the rounds and stats[2 layer + 1] (zeroed by the
-// caller) the most sweeps one CTA ran.  Returns a CUDA error code.
+// stats[2 layer] gets the rounds and stats[2 layer + 1] (zeroed here) the
+// most sweeps one CTA ran.  Returns a CUDA error code.
 int pw_hysteresis_cluster_run(const uint32_t* cand, const uint32_t* strong, uint32_t* out,
                               int* stats, int k, int h, int nw, void* stream) {
   if (k <= 0 || h <= 0 || nw <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(stats, 0, sizeof(int) * 2 * k, s);
+  if (err != cudaSuccess) return (int)err;
   size_t smem = cluster_smem_bytes(1, h, nw);
   void* args[] = {&cand, &strong, &out, &stats, &k, &h, &nw};
-  return (int)launch_cluster(hysteresis_cluster, k, smem, static_cast<cudaStream_t>(stream), args);
+  return (int)launch_cluster(hysteresis_cluster, k, smem, s, args);
 }
 
 // K6, multi-launch: n_iter Zhang-Suen iterations from `src` (the call's

@@ -8,14 +8,17 @@ through the candidates, ``edges = cand & dilate8(edges)``, until nothing
 changes, on the int32 bitboards of ``ops/thinning.py``.  Growth is monotone
 and bounded by ``cand``, so the fixpoint is unique and any sweep schedule run
 to "no change" gives it: :func:`hysteresis` runs kernel K5 on a CUDA tensor
-and :func:`hysteresis_plain` on a CPU tensor.
+and :func:`hysteresis_plain` on a CPU tensor.  Everything before the
+hysteresis, with the Q8 blur in front of it, is one kernel on the card
+(K3+K4, :func:`edge_candidates`) and :func:`edge_candidates_plain` on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .thinning import _nbr_bits, _shift_rows, pack_bitboards, unpack_bitboards
+from .filters import gaussian_blur_u8_plain
+from .thinning import _nbr_bits, _shift_rows, dense_from_boards, dense_from_boards_plain, pack_bitboards_plain
 
 _TG22 = 13573  # tan(22.5°) in Q15
 _SHIFT = 15
@@ -71,7 +74,7 @@ def hysteresis(cand: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
     return hysteresis_plain(cand, strong)
 
 
-def canny_candidates(img: torch.Tensor, low: int, high: int):
+def canny_candidates_plain(img: torch.Tensor, low: int, high: int):
     """Sobel, sector NMS and the double threshold of (..., H, W) uint8 →
     (candidate, strong) int32 bitboards: the hysteresis inputs."""
     if low > high:
@@ -104,11 +107,44 @@ def canny_candidates(img: torch.Tensor, low: int, high: int):
 
     cand = (mag > low) & keep
     strong = cand & (mag > high)
-    return pack_bitboards(cand), pack_bitboards(strong)
+    return pack_bitboards_plain(cand), pack_bitboards_plain(strong)
+
+
+def edge_candidates_plain(x: torch.Tensor, w: int, ksize: int, low: int, high: int, sigma: float = 0.0):
+    """The plain version of kernel K3+K4: the Q8 blur, then
+    :func:`canny_candidates_plain`.  ``x`` is an int32 bitboard (..., H,
+    ceil(w/32)), a set bit reading as 255, or a uint8 image (..., H, w) →
+    (candidate, strong) int32 bitboards."""
+    img = dense_from_boards_plain(x, w, 255) if x.dtype == torch.int32 else x
+    return canny_candidates_plain(gaussian_blur_u8_plain(img, ksize, sigma), low, high)
+
+
+def edge_candidates(x: torch.Tensor, w: int, ksize: int, low: int, high: int, sigma: float = 0.0):
+    """:func:`edge_candidates_plain` on the tensor's device: one launch of
+    kernel K3+K4 (``ops/kernels.py``) for a CUDA tensor, the plain version
+    for a CPU tensor, else raise."""
+    if x.is_cuda:
+        from .kernels import edge_candidates_cuda  # noqa: PLC0415
+
+        return edge_candidates_cuda(x, w, ksize, low, high, sigma)
+    if x.device.type != "cpu":
+        raise ValueError(f"edge_candidates: no kernel for device {x.device}")
+    return edge_candidates_plain(x, w, ksize, low, high, sigma)
+
+
+def canny_candidates(img: torch.Tensor, low: int, high: int):
+    """:func:`canny_candidates_plain` on the image's device (kernel K3+K4
+    with ``ksize`` 1, which blurs nothing, for a CUDA image)."""
+    return edge_candidates(img, img.shape[-1], 1, low, high)
+
+
+def canny_boards(x: torch.Tensor, w: int, ksize: int, low: int, high: int) -> torch.Tensor:
+    """Blur, Canny and hysteresis of a bitboard mask or a uint8 image → the
+    edges as an int32 bitboard (K3+K4, then K5 on the card)."""
+    return hysteresis(*edge_candidates(x, w, ksize, low, high))
 
 
 def canny_packed(img: torch.Tensor, low: int, high: int):
     """(..., H, W) uint8 → (dense uint8 0/255 edges, int32 bitboard edges)."""
     edges_b = hysteresis(*canny_candidates(img, low, high))
-    edges = unpack_bitboards(edges_b, img.shape[-1])
-    return (edges != 0).to(torch.uint8) * 255, edges_b
+    return dense_from_boards(edges_b, img.shape[-1], 255), edges_b

@@ -3,7 +3,10 @@
 The taps are OpenCV's fixed-point kernel (sum 256); one ``(acc + 2^15) >> 16``
 rounding after both passes makes it bit-identical to cv2 for ksize ≤ 7.  The
 row pass runs in int32 (PyTorch has no uint16 ``+`` on the CPU); its values
-are the JAX uint16 pass's, at most 256·255 = 65280.
+are the JAX uint16 pass's, at most 256·255 = 65280.  On a CUDA tensor the
+blur runs in kernel K3+K4 (``csrc/edge_candidates.cu``): alone through
+:func:`gaussian_blur_u8`, or fused with Canny's first half through
+``ops.canny.edge_candidates``.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ def reflect101_index(n: int, r: int, device=None) -> torch.Tensor:
     return torch.from_numpy(i).to(device)
 
 
-def gaussian_blur_u8(img: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
+def gaussian_blur_u8_plain(img: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
     """Blur (..., H, W) uint8 with a reflect-101 border; bit-exact for ksize ≤ 7."""
     kq = gaussian_kernel_q8(ksize, sigma)
     r = ksize // 2
@@ -61,3 +64,18 @@ def gaussian_blur_u8(img: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch
     for i in range(ksize):
         acc = acc + int(kq[i]) * p[..., i : i + h, :]
     return ((acc + (1 << 15)) >> 16).clamp(0, 255).to(torch.uint8)
+
+
+def gaussian_blur_u8(img: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
+    """:func:`gaussian_blur_u8_plain` on the image's device: the blur-only
+    mode of kernel K3+K4 (``ops/kernels.py``) for a CUDA tensor, the plain
+    version for a CPU tensor, else raise."""
+    if ksize // 2 == 0:
+        return img
+    if img.is_cuda:
+        from .kernels import gaussian_blur_cuda  # noqa: PLC0415
+
+        return gaussian_blur_cuda(img, ksize, sigma)
+    if img.device.type != "cpu":
+        raise ValueError(f"gaussian_blur_u8: no kernel for device {img.device}")
+    return gaussian_blur_u8_plain(img, ksize, sigma)

@@ -1,15 +1,16 @@
 """Fused raster front-end: image → per-layer edges + skeletons (twin of
 ``plotweave/ops/frontend.py``).
 
-Lab conversion and the nearest of k centres (kernel K7 on the card), one-hot
-masks packed to bitboards, four packed morphology programs as one step list
-(kernel K2, one launch), the
-Q8 blur, Canny (hysteresis: kernel K5) and Zhang–Suen thinning: the packed
-fixpoint K6 by default, or the dense kernel K12 with
-``pallas_thinning=True``.  Leading batch dims are allowed on the default
-route.  Everything runs on the device of the image; after the labels the
-chain is integer, so from the same labels its bytes are the same on either
-device.
+Lab conversion and the nearest of k centres as one-hot bitboards (kernel K7
+on the card: no labels reach device memory), four packed morphology programs
+as one step list (kernel K2, one launch), the Q8 blur with Canny's Sobel, NMS
+and thresholds (kernel K3+K4, one launch), the hysteresis (kernel K5) and
+Zhang–Suen thinning: the packed fixpoint K6 by default, or the dense kernel
+K12 with ``pallas_thinning=True``; kernel K1 turns the boards into the dense
+outputs.  Leading batch dims are allowed on the default route.  Everything
+runs on the device of the image: on the card every step is a kernel of
+``csrc/``, on the CPU its plain version.  After the labels the chain is
+integer, so from the same labels its bytes are the same on either device.
 """
 
 from __future__ import annotations
@@ -19,11 +20,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .canny import canny_packed
+from .canny import canny_boards
 from .colorspace import _M, _WHITE, bgr_to_lab_u8
-from .filters import gaussian_blur_u8
 from .morphology import _valid_bits, morph_program, morph_steps
-from .thinning import pack_bitboards, unpack_bitboards, zhang_suen_dense, zhang_suen_packed
+from .thinning import (
+    _on_card, dense_from_boards, pack_bitboards, pack_bitboards_plain, zhang_suen_dense, zhang_suen_packed)
 
 
 def _centers_on(centers, device: torch.device, k: int) -> torch.Tensor:
@@ -76,17 +77,49 @@ def nearest_gaps(pixels: np.ndarray, centers) -> np.ndarray:
     return dist[:, 1] - dist[:, 0]
 
 
+def onehot_boards_plain(labels: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., H, W) int32 labels → the ``k`` one-hot int32 bitboards (..., k,
+    H, ceil(W/32)): bit x of layer c is set where the label is c."""
+    return pack_bitboards_plain(labels[..., None, :, :] == torch.arange(k, device=labels.device)[:, None, None])
+
+
+def assign_boards_plain(image: torch.Tensor, centers: torch.Tensor, k: int) -> torch.Tensor:
+    """The one-hot bitboards of :func:`assign_nearest_plain`'s labels: the
+    plain version of kernel K7's boards."""
+    return onehot_boards_plain(assign_nearest_plain(image, centers, k), k)
+
+
 def assign_nearest(image: torch.Tensor, centers, k: int) -> torch.Tensor:
     """:func:`assign_nearest_plain` on the image's device: kernel K7 for a
     CUDA image, the plain version for a CPU image, else raise."""
     c = _centers_on(centers, image.device, k)
-    if image.is_cuda:
+    if _on_card("assign_nearest", image):
         from .kernels import assign_nearest_cuda  # noqa: PLC0415
 
         return assign_nearest_cuda(image, c)
-    if image.device.type != "cpu":
-        raise ValueError(f"assign_nearest: no kernel for device {image.device}")
     return assign_nearest_plain(image, c, k)
+
+
+def assign_boards(image: torch.Tensor, centers, k: int) -> torch.Tensor:
+    """(..., H, W, 3) uint8 BGR → the one-hot int32 bitboards (..., k, H,
+    ceil(W/32)) of each pixel's nearest centre: kernel K7 for a CUDA image
+    (it writes the boards directly), :func:`assign_boards_plain` for a CPU
+    image, else raise."""
+    c = _centers_on(centers, image.device, k)
+    if _on_card("assign_boards", image):
+        from .kernels import assign_boards_cuda  # noqa: PLC0415
+
+        return assign_boards_cuda(image, c)
+    return assign_boards_plain(image, c, k)
+
+
+def onehot_boards(labels: torch.Tensor, k: int) -> torch.Tensor:
+    """:func:`onehot_boards_plain` on the labels' device (kernel K1 on the card)."""
+    if _on_card("onehot_boards", labels):
+        from .kernels import labels_to_boards_cuda  # noqa: PLC0415
+
+        return labels_to_boards_cuda(labels, k)
+    return onehot_boards_plain(labels, k)
 
 
 def frontend_steps(extract_iters: int = 1, edge_kernel: int = 3, edge_iters: int = 1) -> tuple:
@@ -98,9 +131,9 @@ def frontend_steps(extract_iters: int = 1, edge_kernel: int = 3, edge_iters: int
             + morph_program("ellipse", edge_kernel, edge_iters, "de"))
 
 
-def frontend_from_labels(
-    labels: torch.Tensor,  # (..., H, W) int32
-    k: int,
+def frontend_from_boards(
+    masks_b: torch.Tensor,  # (..., k, H, ceil(W/32)) int32 one-hot bitboards
+    w: int,
     *,
     extract_iters: int = 1,
     edge_kernel: int = 3,
@@ -111,21 +144,25 @@ def frontend_from_labels(
     thin_iters: int = 120,
     pallas_thinning: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The front-end after :func:`assign_nearest` → (edges, skeletons), each
-    (..., k, H, W) uint8; see :func:`raster_frontend` for the parameters."""
-    w = labels.shape[-1]
-    masks_b = pack_bitboards(labels[..., None, :, :] == torch.arange(k, device=labels.device)[:, None, None])
+    """The front-end after the assignment, over bitboards → (edges,
+    skeletons), each (..., k, H, W) uint8; see :func:`raster_frontend` for
+    the parameters.  On the card: K2, K3+K4, K5, then K6 and K1, or K1, K12
+    and K1."""
     steps = frontend_steps(extract_iters, edge_kernel, edge_iters)
-    masks_b = morph_steps(masks_b, _valid_bits(w, labels.device), steps)
-    masks = unpack_bitboards(masks_b, w).to(torch.uint8) * 255
+    masks_b = morph_steps(masks_b, _valid_bits(w, masks_b.device), steps)
     # the hysteresis board feeds the packed thinner in the same encoding
-    edges, edges_b = canny_packed(gaussian_blur_u8(masks, blur_kernel), low, high)
+    edges_b = canny_boards(masks_b, w, blur_kernel, low, high)
+    edges = dense_from_boards(edges_b, w, 255)
     if pallas_thinning:
-        skel = zhang_suen_dense(edges, max_iter=thin_iters, rotated=True).to(torch.uint8)
+        skel_b = pack_bitboards(zhang_suen_dense(edges, max_iter=thin_iters, rotated=True))
     else:
         skel_b = zhang_suen_packed(edges_b, max_iter=thin_iters, rotated=True)
-        skel = unpack_bitboards(skel_b, w).to(torch.uint8)
-    return edges, skel
+    return edges, dense_from_boards(skel_b, w, 1)
+
+
+def frontend_from_labels(labels: torch.Tensor, k: int, **params) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`frontend_from_boards` from (..., H, W) int32 labels."""
+    return frontend_from_boards(onehot_boards(labels, k), labels.shape[-1], **params)
 
 
 def raster_frontend(
@@ -151,9 +188,8 @@ def raster_frontend(
     same.  Like the JAX kernel it takes no batch dims and raises
     ``ValueError`` for a batched image.  The keyword keeps its JAX name so a
     call site ports by its import alone."""
-    labels = assign_nearest(image, centers, k)
-    return frontend_from_labels(
-        labels, k, extract_iters=extract_iters, edge_kernel=edge_kernel, edge_iters=edge_iters,
-        blur_kernel=blur_kernel, low=low, high=high, thin_iters=thin_iters,
+    return frontend_from_boards(
+        assign_boards(image, centers, k), image.shape[-2], extract_iters=extract_iters, edge_kernel=edge_kernel,
+        edge_iters=edge_iters, blur_kernel=blur_kernel, low=low, high=high, thin_iters=thin_iters,
         pallas_thinning=pallas_thinning,
     )

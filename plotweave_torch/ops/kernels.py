@@ -1,11 +1,22 @@
 """Hand-written CUDA kernels: build, binding and wrappers.
 
+- K1 ``rows_to_boards_cuda``, ``boards_to_rows_cuda``, ``boards_to_dense_cuda``,
+  ``dense_to_boards_cuda`` and ``labels_to_boards_cuda`` (``csrc/bitpack.cu``):
+  the conversions between packed rows (8 px a byte), bitboards (32 px a word)
+  and dense pixels; replace the XLA fusions of ``bitpack_rows``,
+  ``bitunpack_rows``, ``pack_bitboards`` and ``unpack_bitboards``.
 - K2 ``morph_steps_cuda`` (``csrc/morph_bits.cu``): a whole sequence of
   packed dilations and erosions in one launch, each block holding a band of
   rows and the sequence's halo in shared memory; replaces the XLA fusion of
   ``morph_bits`` and chains of its calls.  :func:`morph_schedule` splits a
   sequence whose halo does not fit into segments, one launch each, before
   any launch (the defaults are one segment).
+- K3+K4 ``edge_candidates_cuda`` and ``gaussian_blur_cuda``
+  (``csrc/edge_candidates.cu``): the Q8 blur, Sobel, magnitude, sector NMS
+  and double threshold in one launch, from a bitboard or a uint8 image to
+  the candidate and strong boards (or the blurred image); replaces the XLA
+  fusions of ``gaussian_blur_u8`` and of ``canny_packed`` before its
+  hysteresis.  :func:`edge_schedule` picks the tile before any launch.
 - K5 ``hysteresis_cuda`` and K6 ``zhang_suen_packed_cuda``
   (``csrc/bitboard_fixpoints.cu``): the bitboard fixpoints; K6 replaces
   ``zhang_suen_packed_pallas``.  Each has two routes, chosen by size before
@@ -15,8 +26,10 @@
   larger layer runs the multi-launch kernels, one launch per subpass or
   sweep and one host check per chunk (``zhang_suen_packed_multi``,
   ``hysteresis_multi``).
-- K7 ``assign_nearest_cuda`` (``csrc/assign_nearest.cu``): Lab and the
-  nearest centre in one pass; replaces the XLA fusion of ``assign_nearest``.
+- K7 ``assign_nearest_cuda`` and ``assign_boards_cuda``
+  (``csrc/assign_nearest.cu``): Lab and the nearest centre in one pass, as
+  int32 labels or as the k one-hot bitboards; replaces the XLA fusion of
+  ``assign_nearest``.
 - K12 ``zhang_suen_dense_cuda`` (``csrc/zs_dense.cu``): dense Zhang–Suen,
   packed to 32 pixels a word on load and bit-sliced in shared memory, up to
   :data:`ZS_CHUNK` iterations per launch on tiles with a halo of two rows
@@ -33,12 +46,14 @@ Bitboards are CUDA ``int32`` tensors (the bits of the JAX package's ``uint32``
 boards).  Each wrapper launches on ``torch.cuda.current_stream()``, raises on
 a tensor it does not take and on any launch error, and counts in
 :data:`LAUNCHES` every kernel launch that its call into the library makes.
-The plain versions live beside their callers (``ops/morphology.py``, ``ops/canny.py``,
+The plain versions live beside their callers (``ops/bitpack.py``,
+``ops/morphology.py``, ``ops/filters.py``, ``ops/canny.py``,
 ``ops/thinning.py``, ``ops/frontend.py``); nothing here falls back to them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -51,6 +66,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .filters import gaussian_kernel_q8
 from .morphology import structuring_element
 from .thinning import _dense_planes
 
@@ -64,6 +80,8 @@ _SM90A = [
 # one library per source, each with its own flags: K7's float arithmetic
 # must not be contracted into FMAs
 NVCC_FLAGS = {
+    "bitpack": _SM90A,  # K1
+    "edge_candidates": _SM90A,  # K3+K4
     "bitboard_fixpoints": _SM90A,  # K5, K6
     "morph_bits": _SM90A,  # K2
     "assign_nearest": _SM90A + ["--fmad=false"],  # K7
@@ -85,6 +103,11 @@ ZS_TILE_ROWS, ZS_TILE_WORDS = 64, 16
 MORPH_BAND = 32
 MORPH_MASK_BYTES = 2 * 63 * 8
 
+# K3+K4's tile of output, rows x 32-pixel words, where it fits (a smaller
+# one for a blur radius whose halo does not); its threads' rows (``kRows`` in
+# csrc/edge_candidates.cu) bound the grid
+EDGE_TILE_ROWS, EDGE_TILE_WORDS = 32, 4
+
 # the resident routes: CTAs per thread block cluster (``kCluster`` in
 # csrc/bitboard_fixpoints.cu), and the shared memory one CTA may take (227 KB
 # on Hopper)
@@ -93,8 +116,8 @@ MAX_SMEM = 232448
 ROUTES = ("resident", "multi")
 
 # kernel launches per wrapper and route, counted where each wrapper calls into its library
-LAUNCHES = {"zhang_suen_packed": 0, "zhang_suen_packed_multi": 0, "hysteresis": 0,
-            "hysteresis_multi": 0, "morph_bits": 0, "assign_nearest": 0, "zhang_suen_dense": 0}
+LAUNCHES = {"bitpack": 0, "edge_candidates": 0, "zhang_suen_packed": 0, "zhang_suen_packed_multi": 0,
+            "hysteresis": 0, "hysteresis_multi": 0, "morph_bits": 0, "assign_nearest": 0, "zhang_suen_dense": 0}
 
 # what the last call of each fixpoint route took: for the resident routes a
 # device tensor, K6 (k,) iterations per layer, K5 (k, 2) rounds and the most
@@ -106,6 +129,14 @@ build_log: dict = {}  # library → nvcc's output (ptxas register and spill repo
 
 _libs: dict = {}
 _lock = threading.Lock()  # guards the library loads and the launch counts
+
+
+def _guard(device: torch.device):
+    """The device guard of a launch: nothing where ``device`` is already the
+    current one (the usual case, and cheaper on the host)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def reset_launches() -> None:
@@ -169,12 +200,19 @@ def build(names=None) -> dict:
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
+    "bitpack": {"pw_rows_to_boards": [_P, _P, _L, _I, _P],
+                "pw_boards_to_rows": [_P, _P, _L, _I, _P],
+                "pw_boards_to_dense": [_P, _P, _L, _I, _I, _I, _P],
+                "pw_dense_to_boards": [_P, _P, _L, _I, _I, _P],
+                "pw_labels_to_boards": [_P, _P, _L, _I, _I, _I, _P]},
+    "edge_candidates": {"pw_edge_candidates": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "bitboard_fixpoints": {"pw_zs_cluster_run": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
                            "pw_hysteresis_cluster_run": [_P, _P, _P, _P, _I, _I, _I, _P],
                            "pw_zs_packed_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                            "pw_hysteresis_run": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "morph_bits": {"pw_morph_steps_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
-    "assign_nearest": {"pw_assign_nearest": [_P, _P, _P, _I, _L, _P]},
+    "assign_nearest": {"pw_assign_nearest": [_P, _P, _P, _I, _L, _P],
+                       "pw_assign_boards": [_P, _P, _P, _I, _L, _I, _I, _P]},
     "zs_dense": {"pw_zs_tiles_run": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
 }
 
@@ -217,6 +255,202 @@ def _check(name: str, *boards: torch.Tensor):
 def _raise_on(lib, name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} ({lib.pw_error_string(err).decode()})")
+
+
+def _check_dense(name: str, t: torch.Tensor, dtypes) -> None:
+    """A CUDA contiguous tensor of one of ``dtypes``, inside the kernels' index range."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: expected one of {dtypes}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.dim() < 1:
+        raise ValueError(f"{name}: expected (..., W), got {tuple(t.shape)}")
+    if t.numel() >= 2**31:
+        raise ValueError(f"{name}: {t.numel()} elements exceed the kernel's index range")
+
+
+def _check_width(name: str, boards: torch.Tensor, w: int) -> None:
+    if -(-w // 32) != boards.shape[-1] or w >= 2**31:
+        raise ValueError(f"{name}: rows of {boards.shape[-1]} words do not hold {w} px")
+
+
+def _bitpack(fn: str, shape, dtype, src: torch.Tensor, n_rows: int, *args, out: torch.Tensor | None = None):
+    """One launch of ``csrc/bitpack.cu``'s ``fn`` from ``src`` into a new
+    tensor of ``shape`` and ``dtype`` on its device, or into ``out``."""
+    with _guard(src.device):
+        if out is None:
+            out = torch.empty(shape, dtype=dtype, device=src.device)
+        if out.numel():
+            lib = load("bitpack")
+            err = getattr(lib, fn)(src.data_ptr(), out.data_ptr(), n_rows, *args,
+                                   torch.cuda.current_stream().cuda_stream)
+            _count("bitpack")
+            _raise_on(lib, fn, err)
+    return out
+
+
+def rows_to_boards_cuda(rows: torch.Tensor, w: int) -> torch.Tensor:
+    """K1: CUDA packed rows (..., ⌈w/8⌉) uint8, 8 px a byte MSB first → (...,
+    ⌈w/32⌉) int32 bitboards, bits at and beyond ``w`` zero."""
+    _check_dense("rows_to_boards", rows, (torch.uint8,))
+    if w <= 0 or rows.shape[-1] != -(-w // 8):
+        raise ValueError(f"rows_to_boards: rows of {rows.shape[-1]} bytes do not hold {w} px")
+    n_rows = rows.numel() // rows.shape[-1]
+    return _bitpack("pw_rows_to_boards", (*rows.shape[:-1], -(-w // 32)), torch.int32, rows, n_rows, w)
+
+
+def boards_to_rows_cuda(boards: torch.Tensor, w: int, out: torch.Tensor | None = None) -> torch.Tensor:
+    """K1: CUDA bitboards (..., ⌈w/32⌉) int32 → packed rows (..., ⌈w/8⌉)
+    uint8, written into ``out`` (a contiguous uint8 tensor of that many
+    bytes on the boards' device, e.g. a slice of a blob) when given."""
+    _check("boards_to_rows", boards)
+    _check_width("boards_to_rows", boards, w)
+    shape = (*boards.shape[:-1], -(-w // 8))
+    if out is not None:
+        _check_dense("boards_to_rows", out, (torch.uint8,))
+        if out.device != boards.device or out.numel() != boards.numel() // boards.shape[-1] * shape[-1]:
+            raise ValueError(f"boards_to_rows: out {tuple(out.shape)} on {out.device} does not take {shape}")
+    return _bitpack("pw_boards_to_rows", shape, torch.uint8, boards, boards.numel() // boards.shape[-1], w, out=out)
+
+
+def boards_to_dense_cuda(boards: torch.Tensor, w: int, value: int = 1, dtype=torch.uint8) -> torch.Tensor:
+    """K1: CUDA bitboards (..., H, ⌈w/32⌉) → dense (..., H, w) uint8 or int32,
+    ``value`` where the bit is set and 0 elsewhere."""
+    _check("boards_to_dense", boards)
+    _check_width("boards_to_dense", boards, w)
+    if dtype not in (torch.uint8, torch.int32) or not 0 <= value <= 255:
+        raise ValueError(f"boards_to_dense: expected uint8 or int32 and a value in 0..255, got {dtype}, {value}")
+    n_rows = boards.numel() // boards.shape[-1]
+    if n_rows * w >= 2**31:
+        raise ValueError(f"boards_to_dense: {n_rows * w} pixels exceed the kernel's index range")
+    return _bitpack("pw_boards_to_dense", (*boards.shape[:-1], w), dtype, boards, n_rows, w, value,
+                    1 if dtype == torch.uint8 else 4)
+
+
+def dense_to_boards_cuda(dense: torch.Tensor) -> torch.Tensor:
+    """K1: CUDA dense (..., W) uint8, bool (set where nonzero) or int32 (set
+    where > 0) → (..., ⌈W/32⌉) int32 bitboards, bits at and beyond W zero."""
+    _check_dense("dense_to_boards", dense, (torch.uint8, torch.bool, torch.int32))
+    w = dense.shape[-1]
+    src = dense.view(torch.uint8) if dense.dtype == torch.bool else dense
+    return _bitpack("pw_dense_to_boards", (*dense.shape[:-1], -(-w // 32)), torch.int32, src,
+                    dense.numel() // max(w, 1), w, src.element_size())
+
+
+def labels_to_boards_cuda(labels: torch.Tensor, k: int) -> torch.Tensor:
+    """K1: CUDA int32 labels (..., H, W) → the ``k`` one-hot bitboards (...,
+    k, H, ⌈W/32⌉): bit x of layer c is set where the label is c."""
+    _check_dense("labels_to_boards", labels, (torch.int32,))
+    if labels.dim() < 2 or k <= 0:
+        raise ValueError(f"labels_to_boards: expected (..., H, W) labels and k > 0, got {tuple(labels.shape)}, {k}")
+    h, w = labels.shape[-2:]
+    nw = -(-w // 32)
+    if labels.numel() // max(w, 1) * nw * k >= 2**26:
+        raise ValueError(f"labels_to_boards: {k} layers of {tuple(labels.shape)} exceed the kernel's index range")
+    return _bitpack("pw_labels_to_boards", (*labels.shape[:-2], k, h, nw), torch.int32, labels,
+                    labels.numel() // max(h * w, 1), k, h, w)
+
+
+def edge_smem_bytes(th: int, tww: int, ksize: int) -> int:
+    """Shared memory one block of K3+K4 takes for a tile of ``th`` rows of
+    ``tww`` words (``csrc/edge_candidates.cu``'s layout): the input with a
+    halo of ``ksize // 2 + 2`` px, the row sums (uint16), the blurred bytes
+    of the tile and 2 px around it, the magnitudes (int16) of the tile and 1
+    px around it, and the taps."""
+    halo, tw = ksize // 2 + 2, 32 * tww
+    ah, aw = th + 2 * halo, tw + 2 * halo
+    total = 2 * ah * (tw + 4) + 2 * (th + 2) * (tw + 2) + ah * aw + (th + 4) * (tw + 4)
+    return -(-total // 4) * 4 + 4 * ksize
+
+
+@functools.lru_cache(maxsize=None)
+def edge_schedule(ksize: int, h: int, nw: int) -> tuple:
+    """K3+K4's tile (rows, words) for layers of ``h`` rows of ``nw`` words:
+    :data:`EDGE_TILE_ROWS` x :data:`EDGE_TILE_WORDS` (fewer for a smaller
+    layer), halved, rows first, while the tile and the halo of ``ksize`` do
+    not fit :data:`MAX_SMEM`.  Raises where no tile fits or the grid cannot
+    hold the layer."""
+    th, tww = max(1, min(EDGE_TILE_ROWS, h)), max(1, min(EDGE_TILE_WORDS, nw))
+    while edge_smem_bytes(th, tww, ksize) > MAX_SMEM:
+        if th > 1:
+            th = -(-th // 2)
+        elif tww > 1:
+            tww = -(-tww // 2)
+        else:
+            raise ValueError(f"edge_candidates: the halo of ksize {ksize} does not fit one block's shared memory")
+    if -(-h // th) > 65535:
+        raise ValueError(f"edge_candidates: {h} rows in tiles of {th} exceed the kernel's grid")
+    return th, tww
+
+
+_taps: dict = {}  # (ksize, sigma, device) → the Q8 taps on the device
+
+
+def _taps_on(ksize: int, sigma: float, device: torch.device) -> torch.Tensor:
+    key = (ksize, float(sigma), device)
+    if key not in _taps:
+        _taps[key] = torch.tensor(gaussian_kernel_q8(ksize, sigma).tolist(), dtype=torch.int32, device=device)
+    return _taps[key]
+
+
+def _edge_launch(x: torch.Tensor, w: int | None, ksize: int, sigma: float, low: int, high: int, blur_only: bool):
+    """One launch of K3+K4 on int32 bitboards (..., H, ⌈w/32⌉) or a uint8
+    image (..., H, W) → (cand, strong) boards, or the blurred image."""
+    name = "gaussian_blur" if blur_only else "edge_candidates"
+    if x.dtype == torch.int32:
+        k, h, nw = _check(name, x)
+        if w is None:
+            raise ValueError(f"{name}: bitboards need their width in pixels")
+        _check_width(name, x, w)
+        lead = x.shape[:-2]
+    else:
+        _check_dense(name, x, (torch.uint8,))
+        if x.dim() < 2 or (w is not None and w != x.shape[-1]):
+            raise ValueError(f"{name}: expected a (..., H, W) image of width {w}, got {tuple(x.shape)}")
+        h, w = x.shape[-2:]
+        nw, lead = -(-w // 32), x.shape[:-2]
+        k = x.numel() // (h * w) if h * w else 0
+    if ksize < 1:
+        raise ValueError(f"{name}: ksize {ksize} < 1")
+    if k * h * w >= 2**31 or k > 65535:
+        raise ValueError(f"{name}: {k} layers of {h} x {w} px exceed the kernel's grid")
+    with _guard(x.device):
+        if blur_only:
+            outs = (torch.empty((*lead, h, w), dtype=torch.uint8, device=x.device),)
+        else:
+            both = torch.empty((2, *lead, h, nw), dtype=torch.int32, device=x.device)
+            outs = (both[0], both[1])
+        if outs[0].numel():
+            th, tww = edge_schedule(ksize, h, nw)
+            taps = _taps_on(ksize, sigma, x.device)
+            lib = load("edge_candidates")
+            cand, strong, blurred = (None, None, outs[0].data_ptr()) if blur_only else (
+                outs[0].data_ptr(), outs[1].data_ptr(), None)
+            err = lib.pw_edge_candidates(x.data_ptr(), int(x.dtype == torch.int32), cand, strong, blurred,
+                                         taps.data_ptr(), ksize, th, tww, k, h, w, low, high,
+                                         torch.cuda.current_stream().cuda_stream)
+            _count("edge_candidates")
+            _raise_on(lib, name, err)
+    return outs
+
+
+def edge_candidates_cuda(x: torch.Tensor, w: int | None, ksize: int, low: int, high: int, sigma: float = 0.0):
+    """K3+K4: ``ops.canny.edge_candidates_plain`` in one launch.  ``x`` is a
+    CUDA int32 bitboard (..., H, ⌈w/32⌉), a set bit reading as 255, or a CUDA
+    uint8 image (..., H, W) → the (candidate, strong) int32 bitboards."""
+    if low > high:
+        low, high = high, low
+    return _edge_launch(x, w, ksize, sigma, min(low, 2041), min(high, 2041), False)
+
+
+def gaussian_blur_cuda(img: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
+    """K3+K4's blur alone: ``ops.filters.gaussian_blur_u8_plain`` of a CUDA
+    uint8 image (..., H, W) in one launch."""
+    if img.dtype != torch.uint8:
+        raise TypeError(f"gaussian_blur: expected a uint8 image, got {img.dtype}")
+    return _edge_launch(img, None, ksize, sigma, 0, 0, True)[0]
 
 
 def resident_smem_bytes(kernel: str, h: int, nw: int) -> int:
@@ -262,7 +496,7 @@ def zhang_suen_packed_cuda(packed: torch.Tensor, max_iter: int = 120, rotated: b
     if max_iter <= 0 or packed.numel() == 0:
         return packed.clone()
     lib = load("bitboard_fixpoints")
-    with torch.cuda.device(packed.device):
+    with _guard(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
         out = torch.empty_like(packed)
         if route == "resident":
@@ -298,11 +532,11 @@ def hysteresis_cuda(cand: torch.Tensor, strong: torch.Tensor, route: str | None 
     if cand.numel() == 0:
         return cand.clone()
     lib = load("bitboard_fixpoints")
-    with torch.cuda.device(cand.device):
+    with _guard(cand.device):
         stream = torch.cuda.current_stream().cuda_stream
         if route == "resident":
             out = torch.empty_like(cand)
-            stats = torch.zeros((k, 2), dtype=torch.int32, device=cand.device)
+            stats = torch.empty((k, 2), dtype=torch.int32, device=cand.device)  # zeroed by the library
             err = lib.pw_hysteresis_cluster_run(cand.data_ptr(), strong.data_ptr(), out.data_ptr(),
                                                 stats.data_ptr(), k, h, nw, stream)
             _count("hysteresis")
@@ -411,7 +645,7 @@ def morph_steps_cuda(x: torch.Tensor, valid: torch.Tensor, steps) -> torch.Tenso
         raise ValueError(f"morph_bits: {k} layers exceed the kernel's grid")
     segments = morph_schedule(radii, h, nw)
     lib = load("morph_bits")
-    with torch.cuda.device(x.device):
+    with _guard(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         bufs = [torch.empty_like(x) for _ in range(min(2, len(segments)))]
         src = x
@@ -425,25 +659,54 @@ def morph_steps_cuda(x: torch.Tensor, valid: torch.Tensor, steps) -> torch.Tenso
     return src
 
 
-def assign_nearest_cuda(image: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
-    """K7: ``ops.frontend.assign_nearest`` of a CUDA (..., H, W, 3) uint8
-    image and (k, 3) float32 centres on its device → (..., H, W) int32."""
+def _check_k7(name: str, image: torch.Tensor, centers: torch.Tensor) -> None:
     if not image.is_cuda:
-        raise ValueError(f"assign_nearest: expected a CUDA tensor, got {image.device}")
+        raise ValueError(f"{name}: expected a CUDA tensor, got {image.device}")
     if image.dtype != torch.uint8 or image.dim() < 1 or image.shape[-1] != 3 or not image.is_contiguous():
-        raise ValueError(f"assign_nearest: expected a contiguous (..., 3) uint8 image, got "
+        raise ValueError(f"{name}: expected a contiguous (..., 3) uint8 image, got "
                          f"{image.dtype} {tuple(image.shape)}")
     if not (centers.device == image.device and centers.dtype == torch.float32 and centers.dim() == 2
             and centers.shape[1] == 3 and centers.is_contiguous()):
-        raise ValueError(f"assign_nearest: expected contiguous (k, 3) float32 centers on {image.device}")
+        raise ValueError(f"{name}: expected contiguous (k, 3) float32 centers on {image.device}")
+    if 12 * centers.shape[0] + 2048 > MAX_SMEM:
+        raise ValueError(f"{name}: {centers.shape[0]} centres do not fit one block's shared memory")
+
+
+def assign_nearest_cuda(image: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """K7: ``ops.frontend.assign_nearest`` of a CUDA (..., H, W, 3) uint8
+    image and (k, 3) float32 centres on its device → (..., H, W) int32."""
+    _check_k7("assign_nearest", image, centers)
     lib = load("assign_nearest")
-    with torch.cuda.device(image.device):
+    with _guard(image.device):
         labels = torch.empty(image.shape[:-1], dtype=torch.int32, device=image.device)
         err = lib.pw_assign_nearest(image.data_ptr(), centers.data_ptr(), labels.data_ptr(),
                                     centers.shape[0], labels.numel(), torch.cuda.current_stream().cuda_stream)
         _count("assign_nearest")
         _raise_on(lib, "assign_nearest", err)
     return labels
+
+
+def assign_boards_cuda(image: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """K7, its boards: ``ops.frontend.assign_boards_plain`` of a CUDA (...,
+    H, W, 3) uint8 image and (k, 3) float32 centres → the one-hot int32
+    bitboards (..., k, H, ⌈W/32⌉) of the nearest centre, with no labels in
+    device memory."""
+    _check_k7("assign_boards", image, centers)
+    if image.dim() < 3:
+        raise ValueError(f"assign_boards: expected (..., H, W, 3), got {tuple(image.shape)}")
+    h, w = image.shape[-3], image.shape[-2]
+    k, nw = centers.shape[0], -(-w // 32)
+    n_img = image.numel() // (h * w * 3) if h * w else 0
+    if n_img * k * h * nw >= 2**31 or n_img * h * w >= 2**31:
+        raise ValueError(f"assign_boards: {k} layers of {tuple(image.shape)} exceed the kernel's index range")
+    lib = load("assign_nearest")
+    with _guard(image.device):
+        boards = torch.empty((*image.shape[:-3], k, h, nw), dtype=torch.int32, device=image.device)
+        err = lib.pw_assign_boards(image.data_ptr(), centers.data_ptr(), boards.data_ptr(), k, n_img, h, w,
+                                   torch.cuda.current_stream().cuda_stream)
+        _count("assign_nearest")
+        _raise_on(lib, "assign_boards", err)
+    return boards
 
 
 def zhang_suen_dense_cuda(binary: torch.Tensor, max_iter: int = 120, rotated: bool = True) -> torch.Tensor:
@@ -465,7 +728,7 @@ def zhang_suen_dense_cuda(binary: torch.Tensor, max_iter: int = 120, rotated: bo
         src = planes.contiguous().view(torch.uint8)
     else:
         src = (planes > 0).view(torch.uint8)
-    with torch.cuda.device(binary.device):
+    with _guard(binary.device):
         out = torch.empty((k, h, w), dtype=torch.int32, device=binary.device)
         if out.numel():
             lib = load("zs_dense")

@@ -8,6 +8,10 @@ so every public function here takes and returns the same bits as
 between the two packages with :func:`bitboards_from_jax` /
 :func:`bitboards_to_jax`.
 
+:func:`pack_bitboards`, :func:`unpack_bitboards` and
+:func:`dense_from_boards` convert between dense pixels and boards: kernel K1
+on a CUDA tensor, the plain versions on a CPU tensor.
+
 :func:`zhang_suen_packed` is the fixpoint: on a CUDA tensor it runs the
 hand-written kernel (``ops/kernels.py``), on a CPU tensor the plain version
 below.  Iterations past the fixpoint are no-ops, and one convergence flag
@@ -41,7 +45,7 @@ def lsr(x: torch.Tensor, n: int) -> torch.Tensor:
     return (x >> n) & ((1 << (32 - n)) - 1)
 
 
-def pack_bitboards(binary: torch.Tensor) -> torch.Tensor:
+def pack_bitboards_plain(binary: torch.Tensor) -> torch.Tensor:
     """(..., H, W) 0/nonzero → (..., H, ceil(W/32)) int32 bitboards, LSB-first."""
     w = binary.shape[-1]
     x = (binary > 0).to(torch.int64)
@@ -55,11 +59,58 @@ def pack_bitboards(binary: torch.Tensor) -> torch.Tensor:
     return (xr * weights).sum(dim=-1).to(torch.int32)  # int64 → int32 wraps
 
 
-def unpack_bitboards(packed: torch.Tensor, width: int) -> torch.Tensor:
-    """Inverse of :func:`pack_bitboards` → (..., H, width) int32 0/1."""
+def unpack_bitboards_plain(packed: torch.Tensor, width: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bitboards_plain` → (..., H, width) int32 0/1."""
     shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
     bits = (packed[..., :, None] >> shifts) & 1
     return bits.reshape(*packed.shape[:-1], -1)[..., :width]
+
+
+def dense_from_boards_plain(packed: torch.Tensor, width: int, value: int = 1) -> torch.Tensor:
+    """Bitboards → (..., H, width) uint8, ``value`` where the bit is set."""
+    return unpack_bitboards_plain(packed, width).to(torch.uint8) * value
+
+
+def _on_card(name: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (kernel K1), False for a CPU tensor (the plain
+    version); any other device raises."""
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return False
+
+
+def pack_bitboards(binary: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) uint8, bool or int32 (> 0 = set) → (..., H, ceil(W/32))
+    int32 bitboards, LSB-first: kernel K1 (``ops/kernels.py``) for a CUDA
+    tensor, :func:`pack_bitboards_plain` for a CPU tensor, else raise."""
+    if _on_card("pack_bitboards", binary):
+        from .kernels import dense_to_boards_cuda  # noqa: PLC0415
+
+        return dense_to_boards_cuda(binary)
+    return pack_bitboards_plain(binary)
+
+
+def unpack_bitboards(packed: torch.Tensor, width: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bitboards` → (..., H, width) int32 0/1, by
+    kernel K1 or :func:`unpack_bitboards_plain`."""
+    if _on_card("unpack_bitboards", packed):
+        from .kernels import boards_to_dense_cuda  # noqa: PLC0415
+
+        return boards_to_dense_cuda(packed, width, 1, torch.int32)
+    return unpack_bitboards_plain(packed, width)
+
+
+def dense_from_boards(packed: torch.Tensor, width: int, value: int = 1) -> torch.Tensor:
+    """Bitboards → (..., H, width) uint8, ``value`` where the bit is set (255
+    for edges, 1 for skeletons), by kernel K1 or
+    :func:`dense_from_boards_plain`."""
+    if _on_card("dense_from_boards", packed):
+        from .kernels import boards_to_dense_cuda  # noqa: PLC0415
+
+        return boards_to_dense_cuda(packed, width, value)
+    return dense_from_boards_plain(packed, width, value)
 
 
 def _shift_words(p: torch.Tensor, d: int) -> torch.Tensor:

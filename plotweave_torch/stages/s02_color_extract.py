@@ -20,46 +20,53 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
-from ..ops.bitpack import bitpack_rows, bitunpack_rows
-from ..ops.canny import canny_packed
+from ..ops.bitpack import boards_to_rows, rows_to_boards
+from ..ops.canny import canny_boards
 from ..ops.cvkmeans import assign_labels, cv_kmeans
-from ..ops.filters import gaussian_blur_u8
 from ..ops.morphology import _valid_bits, morph_program, morph_steps
-from ..ops.thinning import pack_bitboards, unpack_bitboards, zhang_suen_packed
+from ..ops.thinning import zhang_suen_packed
 from ..utils import read_image, register_derived_artifact, save_json, thread_map, write_image
 from ..utils.devices import raster_device
 from .common import chain_key, darkness_rank, edge_params, layer_dir
 
 
-def _binary_morph_u8(masks: torch.Tensor, w: int, open_iters: int, close_iters: int,
-                     shape: str = "rect", ksize: int = 3) -> torch.Tensor:
-    """Open/close on binary masks through the packed morphology, one step
-    list (K2: one launch on the card); 0/255 uint8."""
-    if open_iters <= 0 and close_iters <= 0:
-        return (masks > 0).to(torch.uint8) * 255
+def open_close_boards(masks_b: torch.Tensor, w: int, open_iters: int, close_iters: int,
+                      shape: str = "rect", ksize: int = 3) -> torch.Tensor:
+    """Open, then close, binary masks held as bitboards, as one step list of
+    the packed morphology (K2: one launch on the card)."""
     steps = morph_program(shape, ksize, open_iters, "ed") + morph_program(shape, ksize, close_iters, "de")
-    b = morph_steps(pack_bitboards(masks), _valid_bits(w, masks.device), steps)
-    return unpack_bitboards(b, w).to(torch.uint8) * 255
+    return morph_steps(masks_b, _valid_bits(w, masks_b.device), steps)
 
 
-def chain_tail(masks: torch.Tensor, mk: int, oi: int, ci: int, bk: int, lo: int, hi: int) -> torch.Tensor:
+def edges_from_boards(masks_b: torch.Tensor, w: int, mk: int, oi: int, ci: int, bk: int, lo: int,
+                      hi: int) -> torch.Tensor:
+    """Stage 03 over bitboards: the masks' open and close, the blur and Canny
+    → the edges as bitboards (K2, K3+K4 and K5 on the card)."""
+    return canny_boards(open_close_boards(masks_b, w, oi, ci, "ellipse", mk), w, bk, lo, hi)
+
+
+def chain_tail(masks_b: torch.Tensor, w: int, mk: int, oi: int, ci: int, bk: int, lo: int, hi: int) -> torch.Tensor:
     """Stage 03's morphology, blur and Canny and stage 04's thinning over the
-    cleaned (k, H, W) masks → packed (2k, H, ⌈W/8⌉) edges, then skeletons."""
-    m = _binary_morph_u8(masks, masks.shape[-1], oi, ci, "ellipse", mk)
+    cleaned masks as (k, H, ⌈W/32⌉) bitboards → packed (2, k, H, ⌈W/8⌉)
+    edges, then skeletons, in one tensor."""
     # the hysteresis board feeds the thinner in the same encoding
-    edges, edges_b = canny_packed(gaussian_blur_u8(m, bk), lo, hi)
-    skels = unpack_bitboards(zhang_suen_packed(edges_b, max_iter=120, rotated=True), masks.shape[-1])
-    return torch.cat([bitpack_rows(edges), bitpack_rows(skels)], dim=-3)
+    edges_b = edges_from_boards(masks_b, w, mk, oi, ci, bk, lo, hi)
+    skels_b = zhang_suen_packed(edges_b, max_iter=120, rotated=True)
+    blob = torch.empty((2, *masks_b.shape[:-1], -(-w // 8)), dtype=torch.uint8, device=masks_b.device)
+    boards_to_rows(edges_b, w, out=blob[0])
+    boards_to_rows(skels_b, w, out=blob[1])
+    return blob
 
 
 def chain_from_clean(packed_clean, w: int, mk: int, oi: int, ci: int, bk: int, lo: int, hi: int,
                      device) -> torch.Tensor:
     """The fused 03→04 chain over stage 02's cleaned masks, packed
     (k, H, ⌈W/8⌉) uint8, on ``device`` → one flat uint8 blob
-    [packed edges (k·H·⌈W/8⌉)][packed skeletons], in cluster order."""
+    [packed edges (k·H·⌈W/8⌉)][packed skeletons], in cluster order.  On the
+    card every step between the upload and the blob is a kernel: K1, K2,
+    K3+K4, K5, K6, K1."""
     packed = torch.as_tensor(packed_clean, dtype=torch.uint8, device=device)
-    masks = bitunpack_rows(packed, w) * 255
-    return chain_tail(masks, mk, oi, ci, bk, lo, hi).reshape(-1)
+    return chain_tail(rows_to_boards(packed, w), w, mk, oi, ci, bk, lo, hi).reshape(-1)
 
 
 def _host_clean_masks(labels: np.ndarray, k: int, open_iters: int, close_iters: int):

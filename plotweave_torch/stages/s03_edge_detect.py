@@ -14,19 +14,19 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
-from ..ops.canny import canny_packed
-from ..ops.filters import gaussian_blur_u8
+from ..ops.thinning import dense_from_boards, pack_bitboards
 from ..utils import (fetch_derived_artifact, read_image, register_derived_artifact,
                      thread_map, write_image)
 from ..utils.devices import raster_device
 from .common import chain_key, edge_params, layer_dir, palette_bgr
-from .s02_color_extract import _binary_morph_u8
+from .s02_color_extract import edges_from_boards
 
 
 def _edges_batched(masks: torch.Tensor, mk: int, oi: int, ci: int, bk: int, lo: int, hi: int) -> torch.Tensor:
-    """(L, H, W) masks → (L, H, W) uint8 0/255 edges; the ops are layer-batched."""
-    m = _binary_morph_u8(masks, masks.shape[-1], oi, ci, "ellipse", mk)
-    return canny_packed(gaussian_blur_u8(m, bk), lo, hi)[0]
+    """(L, H, W) masks → (L, H, W) uint8 0/255 edges; the ops are layer-batched
+    over bitboards (K1, K2, K3+K4, K5, K1 on the card)."""
+    w = masks.shape[-1]
+    return dense_from_boards(edges_from_boards(pack_bitboards(masks), w, mk, oi, ci, bk, lo, hi), w, 255)
 
 
 def run(cfg: PipelineConfig) -> None:

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
-from ..ops.thinning import zhang_suen
+from ..ops.thinning import dense_from_boards, pack_bitboards, zhang_suen_packed
 from ..utils import fetch_derived_artifact, read_image, save_pickle, thread_map
 from ..utils.devices import raster_device
 from ..utils.io import save_pickle_async
@@ -24,8 +24,10 @@ from .common import chain_key, layer_dir
 
 
 def _thin_batched(edges: torch.Tensor) -> torch.Tensor:
-    """(L, H, W) edges → (L, H, W) uint8 0/1 skeletons (stage 04's thinner)."""
-    return zhang_suen(edges, max_iter=120, rotated=True).to(torch.uint8)
+    """(L, H, W) edges → (L, H, W) uint8 0/1 skeletons (stage 04's thinner;
+    K1, K6, K1 on the card)."""
+    skel_b = zhang_suen_packed(pack_bitboards(edges), max_iter=120, rotated=True)
+    return dense_from_boards(skel_b, edges.shape[-1], 1)
 
 
 def run(cfg: PipelineConfig) -> None:

@@ -7,8 +7,8 @@ against the JAX package: at most 0.0018).  Everything after the labels is
 integer, so from the same labels the port must be byte-equal.  The JAX route
 ``pallas_thinning=True`` runs only in interpret mode on the CPU, so its
 reference is ``zhang_suen_pallas(edges, interpret=True)`` on the JAX
-front-end's own edges.  The kernels (K2, K5, K6, K7, K12) are held against
-these plain versions on the card by ``chip_smoke.py``.
+front-end's own edges.  The kernels (K1, K2, K3+K4, K5, K6, K7, K12) are held
+against these plain versions on the card by ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -26,8 +26,12 @@ from plotweave.ops.colorspace import bgr_to_lab_u8 as jax_bgr_to_lab_u8
 from plotweave.ops.frontend import assign_nearest as jax_assign_nearest
 from plotweave.ops.frontend import raster_frontend as jax_raster_frontend
 from plotweave.ops.pallas_kernels import zhang_suen_pallas
-from plotweave_torch.ops.colorspace import bgr_to_lab_u8
-from plotweave_torch.ops.frontend import assign_nearest, frontend_from_labels, nearest_gaps, raster_frontend
+from plotweave.ops.thinning import pack_bitboards as jax_pack_bitboards
+from plotweave_torch.ops.colorspace import _div, _srgb_gamma_inv, bgr_to_lab_u8
+from plotweave_torch.ops.frontend import (
+    assign_boards, assign_nearest, frontend_from_boards, frontend_from_labels, nearest_gaps, onehot_boards,
+    raster_frontend)
+from plotweave_torch.ops.thinning import bitboards_to_jax
 
 REPO = Path(__file__).resolve().parent.parent
 NEAR_TIE = 0.01
@@ -96,6 +100,37 @@ def test_assign_nearest_centers_on_another_device():
         assign_nearest(img, BENCH_CENTERS[:2], 4)
 
 
+def test_gamma_table_is_the_plain_gamma_bit_for_bit():
+    """Kernel K7 looks the sRGB gamma up in a table of its 256 possible
+    inputs, filled by the function it replaces: the lookup gives the plain
+    version's bits for every pixel value, in any order and shape."""
+    table = _srgb_gamma_inv(_div(torch.arange(256, dtype=torch.float32), 255.0))
+    img = torch.from_numpy(colour_sample(11, 2**16))
+    direct = _srgb_gamma_inv(_div(img.to(torch.float32), 255.0))
+    assert torch.equal(table[img.long()].view(torch.int32), direct.view(torch.int32))
+    assert table[0] == 0 and table[255] == 1 and bool((table[1:] > table[:-1]).all())
+    from plotweave.ops.colorspace import _srgb_gamma_inv as jax_gamma_inv
+
+    ref = np.asarray(jax_gamma_inv(np.arange(256, dtype=np.float32) / np.float32(255.0)))
+    assert np.abs(table.numpy() - ref).max() <= 1e-6
+
+
+@pytest.mark.parametrize("shape,k", [((37, 45), 4), ((2, 19, 70), 8), ((3, 1), 3), ((1, 32), 1)],
+                         ids=["37x45-k4", "batch-k8", "3x1-k3", "1x32-k1"])
+def test_onehot_boards_match_jax(shape, k):
+    """The plain one-hot boards (K7's second output, K1's labels -> boards)
+    are the JAX front-end's ``pack_bitboards(labels == arange(k))``."""
+    img = colour_sample(12, 2**14).reshape(-1, 3)[: int(np.prod(shape))].reshape(*shape, 3)
+    centers = PEN_CENTERS[:k]
+    labels = np.asarray(jax_assign_nearest(img, centers, k))
+    ref = np.asarray(jax_pack_bitboards(labels[..., None, :, :] == np.arange(k)[:, None, None]))
+    got = onehot_boards(torch.from_numpy(np.array(labels)), k)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (*shape[:-2], k, shape[-2], -(-shape[-1] // 32))
+    np.testing.assert_array_equal(bitboards_to_jax(got), ref)
+    ours = assign_nearest(torch.from_numpy(img), centers, k)
+    assert torch.equal(assign_boards(torch.from_numpy(img), centers, k), onehot_boards(ours, k))
+
+
 def jax_frontend(img, **kw):
     e, s = jax_raster_frontend(img, BENCH_CENTERS, k=4, **kw)
     return np.asarray(e), np.asarray(s)
@@ -114,6 +149,25 @@ def test_frontend_from_labels_byte_equal(seed, shape):
     np.testing.assert_array_equal(edges.numpy(), ref_e)
     np.testing.assert_array_equal(skel.numpy(), ref_s)
     assert ref_s.any() and (ref_s.reshape(-1, *ref_s.shape[-2:]).any(axis=(-2, -1))).all()
+
+
+@pytest.mark.parametrize("pallas_thinning", [False, True], ids=["packed", "dense"])
+@pytest.mark.parametrize("seed,shape", [(12, (64, 80)), (13, (50, 97))], ids=["64x80", "50x97"])
+def test_frontend_from_boards_byte_equal(seed, shape, pallas_thinning):
+    """From the one-hot boards of the JAX package's own labels, the port's
+    front-end over boards gives the JAX front-end's bytes on both thinning
+    routes."""
+    img = poster(seed, shape)
+    labels = np.asarray(jax_assign_nearest(img, BENCH_CENTERS, 4))
+    boards = onehot_boards(torch.from_numpy(np.array(labels)), 4)
+    edges, skel = frontend_from_boards(boards, shape[-1], pallas_thinning=pallas_thinning)
+    ref_e, ref_s = jax_frontend(img)
+    if pallas_thinning:
+        ref_s = np.asarray(zhang_suen_pallas(ref_e, max_iter=120, rotated=True, interpret=True)).astype(np.uint8)
+    assert edges.dtype == torch.uint8 and skel.dtype == torch.uint8
+    np.testing.assert_array_equal(edges.numpy(), ref_e)
+    np.testing.assert_array_equal(skel.numpy(), ref_s)
+    assert ref_s.any()
 
 
 @pytest.mark.parametrize("pallas_thinning", [False, True], ids=["packed", "dense"])

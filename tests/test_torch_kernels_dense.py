@@ -137,15 +137,16 @@ def test_build_one_library_per_source(tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", f"{tmp_path / 'bin'}{os.pathsep}{os.environ['PATH']}")
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
     paths = kernels.build()
-    assert set(paths) == {"bitboard_fixpoints", "morph_bits", "assign_nearest", "zs_dense"}
+    assert set(paths) == {"bitpack", "edge_candidates", "bitboard_fixpoints", "morph_bits", "assign_nearest",
+                          "zs_dense"}
     assert all(p.exists() and p.parent == tmp_path / "build" for p in paths.values())
     calls = log.read_text().splitlines()
-    assert len(calls) == 4
+    assert len(calls) == 6
     for line in calls:
         assert "arch=compute_90a,code=sm_90a" in line
         assert ("--fmad=false" in line) == line.endswith("assign_nearest.cu")
     assert kernels.build() == paths  # built once: no second nvcc
-    assert len(log.read_text().splitlines()) == 4
+    assert len(log.read_text().splitlines()) == 6
 
 
 def test_build_raises_when_nvcc_fails(tmp_path, monkeypatch):

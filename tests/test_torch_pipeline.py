@@ -191,8 +191,9 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     code = (
         "import sys\n"
         "import plotweave_torch.ops.kernels as k\n"
-        "assert k.LAUNCHES == {'zhang_suen_packed': 0, 'zhang_suen_packed_multi': 0, 'hysteresis': 0, "
-        "'hysteresis_multi': 0, 'morph_bits': 0, 'assign_nearest': 0, 'zhang_suen_dense': 0}\n"
+        "assert k.LAUNCHES == {'bitpack': 0, 'edge_candidates': 0, 'zhang_suen_packed': 0, "
+        "'zhang_suen_packed_multi': 0, 'hysteresis': 0, 'hysteresis_multi': 0, 'morph_bits': 0, "
+        "'assign_nearest': 0, 'zhang_suen_dense': 0}\n"
         "try:\n"
         "    k.build()\n"
         "except RuntimeError as e:\n"
@@ -220,6 +221,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.assign_nearest_cuda(torch.zeros((4, 4, 3), dtype=torch.uint8), torch.zeros((4, 3)))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.zhang_suen_dense_cuda(torch.zeros((1, 4, 4), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.assign_boards_cuda(torch.zeros((4, 4, 3), dtype=torch.uint8), torch.zeros((4, 3)))
+    img = torch.zeros((1, 4, 40), dtype=torch.uint8)
+    for call in (lambda: kernels.rows_to_boards_cuda(torch.zeros((1, 4, 5), dtype=torch.uint8), 40),
+                 lambda: kernels.boards_to_rows_cuda(b, 40), lambda: kernels.boards_to_dense_cuda(b, 40, 255),
+                 lambda: kernels.dense_to_boards_cuda(img), lambda: kernels.labels_to_boards_cuda(img.int(), 4),
+                 lambda: kernels.edge_candidates_cuda(b, 40, 5, 22, 70),
+                 lambda: kernels.edge_candidates_cuda(img, None, 5, 22, 70),
+                 lambda: kernels.gaussian_blur_cuda(img, 5)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
 
 
 def test_s08_thinner_without_native_library(monkeypatch):
