@@ -32,15 +32,21 @@ Phases:
    bool and int32 → boards, labels → boards, into a blob at an odd offset)
    on ragged widths (W mod 32 and mod 8 ≠ 0, W < 32, H = 1) and at
    4 × 1500 × 2000; K3+K4 byte-equal to its plain version on seeded gray
-   images and on binary boards, ``ksize`` 1, 3, 4, 5, 7, 9, 63 and 301,
-   ``sigma`` > 0, thresholds swapped, above 2041 and 0, shapes smaller than
-   the radius, its blur-only mode, and 1 × 4400 × 4400;
+   images (rows on and off a word boundary) and on binary boards, on every
+   template instance (``ksize`` 1, 3, 5, 7, 9) and on the general path
+   (``ksize`` 4, 11, 63 and 301, a ``sigma`` so small that the centre tap is
+   256), ``sigma`` > 0, thresholds swapped, above 2041 and 0, shapes
+   smaller than the radius, below one tile, of exactly one tile, of rim
+   tiles only and of several tiles each way, its blur-only mode, and
+   1 × 4400 × 4400 from a board and from a dense image;
 4. ``chain_from_clean`` at 4 × 1500 × 2000 on the card vs on the CPU: its
    launches (three K1, one each of K2, K3+K4, K5 and K6), a
    ``torch.profiler`` trace of one call whose device kernels must all be the
    port's own (copies and memsets apart), device times (CUDA events) of the
-   chain, of K1 and K3+K4, and of K5 and K6 on each route, beside their
-   plain versions on the card and the count of device kernels those launch;
+   chain, of K1 and K3+K4 (from the chain's boards and from the same masks
+   as a dense image, at blur 5 and 7, a call and the kernel alone), and of K5
+   and K6 on each route, beside their plain versions on the card and the
+   count of device kernels those launch;
 5. ``plotweave_torch.pipeline.main`` steps 1–13 on a seeded synthetic
    2000 × 1500 image and on the four configs of ``tests/golden/e2e``, and
    steps 1–4 on a seeded 4400 × 4400 image (``max_dimension`` 4400, so K5
@@ -73,6 +79,11 @@ once) at 3.35 TB/s and its operations, counted for these inputs, at the
 card's rate for their type.  The last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the repo beside it, it exits
 non-zero and prints no result.
+
+Two measurements stand beside the phases and are not part of the smoke:
+``phase_k34_times()`` (K3+K4's times alone; with ``ROOT`` set to an older
+checkout before ``phase_probe`` it times that tree) and ``phase_k34_sweep()``
+(K3+K4's tile rows and minimum blocks per SM).
 """
 
 from __future__ import annotations
@@ -700,46 +711,63 @@ def phase_layout_and_edge_kernels(stats: dict) -> None:
     print(f"K1 == plain: rows <-> boards, boards -> dense (uint8 x255, x1, int32), dense (uint8, bool, int32) -> "
           f"boards, labels -> boards, into a blob at an odd offset, {len(shapes)} shapes incl. {CHAIN_SHAPE}")
 
-    # K3+K4: gray images and binary boards; ksize 1-9 and even, one sigma > 0, radii beyond the axis,
-    # thresholds swapped, above 2041 and 0
+    # K3+K4: gray images and binary boards on every template instance (ksize 1, 3, 5, 7, 9) and on the
+    # general path (even ksize, 11, a sigma so small that the centre tap is 256), one sigma > 0, radii beyond
+    # the axis, thresholds swapped, above 2041 and 0; shapes below one tile, of exactly one tile, of rim
+    # tiles only (H or W below the halo) and of several tiles each way (interior tiles; 399: rows off the
+    # word boundary, so the dense loader moves bytes)
     gray_shapes = [(1, 1, 1), (1, 2, 2), (2, 3, 40), (1, 40, 3), (3, 37, 33), (2, 64, 100), (1, 33, 257),
-                   (2, 2, 45, 70)]
+                   (2, 2, 45, 70), (1, 32, 128), (2, 100, 400), (1, 70, 399), (1, 3, 600), (1, 200, 2)]
     cases = [(ks, 0.0, lo, hi) for ks in (1, 3, 5, 7, 9) for lo, hi in ((22, 70), (70, 22))]
-    cases += [(5, 1.4, 22, 70), (7, 0.0, 5, 3000), (3, 0.0, 0, 0), (4, 0.0, 30, 90), (9, 2.0, 2500, 2100)]
+    cases += [(5, 1.4, 22, 70), (7, 0.0, 5, 3000), (3, 0.0, 0, 0), (4, 0.0, 30, 90), (9, 2.0, 2500, 2100),
+              (11, 0.0, 22, 70), (5, 0.1, 22, 70)]
+    check([kernels.edge_fast(ks, sg) for ks, sg, _, _ in cases[-3:]] == [True, False, False]
+          and not kernels.edge_fast(4) and kernels.edge_fast(5, 1.4), "K3+K4: which cases take the general path")
     n = 0
     for shape in gray_shapes:
         *lead, h, w = shape
+        # one byte beyond a 16-byte boundary: the dense loader may not move words
+        buf = torch.empty(int(np.prod(shape)) + 1, dtype=torch.uint8, device=dev)
         gray = torch.from_numpy(np.clip(random_boards(rng, int(np.prod(lead)), h, w).reshape(shape) // 2 + 40
                                         + rng.integers(-40, 41, shape), 0, 255).astype(np.uint8)).to(dev)
+        odd = buf[1:].view(shape).copy_(gray)
         board = random_words(rng, (*lead, h, -(-w // 32)), dev)  # the padding bits must not be read
         for ks, sigma, lo, hi in cases:
-            for what, x in (("gray", gray), ("board", board)):
+            for what, x in (("gray", gray), ("gray off a word boundary", odd), ("board", board)):
                 n += 1
                 got = kernels.edge_candidates_cuda(x, w, ks, lo, hi, sigma)
                 ref = edge_candidates_plain(x, w, ks, lo, hi, sigma)
                 check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
                       f"K3+K4 {what} {shape} ksize {ks} sigma {sigma} thresholds {lo}, {hi}")
-            check(torch.equal(gaussian_blur_u8(gray, ks, sigma), gaussian_blur_u8_plain(gray, ks, sigma)),
-                  f"K3+K4 blur only {shape} ksize {ks} sigma {sigma}")
+            for what, x in (("", gray), (" off a word boundary", odd)):
+                check(torch.equal(gaussian_blur_u8(x, ks, sigma), gaussian_blur_u8_plain(x, ks, sigma)),
+                      f"K3+K4 blur only{what} {shape} ksize {ks} sigma {sigma}")
         got, ref = canny_candidates(gray, 30, 90), canny_candidates_plain(gray, 30, 90)
         check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), f"K3+K4 canny_candidates {shape}")
-    # radii whose halo takes a smaller tile (and more than 48 KB of shared memory)
+    # radii whose halo takes a smaller tile (and more than 48 KB of shared memory), from bytes and from a board
     for ks, shape in ((63, (1, 100, 300)), (301, (2, 50, 70))):
         gray = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
-        tile = kernels.edge_schedule(ks, shape[-2], -(-shape[-1] // 32))
-        got, ref = kernels.edge_candidates_cuda(gray, None, ks, 1, 3), edge_candidates_plain(gray, shape[-1], ks, 1, 3)
-        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]) and bool(ref[0].any()),
-              f"K3+K4 ksize {ks} {shape}, tile {tile}")
+        board = random_words(rng, (*shape[:-1], -(-shape[-1] // 32)), dev)
+        for what, x in (("gray", gray), ("board", board)):
+            tile = kernels.edge_schedule(ks, shape[0], shape[-2], -(-shape[-1] // 32), what == "board", False)
+            got = kernels.edge_candidates_cuda(x, shape[-1], ks, 1, 3)
+            ref = edge_candidates_plain(x, shape[-1], ks, 1, 3)
+            check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]) and bool(ref[0].any()),
+                  f"K3+K4 {what} ksize {ks} {shape}, tile {tile}")
+            print(f"K3+K4 ksize {ks} on {shape} from a {what}: tile {tile}, "
+                  f"{kernels.edge_smem_bytes(*tile, ks, what == 'board', False)} B of shared memory")
         check(torch.equal(gaussian_blur_u8(gray, ks), gaussian_blur_u8_plain(gray, ks)), f"K3+K4 blur ksize {ks}")
-        print(f"K3+K4 ksize {ks} on {shape}: tile {tile}, {kernels.edge_smem_bytes(*tile, ks)} B of shared memory")
     x = torch.from_numpy(random_boards(rng, 1, BIG_SIDE, BIG_SIDE)).to(dev)
     xb = thinning.pack_bitboards(x)
     for ks in (5, 7):
-        got = kernels.edge_candidates_cuda(xb, BIG_SIDE, ks, 22, 70)
         ref = edge_candidates_plain(x, BIG_SIDE, ks, 22, 70)
-        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), f"K3+K4 1x{BIG_SIDE}x{BIG_SIDE} ksize {ks}")
+        for what, src in (("board", xb), ("dense image", x)):
+            got = kernels.edge_candidates_cuda(src, BIG_SIDE, ks, 22, 70)
+            check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                  f"K3+K4 1x{BIG_SIDE}x{BIG_SIDE} ksize {ks} from a {what}")
     print(f"K3+K4 == plain: {n} (input, ksize, sigma, thresholds) cases on {len(gray_shapes)} shapes from gray "
-          f"images and boards, blur only, canny_candidates, ksize 63 and 301, 1x{BIG_SIDE}x{BIG_SIDE} from a board")
+          f"images (on and off a word boundary) and boards, every template instance and the general path, blur "
+          f"only, canny_candidates, ksize 63 and 301, 1x{BIG_SIDE}x{BIG_SIDE} from a board and a dense image")
 
     # K7's boards: byte-equal to the packed one-hot of its own labels, ragged widths, batches, k = 8,
     # and an image that does not start on a 16-byte boundary
@@ -759,6 +787,93 @@ def phase_layout_and_edge_kernels(stats: dict) -> None:
                 near_tie_flips(img.reshape(-1, 3), c.cpu().numpy(), labels.reshape(-1),
                                assign_nearest_plain(img, c, len(c)).reshape(-1), f"K7 {shape} k={len(c)}")
     print("K7 boards == one-hot boards of K7's labels: 6 shapes x k = 4, 8, 1, aligned and 5 bytes off")
+
+
+def k34_times(m, w: int) -> dict:
+    """K3+K4 at the main path's shape from the chain's mask boards ``m`` and
+    from the same masks as a dense image, at the chain's blur (ksize 5) and
+    the front-end's (7): {(input, ksize): (ms a call by CUDA events, ms of the
+    kernel alone by torch.profiler or None)}.  Uses only what every version
+    of the wrapper offers, so the same function times an older tree (set
+    ``ROOT`` to its checkout before ``phase_probe``)."""
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.ops.thinning import dense_from_boards
+
+    dense = dense_from_boards(m, w, 255)
+    times = {}
+    for ks in (5, 7):
+        for what, x in (("board", m), ("dense", dense)):
+            def call(x=x, ks=ks):
+                return kernels.edge_candidates_cuda(x, w, ks, 22, 70)
+
+            times[what, ks] = (cuda_ms(call, 20), profiled_ms(call, "edge_tiles", 20))
+            alone = times[what, ks][1]
+            print(f"K3+K4 at {tuple(m.shape[:-1])} x {w} px from a {what}, ksize {ks}: {times[what, ks][0]:.4f} ms a "
+                  f"call, " + (f"{alone:.4f} ms alone (torch.profiler)" if alone else "alone: not measured"))
+    return times
+
+
+def chain_masks(shape=CHAIN_SHAPE):
+    """The chain's opened and closed mask boards (k, h, ceil(w/32)) on the
+    card, from the seeded synthetic partition, as ``phase_chain`` makes them."""
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import bitpack
+    from plotweave_torch.stages.s02_color_extract import open_close_boards
+
+    k, h, w = shape
+    _, bins = synthetic_image(1, h, w)
+    packed = np.packbits(np.stack([bins == j for j in range(k)]), axis=-1)
+    mk, oi, ci, *_ = EDGE_PARAMS
+    return open_close_boards(bitpack.rows_to_boards(torch.from_numpy(packed).to("cuda"), w), w, oi, ci, "ellipse", mk)
+
+
+def phase_k34_times() -> dict:
+    """:func:`k34_times` on the chain's masks."""
+    return k34_times(chain_masks(), CHAIN_SHAPE[-1])
+
+
+def phase_k34_sweep(blocks=(1, 2, 3, 4), rows=(16, 32, 64, 128, 256), shapes=(CHAIN_SHAPE,)) -> None:
+    """K3+K4's two free constants, timed on the chain's masks at ``shapes``:
+    the tile's rows (``kernels.EDGE_TILE_ROWS``; the kernel takes them as an
+    argument) and the blocks an SM must hold (``PW_EDGE_MIN_BLOCKS``, a
+    rebuild), each result held to the plain version.  A measurement, not
+    part of the smoke."""
+    import torch
+
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.ops.canny import edge_candidates_plain
+
+    flags, tile_rows = list(kernels.NVCC_FLAGS["edge_candidates"]), kernels.EDGE_TILE_ROWS
+    try:
+        for shape in shapes:
+            m, w = chain_masks(shape), shape[-1]
+            refs = {ks: edge_candidates_plain(m, w, ks, 22, 70) for ks in (5, 7)}
+            for n in blocks:
+                kernels.NVCC_FLAGS["edge_candidates"] = flags + [f"-DPW_EDGE_MIN_BLOCKS={n}"]
+                kernels._libs.pop("edge_candidates", None)
+                kernels.load("edge_candidates")
+                log = kernels.build_log.get("edge_candidates", "").splitlines()
+                regs = sorted({int(line.split("Used ")[1].split(" registers")[0]) for line in log if "registers" in line})
+                for th in rows:
+                    kernels.EDGE_TILE_ROWS = (th, th)
+                    kernels.edge_schedule.cache_clear()
+                    for ks in (5, 7):
+                        def call(ks=ks):
+                            return kernels.edge_candidates_cuda(m, w, ks, 22, 70)
+
+                        got = call()
+                        check(torch.equal(got[0], refs[ks][0]) and torch.equal(got[1], refs[ks][1]),
+                              f"K3+K4 sweep: {shape}, blocks {n}, tile rows {th}, ksize {ks} != plain")
+                        alone = profiled_ms(call, "edge_tiles", 20)
+                        print(f"K3+K4 sweep {shape}: min blocks {n} (registers {regs[:1]}-{regs[-1:]}), tile rows {th}, "
+                              f"ksize {ks}: {cuda_ms(call, 20):.4f} ms a call, "
+                              + (f"{alone:.4f} ms alone" if alone else "alone: not measured"))
+    finally:
+        kernels.NVCC_FLAGS["edge_candidates"], kernels.EDGE_TILE_ROWS = flags, tile_rows
+        kernels.edge_schedule.cache_clear()
+        kernels._libs.pop("edge_candidates", None)
 
 
 def phase_chain(stats: dict) -> None:
@@ -841,6 +956,7 @@ def phase_chain(stats: dict) -> None:
         k3_plain_device_kernels=sum(device_kernels(lambda: gaussian_blur_u8_plain(dense_m, bk)).values()),
         k4_plain_ms=cuda_ms(lambda: canny_candidates_plain(blurred, lo, hi), 3),
         k4_plain_device_kernels=sum(device_kernels(lambda: canny_candidates_plain(blurred, lo, hi)).values()))
+    stats["K3+K4 inputs"] = {f"{what} {ks}": t for (what, ks), t in k34_times(m, w).items()}
     st = stats["K3+K4"]
     print(f"  plain K3 (blur, ksize {bk}) {st['k3_plain_ms']:.4f} ms in {st['k3_plain_device_kernels']} device "
           f"kernels, plain K4 (Sobel, NMS, thresholds) {st['k4_plain_ms']:.4f} ms in {st['k4_plain_device_kernels']}; "

@@ -16,7 +16,11 @@
   and double threshold in one launch, from a bitboard or a uint8 image to
   the candidate and strong boards (or the blurred image); replaces the XLA
   fusions of ``gaussian_blur_u8`` and of ``canny_packed`` before its
-  hysteresis.  :func:`edge_schedule` picks the tile before any launch.
+  hysteresis.  A board stays words in shared memory; a thread walks down a
+  strip of four columns with the blur's row sums, then three rows of Sobel
+  parts, in registers; only tiles on the image's rim reflect and clamp.
+  :func:`edge_schedule` picks the tile and :func:`edge_fast` the path before
+  any launch.
 - K5 ``hysteresis_cuda`` and K6 ``zhang_suen_packed_cuda``
   (``csrc/bitboard_fixpoints.cu``): the bitboard fixpoints; K6 replaces
   ``zhang_suen_packed_pallas``.  Each has two routes, chosen by size before
@@ -104,9 +108,14 @@ MORPH_BAND = 32
 MORPH_MASK_BYTES = 2 * 63 * 8
 
 # K3+K4's tile of output, rows x 32-pixel words, where it fits (a smaller
-# one for a blur radius whose halo does not); its threads' rows (``kRows`` in
-# csrc/edge_candidates.cu) bound the grid
-EDGE_TILE_ROWS, EDGE_TILE_WORDS = 32, 4
+# one for a blur radius whose halo does not): the taller tile, whose threads
+# walk longer row segments and so redo fewer warm-up rows, where it still
+# leaves EDGE_TALL_BLOCKS blocks (measured on the H100, PERF.md: 64 rows win
+# at 1,024 and 1,536 blocks, 32 rows at 384 and below); and the ``ksize``
+# that have a template instance in csrc/edge_candidates.cu (``pick``)
+EDGE_TILE_ROWS, EDGE_TILE_WORDS = (32, 64), 4
+EDGE_TALL_BLOCKS = 1024
+EDGE_FAST_KSIZES = (1, 3, 5, 7, 9)
 
 # the resident routes: CTAs per thread block cluster (``kCluster`` in
 # csrc/bitboard_fixpoints.cu), and the shared memory one CTA may take (227 KB
@@ -205,7 +214,7 @@ _SIGNATURES = {
                 "pw_boards_to_dense": [_P, _P, _L, _I, _I, _I, _P],
                 "pw_dense_to_boards": [_P, _P, _L, _I, _I, _P],
                 "pw_labels_to_boards": [_P, _P, _L, _I, _I, _I, _P]},
-    "edge_candidates": {"pw_edge_candidates": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "edge_candidates": {"pw_edge_candidates": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "bitboard_fixpoints": {"pw_zs_cluster_run": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
                            "pw_hysteresis_cluster_run": [_P, _P, _P, _P, _I, _I, _I, _P],
                            "pw_zs_packed_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -353,27 +362,58 @@ def labels_to_boards_cuda(labels: torch.Tensor, k: int) -> torch.Tensor:
                     labels.numel() // max(h * w, 1), k, h, w)
 
 
-def edge_smem_bytes(th: int, tww: int, ksize: int) -> int:
+@functools.lru_cache(maxsize=None)
+def edge_fast(ksize: int, sigma: float = 0.0) -> bool:
+    """Whether K3+K4 takes its fast path for these taps: a template instance
+    of ``csrc/edge_candidates.cu`` (:data:`EDGE_FAST_KSIZES`: row sums from a
+    window table or ``__dp4a``, the column pass in registers) and every tap a
+    byte.  ``ksize`` 1 blurs nothing, whatever its one tap.  Anything else
+    (an even or larger ``ksize``, a sigma so small that one tap is 256) takes
+    the general path."""
+    if ksize not in EDGE_FAST_KSIZES:
+        return False
+    taps = gaussian_kernel_q8(ksize, sigma)
+    return ksize == 1 or bool(taps.min() >= 0 and taps.max() <= 255)
+
+
+def edge_smem_bytes(th: int, tww: int, ksize: int, boards: bool, fast: bool) -> int:
     """Shared memory one block of K3+K4 takes for a tile of ``th`` rows of
-    ``tww`` words (``csrc/edge_candidates.cu``'s layout): the input with a
-    halo of ``ksize // 2 + 2`` px, the row sums (uint16), the blurred bytes
-    of the tile and 2 px around it, the magnitudes (int16) of the tile and 1
-    px around it, and the taps."""
+    ``tww`` words (``csrc/edge_candidates.cu``'s ``make_layout``), all in
+    32-bit words: the blurred bytes of the tile and 2 px around it; the input
+    with a halo of ``ksize // 2 + 2`` px, a board as words with whole halo
+    words, a dense image as bytes (on the fast path from the word boundary
+    before the halo, and one word to spare); the fast path's table of
+    ``2 ** ksize`` uint16 window sums (boards only) or the general path's
+    uint16 row sums; the taps."""
     halo, tw = ksize // 2 + 2, 32 * tww
-    ah, aw = th + 2 * halo, tw + 2 * halo
-    total = 2 * ah * (tw + 4) + 2 * (th + 2) * (tw + 2) + ah * aw + (th + 4) * (tw + 4)
-    return -(-total // 4) * 4 + 4 * ksize
+    ah = th + 2 * halo
+    if boards:
+        in_words = tww + 2 * -(-halo // 32)
+    elif fast:
+        in_words = tw // 4 + -(-halo // 4) * 2 + 1
+    else:
+        in_words = -(-(tw + 2 * halo) // 4)
+    if fast:
+        aux_words = ((1 << ksize) + 1) // 2 if boards else 0
+    else:
+        aux_words = ah * (tw + 4) // 2
+    return 4 * ((th + 4) * (tw // 4 + 1) + ah * in_words + aux_words + ksize)
 
 
 @functools.lru_cache(maxsize=None)
-def edge_schedule(ksize: int, h: int, nw: int) -> tuple:
-    """K3+K4's tile (rows, words) for layers of ``h`` rows of ``nw`` words:
-    :data:`EDGE_TILE_ROWS` x :data:`EDGE_TILE_WORDS` (fewer for a smaller
-    layer), halved, rows first, while the tile and the halo of ``ksize`` do
-    not fit :data:`MAX_SMEM`.  Raises where no tile fits or the grid cannot
-    hold the layer."""
-    th, tww = max(1, min(EDGE_TILE_ROWS, h)), max(1, min(EDGE_TILE_WORDS, nw))
-    while edge_smem_bytes(th, tww, ksize) > MAX_SMEM:
+def edge_schedule(ksize: int, k: int, h: int, nw: int, boards: bool, fast: bool) -> tuple:
+    """K3+K4's tile (rows, words) for ``k`` layers of ``h`` rows of ``nw``
+    words: :data:`EDGE_TILE_WORDS` words (fewer for a narrower layer) by the
+    taller of :data:`EDGE_TILE_ROWS` where the grid keeps
+    :data:`EDGE_TALL_BLOCKS` blocks, else the shorter (fewer for a shorter
+    layer); halved, rows first, while the tile and the halo of ``ksize`` do
+    not fit :data:`MAX_SMEM` on that input and path.  Raises where no tile
+    fits or the grid cannot hold the layer."""
+    short, tall = EDGE_TILE_ROWS
+    tww = max(1, min(EDGE_TILE_WORDS, nw))
+    th = tall if k * -(-h // tall) * -(-nw // tww) >= EDGE_TALL_BLOCKS else short
+    th = max(1, min(th, h))
+    while edge_smem_bytes(th, tww, ksize, boards, fast) > MAX_SMEM:
         if th > 1:
             th = -(-th // 2)
         elif tww > 1:
@@ -423,13 +463,14 @@ def _edge_launch(x: torch.Tensor, w: int | None, ksize: int, sigma: float, low: 
             both = torch.empty((2, *lead, h, nw), dtype=torch.int32, device=x.device)
             outs = (both[0], both[1])
         if outs[0].numel():
-            th, tww = edge_schedule(ksize, h, nw)
+            boards, fast = x.dtype == torch.int32, edge_fast(ksize, sigma)
+            th, tww = edge_schedule(ksize, k, h, nw, boards, fast)
             taps = _taps_on(ksize, sigma, x.device)
             lib = load("edge_candidates")
             cand, strong, blurred = (None, None, outs[0].data_ptr()) if blur_only else (
                 outs[0].data_ptr(), outs[1].data_ptr(), None)
-            err = lib.pw_edge_candidates(x.data_ptr(), int(x.dtype == torch.int32), cand, strong, blurred,
-                                         taps.data_ptr(), ksize, th, tww, k, h, w, low, high,
+            err = lib.pw_edge_candidates(x.data_ptr(), int(boards), cand, strong, blurred, taps.data_ptr(), ksize,
+                                         ksize if fast else 0, th, tww, k, h, w, low, high,
                                          torch.cuda.current_stream().cuda_stream)
             _count("edge_candidates")
             _raise_on(lib, name, err)

@@ -26,7 +26,7 @@ def run(cfg: PipelineConfig) -> None:
             continue
         contours = load_pickle(src)
         t0 = time.perf_counter()
-        ordered = sort_contours(contours)
+        ordered = sort_contours(contours, device_min_n=int(cfg.planner_device_min_n))
         save_pickle(ordered, os.path.join(d, "contours_sorted.pkl"))
         print(
             f"[sort] {name}: contours={len(ordered)}, time={time.perf_counter() - t0:.2f}s"

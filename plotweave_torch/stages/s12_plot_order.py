@@ -41,7 +41,9 @@ def run(cfg: PipelineConfig) -> None:
         ops = plan_layer_ops(lines, taps, r_insert)
         if cfg.plotopt_two_opt:
             before = tour_length(ops)
-            ops = refine_tour(ops)
+            ops = refine_tour(
+                ops, device_min_n=int(getattr(cfg, "refine_device_min_n", 0))
+            )
             print(f"[plot-opt] {name}: 2-opt+or-opt travel {before:.0f} → {tour_length(ops):.0f} px")
         p_ops = os.path.join(d, "ops.pkl")
         save_pickle(ops, p_ops)

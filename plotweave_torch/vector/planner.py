@@ -229,12 +229,16 @@ def or_opt_refine(ops: List[Op], max_passes: int = 10) -> List[Op]:
     return cur
 
 
-def refine_tour(ops: List[Op], max_rounds: int = 5) -> List[Op]:
+def refine_tour(ops: List[Op], max_rounds: int = 5, device_min_n: int = 0) -> List[Op]:
     """Alternate 2-opt and Or-opt until neither shortens the tour.
 
-    The host refiner runs at every size: the device refiner of the JAX
-    package (its ``device_min_n`` gate) is not ported yet (ROADMAP.md,
-    Queue 1 item 7: K10)."""
+    ``device_min_n`` > 0 is the JAX package's gate to its on-device refiner
+    for op lists of at least that many entries.  That refiner is not ported
+    yet (ROADMAP.md, Item 7: K10): the host refiner runs at every size, and
+    a list that crosses the gate says so in one printed line."""
+    if device_min_n and len(ops) >= device_min_n:
+        print(f"[plot-opt] n={len(ops)} >= refine_device_min_n={device_min_n}: the device refiner is not ported "
+              f"(ROADMAP.md Item 7), the host refiner runs")
     cur = ops
     for _ in range(max_rounds):
         length0 = tour_length(cur)

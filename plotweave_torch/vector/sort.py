@@ -90,20 +90,26 @@ def greedy_order(
     closed_aware: bool,
     starts: np.ndarray = None,
     ends: np.ndarray = None,
+    device_min_n: int = 0,
 ) -> Tuple[List[int], List[bool]]:
     """Return (order, flips) of the greedy nearest-endpoint tour.
 
     ``starts``/``ends`` may be precomputed (the _batch_endpoints fast path);
     when omitted they are derived per contour exactly as before.
-    The host planner orders every layer, at any size: the device planner
-    of the JAX package (its ``device_min_n`` gate) is not ported yet
-    (ROADMAP.md, Queue 1 item 7: K9)."""
+    ``device_min_n`` > 0 is the JAX package's gate to its on-device planner
+    for plans of at least that many contours.  That planner is not ported
+    yet (ROADMAP.md, Item 7: K9): the host planner orders every plan, and a
+    plan that crosses the gate says so in one printed line."""
     n = len(polys)
     if starts is None or ends is None:
         starts = np.array([_endpoints(c, closed_aware)[0] for c in polys])
         ends = np.array([_endpoints(c, closed_aware)[1] for c in polys])
 
     cur = int(np.argmax(lengths))
+
+    if device_min_n and n >= device_min_n:
+        print(f"[sort] n={n} >= planner_device_min_n={device_min_n}: the device planner is not ported "
+              f"(ROADMAP.md Item 7), the host planner runs")
 
     native = _greedy_order_native(starts, ends, closed, closed_aware, cur)
     if native is not None:
@@ -156,7 +162,7 @@ def apply_order(polys: Sequence[np.ndarray], order: List[int], flips: List[bool]
     return out
 
 
-def sort_contours(polys: List[np.ndarray]) -> List[np.ndarray]:
+def sort_contours(polys: List[np.ndarray], device_min_n: int = 0) -> List[np.ndarray]:
     """Stage-07 ordering: closed-aware, seeded on closed arc length."""
     if not polys:
         return []
@@ -164,7 +170,7 @@ def sort_contours(polys: List[np.ndarray]) -> List[np.ndarray]:
     starts, ends, closed = _batch_endpoints(ptss, strip_closed=True)
     lengths = batch_arc_length(ptss, np.ones(len(ptss), bool))
     order, flips = greedy_order(polys, lengths, closed, closed_aware=True,
-                                starts=starts, ends=ends)
+                                starts=starts, ends=ends, device_min_n=device_min_n)
     return apply_order(polys, order, flips, reclose=True)
 
 

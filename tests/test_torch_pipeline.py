@@ -1,8 +1,15 @@
 """The port's runner end to end on the CPU, and its device and build policy.
 
 The four e2e golden configs run through ``plotweave_torch.pipeline`` with
-``raster_device="cpu"`` (the plain PyTorch versions), and the stage 02–04
-artifacts and ``plot_stream.bin`` must equal the golden reference-run bytes.
+``raster_device="cpu"`` (the plain PyTorch versions), and every artifact of
+the golden reference run that steps 1–13 write must equal the golden's:
+``plot_stream.bin`` byte for byte, the JSON files as parsed, the pickles item
+by item (their bytes depend on the numpy and pickle versions that wrote
+them), the PNGs pixel by pixel (masks, edges, the resized image and all the
+previews: they are drawn by OpenCV from integer coordinates, so the pixels
+are deterministic; the files' bytes depend on the PNG encoder of the OpenCV
+build, so they are not pinned).  ``config.json`` is the test's own input.
+Stage 14 runs headless on a golden stream.
 """
 
 from __future__ import annotations
@@ -73,6 +80,80 @@ def test_contours_identical(runs):
         assert len(a) == len(b), layer
         for x, y in zip(a, b):
             np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+PER_LAYER = ["contours_scaled.pkl", "contours_sorted.pkl", "lines_intra.pkl", "taps_intra.pkl", "lines_cross.pkl",
+             "taps_cross.pkl", "ops.pkl", "scaled_preview.png", "preview_intra.png", "preview_cross.png"]
+TOP_LEVEL = ["resized.png", "edges_composite.png", "scaled_preview_composite.png", "preview_intra_composite.png",
+             "preview_cross_composite.png", "palette_by_name.json", "vector_manifest.json", "plot_stream.json"]
+COMPARED_ELSEWHERE = {"mask.png", "edges.png", "contours.pkl", "plot_stream.bin", "config.json"}
+
+
+def _same_artifact(a: Path, b: Path) -> None:
+    import cv2
+
+    if a.suffix == ".png":
+        x, y = cv2.imread(str(a), cv2.IMREAD_UNCHANGED), cv2.imread(str(b), cv2.IMREAD_UNCHANGED)
+        assert x is not None and y is not None and x.shape == y.shape, a.name
+        np.testing.assert_array_equal(x, y, err_msg=a.name)
+    elif a.suffix == ".json":
+        assert json.loads(a.read_text()) == json.loads(b.read_text()), a.name
+    else:
+        x, y = pickle.loads(a.read_bytes()), pickle.loads(b.read_bytes())
+        assert len(x) == len(y), f"{a.name}: {len(x)} vs {len(y)} items"
+        for i, (p, q) in enumerate(zip(x, y)):
+            if isinstance(p, dict):  # ops.pkl
+                assert p["type"] == q["type"], f"{a.name}[{i}] type"
+                if p["type"] == "line":
+                    np.testing.assert_array_equal(p["points"], q["points"], err_msg=f"{a.name}[{i}]")
+                else:
+                    assert (p["x"], p["y"]) == (q["x"], q["y"]), f"{a.name}[{i}] tap"
+            else:
+                np.testing.assert_array_equal(np.asarray(p), np.asarray(q), err_msg=f"{a.name}[{i}]")
+
+
+@pytest.mark.parametrize("name", [f"layer/{n}" for n in PER_LAYER] + TOP_LEVEL)
+def test_golden_artifact_identical(runs, name):
+    """Every artifact of the golden run beside those of the tests above."""
+    ref, mine, layers, _ = runs
+    rels = [f"{layer}/{name[6:]}" for layer in layers] if name.startswith("layer/") else [name]
+    for rel in rels:
+        assert (ref / rel).is_file() and (mine / rel).is_file(), rel
+        _same_artifact(ref / rel, mine / rel)
+
+
+def test_every_golden_file_is_written_and_compared(runs):
+    """Steps 1–13 write every file of the golden tarball, and the lists above name them all."""
+    ref, mine, layers, _ = runs
+    golden = {str(p.relative_to(ref)) for p in ref.rglob("*") if p.is_file()}
+    assert golden <= {str(p.relative_to(mine)) for p in mine.rglob("*") if p.is_file()}
+    named = set(TOP_LEVEL) | COMPARED_ELSEWHERE
+    named |= {f"{layer}/{n}" for layer in layers for n in [*PER_LAYER, *COMPARED_ELSEWHERE]}
+    assert golden <= named, sorted(golden - named)
+
+
+def test_stage14_headless_preview(runs, tmp_path, monkeypatch):
+    """Stage 14 on the run's stream, headless: the PNG it writes is the
+    render of the golden stream by the JAX package's simulator."""
+    import cv2
+
+    from plotweave.viz.simulator import DEFAULT_PALETTE, render_stream
+    from plotweave_torch.stages import s14_preview_stream
+
+    ref, mine, _, _ = runs
+    out = tmp_path / "stream_preview.png"
+    monkeypatch.setenv("PLOTWEAVE_PREVIEW_PNG", str(out))
+    decoders = []  # print_stats writes to the stderr of the moment its module was imported
+    monkeypatch.setattr(s14_preview_stream, "print_stats", decoders.append)
+    cfg = load_config(str(mine / "config.json"))
+    s14_preview_stream.run(cfg)
+    assert len(decoders) == 1 and decoders[0].stats.eof_seen and decoders[0].stats.steps_total > 0
+    got = cv2.imread(str(out), cv2.IMREAD_UNCHANGED)
+    w, h = int(cfg.target_width_mm * cfg.steps_per_mm), int(cfg.target_height_mm * cfg.steps_per_mm)
+    want, _ = render_stream((ref / "plot_stream.bin").read_bytes(), w, h, invert_y=True, palette=DEFAULT_PALETTE)
+    assert got is not None and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    assert (got != 255).any()  # something was drawn
 
 
 def test_stream_byte_identical(runs):
@@ -149,6 +230,49 @@ def test_unported_modes_raise(tmp_path, override):
     cfg = load_config(str(_write_cfg("base_cfg.json", tmp_path / "x", raster_device="cpu", **override)))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run_pipeline(cfg, 1, 4)
+
+
+def test_stages_07_and_12_say_when_a_plan_crosses_a_device_gate(tmp_path, capsys):
+    """A plan of at least ``planner_device_min_n`` contours, or an op list of
+    at least ``refine_device_min_n`` entries, goes to the host planner or
+    refiner all the same, says so in one line that names the ROADMAP item,
+    and gives the result it gives below the gate."""
+    from plotweave_torch.pipeline import run_pipeline
+    from plotweave_torch.vector.planner import refine_tour
+    from plotweave_torch.vector.sort import sort_contours
+
+    rng = np.random.default_rng(7)
+    contours = [rng.integers(0, 500, (int(rng.integers(2, 9)), 1, 2)).astype(np.int32) for _ in range(12)]
+    quiet = sort_contours(contours)
+    assert capsys.readouterr().out == ""
+    gated = sort_contours(contours, device_min_n=12)
+    out = capsys.readouterr().out
+    assert out.count("\n") == 1 and "n=12 >= planner_device_min_n=12" in out and "ROADMAP.md Item 7" in out
+    assert len(quiet) == len(gated) and all(np.array_equal(a, b) for a, b in zip(quiet, gated))
+    sort_contours(contours, device_min_n=13)
+    assert capsys.readouterr().out == ""
+
+    ops = [{"type": "line", "points": c.reshape(-1, 2)} for c in contours]
+    quiet = refine_tour(ops)
+    assert capsys.readouterr().out == ""
+    gated = refine_tour(ops, device_min_n=5)
+    out = capsys.readouterr().out
+    assert out.count("\n") == 1 and "n=12 >= refine_device_min_n=5" in out and "ROADMAP.md Item 7" in out
+    assert len(quiet) == len(gated) and all(np.array_equal(a["points"], b["points"]) for a, b in zip(quiet, gated))
+
+    # through the stages: the gates come from the config, and no artifact moves
+    runs = {}
+    for name, gate in (("plain", 0), ("gated", 1)):
+        cfg = load_config(str(_write_cfg("base_cfg.json", tmp_path / name, raster_device="cpu", plotopt_two_opt=True,
+                                         planner_device_min_n=gate, refine_device_min_n=gate)))
+        run_pipeline(cfg, 1, 13)
+        runs[name] = capsys.readouterr().out
+    assert "is not ported" not in runs["plain"]
+    assert "the device planner is not ported (ROADMAP.md Item 7), the host planner runs" in runs["gated"]
+    assert "the device refiner is not ported (ROADMAP.md Item 7), the host refiner runs" in runs["gated"]
+    for rel in ["plot_stream.bin"] + [f"{layer}/{n}" for layer in cfg.color_names
+                                      for n in ("contours_sorted.pkl", "ops.pkl")]:
+        assert (tmp_path / "plain" / rel).read_bytes() == (tmp_path / "gated" / rel).read_bytes(), rel
 
 
 def test_batch_runner_not_ported():
