@@ -67,14 +67,49 @@ Phases:
    plain version, K2's, K3+K4's, K7's and K12's kernel time alone
    (``torch.profiler``; K2 and K12 also by CUDA events around a loop of bare
    launches) and K2's host time per call;
-7. ``plotweave_torch.entry.entry("auto")`` once.
+7. ``plotweave_torch.entry.entry("auto")`` once;
+8. the kernels of stage 02's other modes vs their plain versions on the card:
+   K8's sampler (``pw_lab_sample``) against K7 over all 2^24 colours (its
+   Lab, put through K7's distance rule in plain PyTorch, must give K7's
+   labels exactly; within 1e-3 of the plain Lab) and a gather by index;
+   ``pw_kpp_init`` (the same picked rows as the plain version for 16 seeds,
+   k = 2, 4, 8, on 200,000 and 777 rows with duplicates, and on an
+   all-coincident sample); ``pw_lloyd_fit`` at 200,000 x 3 and 777 x 3, k = 1,
+   4, 8, ``iters`` 1 and 40 and an init that leaves a cluster empty (centres
+   within 1e-3, compactness within 1e-5 relative of the plain version's at
+   the same centres and within 1e-3 of the plain fit's, iterations equal,
+   the choice of the best attempt, twice in a row bit-equal, the one-launch
+   loop bit-equal to its own single-iteration launches, and a fit whose
+   seeds split a blob held step by step to the plain step); ``pw_assign_points``
+   and ``ops.kmeans.kmeans`` card vs CPU; K7's counts equal to a bincount of
+   its own labels; K11 byte-equal to its plain version on gray and binary
+   images, rect / ellipse / cross, ``ksize`` 1, 2, 3, 5, 7, 31, iterations
+   0-3, all four programs, odd shapes, H or W below the radius, a batch, a
+   list that takes several launches, and 4 x 1500 x 2000, beside
+   ``max_pool2d``'s time for the rect element;
+9. the device-k-means path: ``pipeline.main`` with ``kmeans_init: "device"``
+   on the synthetic 2000 x 1500 poster, steps 1-13, on the card and with
+   ``--raster-device cpu``: each mask against the host-exact run's by IoU >=
+   0.98 and card against cpu by IoU >= 0.99, edges, contours and stream
+   byte-equal where the masks are, the stream decoding either way; the
+   stage's launches exactly, and a trace of ``device_init_stage`` whose device
+   kernels must all be the port's own;
+10. the swatch path: ``extraction_mode: "swatch"`` on the poster with its four
+   generating colours, steps 1-13, card == cpu on every artifact, K11
+   launched twice a layer, its trace the port's own;
+11. the batch path: ``run_pipeline_batch`` over 8 seeded 2000 x 1500 images and
+   2 of another shape, steps 1-4, 4 workers: every mask, edges and contours
+   file byte-equal to sequential runs, fewer grouped calls than images, a
+   grouped chain call of 8 images row by row equal to the solo calls and to
+   the CPU, and its device time beside the sum of the solo calls'.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
 launches in the one run of phase 5 or 6 that drives it (the synthetic
 2000 × 1500 image for K1, K2, K3+K4 and the resident K5 and K6, the
 4400 × 4400 image for the multi-launch K5 and K6, the front-end calls for
-K7, K12 and K1's dense side), its device time, its plain version's, and its
-bound: the larger of its bytes (each input read once, each output written
+K7, K12 and K1's dense side, the device-k-means run for K8 and K7's counts,
+the tools' k-means call for K8's assignment, the swatch run for K11), its
+device time, its plain version's, and its bound: the larger of its bytes (each input read once, each output written
 once) at 3.35 TB/s and its operations, counted for these inputs, at the
 card's rate for their type.  The last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the repo beside it, it exits
@@ -113,15 +148,27 @@ CHAIN_LAUNCHES = {"bitpack": 3, "morph_bits": 1, "edge_candidates": 1, "hysteres
 # the kernels of plotweave_torch/csrc by a part of their names, as a profiler's trace shows them
 OWN_KERNELS = ("rows_to_boards", "boards_to_rows", "boards_to_dense", "dense_to_boards", "labels_to_boards",
                "morph_steps", "edge_tiles", "hysteresis_cluster", "hysteresis_sweep", "zs_cluster", "zs_subpass",
-               "assign_nearest", "zs_tiles")
+               "assign_nearest", "zs_tiles", "lab_sample", "kpp_init", "lloyd_fit", "assign_points", "morph_dense")
 # stage 03's mask open and close at the default config (ellipse 3, 1 and 1): K2's step list on the main path
 MAIN_PATH_STEPS = (("ellipse", 3, "e"), ("ellipse", 3, "d"), ("ellipse", 3, "d"), ("ellipse", 3, "e"))
+POSTER_PALETTE = [[30, 25, 20], [70, 90, 190], [140, 175, 220], [225, 220, 215]]  # synthetic_image's four tones, BGR
+KMEANS_SAMPLE = 200_000  # the default kmeans_sample_limit
+# one run of stage 02 in device mode, fused: K8 three times, K7 with counts, K2 for the masks and for the chain,
+# K1 for the masks' rows and the chain's two halves, then the chain's K3+K4, K5, K6
+DEVICE_KMEANS_LAUNCHES = {"lab_sample": 1, "kpp_init": 1, "lloyd_fit": 1, "assign_nearest": 1, "morph_bits": 2,
+                          "bitpack": 3, "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 1}
+# float operations of K8 per point: per centre and pass 9 (the dot product 5, the expanded distance 3, the
+# compare); the seeding per draw 8 for the distance, the min, the max and two running sums
+LLOYD_FLOPS_PER_CENTER, KPP_FLOPS_PER_DRAW, POWF_FLOPS = 9, 12, 40
 MULTI_KERNELS = ("hysteresis_multi", "zhang_suen_packed_multi")  # K5, K6 on layers too large for a cluster
 BIG_SIDE = 4400  # px: a layer of 4400 rows of 138 words does not fit one cluster's shared memory
 PATH_RUNS = {"main": "main path, synthetic 2000x1500, steps 1-13, card run",
              "big": f"main path, synthetic {BIG_SIDE}x{BIG_SIDE}, steps 1-4, card run",
              "front-end": "raster_frontend 2000x1500 k=4, one call on the default route",
-             "front-end dense": "raster_frontend 2000x1500 k=4, one call with pallas_thinning=True"}
+             "front-end dense": "raster_frontend 2000x1500 k=4, one call with pallas_thinning=True",
+             "device-kmeans": "main path with kmeans_init=device, synthetic 2000x1500, steps 1-13, card run",
+             "kmeans-tool": "ops.kmeans.kmeans on the card, 50,000 points, k=4",
+             "swatch": "main path with extraction_mode=swatch, synthetic 2000x1500, steps 1-13, card run"}
 
 # the card's peaks (H100 SXM): HBM bytes/s, float32 outside the tensor cores,
 # INT32 lanes (132 SMs x 64 lanes x 1.98 GHz)
@@ -317,7 +364,7 @@ def synthetic_image(seed: int, h: int, w: int):
         cy, cx, r = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(15, 120)
         field[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = rng.uniform(-4, 4)
     bins = np.digitize(field, np.quantile(field, [0.25, 0.5, 0.75]))
-    palette = np.array([[30, 25, 20], [70, 90, 190], [140, 175, 220], [225, 220, 215]], np.int16)
+    palette = np.array(POSTER_PALETTE, np.int16)
     img = palette[bins] + rng.integers(-6, 7, (h, w, 3), dtype=np.int16)
     return np.clip(img, 0, 255).astype(np.uint8), bins
 
@@ -1012,11 +1059,17 @@ def phase_chain(stats: dict) -> None:
               + f"; plain PyTorch on the card {plain[key]:.4f} ms; bound {s['bound_ms']:.5f} ms by {s['bound_by']}")
 
 
-def run_main(image: str, out: Path, device: str, config: Path | None = None, end_step: int = 13) -> dict:
-    """The CLI entry point, steps 1 to ``end_step``; its stage log goes to ``<out>.log``."""
+def run_main(image: str, out: Path, device: str, config: Path | None = None, end_step: int = 13,
+             settings: dict | None = None) -> dict:
+    """The CLI entry point, steps 1 to ``end_step``; its stage log goes to
+    ``<out>.log``.  ``settings`` are written to a config file of the run."""
     from plotweave_torch.pipeline import main
 
     argv = [image, "--output", str(out), "--end-step", str(end_step), "--raster-device", device]
+    if settings is not None:
+        out.mkdir(exist_ok=True)
+        config = out / "config.json"
+        config.write_text(json.dumps(settings))
     if config is not None:
         argv += ["--config", str(config)]
     with open(f"{out}.log", "w") as log, contextlib.redirect_stdout(log):
@@ -1035,7 +1088,6 @@ def phase_main_path(work: Path) -> dict:
 
     from plotweave_torch.config import PipelineConfig
     from plotweave_torch.ops import kernels
-    from plotweave_torch.stream.decoder import StreamDecoder, replay
 
     img, _ = synthetic_image(2, 1500, 2000)
     image = str(work / "synthetic.png")
@@ -1057,12 +1109,8 @@ def phase_main_path(work: Path) -> dict:
     wall_cpu = time.perf_counter() - t0
     diff = same_artifacts(work / "synthetic_cuda", work / "synthetic_cpu", names)
     check(not diff, f"synthetic 2000x1500: card run != CPU run: {diff}")
-    data = (work / "synthetic_cuda" / "plot_stream.bin").read_bytes()
-    man = json.loads((work / "synthetic_cuda" / "vector_manifest.json").read_text())
-    dec = StreamDecoder(data)
-    replay(dec, *man["image_size"])
-    check(dec.stats.eof_seen and dec.stats.off_canvas_steps == 0, "plot_stream.bin does not decode cleanly")
-    print(f"main path, synthetic 2000x1500: card == CPU ({len(data)} stream bytes, decodes to EOF); "
+    size = decodes(work / "synthetic_cuda")
+    print(f"main path, synthetic 2000x1500: card == CPU ({size} stream bytes, decodes to EOF); "
           f"launches {first}; wall {wall_cuda:.2f} s (card) vs {wall_cpu:.2f} s (cpu)")
     print("  stage wall seconds (card | cpu): " + ", ".join(
         f"{m[:3]} {times_cuda[m]:.3f}|{times_cpu[m]:.3f}" for m in times_cuda))
@@ -1322,6 +1370,493 @@ def phase_frontend(stats: dict) -> dict:
     return launches
 
 
+def poster_sample(seed: int = 2, limit: int = KMEANS_SAMPLE):
+    """The device mode's subsample of the synthetic 2000 x 1500 poster on the
+    card, as stage 02 makes it: (image tensor, sample indices, float Lab
+    sample (limit, 3))."""
+    import torch
+
+    from plotweave_torch.ops.kmeans import lab_sample, subsample_indices
+
+    img = torch.from_numpy(synthetic_image(seed, 1500, 2000)[0]).to("cuda")
+    idx = subsample_indices(42, 1500 * 2000, limit)
+    return img, idx, lab_sample(img, idx)
+
+
+def rel_err(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
+    """K8 (sampler, seeding, fit, assignment), K7's counts and K11 against
+    their plain versions on the card; returns the launch counts of one
+    ``ops.kmeans.kmeans`` call on the card."""
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import kernels, kmeans, morphology
+    from plotweave_torch.ops.colorspace import bgr_to_lab_u8
+    from plotweave_torch.ops.frontend import (
+        assign_boards_counts_plain, assign_nearest_plain, nearest_of_lab, onehot_boards_plain)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(31)
+
+    # --- K8's sampler against K7, over every BGR colour once
+    v = torch.arange(2**24, dtype=torch.int32, device=dev)
+    img = torch.stack([v & 255, (v >> 8) & 255, v >> 16], dim=-1).to(torch.uint8).reshape(4096, 4096, 3)
+    pens = torch.tensor([[30, 128, 128], [60, 150, 100], [90, 110, 160], [120, 170, 170], [150, 90, 120],
+                         [180, 140, 200], [210, 120, 90], [245, 128, 128]], dtype=torch.float32, device=dev)
+    lab = kernels.lab_sample_cuda(img)
+    check(torch.equal(nearest_of_lab(lab.view(4096, 4096, 3), pens, 8), kernels.assign_nearest_cuda(img, pens)),
+          "K8 lab_sample: its Lab through K7's distance rule != K7's labels, all 2^24 colours, 8 centres")
+    lab_err = float((lab.view(4096, 4096, 3) - bgr_to_lab_u8(img)).abs().max())
+    check(lab_err <= 1e-3, f"K8 lab_sample vs plain Lab: max abs err {lab_err} > 1e-3")
+    idx = torch.from_numpy(rng.integers(0, 2**24, KMEANS_SAMPLE).astype(np.int32))
+    check(torch.equal(kmeans.lab_sample(img, idx), lab[idx.long().to(dev)]),
+          "K8 lab_sample: a gather by index != the same pixels in place")
+    del v, img, lab
+    print(f"K8 lab_sample: its Lab gives K7's labels exactly on all 2^24 colours (8 centres), within {lab_err:.2e} "
+          f"of the plain Lab (tolerance 1e-3); a gather of {KMEANS_SAMPLE} indices == the pixels in place")
+
+    # --- the poster's sample: what the main path gives the fit
+    poster, idx, sample = poster_sample()
+    quant = torch.round(sample)  # integer Lab: many duplicate rows
+    small = torch.from_numpy(np.concatenate([rng.normal(c, 2.0, (194, 3)) for c in
+                                             ((20, 20, 20), (80, 100, 120), (200, 128, 128), (240, 200, 180))] +
+                                            [np.full((1, 3), 7.0)]).astype(np.float32)).to(dev)  # 777 rows
+    same = torch.full((5000, 3), 7.0, device=dev)  # every weight is the floor 1e-12
+    n_kpp = 0
+    for name, data in (("200,000 poster rows", sample), ("200,000 integer rows", quant), ("777 rows", small),
+                       ("5,000 coincident rows", same)):
+        for k in (2, 4, 8):
+            first, uniforms = kmeans.seed_stream(1000 + k, 16, k, data.shape[0])  # 16 seeds
+            got_c, got_p = kernels.kpp_init_cuda(data, k, first.to(dev), uniforms.to(dev))
+            reps = range(16) if data.shape[0] <= 5000 or k == 4 else range(4)  # the plain version is a long loop
+            for a in reps:
+                ref_c, ref_p = kmeans.kpp_init_plain(data, k, int(first[a]), uniforms[a])
+                check(torch.equal(got_p[a], ref_p) and torch.equal(got_c[a], ref_c),
+                      f"K8 kpp_init {name} k={k} seed {a}: picked {got_p[a].tolist()}, plain {ref_p.tolist()}")
+                n_kpp += 1
+    print(f"K8 kpp_init == plain (the same picked rows): {n_kpp} (sample, k, seed) cases on the poster's sample, "
+          f"integer rows with duplicates, 777 rows and 5,000 coincident rows, k = 2, 4, 8")
+
+    # --- the fit
+    def fit_case(name, data, inits, iters):
+        got = kernels.lloyd_fit_cuda(data, inits, iters)
+        again = kernels.lloyd_fit_cuda(data, inits, iters)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K8 lloyd_fit {name}: two runs differ")
+        ref = kmeans.lloyd_fits_plain(data, inits, iters)
+        err = float((got[1] - ref[1]).abs().max())
+        check(err <= 1e-3, f"K8 lloyd_fit {name}: centres off by {err} > 1e-3")
+        # the kernel's last pass against the plain version's AT THE KERNEL'S CENTRES: only the sum's order differs
+        comp = max(rel_err(float(c), float(kmeans.lloyd_plain(data, cen, 0)[1])) for c, cen in zip(got[2], got[1]))
+        check(comp <= 1e-5, f"K8 lloyd_fit {name}: compactness off by {comp} > 1e-5 relative at its own centres")
+        # against the plain fit's: before convergence a centre is not the mean of its final members, so the
+        # centres' last digits (within 1e-3) move the compactness in first order
+        loose = max(rel_err(float(a), float(b)) for a, b in zip(got[2], ref[2]))
+        check(loose <= 1e-3, f"K8 lloyd_fit {name}: compactness off the plain fit's by {loose} > 1e-3 relative")
+        check(torch.equal(got[3], ref[3]), f"K8 lloyd_fit {name}: iterations {got[3].tolist()} != {ref[3].tolist()}")
+        check(float((got[0] - ref[0]).abs().max()) <= 1e-3, f"K8 lloyd_fit {name}: another attempt won")
+        stepwise_case(name, data, inits, iters, got)
+        return err, comp
+
+    def stepwise_case(name, data, inits, iters, got, plain_steps: int = 0):
+        """The fused loop against its own single-iteration launches with the
+        stop test taken here in plain PyTorch: bit-equal centres and the same
+        iteration count; the first ``plain_steps`` steps also against the
+        plain version's step from the same centres, within 1e-4."""
+        for a in range(inits.shape[0]):
+            c, it = inits[a], 0
+            while it < iters:
+                new = kernels.lloyd_fit_cuda(data, c[None].contiguous(), 1)[1][0]
+                if it < plain_steps:
+                    step = float((new - kmeans.lloyd_plain(data, c, 1)[0]).abs().max())
+                    check(step <= 1e-4, f"K8 lloyd_fit {name}: step {it} of attempt {a} off the plain step by {step}")
+                move = new - c
+                shift = float(torch.sqrt(kmeans._sum_cols(move * move)).max())
+                c, it = new, it + 1
+                if not shift > 0.5:
+                    break
+            check(torch.equal(c, got[1][a]) and it == int(got[3][a]),
+                  f"K8 lloyd_fit {name}: attempt {a} ran {int(got[3][a])} iterations in one launch, {it} as single "
+                  f"steps, or the centres differ")
+
+    # k = 8 on eight separable blobs, seeded near them: where a boundary between two centres runs through dense
+    # rows (eight centres on four tones, or two k-means++ seeds in one blob), the last digits of a sum decide which
+    # rows a centre wins, and no tolerance on the centres survives 40 iterations that stop at a shift of 0.5.  That
+    # case is held step by step instead (below).
+    def blobs8(rows: int, extra: int):
+        parts = [rng.normal(c, 5.0, (rows, 3)) for c in pens.cpu().numpy()] + [np.full((extra, 3), 7.0)]
+        return torch.from_numpy(np.concatenate(parts).astype(np.float32)).to(dev)
+
+    eight = {"200,000 x 3": blobs8(25_000, 0), "777 x 3": blobs8(97, 1)}
+    worst, n_fit = (0.0, 0.0), 0
+    for name, four in (("200,000 x 3", sample), ("777 x 3", small)):
+        for k in (1, 4, 8):
+            data = eight[name] if k == 8 else four
+            first, uniforms = kmeans.seed_stream(7, 3, k, data.shape[0])
+            inits = kernels.kpp_init_cuda(data, k, first.to(dev), uniforms.to(dev))[0]
+            if k == 8:
+                hard = (data, inits)
+                inits = (pens[None] + torch.from_numpy(rng.normal(0, 3.0, (3, 8, 3)).astype(np.float32)).to(dev)).contiguous()
+            for iters in (1, 40):
+                worst = tuple(max(a, b) for a, b in zip(worst, fit_case(f"{name} k={k} iters={iters}", data, inits, iters)))
+                n_fit += 1
+        # two seeds in one blob: every step against the plain step, the loop against its own steps
+        stepwise_case(f"{name} k=8 from k-means++ seeds", *hard, 40, kernels.lloyd_fit_cuda(*hard, 40), plain_steps=6)
+        n_fit += 1
+        # an init that leaves a cluster empty: the far centre keeps its place
+        data = four
+        inits = torch.stack([torch.cat([data[:3], torch.full((1, 3), -5000.0, device=dev)])] * 2)
+        fit_case(f"{name} with an empty cluster", data, inits, 40)
+        check(torch.equal(kernels.lloyd_fit_cuda(data, inits, 40)[1][0, 3], inits[0, 3]),
+              f"K8 lloyd_fit {name}: an empty cluster moved")
+        n_fit += 1
+    print(f"K8 lloyd_fit == plain: {n_fit} cases at 200,000 x 3 and 777 x 3, k = 1, 4, 8, iters 1 and 40, an empty "
+          f"cluster; centres within {worst[0]:.2e} (tolerance 1e-3), compactness within {worst[1]:.2e} relative "
+          f"(tolerance 1e-5), iterations and the winning attempt equal, two runs bit-equal, the one-launch loop "
+          f"bit-equal to its own single steps, k = 8 from k-means++ seeds step by step within 1e-4 of the plain step")
+
+    # K8 at the main path's shape: 200,000 rows, k = 4, 3 attempts, 40 iterations
+    n, k, attempts = sample.shape[0], 4, 3
+    first, uniforms = kmeans.seed_stream(42, attempts, k, n)
+    first_d, uniforms_d, idx_d = first.to(dev), uniforms.to(dev), idx.to(dev)
+    inits = kernels.kpp_init_cuda(sample, k, first_d, uniforms_d)[0]
+    kernels.lloyd_fit_cuda(sample, inits, 40)
+    torch.cuda.synchronize()
+    passes = int(kernels.STATS["lloyd_fit"][0].sum()) + attempts  # every iteration and the last assignment
+    px = poster.reshape(-1, 3)[idx_d.long()]
+    stats["K8 lab_sample"] = {
+        "max_abs_err": lab_err, "ms": cuda_ms(lambda: kernels.lab_sample_cuda(poster, idx_d), 20),
+        "plain_ms": cuda_ms(lambda: bgr_to_lab_u8(poster.reshape(-1, 3)[idx_d.long()]), 5),
+        "alone_ms": profiled_ms(lambda: kernels.lab_sample_cuda(poster, idx_d), "lab_sample", 20),
+        **bound(n * (4 + 3 + 12), k7_flops(px, 0) + 3 * n * POWF_FLOPS, FP32_OPS)}
+    stats["K8 kpp_init"] = {
+        "max_abs_err": 0, "ms": cuda_ms(lambda: kernels.kpp_init_cuda(sample, k, first_d, uniforms_d), 10),
+        "plain_ms": cuda_ms(lambda: [kmeans.kpp_init_plain(sample, k, int(f), u) for f, u in zip(first, uniforms)], 1),
+        "alone_ms": profiled_ms(lambda: kernels.kpp_init_cuda(sample, k, first_d, uniforms_d), "kpp_init", 10),
+        **bound(12 * n + 12 * attempts * k, attempts * (k - 1) * n * KPP_FLOPS_PER_DRAW, FP32_OPS)}
+    stats["K8 lloyd_fit"] = {
+        "max_abs_err": worst[0], "ms": cuda_ms(lambda: kernels.lloyd_fit_cuda(sample, inits, 40), 10),
+        "plain_ms": cuda_ms(lambda: kmeans.lloyd_fits_plain(sample, inits, 40), 1),
+        "alone_ms": profiled_ms(lambda: kernels.lloyd_fit_cuda(sample, inits, 40), "lloyd_fit", 10),
+        "passes": passes, "iterations": kernels.STATS["lloyd_fit"][0].tolist(),
+        **bound(12 * n + 24 * attempts * k, passes * n * k * LLOYD_FLOPS_PER_CENTER, FP32_OPS)}
+    for key in ("K8 lab_sample", "K8 kpp_init", "K8 lloyd_fit"):
+        st = stats[key]
+        print(f"{key} at {n} x 3, k = {k}, {attempts} attempts: {st['ms']:.4f} ms a call"
+              + (f" ({st['alone_ms']:.4f} alone)" if st.get("alone_ms") else "")
+              + f", plain PyTorch on the card {st['plain_ms']:.3f} ms, bound {st['bound_ms']:.5f} ms by {st['bound_by']}"
+              + (f"; iterations {st['iterations']}, the sample read {passes} times" if key == "K8 lloyd_fit" else ""))
+
+    # --- the tools' k-means on the card: K8's fit and assignment, card vs CPU
+    data = np.concatenate([rng.normal(c, 6.0, (12500, 3)) for c in POSTER_PALETTE]).astype(np.float32)
+    kernels.reset_launches()
+    got_c, got_l = kmeans.kmeans(data, 4, sample_limit=20_000)
+    tool = dict(kernels.LAUNCHES)
+    ref_c, ref_l = kmeans.kmeans(data, 4, sample_limit=20_000, device="cpu")
+    check(np.abs(got_c - ref_c).max() <= 1e-3, f"kmeans(): card centres off by {np.abs(got_c - ref_c).max()}")
+    d = np.sort(((data[:, None, :].astype(np.float64) - ref_c.astype(np.float64)) ** 2).sum(-1), axis=1)
+    diff = got_l != ref_l
+    check(not diff.any() or float((d[:, 1] - d[:, 0])[diff].max()) <= 1.0,
+          f"kmeans(): {int(diff.sum())} labels differ between card and CPU beyond near ties")
+    check(tool["lloyd_fit"] == 1 and tool["assign_points"] == 1, f"kmeans() on the card launched {tool}")
+    data_d, cen_d = torch.from_numpy(data).to(dev), torch.from_numpy(got_c).to(dev)
+    check(torch.equal(kernels.assign_points_cuda(data_d, cen_d), kmeans.assign_points_plain(data_d, cen_d)),
+          "K8 assign_points != plain on the card")
+    stats["K8 assign_points"] = {
+        "max_abs_err": 0, "ms": cuda_ms(lambda: kernels.assign_points_cuda(data_d, cen_d), 20),
+        "plain_ms": cuda_ms(lambda: kmeans.assign_points_plain(data_d, cen_d), 5),
+        **bound(16 * len(data), len(data) * 4 * LLOYD_FLOPS_PER_CENTER, FP32_OPS)}
+    print(f"ops.kmeans.kmeans on the card == on the CPU (centres within 1e-3, {int(diff.sum())} near-tie labels of "
+          f"{len(data)}); launches {({n: c for n, c in tool.items() if c})}; K8 assign_points == plain, "
+          f"{stats['K8 assign_points']['ms']:.4f} ms a call")
+
+    # --- K7's counts
+    for shape, cs in (((1500, 2000, 3), pens[:4]), ((37, 45, 3), pens), ((5, 33, 3), pens[:1]), ((1, 1, 3), pens[:3])):
+        im = poster if shape[0] == 1500 else torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        counts = torch.full((len(cs),), -7, dtype=torch.int32, device=dev)
+        boards = kernels.assign_boards_cuda(im, cs, counts)
+        labels = kernels.assign_nearest_cuda(im, cs)
+        check(torch.equal(counts, torch.bincount(labels.reshape(-1).long(), minlength=len(cs)).to(torch.int32))
+              and torch.equal(boards, onehot_boards_plain(labels, len(cs))),
+              f"K7 counts != the bincount of its labels, {shape} k={len(cs)}")
+    c4 = pens[:4].contiguous()
+    counts = torch.empty(4, dtype=torch.int32, device=dev)
+    plain_boards, plain_counts = assign_boards_counts_plain(poster, c4, 4)
+    flips = near_tie_flips(poster, c4.cpu().numpy(), kernels.assign_nearest_cuda(poster, c4),
+                           assign_nearest_plain(poster, c4, 4), "K7 with counts vs plain, poster")
+    kernels.assign_boards_cuda(poster, c4, counts)
+    check(int((counts - plain_counts).abs().sum()) <= 2 * flips, "K7 counts differ from plain beyond the near ties")
+    stats["K7 counts"] = {
+        "max_abs_err": flips, "ms": cuda_ms(lambda: kernels.assign_boards_cuda(poster, c4, counts), 20),
+        "plain_ms": cuda_ms(lambda: assign_boards_counts_plain(poster, c4, 4), 5),
+        "alone_ms": profiled_ms(lambda: kernels.assign_boards_cuda(poster, c4, counts), "assign_nearest", 20),
+        **bound(poster.numel() + plain_boards.numel() * 4 + 16, k7_flops(poster, 4), FP32_OPS)}
+    st = stats["K7 counts"]
+    print(f"K7 with counts == the bincount of its own labels on 4 shapes, k = 1, 3, 4, 8; at 1500x2000, k = 4: "
+          f"{st['ms']:.4f} ms a call" + (f" ({st['alone_ms']:.4f} alone)" if st.get("alone_ms") else "")
+          + f", plain {st['plain_ms']:.3f} ms, bound {st['bound_ms']:.5f} ms by {st['bound_by']}")
+
+    # --- K11
+    def gray(*shape):
+        x = rng.integers(0, 256, shape).astype(np.float32)
+        for axis in (-1, -2):
+            x = (np.roll(x, 1, axis) + x + np.roll(x, -1, axis)) / 3
+        return torch.from_numpy(np.clip(x * 1.6 - 70 + rng.integers(-20, 21, shape), 0, 255).astype(np.uint8)).to(dev)
+
+    n_k11 = 0
+    shapes = [(50, 70), (3, 20, 33), (2, 2, 9, 40), (1, 5), (4, 1), (33, 64), (100, 257), (7, 3)]
+    for shape in shapes:
+        x = gray(*shape)
+        for src in (x, (x > 128).to(torch.uint8) * 255):
+            for el in ("rect", "ellipse", "cross"):
+                for ksize in (1, 2, 3, 5, 7, 31):
+                    for program, iterations in (("e", 1), ("d", 2), ("ed", 1), ("de", 3), ("ed", 0)):
+                        if ksize == 31 and (iterations > 1 or shape not in shapes[:3] + shapes[-1:]):
+                            continue  # 961 taps: the plain version is slow, a few shapes do
+                        steps = morphology.morph_program(el, ksize, iterations, program)
+                        got = kernels.morph_dense_cuda(src, steps)
+                        check(torch.equal(got, morphology.morph_dense_plain(src, steps)),
+                              f"K11 {shape} {el} {ksize} {program} x{iterations}")
+                        check((got is src) == (not steps), "K11: an empty list returns its input, else a new tensor")
+                        n_k11 += 1
+    x = gray(60, 90)
+    for name, fn in (("erode", morphology.erode), ("dilate", morphology.dilate), ("morph_open", morphology.morph_open),
+                     ("morph_close", morphology.morph_close)):
+        check(torch.equal(fn(x, "ellipse", 5, 2), fn(x.cpu(), "ellipse", 5, 2).to(dev)), f"K11 through {name}")
+    binary = (x > 128).to(torch.uint8) * 255
+    check(torch.equal(morphology.morph_binary_packed(binary, "rect", 3, 1, "ed"),
+                      morphology.morph_plain(binary, "rect", 3, 1, "ed")), "morph_binary_packed (K1, K2, K1) != K11's plain")
+    # a list longer than one launch's halo: several launches
+    long_list = morphology.morph_program("rect", 3, kernels.DENSE_HALO_CAP + 2, "ed")
+    before = kernels.LAUNCHES["morph_dense"]
+    got = kernels.morph_dense_cuda(x, long_list)
+    check(kernels.LAUNCHES["morph_dense"] - before == 3 and torch.equal(got, morphology.morph_dense_plain(x, long_list)),
+          f"K11: {len(long_list)} steps took {kernels.LAUNCHES['morph_dense'] - before} launches or != plain")
+    big = gray(*CHAIN_SHAPE)
+    big_bin = (big > 128).to(torch.uint8) * 255
+    for src in (big, big_bin):
+        for el, ksize, program, iterations in (("rect", 3, "ed", 1), ("rect", 3, "de", 1), ("ellipse", 5, "ed", 2),
+                                               ("cross", 7, "d", 1)):
+            steps = morphology.morph_program(el, ksize, iterations, program)
+            check(torch.equal(kernels.morph_dense_cuda(src, steps), morphology.morph_dense_plain(src, steps)),
+                  f"K11 {CHAIN_SHAPE} {el} {ksize} {program} x{iterations}")
+            n_k11 += 1
+    # the swatch path's shape: one 1500 x 2000 mask, opened, then closed (two launches of two steps)
+    mask = big_bin[0].contiguous()
+
+    def swatch_clean(m=mask):
+        return morphology.morph_close(morphology.morph_open(m, "rect", 3, 1), "rect", 3, 1)
+
+    def swatch_plain(m=mask):
+        return morphology.morph_plain(morphology.morph_plain(m, "rect", 3, 1, "ed"), "rect", 3, 1, "de")
+
+    def swatch_pool(m=mask):  # the one case a library call covers: a rect element is a max pooling
+        import torch.nn.functional as F
+
+        t = m.to(torch.float16)[None, None]
+        t = F.max_pool2d(-F.max_pool2d(-t, 3, 1, 1), 3, 1, 1)
+        t = -F.max_pool2d(-F.max_pool2d(t, 3, 1, 1), 3, 1, 1)
+        return t[0, 0].to(torch.uint8)
+
+    check(torch.equal(swatch_clean(), swatch_plain()) and torch.equal(swatch_clean(), swatch_pool()),
+          "K11 open+close at 1500x2000 != plain or != max_pool2d")
+    stats["K11"] = {"max_abs_err": 0, "ms": cuda_ms(swatch_clean, 20), "plain_ms": cuda_ms(swatch_plain, 5),
+                    "alone_ms": profiled_ms(swatch_clean, "morph_dense", 20),
+                    **bound(2 * 2 * mask.numel(), 4 * 9 * mask.numel(), INT32_OPS)}
+    stats["K11"]["library_ms"] = cuda_ms(swatch_pool, 10)
+    st = stats["K11"]
+    print(f"K11 == plain: {n_k11} (shape, element, ksize, program, iterations) cases on {len(shapes)} shapes and "
+          f"{CHAIN_SHAPE}, gray and binary, ksize 1, 2, 3, 5, 7, 31, through erode/dilate/morph_open/morph_close, "
+          f"{len(long_list)} steps in 3 launches")
+    print(f"K11 at 1500x2000, rect 3 open then close (two launches): {st['ms']:.4f} ms"
+          + (f" ({st['alone_ms']:.4f} alone)" if st.get("alone_ms") else "") + f", plain {st['plain_ms']:.3f} ms, "
+          f"max_pool2d (float16, conversions included) {st['library_ms']:.4f} ms, bound {st['bound_ms']:.5f} ms by "
+          f"{st['bound_by']}")
+    stats["K11 trace"] = only_own_kernels(swatch_clean, "swatch mode's open and close, one mask", {"morph_dense": 2})
+    return tool
+
+
+def mask_iou(a: Path, b: Path, names) -> dict:
+    import cv2
+    import numpy as np
+
+    out = {}
+    for n in names:
+        x, y = cv2.imread(str(a / n / "mask.png"), 0) > 0, cv2.imread(str(b / n / "mask.png"), 0) > 0
+        out[n] = float((x & y).sum() / max(1, (x | y).sum()))
+    return out
+
+
+def decodes(run: Path) -> int:
+    from plotweave_torch.stream.decoder import StreamDecoder, replay
+
+    data = (run / "plot_stream.bin").read_bytes()
+    dec = StreamDecoder(data)
+    replay(dec, *json.loads((run / "vector_manifest.json").read_text())["image_size"])
+    check(dec.stats.eof_seen and dec.stats.off_canvas_steps == 0, f"{run.name}: plot_stream.bin does not decode cleanly")
+    return len(data)
+
+
+def phase_device_kmeans_path(work: Path, stats: dict) -> dict:
+    """``kmeans_init: "device"`` through the CLI on the synthetic poster, card
+    and cpu, against the host-exact run of phase 5."""
+    import torch
+
+    from plotweave_torch.config import PipelineConfig
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.stages.s02_color_extract import device_init_stage
+
+    names = list(PipelineConfig().color_names)
+    image = str(work / "synthetic.png")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    times = run_main(image, work / "devk_cuda", "auto", settings={"kmeans_init": "device"})
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    check({n: c for n, c in counts.items() if c} == DEVICE_KMEANS_LAUNCHES,
+          f"device-k-means path: launches {counts}, expected {DEVICE_KMEANS_LAUNCHES}")
+    times_cpu = run_main(image, work / "devk_cpu", "cpu", settings={"kmeans_init": "device"})
+    exact = mask_iou(work / "devk_cuda", work / "synthetic_cuda", names)
+    cross = mask_iou(work / "devk_cuda", work / "devk_cpu", names)
+    check(min(exact.values()) >= 0.98, f"device k-means vs host-exact: mask IoU {exact} < 0.98")
+    check(min(cross.values()) >= 0.99, f"device k-means, card vs cpu: mask IoU {cross} < 0.99")
+    size = decodes(work / "devk_cuda")
+    decodes(work / "devk_cpu")
+    equal_masks = all((work / "devk_cuda" / n / "mask.png").read_bytes() == (work / "devk_cpu" / n / "mask.png").read_bytes()
+                      for n in names)
+    if equal_masks:
+        diff = same_artifacts(work / "devk_cuda", work / "devk_cpu", names)
+        check(not diff, f"device k-means: equal masks, but card run != cpu run: {diff}")
+    print(f"device-k-means path, synthetic 2000x1500: mask IoU vs host-exact {min(exact.values()):.4f}, card vs cpu "
+          f"{min(cross.values()):.4f} (masks {'equal: every artifact byte-equal' if equal_masks else 'differ at near ties'}); "
+          f"stream {size} bytes, decodes to EOF; launches {({n: c for n, c in counts.items() if c})}; wall {wall:.2f} s, "
+          f"stage 02 {times['s02_color_extract']:.3f} s on the card, {times_cpu['s02_color_extract']:.3f} s on the cpu")
+    poster = torch.from_numpy(synthetic_image(2, 1500, 2000)[0]).to("cuda")
+
+    def stage():
+        return device_init_stage(poster, 4, 40, 3, KMEANS_SAMPLE, 42, True, *EDGE_PARAMS)
+
+    stats["device-kmeans trace"] = only_own_kernels(
+        stage, "device_init_stage 2000x1500, fused, one call",
+        {"lab_sample": 1, "kpp_init": 1, "lloyd_fit": 1, "assign_nearest": 1, "morph_steps": 2, "boards_to_rows": 3,
+         "edge_tiles": 1, "hysteresis_cluster": 1, "zs_cluster": 1})
+    stats["device-kmeans stage ms"] = cuda_ms(stage, 5)
+    print(f"device_init_stage 2000x1500, fused: {stats['device-kmeans stage ms']:.3f} ms a call (CUDA events; the "
+          f"host draws the subsample's indices inside it)")
+    return counts
+
+
+def phase_swatch_path(work: Path) -> dict:
+    """``extraction_mode: "swatch"`` through the CLI on the synthetic poster
+    with its four generating colours, card and cpu."""
+    from plotweave_torch.config import PipelineConfig
+    from plotweave_torch.ops import kernels
+
+    names = list(PipelineConfig().color_names)
+    image = str(work / "synthetic.png")
+    settings = {"extraction_mode": "swatch", "colors": POSTER_PALETTE, "color_names": names}
+    kernels.reset_launches()
+    times = run_main(image, work / "swatch_cuda", "auto", settings=settings)
+    counts = dict(kernels.LAUNCHES)
+    check(counts["morph_dense"] == 2 * len(names), f"swatch path: K11 launched {counts['morph_dense']} times, expected "
+          f"{2 * len(names)}: {counts}")
+    run_main(image, work / "swatch_cpu", "cpu", settings=settings)
+    diff = same_artifacts(work / "swatch_cuda", work / "swatch_cpu", names)
+    check(not diff, f"swatch path: card run != cpu run: {diff}")
+    check(not (work / "swatch_cuda" / "palette_by_name.json").exists(), "swatch mode wrote a palette")
+    size = decodes(work / "swatch_cuda")
+    iou = mask_iou(work / "swatch_cuda", work / "synthetic_cuda", sorted(names))
+    print(f"swatch path, synthetic 2000x1500: card == cpu on every artifact ({size} stream bytes, decodes to EOF); "
+          f"launches {({n: c for n, c in counts.items() if c})}; stage 02 {times['s02_color_extract']:.3f} s; mask IoU "
+          f"against the k-means run, layer by layer: {({n: round(v, 3) for n, v in iou.items()})}")
+    return counts
+
+
+def phase_batch_path(work: Path, stats: dict) -> None:
+    """``run_pipeline_batch`` over 8 images of 2000 x 1500 and 2 of another
+    shape, steps 1-4, against sequential runs; one grouped chain call of 8
+    images against the solo calls."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from plotweave_torch.config import load_config
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.pipeline import run_pipeline, run_pipeline_batch
+    from plotweave_torch.stages.s02_color_extract import chain_blob_batch, chain_from_clean
+
+    images = []
+    for i in range(10):
+        h, w = (1500, 2000) if i < 8 else (1200, 1600)
+        path = work / f"batch{i}.png"
+        cv2.imwrite(str(path), synthetic_image(100 + i, h, w)[0])
+        images.append(path)
+
+    def build(tag: str):
+        cfgs = []
+        for i, img in enumerate(images):
+            out = work / tag / f"run{i}"
+            out.mkdir(parents=True)
+            (out / "config.json").write_text(json.dumps({"input_image": str(img), "output_dir": str(out)}))
+            cfgs.append(load_config(str(out / "config.json")))
+        return cfgs
+
+    seq, par = build("batch_seq"), build("batch_par")
+    with open(work / "batch.log", "w") as log, contextlib.redirect_stdout(log):
+        t0 = time.perf_counter()
+        for c in seq:
+            run_pipeline(c, 1, 4)
+        seq_s = time.perf_counter() - t0
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        times = run_pipeline_batch(par, 1, 4, workers=4)
+        par_s = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    check(all(t > 0 for t in times), f"batch path: an image failed: {times}")
+    text = (work / "batch.log").read_text()
+    import re
+
+    m = re.search(r"grouped: (\d+) image chain\(s\) in (\d+) grouped call", text)
+    check(m is not None and int(m.group(1)) == len(images), "batch path: not every image's chain went through the batcher")
+    groups = int(m.group(2))
+    check(groups < len(images), f"batch path: {groups} grouped calls for {len(images)} images")
+    check(counts["morph_bits"] == counts["edge_candidates"] == counts["hysteresis"] == counts["zhang_suen_packed"]
+          == groups, f"batch path: {groups} grouped calls, launches {counts}")
+    names = list(seq[0].color_names)
+    for a, b in zip(seq, par):
+        diff = same_artifacts(Path(a.output_dir), Path(b.output_dir), names, stream=False)
+        check(not diff, f"batch path: {Path(b.output_dir).name} != its sequential run: {diff}")
+    print(f"batch path: {len(images)} images (8 of 2000x1500, 2 of 1600x1200), steps 1-4, 4 workers: every mask, "
+          f"edges and contours file == the sequential runs; {len(images)} chains in {groups} grouped calls; launches "
+          f"{({n: c for n, c in counts.items() if c})}; wall {par_s:.2f} s against {seq_s:.2f} s sequential")
+
+    # one group of 8 at full width: B k = 32 layers, 32 clusters of 16 CTAs for K5 and K6
+    packed = np.stack([np.packbits(np.stack([cv2.imread(str(Path(c.output_dir) / n / "mask.png"), 0) > 0
+                                             for n in names]), axis=-1) for c in seq[:8]])
+    w = 2000
+    kernels.reset_launches()
+    got = chain_blob_batch(packed, w, *EDGE_PARAMS, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    group = {n: c for n, c in kernels.LAUNCHES.items() if c}
+    check(group == {"bitpack": 1 + 2 * 8, "morph_bits": 1, "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 1},
+          f"a grouped chain call of 8 launched {group}")
+    for b in range(8):
+        check(torch.equal(got[b], chain_from_clean(packed[b], w, *EDGE_PARAMS, device=torch.device("cuda"))),
+              f"grouped chain call: row {b} != the solo call's blob")
+    check(torch.equal(got[:2].cpu(), chain_blob_batch(packed[:2], w, *EDGE_PARAMS, device=torch.device("cpu"))),
+          "grouped chain call: card != CPU")
+    group_ms = cuda_ms(lambda: chain_blob_batch(packed, w, *EDGE_PARAMS, device=torch.device("cuda")), 5)
+    solo_ms = sum(cuda_ms(lambda b=b: chain_from_clean(packed[b], w, *EDGE_PARAMS, device=torch.device("cuda")), 5)
+                  for b in range(8))
+    stats["batch"] = {"group_ms": group_ms, "solo_sum_ms": solo_ms, "groups": groups, "images": len(images)}
+    print(f"grouped chain call, 8 x 4 x 1500 x 2000 (32 layers): every row == its solo call == the CPU; launches "
+          f"{group}; {group_ms:.3f} ms a call against {solo_ms:.3f} ms for the 8 solo calls (CUDA events, uploads "
+          f"included)")
+
+
 def phase_entry() -> None:
     import torch
 
@@ -1347,13 +1882,18 @@ def main() -> None:
     phase_chain(stats)
     with tempfile.TemporaryDirectory(prefix="pw_smoke_") as tmp:
         paths = phase_main_path(Path(tmp))
-    launches = phase_frontend(stats)
-    paths["front-end"], paths["front-end dense"] = launches[False], launches[True]
-    phase_entry()
+        launches = phase_frontend(stats)
+        paths["front-end"], paths["front-end dense"] = launches[False], launches[True]
+        phase_entry()
+        paths["kmeans-tool"] = phase_kmeans_and_dense_kernels(stats)
+        paths["device-kmeans"] = phase_device_kmeans_path(Path(tmp), stats)
+        paths["swatch"] = phase_swatch_path(Path(tmp))
+        phase_batch_path(Path(tmp), stats)
 
     # (name, path whose run counted its launches, launch name, source, TPU kernel, stats key)
     src = "plotweave_torch/csrc/bitboard_fixpoints.cu"
     k1 = "plotweave_torch/csrc/bitpack.cu"
+    k8 = "plotweave_torch/csrc/kmeans.cu"
     rows = [("K1 bitpack, rows <-> boards (the chain's three launches)", "main", "bitpack", k1,
              "plotweave/ops/bitpack.py:15", "K1 rows"),
             ("K1 bitpack, boards -> dense (the front-end's two launches)", "front-end", "bitpack", k1,
@@ -1373,10 +1913,22 @@ def main() -> None:
             ("K7 assign_nearest (boards)", "front-end", "assign_nearest", "plotweave_torch/csrc/assign_nearest.cu",
              "plotweave/ops/frontend.py:24", "K7"),
             ("K12 zhang_suen_dense", "front-end dense", "zhang_suen_dense", "plotweave_torch/csrc/zs_dense.cu",
-             "plotweave/ops/pallas_kernels.py:99", "K12")]
+             "plotweave/ops/pallas_kernels.py:99", "K12"),
+            ("K7 assign_nearest (boards with counts)", "device-kmeans", "assign_nearest",
+             "plotweave_torch/csrc/assign_nearest.cu", "plotweave/stages/s02_color_extract.py:50", "K7 counts"),
+            ("K8 kmeans, lab_sample", "device-kmeans", "lab_sample", k8, "plotweave/stages/s02_color_extract.py:123",
+             "K8 lab_sample"),
+            ("K8 kmeans, kpp_init", "device-kmeans", "kpp_init", k8, "plotweave/ops/kmeans.py:124", "K8 kpp_init"),
+            ("K8 kmeans, lloyd_fit", "device-kmeans", "lloyd_fit", k8, "plotweave/ops/kmeans.py:24", "K8 lloyd_fit"),
+            ("K8 kmeans, assign_points", "kmeans-tool", "assign_points", k8, "plotweave/ops/kmeans.py:114",
+             "K8 assign_points"),
+            ("K11 morph_dense", "swatch", "morph_dense", "plotweave_torch/csrc/morph_dense.cu",
+             "plotweave/ops/morphology.py:62", "K11")]
     print("launches counted in: " + "; ".join(f"{name}: {PATH_RUNS[path]}" for name, path, *_ in rows))
     table = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
               "launches": paths[path][count], **stats[key]} for name, path, count, source, replaces, key in rows]
+    idle = [row["name"] for row in table if row["launches"] < 1]
+    check(not idle, f"kernels that their path's run did not launch: {idle}")
     print(json.dumps({"kernels": table}))
     print(info["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

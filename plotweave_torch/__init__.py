@@ -7,16 +7,23 @@ carries its own copies of the host code it needs (``config``, ``utils/io``,
 the native C++ library in ``native/``, ``stream``, ``vector``, ``viz`` and
 the host stages).
 
-It runs the default main path, image → ``plot_stream.bin``:
+It runs the main path, image → ``plot_stream.bin``, in every mode of stage 02
+but row sharding, for one image or a directory of them:
 
-- ``ops``      — the stage 02→04 raster chain and the fused raster front-end
-  (``ops/frontend.py``) as plain tensor functions, with hand-written CUDA
-  kernels (``ops/kernels.py``, ``csrc/``) for the packed morphology, the two
-  bit-packed fixpoints (Canny hysteresis, Zhang–Suen thinning), the fused
-  Lab + nearest-centre assign and the dense, bit-sliced Zhang–Suen.
+- ``ops``      — the stage 02→04 raster chain, the fused raster front-end
+  (``ops/frontend.py``), the device k-means (``ops/kmeans.py``) and the gray
+  morphology as plain tensor functions, with hand-written CUDA kernels
+  (``ops/kernels.py``, ``csrc/``) for the layout conversions, the packed and
+  the gray morphology, the blur and Canny, the two bit-packed fixpoints
+  (Canny hysteresis, Zhang–Suen thinning), the fused Lab + nearest-centre
+  assign with its counts, the k-means sampler, seeding and fit, and the
+  dense, bit-sliced Zhang–Suen.
 - ``stages``   — all 14 stages: 01–04 the port's own, 05–14 copies of the
   JAX package's host stages.
-- ``pipeline`` — the in-process runner and CLI (``python -m plotweave_torch``).
+- ``parallel`` — the batch runner's grouping of concurrent images' chain calls.
+- ``pipeline`` — the in-process runner, the batch runner and the CLI
+  (``python -m plotweave_torch``).
+- ``tools``    — the colour analysis and layer-splitting tools.
 - ``entry``    — the front-end's entry point, ``entry(device) → (fn, args)``.
 """
 

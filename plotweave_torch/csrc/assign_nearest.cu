@@ -11,13 +11,19 @@
 //
 // Numbers.  Each pixel runs the plain version's float32 operations
 // (plotweave_torch/ops/colorspace.py, ops/frontend.py::assign_nearest_plain)
-// in the same order, with correctly rounded division.  This file is compiled
+// in the same order, with correctly rounded division; the Lab arithmetic lives
+// in lab.cuh, which K8's sampler shares bit for bit.  This file is compiled
 // with --fmad=false, so no multiply-add is contracted into an FMA and no
 // distance moves; powf and cbrtf are the accurate library functions, not the
 // __ intrinsics.  cbrtf is jnp.cbrt's function (the plain version uses
 // pow(t, 1/3)), so labels may differ from the plain version's only where two
 // centres are nearly equally far.  A strict < keeps the first minimum, as
 // argmin does.
+//
+// Counts.  pw_assign_boards also returns, where asked, the k pixel counts of
+// one image (the stage's sel.sum): the popcount of each ballot word goes to an
+// int in shared memory and from there, once per block, to device memory, by
+// integer atomics, so the counts are exact in any order.
 //
 // Design and bound.  Instructions bound this kernel, not its bytes (3 in and
 // 4, or k/8, out a pixel): done per pixel, the conversion costs three
@@ -42,20 +48,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lab.cuh"
+
 namespace {
+
+using pw_lab::gamma_inv;
+using pw_lab::lab_from_linear;
 
 constexpr int kThreads = 256;     // pixels of one chunk
 constexpr int kMaxSmem = 232448;  // 227 KB, the opt-in limit of one block
 constexpr int kVecs = (3 * kThreads + 15) / 16 + 1;  // 16-byte vectors over 768 bytes at any alignment
-
-__device__ __forceinline__ float gamma_inv(float u) {
-  return u <= 0.04045f ? u / 12.92f : powf((u + 0.055f) / 1.055f, 2.4f);
-}
-
-__device__ __forceinline__ float lab_f(float t) {
-  // (6/29)^3, 3 (6/29)^2 and 4/29, rounded to float32
-  return t > 0.008856451679035631f ? cbrtf(t) : t / 0.12841854934601665f + 0.13793103448275862f;
-}
 
 // A chunk is 256 consecutive pixels: chunk c of the flat image (labels), or
 // segment c % segs of image row c / segs (boards; a row is image * h + row),
@@ -64,14 +66,17 @@ __device__ __forceinline__ float lab_f(float t) {
 template <bool kBoardsOut>
 __global__ void __launch_bounds__(kThreads, 2048 / kThreads)  // a full SM of threads: 32 registers each
     assign_nearest(const uint8_t* __restrict__ bgr, long n, const float* __restrict__ centers,
-                   int32_t* __restrict__ labels, uint32_t* __restrict__ boards, int k, int h, int w, int nw,
-                   long n_chunks, int segs) {
-  extern __shared__ float centers_s[];  // (k, 3)
+                   int32_t* __restrict__ labels, uint32_t* __restrict__ boards, int* __restrict__ counts, int k, int h,
+                   int w, int nw, long n_chunks, int segs) {
+  extern __shared__ float centers_s[];  // (k, 3), then the block's k counts as ints
+  int* counts_s = reinterpret_cast<int*>(centers_s + 3 * k);
   __shared__ float gamma_s[256];
   __shared__ uint4 px_v[kVecs];
   const int tid = threadIdx.x;
   gamma_s[tid] = gamma_inv((float)tid / 255.0f);
   for (int j = tid; j < 3 * k; j += kThreads) centers_s[j] = centers[j];
+  if (kBoardsOut && counts)
+    for (int j = tid; j < k; j += kThreads) counts_s[j] = 0;
 
   uint8_t* px_s = reinterpret_cast<uint8_t*>(px_v);
   // boards: the chunk's (image, row, segment), advanced by the grid's stride with carries
@@ -106,13 +111,8 @@ __global__ void __launch_bounds__(kThreads, 2048 / kThreads)  // a full SM of th
     if (tid < npx) {
       const uint8_t* px = px_s + mis + 3 * tid;
       const float r = gamma_s[px[2]], g = gamma_s[px[1]], b = gamma_s[px[0]];
-      // sRGB -> XYZ (D65) in the einsum's row order, over the white point
-      const float fx = lab_f((0.412453f * r + 0.357580f * g + 0.180423f * b) / 0.950456f);
-      const float fy = lab_f((0.212671f * r + 0.715160f * g + 0.072169f * b) / 1.0f);
-      const float fz = lab_f((0.019334f * r + 0.119193f * g + 0.950227f * b) / 1.088754f);
-      const float lab0 = (116.0f * fy - 16.0f) * 255.0f / 100.0f;
-      const float lab1 = 500.0f * (fx - fy) + 128.0f;
-      const float lab2 = 200.0f * (fy - fz) + 128.0f;
+      float lab0, lab1, lab2;
+      lab_from_linear(r, g, b, lab0, lab1, lab2);
       float best_d = 0.0f;
       for (int c = 0; c < k; ++c) {
         const float d0 = lab0 - centers_s[3 * c];
@@ -138,7 +138,10 @@ __global__ void __launch_bounds__(kThreads, 2048 / kThreads)  // a full SM of th
             const uint32_t m = __ballot_sync(0xffffffffu, best == c0 + c);
             if (lane == c) mine = m;
           }
-          if (lane < layers) boards[(img * k * h + y) * nw + word + (c0 + lane) * plane] = mine;
+          if (lane < layers) {
+            boards[(img * k * h + y) * nw + word + (c0 + lane) * plane] = mine;
+            if (counts && mine) atomicAdd(&counts_s[c0 + lane], __popc(mine));
+          }
         }
       }
       seg += step_seg;
@@ -152,14 +155,19 @@ __global__ void __launch_bounds__(kThreads, 2048 / kThreads)  // a full SM of th
       }
     }
   }
+  if (kBoardsOut && counts) {
+    __syncthreads();
+    for (int j = tid; j < k; j += kThreads)
+      if (counts_s[j]) atomicAdd(&counts[j], counts_s[j]);
+  }
 }
 
 // One launch over n_chunks chunks, with as many blocks as the device holds at
 // once (a grid beyond that would run its last blocks alone, as a second wave).
 template <bool kBoardsOut>
-int launch(const uint8_t* bgr, const float* centers, int32_t* labels, uint32_t* boards, int k, long n, int h, int w,
-           long n_chunks, int segs, cudaStream_t s) {
-  const size_t smem = sizeof(float) * 3 * (size_t)k;
+int launch(const uint8_t* bgr, const float* centers, int32_t* labels, uint32_t* boards, int* counts, int k, long n,
+           int h, int w, long n_chunks, int segs, cudaStream_t s) {
+  const size_t smem = sizeof(float) * 4 * (size_t)k;  // the centres and the block's counts
   if (smem + sizeof(float) * 256 + sizeof(uint4) * kVecs > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (smem > 40 * 1024) {
@@ -173,8 +181,8 @@ int launch(const uint8_t* bgr, const float* centers, int32_t* labels, uint32_t* 
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)(n_chunks < (long)per_sm * sms ? n_chunks : (long)per_sm * sms);
-  assign_nearest<kBoardsOut><<<grid, kThreads, smem, s>>>(bgr, n, centers, labels, boards, k, h, w, (w + 31) / 32,
-                                                          n_chunks, segs);
+  assign_nearest<kBoardsOut><<<grid, kThreads, smem, s>>>(bgr, n, centers, labels, boards, counts, k, h, w,
+                                                          (w + 31) / 32, n_chunks, segs);
   return (int)cudaGetLastError();
 }
 
@@ -186,22 +194,28 @@ extern "C" {
 // to pixel i of the n BGR pixels.  Returns a CUDA error code (0 on success).
 int pw_assign_nearest(const uint8_t* bgr, const float* centers, int32_t* labels, int k, long n, void* stream) {
   if (n <= 0 || k <= 0) return (int)cudaGetLastError();
-  return launch<false>(bgr, centers, labels, nullptr, k, n, 1, 1, (n + kThreads - 1) / kThreads, 1,
+  return launch<false>(bgr, centers, labels, nullptr, nullptr, k, n, 1, 1, (n + kThreads - 1) / kThreads, 1,
                        static_cast<cudaStream_t>(stream));
 }
 
 // boards (n_img, k, h, ceil(w/32)): bit x of row y of layer c of image i is
 // set where centre c is the nearest to pixel (y, x) of image i of the (n_img,
-// h, w, 3) BGR bytes; fewer than 2^31 pixels and 2^31 words.  Returns a CUDA
-// error code (0 on success).
-int pw_assign_boards(const uint8_t* bgr, const float* centers, uint32_t* boards, int k, long n_img, int h, int w,
-                     void* stream) {
+// h, w, 3) BGR bytes; fewer than 2^31 pixels and 2^31 words.  `counts`, where
+// not null (one image only), gets the k pixel counts, int32 (zeroed here).
+// Returns a CUDA error code (0 on success).
+int pw_assign_boards(const uint8_t* bgr, const float* centers, uint32_t* boards, int* counts, int k, long n_img,
+                     int h, int w, void* stream) {
   if (n_img <= 0 || h <= 0 || w <= 0 || k <= 0) return (int)cudaGetLastError();
   const int segs = (w + kThreads - 1) / kThreads;
   const long limit = 1L << 31;
   if (n_img * h * w >= limit || n_img * k * h * ((w + 31) / 32) >= limit) return (int)cudaErrorInvalidValue;
-  return launch<true>(bgr, centers, nullptr, boards, k, n_img * h * w, h, w, n_img * h * segs, segs,
-                      static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (counts) {
+    if (n_img != 1) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int) * k, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return launch<true>(bgr, centers, nullptr, boards, counts, k, n_img * h * w, h, w, n_img * h * segs, segs, s);
 }
 
 const char* pw_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -1,5 +1,24 @@
-"""Raster ops of the stage 02→04 chain as tensor functions.
+"""Raster ops of the port as tensor functions (twin of ``plotweave/ops``).
 
-Modules are imported by name (``plotweave_torch.ops.thinning``); this package
-file imports nothing, so loading one op never loads the others.
+Every op runs on the device of its tensor: on a CUDA tensor the hand-written
+kernels of ``ops/kernels.py`` (``csrc/``), on a CPU tensor the plain PyTorch
+versions beside them.  This file exports what ``plotweave/ops/__init__.py``
+exports, but for ``area_resize`` and ``resize_if_needed`` (the device resize
+is not ported: ROADMAP.md, Item 12).  Importing it builds and loads no kernel.
 """
+
+from .filters import gaussian_blur_u8
+from .morphology import structuring_element, erode, dilate, morph_open, morph_close
+from .canny import canny
+from .thinning import zhang_suen
+
+__all__ = [
+    "gaussian_blur_u8",
+    "structuring_element",
+    "erode",
+    "dilate",
+    "morph_open",
+    "morph_close",
+    "canny",
+    "zhang_suen",
+]

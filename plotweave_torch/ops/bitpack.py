@@ -11,6 +11,7 @@ and raises for any other device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .thinning import _on_card
@@ -92,3 +93,9 @@ def boards_to_rows(boards: torch.Tensor, width: int, out: torch.Tensor | None = 
         return boards_to_rows_cuda(boards, width, out)
     rows = boards_to_rows_plain(boards, width)
     return rows if out is None else out.copy_(rows.reshape(out.shape))
+
+
+def unpack_rows(packed: np.ndarray, width: int) -> np.ndarray:
+    """Host inverse of :func:`bitpack_rows`; returns 0/1 uint8 of last-axis
+    length ``width``."""
+    return np.unpackbits(np.asarray(packed), axis=-1)[..., :width]

@@ -144,6 +144,12 @@ def canny_boards(x: torch.Tensor, w: int, ksize: int, low: int, high: int) -> to
     return hysteresis(*edge_candidates(x, w, ksize, low, high))
 
 
+def canny(img: torch.Tensor, low: int, high: int) -> torch.Tensor:
+    """Binary edge map (uint8 0/255) of a (..., H, W) uint8 image (K3+K4, K5
+    and K1 on the card); leading dims are batched."""
+    return canny_packed(img, low, high)[0]
+
+
 def canny_packed(img: torch.Tensor, low: int, high: int):
     """(..., H, W) uint8 → (dense uint8 0/255 edges, int32 bitboard edges)."""
     edges_b = hysteresis(*canny_candidates(img, low, high))

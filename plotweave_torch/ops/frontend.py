@@ -41,11 +41,11 @@ def _centers_on(centers, device: torch.device, k: int) -> torch.Tensor:
     return c[:k].contiguous()
 
 
-def assign_nearest_plain(image: torch.Tensor, centers: torch.Tensor, k: int) -> torch.Tensor:
-    """Nearest-Lab-centre label per pixel: (..., H, W, 3) uint8 + (k, 3)
-    float32 → (..., H, W) int32; a running (best, argbest) pair with strict
-    ``<``, so the first minimum wins (== argmin)."""
-    lab = bgr_to_lab_u8(image)
+def nearest_of_lab(lab: torch.Tensor, centers: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., 3) float32 Lab + (k, 3) float32 → (...) int32, the centre of least
+    ``(d0² + d1²) + d2²``: a running (best, argbest) pair with strict ``<``,
+    so the first minimum wins (== argmin).  Kernel K7's distance, operation
+    for operation."""
     c = [[float(v) for v in row] for row in centers.cpu().tolist()]
 
     def dist(i):
@@ -53,12 +53,18 @@ def assign_nearest_plain(image: torch.Tensor, centers: torch.Tensor, k: int) -> 
         return d0 * d0 + d1 * d1 + d2 * d2
 
     best_d = dist(0)
-    best = torch.zeros(image.shape[:-1], dtype=torch.int32, device=image.device)
+    best = torch.zeros(lab.shape[:-1], dtype=torch.int32, device=lab.device)
     for i in range(1, k):
         d = dist(i)
         best = torch.where(d < best_d, i, best)
         best_d = torch.minimum(best_d, d)
     return best
+
+
+def assign_nearest_plain(image: torch.Tensor, centers: torch.Tensor, k: int) -> torch.Tensor:
+    """Nearest-Lab-centre label per pixel: (..., H, W, 3) uint8 + (k, 3)
+    float32 → (..., H, W) int32 (:func:`nearest_of_lab` of the float Lab)."""
+    return nearest_of_lab(bgr_to_lab_u8(image), centers, k)
 
 
 def nearest_gaps(pixels: np.ndarray, centers) -> np.ndarray:
@@ -111,6 +117,35 @@ def assign_boards(image: torch.Tensor, centers, k: int) -> torch.Tensor:
 
         return assign_boards_cuda(image, c)
     return assign_boards_plain(image, c, k)
+
+
+def assign_boards_counts_plain(image: torch.Tensor, centers: torch.Tensor, k: int):
+    """:func:`assign_boards_plain`'s boards of one (H, W, 3) image and the
+    pixels of each centre, (k,) int32: the plain version of kernel K7 with
+    counts."""
+    labels = assign_nearest_plain(image, centers, k)
+    counts = torch.bincount(labels.reshape(-1).long(), minlength=k).to(torch.int32)
+    return onehot_boards_plain(labels, k), counts
+
+
+def assign_boards_counts(image: torch.Tensor, centers, k: int, counts: torch.Tensor | None = None):
+    """One (H, W, 3) uint8 BGR image → (the one-hot int32 bitboards (k, H,
+    ceil(W/32)) of each pixel's nearest centre, the pixels of each centre (k,)
+    int32): stage 02's argmin and ``sel.sum``.  Kernel K7 for a CUDA image
+    (one launch; exact integer counts), :func:`assign_boards_counts_plain` for
+    a CPU image, else raise.  ``counts`` (a contiguous (k,) int32 tensor on
+    the image's device) receives the counts when given."""
+    if image.dim() != 3:
+        raise ValueError(f"assign_boards_counts: expected one (H, W, 3) image, got {tuple(image.shape)}")
+    c = _centers_on(centers, image.device, k)
+    if _on_card("assign_boards_counts", image):
+        from .kernels import assign_boards_cuda  # noqa: PLC0415
+
+        if counts is None:
+            counts = torch.empty(k, dtype=torch.int32, device=image.device)
+        return assign_boards_cuda(image, c, counts), counts
+    boards, n = assign_boards_counts_plain(image, c, k)
+    return boards, n if counts is None else counts.copy_(n)
 
 
 def onehot_boards(labels: torch.Tensor, k: int) -> torch.Tensor:

@@ -32,8 +32,22 @@
   ``hysteresis_multi``).
 - K7 ``assign_nearest_cuda`` and ``assign_boards_cuda``
   (``csrc/assign_nearest.cu``): Lab and the nearest centre in one pass, as
-  int32 labels or as the k one-hot bitboards; replaces the XLA fusion of
-  ``assign_nearest``.
+  int32 labels or as the k one-hot bitboards, the latter also with the k
+  pixel counts of one image; replaces the XLA fusion of ``assign_nearest``
+  and the argmin and counts of stage 02's ``_assign_tail``.
+- K8 ``lab_sample_cuda``, ``kpp_init_cuda`` and ``lloyd_fit_cuda``
+  (``csrc/kmeans.cu``): the device k-means of ``kmeans_init: "device"``: the
+  float Lab of a subsample (K7's arithmetic through ``csrc/lab.cuh``), the
+  k-means++ seeds of every attempt from host-drawn random numbers, and every
+  attempt's whole Lloyd loop with the choice of the best in one launch (one
+  thread block cluster per attempt, the stop test on the device, sums in a
+  fixed order); replaces the XLA programs of ``_lloyd``, ``_kpp_init_device``
+  and ``kmeans_fit_device``.
+- K11 ``morph_dense_cuda`` (``csrc/morph_dense.cu``): a whole list of gray
+  (uint8) erosions and dilations by any structuring element in one launch,
+  each block holding a tile and the list's halo in shared memory; replaces
+  the XLA fusion of ``_morph``.  :func:`dense_morph_schedule` splits a list
+  into segments before any launch.
 - K12 ``zhang_suen_dense_cuda`` (``csrc/zs_dense.cu``): dense Zhang–Suen,
   packed to 32 pixels a word on load and bit-sliced in shared memory, up to
   :data:`ZS_CHUNK` iterations per launch on tiles with a halo of two rows
@@ -90,6 +104,8 @@ NVCC_FLAGS = {
     "morph_bits": _SM90A,  # K2
     "assign_nearest": _SM90A + ["--fmad=false"],  # K7
     "zs_dense": _SM90A,  # K12
+    "kmeans": _SM90A + ["--fmad=false"],  # K8: shares csrc/lab.cuh with K7, and its sums keep their written order
+    "morph_dense": _SM90A,  # K11
 }
 
 # the multi-launch routes and K12: iterations per host check of the
@@ -124,14 +140,29 @@ CLUSTER_SIZE = 16
 MAX_SMEM = 232448
 ROUTES = ("resident", "multi")
 
+# K8: the centres one fit holds in registers (``kMaxK`` in csrc/kmeans.cu) and
+# the lanes of the seeding's running sum (``kInitThreads``)
+KMEANS_MAX_K = 8
+KPP_LANES = 1024
+
+# K11's tile of output, rows x pixels, and the halo (the summed radius of the
+# steps of one launch) beyond which a further step starts a launch of its own:
+# a block recomputes its halo, so past this the recomputation costs more than
+# a launch
+DENSE_TILE = (32, 64)
+DENSE_HALO_CAP = 16
+
 # kernel launches per wrapper and route, counted where each wrapper calls into its library
 LAUNCHES = {"bitpack": 0, "edge_candidates": 0, "zhang_suen_packed": 0, "zhang_suen_packed_multi": 0,
-            "hysteresis": 0, "hysteresis_multi": 0, "morph_bits": 0, "assign_nearest": 0, "zhang_suen_dense": 0}
+            "hysteresis": 0, "hysteresis_multi": 0, "morph_bits": 0, "assign_nearest": 0, "zhang_suen_dense": 0,
+            "lab_sample": 0, "kpp_init": 0, "lloyd_fit": 0, "assign_points": 0, "morph_dense": 0}
 
 # what the last call of each fixpoint route took: for the resident routes a
 # device tensor, K6 (k,) iterations per layer, K5 (k, 2) rounds and the most
 # sweeps one CTA ran per layer; for the multi-launch routes and K12 the
-# iterations or sweeps launched.  Only read by ``chip_smoke.py``.
+# iterations or sweeps launched; for K8's fit the device tensors (iterations
+# per attempt, compactness per attempt, index of the best attempt).  Only read
+# by ``chip_smoke.py``.
 STATS: dict = {}
 
 build_log: dict = {}  # library → nvcc's output (ptxas register and spill report) of its last build
@@ -207,7 +238,7 @@ def build(names=None) -> dict:
     return paths
 
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
     "bitpack": {"pw_rows_to_boards": [_P, _P, _L, _I, _P],
                 "pw_boards_to_rows": [_P, _P, _L, _I, _P],
@@ -221,8 +252,13 @@ _SIGNATURES = {
                            "pw_hysteresis_run": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "morph_bits": {"pw_morph_steps_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
     "assign_nearest": {"pw_assign_nearest": [_P, _P, _P, _I, _L, _P],
-                       "pw_assign_boards": [_P, _P, _P, _I, _L, _I, _I, _P]},
+                       "pw_assign_boards": [_P, _P, _P, _P, _I, _L, _I, _I, _P]},
     "zs_dense": {"pw_zs_tiles_run": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "kmeans": {"pw_lab_sample": [_P, _P, _P, _I, _P],
+               "pw_kpp_init": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+               "pw_lloyd_fit": [_P, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P],
+               "pw_assign_points": [_P, _L, _P, _I, _P, _P]},
+    "morph_dense": {"pw_morph_dense_run": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
 }
 
 
@@ -709,7 +745,7 @@ def _check_k7(name: str, image: torch.Tensor, centers: torch.Tensor) -> None:
     if not (centers.device == image.device and centers.dtype == torch.float32 and centers.dim() == 2
             and centers.shape[1] == 3 and centers.is_contiguous()):
         raise ValueError(f"{name}: expected contiguous (k, 3) float32 centers on {image.device}")
-    if 12 * centers.shape[0] + 2048 > MAX_SMEM:
+    if 16 * centers.shape[0] + 2048 > MAX_SMEM:
         raise ValueError(f"{name}: {centers.shape[0]} centres do not fit one block's shared memory")
 
 
@@ -727,14 +763,20 @@ def assign_nearest_cuda(image: torch.Tensor, centers: torch.Tensor) -> torch.Ten
     return labels
 
 
-def assign_boards_cuda(image: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+def assign_boards_cuda(image: torch.Tensor, centers: torch.Tensor, counts: torch.Tensor | None = None) -> torch.Tensor:
     """K7, its boards: ``ops.frontend.assign_boards_plain`` of a CUDA (...,
     H, W, 3) uint8 image and (k, 3) float32 centres → the one-hot int32
     bitboards (..., k, H, ⌈W/32⌉) of the nearest centre, with no labels in
-    device memory."""
+    device memory.  ``counts``, a contiguous (k,) int32 tensor on the image's
+    device (e.g. a view into a blob), receives the pixels of each centre; one
+    (H, W, 3) image only."""
     _check_k7("assign_boards", image, centers)
     if image.dim() < 3:
         raise ValueError(f"assign_boards: expected (..., H, W, 3), got {tuple(image.shape)}")
+    if counts is not None and not (image.dim() == 3 and counts.device == image.device and counts.dtype == torch.int32
+                                   and counts.is_contiguous() and tuple(counts.shape) == (centers.shape[0],)):
+        raise ValueError(f"assign_boards: counts need one (H, W, 3) image and a contiguous ({centers.shape[0]},) "
+                         f"int32 tensor on {image.device}")
     h, w = image.shape[-3], image.shape[-2]
     k, nw = centers.shape[0], -(-w // 32)
     n_img = image.numel() // (h * w * 3) if h * w else 0
@@ -743,7 +785,8 @@ def assign_boards_cuda(image: torch.Tensor, centers: torch.Tensor) -> torch.Tens
     lib = load("assign_nearest")
     with _guard(image.device):
         boards = torch.empty((*image.shape[:-3], k, h, nw), dtype=torch.int32, device=image.device)
-        err = lib.pw_assign_boards(image.data_ptr(), centers.data_ptr(), boards.data_ptr(), k, n_img, h, w,
+        err = lib.pw_assign_boards(image.data_ptr(), centers.data_ptr(), boards.data_ptr(),
+                                   None if counts is None else counts.data_ptr(), k, n_img, h, w,
                                    torch.cuda.current_stream().cuda_stream)
         _count("assign_nearest")
         _raise_on(lib, "assign_boards", err)
@@ -794,3 +837,226 @@ def zhang_suen_dense_cuda(binary: torch.Tensor, max_iter: int = 120, rotated: bo
                 src, packed_in = dst, 1
             STATS["zhang_suen_dense"] = done
     return out[0] if squeeze else out
+
+
+def _check_f32(name: str, t: torch.Tensor, shape_tail: tuple, device=None) -> None:
+    """A CUDA contiguous float32 tensor whose last dims are ``shape_tail``."""
+    if not t.is_cuda or (device is not None and t.device != device):
+        raise ValueError(f"{name}: expected a CUDA tensor" + (f" on {device}" if device is not None else "")
+                         + f", got {t.device}")
+    if t.dtype != torch.float32 or not t.is_contiguous() or tuple(t.shape[t.dim() - len(shape_tail):]) != shape_tail:
+        raise ValueError(f"{name}: expected a contiguous float32 tensor (..., {shape_tail}), got {t.dtype} "
+                         f"{tuple(t.shape)}")
+
+
+def lab_sample_cuda(image: torch.Tensor, idx: torch.Tensor | None = None) -> torch.Tensor:
+    """K8's sampler: the float Lab (K7's arithmetic, bit for bit) of the
+    pixels ``idx`` ((n,) int32 on the image's device, indices into the
+    flattened pixels, which the caller has checked on the host:
+    ``ops.kmeans.lab_sample``) of a CUDA (..., 3) uint8 image → (n, 3)
+    float32; every pixel in order where ``idx`` is None."""
+    _check_dense("lab_sample", image, (torch.uint8,))
+    if image.shape[-1] != 3:
+        raise ValueError(f"lab_sample: expected a (..., 3) image, got {tuple(image.shape)}")
+    px = image.numel() // 3
+    if idx is not None:
+        if not (idx.device == image.device and idx.dtype == torch.int32 and idx.dim() == 1 and idx.is_contiguous()):
+            raise ValueError(f"lab_sample: expected contiguous (n,) int32 indices on {image.device}")
+    n = px if idx is None else idx.numel()
+    with _guard(image.device):
+        out = torch.empty((n, 3), dtype=torch.float32, device=image.device)
+        if n:
+            lib = load("kmeans")
+            err = lib.pw_lab_sample(image.data_ptr(), None if idx is None else idx.data_ptr(), out.data_ptr(), n,
+                                    torch.cuda.current_stream().cuda_stream)
+            _count("lab_sample")
+            _raise_on(lib, "lab_sample", err)
+    return out
+
+
+def kpp_init_cuda(sample: torch.Tensor, k: int, first: torch.Tensor, uniforms: torch.Tensor):
+    """K8's seeding: ``ops.kmeans.kpp_init_plain`` for every attempt in one
+    launch.  ``sample`` (n, 3) float32, ``first`` (attempts,) int32 indices
+    and ``uniforms`` (attempts, k - 1) float32 in [0, 1), all on one CUDA
+    device → (centres (attempts, k, 3) float32, picked indices (attempts, k)
+    int32)."""
+    _check_f32("kpp_init", sample, (3,))
+    n, attempts = sample.shape[0], first.numel()
+    if sample.dim() != 2 or not 0 < n < 2**31 - KPP_LANES or k < 1 or attempts < 1:
+        raise ValueError(f"kpp_init: expected an (n, 3) sample, k >= 1 and an attempt, got {tuple(sample.shape)}, {k}")
+    _check_f32("kpp_init", uniforms, (attempts, k - 1), sample.device)
+    if not (first.device == sample.device and first.dtype == torch.int32 and first.is_contiguous()
+            and first.dim() == 1):
+        raise ValueError(f"kpp_init: expected contiguous (attempts,) int32 first indices on {sample.device}")
+    lib = load("kmeans")
+    with _guard(sample.device):
+        centers = torch.empty((attempts, k, 3), dtype=torch.float32, device=sample.device)
+        picks = torch.empty((attempts, k), dtype=torch.int32, device=sample.device)
+        d2 = torch.empty((attempts, n), dtype=torch.float32, device=sample.device)
+        err = lib.pw_kpp_init(sample.data_ptr(), n, k, attempts, first.data_ptr(), uniforms.data_ptr(), d2.data_ptr(),
+                              centers.data_ptr(), picks.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        _count("kpp_init")
+        _raise_on(lib, "kpp_init", err)
+    return centers, picks
+
+
+def lloyd_fit_cuda(sample: torch.Tensor, init: torch.Tensor, iters: int, eps: float = 0.5,
+                   out: torch.Tensor | None = None):
+    """K8's fit: ``ops.kmeans.lloyd_plain`` from each of ``init``'s
+    (attempts, k, 3) seeds on the CUDA (n, 3) float32 ``sample`` and the
+    choice of the first attempt of least compactness, all in one launch →
+    (best centres (k, 3), written into ``out`` when given: a contiguous
+    float32 tensor of 3 k elements on that device; centres (attempts, k, 3);
+    compactness (attempts,); iterations (attempts,) int32), all on the
+    device.  Nothing is read back here."""
+    _check_f32("lloyd_fit", sample, (3,))
+    if init.dim() != 3:
+        raise ValueError(f"lloyd_fit: expected (attempts, k, 3) seeds, got {tuple(init.shape)}")
+    attempts, k = init.shape[:2]
+    _check_f32("lloyd_fit", init, (attempts, k, 3), sample.device)
+    n = sample.shape[0]
+    if sample.dim() != 2 or not 0 < n < 2**31 or attempts < 1 or not 1 <= k <= KMEANS_MAX_K:
+        raise ValueError(f"lloyd_fit: expected an (n, 3) sample and 1 to {KMEANS_MAX_K} centres, got "
+                         f"{tuple(sample.shape)}, k = {k}")
+    if out is not None:
+        _check_f32("lloyd_fit", out.reshape(-1), (3 * k,), sample.device)
+    lib = load("kmeans")
+    with _guard(sample.device):
+        best = torch.empty((k, 3), dtype=torch.float32, device=sample.device) if out is None else out
+        centers = torch.empty((attempts, k, 3), dtype=torch.float32, device=sample.device)
+        comp = torch.empty(attempts, dtype=torch.float32, device=sample.device)
+        counters = torch.empty(attempts + 2, dtype=torch.int32, device=sample.device)  # iterations, done, best index
+        err = lib.pw_lloyd_fit(sample.data_ptr(), n, k, attempts, init.data_ptr(), int(iters), float(eps),
+                               centers.data_ptr(), comp.data_ptr(), counters.data_ptr(),
+                               counters.data_ptr() + 4 * attempts, best.data_ptr(),
+                               counters.data_ptr() + 4 * (attempts + 1), torch.cuda.current_stream().cuda_stream)
+        _count("lloyd_fit")
+        _raise_on(lib, "lloyd_fit", err)
+        STATS["lloyd_fit"] = (counters[:attempts], comp, counters[attempts + 1])
+    return best.view(k, 3), centers, comp, counters[:attempts]
+
+
+def assign_points_cuda(data: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """K8's assignment: ``ops.kmeans.assign_points_plain`` of CUDA (n, 3)
+    float32 points and (k, 3) centres on their device → (n,) int32."""
+    _check_f32("assign_points", data, (3,))
+    if data.dim() != 2 or centers.dim() != 2 or not 1 <= centers.shape[0] <= 3072:
+        raise ValueError(f"assign_points: expected (n, 3) points and 1 to 3072 centres, got {tuple(data.shape)}, "
+                         f"{tuple(centers.shape)}")
+    _check_f32("assign_points", centers, (centers.shape[0], 3), data.device)
+    with _guard(data.device):
+        labels = torch.empty(data.shape[0], dtype=torch.int32, device=data.device)
+        if labels.numel():
+            lib = load("kmeans")
+            err = lib.pw_assign_points(data.data_ptr(), data.shape[0], centers.data_ptr(), centers.shape[0],
+                                       labels.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            _count("assign_points")
+            _raise_on(lib, "assign_points", err)
+    return labels
+
+
+@functools.lru_cache(maxsize=None)
+def element_taps(shape: str, ksize: int):
+    """The structuring element as K11 takes it: (radius, ((dy, dx), ...)) of
+    its set cells around the anchor ``ksize // 2``."""
+    se = structuring_element(shape, ksize)
+    ry, rx = se.shape[0] // 2, se.shape[1] // 2
+    ys, xs = np.nonzero(se)
+    if len(ys) == 0:
+        raise ValueError(f"morph: {shape} {ksize} has no set cell")
+    return max(ry, rx), tuple((y - ry, x - rx) for y, x in zip(ys.tolist(), xs.tolist()))
+
+
+def dense_morph_smem_bytes(th: int, tw: int, halo: int, max_taps: int) -> int:
+    """Shared memory one block of K11 takes (``csrc/morph_dense.cu``): two
+    buffers of the tile and its halo, bytes, and the taps of one step."""
+    return 2 * -(-(th + 2 * halo) * (tw + 2 * halo) // 4) * 4 + 4 * max_taps
+
+
+@functools.lru_cache(maxsize=None)
+def dense_morph_schedule(radii: tuple, taps: tuple) -> tuple:
+    """K11's launches for steps of radii ``radii`` with ``taps`` set cells
+    each: ((first step, end step, tile rows, tile pixels, summed radius, most
+    taps), ...), one launch each.  Consecutive steps share a launch while
+    their summed radius stays within :data:`DENSE_HALO_CAP` and a block of
+    :data:`DENSE_TILE` with that halo fits :data:`MAX_SMEM`; a step whose
+    radius alone exceeds either starts a launch of its own, on a smaller tile
+    where it must, and raises where no tile fits."""
+    th, tw = DENSE_TILE
+    segments, start = [], 0
+    while start < len(radii):
+        stop, halo, most = start, 0, 0
+        while (stop < len(radii) and halo + radii[stop] <= DENSE_HALO_CAP
+               and dense_morph_smem_bytes(th, tw, halo + radii[stop], max(most, taps[stop])) <= MAX_SMEM):
+            halo, most, stop = halo + radii[stop], max(most, taps[stop]), stop + 1
+        sh, sw = th, tw
+        if stop == start:
+            halo, most, stop = radii[start], taps[start], start + 1
+            while dense_morph_smem_bytes(sh, sw, halo, most) > MAX_SMEM:
+                if sh > 1:
+                    sh = -(-sh // 2)
+                elif sw > 1:
+                    sw = -(-sw // 2)
+                else:
+                    raise ValueError(f"morph: a step of radius {halo} with {most} taps does not fit one block's "
+                                     f"shared memory")
+        segments.append((start, stop, sh, sw, halo, most))
+        start = stop
+    return tuple(segments)
+
+
+_dense_tables: dict = {}  # (steps, device) → K11's step table on the device, the steps' radii and tap counts
+
+
+def _dense_table(steps: tuple, device: torch.device):
+    """K11's step table (``csrc/morph_dense.cu``): per step (is a dilation,
+    radius, taps, index of its first tap), then the taps as (dy << 16) | (dx &
+    0xffff), int32 on ``device``; built once per step list and device."""
+    key = (steps, device)
+    if key not in _dense_tables:
+        heads, packed, radii, counts = [], [], [], []
+        for shape, ksize, op in steps:
+            radius, taps = element_taps(shape, ksize)
+            if radius > 32767:
+                raise ValueError(f"morph: ksize {ksize} exceeds the kernel's tap range")
+            heads += [int(op == "d"), radius, len(taps), 4 * len(steps) + len(packed)]
+            packed += [(((dy & 0xffff) << 16) | (dx & 0xffff)) for dy, dx in taps]
+            radii.append(radius)
+            counts.append(len(taps))
+        words = np.array(heads + packed, dtype=np.uint32).view(np.int32)
+        _dense_tables[key] = torch.from_numpy(words.copy()).to(device), tuple(radii), tuple(counts)
+    return _dense_tables[key]
+
+
+def morph_dense_cuda(x: torch.Tensor, steps) -> torch.Tensor:
+    """K11: ``ops.morphology.morph_dense_plain``'s step list ((shape, ksize,
+    op), ...; op 'd' dilates, any other erodes) on a CUDA (..., H, W) uint8
+    tensor, one launch per segment of :func:`dense_morph_schedule` (one at
+    the defaults); returns ``x`` itself for an empty list, else a new tensor."""
+    _check_dense("morph", x, (torch.uint8,))
+    if x.dim() < 2:
+        raise ValueError(f"morph: expected (..., H, W), got {tuple(x.shape)}")
+    steps = tuple(steps)
+    if not steps:
+        return x
+    table, radii, counts = _dense_table(steps, x.device)
+    if x.numel() == 0:
+        return x.clone()
+    h, w = x.shape[-2:]
+    k = x.numel() // (h * w)
+    segments = dense_morph_schedule(radii, counts)
+    if k > 65535 or any(-(-h // sh) > 65535 for _, _, sh, *_ in segments):
+        raise ValueError(f"morph: {tuple(x.shape)} exceeds the kernel's grid")
+    lib = load("morph_dense")
+    with _guard(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        bufs = [torch.empty_like(x) for _ in range(min(2, len(segments)))]
+        src = x
+        for j, (start, stop, sh, sw, halo, most) in enumerate(segments):
+            dst = bufs[j % 2]
+            err = lib.pw_morph_dense_run(src.data_ptr(), dst.data_ptr(), table.data_ptr(), start, stop - start, halo,
+                                         sh, sw, most, k, h, w, stream)
+            _count("morph_dense")
+            _raise_on(lib, "morph", err)
+            src = dst
+    return src

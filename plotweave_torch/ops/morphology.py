@@ -1,4 +1,13 @@
-"""Bit-packed binary morphology (twin of ``plotweave/ops/morphology.py``).
+"""Morphology, gray and bit-packed (twin of ``plotweave/ops/morphology.py``).
+
+Gray (uint8) erosion and dilation over an arbitrary structuring element are
+the minimum and maximum over its set cells; a read outside the image gives
+255 to an erosion and 0 to a dilation (OpenCV's defaults: the border neither
+constrains the one nor feeds the other), and the anchor is ``ksize // 2`` for
+an even ``ksize`` too.  :func:`erode`, :func:`dilate`, :func:`morph_open` and
+:func:`morph_close` run a whole program through kernel K11 on a CUDA tensor
+(``ops/kernels.py``, ``csrc/morph_dense.cu``) and :func:`morph_plain` on a CPU
+tensor.
 
 Erode and dilate on 0/255 masks are AND/OR algebra on the int32 bitboards of
 ``ops/thinning.py``.  Dilation ORs the board shifted over the structuring
@@ -120,3 +129,75 @@ def morph_bits(x: torch.Tensor, valid: torch.Tensor, shape: str, ksize: int,
                iterations: int, program: str) -> torch.Tensor:
     """:func:`morph_bits_plain`'s program through :func:`morph_steps`."""
     return morph_steps(x, valid, morph_program(shape, ksize, iterations, program))
+
+
+def _window_reduce(x: torch.Tensor, se: np.ndarray, is_max: bool) -> torch.Tensor:
+    """Min or max over the element's set cells via shifted slices of the
+    padded tensor, on the last two dims (leading dims ride along)."""
+    h, w = x.shape[-2], x.shape[-1]
+    ry, rx = se.shape[0] // 2, se.shape[1] // 2
+    p = torch.nn.functional.pad(x, (rx, rx, ry, ry), value=0 if is_max else 255)
+    ys, xs = np.nonzero(se)
+    acc = None
+    for dy, dx in zip(ys.tolist(), xs.tolist()):
+        win = p[..., dy : dy + h, dx : dx + w]
+        acc = win if acc is None else (torch.maximum(acc, win) if is_max else torch.minimum(acc, win))
+    return acc
+
+
+def morph_dense_plain(x: torch.Tensor, steps) -> torch.Tensor:
+    """A step list ((shape, ksize, op), ...) on a (..., H, W) uint8 tensor,
+    each step one dilation (op 'd') or erosion (any other op) by its element,
+    in order: the plain version of kernel K11."""
+    if x.dtype != torch.uint8:
+        raise TypeError(f"morph: expected a uint8 tensor, got {x.dtype}")
+    for shape, ksize, op in steps:
+        x = _window_reduce(x, structuring_element(shape, ksize), op == "d")
+    return x
+
+
+def morph_plain(x: torch.Tensor, shape: str, ksize: int, iterations: int, program: str) -> torch.Tensor:
+    """A morphology program on a (..., H, W) uint8 tensor: each char of
+    ``program`` is 'e' (erode) or 'd' (dilate), repeated ``iterations`` times
+    (twin of the JAX package's ``_morph``)."""
+    return morph_dense_plain(x, morph_program(shape, ksize, iterations, program))
+
+
+def morph_dense(x: torch.Tensor, steps) -> torch.Tensor:
+    """:func:`morph_dense_plain`'s step list on the tensor's device: kernel
+    K11 for a CUDA tensor (the whole list in one launch at the defaults), the
+    plain version for a CPU tensor, else raise."""
+    if x.is_cuda:
+        from .kernels import morph_dense_cuda  # noqa: PLC0415
+
+        return morph_dense_cuda(x, steps)
+    if x.device.type != "cpu":
+        raise ValueError(f"morph: no kernel for device {x.device}")
+    return morph_dense_plain(x, steps)
+
+
+def erode(x, shape="rect", ksize=3, iterations=1):
+    return morph_dense(x, morph_program(shape, ksize, iterations, "e"))
+
+
+def dilate(x, shape="rect", ksize=3, iterations=1):
+    return morph_dense(x, morph_program(shape, ksize, iterations, "d"))
+
+
+def morph_open(x, shape="rect", ksize=3, iterations=1):
+    """iterations× erode then iterations× dilate (OpenCV MORPH_OPEN semantics)."""
+    return morph_dense(x, morph_program(shape, ksize, iterations, "ed"))
+
+
+def morph_close(x, shape="rect", ksize=3, iterations=1):
+    return morph_dense(x, morph_program(shape, ksize, iterations, "de"))
+
+
+def morph_binary_packed(x: torch.Tensor, shape: str, ksize: int, iterations: int, program: str) -> torch.Tensor:
+    """Drop-in for :func:`morph_plain` on BINARY (0/255 or 0/1) uint8 masks:
+    pack → bit-domain program → unpack to 0/255 uint8 (K1, K2, K1 on the card)."""
+    from .thinning import dense_from_boards, pack_bitboards  # noqa: PLC0415
+
+    w = x.shape[-1]
+    b = morph_bits(pack_bitboards(x), _valid_bits(w, x.device), shape, ksize, iterations, program)
+    return dense_from_boards(b, w, 255)

@@ -1,15 +1,18 @@
 """Pipeline runner + CLI of the port: ``python -m plotweave_torch <img> --output DIR``.
 
-``STEPS``, ``MAX_STEP``, :func:`missing_for_step` (the preflight table) and
-:func:`load_preset` are copied from ``plotweave/pipeline.py``; presets are
-the port's own (``plotweave_torch/presets/<name>.json``).  Every step runs
-the port's stage module (``plotweave_torch/stages``); the port imports
-nothing of ``plotweave``.
+``STEPS``, ``MAX_STEP``, :func:`missing_for_step` (the preflight table),
+:func:`load_preset`, :func:`stage_clock` and the batch runner
+(:func:`run_pipeline_batch`, ``--batch-dir``) follow ``plotweave/pipeline.py``;
+presets are the port's own (``plotweave_torch/presets/<name>.json``).  Every
+step runs the port's stage module (``plotweave_torch/stages``); the port
+imports nothing of ``plotweave``.  ``--profile DIR`` writes a
+``torch.profiler`` trace of the run.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -102,6 +105,30 @@ def chain_hint() -> frozenset:
     return getattr(_CHAIN, "steps", frozenset())
 
 
+# Optional per-stage wall-clock collector: sums stage seconds across ALL
+# images and threads of a run (the batch runner's steady-state profile).
+# Install with stage_clock(); costs one test per stage when uninstalled.
+_STAGE_CLOCK: dict | None = None
+_STAGE_CLOCK_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def stage_clock():
+    """Collect {stage_module: summed_wall_seconds} for every stage executed
+    (by any thread) inside the context."""
+    global _STAGE_CLOCK
+    d: dict = {}
+    with _STAGE_CLOCK_LOCK:
+        if _STAGE_CLOCK is not None:
+            raise RuntimeError("a stage_clock is already installed")
+        _STAGE_CLOCK = d
+    try:
+        yield d
+    finally:
+        with _STAGE_CLOCK_LOCK:
+            _STAGE_CLOCK = None
+
+
 def run_pipeline(cfg: PipelineConfig, start_step: int = 1, end_step: int = MAX_STEP,
                  on_error: str = "raise") -> Dict[str, float]:
     """Run stages [start_step, end_step] in-process; returns each stage
@@ -139,6 +166,10 @@ def run_pipeline(cfg: PipelineConfig, start_step: int = 1, end_step: int = MAX_S
                 print(f"Error in step {i + 1} ({module})", file=sys.stderr)
                 sys.exit(1)
             times[module] = time.perf_counter() - t0
+            if _STAGE_CLOCK is not None:
+                with _STAGE_CLOCK_LOCK:
+                    if _STAGE_CLOCK is not None:
+                        _STAGE_CLOCK[module] = _STAGE_CLOCK.get(module, 0.0) + times[module]
             print(f"[{i + 1}/{MAX_STEP}] done in {times[module]:.2f}s", flush=True)
     finally:
         _CHAIN.steps = frozenset()
@@ -156,10 +187,69 @@ def run_pipeline(cfg: PipelineConfig, start_step: int = 1, end_step: int = MAX_S
     return times
 
 
-def run_pipeline_batch(*_args, **_kwargs):
-    raise NotImplementedError(
-        "the batch runner is not ported to plotweave_torch yet (ROADMAP.md, Queue 1: batch runner)"
+def run_pipeline_batch(
+    cfgs: List[PipelineConfig],
+    start_step: int = 1,
+    end_step: int = 13,
+    workers: int = 0,
+    mesh_dp: bool | None = None,
+) -> List[float]:
+    """Throughput mode for many images: each image runs the full pipeline; a
+    host thread pool overlaps one image's host-side stages (tracing, dedup,
+    stream emission, PNG encodes) with the device work of the others.  The
+    per-image fused 02→04 chain calls additionally rendezvous into ONE grouped
+    chain call over a leading batch dimension (``parallel/batchrun.py``): one
+    upload, one launch sequence and one download carry every image of the
+    group.  ``mesh_dp`` (the JAX package's name, kept so that a call site
+    ports by its import alone) groups the chain calls: None = whenever there
+    is more than one image.  Images are independent, so outputs are
+    byte-for-byte the same as sequential runs.  An image that fails is
+    reported and does not stop the others.  Returns per-image wall seconds,
+    -1.0 for a failed image."""
+    from concurrent.futures import ThreadPoolExecutor  # noqa: PLC0415
+
+    use_batcher = (mesh_dp is None or mesh_dp) and len(cfgs) > 1
+    if not workers:
+        workers = min(4, max(1, len(cfgs)))
+
+    batcher = None
+    if use_batcher:
+        from .parallel.batchrun import DeviceBatcher, batcher_ctx  # noqa: PLC0415
+
+        batcher = DeviceBatcher(workers, len(cfgs))
+        print("[batch] chain calls of concurrent images are grouped into one call each")
+
+    def one(cfg: PipelineConfig) -> float:
+        t0 = time.perf_counter()
+        try:
+            run_pipeline(cfg, start_step, end_step)
+        except Exception as e:  # noqa: BLE001 — isolate failures per image
+            print(
+                f"[batch] FAILED {cfg.input_image}: {type(e).__name__}: {e}",
+                file=sys.stderr,
+                flush=True,
+            )
+            return -1.0
+        finally:
+            if batcher is not None:
+                batcher.image_finished()
+        return time.perf_counter() - t0
+
+    def run_all() -> List[float]:
+        if workers == 1 or len(cfgs) == 1:
+            return [one(c) for c in cfgs]
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            return list(pool.map(one, cfgs))
+
+    if batcher is None:
+        return run_all()
+    with batcher_ctx(batcher):
+        times = run_all()
+    print(
+        f"[batch] grouped: {batcher.n_batched_images} image chain(s) in "
+        f"{batcher.n_dispatches} grouped call(s)"
     )
+    return times
 
 
 def parse_args(argv=None):
@@ -178,11 +268,92 @@ def parse_args(argv=None):
     ap.add_argument("--target-height-mm", type=int, dest="target_height_mm")
     ap.add_argument("--colors", dest="colors_json", help="BGR swatches as JSON, e.g. [[0,0,0],[255,0,0]]")
     add_raster_device_flag(ap)
+    ap.add_argument(
+        "--batch-dir",
+        help="process every image in this directory (one <output>/<stem>/ run each, "
+        "host threads overlapping device work); ignores input_image",
+    )
+    ap.add_argument("--workers", type=int, default=0, help="batch mode: host worker threads (default min(4, n))")
+    ap.add_argument(
+        "--profile",
+        metavar="DIR",
+        help="capture a torch.profiler trace of the run into DIR (a Chrome trace, open with "
+        "Perfetto) in addition to the per-stage wall-clock lines",
+    )
     return ap.parse_args(argv)
 
 
-def main(argv=None) -> Dict[str, float]:
-    """The CLI; returns :func:`run_pipeline`'s per-stage wall seconds."""
+@contextlib.contextmanager
+def _profiled(trace_dir: str | None, name: str):
+    """A ``torch.profiler`` trace of the block (host, and the card where there
+    is one) written to ``<trace_dir>/<name>.json``; nothing where
+    ``trace_dir`` is empty."""
+    if not trace_dir:
+        yield
+        return
+    import torch  # noqa: PLC0415
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    os.makedirs(trace_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(trace_dir, f"{name}.json")
+    prof.export_chrome_trace(path)
+    print(f"[profile] trace written to {path}")
+
+
+def _main_batch(args, base: PipelineConfig, overrides: dict) -> None:
+    exts = {".png", ".jpg", ".jpeg", ".bmp", ".webp", ".tif", ".tiff"}
+    images = sorted(
+        os.path.join(args.batch_dir, f)
+        for f in os.listdir(args.batch_dir)
+        if os.path.splitext(f)[1].lower() in exts
+    )
+    if not images:
+        print(f"error: no images in {args.batch_dir}", file=sys.stderr)
+        sys.exit(2)
+    # photo.png + photo.jpg must not share an output dir (concurrent runs
+    # would clobber each other's artifacts): disambiguate duplicate stems
+    stems = {}
+    cfgs = []
+    for img in images:
+        stem = os.path.splitext(os.path.basename(img))[0]
+        if stem in stems:
+            stems[stem] += 1
+            stem = f"{stem}_{stems[stem]}"
+            print(f"[batch] note: duplicate stem; {os.path.basename(img)} → {stem}/")
+        else:
+            stems[stem] = 1
+        out = os.path.join(args.output_dir, stem)
+        os.makedirs(out, exist_ok=True)
+        ov = dict(overrides, input_image=img, output_dir=out)
+        cfg_file = save_config(base, os.path.join(out, "config.json"), ov)
+        cfgs.append(load_config(cfg_file))
+    print(f"Batch: {len(images)} images → {args.output_dir} ({args.workers or min(4, len(images))} workers)")
+    if args.end_step > 13:
+        print("[batch] note: stage 14 (interactive stream preview) is skipped in batch mode")
+    t0 = time.perf_counter()
+    # one trace spanning the whole batch: worker threads show up as separate
+    # host tracks, the device lanes show how well they overlap
+    with _profiled(args.profile, "batch"):
+        times = run_pipeline_batch(cfgs, args.start_step, min(args.end_step, 13), workers=args.workers)
+    wall = time.perf_counter() - t0
+    ok = [t for t in times if t >= 0]
+    failed = [img for img, t in zip(images, times) if t < 0]
+    print(
+        f"\nBatch done: {len(ok)}/{len(images)} images in {wall:.1f}s wall "
+        f"({wall / max(1, len(images)):.2f}s/image; per-image sum {sum(ok):.1f}s)"
+    )
+    if failed:
+        for img in failed:
+            print(f"  failed: {img}", file=sys.stderr)
+        sys.exit(1)
+
+
+def main(argv=None) -> Dict[str, float] | None:
+    """The CLI; returns :func:`run_pipeline`'s per-stage wall seconds (None
+    in batch mode)."""
     args = parse_args(argv)
     if not args.output_dir:
         print("error: --output is required", file=sys.stderr)
@@ -208,6 +379,12 @@ def main(argv=None) -> Dict[str, float]:
             if overrides.get(k) is None:  # explicit CLI flags win
                 overrides[k] = v
 
+    if args.batch_dir:
+        overrides.pop("input_image", None)
+        overrides.pop("output_dir", None)
+        _main_batch(args, base, overrides)
+        return None
+
     cfg_file = save_config(base, os.path.join(args.output_dir, "config.json"), overrides)
     print("Config saved to", cfg_file)
     cfg = load_config(cfg_file)
@@ -217,7 +394,8 @@ def main(argv=None) -> Dict[str, float]:
     print("=" * 50)
     print("Input image:", cfg.input_image)
     print("Output dir: ", cfg.output_dir)
-    times = run_pipeline(cfg, args.start_step, args.end_step, on_error="exit")
+    with _profiled(args.profile, "run"):
+        times = run_pipeline(cfg, args.start_step, args.end_step, on_error="exit")
     print("\nDone.")
     return times
 

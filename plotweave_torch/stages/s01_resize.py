@@ -1,12 +1,15 @@
 """[01] Input resize: cap the longest side at max_dimension → resized.png
-(twin of ``plotweave/stages/s01_resize.py``, host resize only)."""
+(twin of ``plotweave/stages/s01_resize.py``; the resize runs on the host)."""
 
 from __future__ import annotations
 
 import os
 
+import torch
+
 from ..config import PipelineConfig
-from ..utils import read_image, write_image
+from ..utils import read_image, register_device_artifact, write_image
+from ..utils.devices import raster_device
 
 
 def run(cfg: PipelineConfig) -> None:
@@ -16,8 +19,7 @@ def run(cfg: PipelineConfig) -> None:
     img = read_image(cfg.input_image)
     h, w = img.shape[:2]
     m = max(h, w)
-    # cv2.resize is the byte-exactness contract (reference 01_resize.py:20);
-    # the host-exact stage 02 reads host pixels, so nothing is uploaded here
+    # cv2.resize is the byte-exactness contract (reference 01_resize.py:20)
     if m > cfg.max_dimension:
         scale = cfg.max_dimension / m
         out = cv2.resize(img, (int(w * scale), int(h * scale)), interpolation=cv2.INTER_AREA)
@@ -26,5 +28,13 @@ def run(cfg: PipelineConfig) -> None:
         out = img
         print(f"No resize required: {w}x{h}")
     dst = os.path.join(cfg.output_dir, "resized.png")
-    write_image(dst, out)
+    # only kmeans_init="device" takes the image on the raster device (stage 02
+    # fetches it); the host-exact mode reads host pixels and uploads its packed
+    # masks itself, so nothing is uploaded then
+    if str(cfg.kmeans_init).lower() == "device" and str(cfg.extraction_mode).lower() != "swatch":
+        out_dev = torch.from_numpy(out).to(raster_device(cfg))
+        write_image(dst, out)
+        register_device_artifact(dst, out_dev)
+    else:
+        write_image(dst, out)
     print(f"Saved: {dst}")

@@ -1,13 +1,29 @@
 """[02] Color-layer extraction → <layer>/mask.png + palette_by_name.json
-(twin of ``plotweave/stages/s02_color_extract.py``, host-exact mode).
+(twin of ``plotweave/stages/s02_color_extract.py``).
 
-The k-means is the host-exact path of the JAX package, unchanged: cv2's
-fixed-point Lab, the ``rng(seed).choice`` subsample, the bit-exact
-``cv2.kmeans`` replica (``ops/cvkmeans.py``), the native assignment and the
-cv2 mask refine.  When the runner chains stages 03 and 04, the cleaned masks,
-packed 8 px per byte, go through :func:`chain_from_clean` on the raster
-device, on a side thread so the mask PNG writes overlap it; stages 03 and 04
-take its blob from the derived-artifact registry.
+Default mode clusters pixels in Lab with k-means and maps clusters to layer
+names by darkness; swatch mode thresholds around configured swatches.
+
+``kmeans_init: "host-exact"`` (the default) is the host-exact path of the JAX
+package, unchanged: cv2's fixed-point Lab, the ``rng(seed).choice``
+subsample, the bit-exact ``cv2.kmeans`` replica (``ops/cvkmeans.py``), the
+native assignment and the cv2 mask refine.  When the runner chains stages 03
+and 04, the cleaned masks, packed 8 px per byte, go through
+:func:`chain_from_clean` on the raster device, on a side thread so the mask
+PNG writes overlap it (in a batch run through the active
+``parallel.batchrun.DeviceBatcher``, one chain call per group of images);
+stages 03 and 04 take its blob from the derived-artifact registry.
+
+``kmeans_init: "device"`` runs the whole stage on the raster device
+(:func:`device_init_stage`): the float Lab of a subsample, k-means++ seeds
+and the Lloyd fits (kernel K8), the all-pixel assignment with its counts
+(K7), the masks' open and close (K2), their packed rows (K1) and, when fused,
+the chain, all into one blob and one download.  Its random numbers are the
+port's own seed stream (``ops/kmeans.py``): deterministic per seed, the same
+on the card and on the CPU, not the JAX package's and not cv2-compatible.
+
+``extraction_mode: "swatch"`` thresholds on the host and cleans each mask
+with the gray morphology (kernel K11) on the raster device.
 """
 
 from __future__ import annotations
@@ -23,9 +39,12 @@ from ..config import PipelineConfig
 from ..ops.bitpack import boards_to_rows, rows_to_boards
 from ..ops.canny import canny_boards
 from ..ops.cvkmeans import assign_labels, cv_kmeans
-from ..ops.morphology import _valid_bits, morph_program, morph_steps
+from ..ops.frontend import assign_boards_counts
+from ..ops.kmeans import kmeans_fit_device, lab_sample, subsample_indices
+from ..ops.morphology import _valid_bits, morph_close, morph_open, morph_program, morph_steps
 from ..ops.thinning import zhang_suen_packed
-from ..utils import read_image, register_derived_artifact, save_json, thread_map, write_image
+from ..utils import (fetch_device_artifact, read_image, register_derived_artifact, register_device_artifact,
+                     save_json, thread_map, write_image)
 from ..utils.devices import raster_device
 from .common import chain_key, darkness_rank, edge_params, layer_dir
 
@@ -45,16 +64,25 @@ def edges_from_boards(masks_b: torch.Tensor, w: int, mk: int, oi: int, ci: int, 
     return canny_boards(open_close_boards(masks_b, w, oi, ci, "ellipse", mk), w, bk, lo, hi)
 
 
-def chain_tail(masks_b: torch.Tensor, w: int, mk: int, oi: int, ci: int, bk: int, lo: int, hi: int) -> torch.Tensor:
+def chain_tail(masks_b: torch.Tensor, w: int, mk: int, oi: int, ci: int, bk: int, lo: int, hi: int,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """Stage 03's morphology, blur and Canny and stage 04's thinning over the
-    cleaned masks as (k, H, ⌈W/32⌉) bitboards → packed (2, k, H, ⌈W/8⌉)
-    edges, then skeletons, in one tensor."""
+    cleaned masks as (..., k, H, ⌈W/32⌉) bitboards → packed (..., 2, k, H,
+    ⌈W/8⌉) edges, then skeletons, in one tensor (written into ``out``, a
+    contiguous uint8 tensor of that many bytes on that device, when given).
+    Leading dims are images: the kernels take them as more layers, and each
+    image's two halves are written in place, so image b's part, flattened, is
+    the solo call's blob."""
     # the hysteresis board feeds the thinner in the same encoding
     edges_b = edges_from_boards(masks_b, w, mk, oi, ci, bk, lo, hi)
     skels_b = zhang_suen_packed(edges_b, max_iter=120, rotated=True)
-    blob = torch.empty((2, *masks_b.shape[:-1], -(-w // 8)), dtype=torch.uint8, device=masks_b.device)
-    boards_to_rows(edges_b, w, out=blob[0])
-    boards_to_rows(skels_b, w, out=blob[1])
+    *lead, k, h, nw = masks_b.shape
+    shape = (*lead, 2, k, h, -(-w // 8))
+    blob = torch.empty(shape, dtype=torch.uint8, device=masks_b.device) if out is None else out.view(shape)
+    halves = blob.view(-1, 2, k, h, shape[-1])
+    for b, (e, s) in enumerate(zip(edges_b.view(-1, k, h, nw), skels_b.view(-1, k, h, nw))):
+        boards_to_rows(e, w, out=halves[b, 0])
+        boards_to_rows(s, w, out=halves[b, 1])
     return blob
 
 
@@ -67,6 +95,62 @@ def chain_from_clean(packed_clean, w: int, mk: int, oi: int, ci: int, bk: int, l
     K3+K4, K5, K6, K1."""
     packed = torch.as_tensor(packed_clean, dtype=torch.uint8, device=device)
     return chain_tail(rows_to_boards(packed, w), w, mk, oi, ci, bk, lo, hi).reshape(-1)
+
+
+def chain_blob_batch(packed_clean, w: int, mk: int, oi: int, ci: int, bk: int, lo: int, hi: int,
+                     device) -> torch.Tensor:
+    """Batched twin of :func:`chain_from_clean`: (B, k, H, ⌈W/8⌉) packed
+    cleaned masks → (B, L) blobs [packed edges][packed skeletons] on
+    ``device``.  Every op takes the images as more layers and is integer, so
+    row b is byte-equal to the solo call's blob of image b (the batch runner
+    relies on this: ``parallel/batchrun.py``).  One upload; the caller makes
+    the one download."""
+    packed = torch.as_tensor(packed_clean, dtype=torch.uint8, device=device)
+    return chain_tail(rows_to_boards(packed, w), w, mk, oi, ci, bk, lo, hi).reshape(packed.shape[0], -1)
+
+
+def assign_tail(img: torch.Tensor, centers: torch.Tensor, k: int, open_iters: int, close_iters: int,
+                counts: torch.Tensor | None = None, out: torch.Tensor | None = None):
+    """All-pixel nearest-centre assignment of one (H, W, 3) uint8 BGR image →
+    (counts (k,) int32, the cleaned masks packed (k, H, ⌈W/8⌉) uint8, the
+    cleaned masks as bitboards); twin of the JAX stage's ``_assign_tail``.  On
+    the card K7 with counts, K2 (3×3 rect open, then close) and K1; ``counts``
+    and ``out`` receive the counts and the packed rows when given (views into
+    the stage's blob).  K7 takes ``Σ (lab − c)²``, not the fit's expanded
+    form, so a label may differ from the JAX stage's at a near tie only."""
+    w = img.shape[1]
+    boards, counts = assign_boards_counts(img, centers, k, counts)
+    masks_b = open_close_boards(boards, w, open_iters, close_iters, "rect", 3)
+    return counts, boards_to_rows(masks_b, w, out=out), masks_b
+
+
+def device_init_stage(img: torch.Tensor, k: int, iters: int, attempts: int, limit: int, seed: int, fuse: bool,
+                      mk: int = 0, oi: int = 0, ci: int = 0, bk: int = 3, lo: int = 0, hi: int = 0,
+                      open_iters: int = 1, close_iters: int = 1):
+    """``kmeans_init: "device"``: the whole stage (and, when fused, stages
+    03/04's raster work) on the device of ``img`` (one (H, W, 3) uint8 BGR
+    tensor) → (one flat uint8 blob on that device: the winning centres (k, 3)
+    float32, the counts (k,) int32, the cleaned masks packed (k, H, ⌈W/8⌉)
+    and, when fused, the chain's [packed edges][packed skeletons]; the cleaned
+    masks as bitboards).  On the card: K8 (sampler, seeds, fits), K7 with
+    counts, K2, K1 and the chain's kernels, every one writing its part of the
+    blob in place; nothing is read back here.  The subsample and the seeds'
+    random numbers come from the host (``ops/kmeans.py``), so the result is
+    deterministic per seed on either device; float sums differ between the
+    card and the CPU only in their last digits."""
+    h, w = img.shape[:2]
+    w8 = -(-w // 8)
+    n_masks = k * h * w8
+    blob = torch.empty(16 * k + (3 if fuse else 1) * n_masks, dtype=torch.uint8, device=img.device)
+    centers = blob[: 12 * k].view(torch.float32).view(k, 3)
+    sample = lab_sample(img, subsample_indices(seed, h * w, limit) if h * w > limit else None)
+    kmeans_fit_device(sample, k, attempts, iters, seed, out=centers)
+    _, _, masks_b = assign_tail(img, centers, k, open_iters, close_iters,
+                                counts=blob[12 * k : 16 * k].view(torch.int32),
+                                out=blob[16 * k : 16 * k + n_masks].view(k, h, w8))
+    if fuse:
+        chain_tail(masks_b, w, mk, oi, ci, bk, lo, hi, out=blob[16 * k + n_masks :])
+    return blob, masks_b
 
 
 def _host_clean_masks(labels: np.ndarray, k: int, open_iters: int, close_iters: int):
@@ -117,28 +201,90 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to plotweave_torch yet (ROADMAP.md, {item})")
 
 
+def swatch_mode(cfg: PipelineConfig, img: np.ndarray) -> None:
+    """Threshold ±tolerance around each swatch, trying both channel orders and
+    keeping the better-covered mask (02:82-109); each mask is opened and
+    closed (3×3 rect) by the gray morphology on the raster device (K11)."""
+    device = raster_device(cfg)
+    tol = int(cfg.color_tolerance)
+    names: List[str] = list(cfg.color_names)
+    colors = list(cfg.colors)
+    if not colors or len(colors) < len(names):
+        raise RuntimeError("swatch mode: 'colors' must have ≥ len(color_names) entries.")
+    for i, name in enumerate(names):
+        d = layer_dir(cfg, name)
+        raw = tuple(int(v) for v in colors[i])
+        for candidate in ((raw[2], raw[1], raw[0]), raw):  # RGB→BGR first, then as-is
+            lo = np.maximum(np.array(candidate) - tol, 0).astype(np.uint8)
+            hi = np.minimum(np.array(candidate) + tol, 255).astype(np.uint8)
+            m = (np.all(img >= lo, axis=2) & np.all(img <= hi, axis=2)).astype(np.uint8) * 255
+            if candidate == (raw[2], raw[1], raw[0]):
+                best = m
+            elif int(np.count_nonzero(m)) > int(np.count_nonzero(best)):
+                best = m
+        best_t = torch.from_numpy(best).to(device)
+        mask = morph_close(morph_open(best_t, "rect", 3, 1), "rect", 3, 1).cpu().numpy()
+        write_image(os.path.join(d, "mask.png"), mask)
+        print(f"Extracted (swatch): {name} | nz={int(np.count_nonzero(mask))}")
+    print("Color extraction: done.")
+
+
+def _run_device_init(cfg: PipelineConfig, names: List[str], k: int, fuse: bool, resized_path: str) -> None:
+    """``kmeans_init: "device"``: :func:`device_init_stage` on the raster
+    device, one download, then the shared tail."""
+    device = raster_device(cfg)
+    # stage 01's upload when this process made one for this device; the file otherwise
+    img = fetch_device_artifact(resized_path)
+    if not isinstance(img, torch.Tensor) or img.device.type != device.type:
+        img = torch.from_numpy(read_image(resized_path)).to(device)
+    if device.type == "cpu":
+        print("[raster-device] note: kmeans_init='device' on the CPU runs the plain versions; its float "
+              "k-means may differ from the card's at near ties (the seed stream is the same)")
+    h, w = img.shape[:2]
+    w8 = (w + 7) // 8
+    blob_dev, masks_b = device_init_stage(
+        img.contiguous(), k, int(cfg.kmeans_iters), int(cfg.kmeans_attempts), int(cfg.kmeans_sample_limit),
+        int(cfg.kmeans_seed), fuse, *(edge_params(cfg) if fuse else (1, 0, 0, 3, 0, 0)),
+        open_iters=int(cfg.extract_open_iters), close_iters=int(cfg.extract_close_iters),
+    )
+    blob = blob_dev.cpu().numpy()
+    centers = np.ascontiguousarray(blob[: 12 * k]).view(np.float32).reshape(k, 3)
+    counts0 = np.ascontiguousarray(blob[12 * k : 16 * k]).view(np.int32)
+    packed = blob[16 * k : 16 * k + k * h * w8].reshape(k, h, w8)
+    chain_packed = blob[16 * k + k * h * w8 :].reshape(2 * k, h, w8) if fuse else None
+
+    def mask_of(cluster_idx: int) -> np.ndarray:
+        m = np.unpackbits(packed[cluster_idx], axis=-1)[..., :w]
+        m *= np.uint8(255)
+        return m
+
+    _finish_kmeans(cfg, names, k, w, centers, counts0, mask_of, (lambda: chain_packed) if fuse else None, masks_b)
+
+
 def run(cfg: PipelineConfig) -> None:
     os.makedirs(cfg.output_dir, exist_ok=True)
-    if cfg.extraction_mode.lower() == "swatch":
-        raise _not_ported("extraction_mode='swatch'", "Queue 2: K11 dense morphology")
-    if cfg.kmeans_init.lower() == "device":
-        raise _not_ported("kmeans_init='device'", "Queue 1: device k-means")
     if int(cfg.shard_rows or 0) > 0 or float(cfg.shard_auto_mpx or 0) > 0:
         raise _not_ported("row sharding (shard_rows / shard_auto_mpx)", "Queue 1: multi-GPU")
+    resized_path = os.path.join(cfg.output_dir, "resized.png")
+    if cfg.extraction_mode.lower() == "swatch":
+        swatch_mode(cfg, read_image(resized_path))
+        return
+
+    from ..pipeline import chain_hint  # noqa: PLC0415
+
+    names = list(cfg.color_names)
+    k = cfg.resolve_cluster_k()
+    fuse = {3, 4} <= chain_hint() and k == len(names)
+    if cfg.kmeans_init.lower() == "device":
+        return _run_device_init(cfg, names, k, fuse, resized_path)
 
     import cv2  # noqa: PLC0415
 
-    img = read_image(os.path.join(cfg.output_dir, "resized.png"))
-    names = list(cfg.color_names)
-    k = cfg.resolve_cluster_k()
+    img = read_image(resized_path)
     h, w = img.shape[:2]
     n = h * w
     seed = int(cfg.kmeans_seed)
     limit = int(cfg.kmeans_sample_limit)
-
-    from ..pipeline import chain_hint  # noqa: PLC0415
-
-    fuse = {3, 4} <= chain_hint() and k == len(names)
 
     # cv2's fixed-point uint8 Lab, the reference's subsample index stream
     # (rng(seed).choice, 02:41), the cv2.kmeans replica and the reference's
@@ -164,8 +310,14 @@ def run(cfg: PipelineConfig) -> None:
     device = raster_device(cfg)
     packed_np = np.stack([np.packbits(m > 0, axis=-1) for m in masks8])
     w8 = (w + 7) // 8
+    from ..parallel.batchrun import active_batcher  # noqa: PLC0415
+
+    batcher = active_batcher()  # a batch run's, which this image's fused chain call joins
 
     def chain():
+        if batcher is not None:
+            # a batch run: this image's chain call joins its siblings' in one grouped call
+            return batcher.run_chain(packed_np, w, edge_params(cfg), device).reshape(2 * k, h, w8)
         blob = chain_from_clean(packed_np, w, *edge_params(cfg), device=device)
         return blob.cpu().numpy().reshape(2 * k, h, w8)
 
@@ -176,11 +328,14 @@ def run(cfg: PipelineConfig) -> None:
         fetch.wait()
 
 
-def _finish_kmeans(cfg, names: List[str], k: int, w: int, centers, counts0, mask_of, chain_fetch):
+def _finish_kmeans(cfg, names: List[str], k: int, w: int, centers, counts0, mask_of, chain_fetch, masks_dev=None):
     """Dark→light relabel, mask PNG writes, chain artifact registration and
     the palette JSON.  ``mask_of(cluster_idx)`` is the cleaned 0/255 mask of
     an original cluster; ``chain_fetch`` (when fused) joins the chain →
-    (2k, H, ⌈W/8⌉) packed, called after the PNG writes."""
+    (2k, H, ⌈W/8⌉) packed, called after the PNG writes.  ``masks_dev`` (the
+    device mode's cleaned masks as (k, H, ⌈W/32⌉) bitboards on the raster
+    device, else None) is handed to stage 03 through the device-artifact
+    registry, keyed to the mask files."""
     import cv2  # noqa: PLC0415
 
     # relabel dark→light by the L channel (reference 02:120-127)
@@ -212,7 +367,10 @@ def _finish_kmeans(cfg, names: List[str], k: int, w: int, centers, counts0, mask
 
     palette = {}
     for cluster_idx, name in enumerate(names_sorted[:k]):
-        _, nz = written[cluster_idx]
+        mask_path, nz = written[cluster_idx]
+        if masks_dev is not None:
+            # the device copy for stage 03 (the values of the PNG), as (bitboard, width)
+            register_device_artifact(mask_path, (masks_dev[int(order[cluster_idx])], w))
         # reference truncates: centers_lab[k].astype(np.uint8) → cv2 Lab2BGR
         # on the 1×1 uint8 image (02:58-61,159)
         center_lab = centers[cluster_idx].astype(np.uint8)

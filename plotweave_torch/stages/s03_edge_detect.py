@@ -2,8 +2,10 @@
 (twin of ``plotweave/stages/s03_edge_detect.py``).
 
 In a chained run stage 02 has computed the edges already (the fused chain's
-blob); otherwise — a resumed run — the masks are read from disk and the same
-ops run here, layer-batched, on the raster device.
+blob); otherwise — a resumed run — the same ops run here, layer-batched, on
+the raster device, over the masks that stage 02's device mode left there in
+this process (the device-artifact registry) or else read from disk.  The
+edges stay on the device for stage 04 the same way.
 """
 
 from __future__ import annotations
@@ -15,35 +17,44 @@ import torch
 
 from ..config import PipelineConfig
 from ..ops.thinning import dense_from_boards, pack_bitboards
-from ..utils import (fetch_derived_artifact, read_image, register_derived_artifact,
-                     thread_map, write_image)
+from ..utils import (fetch_derived_artifact, fetch_device_artifact, read_image, register_derived_artifact,
+                     register_device_artifact, thread_map, write_image)
 from ..utils.devices import raster_device
 from .common import chain_key, edge_params, layer_dir, palette_bgr
 from .s02_color_extract import edges_from_boards
 
 
-def _edges_batched(masks: torch.Tensor, mk: int, oi: int, ci: int, bk: int, lo: int, hi: int) -> torch.Tensor:
-    """(L, H, W) masks → (L, H, W) uint8 0/255 edges; the ops are layer-batched
-    over bitboards (K1, K2, K3+K4, K5, K1 on the card)."""
-    w = masks.shape[-1]
-    return dense_from_boards(edges_from_boards(pack_bitboards(masks), w, mk, oi, ci, bk, lo, hi), w, 255)
+def device_boards(paths, device: torch.device):
+    """The (L, H, ⌈W/32⌉) bitboards and width that an earlier stage of this
+    process registered for ``paths`` on ``device``, or None where any is
+    missing, stale or elsewhere."""
+    held = [fetch_device_artifact(p) for p in paths]
+    if not held or not all(isinstance(b, tuple) and b[0].device.type == device.type for b in held):
+        return None
+    return torch.stack([b for b, _ in held]), held[0][1]
 
 
 def run(cfg: PipelineConfig) -> None:
     names = list(cfg.color_names)
     mask_paths = [os.path.join(cfg.output_dir, n, "mask.png") for n in names]
     fused = fetch_derived_artifact(chain_key(cfg, "edges+skels"), pop=True)
+    edges_b = None
     if fused is not None:
         packed_edges, packed_skels, w = fused
         edges = np.unpackbits(packed_edges, axis=-1)[..., :w] * np.uint8(255)
     else:
-        masks = []
-        for p in mask_paths:
-            if not os.path.exists(p):
-                raise FileNotFoundError(f"Mask not found: {p}")
-            masks.append(read_image(p, gray=True))
-        batch = torch.from_numpy(np.stack(masks, axis=0)).to(raster_device(cfg))
-        edges = _edges_batched(batch, *edge_params(cfg)).cpu().numpy()
+        device = raster_device(cfg)
+        held = device_boards(mask_paths, device)
+        if held is None:
+            masks = []
+            for p in mask_paths:
+                if not os.path.exists(p):
+                    raise FileNotFoundError(f"Mask not found: {p}")
+                masks.append(read_image(p, gray=True))
+            batch = torch.from_numpy(np.stack(masks, axis=0)).to(device)
+            held = pack_bitboards(batch), batch.shape[-1]
+        edges_b = edges_from_boards(*held, *edge_params(cfg))
+        edges = dense_from_boards(edges_b, held[1], 255).cpu().numpy()
         packed_skels = None
 
     # PNG encode dominates the host cost at large sizes; cv2 releases the GIL
@@ -54,6 +65,10 @@ def run(cfg: PipelineConfig) -> None:
         return out, int(np.count_nonzero(edges[i]))
 
     results = thread_map(write_one, list(enumerate(names)))
+    if edges_b is not None:
+        # the device copy for stage 04 (the values of the PNG), as (bitboard, width)
+        for i, (out, _nz) in enumerate(results):
+            register_device_artifact(out, (edges_b[i], edges.shape[-1]))
 
     edges_by_name = {}
     for i, (name, (_out, nz)) in enumerate(zip(names, results)):

@@ -2,8 +2,9 @@
 <layer>/contours.pkl (twin of ``plotweave/stages/s04_vectorize.py``).
 
 In a chained run the skeletons come from the fused chain's blob; otherwise
-the edges are read from disk and thinned here, layer-batched, on the raster
-device.  Tracing runs on the host per layer (``vector/trace.py``).
+the edges that stage 03 left on the raster device in this process (the
+device-artifact registry), or else read from disk, are thinned here,
+layer-batched.  Tracing runs on the host per layer (``vector/trace.py``).
 """
 
 from __future__ import annotations
@@ -21,13 +22,7 @@ from ..utils.devices import raster_device
 from ..utils.io import save_pickle_async
 from ..vector.trace import trace_skeleton_fast
 from .common import chain_key, layer_dir
-
-
-def _thin_batched(edges: torch.Tensor) -> torch.Tensor:
-    """(L, H, W) edges → (L, H, W) uint8 0/1 skeletons (stage 04's thinner;
-    K1, K6, K1 on the card)."""
-    skel_b = zhang_suen_packed(pack_bitboards(edges), max_iter=120, rotated=True)
-    return dense_from_boards(skel_b, edges.shape[-1], 1)
+from .s03_edge_detect import device_boards
 
 
 def run(cfg: PipelineConfig) -> None:
@@ -40,14 +35,19 @@ def run(cfg: PipelineConfig) -> None:
         skeletons = np.unpackbits(packed_skels, axis=-1)[..., :w]
         print(f"[vectorize] thinning (fused-chain handoff, {len(names)} layers)")
     else:
-        edge_imgs = []
-        for name in names:
-            p = os.path.join(cfg.output_dir, name, "edges.png")
-            if not os.path.exists(p):
-                raise FileNotFoundError(f"Edges not found: {p}")
-            edge_imgs.append(read_image(p, gray=True))
-        batch = torch.from_numpy(np.stack(edge_imgs, axis=0)).to(raster_device(cfg))
-        skeletons = _thin_batched(batch).cpu().numpy()
+        device = raster_device(cfg)
+        edge_paths = [os.path.join(cfg.output_dir, name, "edges.png") for name in names]
+        held = device_boards(edge_paths, device)
+        if held is None:
+            edge_imgs = []
+            for p in edge_paths:
+                if not os.path.exists(p):
+                    raise FileNotFoundError(f"Edges not found: {p}")
+                edge_imgs.append(read_image(p, gray=True))
+            batch = torch.from_numpy(np.stack(edge_imgs, axis=0)).to(device)
+            held = pack_bitboards(batch), batch.shape[-1]
+        skel_b = zhang_suen_packed(held[0], max_iter=120, rotated=True)
+        skeletons = dense_from_boards(skel_b, held[1], 1).cpu().numpy()
         print(f"[vectorize] thinning (batched, {len(names)} layers): {time.perf_counter() - t0:.2f}s")
 
     min_len = int(cfg.thinning_min_segment_len)

@@ -57,12 +57,14 @@ COPIES = ['config.py', 'native/api.py', 'native/encoder.cpp', 'stages/common.py'
  'stages/s14_preview_stream.py', 'stream/__init__.py', 'stream/decoder.py', 'stream/emitter.py', 'stream/encoder.py',
  'stream/protocol.py', 'utils/io.py', 'vector/__init__.py', 'vector/dedup_cross.py', 'vector/dedup_intra.py',
  'vector/geometry.py', 'vector/planner.py', 'vector/scale.py', 'vector/sort.py', 'vector/trace.py', 'viz/__init__.py',
- 'viz/previews.py', 'viz/simulator.py']
+ 'viz/previews.py', 'viz/simulator.py', 'tools/analyze_colors.py', 'tools/palette.py', 'tools/process_colors.py']
 
 # beyond the docstring's note, the only lines that may differ, "-" the original's and "+" the copy's: the
 # device planner and refiner left out of ``vector/sort.py`` and ``vector/planner.py`` (their gates print a line),
-# stage 08's fallback thinner on the port's Zhang-Suen, and comments that named a path or a file of the
-# JAX package's workspace (an entry that ends in "…" stands for any line that begins so)
+# stage 08's fallback thinner on the port's Zhang-Suen, the tools' ``device`` argument and ``--raster-device`` flag
+# (their k-means runs on the card unless the caller asks for the CPU) and the palette's Lab through a tensor, and
+# comments that named a path or a file of the JAX package's workspace (an entry that ends in "…" stands for any
+# line that begins so)
 ALLOWED_DIFFERENCES = {'native/encoder.cpp': ["+// Copy of plotweave/native/encoder.cpp (the port's native library).",
                         '-// (gcode.py:99-132, itself pinned to …',
                         "+// (gcode.py:99-132, itself pinned to the reference's svg_to_stream/",
@@ -148,7 +150,37 @@ ALLOWED_DIFFERENCES = {'native/encoder.cpp': ["+// Copy of plotweave/native/enco
                     '-                return dev',
                     '+        print(f"[sort] n={n} >= planner_device_min_n={device_min_n}: the device planner is not '
                     'ported "',
-                    '+              f"(ROADMAP.md Item 7), the host planner runs")']}
+                    '+              f"(ROADMAP.md Item 7), the host planner runs")'],
+ 'tools/analyze_colors.py': ['+from ..utils.devices import add_raster_device_flag',
+                             '-def analyze(image_path: str, k: int = 6, sample_limit: int = 50_000, n_recommend: int '
+                             '= 4) -> dict:',
+                             '+def analyze(image_path: str, k: int = 6, sample_limit: int = 50_000, n_recommend: int '
+                             '= 4,',
+                             '+            device: str = "auto") -> dict:',
+                             '-    centers, labels = kmeans(non_white.astype(np.float32), k, '
+                             'sample_limit=sample_limit)',
+                             '+    centers, labels = kmeans(non_white.astype(np.float32), k, '
+                             'sample_limit=sample_limit, device=device)',
+                             '+    add_raster_device_flag(ap)',
+                             '-    result = analyze(args.image, k=args.clusters, n_recommend=args.recommend)',
+                             '+    result = analyze(args.image, k=args.clusters, n_recommend=args.recommend, '
+                             'device=args.raster_device or "auto")'],
+ 'tools/palette.py': ['+        import torch  # noqa: PLC0415',
+                      '-        bgr = rgb[..., ::-1].astype(np.uint8)',
+                      '-        return np.asarray(bgr_to_lab_u8(bgr))',
+                      '+        bgr = np.ascontiguousarray(rgb[..., ::-1].astype(np.uint8))',
+                      '+        return bgr_to_lab_u8(torch.from_numpy(bgr)).numpy()'],
+ 'tools/process_colors.py': ['+from ..utils.devices import add_raster_device_flag',
+                             '-def split_layers(image_path: str, out_dir: str, k: int = 6, palette_json: str = None) '
+                             '-> dict:',
+                             '+def split_layers(image_path: str, out_dir: str, k: int = 6, palette_json: str = None, '
+                             'device: str = "auto") -> dict:',
+                             '-        centers, labels = kmeans(rgb, k)',
+                             '+        centers, labels = kmeans(rgb, k, device=device)',
+                             '+    add_raster_device_flag(ap)',
+                             '-    pal = split_layers(args.image, args.out_dir, args.clusters, args.palette)',
+                             '+    pal = split_layers(args.image, args.out_dir, args.clusters, args.palette, '
+                             'args.raster_device or "auto")']}
 
 
 def _differing_lines(rel: str) -> list:

@@ -24,7 +24,10 @@ import torch
 from plotweave.ops import bitpack as jbitpack
 from plotweave.ops import filters as jfilters
 from plotweave.ops import thinning as jthin
-from plotweave_torch.ops import bitpack, canny, filters, kernels, thinning
+from plotweave_torch.ops import bitpack, filters, kernels, thinning
+
+# the package exports the function ``canny``, as ``plotweave.ops`` does, so the module is named in full
+canny = importlib.import_module("plotweave_torch.ops.canny")
 from plotweave_torch.ops.frontend import assign_boards, onehot_boards
 from plotweave_torch.ops.thinning import bitboards_from_jax, bitboards_to_jax
 

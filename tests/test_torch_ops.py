@@ -23,7 +23,10 @@ from plotweave.ops import filters as jfilters
 from plotweave.ops import morphology as jmorph
 from plotweave.ops import thinning as jthin
 from plotweave.ops.pallas_kernels import zhang_suen_packed_pallas
-from plotweave_torch.ops import bitpack, canny, filters, morphology, thinning
+from plotweave_torch.ops import bitpack, filters, morphology, thinning
+
+# the package exports the function ``canny``, as ``plotweave.ops`` does, so the module is named in full
+canny = importlib.import_module("plotweave_torch.ops.canny")
 from plotweave_torch.ops.thinning import bitboards_from_jax, bitboards_to_jax
 
 jcanny = importlib.import_module("plotweave.ops.canny")  # the package binds `canny` to a function

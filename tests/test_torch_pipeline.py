@@ -221,8 +221,8 @@ def test_auto_raster_device_raises_without_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize(
     "override",
-    [{"extraction_mode": "swatch"}, {"kmeans_init": "device"}, {"shard_rows": 2}, {"shard_auto_mpx": 0.01}],
-    ids=["swatch", "device-kmeans", "shard-rows", "shard-auto"],
+    [{"shard_rows": 2}, {"shard_auto_mpx": 0.01}],
+    ids=["shard-rows", "shard-auto"],
 )
 def test_unported_modes_raise(tmp_path, override):
     from plotweave_torch.pipeline import run_pipeline
@@ -275,13 +275,6 @@ def test_stages_07_and_12_say_when_a_plan_crosses_a_device_gate(tmp_path, capsys
         assert (tmp_path / "plain" / rel).read_bytes() == (tmp_path / "gated" / rel).read_bytes(), rel
 
 
-def test_batch_runner_not_ported():
-    from plotweave_torch.pipeline import run_pipeline_batch
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_pipeline_batch([])
-
-
 def test_chain_thread_joined_when_mask_write_fails(tmp_path, monkeypatch):
     from plotweave_torch.pipeline import run_pipeline
     from plotweave_torch.stages import s02_color_extract as s02
@@ -317,7 +310,8 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
         "import plotweave_torch.ops.kernels as k\n"
         "assert k.LAUNCHES == {'bitpack': 0, 'edge_candidates': 0, 'zhang_suen_packed': 0, "
         "'zhang_suen_packed_multi': 0, 'hysteresis': 0, 'hysteresis_multi': 0, 'morph_bits': 0, "
-        "'assign_nearest': 0, 'zhang_suen_dense': 0}\n"
+        "'assign_nearest': 0, 'zhang_suen_dense': 0, 'lab_sample': 0, 'kpp_init': 0, 'lloyd_fit': 0, "
+        "'assign_points': 0, 'morph_dense': 0}\n"
         "try:\n"
         "    k.build()\n"
         "except RuntimeError as e:\n"
@@ -347,6 +341,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.zhang_suen_dense_cuda(torch.zeros((1, 4, 4), dtype=torch.uint8))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.assign_boards_cuda(torch.zeros((4, 4, 3), dtype=torch.uint8), torch.zeros((4, 3)))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.assign_boards_cuda(torch.zeros((4, 4, 3), dtype=torch.uint8), torch.zeros((4, 3)),
+                                   torch.zeros(4, dtype=torch.int32))
+    pts = torch.zeros((10, 3))
+    for call in (lambda: kernels.lab_sample_cuda(torch.zeros((4, 4, 3), dtype=torch.uint8)),
+                 lambda: kernels.kpp_init_cuda(pts, 2, torch.zeros(1, dtype=torch.int32), torch.zeros((1, 1))),
+                 lambda: kernels.lloyd_fit_cuda(pts, torch.zeros((1, 2, 3)), 3),
+                 lambda: kernels.assign_points_cuda(pts, torch.zeros((2, 3))),
+                 lambda: kernels.morph_dense_cuda(torch.zeros((4, 4), dtype=torch.uint8), (("rect", 3, "e"),))):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
     img = torch.zeros((1, 4, 40), dtype=torch.uint8)
     for call in (lambda: kernels.rows_to_boards_cuda(torch.zeros((1, 4, 5), dtype=torch.uint8), 40),
                  lambda: kernels.boards_to_rows_cuda(b, 40), lambda: kernels.boards_to_dense_cuda(b, 40, 255),
