@@ -11,7 +11,8 @@ Phases:
 2. build the kernels with nvcc, one library per source, all at once (K1 the
    layout conversions, K2 packed morphology, K3+K4 blur, Sobel, NMS and
    thresholds, K5 hysteresis and K6 packed Zhang–Suen, K7 Lab + nearest
-   centre, K12 dense Zhang–Suen), and the port's native host library with
+   centre, K8 k-means, K9 greedy tour, K10 tour refiner, K11 gray
+   morphology, K12 dense Zhang–Suen), and the port's native host library with
    g++, which must load;
 3. each kernel vs its plain version on the card: K5 and K6 on both routes
    (resident in a thread block cluster of 16 CTAs, and multi-launch), each
@@ -101,14 +102,40 @@ Phases:
    2 of another shape, steps 1-4, 4 workers: every mask, edges and contours
    file byte-equal to sequential runs, fewer grouped calls than images, a
    grouped chain call of 8 images row by row equal to the solo calls and to
-   the CPU, and its device time beside the sum of the solo calls'.
+   the CPU, and its device time beside the sum of the solo calls';
+12. stage 07's and stage 12's device kernels vs their plain versions on the
+   card: K9 (the greedy tour) byte-equal in order and flips to the port's
+   host C++ planner at n = 2 to 65,536 and to its plain version up to 4,500 (both
+   routes: one CTA up to ``kernels.GREEDY_CTA_MAX_N``, a cluster of 16 CTAs
+   above, and the cluster route at 4,500 against the one-CTA route),
+   closed-aware on and off, duplicate points and d²(start) == d²(end) ties,
+   float coordinates against the host alone, every case twice (the host
+   planner runs on four threads beside the card's work); K10 (the
+   2-opt / relocate refiner) equal in perm, flips and moves to its plain
+   version at n = 3 to 8,192 (``max_moves`` 256 from 2,000 up), and one full
+   run at 8,192 on a greedy tour (its moves, time and travel);
+13. the quality path: ``pipeline.main --preset quality`` on a seeded
+   2000 x 1500 poster of 2,000 small discs and rings, steps 1-13, on the
+   card: K9 launched once per layer over ``planner_device_min_n`` and K10
+   once per op list over ``refine_device_min_n``, ``contours_sorted.pkl``
+   byte-equal to a ``--raster-device cpu`` run of steps 1-7, each refined
+   layer's ``ops.pkl`` equal to the tour of the plain refiner run once on
+   the card from the same stage-12 input (the full move budget), and K10
+   called alone equal to that run, the same drawn geometry, no longer
+   travel in float64, the stream decoding; at the largest gated layer K9
+   equal to its plain version and to the host C++ planner, each run once; a
+   ``torch.profiler`` trace of each device call, in a fresh process, whose
+   kernels are the port's own; K9's and K10's times at the largest gated
+   layer beside the plain versions', the host C++ planner's and their
+   bounds; the phase's seconds, part by part.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
 launches in the one run of phase 5 or 6 that drives it (the synthetic
 2000 × 1500 image for K1, K2, K3+K4 and the resident K5 and K6, the
 4400 × 4400 image for the multi-launch K5 and K6, the front-end calls for
 K7, K12 and K1's dense side, the device-k-means run for K8 and K7's counts,
-the tools' k-means call for K8's assignment, the swatch run for K11), its
+the tools' k-means call for K8's assignment, the swatch run for K11, the
+quality run for K9 and K10), its
 device time, its plain version's, and its bound: the larger of its bytes (each input read once, each output written
 once) at 3.35 TB/s and its operations, counted for these inputs, at the
 card's rate for their type.  The last line is ``{"ok": true, "device":
@@ -118,7 +145,8 @@ non-zero and prints no result.
 Two measurements stand beside the phases and are not part of the smoke:
 ``phase_k34_times()`` (K3+K4's times alone; with ``ROOT`` set to an older
 checkout before ``phase_probe`` it times that tree) and ``phase_k34_sweep()``
-(K3+K4's tile rows and minimum blocks per SM).
+(K3+K4's tile rows and minimum blocks per SM).  Each phase's wall seconds
+are printed before the ``kernels`` line.
 """
 
 from __future__ import annotations
@@ -130,6 +158,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -148,7 +177,8 @@ CHAIN_LAUNCHES = {"bitpack": 3, "morph_bits": 1, "edge_candidates": 1, "hysteres
 # the kernels of plotweave_torch/csrc by a part of their names, as a profiler's trace shows them
 OWN_KERNELS = ("rows_to_boards", "boards_to_rows", "boards_to_dense", "dense_to_boards", "labels_to_boards",
                "morph_steps", "edge_tiles", "hysteresis_cluster", "hysteresis_sweep", "zs_cluster", "zs_subpass",
-               "assign_nearest", "zs_tiles", "lab_sample", "kpp_init", "lloyd_fit", "assign_points", "morph_dense")
+               "assign_nearest", "zs_tiles", "lab_sample", "kpp_init", "lloyd_fit", "assign_points", "morph_dense",
+               "greedy_tour", "refine_tour")
 # stage 03's mask open and close at the default config (ellipse 3, 1 and 1): K2's step list on the main path
 MAIN_PATH_STEPS = (("ellipse", 3, "e"), ("ellipse", 3, "d"), ("ellipse", 3, "d"), ("ellipse", 3, "e"))
 POSTER_PALETTE = [[30, 25, 20], [70, 90, 190], [140, 175, 220], [225, 220, 215]]  # synthetic_image's four tones, BGR
@@ -168,7 +198,8 @@ PATH_RUNS = {"main": "main path, synthetic 2000x1500, steps 1-13, card run",
              "front-end dense": "raster_frontend 2000x1500 k=4, one call with pallas_thinning=True",
              "device-kmeans": "main path with kmeans_init=device, synthetic 2000x1500, steps 1-13, card run",
              "kmeans-tool": "ops.kmeans.kmeans on the card, 50,000 points, k=4",
-             "swatch": "main path with extraction_mode=swatch, synthetic 2000x1500, steps 1-13, card run"}
+             "swatch": "main path with extraction_mode=swatch, synthetic 2000x1500, steps 1-13, card run",
+             "quality": "main path with --preset quality, dot-field poster 2000x1500, steps 1-13, card run"}
 
 # the card's peaks (H100 SXM): HBM bytes/s, float32 outside the tensor cores,
 # INT32 lanes (132 SMs x 64 lanes x 1.98 GHz)
@@ -1060,12 +1091,15 @@ def phase_chain(stats: dict) -> None:
 
 
 def run_main(image: str, out: Path, device: str, config: Path | None = None, end_step: int = 13,
-             settings: dict | None = None) -> dict:
+             settings: dict | None = None, preset: str | None = None) -> dict:
     """The CLI entry point, steps 1 to ``end_step``; its stage log goes to
-    ``<out>.log``.  ``settings`` are written to a config file of the run."""
+    ``<out>.log``.  ``settings`` are written to a config file of the run;
+    ``preset`` names a preset."""
     from plotweave_torch.pipeline import main
 
     argv = [image, "--output", str(out), "--end-step", str(end_step), "--raster-device", device]
+    if preset is not None:
+        argv += ["--preset", preset]
     if settings is not None:
         out.mkdir(exist_ok=True)
         config = out / "config.json"
@@ -1857,6 +1891,425 @@ def phase_batch_path(work: Path, stats: dict) -> None:
           f"included)")
 
 
+# --- phases 12 and 13: stage 07's device planner (K9) and stage 12's device refiner (K10) --------------------------
+
+TOUR_SIDE = 2000  # px: integer coordinates below it, as a poster's contours have
+REFINE_CAP = 256  # moves: the budget of the K10 vs plain checks at n >= 2,000
+QUALITY_OBJECTS = 2000  # discs and rings of the dot-field poster
+SFU_OPS = 132 * 16 * 1.98e9  # square roots a second: 16 a clock on each of 132 SMs
+K9_FLOPS_PER_POINT = 10  # two squared distances (2 differences, 2 squares, 1 add each)
+K10_FLOPS_PER_SQRT = 5  # the distance's differences, squares and sum (the deltas' adds ride along)
+
+
+def tour_points(rng, n: int, ties: bool = True, integer: bool = True):
+    """Seeded contour ends (starts, ends (n, 2) float32, closed (n,) bool):
+    integers below TOUR_SIDE, or floats where ``integer`` is false; with
+    ``ties`` a third of the points repeat others and every fifth contour is
+    mirrored around the first end (d²(start) == d²(end) from there)."""
+    import numpy as np
+
+    if integer:
+        s = rng.integers(0, TOUR_SIDE, (n, 2)).astype(np.float32)
+        e = rng.integers(0, TOUR_SIDE, (n, 2)).astype(np.float32)
+    else:
+        s = rng.uniform(0, 2 * TOUR_SIDE, (n, 2)).astype(np.float32)
+        e = rng.uniform(0, 2 * TOUR_SIDE, (n, 2)).astype(np.float32)
+    closed = rng.random(n) < 0.3
+    if ties and n > 2:
+        k = n // 3
+        s[-k:], e[-k:] = s[:k], e[:k]
+        d = rng.integers(1, 40, (len(range(1, n, 5)), 2)).astype(np.float32)
+        s[1::5], e[1::5] = e[0] + d, e[0] - d
+    return s, e, closed
+
+
+def tour_length64(E, X, start=(0.0, 0.0)) -> float:
+    """Pen-up travel of a tour of entries and exits, in float64."""
+    import numpy as np
+
+    E, X = np.asarray(E, np.float64), np.asarray(X, np.float64)
+    prev = np.vstack([np.asarray(start, np.float64)[None], X[:-1]])
+    return float(np.sqrt(((E - prev) ** 2).sum(1)).sum())
+
+
+def applied(E, X, perm, flip):
+    """The tour ``perm``/``flip`` make of entries ``E`` and exits ``X``."""
+    import numpy as np
+
+    perm, flip = np.asarray(perm), np.asarray(flip, bool)[:, None]
+    return np.where(flip, X[perm], E[perm]), np.where(flip, E[perm], X[perm])
+
+
+def k9_bound(n: int) -> dict:
+    """K9's least time: n (16 + 1) bytes in, n (4 + 1) out; the d² of every
+    unused point at every step, n (n - 1) / 2 of them, in float32."""
+    return bound(22 * n, K9_FLOPS_PER_POINT * n * (n - 1) / 2, FP32_OPS)
+
+
+def k10_sqrts(n: int) -> int:
+    """Square roots of one K10 iteration over n ops: 2-opt two a pair but
+    for the last column, relocate four a pair but for the end slot (two)."""
+    return 2 * (n * (n + 1) // 2) - n + 4 * n * (n - 1) - 2 * (n - 1) + 2 * n
+
+
+def k10_bound(n: int, iterations: int) -> dict:
+    """K10's least time: its square roots at the SFU's rate, or their
+    float operations at the float32 rate, or its bytes, whichever is larger."""
+    sqrts = iterations * k10_sqrts(n)
+    out = bound(21 * n, sqrts, SFU_OPS)
+    if sqrts * K10_FLOPS_PER_SQRT / FP32_OPS * 1e3 > out["bound_ms"]:
+        out = bound(21 * n, sqrts * K10_FLOPS_PER_SQRT, FP32_OPS)
+    return out
+
+
+def phase_tour_kernels(stats: dict) -> None:
+    """Phase 12: K9 against its plain version and the port's host C++
+    planner (on four threads, held to K9 at the end), on both routes; K10
+    against its plain version."""
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.vector.planner_device import greedy_order_plain
+    from plotweave_torch.vector.refine_device import refine_order_plain
+    from plotweave_torch.vector.sort import _greedy_order_native
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    t0 = time.perf_counter()
+    m = kernels.GREEDY_CTA_MAX_N
+    n_k9, n_plain, step_us, host_jobs = 0, 0, {}, []
+    zeros = np.zeros((2, 2), np.float32)
+    _greedy_order_native(zeros, zeros, np.zeros(2, bool), True, 0)  # loads the native library before the threads
+    # the host planner is O(n^2), some 30 s at 65,536: it releases the GIL, so its calls run on four threads beside
+    # the card's work, the largest first, and are held to K9 at the end of the phase
+    pool = ThreadPoolExecutor(4)
+    for n in (kernels.GREEDY_MAX_N, 20000, m + 1, m, 13000, 4500, 1000, 3, 2):
+        for closed_aware in (True, False):
+            s, e, closed = tour_points(rng, n)
+            seed = int(rng.integers(0, n))
+            S, E, C = (torch.from_numpy(a).to(dev) for a in (s, e, closed))
+            route = kernels.greedy_route(n)
+            what = f"K9 n={n} closed_aware={closed_aware} ({route})"
+            host = None
+            if n < kernels.GREEDY_MAX_N or closed_aware:  # 65,536 takes the host planner once
+                host = pool.submit(_greedy_order_native, s, e, closed, closed_aware, seed)
+            got = [t.tolist() for t in kernels.greedy_order_cuda(S, E, C, closed_aware, seed)]
+            again = [t.tolist() for t in kernels.greedy_order_cuda(S, E, C, closed_aware, seed)]
+            check(got == again, f"{what}: two runs differ")
+            if host is not None:
+                host_jobs.append((what, host, got))
+            if n <= 4500:  # the plain version is n - 1 steps of some 25 launches, 0.45 ms a step
+                plain = [t.tolist() for t in greedy_order_plain(S, E, C, closed_aware, seed)]
+                check(got == plain, f"{what} != its plain version")
+                n_plain += 1
+            if n == 4500:
+                other = [t.tolist() for t in kernels.greedy_order_cuda(S, E, C, closed_aware, seed, route="cluster")]
+                check(other == got, f"K9 n={n}: the cluster route != the one-CTA route")
+            check(sorted(got[0]) == list(range(n)), f"K9 n={n}: the order is not a permutation")
+            if closed_aware and n in (m, m + 1, kernels.GREEDY_MAX_N):  # each route at its limits
+                step_us[f"{n} {route}"] = cuda_ms(lambda: kernels.greedy_order_cuda(S, E, C, True, seed), 2) / n * 1e3
+            n_k9 += 1
+    for n in (20000, 5000):  # float coordinates: an FMA would flip ulps of d² here
+        for closed_aware in (True, False):
+            s, e, closed = tour_points(rng, n, ties=False, integer=False)
+            S, E, C = (torch.from_numpy(a).to(dev) for a in (s, e, closed))
+            host_jobs.append((f"K9 n={n} float coordinates, closed_aware={closed_aware}",
+                              pool.submit(_greedy_order_native, s, e, closed, closed_aware, 1),
+                              [t.tolist() for t in kernels.greedy_order_cuda(S, E, C, closed_aware, 1)]))
+            n_k9 += 1
+    k9_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cases = []
+    for n, kind in ((3, "int"), (4, "int"), (64, "int"), (600, "int"), (600, "float"), (2000, "greedy"),
+                    (2000, "float"), (kernels.REFINE_MAX_N, "greedy")):
+        s, e, closed = tour_points(rng, n, ties=kind != "float", integer=kind != "float")
+        if kind == "greedy":  # the tour stage 07's planner would give these ends
+            S, E, C = (torch.from_numpy(a).to(dev) for a in (s, e, closed))
+            order, flips = (t.cpu().numpy() for t in kernels.greedy_order_cuda(S, E, C, False, 0))
+            s, e = applied(s, e, order, flips)
+        Ed, Xd = torch.from_numpy(np.ascontiguousarray(s)).to(dev), torch.from_numpy(np.ascontiguousarray(e)).to(dev)
+        cap = REFINE_CAP if n >= 2000 else max(4096, 4 * n)
+        got = [t.cpu() for t in kernels.refine_order_cuda(Ed, Xd, (0.0, 0.0), cap)]
+        again = [t.cpu() for t in kernels.refine_order_cuda(Ed, Xd, (0.0, 0.0), cap)]
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K10 n={n} {kind}: two runs differ")
+        perm, flip, moves = refine_order_plain(Ed, Xd, torch.zeros(2, device=dev), cap)
+        check(torch.equal(got[0], perm.cpu()) and torch.equal(got[1], flip.cpu()) and int(got[2]) == moves,
+              f"K10 n={n} {kind} max_moves={cap}: {int(got[2])} moves, plain {moves}, or perm/flip differ")
+        cases.append(f"{n} {kind}: {moves} moves" + (" (capped)" if moves == cap else ""))
+    print(f"K10 == its plain version on the card (perm, flip and moves; max_moves {REFINE_CAP} at n >= 2,000), each "
+          f"twice bit-equal: {'; '.join(cases)} ({time.perf_counter() - t0:.1f} s)")
+
+    # one full run on a greedy tour of the largest size
+    n = kernels.REFINE_MAX_N
+    s, e, closed = tour_points(rng, n)
+    S, E, C = (torch.from_numpy(a).to(dev) for a in (s, e, closed))
+    order, flips = (t.cpu().numpy() for t in kernels.greedy_order_cuda(S, E, C, False, 0))
+    s, e = applied(s, e, order, flips)
+    Ed, Xd = torch.from_numpy(np.ascontiguousarray(s)).to(dev), torch.from_numpy(np.ascontiguousarray(e)).to(dev)
+    budget = max(4096, 4 * n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    perm, flip, moves = kernels.refine_order_cuda(Ed, Xd, (0.0, 0.0), budget)
+    moves = int(moves.item())
+    full_s = time.perf_counter() - t0
+    perm, flip = perm.cpu().numpy(), flip.cpu().numpy()
+    check(sorted(perm.tolist()) == list(range(n)), "K10 full run: perm is not a permutation")
+    before, after = tour_length64(s, e), tour_length64(*applied(s, e, perm, flip))
+    check(after <= before, f"K10 full run: the tour grew from {before:.1f} to {after:.1f}")
+    stats["K10 full"] = {"n": n, "moves": moves, "s": full_s, "before": before, "after": after,
+                         **k10_bound(n, moves + 1)}
+    print(f"K10 full run, n = {n} on a greedy tour, max_moves {budget}: {moves} moves in {full_s:.3f} s (host clock "
+          f"around one call), {full_s / (moves + 1) * 1e6:.1f} us an iteration; travel {before:.0f} -> {after:.0f} px "
+          f"(float64); bound {stats['K10 full']['bound_ms']:.2f} ms by {stats['K10 full']['bound_by']}")
+
+    t0 = time.perf_counter()
+    for what, job, got in host_jobs:
+        host = job.result()
+        check(host is not None and got == list(host), f"{what} != the host C++ planner")
+    pool.shutdown()
+    wait_s = time.perf_counter() - t0
+    print(f"K9 on {n_k9} cases, == the host C++ planner on {len(host_jobs)} (n = 2 to {kernels.GREEDY_MAX_N}, one-CTA "
+          f"route up to {m}, cluster above; integer coordinates with duplicates and d2s == d2e ties, float coordinates "
+          f"at 5,000 and 20,000; closed-aware on and off), == its plain version on {n_plain}, each twice bit-equal, the "
+          f"cluster route == the one-CTA route at 4,500 ({k9_s:.1f} s on the card's side, then {wait_s:.1f} s waiting "
+          f"for the host planner's threads); microseconds a step (CUDA events): "
+          + ", ".join(f"n = {k} {v:.3f}" for k, v in step_us.items()))
+    stats["K9 steps"] = step_us
+
+
+def dot_field(seed: int, h: int, w: int, count: int):
+    """A seeded BGR poster of about ``count`` small discs and rings in the
+    three darker poster tones on the lightest, on a jittered grid, with mild
+    noise: thousands of contours in a layer, as a dotted or stippled poster
+    gives."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    img = np.empty((h, w, 3), np.uint8)
+    img[:] = POSTER_PALETTE[3]
+    pitch = (h * w / count) ** 0.5
+    for y in np.arange(pitch / 2, h, pitch):
+        for x in np.arange(pitch / 2, w, pitch):
+            cx, cy = x + rng.uniform(-0.2, 0.2) * pitch, y + rng.uniform(-0.2, 0.2) * pitch
+            r = rng.uniform(0.22, 0.34) * pitch
+            tone = tuple(int(v) for v in POSTER_PALETTE[int(rng.integers(0, 3))])
+            ring = rng.random() < 0.3
+            cv2.circle(img, (int(round(cx)), int(round(cy))), int(round(r)), tone, max(2, int(r / 3)) if ring else -1)
+    return np.clip(img.astype(np.int16) + rng.integers(-6, 7, (h, w, 3), dtype=np.int16), 0, 255).astype(np.uint8)
+
+
+def op_ends(ops):
+    """(entries, exits) (n, 2) float32 of a stage-12 op list, as the refiner takes them."""
+    import numpy as np
+
+    from plotweave_torch.vector.planner import _op_entry, _op_exit
+
+    return np.array([_op_entry(o) for o in ops], np.float32), np.array([_op_exit(o) for o in ops], np.float32)
+
+
+def _op_key(op):
+    if op["type"] == "tap":
+        return ("tap", op["x"], op["y"])
+    p = op["points"]
+    return ("line", min(p.tobytes(), p[::-1].copy().tobytes()))
+
+
+def trace_tours(path: str, layer9: str, layer10: str) -> None:
+    """One ``torch.profiler`` trace each of stage 07's device planner and
+    stage 12's device refiner on the arrays saved at ``path`` (phase 13 runs
+    it in a fresh process); fails unless every device kernel is the port's
+    own, and times each kernel alone; prints {"K9 trace": ..., "K9
+    alone_ms": ..., "K10 trace": ..., "K10 alone_ms": ...} as its last line."""
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.vector.planner_device import greedy_order_device
+    from plotweave_torch.vector.refine_device import refine_order_device
+
+    a, dev = np.load(path), torch.device("cuda")
+    seed, budget = int(a["seed"]), int(a["budget"])
+    S, E, C, Ed, Xd = (torch.from_numpy(np.ascontiguousarray(a[k], np.float32 if k != "closed" else bool)).to(dev)
+                       for k in ("starts", "ends", "closed", "entries", "exits"))
+    out = {"K9 trace": only_own_kernels(lambda: greedy_order_device(a["starts"], a["ends"], a["closed"], True, seed, dev),
+                                        f"stage 07's device planner, {layer9}, one call", {"greedy_tour": 1}),
+           "K9 alone_ms": profiled_ms(lambda: kernels.greedy_order_cuda(S, E, C, True, seed), "greedy_tour", 3),
+           "K10 trace": only_own_kernels(lambda: refine_order_device(a["entries"], a["exits"], max_moves=budget,
+                                                                     device=dev),
+                                         f"stage 12's device refiner, {layer10}, one call", {"refine_tour": 1}),
+           "K10 alone_ms": profiled_ms(lambda: kernels.refine_order_cuda(Ed, Xd, (0.0, 0.0), budget), "refine_tour", 3)}
+    print(json.dumps(out), flush=True)
+
+
+def phase_quality_path(work: Path, stats: dict) -> dict:
+    """Phase 13: ``pipeline.main --preset quality`` on the dot-field poster,
+    steps 1-13, on the card: K9 on every layer over the planner's gate, K10
+    on every op list over the refiner's, stage 07 byte-equal to a
+    ``--raster-device cpu`` run of steps 1-7, stage 12 equal to the plain
+    refiner from the same input, geometry kept, travel not longer, the
+    stream decoding; K9 against its plain version and the host planner at
+    the largest gated layer; traces of both device calls; K9's and K10's
+    times at the largest gated layers."""
+    import re
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from plotweave_torch.config import PipelineConfig
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.pipeline import load_preset
+    from plotweave_torch.utils import load_pickle
+    from plotweave_torch.vector import sort as tsort
+    from plotweave_torch.vector.planner import _op_flip, plan_layer_ops, tour_length
+    from plotweave_torch.vector.planner_device import greedy_order_plain
+    from plotweave_torch.vector.refine_device import refine_order_device, refine_order_plain
+
+    dev = torch.device("cuda")
+    cfg = PipelineConfig(**load_preset("quality"))
+    names = list(cfg.color_names)
+    image = str(work / "quality.png")
+    cv2.imwrite(image, dot_field(3, 1500, 2000, QUALITY_OBJECTS))
+    card, cpu = work / "quality_cuda", work / "quality_cpu"
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    times = run_main(image, card, "auto", preset="quality")
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    log = Path(f"{card}.log").read_text()
+    planned = [int(v) for v in re.findall(r"\[sort\] device planner: n=(\d+)", log)]
+    check(not re.search(r"outside the device (planner|refiner)", log), "quality path: a gated layer left the card")
+
+    # which layers cross each gate, from the run's own artifacts
+    sorted_n = {n: len(load_pickle(str(card / n / "contours_sorted.pkl"))) for n in names}
+    inputs, r_insert = {}, cfg.resolve_tap_insert_radius()
+    for n in names:
+        lines = load_pickle(str(card / n / "lines_cross.pkl"))
+        taps = [tuple(int(v) for v in np.asarray(t).reshape(-1)[:2]) for t in load_pickle(str(card / n / "taps_cross.pkl"))
+                if np.asarray(t).size >= 2]
+        inputs[n] = plan_layer_ops(lines, taps, r_insert)
+    k9_layers = [n for n in names if sorted_n[n] >= cfg.planner_device_min_n]
+    k10_layers = [n for n in names if len(inputs[n]) >= cfg.refine_device_min_n]
+    check(k9_layers and k10_layers, f"quality path: no layer crosses a gate: contours {sorted_n}, ops "
+          f"{({n: len(v) for n, v in inputs.items()})}")
+    check(counts["greedy_tour"] == len(k9_layers) and sorted(planned) == sorted(sorted_n[n] for n in k9_layers),
+          f"quality path: K9 launched {counts['greedy_tour']} times for {len(k9_layers)} gated layers, n {planned}")
+    check(counts["refine_tour"] == len(k10_layers),
+          f"quality path: K10 launched {counts['refine_tour']} times for {len(k10_layers)} gated layers")
+    size = decodes(card)
+
+    # stage 07: byte-equal to the CPU's host planner
+    t0 = time.perf_counter()
+    run_main(image, cpu, "cpu", end_step=7, preset="quality")
+    cpu_s = time.perf_counter() - t0
+    diff = [n for n in names if (card / n / "contours_sorted.pkl").read_bytes() != (cpu / n / "contours_sorted.pkl").read_bytes()]
+    check(not diff, f"quality path: contours_sorted.pkl of the card != the CPU's in {diff}")
+
+    # stage 12: each gated layer against its plain refiner on the card (run once, timed by CUDA events) and K10
+    # called alone on the same input; geometry and travel
+    t0 = time.perf_counter()
+    plain_cases, k10 = [], {}
+    ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for n in k10_layers:
+        ops, got = inputs[n], load_pickle(str(card / n / "ops.pkl"))
+        check(sorted(map(_op_key, ops)) == sorted(map(_op_key, got)), f"quality path, {n}: stage 12 changed the geometry")
+        check(tour_length(got) <= tour_length(ops), f"quality path, {n}: stage 12 lengthened the travel")
+        entries, exits = op_ends(ops)
+        budget = max(4096, 4 * len(ops))
+        Ed, Xd = torch.from_numpy(entries).to(dev), torch.from_numpy(exits).to(dev)
+        torch.cuda.synchronize()
+        ev[0].record()
+        perm, flip, moves = refine_order_plain(Ed, Xd, torch.zeros(2, device=dev), budget)
+        ev[1].record()
+        torch.cuda.synchronize()
+        perm, flip = perm.cpu().numpy(), flip.cpu().numpy()
+        k_perm, k_flip, k_moves = refine_order_device(entries, exits, max_moves=budget, device=dev)
+        err = max(int(np.abs(k_perm.astype(np.int64) - perm).max()), int((k_flip != flip).sum()), abs(k_moves - moves))
+        check(err == 0, f"quality path, {n}: K10 ({k_moves} moves) != the plain refiner ({moves})")
+        # what stage 12 keeps of the plain refiner's tour: it, where it is shorter in float64, else the input
+        tour = [_op_flip(ops[int(i)]) if f else ops[int(i)] for i, f in zip(perm, flip)]
+        tour = tour if tour_length(tour) < tour_length(ops) else ops
+        check([_op_key(o) for o in tour] == [_op_key(o) for o in got] and all(
+            a["type"] == b["type"] and (a["type"] == "tap" or np.array_equal(a["points"], b["points"]))
+            for a, b in zip(tour, got)), f"quality path, {n}: ops.pkl != the plain refiner's tour")
+        k10[n] = {"moves": moves, "max_abs_err": err, "plain_ms": ev[0].elapsed_time(ev[1]), "E": Ed, "X": Xd,
+                  "budget": budget}
+        plain_cases.append(f"{n} {len(ops)} ops, {moves} moves, travel {tour_length(ops):.0f} -> {tour_length(got):.0f} px")
+    checks_s = time.perf_counter() - t0
+    print(f"quality path, dot-field poster 2000x1500 ({QUALITY_OBJECTS} discs and rings), --preset quality, steps "
+          f"1-13 on the card: contours at stage 07 {sorted_n}, ops at stage 12 {({n: len(v) for n, v in inputs.items()})}; "
+          f"K9 on {k9_layers} (n {planned}), K10 on {k10_layers}; launches "
+          f"{({n: c for n, c in counts.items() if c})}; stream {size} bytes, decodes to EOF; wall {wall:.2f} s, stage 07 "
+          f"{times['s07_sort']:.3f} s, stage 12 {times['s12_plot_order']:.3f} s")
+    print(f"  stage 07 contours_sorted.pkl == the --raster-device cpu run's (steps 1-7 in {cpu_s:.1f} s); stage 12 == "
+          f"the plain refiner's tour on the card == K10 called alone, full budget: {'; '.join(plain_cases)}")
+    print("  stage wall seconds (card): " + ", ".join(f"{m[:3]} {v:.3f}" for m, v in times.items()))
+
+    # the largest gated layers: K9 against its plain version and the host C++ planner, each run once; times
+    t0 = time.perf_counter()
+    big9 = max(k9_layers, key=lambda n: sorted_n[n])
+    ptss = [c.reshape(-1, 2) for c in load_pickle(str(card / big9 / "contours_scaled.pkl"))]
+    starts, ends, closed = tsort._batch_endpoints(ptss, strip_closed=True)
+    seed = int(np.argmax(tsort.batch_arc_length(ptss, np.ones(len(ptss), bool))))
+    n9 = len(ptss)
+    S, E, C = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (starts.astype(np.float32),
+                                                                          ends.astype(np.float32), closed))
+    order, flips = kernels.greedy_order_cuda(S, E, C, True, seed)
+    torch.cuda.synchronize()
+    ev[0].record()
+    p_order, p_flips = greedy_order_plain(S, E, C, True, seed)
+    ev[1].record()
+    torch.cuda.synchronize()
+    err = max(int((order.long() - p_order.long()).abs().max()), int((flips != p_flips).sum()))
+    check(err == 0, f"quality path, {big9}: K9 != its plain version at n = {n9}")
+    t1 = time.perf_counter()
+    host = tsort._greedy_order_native(starts, ends, closed, True, seed)
+    host_ms = (time.perf_counter() - t1) * 1e3
+    check([order.tolist(), flips.tolist()] == list(host), f"quality path, {big9}: K9 != the host C++ planner")
+    stats["K9"] = {"max_abs_err": err, "n": n9, "tour_route": kernels.greedy_route(n9),
+                   "ms": cuda_ms(lambda: kernels.greedy_order_cuda(S, E, C, True, seed), 3),
+                   "plain_ms": ev[0].elapsed_time(ev[1]), "host_cpp_ms": host_ms, **k9_bound(n9)}
+    k9_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big10 = max(k10_layers, key=lambda n: len(inputs[n]))
+    b10 = k10[big10]
+    entries, exits, n10, budget, moves = b10["E"].cpu().numpy(), b10["X"].cpu().numpy(), len(inputs[big10]), \
+        b10["budget"], b10["moves"]
+    stats["K10"] = {"max_abs_err": b10["max_abs_err"], "n": n10, "moves": moves,
+                    "ms": cuda_ms(lambda: kernels.refine_order_cuda(b10["E"], b10["X"], (0.0, 0.0), budget), 3),
+                    "plain_ms": b10["plain_ms"], **k10_bound(n10, moves + 1)}
+    k10_s = time.perf_counter() - t0
+    # the traces and the times alone in a fresh process: late in a long one the profiler there has lost every event
+    tours = work / "tours.npz"
+    np.savez(tours, starts=starts, ends=ends, closed=closed, seed=seed, entries=entries, exits=exits, budget=budget)
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                            f"chip_smoke.trace_tours({str(tours)!r}, {big9!r}, {big10!r})"],
+                           capture_output=True, text=True, timeout=600)
+    print("\n".join(f"  {line}" for line in child.stdout.splitlines()[:-1]))
+    check(child.returncode == 0, f"quality path: the traces of K9 and K10 failed:\n{child.stdout[-3000:]}{child.stderr[-3000:]}")
+    traces = json.loads(child.stdout.splitlines()[-1])
+    trace_s = time.perf_counter() - t0
+    for key in ("K9", "K10"):
+        stats[f"{key} trace"] = traces[f"{key} trace"]
+        stats[key]["alone_ms"] = traces[f"{key} alone_ms"]
+    for key, what in (("K9", f"{big9}, n = {n9} ({stats['K9']['tour_route']} route)"),
+                      ("K10", f"{big10}, n = {n10}, {moves} moves")):
+        st = stats[key]
+        print(f"{key} at the quality path's largest gated layer, {what}: {st['ms']:.3f} ms a call"
+              + (f" ({st['alone_ms']:.3f} alone)" if st.get("alone_ms") else "")
+              + f", plain PyTorch on the card {st['plain_ms']:.1f} ms"
+              + (f", the host C++ planner {st['host_cpp_ms']:.1f} ms" if key == "K9" else "")
+              + f", bound {st['bound_ms']:.4f} ms by {st['bound_by']}")
+    print(f"phase 13 seconds: card run {wall:.1f}, --raster-device cpu steps 1-7 {cpu_s:.1f}, stage 12 against the plain "
+          f"refiner {checks_s:.1f}, K9 at {big9} {k9_s:.1f}, K10 at {big10} {k10_s:.1f}, traces in a fresh process "
+          f"{trace_s:.1f}")
+    return counts
+
+
 def phase_entry() -> None:
     import torch
 
@@ -1871,24 +2324,36 @@ def phase_entry() -> None:
 
 
 def main() -> None:
-    info = phase_probe()
+    seconds: dict = {}
+
+    def timed(fn, *args):
+        """``fn(*args)``, its wall seconds kept under its name."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[fn.__name__.removeprefix("phase_")] = time.perf_counter() - t0
+        return out
+
+    info = timed(phase_probe)
     import torch
 
-    phase_build()
+    timed(phase_build)
     stats: dict = {}
-    phase_kernels_vs_plain(stats)
-    phase_new_kernels_vs_plain(stats)
-    phase_layout_and_edge_kernels(stats)
-    phase_chain(stats)
+    timed(phase_kernels_vs_plain, stats)
+    timed(phase_new_kernels_vs_plain, stats)
+    timed(phase_layout_and_edge_kernels, stats)
+    timed(phase_chain, stats)
     with tempfile.TemporaryDirectory(prefix="pw_smoke_") as tmp:
-        paths = phase_main_path(Path(tmp))
-        launches = phase_frontend(stats)
+        paths = timed(phase_main_path, Path(tmp))
+        launches = timed(phase_frontend, stats)
         paths["front-end"], paths["front-end dense"] = launches[False], launches[True]
-        phase_entry()
-        paths["kmeans-tool"] = phase_kmeans_and_dense_kernels(stats)
-        paths["device-kmeans"] = phase_device_kmeans_path(Path(tmp), stats)
-        paths["swatch"] = phase_swatch_path(Path(tmp))
-        phase_batch_path(Path(tmp), stats)
+        timed(phase_entry)
+        paths["kmeans-tool"] = timed(phase_kmeans_and_dense_kernels, stats)
+        paths["device-kmeans"] = timed(phase_device_kmeans_path, Path(tmp), stats)
+        paths["swatch"] = timed(phase_swatch_path, Path(tmp))
+        timed(phase_batch_path, Path(tmp), stats)
+        timed(phase_tour_kernels, stats)
+        paths["quality"] = timed(phase_quality_path, Path(tmp), stats)
+    print("phase wall seconds: " + ", ".join(f"{name} {s:.1f}" for name, s in seconds.items()))
 
     # (name, path whose run counted its launches, launch name, source, TPU kernel, stats key)
     src = "plotweave_torch/csrc/bitboard_fixpoints.cu"
@@ -1923,10 +2388,15 @@ def main() -> None:
             ("K8 kmeans, assign_points", "kmeans-tool", "assign_points", k8, "plotweave/ops/kmeans.py:114",
              "K8 assign_points"),
             ("K11 morph_dense", "swatch", "morph_dense", "plotweave_torch/csrc/morph_dense.cu",
-             "plotweave/ops/morphology.py:62", "K11")]
+             "plotweave/ops/morphology.py:62", "K11"),
+            ("K9 greedy_tour", "quality", "greedy_tour", "plotweave_torch/csrc/greedy_tour.cu",
+             "plotweave/vector/planner_device.py:45", "K9"),
+            ("K10 refine_tour", "quality", "refine_tour", "plotweave_torch/csrc/refine_tour.cu",
+             "plotweave/vector/refine_device.py:55", "K10")]
     print("launches counted in: " + "; ".join(f"{name}: {PATH_RUNS[path]}" for name, path, *_ in rows))
-    table = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
-              "launches": paths[path][count], **stats[key]} for name, path, count, source, replaces, key in rows]
+    # the contract's keys last, so that no measurement's key can stand in for one of them
+    table = [{**stats[key], "name": name, "route": "cuda", "source": source, "replaces": replaces,
+              "launches": paths[path][count]} for name, path, count, source, replaces, key in rows]
     idle = [row["name"] for row in table if row["launches"] < 1]
     check(not idle, f"kernels that their path's run did not launch: {idle}")
     print(json.dumps({"kernels": table}))

@@ -52,6 +52,14 @@
   packed to 32 pixels a word on load and bit-sliced in shared memory, up to
   :data:`ZS_CHUNK` iterations per launch on tiles with a halo of two rows
   per iteration; replaces ``zhang_suen_pallas``.
+- K9 ``greedy_order_cuda`` (``csrc/greedy_tour.cu``): stage 07's greedy
+  nearest-endpoint tour in one persistent launch, one CTA where the points fit
+  its shared memory, else a cluster of 16 CTAs (:func:`greedy_route`); replaces
+  the XLA loop of ``_greedy_device_impl``.
+- K10 ``refine_order_cuda`` (``csrc/refine_tour.cu``): stage 12's 2-opt /
+  relocate refiner, every iteration (all candidate moves, the best one, the
+  stop test, the move applied) in one cooperative launch; replaces the XLA
+  loop of ``_refine_impl``.
 
 Each source notes its design and bound.  Each is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library of its own with a plain C interface, at
@@ -66,7 +74,8 @@ a tensor it does not take and on any launch error, and counts in
 :data:`LAUNCHES` every kernel launch that its call into the library makes.
 The plain versions live beside their callers (``ops/bitpack.py``,
 ``ops/morphology.py``, ``ops/filters.py``, ``ops/canny.py``,
-``ops/thinning.py``, ``ops/frontend.py``); nothing here falls back to them.
+``ops/thinning.py``, ``ops/frontend.py``, ``vector/planner_device.py``,
+``vector/refine_device.py``); nothing here falls back to them.
 """
 
 from __future__ import annotations
@@ -106,6 +115,8 @@ NVCC_FLAGS = {
     "zs_dense": _SM90A,  # K12
     "kmeans": _SM90A + ["--fmad=false"],  # K8: shares csrc/lab.cuh with K7, and its sums keep their written order
     "morph_dense": _SM90A,  # K11
+    "greedy_tour": _SM90A + ["--fmad=false"],  # K9: d2 rounded product by product, as the host planner's
+    "refine_tour": _SM90A + ["--fmad=false"],  # K10: every delta in its plain version's order
 }
 
 # the multi-launch routes and K12: iterations per host check of the
@@ -152,10 +163,25 @@ KPP_LANES = 1024
 DENSE_TILE = (32, 64)
 DENSE_HALO_CAP = 16
 
+# K9: the CTAs of its cluster route (``kCluster`` in csrc/greedy_tour.cu), the
+# shared memory a point takes there (start, end and a flag byte) and a bound on
+# its static shared memory; the largest tour one CTA holds, and the largest of
+# either route (the JAX package's largest bucket)
+GREEDY_CLUSTER = 16
+GREEDY_POINT_BYTES = 17
+GREEDY_STATIC_SMEM = 512
+GREEDY_CTA_MAX_N = (MAX_SMEM - GREEDY_STATIC_SMEM) // GREEDY_POINT_BYTES
+GREEDY_MAX_N = 65536
+GREEDY_ROUTES = ("cta", "cluster")
+
+# K10: the tours it takes (the JAX package's smallest plan and largest bucket)
+REFINE_MIN_N, REFINE_MAX_N = 3, 8192
+
 # kernel launches per wrapper and route, counted where each wrapper calls into its library
 LAUNCHES = {"bitpack": 0, "edge_candidates": 0, "zhang_suen_packed": 0, "zhang_suen_packed_multi": 0,
             "hysteresis": 0, "hysteresis_multi": 0, "morph_bits": 0, "assign_nearest": 0, "zhang_suen_dense": 0,
-            "lab_sample": 0, "kpp_init": 0, "lloyd_fit": 0, "assign_points": 0, "morph_dense": 0}
+            "lab_sample": 0, "kpp_init": 0, "lloyd_fit": 0, "assign_points": 0, "morph_dense": 0,
+            "greedy_tour": 0, "refine_tour": 0}
 
 # what the last call of each fixpoint route took: for the resident routes a
 # device tensor, K6 (k,) iterations per layer, K5 (k, 2) rounds and the most
@@ -259,6 +285,9 @@ _SIGNATURES = {
                "pw_lloyd_fit": [_P, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P],
                "pw_assign_points": [_P, _L, _P, _I, _P, _P]},
     "morph_dense": {"pw_morph_dense_run": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "greedy_tour": {"pw_greedy_tour": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]},
+    "refine_tour": {"pw_refine_tour": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P],
+                    "pw_refine_blocks": [_I]},
 }
 
 
@@ -1060,3 +1089,85 @@ def morph_dense_cuda(x: torch.Tensor, steps) -> torch.Tensor:
             _raise_on(lib, "morph", err)
             src = dst
     return src
+
+
+def greedy_route(n: int, route: str | None = None) -> str:
+    """K9's route for a tour of ``n`` points: ``route`` when given (one of
+    :data:`GREEDY_ROUTES`), else ``"cta"`` up to :data:`GREEDY_CTA_MAX_N`
+    points and ``"cluster"`` above.  Raises outside 2 to
+    :data:`GREEDY_MAX_N`, and for a one-CTA route that does not fit."""
+    if not 2 <= n <= GREEDY_MAX_N:
+        raise ValueError(f"greedy_tour: {n} points is outside 2 to {GREEDY_MAX_N}")
+    if route is None:
+        return "cta" if n <= GREEDY_CTA_MAX_N else "cluster"
+    if route not in GREEDY_ROUTES:
+        raise ValueError(f"greedy_tour: route {route!r} is none of {GREEDY_ROUTES}")
+    if route == "cta" and n > GREEDY_CTA_MAX_N:
+        raise ValueError(f"greedy_tour: {n} points do not fit one CTA (at most {GREEDY_CTA_MAX_N})")
+    return route
+
+
+def greedy_order_cuda(starts: torch.Tensor, ends: torch.Tensor, closed: torch.Tensor, closed_aware: bool, seed: int,
+                      route: str | None = None):
+    """K9: ``vector.planner_device.greedy_order_plain`` in one launch, on the
+    route of :func:`greedy_route`.  CUDA (n, 2) float32 starts and ends and
+    (n,) bool ``closed`` on one device → (order (n,) int32, flips (n,) bool)
+    on it; nothing is read back here."""
+    _check_f32("greedy_tour", starts, (2,))
+    n = starts.shape[0]
+    _check_f32("greedy_tour", ends, (n, 2), starts.device)
+    if starts.dim() != 2 or starts.data_ptr() % 8 or ends.data_ptr() % 8:
+        raise ValueError(f"greedy_tour: expected 8-byte aligned (n, 2) points, got {tuple(starts.shape)}")
+    if not (closed.device == starts.device and closed.dtype == torch.bool and tuple(closed.shape) == (n,)
+            and closed.is_contiguous()):
+        raise ValueError(f"greedy_tour: expected a contiguous ({n},) bool tensor on {starts.device}")
+    route = greedy_route(n, route)
+    if not 0 <= seed < n:
+        raise ValueError(f"greedy_tour: seed {seed} is outside 0 to {n - 1}")
+    lib = load("greedy_tour")
+    with _guard(starts.device):
+        order = torch.empty(n, dtype=torch.int32, device=starts.device)
+        flips = torch.empty(n, dtype=torch.uint8, device=starts.device)
+        err = lib.pw_greedy_tour(starts.data_ptr(), ends.data_ptr(), closed.data_ptr(), n, int(closed_aware), int(seed),
+                                 1 if route == "cta" else GREEDY_CLUSTER, order.data_ptr(), flips.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream)
+        _count("greedy_tour")
+        _raise_on(lib, "greedy_tour", err)
+    return order, flips.view(torch.bool)
+
+
+def refine_order_cuda(entries: torch.Tensor, exits: torch.Tensor, start, max_moves: int):
+    """K10: ``vector.refine_device.refine_order_plain`` in one cooperative
+    launch.  CUDA (n, 2) float32 entries and exits in tour order (3 <= n <=
+    :data:`REFINE_MAX_N`), the pen's start (x, y) and a move budget → (perm
+    (n,) int32, flip (n,) bool, moves (1,) int32) on the device; nothing is
+    read back here."""
+    _check_f32("refine_tour", entries, (2,))
+    n = entries.shape[0]
+    _check_f32("refine_tour", exits, (n, 2), entries.device)
+    if entries.dim() != 2 or not REFINE_MIN_N <= n <= REFINE_MAX_N:
+        raise ValueError(f"refine_tour: expected {REFINE_MIN_N} to {REFINE_MAX_N} ops, got {tuple(entries.shape)}")
+    lib = load("refine_tour")
+    dev = entries.device
+    with _guard(dev):
+        blocks = lib.pw_refine_blocks(n)
+        if blocks <= 0:
+            _raise_on(lib, "refine_tour", -blocks)
+            raise RuntimeError("refine_tour: no block of the kernel fits an SM")
+        # two tours (entries, exits, perm, flip), the moves gathered from one into the other: copies of the
+        # input (the kernel sets the identity perm), and scratch
+        tour = [(entries.clone(), exits.clone(), torch.empty(n, dtype=torch.int32, device=dev),
+                 torch.empty(n, dtype=torch.uint8, device=dev)),
+                (torch.empty_like(entries), torch.empty_like(exits), torch.empty(n, dtype=torch.int32, device=dev),
+                 torch.empty(n, dtype=torch.uint8, device=dev))]
+        partial = torch.empty(3 * blocks, dtype=torch.int64, device=dev)
+        perm = torch.empty(n, dtype=torch.int32, device=dev)
+        flip = torch.empty(n, dtype=torch.uint8, device=dev)
+        moves = torch.empty(1, dtype=torch.int32, device=dev)
+        err = lib.pw_refine_tour(*(t.data_ptr() for t in tour[0]), *(t.data_ptr() for t in tour[1]),
+                                 partial.data_ptr(), blocks, n, float(start[0]), float(start[1]), int(max_moves),
+                                 perm.data_ptr(), flip.data_ptr(), moves.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream)
+        _count("refine_tour")
+        _raise_on(lib, "refine_tour", err)
+    return perm, flip.view(torch.bool), moves

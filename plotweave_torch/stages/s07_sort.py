@@ -11,6 +11,7 @@ import time
 
 from ..config import PipelineConfig
 from ..utils import load_pickle, save_pickle
+from ..utils.devices import raster_device
 from ..vector.sort import sort_contours
 from .common import layer_dir
 
@@ -26,7 +27,10 @@ def run(cfg: PipelineConfig) -> None:
             continue
         contours = load_pickle(src)
         t0 = time.perf_counter()
-        ordered = sort_contours(contours, device_min_n=int(cfg.planner_device_min_n))
+        gate = int(cfg.planner_device_min_n)
+        # the device is resolved only for a layer that crosses the gate
+        device = raster_device(cfg) if gate and len(contours) >= gate else None
+        ordered = sort_contours(contours, device_min_n=gate, device=device)
         save_pickle(ordered, os.path.join(d, "contours_sorted.pkl"))
         print(
             f"[sort] {name}: contours={len(ordered)}, time={time.perf_counter() - t0:.2f}s"

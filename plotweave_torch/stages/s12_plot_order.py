@@ -12,6 +12,7 @@ import numpy as np
 
 from ..config import PipelineConfig
 from ..utils import load_pickle, save_json, save_pickle
+from ..utils.devices import raster_device
 from ..vector.planner import layer_color_index, plan_layer_ops, refine_tour, tour_length
 from .common import layer_dir, target_size_px
 
@@ -41,9 +42,10 @@ def run(cfg: PipelineConfig) -> None:
         ops = plan_layer_ops(lines, taps, r_insert)
         if cfg.plotopt_two_opt:
             before = tour_length(ops)
-            ops = refine_tour(
-                ops, device_min_n=int(getattr(cfg, "refine_device_min_n", 0))
-            )
+            gate = int(getattr(cfg, "refine_device_min_n", 0))
+            # the device is resolved only for a list that crosses the gate
+            device = raster_device(cfg) if gate and len(ops) >= gate else None
+            ops = refine_tour(ops, device_min_n=gate, device=device)
             print(f"[plot-opt] {name}: 2-opt+or-opt travel {before:.0f} → {tour_length(ops):.0f} px")
         p_ops = os.path.join(d, "ops.pkl")
         save_pickle(ops, p_ops)

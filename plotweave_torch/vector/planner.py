@@ -229,16 +229,25 @@ def or_opt_refine(ops: List[Op], max_passes: int = 10) -> List[Op]:
     return cur
 
 
-def refine_tour(ops: List[Op], max_rounds: int = 5, device_min_n: int = 0) -> List[Op]:
+def refine_tour(ops: List[Op], max_rounds: int = 5, device_min_n: int = 0, device=None) -> List[Op]:
     """Alternate 2-opt and Or-opt until neither shortens the tour.
 
-    ``device_min_n`` > 0 is the JAX package's gate to its on-device refiner
-    for op lists of at least that many entries.  That refiner is not ported
-    yet (ROADMAP.md, Item 7: K10): the host refiner runs at every size, and
-    a list that crosses the gate says so in one printed line."""
+    ``device_min_n`` > 0 routes op lists of at least that many entries
+    through the device refiner (vector/refine_device.py: K10, every 2-opt
+    and relocation move evaluated each iteration) when ``device`` is a CUDA
+    device — the host scan is O(n²) Python per pass and becomes the stage
+    bottleneck in the low hundreds of ops; on the CPU the host refiner runs.
+    Both paths only reorder/flip ops; the device result is length-verified
+    on host and never worse than the input."""
     if device_min_n and len(ops) >= device_min_n:
-        print(f"[plot-opt] n={len(ops)} >= refine_device_min_n={device_min_n}: the device refiner is not ported "
-              f"(ROADMAP.md Item 7), the host refiner runs")
+        from .planner_device import on_cuda  # noqa: PLC0415
+        from .refine_device import MAX_N, refine_ops_device  # noqa: PLC0415
+
+        if on_cuda(device):
+            dev = refine_ops_device(ops, max_moves=max(4096, 4 * len(ops)), device=device)
+            if dev is not None:
+                return dev
+            print(f"[plot-opt] n={len(ops)} is outside the device refiner's 3..{MAX_N}: host refiner")
     cur = ops
     for _ in range(max_rounds):
         length0 = tour_length(cur)

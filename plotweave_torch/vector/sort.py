@@ -91,15 +91,17 @@ def greedy_order(
     starts: np.ndarray = None,
     ends: np.ndarray = None,
     device_min_n: int = 0,
+    device=None,
 ) -> Tuple[List[int], List[bool]]:
     """Return (order, flips) of the greedy nearest-endpoint tour.
 
     ``starts``/``ends`` may be precomputed (the _batch_endpoints fast path);
     when omitted they are derived per contour exactly as before.
-    ``device_min_n`` > 0 is the JAX package's gate to its on-device planner
-    for plans of at least that many contours.  That planner is not ported
-    yet (ROADMAP.md, Item 7: K9): the host planner orders every plan, and a
-    plan that crosses the gate says so in one printed line."""
+    ``device_min_n`` > 0 routes plans of at least that many contours through
+    the device planner (vector/planner_device.py: K9) when ``device`` is a
+    CUDA device; on the CPU the host planner runs, as the JAX package's does
+    off an accelerator.  Selection semantics are identical, and nothing
+    falls back: a card that fails raises."""
     n = len(polys)
     if starts is None or ends is None:
         starts = np.array([_endpoints(c, closed_aware)[0] for c in polys])
@@ -108,8 +110,14 @@ def greedy_order(
     cur = int(np.argmax(lengths))
 
     if device_min_n and n >= device_min_n:
-        print(f"[sort] n={n} >= planner_device_min_n={device_min_n}: the device planner is not ported "
-              f"(ROADMAP.md Item 7), the host planner runs")
+        from .planner_device import MAX_N, greedy_order_device, on_cuda  # noqa: PLC0415
+
+        if on_cuda(device):
+            dev = greedy_order_device(starts, ends, closed, closed_aware, cur, device)
+            if dev is not None:
+                print(f"[sort] device planner: n={n}")
+                return dev
+            print(f"[sort] n={n} is outside the device planner's 2..{MAX_N}: host planner")
 
     native = _greedy_order_native(starts, ends, closed, closed_aware, cur)
     if native is not None:
@@ -162,7 +170,7 @@ def apply_order(polys: Sequence[np.ndarray], order: List[int], flips: List[bool]
     return out
 
 
-def sort_contours(polys: List[np.ndarray], device_min_n: int = 0) -> List[np.ndarray]:
+def sort_contours(polys: List[np.ndarray], device_min_n: int = 0, device=None) -> List[np.ndarray]:
     """Stage-07 ordering: closed-aware, seeded on closed arc length."""
     if not polys:
         return []
@@ -170,7 +178,7 @@ def sort_contours(polys: List[np.ndarray], device_min_n: int = 0) -> List[np.nda
     starts, ends, closed = _batch_endpoints(ptss, strip_closed=True)
     lengths = batch_arc_length(ptss, np.ones(len(ptss), bool))
     order, flips = greedy_order(polys, lengths, closed, closed_aware=True,
-                                starts=starts, ends=ends, device_min_n=device_min_n)
+                                starts=starts, ends=ends, device_min_n=device_min_n, device=device)
     return apply_order(polys, order, flips, reclose=True)
 
 

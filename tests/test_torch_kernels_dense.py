@@ -138,18 +138,20 @@ def test_build_one_library_per_source(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
     paths = kernels.build()
     assert set(paths) == {"bitpack", "edge_candidates", "bitboard_fixpoints", "morph_bits", "assign_nearest",
-                          "zs_dense", "kmeans", "morph_dense"}
+                          "zs_dense", "kmeans", "morph_dense", "greedy_tour", "refine_tour"}
     assert all(p.exists() and p.parent == tmp_path / "build" for p in paths.values())
     calls = log.read_text().splitlines()
-    assert len(calls) == 8
+    assert len(calls) == 10
     for line in calls:
         assert "arch=compute_90a,code=sm_90a" in line
-        # every source that includes csrc/lab.cuh keeps its multiply-adds apart
-        assert ("--fmad=false" in line) == line.endswith(("assign_nearest.cu", "kmeans.cu"))
+        # every source that includes csrc/lab.cuh, and K9 and K10 (exact float orders), keep their multiply-adds apart
+        assert ("--fmad=false" in line) == line.endswith(("assign_nearest.cu", "kmeans.cu", "greedy_tour.cu",
+                                                          "refine_tour.cu"))
         name = line.split("/")[-1]
-        assert ('#include "lab.cuh"' in (kernels.CSRC / name).read_text()) == ("--fmad=false" in line)
+        if '#include "lab.cuh"' in (kernels.CSRC / name).read_text():
+            assert "--fmad=false" in line
     assert kernels.build() == paths  # built once: no second nvcc
-    assert len(log.read_text().splitlines()) == 8
+    assert len(log.read_text().splitlines()) == 10
 
 
 def test_build_raises_when_nvcc_fails(tmp_path, monkeypatch):
