@@ -12,8 +12,8 @@ Phases:
    layout conversions, K2 packed morphology, K3+K4 blur, Sobel, NMS and
    thresholds, K5 hysteresis and K6 packed Zhang–Suen, K7 Lab + nearest
    centre, K8 k-means, K9 greedy tour, K10 tour refiner, K11 gray
-   morphology, K12 dense Zhang–Suen), and the port's native host library with
-   g++, which must load;
+   morphology, K12 dense Zhang–Suen, K13 INTER_AREA resize, K14 Bézier
+   sampler), and the port's native host library with g++, which must load;
 3. each kernel vs its plain version on the card: K5 and K6 on both routes
    (resident in a thread block cluster of 16 CTAs, and multi-launch), each
    named to the wrapper, byte-equal on seeded random boards and ``thinning_cases.npz``, on a
@@ -127,7 +127,30 @@ Phases:
    ``torch.profiler`` trace of each device call, in a fresh process, whose
    kernels are the port's own; K9's and K10's times at the largest gated
    layer beside the plain versions', the host C++ planner's and their
-   bounds; the phase's seconds, part by part.
+   bounds; the phase's seconds, part by part;
+14. vector inputs and resize, its kernels run right after phase 2 (late in
+   a long process the profiler there loses a trace's events):
+   ``ops.resize_if_needed(img, 2000)`` on a 4032 x 3024 phone photo and a
+   4000 x 3000 image (K13's two routes, one launch each, counted), then K13
+   byte-equal to its plain versions on the card and to ``cv2.resize(...,
+   INTER_AREA)`` on the photo (fractional), 4000 x 3000 (2 x 2), 3000 x 3000
+   to 1000 x 1000 (3 x 3), a gray 8000 x 6000 to 100 x 75 (an 80 x 80 box)
+   and to 97 x 73 (fractional, over 16 taps) and ten seeded random sizes and
+   channel counts, with both routes' times beside their plain versions',
+   ``interpolate(mode="area")`` and their bounds, and K14 in one launch over
+   60,000 seeded cubics at 128 samples against its plain version and
+   ``torch.einsum``; after phase 13, ``svg2stream`` (``python -m
+   plotweave_torch.frontends.svg2stream``'s ``main``) on a seeded A3 traced
+   poster (1,500 paths of 40 C/S/Q/T/A/L segments, absolute and relative,
+   and 500 circles, ellipses and rects) with ``--sampling-backend torch``
+   (K14, one launch a curve family, counted) and ``numpy``: the same path
+   count, polylines within rtol 1e-4 / atol 1e-3 of numpy float64, the
+   stream decoding to EOF on the canvas, K14 within 1e-5 of the largest
+   |coordinate| of its plain version on every family, the seconds of the
+   parse, the sampling, the copy back, the G-code and the stream;
+   ``gcode_to_stream`` on the G-code goldens; and the main path on the card
+   with ``--shard-rows 4`` (one card: the unsharded chain), its
+   ``plot_stream.bin`` byte-equal to phase 5's.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
 launches in the one run of phase 5 or 6 that drives it (the synthetic
@@ -135,7 +158,8 @@ launches in the one run of phase 5 or 6 that drives it (the synthetic
 4400 × 4400 image for the multi-launch K5 and K6, the front-end calls for
 K7, K12 and K1's dense side, the device-k-means run for K8 and K7's counts,
 the tools' k-means call for K8's assignment, the swatch run for K11, the
-quality run for K9 and K10), its
+quality run for K9 and K10, phase 14's resize path for K13 and its poster
+run for K14), its
 device time, its plain version's, and its bound: the larger of its bytes (each input read once, each output written
 once) at 3.35 TB/s and its operations, counted for these inputs, at the
 card's rate for their type.  The last line is ``{"ok": true, "device":
@@ -178,7 +202,7 @@ CHAIN_LAUNCHES = {"bitpack": 3, "morph_bits": 1, "edge_candidates": 1, "hysteres
 OWN_KERNELS = ("rows_to_boards", "boards_to_rows", "boards_to_dense", "dense_to_boards", "labels_to_boards",
                "morph_steps", "edge_tiles", "hysteresis_cluster", "hysteresis_sweep", "zs_cluster", "zs_subpass",
                "assign_nearest", "zs_tiles", "lab_sample", "kpp_init", "lloyd_fit", "assign_points", "morph_dense",
-               "greedy_tour", "refine_tour")
+               "greedy_tour", "refine_tour", "area_frac", "area_int", "bezier_sample")
 # stage 03's mask open and close at the default config (ellipse 3, 1 and 1): K2's step list on the main path
 MAIN_PATH_STEPS = (("ellipse", 3, "e"), ("ellipse", 3, "d"), ("ellipse", 3, "d"), ("ellipse", 3, "e"))
 POSTER_PALETTE = [[30, 25, 20], [70, 90, 190], [140, 175, 220], [225, 220, 215]]  # synthetic_image's four tones, BGR
@@ -199,7 +223,9 @@ PATH_RUNS = {"main": "main path, synthetic 2000x1500, steps 1-13, card run",
              "device-kmeans": "main path with kmeans_init=device, synthetic 2000x1500, steps 1-13, card run",
              "kmeans-tool": "ops.kmeans.kmeans on the card, 50,000 points, k=4",
              "swatch": "main path with extraction_mode=swatch, synthetic 2000x1500, steps 1-13, card run",
-             "quality": "main path with --preset quality, dot-field poster 2000x1500, steps 1-13, card run"}
+             "quality": "main path with --preset quality, dot-field poster 2000x1500, steps 1-13, card run",
+             "resize": "resize_if_needed(img, 2000) on a 4032x3024 and a 4000x3000 image on the card",
+             "vector": "svg2stream --sampling-backend torch on the seeded A3 traced poster, card run"}
 
 # the card's peaks (H100 SXM): HBM bytes/s, float32 outside the tensor cores,
 # INT32 lanes (132 SMs x 64 lanes x 1.98 GHz)
@@ -1091,13 +1117,13 @@ def phase_chain(stats: dict) -> None:
 
 
 def run_main(image: str, out: Path, device: str, config: Path | None = None, end_step: int = 13,
-             settings: dict | None = None, preset: str | None = None) -> dict:
+             settings: dict | None = None, preset: str | None = None, flags: tuple = ()) -> dict:
     """The CLI entry point, steps 1 to ``end_step``; its stage log goes to
     ``<out>.log``.  ``settings`` are written to a config file of the run;
-    ``preset`` names a preset."""
+    ``preset`` names a preset; ``flags`` are further CLI arguments."""
     from plotweave_torch.pipeline import main
 
-    argv = [image, "--output", str(out), "--end-step", str(end_step), "--raster-device", device]
+    argv = [image, "--output", str(out), "--end-step", str(end_step), "--raster-device", device, *flags]
     if preset is not None:
         argv += ["--preset", preset]
     if settings is not None:
@@ -2310,6 +2336,345 @@ def phase_quality_path(work: Path, stats: dict) -> dict:
     return counts
 
 
+# --- phase 14: vector inputs and resize ---------------------------------------------------------------------------
+
+# K13's cases: (input shape, (new_w, new_h), what); phase 14's resize path runs resize_if_needed(img, 2000) on the
+# first two (the fractional and the 2 x 2 route)
+RESIZE_CASES = [((3024, 4032, 3), (2000, 1500), "a 4032x3024 phone photo, fractional"),
+                ((3000, 4000, 3), (2000, 1500), "4000x3000, 2x2"),
+                ((3000, 3000, 3), (1000, 1000), "3000x3000, 3x3 (the reciprocal route)"),
+                ((6000, 8000), (100, 75), "gray 8000x6000 to 100x75, an 80x80 box"),
+                ((6000, 8000), (97, 73), "gray 8000x6000 to 97x73, fractional over 16 taps")]
+POSTER_VIEWBOX = (4200, 2970)  # user units: an A3 sheet at 10 units a millimetre
+
+
+def vector_poster(seed: int, paths: int = 1500, segments: int = 40, shapes: int = 500) -> str:
+    """A seeded A3 "traced poster" SVG, as Inkscape or potrace would send it
+    to the plotter: ``paths`` paths of ``segments`` short segments each,
+    mixing C S Q T A L in absolute and relative form (about 60,000 curve
+    segments), some closed, and ``shapes`` circles, ellipses and rects."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w, h = POSTER_VIEWBOX
+    kinds = list("CcSsQqTtAaLl")
+    weights = np.array([12, 12, 8, 8, 8, 8, 5, 5, 4, 4, 3, 3], float)
+    points = {"C": 3, "S": 2, "Q": 2, "T": 1, "A": 1, "L": 1}
+    body = []
+    for _ in range(paths):
+        cur = rng.uniform([200, 200], [w - 200, h - 200])
+        d = [f"M{cur[0]:.2f} {cur[1]:.2f}"]
+        for cmd in rng.choice(kinds, segments, p=weights / weights.sum()):
+            pts = cur + np.cumsum(rng.normal(0, 5, (points[cmd.upper()], 2)), axis=0)
+            end = pts[-1]
+            if cmd in "Aa":
+                r = rng.uniform(3, 12, 2)
+                tgt = end if cmd == "A" else end - cur
+                d.append(f"{cmd}{r[0]:.2f} {r[1]:.2f} {rng.uniform(0, 90):.1f} {int(rng.integers(0, 2))} "
+                         f"{int(rng.integers(0, 2))} {tgt[0]:.2f} {tgt[1]:.2f}")
+            else:
+                d.append(cmd + " ".join(f"{x:.2f},{y:.2f}" for x, y in (pts if cmd.isupper() else pts - cur)))
+            cur = end
+        if rng.random() < 0.4:
+            d.append("z")
+        body.append(f'<path d="{"".join(d)}"/>')
+    for i in range(shapes):
+        x, y = rng.uniform([100, 100], [w - 100, h - 100])
+        r = rng.uniform(3, 40, 2)
+        body.append((f'<circle cx="{x:.2f}" cy="{y:.2f}" r="{r[0]:.2f}"/>',
+                     f'<ellipse cx="{x:.2f}" cy="{y:.2f}" rx="{r[0]:.2f}" ry="{r[1]:.2f}"/>',
+                     f'<rect x="{x:.2f}" y="{y:.2f}" width="{2 * r[0]:.2f}" height="{2 * r[1]:.2f}"/>')[i % 3])
+    return (f'<svg xmlns="http://www.w3.org/2000/svg" width="420mm" height="297mm" viewBox="0 0 {w} {h}">'
+            + "".join(body) + "</svg>")
+
+
+def resize_bound(shape: tuple, nw: int, nh: int, taps: tuple | None) -> dict:
+    """K13's least time: each input byte read once, each output byte written
+    once; the fractional route's float32 operations (per output value and
+    vertical tap, a product and an add per horizontal tap, then a product and
+    an add) or the integer route's adds, one an input byte."""
+    c = shape[2] if len(shape) == 3 else 1
+    nbytes = shape[0] * shape[1] * c + nh * nw * c
+    if taps is None:
+        return bound(nbytes, shape[0] * shape[1] * c, INT32_OPS)
+    th, tv = taps
+    return bound(nbytes, nh * nw * c * tv * (2 * th + 2), FP32_OPS)
+
+
+def area_library(x, nw: int, nh: int):
+    """The yardstick: ``interpolate(mode="area")`` of a uint8 (H, W[, C])
+    image with the conversions to float and back (not bit-exact with cv2)."""
+    import torch.nn.functional as F
+
+    t = (x.permute(2, 0, 1)[None] if x.dim() == 3 else x[None, None]).float()
+    o = F.interpolate(t, size=(nh, nw), mode="area").round_().clamp_(0, 255).to(x.dtype)
+    return o[0].permute(1, 2, 0) if x.dim() == 3 else o[0, 0]
+
+
+def phase_vector_kernels(stats: dict) -> dict:
+    """Phase 14, its first part (run right after the build: late in a long
+    process the profiler there loses the events of a trace): K13 on the
+    card.  Its path (the launch counts zeroed just before and read just
+    after): ``resize_if_needed(img, 2000)`` on a 4032x3024 phone photo (the
+    fractional route) and on a 4000x3000 image (2 x 2).  Then every case of
+    RESIZE_CASES and ten seeded random sizes byte for byte against the plain
+    versions on the card and ``cv2.resize(..., INTER_AREA)``; the times of
+    both routes beside their plain versions, ``interpolate(mode="area")`` and
+    their bounds.  K14 in one launch over 60,000 seeded cubics at n = 128
+    against its plain version, timed beside ``torch.einsum``."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import kernels, resize
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def image(shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+
+    photo, four_k = image(RESIZE_CASES[0][0]), image(RESIZE_CASES[1][0])
+    kernels.reset_launches()
+    (small_photo, r1), (small_4k, r2) = resize.resize_if_needed(photo, 2000), resize.resize_if_needed(four_k, 2000)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check(r1 and r2 and tuple(small_photo.shape) == tuple(small_4k.shape) == (1500, 2000, 3),
+          "resize_if_needed(img, 2000) on 4032x3024 and 4000x3000 did not give 2000x1500")
+    check(launches["area_resize_frac"] == 1 and launches["area_resize_int"] == 1
+          and sum(launches.values()) == 2, f"the resize path launched {launches}")
+    same, r0 = resize.resize_if_needed(small_photo, 2000)
+    check(same is small_photo and not r0, "resize_if_needed(img, 2000) on a 2000x1500 image is not a no-op")
+
+    def plain(x, nw, nh):
+        x3 = x if x.dim() == 3 else x[:, :, None]
+        h, w = x.shape[:2]
+        o = (resize.area_resize_int_plain(x3, h // nh, w // nw) if h % nh == 0 and w % nw == 0
+             else resize.area_resize_frac_plain(x3, nw, nh))
+        return o if x.dim() == 3 else o[:, :, 0]
+
+    rng = np.random.default_rng(14)
+    cases = [(photo, *RESIZE_CASES[0][1:]), (four_k, *RESIZE_CASES[1][1:])]
+    cases += [(image(shape), size, what) for shape, size, what in RESIZE_CASES[2:]]
+    for i in range(10):
+        c = [None, 1, 3, 4][i % 4]
+        if i % 3 == 0:  # an integer ratio
+            sy, sx = (int(v) for v in rng.integers(1, 7, 2))
+            nh, nw = (int(v) for v in rng.integers(8, 400, 2))
+            h, w = nh * sy, nw * sx
+            if (sy, sx) == (1, 1):
+                h, w = h * 2, w * 2
+        else:
+            h, w = (int(v) for v in rng.integers(16, 3000, 2))
+            nh, nw = int(rng.integers(1, h)), int(rng.integers(1, w))
+        cases.append((image((h, w) if c is None else (h, w, c)), (nw, nh), f"random {h}x{w}x{c or 1} to {nw}x{nh}"))
+    err = 0
+    for x, (nw, nh), what in cases:
+        got = (small_photo if x is photo else small_4k if x is four_k else resize.area_resize(x, nw, nh))
+        ref = cv2.resize(x.cpu().numpy(), (nw, nh), interpolation=cv2.INTER_AREA).reshape(got.shape)
+        want = plain(x, nw, nh)
+        err = max(err, int((got.int() - want.int()).abs().max()))
+        check(torch.equal(got, want), f"K13 != plain: {what}")
+        check(np.array_equal(got.cpu().numpy(), ref), f"K13 != cv2.resize(INTER_AREA): {what}")
+    print(f"K13 == plain == cv2.resize(INTER_AREA) on {len(cases)} cases: " + "; ".join(w for *_, w in cases))
+
+    for key, x, fn_name in (("K13 frac", photo, "area_frac"), ("K13 int", four_k, "area_int")):
+        h, w = x.shape[:2]
+        integer = key.endswith("int")
+        taps = None if integer else (resize._resize_area_tab(w, 2000)[0].shape[1],
+                                     resize._resize_area_tab(h, 1500)[0].shape[1])
+        st = {"max_abs_err": err, "case": f"{w}x{h}x3 -> 2000x1500",
+              "ms": cuda_ms(lambda x=x: resize.area_resize(x, 2000, 1500), 20),
+              "alone_ms": profiled_ms(lambda x=x: resize.area_resize(x, 2000, 1500), fn_name, 3),
+              "plain_ms": cuda_ms(lambda x=x: plain(x, 2000, 1500), 3), **resize_bound(tuple(x.shape), 2000, 1500, taps)}
+        st["library_ms"] = cuda_ms(lambda x=x: area_library(x, 2000, 1500), 20)
+        stats[key] = st
+        print(f"{key} at {st['case']}: {st['ms']:.4f} ms a call"
+              + (f", {st['alone_ms']:.4f} alone" if st["alone_ms"] else "")
+              + f", launches on the path {launches['area_resize_' + key[4:]]}, bound {st['bound_ms']:.4f} ms by "
+              f"{st['bound_by']} ({st['bound_ms'] / (st['alone_ms'] or st['ms']):.0%} of it), plain PyTorch on the "
+              f"card {st['plain_ms']:.3f} ms, interpolate(mode=\"area\") with its conversions {st['library_ms']:.4f} ms"
+              + (f"; taps {taps[0]} x {taps[1]}" if taps else ""))
+
+    from plotweave_torch.ops import bezier
+
+    cubics = torch.rand((60000, 4, 2), device=dev, generator=gen) * torch.tensor(POSTER_VIEWBOX, device=dev)
+    got, want = kernels.bezier_sample_cuda(cubics, 128), bezier.sample_bezier_plain(cubics, 128)
+    err = float((got - want).abs().max())
+    check(err <= 1e-5 * float(cubics.abs().max()), f"K14 != plain at 60,000 cubics x 128: {err}")
+    bt = {"curves": 60000, "n": 128, "max_abs_err": err, "ms": cuda_ms(lambda: kernels.bezier_sample_cuda(cubics, 128), 20),
+          "alone_ms": profiled_ms(lambda: kernels.bezier_sample_cuda(cubics, 128), "bezier_sample", 3),
+          "plain_ms": cuda_ms(lambda: bezier.sample_bezier_plain(cubics, 128), 3),
+          **bound(cubics.numel() * 4 + 60000 * 128 * 8, 60000 * 128 * 28, FP32_OPS)}
+    bt["library_ms"] = cuda_ms(lambda b=bezier.bernstein_basis(128, 4, dev): torch.einsum("nk,skc->snc", b, cubics), 20)
+    stats["K14 batched"] = bt
+    print(f"K14 in one launch, 60,000 cubics x 128 samples: == plain within {err:.3e}; {bt['ms']:.4f} ms a call"
+          + (f", {bt['alone_ms']:.4f} alone" if bt["alone_ms"] else "")
+          + f", bound {bt['bound_ms']:.4f} ms by {bt['bound_by']} ({bt['bound_ms'] / (bt['alone_ms'] or bt['ms']):.0%} "
+          f"of it), plain PyTorch on the card {bt['plain_ms']:.4f} ms, torch.einsum {bt['library_ms']:.4f} ms")
+    return launches
+
+
+def phase_vector_path(work: Path, stats: dict) -> dict:
+    """Phase 14, its second part: the vector entry point.  ``python -m
+    plotweave_torch.frontends.svg2stream`` (its ``main``, in this process) on
+    a seeded A3 traced poster with ``--sampling-backend torch`` on the card
+    (the launch counts zeroed just before and read just after) and with
+    ``numpy``: the same path count, polylines within rtol 1e-4 and atol 1e-3
+    of numpy float64, the torch stream decoding to EOF on the canvas; every
+    curve family K14 sampled there against its plain version on the card
+    (within 1e-5 of the largest |coordinate| of the call); the G-code
+    goldens through ``gcode_to_stream``; the seconds of the parse, the
+    sampling, the copy back, the G-code and the stream."""
+    import unittest.mock as mock
+
+    import numpy as np
+    import torch
+
+    from plotweave_torch.frontends import gcode, svg2gcode, svg2stream
+    from plotweave_torch.ops import bezier, kernels
+    from plotweave_torch.stream import MotionProfile
+    from plotweave_torch.stream.decoder import StreamDecoder, replay
+
+    t0 = time.perf_counter()
+    poster = work / "poster.svg"
+    poster.write_text(vector_poster(14))
+    gen_s = time.perf_counter() - t0
+
+    def run(backend: str) -> dict:
+        """svg2stream's main, with timers around its parts and the sampler kept."""
+        rec: dict = {"svg": 0.0, "gcode": 0.0, "stream": 0.0, "samplers": []}
+
+        class Recording(bezier.BezierSampler):
+            def __init__(self, device: str = "auto"):
+                super().__init__(device)
+                self.families: list = []
+                rec["samplers"].append(self)
+
+            def sample(self, ctrl, n):
+                self.families.append((ctrl, n))
+                return super().sample(ctrl, n)
+
+        def timer(fn, key, keep=False):
+            def wrapped(*args, **kwargs):
+                t = time.perf_counter()
+                out = fn(*args, **kwargs)
+                rec[key] += time.perf_counter() - t
+                if keep:
+                    rec[f"{key} out"] = out
+                return out
+            return wrapped
+
+        out = work / f"poster_{backend}"
+        with mock.patch.object(bezier, "BezierSampler", Recording), \
+                mock.patch.object(svg2gcode, "svg_to_polylines", timer(svg2gcode.svg_to_polylines, "svg", True)), \
+                mock.patch.object(svg2gcode, "polylines_to_gcode", timer(svg2gcode.polylines_to_gcode, "gcode")), \
+                mock.patch.object(svg2stream, "gcode_to_stream", timer(svg2stream.gcode_to_stream, "stream")), \
+                open(f"{out}.log", "w") as log, contextlib.redirect_stdout(log):
+            kernels.reset_launches()
+            t = time.perf_counter()
+            svg2stream.main([str(poster), "-o", f"{out}.bin", "--gcode-out", f"{out}.gcode",
+                             "--sampling-backend", backend])
+            torch.cuda.synchronize()
+            rec["wall"] = time.perf_counter() - t
+            rec["launches"] = dict(kernels.LAUNCHES)
+        rec["bin"], rec["gcode text"] = Path(f"{out}.bin").read_bytes(), Path(f"{out}.gcode").read_text()
+        return rec
+
+    card, host = run("torch"), run("numpy")
+    launches = card["launches"]
+    sampler = card["samplers"][0]
+    check(launches["bezier_sample"] == sampler.calls > 0 and sum(launches.values()) == sampler.calls,
+          f"the vector path launched {launches} for {sampler.calls} curve families")
+    check(not host["samplers"] and host["launches"]["bezier_sample"] == 0, "the numpy backend sampled on the card")
+    paths = card["gcode text"].count("M3")
+    check(paths == host["gcode text"].count("M3") > 0, "torch and numpy G-code differ in their path counts")
+    polys_t, polys_n = card["svg out"], host["svg out"]
+    check(len(polys_t) == len(polys_n), "torch and numpy differ in their polyline counts")
+    worst = 0.0
+    for a, b in zip(polys_t, polys_n):
+        check(a.shape == b.shape, "torch and numpy polylines differ in shape")
+        worst = max(worst, float((np.abs(a - b) - 1e-4 * np.abs(b)).max()))
+    check(worst <= 1e-3, f"torch polylines off numpy float64 by {worst} beyond rtol 1e-4 (atol 1e-3)")
+    dec = StreamDecoder(card["bin"])
+    meta = json.loads(Path(work / "poster_torch.json").read_text())
+    replay(dec, *meta["canvas_steps"])
+    check(dec.stats.eof_seen and dec.stats.off_canvas_steps == 0, "the torch poster stream does not decode cleanly")
+    n_points = sum(len(p) for p in polys_t)
+    print(f"vector path, A3 traced poster ({poster.stat().st_size / 1e6:.2f} MB SVG, {len(polys_t)} polylines, "
+          f"{n_points} points): svg2stream --sampling-backend torch == numpy in paths ({paths}); polylines within "
+          f"rtol 1e-4 (worst excess {worst:.2e} of atol 1e-3); stream {len(card['bin'])} bytes decodes to EOF on the "
+          f"canvas; launches {launches}")
+
+    # every family the path sampled: K14 against its plain version on the card, each call within 1e-5 of its
+    # largest |coordinate|; then the whole path's families again for the times
+    dev = torch.device("cuda")
+    fams = [(torch.from_numpy(np.ascontiguousarray(c, dtype=np.float32)).to(dev), n) for c, n in sampler.families]
+    err, rel = 0.0, 0.0
+    for c, n in fams:
+        d = float((kernels.bezier_sample_cuda(c, n) - bezier.sample_bezier_plain(c, n)).abs().max())
+        err, rel = max(err, d), max(rel, d / max(float(c.abs().max()), 1e-30))
+    check(rel <= 1e-5, f"K14 != plain beyond 1e-5 of the largest |coordinate|: {rel}")
+    bases = [bezier.bernstein_basis(n, c.shape[1], dev) for c, n in fams]
+    nbytes = sum(c.numel() * 4 + c.shape[0] * n * 8 for c, n in fams)
+    flops = sum(c.shape[0] * n * (2 * 2 * c.shape[1] + 12) for c, n in fams)  # the basis about 12, 2 a term a coordinate
+    st = {"max_abs_err": err, "max_rel_err": rel, "families": len(fams),
+          "curves": sum(c.shape[0] for c, _ in fams), "points": sum(c.shape[0] * n for c, n in fams),
+          "ms": cuda_ms(lambda: [kernels.bezier_sample_cuda(c, n) for c, n in fams], 3),
+          "plain_ms": cuda_ms(lambda: [bezier.sample_bezier_plain(c, n) for c, n in fams], 1),
+          **bound(nbytes, flops, FP32_OPS), "batched": stats.pop("K14 batched")}
+    st["library_ms"] = cuda_ms(lambda: [torch.einsum("nk,skc->snc", b, c) for b, (c, _) in zip(bases, fams)], 1)
+    stats["K14"] = st
+    print(f"K14 == plain on the card on all {st['families']} curve families of the poster ({st['curves']} curves, "
+          f"{st['points']} points; largest error {err:.3e}, {rel:.2e} of the largest |coordinate|); their "
+          f"{st['families']} launches {st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms, torch.einsum "
+          f"{st['library_ms']:.3f} ms, bound {st['bound_ms']:.4f} ms by {st['bound_by']}")
+    parse = card["svg"] - sampler.seconds["sample"] - sampler.seconds["copy"]
+    print(f"vector path seconds (torch | numpy): wall {card['wall']:.2f} | {host['wall']:.2f}; parse {parse:.2f} | "
+          f"{host['svg']:.2f} (numpy's sampling inside); sampling on the card {sampler.seconds['sample']:.3f} "
+          f"(upload, {sampler.calls} launches, synchronised); copy back {sampler.seconds['copy']:.3f}; G-code "
+          f"{card['gcode']:.2f} | {host['gcode']:.2f}; stream {card['stream']:.2f} | {host['stream']:.2f}; the "
+          f"poster's generation {gen_s:.2f}")
+
+    text = (GOLDEN / "gcode" / "sample.gcode").read_text()
+    g1, _ = gcode.gcode_to_stream(text, invert_y=True, profile=MotionProfile(invert_y=True), speed_scale=1.3)
+    g2, _ = gcode.gcode_to_stream(text, reorder=False, profile=MotionProfile())
+    check(g1 == (GOLDEN / "gcode" / "ref_g.bin").read_bytes() and g2 == (GOLDEN / "gcode" / "ref_g2.bin").read_bytes(),
+          "gcode_to_stream != the G-code goldens")
+    print("gcode_to_stream(sample.gcode) == ref_g.bin (invert_y, speed 1.3) and ref_g2.bin (no reorder)")
+    return launches
+
+
+def phase_shard_path(work: Path) -> None:
+    """Phase 14, its last part: the main path on the card with
+    ``--shard-rows 4`` (one card: the unsharded chain), ``plot_stream.bin``
+    byte-equal to phase 5's card run."""
+    from plotweave_torch.ops import kernels
+
+    out = work / "synthetic_shard4"
+    kernels.reset_launches()
+    run_main(str(work / "synthetic.png"), out, "auto", flags=("--shard-rows", "4"))
+    launched = {n: kernels.LAUNCHES[n] for n in CHAIN_LAUNCHES}
+    check(launched == CHAIN_LAUNCHES, f"--shard-rows 4 on one card: the chain launched {launched}")
+    check("row-sharded over 1 device(s)" in Path(f"{out}.log").read_text(), "--shard-rows 4: no [shard] line")
+    check((out / "plot_stream.bin").read_bytes() == (work / "synthetic_cuda" / "plot_stream.bin").read_bytes(),
+          "--shard-rows 4 on one card: plot_stream.bin != phase 5's card run")
+    print(f"main path with --shard-rows 4 on one card: the unsharded chain ({launched}); plot_stream.bin == phase 5's")
+
+
+def phase_vector_and_shard(work: Path, stats: dict) -> dict:
+    """Phase 14 after phase 13: the vector entry point with K14, the G-code
+    goldens, and row sharding on one card; the seconds of each part."""
+    seconds = {}
+    launches = {}
+    for name, fn, args in (("vector", phase_vector_path, (work, stats)), ("shard", phase_shard_path, (work,))):
+        t0 = time.perf_counter()
+        launches[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+    print("phase 14 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return launches
+
+
 def phase_entry() -> None:
     import torch
 
@@ -2338,6 +2703,7 @@ def main() -> None:
 
     timed(phase_build)
     stats: dict = {}
+    resize_launches = timed(phase_vector_kernels, stats)  # phase 14's kernels, while the profiler catches every event
     timed(phase_kernels_vs_plain, stats)
     timed(phase_new_kernels_vs_plain, stats)
     timed(phase_layout_and_edge_kernels, stats)
@@ -2353,6 +2719,8 @@ def main() -> None:
         timed(phase_batch_path, Path(tmp), stats)
         timed(phase_tour_kernels, stats)
         paths["quality"] = timed(phase_quality_path, Path(tmp), stats)
+        paths["vector"] = timed(phase_vector_and_shard, Path(tmp), stats)["vector"]
+        paths["resize"] = resize_launches
     print("phase wall seconds: " + ", ".join(f"{name} {s:.1f}" for name, s in seconds.items()))
 
     # (name, path whose run counted its launches, launch name, source, TPU kernel, stats key)
@@ -2392,7 +2760,13 @@ def main() -> None:
             ("K9 greedy_tour", "quality", "greedy_tour", "plotweave_torch/csrc/greedy_tour.cu",
              "plotweave/vector/planner_device.py:45", "K9"),
             ("K10 refine_tour", "quality", "refine_tour", "plotweave_torch/csrc/refine_tour.cu",
-             "plotweave/vector/refine_device.py:55", "K10")]
+             "plotweave/vector/refine_device.py:55", "K10"),
+            ("K13 area_resize, fractional", "resize", "area_resize_frac", "plotweave_torch/csrc/area_resize.cu",
+             "plotweave/ops/resize.py:150", "K13 frac"),
+            ("K13 area_resize, integer", "resize", "area_resize_int", "plotweave_torch/csrc/area_resize.cu",
+             "plotweave/ops/resize.py:180", "K13 int"),
+            ("K14 bezier_sample", "vector", "bezier_sample", "plotweave_torch/csrc/bezier_sample.cu",
+             "plotweave/frontends/svg.py:82", "K14")]
     print("launches counted in: " + "; ".join(f"{name}: {PATH_RUNS[path]}" for name, path, *_ in rows))
     # the contract's keys last, so that no measurement's key can stand in for one of them
     table = [{**stats[key], "name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -8,7 +8,8 @@ the native C++ library in ``native/``, ``stream``, ``vector``, ``viz`` and
 the host stages).
 
 It runs the main path, image → ``plot_stream.bin``, in every mode of stage 02
-but row sharding, for one image or a directory of them:
+(row sharding on one device only), for one image or a directory of them, and
+the vector entry point, SVG or G-code → stream:
 
 - ``ops``      — the stage 02→04 raster chain, the fused raster front-end
   (``ops/frontend.py``), the device k-means (``ops/kmeans.py``) and the gray
@@ -16,13 +17,18 @@ but row sharding, for one image or a directory of them:
   (``ops/kernels.py``, ``csrc/``) for the layout conversions, the packed and
   the gray morphology, the blur and Canny, the two bit-packed fixpoints
   (Canny hysteresis, Zhang–Suen thinning), the fused Lab + nearest-centre
-  assign with its counts, the k-means sampler, seeding and fit, and the
-  dense, bit-sliced Zhang–Suen.
+  assign with its counts, the k-means sampler, seeding and fit, the
+  dense, bit-sliced Zhang–Suen, the INTER_AREA resize (``ops/resize.py``)
+  and the Bézier sampler (``ops/bezier.py``).
 - ``stages``   — all 14 stages: 01–04 the port's own, 05–14 copies of the
   JAX package's host stages.
 - ``parallel`` — the batch runner's grouping of concurrent images' chain calls.
 - ``pipeline`` — the in-process runner, the batch runner and the CLI
   (``python -m plotweave_torch``).
+- ``frontends``— the SVG and G-code inputs (``python -m
+  plotweave_torch.frontends.svg2stream``), their curve sampling on the card
+  with ``--sampling-backend torch`` (``ops/bezier.py``).
+- ``demo``     — procedural demo streams.
 - ``tools``    — the colour analysis and layer-splitting tools.
 - ``entry``    — the front-end's entry point, ``entry(device) → (fn, args)``.
 """

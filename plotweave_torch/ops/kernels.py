@@ -60,6 +60,15 @@
   relocate refiner, every iteration (all candidate moves, the best one, the
   stop test, the move applied) in one cooperative launch; replaces the XLA
   loop of ``_refine_impl``.
+- K13 ``area_resize_frac_cuda`` and ``area_resize_int_cuda``
+  (``csrc/area_resize.cu``): the INTER_AREA downscale, one thread per output
+  pixel and channel, bit-exact with cv2 (the fractional route through the
+  tap tables of ``ops/resize.py``, every product rounded before its add);
+  replaces the XLA programs of ``_area_resize_frac`` and ``_area_resize_int``.
+- K14 ``bezier_sample_cuda`` (``csrc/bezier_sample.cu``): every cubic or
+  quadratic Bézier segment of a path at n parameters, one thread a point;
+  replaces the device program of ``sample_cubics_batched`` /
+  ``sample_quads_batched`` under the JAX package's ``--sampling-backend jax``.
 
 Each source notes its design and bound.  Each is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library of its own with a plain C interface, at
@@ -75,7 +84,8 @@ a tensor it does not take and on any launch error, and counts in
 The plain versions live beside their callers (``ops/bitpack.py``,
 ``ops/morphology.py``, ``ops/filters.py``, ``ops/canny.py``,
 ``ops/thinning.py``, ``ops/frontend.py``, ``vector/planner_device.py``,
-``vector/refine_device.py``); nothing here falls back to them.
+``vector/refine_device.py``, ``ops/resize.py``, ``ops/bezier.py``); nothing
+here falls back to them.
 """
 
 from __future__ import annotations
@@ -117,6 +127,8 @@ NVCC_FLAGS = {
     "morph_dense": _SM90A,  # K11
     "greedy_tour": _SM90A + ["--fmad=false"],  # K9: d2 rounded product by product, as the host planner's
     "refine_tour": _SM90A + ["--fmad=false"],  # K10: every delta in its plain version's order
+    "area_resize": _SM90A + ["--fmad=false"],  # K13: cv2's float32 tap sums, every product rounded
+    "bezier_sample": _SM90A + ["--fmad=false"],  # K14: the basis and sums rounded as the plain version's
 }
 
 # the multi-launch routes and K12: iterations per host check of the
@@ -181,7 +193,7 @@ REFINE_MIN_N, REFINE_MAX_N = 3, 8192
 LAUNCHES = {"bitpack": 0, "edge_candidates": 0, "zhang_suen_packed": 0, "zhang_suen_packed_multi": 0,
             "hysteresis": 0, "hysteresis_multi": 0, "morph_bits": 0, "assign_nearest": 0, "zhang_suen_dense": 0,
             "lab_sample": 0, "kpp_init": 0, "lloyd_fit": 0, "assign_points": 0, "morph_dense": 0,
-            "greedy_tour": 0, "refine_tour": 0}
+            "greedy_tour": 0, "refine_tour": 0, "area_resize_frac": 0, "area_resize_int": 0, "bezier_sample": 0}
 
 # what the last call of each fixpoint route took: for the resident routes a
 # device tensor, K6 (k,) iterations per layer, K5 (k, 2) rounds and the most
@@ -288,6 +300,9 @@ _SIGNATURES = {
     "greedy_tour": {"pw_greedy_tour": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]},
     "refine_tour": {"pw_refine_tour": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P],
                     "pw_refine_blocks": [_I]},
+    "area_resize": {"pw_area_resize_frac": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+                    "pw_area_resize_int": [_P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "bezier_sample": {"pw_bezier_sample": [_P, _P, _I, _I, _I, _P]},
 }
 
 
@@ -1171,3 +1186,71 @@ def refine_order_cuda(entries: torch.Tensor, exits: torch.Tensor, start, max_mov
         _count("refine_tour")
         _raise_on(lib, "refine_tour", err)
     return perm, flip.view(torch.bool), moves
+
+
+def _check_image(name: str, img: torch.Tensor) -> tuple:
+    """(H, W, C) of a CUDA contiguous (H, W, C) uint8 image, C from 1 to 4."""
+    _check_dense(name, img, (torch.uint8,))
+    if img.dim() != 3 or not 1 <= img.shape[2] <= 4:
+        raise ValueError(f"{name}: expected an (H, W, C) uint8 image with C from 1 to 4, got {tuple(img.shape)}")
+    return tuple(img.shape)
+
+
+def area_resize_frac_cuda(img: torch.Tensor, xsi: torch.Tensor, xal: torch.Tensor, ysi: torch.Tensor,
+                          yal: torch.Tensor) -> torch.Tensor:
+    """K13, fractional ratios: ``ops.resize.area_resize_frac_plain`` of a
+    CUDA (H, W, C) uint8 image through the tap tables of its width and height
+    (``ops.resize._resize_area_tab``: (w, taps) int32 indices and float32
+    alphas, (h, taps) likewise, contiguous on its device) → (h, w, C) uint8."""
+    h_in, w_in, c = _check_image("area_resize_frac", img)
+    for si, al, size in ((xsi, xal, w_in), (ysi, yal, h_in)):
+        if not (si.device == al.device == img.device and si.dtype == torch.int32 and al.dtype == torch.float32
+                and si.dim() == 2 and si.shape == al.shape and si.is_contiguous() and al.is_contiguous()
+                and si.shape[1] >= 1):
+            raise ValueError(f"area_resize_frac: expected (d, taps) int32 and float32 tables on {img.device}")
+    nh, nw = ysi.shape[0], xsi.shape[0]
+    lib = load("area_resize")
+    with _guard(img.device):
+        out = torch.empty((nh, nw, c), dtype=torch.uint8, device=img.device)
+        err = lib.pw_area_resize_frac(img.data_ptr(), out.data_ptr(), xsi.data_ptr(), xal.data_ptr(), xsi.shape[1],
+                                      ysi.data_ptr(), yal.data_ptr(), ysi.shape[1], w_in, c, nh, nw,
+                                      torch.cuda.current_stream().cuda_stream)
+        _count("area_resize_frac")
+        _raise_on(lib, "area_resize_frac", err)
+    return out
+
+
+def area_resize_int_cuda(img: torch.Tensor, sy: int, sx: int) -> torch.Tensor:
+    """K13, integer ratios: ``ops.resize.area_resize_int_plain`` of a CUDA
+    (H, W, C) uint8 image whose sides ``sy`` and ``sx`` divide → (H/sy, W/sx,
+    C) uint8."""
+    h_in, w_in, c = _check_image("area_resize_int", img)
+    if sy < 1 or sx < 1 or h_in % sy or w_in % sx or sy * sx * 255 >= 2**31:
+        raise ValueError(f"area_resize_int: a {sy} x {sx} box does not tile {h_in} x {w_in}")
+    nh, nw = h_in // sy, w_in // sx
+    lib = load("area_resize")
+    with _guard(img.device):
+        out = torch.empty((nh, nw, c), dtype=torch.uint8, device=img.device)
+        err = lib.pw_area_resize_int(img.data_ptr(), out.data_ptr(), w_in, c, sy, sx, nh, nw,
+                                     torch.cuda.current_stream().cuda_stream)
+        _count("area_resize_int")
+        _raise_on(lib, "area_resize_int", err)
+    return out
+
+
+def bezier_sample_cuda(ctrl: torch.Tensor, n: int) -> torch.Tensor:
+    """K14: ``ops.bezier.sample_bezier_plain`` of CUDA (S, K, 2) float32
+    control points (K = 4 cubics, 3 quadratics) at ``n`` parameters → (S, n,
+    2) float32, one launch."""
+    _check_f32("bezier_sample", ctrl, (2,))
+    if ctrl.dim() != 3 or ctrl.shape[1] not in (3, 4) or n < 1 or ctrl.shape[0] * n >= 2**31:
+        raise ValueError(f"bezier_sample: expected (S, 3 or 4, 2) control points and n >= 1, got "
+                         f"{tuple(ctrl.shape)}, {n}")
+    s, k = ctrl.shape[:2]
+    lib = load("bezier_sample")
+    with _guard(ctrl.device):
+        out = torch.empty((s, n, 2), dtype=torch.float32, device=ctrl.device)
+        err = lib.pw_bezier_sample(ctrl.data_ptr(), out.data_ptr(), s, k, n, torch.cuda.current_stream().cuda_stream)
+        _count("bezier_sample")
+        _raise_on(lib, "bezier_sample", err)
+    return out

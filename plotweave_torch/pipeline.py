@@ -269,6 +269,14 @@ def parse_args(argv=None):
     ap.add_argument("--colors", dest="colors_json", help="BGR swatches as JSON, e.g. [[0,0,0],[255,0,0]]")
     add_raster_device_flag(ap)
     ap.add_argument(
+        "--shard-rows",
+        type=int,
+        dest="shard_rows",
+        help="row-shard the stage 02-04 raster chain over up to N devices (fitted to the "
+        "largest row divisor <= device count; on one card or the CPU the unsharded chain, "
+        "byte-identical; more than one card is not ported)",
+    )
+    ap.add_argument(
         "--batch-dir",
         help="process every image in this directory (one <output>/<stem>/ run each, "
         "host threads overlapping device work); ignores input_image",
@@ -367,6 +375,7 @@ def main(argv=None) -> Dict[str, float] | None:
         "pixels_per_mm": args.pixels_per_mm,
         "target_width_mm": args.target_width_mm,
         "target_height_mm": args.target_height_mm,
+        "shard_rows": args.shard_rows,
         "raster_device": args.raster_device,
     }
     if args.colors_json:

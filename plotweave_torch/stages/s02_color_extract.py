@@ -24,6 +24,12 @@ on the card and on the CPU, not the JAX package's and not cv2-compatible.
 
 ``extraction_mode: "swatch"`` thresholds on the host and cleans each mask
 with the gray morphology (kernel K11) on the raster device.
+
+``shard_rows`` / ``shard_auto_mpx`` resolve the shard count as the JAX
+package does (:func:`resolve_shard_n`), over ``torch.cuda.device_count()``
+cards, or one device with ``raster_device: "cpu"``.  A count of one runs the
+unsharded chain, byte-identical to the JAX package's 1-device sharded
+program; a count above one (row sharding over several cards) is not ported.
 """
 
 from __future__ import annotations
@@ -201,6 +207,56 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to plotweave_torch yet (ROADMAP.md, {item})")
 
 
+# the halo stencils of the JAX package's sharded chain read at most 3 rows
+# beyond a shard, so each shard must hold this many rows at least
+MIN_ROWS_PER_SHARD = 8
+
+
+def fit_shard_rows(h: int, requested: int, n_devices: int, max_radius: int = 0) -> int:
+    """Largest shard count ≤ min(requested, n_devices) that divides ``h``
+    evenly and leaves at least max(MIN_ROWS_PER_SHARD, ``max_radius`` + 1)
+    rows per shard (a copy of ``plotweave/parallel/spatial.py``'s)."""
+    min_rows = max(MIN_ROWS_PER_SHARD, int(max_radius) + 1)
+    cap = max(1, min(int(requested), int(n_devices), int(h) // min_rows or 1))
+    for n in range(cap, 0, -1):
+        if h % n == 0:
+            return n
+    return 1
+
+
+def resolve_shard_n(cfg: PipelineConfig, h: int, w: int) -> int:
+    """Row-shard count for the fused raster chain: 0 = unsharded (twin of
+    the JAX package's ``_resolve_shard_n``).
+
+    ``shard_rows`` N>0 fits N to the largest row-divisor ≤ min(N, device
+    count); ``shard_auto_mpx`` engages over all devices when the image
+    exceeds that many megapixels.  The devices are the CUDA cards, or one
+    with ``raster_device: "cpu"``."""
+    req = int(getattr(cfg, "shard_rows", 0) or 0)
+    auto = float(getattr(cfg, "shard_auto_mpx", 0) or 0)
+    if req <= 0 and auto <= 0:
+        return 0
+    # the largest stencil radius of the chain: outsized configured kernels
+    # shrink the shard count
+    mk, _oi, _ci, bk, _lo, _hi = edge_params(cfg)
+    max_radius = max(2, mk // 2, bk // 2)
+    ndev = 1 if str(getattr(cfg, "raster_device", "auto")).lower() == "cpu" else torch.cuda.device_count()
+    if req > 0:
+        n = fit_shard_rows(h, req, ndev, max_radius)
+        if n < min(req, ndev) and max_radius * 2 + 1 > 17:
+            print(
+                f"[shard] note: stencil radius {max_radius} (configured edge "
+                f"kernels) caps shards at {n} for H={h} (needs ≥{max_radius + 1} "
+                "rows/shard)"
+            )
+        return n
+    if h * w / 1e6 > auto:
+        n = fit_shard_rows(h, ndev, ndev, max_radius)
+        if n > 1:
+            return n
+    return 0
+
+
 def swatch_mode(cfg: PipelineConfig, img: np.ndarray) -> None:
     """Threshold ±tolerance around each swatch, trying both channel orders and
     keeping the better-covered mask (02:82-109); each mask is opened and
@@ -263,8 +319,6 @@ def _run_device_init(cfg: PipelineConfig, names: List[str], k: int, fuse: bool, 
 
 def run(cfg: PipelineConfig) -> None:
     os.makedirs(cfg.output_dir, exist_ok=True)
-    if int(cfg.shard_rows or 0) > 0 or float(cfg.shard_auto_mpx or 0) > 0:
-        raise _not_ported("row sharding (shard_rows / shard_auto_mpx)", "Queue 1: multi-GPU")
     resized_path = os.path.join(cfg.output_dir, "resized.png")
     if cfg.extraction_mode.lower() == "swatch":
         swatch_mode(cfg, read_image(resized_path))
@@ -275,6 +329,13 @@ def run(cfg: PipelineConfig) -> None:
     names = list(cfg.color_names)
     k = cfg.resolve_cluster_k()
     fuse = {3, 4} <= chain_hint() and k == len(names)
+    if (int(cfg.shard_rows or 0) > 0 or float(cfg.shard_auto_mpx or 0) > 0) and (
+            cfg.kmeans_init.lower() == "device" or not fuse):
+        print(
+            "[shard] note: row sharding applies to the fused host-exact 02-04 "
+            f"chain; this run (kmeans_init={cfg.kmeans_init!r}, fused={fuse}) "
+            "uses the unsharded device programs"
+        )
     if cfg.kmeans_init.lower() == "device":
         return _run_device_init(cfg, names, k, fuse, resized_path)
 
@@ -307,12 +368,18 @@ def run(cfg: PipelineConfig) -> None:
         # stage 02 alone (resumed or partial runs): host only
         return _finish_kmeans(cfg, names, k, w, centers, counts0, lambda ci: masks8[ci], None)
 
+    shard_n = resolve_shard_n(cfg, h, w)
+    if shard_n > 1:
+        raise _not_ported(f"row sharding over {shard_n} cards", "Queue 1, Item 10")
+    if shard_n == 1:
+        print("[shard] raster chain row-sharded over 1 device(s): the unsharded chain, byte-identical")
     device = raster_device(cfg)
     packed_np = np.stack([np.packbits(m > 0, axis=-1) for m in masks8])
     w8 = (w + 7) // 8
     from ..parallel.batchrun import active_batcher  # noqa: PLC0415
 
-    batcher = active_batcher()  # a batch run's, which this image's fused chain call joins
+    # a batch run's, which this image's fused chain call joins unless sharding was asked for
+    batcher = active_batcher() if shard_n < 1 else None
 
     def chain():
         if batcher is not None:

@@ -3,10 +3,11 @@ equal to the originals.
 
 - No module of ``plotweave_torch`` (nor ``chip_smoke.py``) imports
   ``plotweave`` or ``jax``, at the top or inside a function (an AST scan).
-- Each copied module (``config.py``, ``utils/io.py``, ``vector/``, ``viz/``,
-  ``stream/``, ``stages/common.py``, stages 05–14, ``native/api.py`` and
-  ``encoder.cpp``) differs from its file under ``plotweave/``, read as text,
-  only by a listed set of lines.
+- Each copied module (``config.py``, ``utils/io.py``, ``utils/analysis.py``,
+  ``vector/``, ``viz/``, ``stream/``, ``stages/common.py``, stages 05–14,
+  ``native/api.py``, ``encoder.cpp``, ``tools/``, ``frontends/`` and
+  ``demo/``) differs from its file under ``plotweave/``, read as text, only
+  by a listed set of lines.
 - The port's stream encoder and decoder give the bytes and the statistics
   of ``plotweave.stream`` on seeded random programs.
 - The port's native library gives the results of ``plotweave.native.api``
@@ -57,15 +58,19 @@ COPIES = ['config.py', 'native/api.py', 'native/encoder.cpp', 'stages/common.py'
  'stages/s14_preview_stream.py', 'stream/__init__.py', 'stream/decoder.py', 'stream/emitter.py', 'stream/encoder.py',
  'stream/protocol.py', 'utils/io.py', 'vector/__init__.py', 'vector/dedup_cross.py', 'vector/dedup_intra.py',
  'vector/geometry.py', 'vector/planner.py', 'vector/scale.py', 'vector/sort.py', 'vector/trace.py', 'viz/__init__.py',
- 'viz/previews.py', 'viz/simulator.py', 'tools/analyze_colors.py', 'tools/palette.py', 'tools/process_colors.py']
+ 'viz/previews.py', 'viz/simulator.py', 'tools/analyze_colors.py', 'tools/palette.py', 'tools/process_colors.py',
+ 'frontends/__init__.py', 'frontends/gcode.py', 'frontends/svg.py', 'frontends/svg2gcode.py', 'frontends/svg2stream.py',
+ 'frontends/gcode2stream.py', 'frontends/gcode2svg.py', 'stream/manifest_creator.py', 'demo/__init__.py',
+ 'demo/generator.py', 'utils/analysis.py']
 
 # beyond the docstring's note, the only lines that may differ, "-" the original's and "+" the copy's: the
 # device planner and refiner behind their gates in ``vector/sort.py`` and ``vector/planner.py`` (K9 and K10 where
 # the caller names a CUDA device, the host on the CPU, no fallback), and stages 07 and 12 naming the device,
 # stage 08's fallback thinner on the port's Zhang-Suen, the tools' ``device`` argument and ``--raster-device`` flag
-# (their k-means runs on the card unless the caller asks for the CPU) and the palette's Lab through a tensor, and
-# comments that named a path or a file of the JAX package's workspace (an entry that ends in "…" stands for any
-# line that begins so)
+# (their k-means runs on the card unless the caller asks for the CPU) and the palette's Lab through a tensor, the
+# front-ends' sampling backend ``torch`` in place of ``jax`` (a ``BezierSampler`` as ``xp``: K14 on the card unless
+# ``--sampling-device cpu``) and the docstring lines that describe it, and comments that named a path or a file of
+# the JAX package's workspace (an entry that ends in "…" stands for any line that begins so)
 ALLOWED_DIFFERENCES = {'native/encoder.cpp': ["+// Copy of plotweave/native/encoder.cpp (the port's native library).",
                         '-// (gcode.py:99-132, itself pinned to …',
                         "+// (gcode.py:99-132, itself pinned to the reference's svg_to_stream/",
@@ -204,7 +209,53 @@ ALLOWED_DIFFERENCES = {'native/encoder.cpp': ["+// Copy of plotweave/native/enco
                              '+    add_raster_device_flag(ap)',
                              '-    pal = split_layers(args.image, args.out_dir, args.clusters, args.palette)',
                              '+    pal = split_layers(args.image, args.out_dir, args.clusters, args.palette, '
-                             'args.raster_device or "auto")']}
+                             'args.raster_device or "auto")'],
+ 'frontends/svg.py': ['-(and the byte-contract path); ``--sampling-backend jax`` on the svg2gcode /',
+                      '-svg2stream CLIs routes the matmuls through the default JAX device instead',
+                      '-(float32 on TPU — geometry may differ in final ulps, documented opt-in).',
+                      '+(and the byte-contract path); ``--sampling-backend torch`` on the svg2gcode /',
+                      '+svg2stream CLIs samples through ``ops.bezier.BezierSampler`` instead (kernel',
+                      '+K14 in float32 on the card — geometry may differ in final ulps, opt-in).',
+                      '-    ``xp=jax.numpy`` runs the matmul on the default JAX device in the',
+                      '-    backend\'s native dtype (float32 on TPU unless ``jax_enable_x64``)."""',
+                      '+    ``xp`` an ``ops.bezier.BezierSampler`` samples in float32 on its torch',
+                      '+    device (K14 on the card)."""',
+                      '+    if xp is not np:',
+                      '+        return xp.sample(ctrl, n)',
+                      '+    if xp is not np:',
+                      '+        return xp.sample(ctrl, n)',
+                      '-    # xp=jax.numpy routes the Bernstein matmuls through the device (opt-in,',
+                      "-    # --sampling-backend jax — see sample_cubics_batched's dtype note)",
+                      '+    # a BezierSampler as xp samples on its torch device (opt-in,',
+                      "+    # --sampling-backend torch — see sample_cubics_batched's dtype note)",
+                      '-    ``xp=jax.numpy`` runs the batched curve sampling on the default JAX',
+                      '-    device (opt-in; float32 on TPU, so sampled geometry may differ in the',
+                      '-    last ulps from the numpy float64 default — not part of the byte',
+                      '+    ``xp`` an ``ops.bezier.BezierSampler`` runs the batched curve sampling',
+                      '+    on its torch device (opt-in; float32, so sampled geometry may differ in',
+                      '+    the last ulps from the numpy float64 default — not part of the byte'],
+ 'frontends/svg2gcode.py': ['-        choices=["numpy", "jax"],',
+                            '+        choices=["numpy", "torch"],',
+                            '-        "or the default JAX device (float32 on TPU; last-ulp geometry "',
+                            '+        "or kernel K14 on --sampling-device (float32; last-ulp geometry "',
+                            '+    ap.add_argument("--sampling-device", choices=["auto", "cpu"], default="auto",',
+                            '+                    help="torch backend: auto = the CUDA card (raises without one); '
+                            'cpu = the plain version")',
+                            '+    sampling_device: str = "auto",',
+                            '-    if sampling_backend == "jax":',
+                            '-        import jax.numpy as xp  # noqa: PLC0415',
+                            '+    if sampling_backend == "torch":',
+                            '+        from ..ops.bezier import BezierSampler  # noqa: PLC0415',
+                            '+        xp = BezierSampler(sampling_device)',
+                            '+            sampling_device=args.sampling_device,'],
+ 'frontends/svg2stream.py': ['-    ap.add_argument("--sampling-backend", choices=["numpy", "jax"], '
+                             'default="numpy",',
+                             '+    ap.add_argument("--sampling-backend", choices=["numpy", "torch"], '
+                             'default="numpy",',
+                             '+    ap.add_argument("--sampling-device", choices=["auto", "cpu"], default="auto",',
+                             '+                    help="torch backend: auto = the CUDA card; cpu = the plain '
+                             'version")',
+                             '+        sampling_device=args.sampling_device,']}
 
 
 def _differing_lines(rel: str) -> list:

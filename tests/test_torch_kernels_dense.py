@@ -138,20 +138,22 @@ def test_build_one_library_per_source(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
     paths = kernels.build()
     assert set(paths) == {"bitpack", "edge_candidates", "bitboard_fixpoints", "morph_bits", "assign_nearest",
-                          "zs_dense", "kmeans", "morph_dense", "greedy_tour", "refine_tour"}
+                          "zs_dense", "kmeans", "morph_dense", "greedy_tour", "refine_tour", "area_resize",
+                          "bezier_sample"}
     assert all(p.exists() and p.parent == tmp_path / "build" for p in paths.values())
     calls = log.read_text().splitlines()
-    assert len(calls) == 10
+    assert len(calls) == 12
     for line in calls:
         assert "arch=compute_90a,code=sm_90a" in line
-        # every source that includes csrc/lab.cuh, and K9 and K10 (exact float orders), keep their multiply-adds apart
+        # every source that includes csrc/lab.cuh, and K9, K10, K13 and K14 (exact float orders), keep their
+        # multiply-adds apart
         assert ("--fmad=false" in line) == line.endswith(("assign_nearest.cu", "kmeans.cu", "greedy_tour.cu",
-                                                          "refine_tour.cu"))
+                                                          "refine_tour.cu", "area_resize.cu", "bezier_sample.cu"))
         name = line.split("/")[-1]
         if '#include "lab.cuh"' in (kernels.CSRC / name).read_text():
             assert "--fmad=false" in line
     assert kernels.build() == paths  # built once: no second nvcc
-    assert len(log.read_text().splitlines()) == 10
+    assert len(log.read_text().splitlines()) == 12
 
 
 def test_build_raises_when_nvcc_fails(tmp_path, monkeypatch):

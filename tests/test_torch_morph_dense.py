@@ -78,7 +78,7 @@ def test_morph_binary_packed_matches_jax_and_dense():
 def test_ops_package_exports_the_jax_packages_surface():
     import plotweave.ops as jax_ops
 
-    assert set(port_ops.__all__) == set(jax_ops.__all__) - {"area_resize", "resize_if_needed"}
+    assert set(port_ops.__all__) == set(jax_ops.__all__)
     for name in port_ops.__all__:
         assert callable(getattr(port_ops, name))
 

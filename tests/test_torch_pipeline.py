@@ -225,10 +225,13 @@ def test_auto_raster_device_raises_without_cuda(tmp_path, monkeypatch):
     [{"shard_rows": 2}, {"shard_auto_mpx": 0.01}],
     ids=["shard-rows", "shard-auto"],
 )
-def test_unported_modes_raise(tmp_path, override):
+def test_unported_modes_raise(tmp_path, monkeypatch, override):
+    """Row sharding runs on one device (``tests/test_torch_frontends.py``);
+    over more than one card it is not ported and raises."""
     from plotweave_torch.pipeline import run_pipeline
 
-    cfg = load_config(str(_write_cfg("base_cfg.json", tmp_path / "x", raster_device="cpu", **override)))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cfg = load_config(str(_write_cfg("base_cfg.json", tmp_path / "x", **override)))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run_pipeline(cfg, 1, 4)
 
@@ -344,7 +347,8 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
         "assert k.LAUNCHES == {'bitpack': 0, 'edge_candidates': 0, 'zhang_suen_packed': 0, "
         "'zhang_suen_packed_multi': 0, 'hysteresis': 0, 'hysteresis_multi': 0, 'morph_bits': 0, "
         "'assign_nearest': 0, 'zhang_suen_dense': 0, 'lab_sample': 0, 'kpp_init': 0, 'lloyd_fit': 0, "
-        "'assign_points': 0, 'morph_dense': 0, 'greedy_tour': 0, 'refine_tour': 0}\n"
+        "'assign_points': 0, 'morph_dense': 0, 'greedy_tour': 0, 'refine_tour': 0, 'area_resize_frac': 0, "
+        "'area_resize_int': 0, 'bezier_sample': 0}\n"
         "try:\n"
         "    k.build()\n"
         "except RuntimeError as e:\n"
