@@ -112,8 +112,10 @@ Phases:
    float coordinates against the host alone, every case twice (the host
    planner runs on four threads beside the card's work); K10 (the
    2-opt / relocate refiner) equal in perm, flips and moves to its plain
-   version at n = 3 to 8,192 (``max_moves`` 256 from 2,000 up), and one full
-   run at 8,192 on a greedy tour (its moves, time and travel);
+   version at n = 3 to 8,192 (``max_moves`` 256 from 2,000 up), one full
+   run at 8,192 on a greedy tour (its moves, time and travel), one CTA an
+   SM at 8,192 ops, and its microseconds an iteration at 600, 2,000 and
+   8,192 ops (CUDA events) beside its bound;
 13. the quality path: ``pipeline.main --preset quality`` on a seeded
    2000 x 1500 poster of 2,000 small discs and rings, steps 1-13, on the
    card: K9 launched once per layer over ``planner_device_min_n`` and K10
@@ -127,7 +129,7 @@ Phases:
    ``torch.profiler`` trace of each device call, in a fresh process, whose
    kernels are the port's own; K9's and K10's times at the largest gated
    layer beside the plain versions', the host C++ planner's and their
-   bounds; the phase's seconds, part by part;
+   bounds (K10's also an iteration); the phase's seconds, part by part;
 14. vector inputs and resize, its kernels run right after phase 2 (late in
    a long process the profiler there loses a trace's events):
    ``ops.resize_if_needed(img, 2000)`` on a 4032 x 3024 phone photo and a
@@ -1924,7 +1926,8 @@ REFINE_CAP = 256  # moves: the budget of the K10 vs plain checks at n >= 2,000
 QUALITY_OBJECTS = 2000  # discs and rings of the dot-field poster
 SFU_OPS = 132 * 16 * 1.98e9  # square roots a second: 16 a clock on each of 132 SMs
 K9_FLOPS_PER_POINT = 10  # two squared distances (2 differences, 2 squares, 1 add each)
-K10_FLOPS_PER_SQRT = 5  # the distance's differences, squares and sum (the deltas' adds ride along)
+K10_FLOPS_PER_DIST = 5  # a distance's differences, squares and sum
+K10_FLOPS_PER_CANDIDATE = 3  # a delta's three adds
 
 
 def tour_points(rng, n: int, ties: bool = True, integer: bool = True):
@@ -1973,19 +1976,108 @@ def k9_bound(n: int) -> dict:
 
 
 def k10_sqrts(n: int) -> int:
-    """Square roots of one K10 iteration over n ops: 2-opt two a pair but
-    for the last column, relocate four a pair but for the end slot (two)."""
-    return 2 * (n * (n + 1) // 2) - n + 4 * n * (n - 1) - 2 * (n - 1) + 2 * n
+    """The distinct distances, a square root each, that one iteration of the
+    refiner over n ops needs: every entry-exit pair (n^2), every unordered
+    exit-exit and entry-entry pair once (n(n - 1)/2 each; d is symmetric bit
+    for bit) and the start's 2n.  (K10 computes four a (row, column), about
+    twice this.)"""
+    return 2 * n * n + n
 
 
 def k10_bound(n: int, iterations: int) -> dict:
-    """K10's least time: its square roots at the SFU's rate, or their
-    float operations at the float32 rate, or its bytes, whichever is larger."""
+    """K10's least time: the distances its iterations need at the SFU's rate,
+    or their float operations and the candidates' adds (2-opt n(n + 1)/2,
+    each relocate family n(n - 1)) at the float32 rate, or its bytes (21 an
+    op), whichever is larger: the SFU's at every n."""
     sqrts = iterations * k10_sqrts(n)
+    flops = sqrts * K10_FLOPS_PER_DIST + iterations * K10_FLOPS_PER_CANDIDATE * (n * (n + 1) // 2 + 2 * n * (n - 1))
     out = bound(21 * n, sqrts, SFU_OPS)
-    if sqrts * K10_FLOPS_PER_SQRT / FP32_OPS * 1e3 > out["bound_ms"]:
-        out = bound(21 * n, sqrts * K10_FLOPS_PER_SQRT, FP32_OPS)
+    if flops / FP32_OPS * 1e3 > out["bound_ms"]:
+        out = bound(21 * n, flops, FP32_OPS)
     return out
+
+
+def k10_iterations(n: int, ms: float, moves: int) -> dict:
+    """K10's microseconds an iteration (``moves`` + 1 iterations in ``ms``),
+    its bound an iteration and its share of it."""
+    b = k10_bound(n, moves + 1)
+    return {"n": n, "moves": moves, "ms": ms, "us_per_iteration": ms * 1e3 / (moves + 1),
+            "bound_us_per_iteration": b["bound_ms"] * 1e3 / (moves + 1), "bound_by": b["bound_by"],
+            "share": b["bound_ms"] / ms}
+
+
+def k10_iterations_line(rows) -> str:
+    return "; ".join(f"n = {r['n']}: {r['ms']:.3f} ms a call, {r['moves']} moves, {r['us_per_iteration']:.2f} us an "
+                     f"iteration, bound {r['bound_us_per_iteration']:.2f} us ({r['bound_by']}), "
+                     f"{100 * r['share']:.1f} % of it" for r in rows)
+
+
+def refine_cases(stats: dict, rng) -> None:
+    """Phase 12's K10 part: K10 against its plain version at n = 3 to 8,192,
+    each twice bit-equal, one CTA an SM at 8,192 ops, one full run at 8,192
+    on a greedy tour, and its microseconds an iteration at 600, 2,000 and
+    8,192 ops (CUDA events) beside its bound."""
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.vector.refine_device import refine_order_plain
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = kernels.load("refine_tour").pw_refine_blocks(kernels.REFINE_MAX_N)
+    check(blocks == sms, f"K10: {blocks} CTAs of 8,192 ops fit the card, not one on each of its {sms} SMs")
+    t0 = time.perf_counter()
+    cases, timed_cases = [], {}
+    for n, kind in ((3, "int"), (4, "int"), (64, "int"), (600, "int"), (600, "float"), (2000, "greedy"),
+                    (2000, "float"), (kernels.REFINE_MAX_N, "greedy")):
+        s, e, closed = tour_points(rng, n, ties=kind != "float", integer=kind != "float")
+        if kind == "greedy":  # the tour stage 07's planner would give these ends
+            S, E, C = (torch.from_numpy(a).to(dev) for a in (s, e, closed))
+            order, flips = (t.cpu().numpy() for t in kernels.greedy_order_cuda(S, E, C, False, 0))
+            s, e = applied(s, e, order, flips)
+        Ed, Xd = torch.from_numpy(np.ascontiguousarray(s)).to(dev), torch.from_numpy(np.ascontiguousarray(e)).to(dev)
+        cap = REFINE_CAP if n >= 2000 else max(4096, 4 * n)
+        got = [t.cpu() for t in kernels.refine_order_cuda(Ed, Xd, (0.0, 0.0), cap)]
+        again = [t.cpu() for t in kernels.refine_order_cuda(Ed, Xd, (0.0, 0.0), cap)]
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K10 n={n} {kind}: two runs differ")
+        perm, flip, moves = refine_order_plain(Ed, Xd, torch.zeros(2, device=dev), cap)
+        check(torch.equal(got[0], perm.cpu()) and torch.equal(got[1], flip.cpu()) and int(got[2]) == moves,
+              f"K10 n={n} {kind} max_moves={cap}: {int(got[2])} moves, plain {moves}, or perm/flip differ")
+        cases.append(f"{n} {kind}: {moves} moves" + (" (capped)" if moves == cap else ""))
+        if (n, kind) in ((600, "int"), (2000, "greedy")):
+            timed_cases[n] = (Ed, Xd, cap, moves)
+    print(f"K10 == its plain version on the card (perm, flip and moves; max_moves {REFINE_CAP} at n >= 2,000), each "
+          f"twice bit-equal: {'; '.join(cases)} ({time.perf_counter() - t0:.1f} s); one CTA on each of the {sms} SMs "
+          f"at {kernels.REFINE_MAX_N} ops")
+
+    # one full run on a greedy tour of the largest size
+    n = kernels.REFINE_MAX_N
+    s, e, closed = tour_points(rng, n)
+    S, E, C = (torch.from_numpy(a).to(dev) for a in (s, e, closed))
+    order, flips = (t.cpu().numpy() for t in kernels.greedy_order_cuda(S, E, C, False, 0))
+    s, e = applied(s, e, order, flips)
+    Ed, Xd = torch.from_numpy(np.ascontiguousarray(s)).to(dev), torch.from_numpy(np.ascontiguousarray(e)).to(dev)
+    budget = max(4096, 4 * n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    perm, flip, moves = kernels.refine_order_cuda(Ed, Xd, (0.0, 0.0), budget)
+    moves = int(moves.item())
+    full_s = time.perf_counter() - t0
+    perm, flip = perm.cpu().numpy(), flip.cpu().numpy()
+    check(sorted(perm.tolist()) == list(range(n)), "K10 full run: perm is not a permutation")
+    before, after = tour_length64(s, e), tour_length64(*applied(s, e, perm, flip))
+    check(after <= before, f"K10 full run: the tour grew from {before:.1f} to {after:.1f}")
+    stats["K10 full"] = {"n": n, "moves": moves, "s": full_s, "before": before, "after": after,
+                         **k10_bound(n, moves + 1)}
+    print(f"K10 full run, n = {n} on a greedy tour, max_moves {budget}: {moves} moves in {full_s:.3f} s (host clock "
+          f"around one call), {full_s / (moves + 1) * 1e6:.1f} us an iteration; travel {before:.0f} -> {after:.0f} px "
+          f"(float64); bound {stats['K10 full']['bound_ms']:.2f} ms by {stats['K10 full']['bound_by']}")
+    timed_cases[n] = (Ed, Xd, budget, moves)
+    rows = [k10_iterations(n, cuda_ms(lambda: kernels.refine_order_cuda(Ed, Xd, (0.0, 0.0), cap), 1 if n > 2000 else 3),
+                           moves) for n, (Ed, Xd, cap, moves) in timed_cases.items()]
+    stats["K10 iterations"] = rows
+    print("K10 an iteration (CUDA events around whole calls): " + k10_iterations_line(rows))
 
 
 def phase_tour_kernels(stats: dict) -> None:
@@ -1997,7 +2089,6 @@ def phase_tour_kernels(stats: dict) -> None:
 
     from plotweave_torch.ops import kernels
     from plotweave_torch.vector.planner_device import greedy_order_plain
-    from plotweave_torch.vector.refine_device import refine_order_plain
     from plotweave_torch.vector.sort import _greedy_order_native
 
     dev = torch.device("cuda")
@@ -2046,49 +2137,7 @@ def phase_tour_kernels(stats: dict) -> None:
             n_k9 += 1
     k9_s = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    cases = []
-    for n, kind in ((3, "int"), (4, "int"), (64, "int"), (600, "int"), (600, "float"), (2000, "greedy"),
-                    (2000, "float"), (kernels.REFINE_MAX_N, "greedy")):
-        s, e, closed = tour_points(rng, n, ties=kind != "float", integer=kind != "float")
-        if kind == "greedy":  # the tour stage 07's planner would give these ends
-            S, E, C = (torch.from_numpy(a).to(dev) for a in (s, e, closed))
-            order, flips = (t.cpu().numpy() for t in kernels.greedy_order_cuda(S, E, C, False, 0))
-            s, e = applied(s, e, order, flips)
-        Ed, Xd = torch.from_numpy(np.ascontiguousarray(s)).to(dev), torch.from_numpy(np.ascontiguousarray(e)).to(dev)
-        cap = REFINE_CAP if n >= 2000 else max(4096, 4 * n)
-        got = [t.cpu() for t in kernels.refine_order_cuda(Ed, Xd, (0.0, 0.0), cap)]
-        again = [t.cpu() for t in kernels.refine_order_cuda(Ed, Xd, (0.0, 0.0), cap)]
-        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K10 n={n} {kind}: two runs differ")
-        perm, flip, moves = refine_order_plain(Ed, Xd, torch.zeros(2, device=dev), cap)
-        check(torch.equal(got[0], perm.cpu()) and torch.equal(got[1], flip.cpu()) and int(got[2]) == moves,
-              f"K10 n={n} {kind} max_moves={cap}: {int(got[2])} moves, plain {moves}, or perm/flip differ")
-        cases.append(f"{n} {kind}: {moves} moves" + (" (capped)" if moves == cap else ""))
-    print(f"K10 == its plain version on the card (perm, flip and moves; max_moves {REFINE_CAP} at n >= 2,000), each "
-          f"twice bit-equal: {'; '.join(cases)} ({time.perf_counter() - t0:.1f} s)")
-
-    # one full run on a greedy tour of the largest size
-    n = kernels.REFINE_MAX_N
-    s, e, closed = tour_points(rng, n)
-    S, E, C = (torch.from_numpy(a).to(dev) for a in (s, e, closed))
-    order, flips = (t.cpu().numpy() for t in kernels.greedy_order_cuda(S, E, C, False, 0))
-    s, e = applied(s, e, order, flips)
-    Ed, Xd = torch.from_numpy(np.ascontiguousarray(s)).to(dev), torch.from_numpy(np.ascontiguousarray(e)).to(dev)
-    budget = max(4096, 4 * n)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    perm, flip, moves = kernels.refine_order_cuda(Ed, Xd, (0.0, 0.0), budget)
-    moves = int(moves.item())
-    full_s = time.perf_counter() - t0
-    perm, flip = perm.cpu().numpy(), flip.cpu().numpy()
-    check(sorted(perm.tolist()) == list(range(n)), "K10 full run: perm is not a permutation")
-    before, after = tour_length64(s, e), tour_length64(*applied(s, e, perm, flip))
-    check(after <= before, f"K10 full run: the tour grew from {before:.1f} to {after:.1f}")
-    stats["K10 full"] = {"n": n, "moves": moves, "s": full_s, "before": before, "after": after,
-                         **k10_bound(n, moves + 1)}
-    print(f"K10 full run, n = {n} on a greedy tour, max_moves {budget}: {moves} moves in {full_s:.3f} s (host clock "
-          f"around one call), {full_s / (moves + 1) * 1e6:.1f} us an iteration; travel {before:.0f} -> {after:.0f} px "
-          f"(float64); bound {stats['K10 full']['bound_ms']:.2f} ms by {stats['K10 full']['bound_by']}")
+    refine_cases(stats, rng)
 
     t0 = time.perf_counter()
     for what, job, got in host_jobs:
@@ -2103,6 +2152,140 @@ def phase_tour_kernels(stats: dict) -> None:
           f"for the host planner's threads); microseconds a step (CUDA events): "
           + ", ".join(f"n = {k} {v:.3f}" for k, v in step_us.items()))
     stats["K9 steps"] = step_us
+
+
+K10_AB_SIZES = (600, 1214, 2000, 8192)  # ops: a short list, the quality poster's largest, phase 12's, the largest
+K10_PHASES = ("candidates", "CTA minima", "grid barrier", "grid minima", "move", "prologue")
+
+
+def k10_tours():
+    """(n, entries, exits, move budget) on the card for each of K10_AB_SIZES:
+    a seeded greedy tour (K9) and the full budget."""
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import kernels
+
+    rng, dev = np.random.default_rng(1214), torch.device("cuda")
+    for n in K10_AB_SIZES:
+        s, e, closed = tour_points(rng, n)
+        S, E, C = (torch.from_numpy(a).to(dev) for a in (s, e, closed))
+        order, flips = (t.cpu().numpy() for t in kernels.greedy_order_cuda(S, E, C, False, 0))
+        s, e = applied(s, e, order, flips)
+        yield (n, torch.from_numpy(np.ascontiguousarray(s)).to(dev), torch.from_numpy(np.ascontiguousarray(e)).to(dev),
+               max(4096, 4 * n))
+
+
+def k10_times() -> dict:
+    """K10 of the checkout that ``ROOT`` names, through that checkout's own
+    ``kernels.refine_order_cuda`` (whatever C interface lies behind it), on
+    :func:`k10_tours`: per size the moves, a digest of perm and flips, ms a
+    call (CUDA events around whole calls) and alone (``torch.profiler``).
+    Run after ``phase_probe``."""
+    import hashlib
+
+    from plotweave_torch.ops import kernels
+
+    out = {}
+    for n, Ed, Xd, budget in k10_tours():
+        def call(Ed=Ed, Xd=Xd, budget=budget):
+            return kernels.refine_order_cuda(Ed, Xd, (0.0, 0.0), budget)
+
+        perm, flip, moves = (t.cpu() for t in call())
+        digest = hashlib.sha256(perm.numpy().tobytes() + flip.numpy().tobytes()).hexdigest()
+        out[n] = {"moves": int(moves), "digest": digest, "ms": cuda_ms(call, 2 if n > 2000 else 10),
+                  "alone_ms": profiled_ms(call, "refine_tour", 2)}
+    return out
+
+
+def phase_k10_ab(other: str) -> dict:
+    """K10 of this checkout against the one at ``other`` (another commit's:
+    ``git archive <rev> | tar -x -C .checkout/other``), in turns other, this,
+    this, other, each in a process of its own that runs :func:`k10_times`
+    with ``ROOT`` set to its checkout: both must give the same moves, perm
+    and flips at every size; per size ms a call, alone, microseconds an
+    iteration, the bound and the share."""
+    runs = {"other": [], "this": []}
+    for key, root in (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)):
+        root = str(Path(root).resolve())
+        child = subprocess.run([sys.executable, "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import json; "
+                                f"from pathlib import Path; import chip_smoke as c; c.ROOT = Path({root!r}); "
+                                "c.phase_probe(); print(json.dumps(c.k10_times()))"],
+                               capture_output=True, text=True, timeout=900, cwd=root)
+        check(child.returncode == 0, f"K10 A/B: the run of {root} failed:\n{child.stdout[-3000:]}{child.stderr[-3000:]}")
+        runs[key].append(json.loads(child.stdout.splitlines()[-1]))
+    result = {}
+    for n in K10_AB_SIZES:
+        rows = {k: [r[str(n)] for r in v] for k, v in runs.items()}
+        seen = {(r["moves"], r["digest"]) for v in rows.values() for r in v}
+        check(len(seen) == 1, f"K10 A/B n={n}: the two checkouts differ (moves, digest): {sorted(seen)}")
+        moves = rows["this"][0]["moves"]
+        b = k10_bound(n, moves + 1)
+        row = {"n": n, "moves": moves, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+        for k, v in rows.items():
+            ms = [r["ms"] for r in v]
+            row[k] = {"ms": ms, "alone_ms": [r["alone_ms"] for r in v],
+                      "us_per_iteration": [m * 1e3 / (moves + 1) for m in ms], "share": [b["bound_ms"] / m for m in ms]}
+        result[n] = row
+        print(f"K10 A/B n = {n}, {moves} moves, bound {b['bound_ms']:.4f} ms ({b['bound_ms'] * 1e3 / (moves + 1):.3f} us "
+              f"an iteration, {b['bound_by']}): "
+              + "; ".join(f"{k} " + " / ".join(f"{m:.4f}" for m in row[k]["ms"]) + " ms a call ("
+                          + " / ".join(f"{u:.2f}" for u in row[k]["us_per_iteration"]) + " us an iteration, "
+                          + " / ".join(f"{100 * x:.1f}" for x in row[k]["share"]) + " % of the bound), alone "
+                          + " / ".join(f"{a:.4f}" if a else "not caught" for a in row[k]["alone_ms"]) + " ms"
+                          for k in ("other", "this")), flush=True)
+    print(json.dumps({"k10_ab": result}))
+    return result
+
+
+def phase_k10_phases() -> dict:
+    """CTA 0's clock64 cycles an iteration in each phase of K10's loop
+    (K10_PHASES; thread 0's view, the others wait at the barriers that end
+    each phase) on :func:`k10_tours`, from a build of ``csrc/refine_tour.cu``
+    with ``-DPW_REFINE_PHASES`` held bit-equal to the wrapper's.  Run after
+    ``phase_probe``."""
+    import ctypes
+
+    import torch
+
+    from plotweave_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    out_dir = Path(tempfile.mkdtemp(prefix="pw_k10_phases_"))
+    path = out_dir / "refine_tour_phases.so"
+    built = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS["refine_tour"], "-DPW_REFINE_PHASES", "-o", str(path),
+                            str(kernels.CSRC / "refine_tour.cu")], capture_output=True, text=True)
+    check(built.returncode == 0, f"K10 with -DPW_REFINE_PHASES did not build:\n{built.stdout}{built.stderr}")
+    for line in (built.stdout + built.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas refine_tour -DPW_REFINE_PHASES:", line.strip())
+    lib = ctypes.CDLL(str(path))
+    lib.pw_refine_tour.argtypes = kernels._SIGNATURES["refine_tour"]["pw_refine_tour"]
+    lib.pw_refine_blocks.argtypes = kernels._SIGNATURES["refine_tour"]["pw_refine_blocks"]
+    result = {}
+    for n, Ed, Xd, budget in k10_tours():
+        blocks = lib.pw_refine_blocks(n)
+        check(blocks > 0, f"K10 phases: no CTA fits ({blocks})")
+        partial = torch.empty(2 * 3 * blocks, dtype=torch.int64, device=dev)
+        perm, flip = torch.empty(n, dtype=torch.int32, device=dev), torch.empty(n, dtype=torch.uint8, device=dev)
+        moves = torch.empty(1, dtype=torch.int32, device=dev)
+        err = lib.pw_refine_tour(Ed.data_ptr(), Xd.data_ptr(), partial.data_ptr(), blocks, n, 0.0, 0.0, budget,
+                                 perm.data_ptr(), flip.data_ptr(), moves.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"K10 phases: launch failed ({err})")
+        want = kernels.refine_order_cuda(Ed, Xd, (0.0, 0.0), budget)
+        check(all(torch.equal(a.cpu(), b.cpu()) for a, b in zip((perm, flip.view(torch.bool), moves), want)),
+              f"K10 phases n={n}: the phases build differs from the wrapper's")
+        out = (ctypes.c_ulonglong * 7)()
+        check(lib.pw_refine_phases(out) == 0, "K10 phases: the phase cycles could not be read")
+        per = [out[i] / out[6] for i in range(6)]
+        result[n] = {"moves": int(moves.item()), **dict(zip(K10_PHASES, per))}
+        print(f"K10 phases n = {n}, {result[n]['moves']} moves, cycles an iteration (CTA 0, thread 0; {sum(per):.0f} "
+              "in all): " + ", ".join(f"{name} {c:.0f} ({100 * c / sum(per):.0f} %)" for name, c in zip(K10_PHASES, per)),
+              flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(json.dumps({"k10_phases": result}))
+    return result
 
 
 def dot_field(seed: int, h: int, w: int, count: int):
@@ -2307,6 +2490,11 @@ def phase_quality_path(work: Path, stats: dict) -> dict:
     stats["K10"] = {"max_abs_err": b10["max_abs_err"], "n": n10, "moves": moves,
                     "ms": cuda_ms(lambda: kernels.refine_order_cuda(b10["E"], b10["X"], (0.0, 0.0), budget), 3),
                     "plain_ms": b10["plain_ms"], **k10_bound(n10, moves + 1)}
+    it = k10_iterations(n10, stats["K10"]["ms"], moves)
+    stats["K10"]["us_per_iteration"] = it["us_per_iteration"]
+    stats["K10"]["bound_us_per_iteration"] = it["bound_us_per_iteration"]
+    print("K10 an iteration at the quality path's largest gated layer (CUDA events around whole calls): "
+          + k10_iterations_line([it]))
     k10_s = time.perf_counter() - t0
     # the traces and the times alone in a fresh process: late in a long one the profiler there has lost every event
     tours = work / "tours.npz"

@@ -58,8 +58,9 @@
   the XLA loop of ``_greedy_device_impl``.
 - K10 ``refine_order_cuda`` (``csrc/refine_tour.cu``): stage 12's 2-opt /
   relocate refiner, every iteration (all candidate moves, the best one, the
-  stop test, the move applied) in one cooperative launch; replaces the XLA
-  loop of ``_refine_impl``.
+  stop test, the move applied) in one cooperative launch, the tour resident
+  in every CTA's shared memory and one grid barrier an iteration; replaces
+  the XLA loop of ``_refine_impl``.
 - K13 ``area_resize_frac_cuda`` and ``area_resize_int_cuda``
   (``csrc/area_resize.cu``): the INTER_AREA downscale, one thread per output
   pixel and channel, bit-exact with cv2 (the fractional route through the
@@ -298,7 +299,7 @@ _SIGNATURES = {
                "pw_assign_points": [_P, _L, _P, _I, _P, _P]},
     "morph_dense": {"pw_morph_dense_run": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "greedy_tour": {"pw_greedy_tour": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]},
-    "refine_tour": {"pw_refine_tour": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P],
+    "refine_tour": {"pw_refine_tour": [_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P],
                     "pw_refine_blocks": [_I]},
     "area_resize": {"pw_area_resize_frac": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
                     "pw_area_resize_int": [_P, _P, _I, _I, _I, _I, _I, _I, _P]},
@@ -1169,20 +1170,14 @@ def refine_order_cuda(entries: torch.Tensor, exits: torch.Tensor, start, max_mov
         if blocks <= 0:
             _raise_on(lib, "refine_tour", -blocks)
             raise RuntimeError("refine_tour: no block of the kernel fits an SM")
-        # two tours (entries, exits, perm, flip), the moves gathered from one into the other: copies of the
-        # input (the kernel sets the identity perm), and scratch
-        tour = [(entries.clone(), exits.clone(), torch.empty(n, dtype=torch.int32, device=dev),
-                 torch.empty(n, dtype=torch.uint8, device=dev)),
-                (torch.empty_like(entries), torch.empty_like(exits), torch.empty(n, dtype=torch.int32, device=dev),
-                 torch.empty(n, dtype=torch.uint8, device=dev))]
-        partial = torch.empty(3 * blocks, dtype=torch.int64, device=dev)
+        # the tour lives in the CTAs' shared memory; scratch is the CTAs' partial minima, two slots by parity
+        partial = torch.empty(2 * 3 * blocks, dtype=torch.int64, device=dev)
         perm = torch.empty(n, dtype=torch.int32, device=dev)
         flip = torch.empty(n, dtype=torch.uint8, device=dev)
         moves = torch.empty(1, dtype=torch.int32, device=dev)
-        err = lib.pw_refine_tour(*(t.data_ptr() for t in tour[0]), *(t.data_ptr() for t in tour[1]),
-                                 partial.data_ptr(), blocks, n, float(start[0]), float(start[1]), int(max_moves),
-                                 perm.data_ptr(), flip.data_ptr(), moves.data_ptr(),
-                                 torch.cuda.current_stream().cuda_stream)
+        err = lib.pw_refine_tour(entries.data_ptr(), exits.data_ptr(), partial.data_ptr(), blocks, n,
+                                 float(start[0]), float(start[1]), int(max_moves), perm.data_ptr(), flip.data_ptr(),
+                                 moves.data_ptr(), torch.cuda.current_stream().cuda_stream)
         _count("refine_tour")
         _raise_on(lib, "refine_tour", err)
     return perm, flip.view(torch.bool), moves
