@@ -2288,6 +2288,158 @@ def phase_k10_phases() -> dict:
     return result
 
 
+K9_AB_SIZES = (4500, 9451, 13643, 13644, 65536)  # points: the gate, the quality poster's, the routes' old limits, the largest
+K9_PHASES = ("scan", "minima", "exchange", "move")
+
+
+def k9_tours():
+    """(n, starts, ends, closed, seed) on the card for each of K9_AB_SIZES:
+    seeded ``tour_points`` with ties, closed-aware."""
+    import numpy as np
+    import torch
+
+    rng, dev = np.random.default_rng(9451), torch.device("cuda")
+    for n in K9_AB_SIZES:
+        s, e, closed = tour_points(rng, n)
+        seed = int(rng.integers(0, n))
+        yield (n, *(torch.from_numpy(a).to(dev) for a in (s, e, closed)), seed)
+
+
+def k9_times() -> dict:
+    """K9 of the checkout that ``ROOT`` names, through that checkout's own
+    ``kernels.greedy_order_cuda`` on its own route, on :func:`k9_tours`: per
+    size a digest of order and flips, ms a call (CUDA events around whole
+    calls) and alone (``torch.profiler``).  Run after ``phase_probe``."""
+    import hashlib
+
+    from plotweave_torch.ops import kernels
+
+    out = {}
+    for n, S, E, C, seed in k9_tours():
+        def call(S=S, E=E, C=C, seed=seed):
+            return kernels.greedy_order_cuda(S, E, C, True, seed)
+
+        order, flips = (t.cpu() for t in call())
+        digest = hashlib.sha256(order.numpy().tobytes() + flips.numpy().tobytes()).hexdigest()
+        out[n] = {"route": kernels.greedy_route(n), "digest": digest, "ms": cuda_ms(call, 2 if n > 20000 else 5),
+                  "alone_ms": profiled_ms(call, "greedy_tour", 2)}
+    return out
+
+
+def phase_k9_ab(other: str) -> dict:
+    """K9 of this checkout against the one at ``other`` (another commit's:
+    ``git archive <rev> | tar -x -C .checkout/other``), in turns other, this,
+    this, other, each in a process of its own that runs :func:`k9_times`
+    with ``ROOT`` set to its checkout: both must give the same order and
+    flips at every size; per size ms a call, alone, microseconds a step, the
+    share of ``k9_bound`` and of this checkout's measured chain floor (from
+    :func:`phase_k9_phases`, when it ran before in this process)."""
+    runs = {"other": [], "this": []}
+    for key, root in (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)):
+        root = str(Path(root).resolve())
+        child = subprocess.run([sys.executable, "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import json; "
+                                f"from pathlib import Path; import chip_smoke as c; c.ROOT = Path({root!r}); "
+                                "c.phase_probe(); print(json.dumps(c.k9_times()))"],
+                               capture_output=True, text=True, timeout=900, cwd=root)
+        check(child.returncode == 0, f"K9 A/B: the run of {root} failed:\n{child.stdout[-3000:]}{child.stderr[-3000:]}")
+        runs[key].append(json.loads(child.stdout.splitlines()[-1]))
+    result = {}
+    for n in K9_AB_SIZES:
+        rows = {k: [r[str(n)] for r in v] for k, v in runs.items()}
+        seen = {r["digest"] for v in rows.values() for r in v}
+        check(len(seen) == 1, f"K9 A/B n={n}: the two checkouts differ in order or flips: {sorted(seen)}")
+        b = k9_bound(n)
+        floor = K9_FLOOR.get((n, rows["this"][0]["route"]))
+        row = {"n": n, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "floor_ms": floor}
+        for k, v in rows.items():
+            ms = [r["ms"] for r in v]
+            row[k] = {"route": v[0]["route"], "ms": ms, "alone_ms": [r["alone_ms"] for r in v],
+                      "us_per_step": [m * 1e3 / (n - 1) for m in ms], "share": [b["bound_ms"] / m for m in ms],
+                      "floor_share": [floor / m for m in ms] if floor else None}
+        result[n] = row
+        print(f"K9 A/B n = {n}, bound {b['bound_ms']:.5f} ms ({b['bound_by']}), chain floor "
+              + (f"{floor:.4f} ms ({floor * 1e3 / (n - 1):.3f} us a step)" if floor else "not measured") + ": "
+              + "; ".join(f"{k} ({row[k]['route']}) " + " / ".join(f"{m:.4f}" for m in row[k]["ms"]) + " ms a call ("
+                          + " / ".join(f"{u:.3f}" for u in row[k]["us_per_step"]) + " us a step, "
+                          + " / ".join(f"{100 * x:.3f}" for x in row[k]["share"]) + " % of the bound"
+                          + (", " + " / ".join(f"{100 * x:.1f}" for x in row[k]["floor_share"]) + " % of the floor"
+                             if floor else "") + "), alone "
+                          + " / ".join(f"{a:.4f}" if a else "not caught" for a in row[k]["alone_ms"]) + " ms"
+                          for k in ("other", "this")), flush=True)
+    print(json.dumps({"k9_ab": result}))
+    return result
+
+
+K9_FLOOR: dict = {}  # (n, route) -> ms a call with the scan removed, set by phase_k9_phases
+
+
+def phase_k9_phases() -> dict:
+    """CTA 0's clock64 cycles a step in each phase of K9's loop (K9_PHASES;
+    thread 0's view, the others wait at the barriers that end each phase) on
+    :func:`k9_tours`, on each route where the size fits, from a build of
+    ``csrc/greedy_tour.cu`` with ``-DPW_GREEDY_PHASES`` held bit-equal to the
+    wrapper's; and the chain floor: the same launch with the scan removed
+    (every thread offers a fixed key), n - 1 steps of minima, exchange and
+    move, timed by CUDA events.  Run after ``phase_probe``."""
+    import ctypes
+
+    import torch
+
+    from plotweave_torch.ops import kernels
+
+    out_dir = Path(tempfile.mkdtemp(prefix="pw_k9_phases_"))
+    path = out_dir / "greedy_tour_phases.so"
+    built = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS["greedy_tour"], "-DPW_GREEDY_PHASES", "-o", str(path),
+                            str(kernels.CSRC / "greedy_tour.cu")], capture_output=True, text=True)
+    check(built.returncode == 0, f"K9 with -DPW_GREEDY_PHASES did not build:\n{built.stdout}{built.stderr}")
+    for line in (built.stdout + built.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas greedy_tour -DPW_GREEDY_PHASES:", line.strip())
+    lib = ctypes.CDLL(str(path))
+    lib.pw_greedy_tour.argtypes = kernels._SIGNATURES["greedy_tour"]["pw_greedy_tour"]
+    lib.pw_greedy_set_floor.argtypes = [ctypes.c_int]
+    result = {}
+    for n, S, E, C, seed in k9_tours():
+        for route in kernels.GREEDY_ROUTES:
+            if route == "cta" and n > kernels.GREEDY_CTA_MAX_N:
+                continue
+            order = torch.empty(n, dtype=torch.int32, device=S.device)
+            flips = torch.empty(n, dtype=torch.uint8, device=S.device)
+
+            def launch():
+                err = lib.pw_greedy_tour(S.data_ptr(), E.data_ptr(), C.data_ptr(), n, 1, seed,
+                                         1 if route == "cta" else kernels.GREEDY_CLUSTER, order.data_ptr(),
+                                         flips.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                check(err == 0, f"K9 phases: launch failed ({err})")
+
+            check(lib.pw_greedy_set_floor(0) == 0, "K9 phases: the floor switch could not be set")
+            launch()
+            want = kernels.greedy_order_cuda(S, E, C, True, seed, route=route)
+            check(torch.equal(order, want[0]) and torch.equal(flips.view(torch.bool), want[1]),
+                  f"K9 phases n={n} {route}: the phases build differs from the wrapper's")
+            cyc = (ctypes.c_ulonglong * 5)()
+            check(lib.pw_greedy_phases(cyc) == 0, "K9 phases: the phase cycles could not be read")
+            per = [cyc[i] / cyc[4] for i in range(4)]
+            ms = cuda_ms(lambda: kernels.greedy_order_cuda(S, E, C, True, seed, route=route), 2)
+            check(lib.pw_greedy_set_floor(1) == 0, "K9 phases: the floor switch could not be set")
+            floor_ms = cuda_ms(launch, 2)
+            check(lib.pw_greedy_phases(cyc) == 0, "K9 phases: the phase cycles could not be read")
+            floor = [cyc[i] / cyc[4] for i in range(4)]
+            check(lib.pw_greedy_set_floor(0) == 0, "K9 phases: the floor switch could not be set")
+            K9_FLOOR[(n, route)] = floor_ms
+            result[f"{n} {route}"] = {"cycles": dict(zip(K9_PHASES, per)), "ms": ms, "us_per_step": ms * 1e3 / (n - 1),
+                                      "floor_cycles": dict(zip(K9_PHASES, floor)), "floor_ms": floor_ms,
+                                      "floor_us_per_step": floor_ms * 1e3 / (n - 1)}
+            print(f"K9 phases n = {n} {route}: {ms * 1e3 / (n - 1):.3f} us a step (CUDA events), cycles a step (CTA 0, "
+                  f"thread 0; {sum(per):.0f} in all): "
+                  + ", ".join(f"{k} {c:.0f} ({100 * c / sum(per):.0f} %)" for k, c in zip(K9_PHASES, per))
+                  + f"; chain floor (no scan) {floor_ms * 1e3 / (n - 1):.3f} us a step, cycles "
+                  + ", ".join(f"{k} {c:.0f}" for k, c in zip(K9_PHASES, floor)), flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(json.dumps({"k9_phases": result}))
+    return result
+
+
 def dot_field(seed: int, h: int, w: int, count: int):
     """A seeded BGR poster of about ``count`` small discs and rings in the
     three darker poster tones on the lightest, on a jittered grid, with mild

@@ -68,6 +68,23 @@ __device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
   return v;
 }
 
+#ifdef PW_GREEDY_PHASES
+// CTA 0's thread 0: the clock64 cycles of each phase of a step (scan, warp and
+// CTA minima, the cluster's exchange, the move) summed over the steps, then
+// the step count; with phase_floor set every thread offers a fixed key in
+// place of its scan, which times the chain of a step without the scan
+__device__ unsigned long long phase_cycles[5];
+__device__ int phase_floor;
+#define PHASE(k)                                                  \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {                      \
+    const unsigned long long now = clock64();                     \
+    cycles[k] += now - stamp;                                     \
+    stamp = now;                                                  \
+  }
+#else
+#define PHASE(k)
+#endif
+
 __device__ __forceinline__ float d2(float2 p, float2 c) {
   const float dx = __fsub_rn(p.x, c.x), dy = __fsub_rn(p.y, c.y);
   return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
@@ -105,9 +122,18 @@ __global__ void __launch_bounds__(kThreads)
     flips[0] = 0;
   }
 
+#ifdef PW_GREEDY_PHASES
+  unsigned long long cycles[4] = {0, 0, 0, 0}, stamp = clock64();
+  const bool no_scan = phase_floor != 0;
+#endif
   for (int step = 1; step < n; ++step) {
     const int buf = step & 1;
     unsigned long long best = kNone;
+#ifdef PW_GREEDY_PHASES
+    if (no_scan) {
+      if (tid < cnt) best = (unsigned long long)((unsigned)(base + tid) << 2);
+    } else
+#endif
     for (int l = tid; l < cnt; l += kThreads) {
       const uint8_t f = s_flag[l];
       if (f & 2) continue;
@@ -118,10 +144,12 @@ __global__ void __launch_bounds__(kThreads)
       const unsigned long long key = ((unsigned long long)__float_as_uint(prefer_start ? d2s : d2e) << 32) | low;
       best = key < best ? key : best;
     }
+    PHASE(0)
     best = warp_min(best);
     if (lane == 0) warp_best[buf][warp] = best;
     __syncthreads();
     best = warp_min(lane < kWarps ? warp_best[buf][lane] : kNone);
+    PHASE(1)
 
     float2 next;
     if constexpr (kCl == 1) {
@@ -147,6 +175,7 @@ __global__ void __launch_bounds__(kThreads)
       next.x = __shfl_sync(0xffffffffu, s.x, from);
       next.y = __shfl_sync(0xffffffffu, s.y, from);
     }
+    PHASE(2)
 
     const int idx = (int)((unsigned)best >> 2);
     const int l = idx - base;
@@ -156,7 +185,14 @@ __global__ void __launch_bounds__(kThreads)
       flips[step] = (uint8_t)((best >> 1) & 1ull);
     }
     cur = next;
+    PHASE(3)
   }
+#ifdef PW_GREEDY_PHASES
+  if (blockIdx.x == 0 && tid == 0) {
+    for (int k = 0; k < 4; ++k) phase_cycles[k] = cycles[k];
+    phase_cycles[4] = n - 1;
+  }
+#endif
   if constexpr (kCl > 1) cg::this_cluster().sync();  // no CTA leaves while a peer may read its slots
 }
 
@@ -203,6 +239,16 @@ int pw_greedy_tour(const float* starts, const float* ends, const uint8_t* closed
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+#ifdef PW_GREEDY_PHASES
+// the last launch's phase cycles (PHASE), 5 values
+int pw_greedy_phases(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, phase_cycles, sizeof(phase_cycles));
+}
+
+// whether the next launches offer a fixed key in place of the scan
+int pw_greedy_set_floor(int on) { return (int)cudaMemcpyToSymbol(phase_floor, &on, sizeof(on)); }
+#endif
 
 const char* pw_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
