@@ -12,34 +12,69 @@
 // Exactness.  The order and the flips equal the host planner's
 // (native/encoder.cpp pw_greedy_order, built with -ffp-contract=off) bit for
 // bit: every product and sum is rounded on its own (__fmul_rn, __fadd_rn, and
-// the library is compiled with --fmad=false), and the candidates are reduced
-// as 64-bit keys (d2's bits, then the index): d2 >= 0, so its bit pattern
-// orders as the float does, and the least key is the first minimum, which is
-// what the host's ascending strict-< scan and jnp.argmin both pick.  The two
-// low bits of a key carry the flip and whether the pen ends at the start.
+// the library is compiled with --fmad=false).  A candidate's value is
+// min(d2s, d2e), which is d2s when d2s <= d2e and d2e otherwise; a closed
+// contour (closed_aware) is held with its end set to its start, so its value
+// is d2s, it is never flipped and the pen stays at its start.  Candidates
+// compare as pairs (d2's bits, then a low word that orders as the contour's
+// index): d2 >= 0, so its bits order as the float does, and the least pair
+// is the first minimum, which is what the host's ascending strict-< scan and
+// jnp.argmin both pick, whatever order the points are scanned in.  (Finite
+// coordinates: a NaN d2 is ordered by its bits, not as the host does.)
 //
 // Design.  One persistent launch for the whole tour; the host reads nothing
-// until it ends.  The points (start, end: 16 bytes) and a flag byte (joins at
-// its start; used) live in shared memory, 17 bytes a point.
-// - Up to GREEDY_CTA_MAX_N points (ops/kernels.py), one CTA of 512 threads:
-//   each step is a scan of the thread's points, a warp reduction by shuffles,
-//   one __syncthreads() and a second warp reduction of the 16 warp minima
-//   (every warp takes it, so nothing is broadcast).
+// until it ends.  1,024 threads a CTA.
+// - Each thread keeps its own points, the unused ones only, compacted in
+//   shared memory: its k-th point at slot k * 1024 + tid, (start, end) as a
+//   float4 and a meta word (local index << 16 | k << 1); 20 bytes a point.
+//   A step scans only the thread's live points, with no test of a used flag.
+//   When the winner is one of its own, the thread moves its last live point
+//   into the winner's slot and shortens its count; only the owner reads or
+//   writes its list, so that needs no barrier.  Each thread starts with the
+//   points of local index tid, tid + 1024, ..., the seed left out.
+// - A thread keeps its least (d2 bits, meta) pair.  A warp takes its least
+//   pair with two redux.sync (the least d2 bits, then the least low word
+//   among the lanes that hold them), and the lane that holds it reads its
+//   point once more, works out whether it is flipped (d2e < d2s) and where
+//   the pen goes if it wins, and writes the warp's slot: the pair with the
+//   flip in bit 0, and that point.  One __syncthreads(), then the CTA's
+//   least pair over the 32 warp slots the same way; the winning warp is
+//   known from the index (its owner thread is the local index mod 1024).
+// - Up to GREEDY_CTA_MAX_N points (ops/kernels.py) one CTA holds the tour,
+//   and every warp reduces the warp slots itself, so nothing is broadcast.
 // - Above that, up to 65,536, a thread block cluster of 16 CTAs, each holding
-//   n / 16 points (70 KB at 65,536).  Each CTA reduces as above, publishes its
-//   minimum and the pen's next position in a slot, and after one
-//   cluster.sync() every warp reads the 16 slots through distributed shared
-//   memory and reduces them the same way.
-// The per-step slots are double-buffered, which makes one barrier per step
-// (two in the cluster) enough.  A contour's used flag is written only by the
-// thread that scans it, so the flags need no barrier of their own.
+//   n / 16 points (82 KB at 65,536).  Warp 0 of each CTA reduces its warp
+//   slots and its lanes 0-15 push the CTA's slot (the pair, the low word now
+//   global index << 5 | rank << 1 | flip, and the pen's next point: 16 bytes)
+//   into every peer's shared memory (st.shared::cluster), each then arriving
+//   on that peer's mbarrier with release at cluster scope.  Every thread
+//   waits only on its own CTA's mbarrier (acquire at cluster scope) and
+//   reduces the 16 slots; no cluster barrier in the loop.  The winner's rank
+//   is in its low word, so the pen's next point is one shuffle away.
+// - Two sets of warp slots, received slots and mbarriers, by the step's
+//   parity.  A CTA writes step s + 2's slot into a peer only after it has
+//   passed step s + 1's wait, which needs the peer's push of step s + 1, and
+//   the peer's warp 0 pushes that only after its __syncthreads() of step
+//   s + 1, which each of its warps reaches only after reading step s's
+//   slots: so no slot is written while it may still be read, and no arrival
+//   lands in a phase that has not completed.  Likewise a warp slot of step
+//   s is written again at step s + 2, after the __syncthreads() of step
+//   s + 1.  One cluster.sync() before the loop (the mbarriers are set up
+//   before any peer arrives) and one before exit (no CTA leaves while a peer
+//   may still write to it).
 //
-// Bound.  n - 1 dependent steps of a scan over the unused points: the
-// operations (8 float operations a point and step, about 4 n^2 in all) are
-// small next to the barriers, so the floor is n barriers (one __syncthreads,
-// or a cluster.sync, plus the shuffles' latency), about a microsecond a step.
-// chip_smoke.py's bound (bytes and operations at the card's peaks) is far
-// below that floor; PERF.md has both beside the measured times.
+// Bound.  n - 1 dependent steps; step s scans the n - s unused points, about
+// 20 instructions and 20 bytes of shared memory a point, n^2 / 2 point-steps
+// in all.  chip_smoke.py's bound (bytes and float operations at the card's
+// peaks) is far below the chain of a step: a scan of a few points a thread,
+// two warp reductions, a barrier (one CTA) or a push and a wait across the
+// cluster, each some hundreds of cycles.  phase_k9_phases measures that
+// chain alone (the scan removed); PERF.md has both beside the measured times.
+// Prediction (before its first run on the card; the earlier design measured
+// 2.43 us a step at 9,451 points on one CTA, 3.68 at 65,536 on the cluster,
+// and a chain of 0.54 and 3.14 us a step): 0.55-0.8 us a step at 9,451 on
+// one CTA, 0.7-1.0 at 65,536 on the cluster, chains of 0.25-0.35 and
+// 0.45-0.75 us a step, the cluster faster than one CTA from 7,000-9,000.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -49,30 +84,23 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCluster = 16;  // CTAs of the cluster route (a non-portable cluster size)
-constexpr unsigned long long kNone = ~0ull;
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;  // 32: one warp slot a lane
+constexpr int kCluster = 16;           // CTAs of the cluster route (a non-portable cluster size)
+constexpr unsigned kNone = ~0u;
+constexpr unsigned kPosMask = 0x7fffu;  // meta bits 1-15: the slot row k; 16-31: the local index
 
-struct Slot {
-  unsigned long long key;
-  float x, y;  // where the pen goes if this key wins
+// a warp's or a CTA's candidate: the pair (d2 bits, low word) and where the pen goes if it wins
+struct __align__(16) Slot {
+  unsigned hi, lo;
+  float x, y;
 };
-
-__device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = o < v ? o : v;
-  }
-  return v;
-}
 
 #ifdef PW_GREEDY_PHASES
 // CTA 0's thread 0: the clock64 cycles of each phase of a step (scan, warp and
 // CTA minima, the cluster's exchange, the move) summed over the steps, then
-// the step count; with phase_floor set every thread offers a fixed key in
-// place of its scan, which times the chain of a step without the scan
+// the step count; with phase_floor set every thread offers its first live
+// point in place of its scan, which times the chain of a step without the scan
 __device__ unsigned long long phase_cycles[5];
 __device__ int phase_floor;
 #define PHASE(k)                                                  \
@@ -85,41 +113,89 @@ __device__ int phase_floor;
 #define PHASE(k)
 #endif
 
-__device__ __forceinline__ float d2(float2 p, float2 c) {
-  const float dx = __fsub_rn(p.x, c.x), dy = __fsub_rn(p.y, c.y);
+__device__ __forceinline__ float d2(float px, float py, float2 c) {
+  const float dx = __fsub_rn(px, c.x), dy = __fsub_rn(py, c.y);
   return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
 }
 
-// kCl CTAs (1, or kCluster as one cluster); CTA r holds points [r chunk,
-// min(n, (r + 1) chunk)).  flags: bit 0 the contour joins at its start (closed
-// and closed_aware), bit 1 used.
+// the least (hi, lo) pair of the warp, in every lane: the least hi, then the least lo beside it
+__device__ __forceinline__ void warp_min(unsigned& hi, unsigned& lo) {
+  const unsigned h = __reduce_min_sync(0xffffffffu, hi);
+  lo = __reduce_min_sync(0xffffffffu, hi == h ? lo : kNone);
+  hi = h;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+// the same shared-memory address in the CTA of cluster rank `rank`
+__device__ __forceinline__ unsigned peer_addr(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// write a slot into a peer's shared memory, then arrive on its mbarrier: the release orders the store before it
+__device__ __forceinline__ void push(unsigned slot, unsigned bar, const Slot& s) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(slot), "r"(s.hi), "r"(s.lo),
+               "r"(__float_as_uint(s.x)), "r"(__float_as_uint(s.y))
+               : "memory");
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` of this CTA's mbarrier has completed (acquire at cluster scope)
+__device__ __forceinline__ void wait_parity(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// kCl CTAs (1, or kCluster as one cluster); CTA r holds the points of local
+// index l, global index r chunk + l, l < min(chunk, n - r chunk)
 template <int kCl>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     greedy_tour(const float2* __restrict__ starts, const float2* __restrict__ ends, const uint8_t* __restrict__ closed,
                 int n, int chunk, int closed_aware, int seed, int32_t* __restrict__ order, uint8_t* __restrict__ flips) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float2* s_start = reinterpret_cast<float2*>(smem);
-  float2* s_end = s_start + chunk;
-  uint8_t* s_flag = reinterpret_cast<uint8_t*>(s_end + chunk);
-  __shared__ unsigned long long warp_best[2][kWarps];
-  __shared__ Slot cta_best[2];
+  float4* L = reinterpret_cast<float4*>(smem);            // (start, end) of thread t's k-th live point at k kThreads + t
+  unsigned* M = reinterpret_cast<unsigned*>(L + chunk);  // its meta word at the same slot
+  __shared__ Slot warp_slot[2][kWarps];
+  __shared__ Slot recv[2][kCl];                // the cluster's CTA slots of a step, each pushed by its CTA
+  __shared__ unsigned long long bar[2];        // the arrivals on recv, 16 a phase
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int rank = 0;
-  if constexpr (kCl > 1) rank = (int)cg::this_cluster().block_rank();
-  const int base = rank * chunk;
+  unsigned rank = 0;
+  if constexpr (kCl > 1) rank = cg::this_cluster().block_rank();
+  const int base = (int)rank * chunk;
   const int cnt = max(0, min(chunk, n - base));
-  // each thread loads the points it scans, so no barrier is needed before its first scan
+  // each thread loads its own list, so no barrier is needed before its first scan
+  int live = 0;
   for (int l = tid; l < cnt; l += kThreads) {
     const int i = base + l;
-    s_start[l] = starts[i];
-    s_end[l] = ends[i];
-    s_flag[l] = (uint8_t)(((closed_aware && closed[i]) ? 1 : 0) | (i == seed ? 2 : 0));
+    if (i == seed) continue;
+    const float2 s = starts[i];
+    const float2 e = (closed_aware && closed[i]) ? s : ends[i];  // a closed contour joins and leaves at its start
+    L[live * kThreads + tid] = make_float4(s.x, s.y, e.x, e.y);
+    M[live * kThreads + tid] = ((unsigned)l << 16) | ((unsigned)live << 1);
+    ++live;
   }
   float2 cur = (closed_aware && closed[seed]) ? starts[seed] : ends[seed];
   if (rank == 0 && tid == 0) {
     order[0] = seed;
     flips[0] = 0;
+  }
+  if constexpr (kCl > 1) {
+    if (tid == 0) {
+      for (int b = 0; b < 2; ++b)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(&bar[b])), "r"(kCl) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    cg::this_cluster().sync();  // every CTA's mbarriers are set before any peer arrives on them
   }
 
 #ifdef PW_GREEDY_PHASES
@@ -128,61 +204,93 @@ __global__ void __launch_bounds__(kThreads)
 #endif
   for (int step = 1; step < n; ++step) {
     const int buf = step & 1;
-    unsigned long long best = kNone;
+    // ---- the thread's least (d2 bits, meta) over its live points
+    unsigned long long best = ~0ull;
 #ifdef PW_GREEDY_PHASES
     if (no_scan) {
-      if (tid < cnt) best = (unsigned long long)((unsigned)(base + tid) << 2);
+      if (live > 0) best = M[tid];
     } else
 #endif
-    for (int l = tid; l < cnt; l += kThreads) {
-      const uint8_t f = s_flag[l];
-      if (f & 2) continue;
-      const float d2s = d2(s_start[l], cur), d2e = d2(s_end[l], cur);
-      const bool prefer_start = (f & 1) || d2s <= d2e;
-      // low bits: bit 1 flip (an open contour entered at its end), bit 0 the pen ends at the start
-      const unsigned low = ((unsigned)(base + l) << 2) | (prefer_start ? 0u : 2u) | ((f & 1) || !prefer_start ? 1u : 0u);
-      const unsigned long long key = ((unsigned long long)__float_as_uint(prefer_start ? d2s : d2e) << 32) | low;
-      best = key < best ? key : best;
+    {
+#pragma unroll 4
+      for (int k = 0; k < live; ++k) {
+        const float4 p = L[k * kThreads + tid];
+        const unsigned long long key =
+            ((unsigned long long)__float_as_uint(fminf(d2(p.x, p.y, cur), d2(p.z, p.w, cur))) << 32) |
+            M[k * kThreads + tid];
+        best = key < best ? key : best;
+      }
     }
     PHASE(0)
-    best = warp_min(best);
-    if (lane == 0) warp_best[buf][warp] = best;
+    // ---- warp and CTA minima; the lane that holds its warp's least pair writes the warp's slot, with the flip and
+    // where the pen goes if it wins (its start when it is entered at its end)
+    unsigned hi = (unsigned)(best >> 32), lo = (unsigned)best;
+    warp_min(hi, lo);
+    if ((unsigned)(best >> 32) == hi && (unsigned)best == lo && (lo != kNone || lane == 0)) {
+      Slot w = {hi, lo, 0.0f, 0.0f};
+      if (lo != kNone) {
+        const float4 p = L[((lo >> 1) & kPosMask) * kThreads + tid];
+        const bool flip = d2(p.z, p.w, cur) < d2(p.x, p.y, cur);
+        w.lo |= flip ? 1u : 0u;
+        w.x = flip ? p.x : p.z;
+        w.y = flip ? p.y : p.w;
+      }
+      warp_slot[buf][warp] = w;
+    }
     __syncthreads();
-    best = warp_min(lane < kWarps ? warp_best[buf][lane] : kNone);
-    PHASE(1)
 
+    unsigned idx, flip;
     float2 next;
     if constexpr (kCl == 1) {
-      const int l = (int)((unsigned)best >> 2);
-      next = (best & 1ull) ? s_start[l] : s_end[l];
+      const uint2 k = *reinterpret_cast<const uint2*>(&warp_slot[buf][lane]);
+      hi = k.x;
+      lo = k.y;
+      warp_min(hi, lo);
+      idx = lo >> 16;
+      flip = lo & 1u;
+      const Slot& w = warp_slot[buf][(idx % kThreads) >> 5];  // the winner's owner's warp
+      next = make_float2(w.x, w.y);
+      PHASE(1)
+      PHASE(2)
     } else {
-      cg::cluster_group cluster = cg::this_cluster();
-      if (tid == 0) {
-        Slot s = {best, 0.0f, 0.0f};
-        if (best != kNone) {  // a CTA whose points are all used publishes kNone
-          const int l = (int)((unsigned)best >> 2) - base;
-          const float2 p = (best & 1ull) ? s_start[l] : s_end[l];
-          s.x = p.x;
-          s.y = p.y;
-        }
-        cta_best[buf] = s;
+      if (warp == 0) {
+        const Slot s = warp_slot[buf][lane];
+        hi = s.hi;
+        lo = s.lo;
+        warp_min(hi, lo);
+        const int from = (int)(((lo >> 16) % kThreads) >> 5);
+        Slot c = {hi, kNone, __shfl_sync(0xffffffffu, s.x, from), __shfl_sync(0xffffffffu, s.y, from)};
+        if (lo != kNone) c.lo = ((unsigned)(base + (int)(lo >> 16)) << 5) | (rank << 1) | (lo & 1u);
+        PHASE(1)
+        if (lane < kCl) push(peer_addr(smem_u32(&recv[buf][rank]), lane), peer_addr(smem_u32(&bar[buf]), lane), c);
       }
-      cluster.sync();
-      Slot s = {kNone, 0.0f, 0.0f};
-      if (lane < kCl) s = *cluster.map_shared_rank(&cta_best[buf], lane);
-      best = warp_min(s.key);
-      const int from = __ffs((int)__ballot_sync(0xffffffffu, s.key == best)) - 1;
-      next.x = __shfl_sync(0xffffffffu, s.x, from);
-      next.y = __shfl_sync(0xffffffffu, s.y, from);
+      wait_parity(smem_u32(&bar[buf]), (unsigned)((step - 1) >> 1) & 1u);
+      Slot r = {kNone, kNone, 0.0f, 0.0f};
+      if (lane < kCl) r = recv[buf][lane];
+      hi = r.hi;
+      lo = r.lo;
+      warp_min(hi, lo);
+      idx = lo >> 5;
+      flip = lo & 1u;
+      const int from = (int)((lo >> 1) & (kCl - 1));  // the winner's CTA
+      next.x = __shfl_sync(0xffffffffu, r.x, from);
+      next.y = __shfl_sync(0xffffffffu, r.y, from);
+      PHASE(2)
     }
-    PHASE(2)
 
-    const int idx = (int)((unsigned)best >> 2);
-    const int l = idx - base;
-    if (l >= 0 && l < cnt && l % kThreads == tid) s_flag[l] |= 2;  // only its scanning thread reads it
+    // ---- the move: the owner drops the winner from its list (it was the owner's own least pair)
+    const int l = (int)idx - base;
+    if (l >= 0 && l < cnt && l % kThreads == tid) {
+      const unsigned k = ((unsigned)best >> 1) & kPosMask;
+      --live;
+      if ((int)k != live) {
+        L[k * kThreads + tid] = L[live * kThreads + tid];
+        M[k * kThreads + tid] = (M[live * kThreads + tid] & 0xffff0000u) | (k << 1);
+      }
+    }
     if (rank == 0 && tid == 0) {
-      order[step] = idx;
-      flips[step] = (uint8_t)((best >> 1) & 1ull);
+      order[step] = (int32_t)idx;
+      flips[step] = (uint8_t)flip;
     }
     cur = next;
     PHASE(3)
@@ -193,8 +301,11 @@ __global__ void __launch_bounds__(kThreads)
     phase_cycles[4] = n - 1;
   }
 #endif
-  if constexpr (kCl > 1) cg::this_cluster().sync();  // no CTA leaves while a peer may read its slots
+  if constexpr (kCl > 1) cg::this_cluster().sync();  // no CTA leaves while a peer may still write to it
 }
+
+// the dynamic shared memory of a CTA holding `chunk` points
+size_t smem_bytes(int chunk) { return (size_t)chunk * (sizeof(float4) + sizeof(unsigned)); }
 
 }  // namespace
 
@@ -205,9 +316,11 @@ extern "C" {
 // -> order (n,) int32 and flips (n,) uint8.  Returns a CUDA error code.
 int pw_greedy_tour(const float* starts, const float* ends, const uint8_t* closed, int n, int closed_aware, int seed,
                    int cluster, int32_t* order, uint8_t* flips, void* stream) {
-  if (n < 2 || seed < 0 || seed >= n || (cluster != 1 && cluster != kCluster)) return (int)cudaErrorInvalidValue;
+  if (n < 2 || n > 65536 || seed < 0 || seed >= n || (cluster != 1 && cluster != kCluster))
+    return (int)cudaErrorInvalidValue;
   int chunk = (n + cluster - 1) / cluster;
-  const size_t smem = (size_t)chunk * (2 * sizeof(float2) + 1);
+  if (cluster == 1 && n >= (1 << 16)) return (int)cudaErrorInvalidValue;  // a local index must fit 16 bits
+  const size_t smem = smem_bytes(chunk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* st = reinterpret_cast<const float2*>(starts);
   const float2* en = reinterpret_cast<const float2*>(ends);
@@ -246,7 +359,7 @@ int pw_greedy_phases(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, phase_cycles, sizeof(phase_cycles));
 }
 
-// whether the next launches offer a fixed key in place of the scan
+// whether the next launches offer each thread's first live point in place of the scan
 int pw_greedy_set_floor(int on) { return (int)cudaMemcpyToSymbol(phase_floor, &on, sizeof(on)); }
 #endif
 

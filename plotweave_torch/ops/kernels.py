@@ -177,12 +177,13 @@ DENSE_TILE = (32, 64)
 DENSE_HALO_CAP = 16
 
 # K9: the CTAs of its cluster route (``kCluster`` in csrc/greedy_tour.cu), the
-# shared memory a point takes there (start, end and a flag byte) and a bound on
-# its static shared memory; the largest tour one CTA holds, and the largest of
-# either route (the JAX package's largest bucket)
+# shared memory a point takes there (start and end, and a meta word) and a
+# bound on its static shared memory (two sets of 32 warp slots and 16 received
+# slots of 16 bytes, two mbarriers); the largest tour one CTA holds, and the
+# largest of either route (the JAX package's largest bucket)
 GREEDY_CLUSTER = 16
-GREEDY_POINT_BYTES = 17
-GREEDY_STATIC_SMEM = 512
+GREEDY_POINT_BYTES = 20
+GREEDY_STATIC_SMEM = 2048
 GREEDY_CTA_MAX_N = (MAX_SMEM - GREEDY_STATIC_SMEM) // GREEDY_POINT_BYTES
 GREEDY_MAX_N = 65536
 GREEDY_ROUTES = ("cta", "cluster")

@@ -10,10 +10,16 @@ the plain version of kernel K9) on the CPU, against the JAX package.
   integers below 2000, so every d² is exact and XLA:CPU's fused multiply-adds
   cannot matter.  On float coordinates, where an FMA could flip an ulp, it is
   held to the host planner alone.
-- :func:`emulate_k9` repeats K9's reduction in numpy (64-bit keys of d²'s
-  bits and the index, per thread over a strided share of one CTA's points,
-  warp, CTA and the cluster's 16 slots) and must give the plain version's
-  order on both routes.
+- :func:`emulate_k9` repeats K9's design in numpy: per-thread lists of the
+  unused points only, compacted by moving a thread's last live point into the
+  winner's slot; each thread's least (d² bits, meta) pair; two-stage 32-bit
+  warp minima (the least d² bits, then the least low word beside them) and
+  the CTA's over the warp slots; on the cluster route every CTA pushing its
+  slot into the parity buffer of every peer and arriving on the peer's
+  mbarrier, each CTA a generator run at its own pace between its waits in a
+  seeded order.  It must give the plain version's order on both routes, at
+  small thread, warp and CTA counts; with one buffer in place of two the same
+  schedules must catch the race.
 - The routing: the size limits of the JAX package (2 to 65,536), the CPU
   path silent and equal to the host planner, a CUDA device with no card
   raising, and :func:`kernels.greedy_route`.
@@ -107,51 +113,227 @@ def test_plain_matches_host_planner_on_float_coordinates(closed_aware):
     assert plain_order(s, e, closed, closed_aware, 5) == host_order(s, e, closed, closed_aware, 5)
 
 
-def emulate_k9(s, e, closed, closed_aware, seed, cluster: int, threads: int = 8):
-    """K9's reduction in numpy: CTA r of ``cluster`` holds points [r chunk,
-    (r + 1) chunk), thread t of ``threads`` scans its points t, t + threads,
-    ..., every minimum is the least 64-bit key (d²'s bits << 32 | index << 2
-    | flip << 1 | the pen ends at the start); warps of 32 threads, then the
-    CTA's warps, then the cluster's slots."""
+F32 = np.float32
+NONE = 0xFFFFFFFF  # a 32-bit word of no candidate
+POS_MASK = 0x7FFF  # meta bits 1-15: the row of the slot in its thread's list
+
+
+class MBarrier:
+    """An mbarrier of ``count`` arrivals a phase; ``phase`` counts the phases
+    that have completed."""
+
+    def __init__(self, count: int):
+        self.count = self.pending = count
+        self.phase = 0
+
+    def arrive(self) -> None:
+        self.pending -= 1
+        if self.pending == 0:
+            self.phase, self.pending = self.phase + 1, self.count
+
+    def passed(self, parity: int) -> bool:
+        """``mbarrier.try_wait.parity``: the phase of this parity has completed."""
+        return (self.phase & 1) != parity
+
+
+def d2(x, y, cur):
+    """float32 d² with each difference, product and sum rounded on its own."""
+    dx, dy = (x - cur[0]).astype(F32), (y - cur[1]).astype(F32)
+    return (dx * dx + dy * dy).astype(F32)
+
+
+def k9_lists(s, e, closed, closed_aware, seed, base: int, cnt: int, threads: int):
+    """A CTA's lists as K9 loads them: thread t's k-th live point at row k
+    (start and end, the end of a closed contour set to its start) with its
+    meta word l << 16 | k << 1, for the local indices l = t, t + threads, ...
+    below ``cnt``, the seed left out.  Rows past a thread's count hold
+    garbage that would win if read."""
+    rows = max(1, -(-cnt // threads))
+    rng = np.random.default_rng(cnt)
+    L = np.zeros((rows, threads, 4), F32)
+    M = rng.integers(0, 2**16, (rows, threads)).astype(np.uint32)  # garbage: a small meta would win
+    live = np.zeros(threads, np.int64)
+    for l in range(cnt):
+        i, t = base + l, l % threads
+        if i == seed:
+            continue
+        end = s[i] if closed_aware and closed[i] else e[i]
+        k = live[t]
+        L[k, t] = (s[i, 0], s[i, 1], end[0], end[1])
+        M[k, t] = (l << 16) | (k << 1)
+        live[t] += 1
+    return L, M, live
+
+
+def two_stage_min(hi, lo):
+    """The least (hi, lo) pairs along the last axis, as two redux.sync take
+    them: the least hi, then the least lo among the lanes that hold it."""
+    h = hi.min(-1)
+    return h, np.where(hi == h[..., None], lo, NONE).min(-1)
+
+
+def k9_warp_slots(L, M, live, cur, lanes: int):
+    """One step of a CTA up to its warp slots: each thread's least (d² bits,
+    meta) over its live rows only (the compare of the pair as one 64-bit
+    word), each warp's least pair by :func:`two_stage_min`, and the slot the
+    lane that holds it writes: (hi, lo | flip, x, y), with the pen's next
+    point; (NONE, NONE, 0, 0) from lane 0 of a warp with no candidate.
+    Returns (the threads' least meta words, the slots)."""
+    rows, threads = M.shape
+    d = np.minimum(d2(L[..., 0], L[..., 1], cur), d2(L[..., 2], L[..., 3], cur))
+    key = (d.view(np.uint32).astype(np.uint64) << np.uint64(32)) | M.astype(np.uint64)
+    key[np.arange(rows)[:, None] >= live[None, :]] = np.uint64(2**64 - 1)  # only the live rows are scanned
+    best = key.min(0)
+    hi, lo = (best >> np.uint64(32)).astype(np.int64), (best & np.uint64(NONE)).astype(np.int64)
+    whi, wlo = two_stage_min(hi.reshape(-1, lanes), lo.reshape(-1, lanes))
+    slots = []
+    for w, (h, l) in enumerate(zip(whi.tolist(), wlo.tolist())):
+        if l == NONE:
+            slots.append((NONE, NONE, F32(0), F32(0)))
+            continue
+        t = w * lanes + int(np.flatnonzero((hi[w * lanes:(w + 1) * lanes] == h) & (lo[w * lanes:(w + 1) * lanes] == l))[0])
+        p = L[(l >> 1) & POS_MASK, t]
+        flip = bool(d2(p[2], p[3], cur) < d2(p[0], p[1], cur))
+        slots.append((h, l | flip, p[0] if flip else p[2], p[1] if flip else p[3]))
+    return lo, slots
+
+
+def k9_cta(s, e, closed, closed_aware, seed, rank: int, cluster: int, threads: int, lanes: int, recv, bars,
+           slots: int, read: dict):
+    """CTA ``rank`` of K9 as a generator: its own lists, its warp and CTA
+    minima; on the cluster route it pushes its slot into every peer's
+    received slots of this step's buffer, arriving on the peer's mbarrier
+    after each (yielding between pushes), yields until its own mbarrier's
+    phase of this step has completed and once more, then reads the slots.
+    ``read`` keeps the winner the first CTA read at each step: every other
+    CTA must read the same.  Returns (order, flips)."""
     n = len(s)
     chunk = -(-n // cluster)
-    flag = np.where(closed_aware & closed, 1, 0).astype(np.uint8)
-    flag[seed] |= 2
-    cur = s[seed] if flag[seed] & 1 else e[seed]
+    base = rank * chunk
+    cnt = max(0, min(chunk, n - base))
+    L, M, live = k9_lists(s, e, closed, closed_aware, seed, base, cnt, threads)
+    cur = s[seed] if closed_aware and closed[seed] else e[seed]
     order, flips = [seed], [False]
-    none = np.uint64(2**64 - 1)
-    for _ in range(1, n):
-        slots = []
-        for r in range(cluster):
-            lanes = []
-            for t in range(threads):
-                best = none
-                for i in range(r * chunk + t, min(n, (r + 1) * chunk), threads):
-                    if flag[i] & 2:
-                        continue
-                    d2s = np.float32(np.float32(s[i, 0] - cur[0]) ** 2 + np.float32(s[i, 1] - cur[1]) ** 2)
-                    d2e = np.float32(np.float32(e[i, 0] - cur[0]) ** 2 + np.float32(e[i, 1] - cur[1]) ** 2)
-                    pref = bool(flag[i] & 1) or d2s <= d2e
-                    low = (i << 2) | (0 if pref else 2) | (1 if (flag[i] & 1) or not pref else 0)
-                    key = np.uint64((int(np.float32(d2s if pref else d2e).view(np.uint32)) << 32) | low)
-                    best = min(best, key)
-                lanes.append(best)
-            warps = [min(lanes[w:w + 32]) for w in range(0, threads, 32)]
-            slots.append(min(warps))
-        best = int(min(slots))
-        idx, flip, at_start = (best & 0xFFFFFFFF) >> 2, bool(best & 2), bool(best & 1)
-        flag[idx] |= 2
-        order.append(idx)
-        flips.append(flip)
-        cur = s[idx] if at_start else e[idx]
+    for step in range(1, n):
+        buf = step % slots
+        mine, ws = k9_warp_slots(L, M, live, cur, lanes)
+        chi, clo = two_stage_min(np.array([w[0] for w in ws]), np.array([w[1] for w in ws]))
+        chi, clo = int(chi), int(clo)
+        if cluster == 1:
+            idx, flip = clo >> 16, clo & 1
+            nxt = ws[(idx % threads) // lanes][2:]
+        else:
+            win = ws[((clo >> 16) % threads) // lanes] if clo != NONE else (NONE, NONE, F32(0), F32(0))
+            c = (chi, NONE if clo == NONE else ((base + (clo >> 16)) << 5) | (rank << 1) | (clo & 1), *win[2:])
+            for peer in range(cluster):  # lane `peer` of warp 0: a store into the peer, then an arrival there
+                recv[peer][buf][rank] = c
+                bars[peer][buf].arrive()
+                yield False
+            parity = ((step - 1) // slots) & 1
+            while not bars[rank][buf].passed(parity):
+                yield True
+            yield False  # past the wait, before the slots are read
+            got = list(recv[rank][buf])
+            ghi, glo = two_stage_min(np.array([g[0] for g in got]), np.array([g[1] for g in got]))
+            ghi, glo = int(ghi), int(glo)
+            assert read.setdefault(step, (ghi, glo)) == (ghi, glo), \
+                f"CTA {rank} read another winner than the first CTA at step {step}"
+            idx, flip = glo >> 5, glo & 1
+            nxt = got[(glo >> 1) & 15][2:]
+        l = idx - base
+        if 0 <= l < cnt:  # the owner drops the winner, its own least pair, moving its last live point there
+            t = l % threads
+            k = (int(mine[t]) >> 1) & POS_MASK
+            assert k < live[t] and int(M[k, t]) >> 16 == l, f"step {step}: {idx} is not thread {t}'s candidate"
+            live[t] -= 1
+            last = live[t]
+            if k != last:
+                L[k, t] = L[last, t]
+                M[k, t] = (int(M[last, t]) & 0xFFFF0000) | (k << 1)
+        order.append(int(idx))
+        flips.append(bool(flip))
+        cur = np.asarray(nxt, F32)
     return order, flips
+
+
+def emulate_k9(s, e, closed, closed_aware, seed, cluster: int, threads: int = 8, lanes: int = 4,
+               schedule: int = 0, slots: int = 2):
+    """K9 (``csrc/greedy_tour.cu``) in numpy: ``cluster`` CTAs (1: the
+    one-CTA route) of ``threads`` threads in warps of ``lanes``, each a
+    :func:`k9_cta` run a stretch at a time in a random order seeded by
+    ``schedule``, so a CTA past its wait may push the next step's slots
+    before a slower one has read this step's.  The received slots start as
+    garbage that would win if read.  ``slots`` = 1 models one set of slots
+    and one mbarrier without the parity.  Every CTA must give the same tour."""
+    rng = np.random.default_rng(schedule)
+    recv = [[[(0, int(x), F32(0), F32(0)) for x in rng.integers(0, 32, cluster)] for _ in range(slots)]
+            for _ in range(cluster)]
+    bars = [[MBarrier(cluster) for _ in range(slots)] for _ in range(cluster)]
+    read: dict = {}
+    programs = [k9_cta(s, e, closed, closed_aware, seed, r, cluster, threads, lanes, recv, bars, slots, read)
+                for r in range(cluster)]
+    results, blocked = [None] * cluster, 0
+    while any(r is None for r in results):
+        ready = [r for r in range(cluster) if results[r] is None]
+        r = ready[rng.integers(len(ready))]
+        try:
+            blocked = blocked + 1 if next(programs[r]) else 0
+        except StopIteration as stop:
+            results[r], blocked = stop.value, 0
+        assert blocked < 1000 * cluster, "every CTA left waits on an mbarrier phase that never completes"
+    assert all(r == results[0] for r in results), "the CTAs' tours differ"
+    return results[0]
+
+
+EMULATED_SIZES = [2, 3, 17, 300]  # 2, 3 and 300 are also the plain version's cases against JAX and the host
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["distinct", "ties"])
+@pytest.mark.parametrize("closed_aware", [True, False], ids=["closed-aware", "open"])
+@pytest.mark.parametrize("n", EMULATED_SIZES)
+def test_k9_one_cta_emulated(n, closed_aware, ties):
+    # the inputs of test_plain_matches_jax_device_planner: through the plain version, the JAX device planner
+    s, e, closed = plan(n, ties)
+    seed = n // 2
+    assert emulate_k9(s, e, closed, closed_aware, seed, 1) == plain_order(s, e, closed, closed_aware, seed)
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["distinct", "ties"])
+@pytest.mark.parametrize("closed_aware", [True, False], ids=["closed-aware", "open"])
+@pytest.mark.parametrize("n", EMULATED_SIZES)
+@pytest.mark.parametrize("cluster", [3, 16])
+def test_k9_cluster_emulated(cluster, n, closed_aware, ties):
+    # the inputs of test_plain_matches_host_planner: through the plain version, the host planner
+    s, e, closed = plan(n, ties, seed=1)
+    seed = n - 1
+    got = emulate_k9(s, e, closed, closed_aware, seed, cluster, schedule=n + cluster)
+    assert got == plain_order(s, e, closed, closed_aware, seed)
 
 
 @pytest.mark.parametrize("cluster", [1, 16], ids=["cta", "cluster"])
 @pytest.mark.parametrize("closed_aware", [True, False], ids=["closed-aware", "open"])
-def test_k9_reduction_emulated(cluster, closed_aware):
-    s, e, closed = plan(150, ties=True, seed=3)
-    assert emulate_k9(s, e, closed, closed_aware, 7, cluster) == plain_order(s, e, closed, closed_aware, 7)
+def test_k9_emulated_on_float_coordinates(cluster, closed_aware):
+    s, e, closed = plan(120, ties=False, seed=2, integer=False)
+    got = emulate_k9(s, e, closed, closed_aware, 5, cluster, threads=4, lanes=2, schedule=7)
+    assert got == host_order(s, e, closed, closed_aware, 5)
+
+
+@pytest.mark.parametrize("schedule", range(4))
+def test_k9_cluster_emulated_in_any_order(schedule):
+    # a warp of 32 lanes and two warps a CTA, as few points a thread as on the card at 65,536 points
+    s, e, closed = plan(200, ties=True, seed=8)
+    got = emulate_k9(s, e, closed, True, 11, 16, threads=64, lanes=32, schedule=schedule)
+    assert got == plain_order(s, e, closed, True, 11)
+
+
+@pytest.mark.parametrize("schedule", range(3))
+def test_k9_emulated_with_one_slot_races(schedule):
+    # what the parity buffers prevent, shown by the same schedules: with one set of slots and one mbarrier, a CTA
+    # past its wait pushes its next slot over one that a slower CTA has still to read
+    s, e, closed = plan(60, ties=True, seed=9)
+    assert emulate_k9(s, e, closed, True, 4, 16, schedule=schedule) == plain_order(s, e, closed, True, 4)
+    with pytest.raises(AssertionError, match="read another winner"):
+        emulate_k9(s, e, closed, True, 4, 16, schedule=schedule, slots=1)
 
 
 def test_device_entry_routes_by_size():
