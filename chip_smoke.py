@@ -106,8 +106,9 @@ Phases:
 12. stage 07's and stage 12's device kernels vs their plain versions on the
    card: K9 (the greedy tour) byte-equal in order and flips to the port's
    host C++ planner at n = 2 to 65,536 and to its plain version up to 4,500 (both
-   routes: one CTA up to ``kernels.GREEDY_CTA_MAX_N``, a cluster of 16 CTAs
-   above, and the cluster route at 4,500 against the one-CTA route),
+   routes: one CTA below ``kernels.GREEDY_CLUSTER_MIN_N``, a cluster of 16
+   CTAs from there, and the one-CTA route at 4,500 and at its limit
+   ``kernels.GREEDY_CTA_MAX_N`` against the cluster route),
    closed-aware on and off, duplicate points and d²(start) == d²(end) ties,
    float coordinates against the host alone, every case twice (the host
    planner runs on four threads beside the card's work); K10 (the
@@ -168,10 +169,13 @@ card's rate for their type.  The last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the repo beside it, it exits
 non-zero and prints no result.
 
-Two measurements stand beside the phases and are not part of the smoke:
+Measurements stand beside the phases and are not part of the smoke:
 ``phase_k34_times()`` (K3+K4's times alone; with ``ROOT`` set to an older
-checkout before ``phase_probe`` it times that tree) and ``phase_k34_sweep()``
-(K3+K4's tile rows and minimum blocks per SM).  Each phase's wall seconds
+checkout before ``phase_probe`` it times that tree), ``phase_k34_sweep()``
+(K3+K4's tile rows and minimum blocks per SM), ``phase_k10_ab(other)`` and
+``phase_k10_phases()`` (K10 against another checkout's, in turns, and its
+clock64 cycles by phase), ``phase_k9_phases()`` and ``phase_k9_ab(other)``
+(the same for K9, with its chain floor: run the phases first).  Each phase's wall seconds
 are printed before the ``kernels`` line.
 """
 
@@ -2120,12 +2124,14 @@ def phase_tour_kernels(stats: dict) -> None:
                 plain = [t.tolist() for t in greedy_order_plain(S, E, C, closed_aware, seed)]
                 check(got == plain, f"{what} != its plain version")
                 n_plain += 1
-            if n == 4500:
-                other = [t.tolist() for t in kernels.greedy_order_cuda(S, E, C, closed_aware, seed, route="cluster")]
-                check(other == got, f"K9 n={n}: the cluster route != the one-CTA route")
+            if n in (4500, m):  # the one-CTA route where the cluster is the default, up to its limit
+                other = [t.tolist() for t in kernels.greedy_order_cuda(S, E, C, closed_aware, seed, route="cta")]
+                check(other == got, f"K9 n={n}: the one-CTA route != the cluster route")
             check(sorted(got[0]) == list(range(n)), f"K9 n={n}: the order is not a permutation")
             if closed_aware and n in (m, m + 1, kernels.GREEDY_MAX_N):  # each route at its limits
-                step_us[f"{n} {route}"] = cuda_ms(lambda: kernels.greedy_order_cuda(S, E, C, True, seed), 2) / n * 1e3
+                for r in ("cta", "cluster") if n == m else (route,):
+                    step_us[f"{n} {r}"] = cuda_ms(lambda: kernels.greedy_order_cuda(S, E, C, True, seed, route=r),
+                                                  2) / n * 1e3
             n_k9 += 1
     for n in (20000, 5000):  # float coordinates: an FMA would flip ulps of d² here
         for closed_aware in (True, False):
@@ -2146,9 +2152,10 @@ def phase_tour_kernels(stats: dict) -> None:
     pool.shutdown()
     wait_s = time.perf_counter() - t0
     print(f"K9 on {n_k9} cases, == the host C++ planner on {len(host_jobs)} (n = 2 to {kernels.GREEDY_MAX_N}, one-CTA "
-          f"route up to {m}, cluster above; integer coordinates with duplicates and d2s == d2e ties, float coordinates "
-          f"at 5,000 and 20,000; closed-aware on and off), == its plain version on {n_plain}, each twice bit-equal, the "
-          f"cluster route == the one-CTA route at 4,500 ({k9_s:.1f} s on the card's side, then {wait_s:.1f} s waiting "
+          f"route below {kernels.GREEDY_CLUSTER_MIN_N}, cluster from there; integer coordinates with duplicates and "
+          f"d2s == d2e ties, float coordinates at 5,000 and 20,000; closed-aware on and off), == its plain version on "
+          f"{n_plain}, each twice bit-equal, the one-CTA route == the cluster route at 4,500 and {m} "
+          f"({k9_s:.1f} s on the card's side, then {wait_s:.1f} s waiting "
           f"for the host planner's threads); microseconds a step (CUDA events): "
           + ", ".join(f"n = {k} {v:.3f}" for k, v in step_us.items()))
     stats["K9 steps"] = step_us
@@ -2198,6 +2205,23 @@ def k10_times() -> dict:
     return out
 
 
+def ab_turns(other: str, times: str, what: str) -> dict:
+    """{"other": [...], "this": [...]}: what this module's ``times`` function
+    returns for the checkout at ``other`` and for this one, in turns other,
+    this, this, other, each in a process of its own with ``ROOT`` set to its
+    checkout, so that each runs that checkout's own wrapper."""
+    runs = {"other": [], "this": []}
+    for key, root in (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)):
+        root = str(Path(root).resolve())
+        child = subprocess.run([sys.executable, "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import json; "
+                                f"from pathlib import Path; import chip_smoke as c; c.ROOT = Path({root!r}); "
+                                f"c.phase_probe(); print(json.dumps(c.{times}()))"],
+                               capture_output=True, text=True, timeout=900, cwd=root)
+        check(child.returncode == 0, f"{what} A/B: the run of {root} failed:\n{child.stdout[-3000:]}{child.stderr[-3000:]}")
+        runs[key].append(json.loads(child.stdout.splitlines()[-1]))
+    return runs
+
+
 def phase_k10_ab(other: str) -> dict:
     """K10 of this checkout against the one at ``other`` (another commit's:
     ``git archive <rev> | tar -x -C .checkout/other``), in turns other, this,
@@ -2205,15 +2229,7 @@ def phase_k10_ab(other: str) -> dict:
     with ``ROOT`` set to its checkout: both must give the same moves, perm
     and flips at every size; per size ms a call, alone, microseconds an
     iteration, the bound and the share."""
-    runs = {"other": [], "this": []}
-    for key, root in (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)):
-        root = str(Path(root).resolve())
-        child = subprocess.run([sys.executable, "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import json; "
-                                f"from pathlib import Path; import chip_smoke as c; c.ROOT = Path({root!r}); "
-                                "c.phase_probe(); print(json.dumps(c.k10_times()))"],
-                               capture_output=True, text=True, timeout=900, cwd=root)
-        check(child.returncode == 0, f"K10 A/B: the run of {root} failed:\n{child.stdout[-3000:]}{child.stderr[-3000:]}")
-        runs[key].append(json.loads(child.stdout.splitlines()[-1]))
+    runs = ab_turns(other, "k10_times", "K10")
     result = {}
     for n in K10_AB_SIZES:
         rows = {k: [r[str(n)] for r in v] for k, v in runs.items()}
@@ -2289,17 +2305,20 @@ def phase_k10_phases() -> dict:
 
 
 K9_AB_SIZES = (4500, 9451, 13643, 13644, 65536)  # points: the gate, the quality poster's, the routes' old limits, the largest
+K9_PHASE_SIZES = (1000, 2000) + K9_AB_SIZES  # and two short tours, below and at the routes' crossover
 K9_PHASES = ("scan", "minima", "exchange", "move")
+K9_FLOOR: dict = {}  # (n, route) -> ms a call with the scan removed, set by phase_k9_phases
 
 
-def k9_tours():
-    """(n, starts, ends, closed, seed) on the card for each of K9_AB_SIZES:
-    seeded ``tour_points`` with ties, closed-aware."""
+def k9_tours(sizes=K9_AB_SIZES):
+    """(n, starts, ends, closed, seed) on the card for each of ``sizes``:
+    seeded ``tour_points`` with ties (each size its own seed)."""
     import numpy as np
     import torch
 
-    rng, dev = np.random.default_rng(9451), torch.device("cuda")
-    for n in K9_AB_SIZES:
+    dev = torch.device("cuda")
+    for n in sizes:
+        rng = np.random.default_rng(n)
         s, e, closed = tour_points(rng, n)
         seed = int(rng.integers(0, n))
         yield (n, *(torch.from_numpy(a).to(dev) for a in (s, e, closed)), seed)
@@ -2334,15 +2353,7 @@ def phase_k9_ab(other: str) -> dict:
     flips at every size; per size ms a call, alone, microseconds a step, the
     share of ``k9_bound`` and of this checkout's measured chain floor (from
     :func:`phase_k9_phases`, when it ran before in this process)."""
-    runs = {"other": [], "this": []}
-    for key, root in (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)):
-        root = str(Path(root).resolve())
-        child = subprocess.run([sys.executable, "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import json; "
-                                f"from pathlib import Path; import chip_smoke as c; c.ROOT = Path({root!r}); "
-                                "c.phase_probe(); print(json.dumps(c.k9_times()))"],
-                               capture_output=True, text=True, timeout=900, cwd=root)
-        check(child.returncode == 0, f"K9 A/B: the run of {root} failed:\n{child.stdout[-3000:]}{child.stderr[-3000:]}")
-        runs[key].append(json.loads(child.stdout.splitlines()[-1]))
+    runs = ab_turns(other, "k9_times", "K9")
     result = {}
     for n in K9_AB_SIZES:
         rows = {k: [r[str(n)] for r in v] for k, v in runs.items()}
@@ -2368,9 +2379,6 @@ def phase_k9_ab(other: str) -> dict:
                           for k in ("other", "this")), flush=True)
     print(json.dumps({"k9_ab": result}))
     return result
-
-
-K9_FLOOR: dict = {}  # (n, route) -> ms a call with the scan removed, set by phase_k9_phases
 
 
 def phase_k9_phases() -> dict:
@@ -2399,7 +2407,7 @@ def phase_k9_phases() -> dict:
     lib.pw_greedy_tour.argtypes = kernels._SIGNATURES["greedy_tour"]["pw_greedy_tour"]
     lib.pw_greedy_set_floor.argtypes = [ctypes.c_int]
     result = {}
-    for n, S, E, C, seed in k9_tours():
+    for n, S, E, C, seed in k9_tours(K9_PHASE_SIZES):
         for route in kernels.GREEDY_ROUTES:
             if route == "cta" and n > kernels.GREEDY_CTA_MAX_N:
                 continue

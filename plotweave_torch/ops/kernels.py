@@ -53,9 +53,9 @@
   :data:`ZS_CHUNK` iterations per launch on tiles with a halo of two rows
   per iteration; replaces ``zhang_suen_pallas``.
 - K9 ``greedy_order_cuda`` (``csrc/greedy_tour.cu``): stage 07's greedy
-  nearest-endpoint tour in one persistent launch, one CTA where the points fit
-  its shared memory, else a cluster of 16 CTAs (:func:`greedy_route`); replaces
-  the XLA loop of ``_greedy_device_impl``.
+  nearest-endpoint tour in one persistent launch, one CTA for a short tour,
+  else a cluster of 16 CTAs that push their minima into each other
+  (:func:`greedy_route`); replaces the XLA loop of ``_greedy_device_impl``.
 - K10 ``refine_order_cuda`` (``csrc/refine_tour.cu``): stage 12's 2-opt /
   relocate refiner, every iteration (all candidate moves, the best one, the
   stop test, the move applied) in one cooperative launch, the tour resident
@@ -177,14 +177,16 @@ DENSE_TILE = (32, 64)
 DENSE_HALO_CAP = 16
 
 # K9: the CTAs of its cluster route (``kCluster`` in csrc/greedy_tour.cu), the
-# shared memory a point takes there (start and end, and a meta word) and a
-# bound on its static shared memory (two sets of 32 warp slots and 16 received
-# slots of 16 bytes, two mbarriers); the largest tour one CTA holds, and the
-# largest of either route (the JAX package's largest bucket)
+# shared memory a point takes (start and end, and a meta word) and a bound on
+# its static shared memory (two sets of warp slots and of 16 received slots, 16
+# bytes each, two mbarriers); the largest tour one CTA holds, the size from
+# which the cluster route is the faster (measured on the H100, PERF.md), and
+# the largest of either route (the JAX package's largest bucket)
 GREEDY_CLUSTER = 16
 GREEDY_POINT_BYTES = 20
-GREEDY_STATIC_SMEM = 2048
+GREEDY_STATIC_SMEM = 1024
 GREEDY_CTA_MAX_N = (MAX_SMEM - GREEDY_STATIC_SMEM) // GREEDY_POINT_BYTES
+GREEDY_CLUSTER_MIN_N = 2000
 GREEDY_MAX_N = 65536
 GREEDY_ROUTES = ("cta", "cluster")
 
@@ -1110,13 +1112,14 @@ def morph_dense_cuda(x: torch.Tensor, steps) -> torch.Tensor:
 
 def greedy_route(n: int, route: str | None = None) -> str:
     """K9's route for a tour of ``n`` points: ``route`` when given (one of
-    :data:`GREEDY_ROUTES`), else ``"cta"`` up to :data:`GREEDY_CTA_MAX_N`
-    points and ``"cluster"`` above.  Raises outside 2 to
-    :data:`GREEDY_MAX_N`, and for a one-CTA route that does not fit."""
+    :data:`GREEDY_ROUTES`), else ``"cta"`` below
+    :data:`GREEDY_CLUSTER_MIN_N` points and ``"cluster"`` from there.
+    Raises outside 2 to :data:`GREEDY_MAX_N`, and for a one-CTA route that
+    does not fit (above :data:`GREEDY_CTA_MAX_N`)."""
     if not 2 <= n <= GREEDY_MAX_N:
         raise ValueError(f"greedy_tour: {n} points is outside 2 to {GREEDY_MAX_N}")
     if route is None:
-        return "cta" if n <= GREEDY_CTA_MAX_N else "cluster"
+        return "cta" if n < GREEDY_CLUSTER_MIN_N else "cluster"
     if route not in GREEDY_ROUTES:
         raise ValueError(f"greedy_tour: route {route!r} is none of {GREEDY_ROUTES}")
     if route == "cta" and n > GREEDY_CTA_MAX_N:

@@ -14,10 +14,11 @@ the plain version of kernel K9) on the CPU, against the JAX package.
   unused points only, compacted by moving a thread's last live point into the
   winner's slot; each thread's least (d² bits, meta) pair; two-stage 32-bit
   warp minima (the least d² bits, then the least low word beside them) and
-  the CTA's over the warp slots; on the cluster route every CTA pushing its
-  slot into the parity buffer of every peer and arriving on the peer's
-  mbarrier, each CTA a generator run at its own pace between its waits in a
-  seeded order.  It must give the plain version's order on both routes, at
+  the CTA's over the warp slots; on the cluster route every CTA storing its
+  slot into the parity buffer of every peer, each store completing its part
+  of the peer's mbarrier phase (an arrival that expects every CTA's slot and
+  a transaction count, in either order), each CTA a generator run at its own
+  pace between its waits in a seeded order.  It must give the plain version's order on both routes, at
   small thread, warp and CTA counts; with one buffer in place of two the same
   schedules must catch the race.
 - The routing: the size limits of the JAX package (2 to 65,536), the CPU
@@ -119,17 +120,25 @@ POS_MASK = 0x7FFF  # meta bits 1-15: the row of the slot in its thread's list
 
 
 class MBarrier:
-    """An mbarrier of ``count`` arrivals a phase; ``phase`` counts the phases
+    """An mbarrier of one arrival a phase and a transaction count (here in
+    slots, not bytes): a phase completes when its arrival has come and every
+    slot it expects has landed, in either order.  ``phase`` counts the phases
     that have completed."""
 
-    def __init__(self, count: int):
-        self.count = self.pending = count
-        self.phase = 0
+    def __init__(self):
+        self.pending, self.tx, self.phase = 1, 0, 0
 
-    def arrive(self) -> None:
-        self.pending -= 1
-        if self.pending == 0:
-            self.phase, self.pending = self.phase + 1, self.count
+    def arrive_expect_tx(self, slots: int) -> None:
+        self.pending, self.tx = self.pending - 1, self.tx + slots
+        self._complete()
+
+    def complete_tx(self, slots: int) -> None:
+        self.tx -= slots
+        self._complete()
+
+    def _complete(self) -> None:
+        if self.pending == 0 and self.tx == 0:
+            self.pending, self.phase = 1, self.phase + 1
 
     def passed(self, parity: int) -> bool:
         """``mbarrier.try_wait.parity``: the phase of this parity has completed."""
@@ -201,10 +210,12 @@ def k9_warp_slots(L, M, live, cur, lanes: int):
 def k9_cta(s, e, closed, closed_aware, seed, rank: int, cluster: int, threads: int, lanes: int, recv, bars,
            slots: int, read: dict):
     """CTA ``rank`` of K9 as a generator: its own lists, its warp and CTA
-    minima; on the cluster route it pushes its slot into every peer's
-    received slots of this step's buffer, arriving on the peer's mbarrier
-    after each (yielding between pushes), yields until its own mbarrier's
-    phase of this step has completed and once more, then reads the slots.
+    minima; on the cluster route it arrives on its own mbarrier of this
+    step's buffer expecting every CTA's slot, stores its slot into every
+    peer's received slots of that buffer, each store completing one slot on
+    the peer's mbarrier (yielding between stores), yields until its own
+    mbarrier's phase of this step has completed and once more, then reads
+    the slots.
     ``read`` keeps the winner the first CTA read at each step: every other
     CTA must read the same.  Returns (order, flips)."""
     n = len(s)
@@ -225,9 +236,10 @@ def k9_cta(s, e, closed, closed_aware, seed, rank: int, cluster: int, threads: i
         else:
             win = ws[((clo >> 16) % threads) // lanes] if clo != NONE else (NONE, NONE, F32(0), F32(0))
             c = (chi, NONE if clo == NONE else ((base + (clo >> 16)) << 5) | (rank << 1) | (clo & 1), *win[2:])
-            for peer in range(cluster):  # lane `peer` of warp 0: a store into the peer, then an arrival there
+            bars[rank][buf].arrive_expect_tx(cluster)  # lane 0 of warp 0: its own mbarrier expects every CTA's slot
+            for peer in range(cluster):  # lane `peer` of warp 0: a store that completes one slot on the peer's mbarrier
                 recv[peer][buf][rank] = c
-                bars[peer][buf].arrive()
+                bars[peer][buf].complete_tx(1)
                 yield False
             parity = ((step - 1) // slots) & 1
             while not bars[rank][buf].passed(parity):
@@ -268,7 +280,7 @@ def emulate_k9(s, e, closed, closed_aware, seed, cluster: int, threads: int = 8,
     rng = np.random.default_rng(schedule)
     recv = [[[(0, int(x), F32(0), F32(0)) for x in rng.integers(0, 32, cluster)] for _ in range(slots)]
             for _ in range(cluster)]
-    bars = [[MBarrier(cluster) for _ in range(slots)] for _ in range(cluster)]
+    bars = [[MBarrier() for _ in range(slots)] for _ in range(cluster)]
     read: dict = {}
     programs = [k9_cta(s, e, closed, closed_aware, seed, r, cluster, threads, lanes, recv, bars, slots, read)
                 for r in range(cluster)]
@@ -392,11 +404,12 @@ def test_sort_contours_on_a_cuda_device_without_a_card_raises():
 
 
 def test_greedy_route():
-    m = kernels.GREEDY_CTA_MAX_N
+    m, c = kernels.GREEDY_CTA_MAX_N, kernels.GREEDY_CLUSTER_MIN_N
     assert kernels.GREEDY_POINT_BYTES * m + kernels.GREEDY_STATIC_SMEM <= kernels.MAX_SMEM
-    assert kernels.greedy_route(2) == kernels.greedy_route(m) == "cta"
-    assert kernels.greedy_route(m + 1) == kernels.greedy_route(kernels.GREEDY_MAX_N) == "cluster"
-    assert kernels.greedy_route(100, "cluster") == "cluster"
+    assert 2 < c <= m and m < 2**16  # a local index is 16 bits of the kernel's meta word
+    assert kernels.greedy_route(2) == kernels.greedy_route(c - 1) == "cta"
+    assert kernels.greedy_route(c) == kernels.greedy_route(kernels.GREEDY_MAX_N) == "cluster"
+    assert kernels.greedy_route(100, "cluster") == "cluster" and kernels.greedy_route(m, "cta") == "cta"
     for bad in (lambda: kernels.greedy_route(1), lambda: kernels.greedy_route(kernels.GREEDY_MAX_N + 1),
                 lambda: kernels.greedy_route(m + 1, "cta"), lambda: kernels.greedy_route(10, "warp")):
         with pytest.raises(ValueError):
