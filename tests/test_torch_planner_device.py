@@ -18,9 +18,9 @@ the plain version of kernel K9) on the CPU, against the JAX package.
   slot into the parity buffer of every peer, each store completing its part
   of the peer's mbarrier phase (an arrival that expects every CTA's slot and
   a transaction count, in either order), each CTA a generator run at its own
-  pace between its waits in a seeded order.  It must give the plain version's order on both routes, at
-  small thread, warp and CTA counts; with one buffer in place of two the same
-  schedules must catch the race.
+  pace between its waits in a seeded order.  It must give the plain
+  version's order on both routes, at small thread, warp and CTA counts; with
+  one buffer in place of two the same schedules must catch the race.
 - The routing: the size limits of the JAX package (2 to 65,536), the CPU
   path silent and equal to the host planner, a CUDA device with no card
   raising, and :func:`kernels.greedy_route`.
