@@ -70,12 +70,19 @@ Phases:
    launches) and K2's host time per call;
 7. ``plotweave_torch.entry.entry("auto")`` once;
 8. the kernels of stage 02's other modes vs their plain versions on the card:
-   K8's sampler (``pw_lab_sample``) against K7 over all 2^24 colours (its
+   K8's draw (``pw_subsample``) index for index against the plain version on
+   the CPU (the poster's 3,000,000 pixels -> 200,000 on 8 seeds, n = limit +
+   1, limit = 1, 2 pixels, 4400 x 4400 pixels, and keys narrowed to 12, 4
+   and 1 bits, so that thousands of keys tie at the threshold); K8's sampler
+   (``pw_lab_sample``) against K7 over all 2^24 colours (its
    Lab, put through K7's distance rule in plain PyTorch, must give K7's
    labels exactly; within 1e-3 of the plain Lab) and a gather by index;
-   ``pw_kpp_init`` (the same picked rows as the plain version for 16 seeds,
-   k = 2, 4, 8, on 200,000 and 777 rows with duplicates, and on an
-   all-coincident sample); ``pw_lloyd_fit`` at 200,000 x 3 and 777 x 3, k = 1,
+   ``pw_kpp_init`` (the same picked rows and centres as the plain version for
+   16 seeds, k = 1, 2, 4, 8, on the poster's sample drawn on the card, on
+   integer rows with duplicates, 777 rows, 5 rows, an all-coincident sample
+   and 250,000 rows, on both routes where they fit, and at the edges of u:
+   0, the least float, 2^-24, 0.999999, the float below 1, and 1);
+   ``pw_lloyd_fit`` at 200,000 x 3 and 777 x 3, k = 1,
    4, 8, ``iters`` 1 and 40 and an init that leaves a cluster empty (centres
    within 1e-3, compactness within 1e-5 relative of the plain version's at
    the same centres and within 1e-3 of the plain fit's, iterations equal,
@@ -207,19 +214,23 @@ CHAIN_LAUNCHES = {"bitpack": 3, "morph_bits": 1, "edge_candidates": 1, "hysteres
 # the kernels of plotweave_torch/csrc by a part of their names, as a profiler's trace shows them
 OWN_KERNELS = ("rows_to_boards", "boards_to_rows", "boards_to_dense", "dense_to_boards", "labels_to_boards",
                "morph_steps", "edge_tiles", "hysteresis_cluster", "hysteresis_sweep", "zs_cluster", "zs_subpass",
-               "assign_nearest", "zs_tiles", "lab_sample", "kpp_init", "lloyd_fit", "assign_points", "morph_dense",
+               "assign_nearest", "zs_tiles", "subsample", "lab_sample", "kpp_init", "lloyd_fit", "assign_points", "morph_dense",
                "greedy_tour", "refine_tour", "area_frac", "area_int", "bezier_sample")
 # stage 03's mask open and close at the default config (ellipse 3, 1 and 1): K2's step list on the main path
 MAIN_PATH_STEPS = (("ellipse", 3, "e"), ("ellipse", 3, "d"), ("ellipse", 3, "d"), ("ellipse", 3, "e"))
 POSTER_PALETTE = [[30, 25, 20], [70, 90, 190], [140, 175, 220], [225, 220, 215]]  # synthetic_image's four tones, BGR
 KMEANS_SAMPLE = 200_000  # the default kmeans_sample_limit
-# one run of stage 02 in device mode, fused: K8 three times, K7 with counts, K2 for the masks and for the chain,
-# K1 for the masks' rows and the chain's two halves, then the chain's K3+K4, K5, K6
-DEVICE_KMEANS_LAUNCHES = {"lab_sample": 1, "kpp_init": 1, "lloyd_fit": 1, "assign_nearest": 1, "morph_bits": 2,
+# one run of stage 02 in device mode, fused: K8 four times (the draw, the sampler, the seeds, the fits), K7 with
+# counts, K2 for the masks and for the chain, K1 for the masks' rows and the chain's two halves, then the chain's
+# K3+K4, K5, K6
+DEVICE_KMEANS_LAUNCHES = {"subsample": 1, "lab_sample": 1, "kpp_init": 1, "lloyd_fit": 1, "assign_nearest": 1, "morph_bits": 2,
                           "bitpack": 3, "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 1}
 # float operations of K8 per point: per centre and pass 9 (the dot product 5, the expanded distance 3, the
-# compare); the seeding per draw 8 for the distance, the min, the max and two running sums
+# compare); the seeding per draw 12: the distance 8, the min, the scaling, the cap and the conversion
 LLOYD_FLOPS_PER_CENTER, KPP_FLOPS_PER_DRAW, POWF_FLOPS = 9, 12, 40
+# K8's draw: integer operations per key and pass (the hash 10: a multiply-add, two multiplies, three shifts and
+# three XORs, the narrowing shift) and its passes over the keys (three radix rounds, the counts, the compaction)
+DRAW_OPS_PER_KEY, DRAW_PASSES = 10, 5
 MULTI_KERNELS = ("hysteresis_multi", "zhang_suen_packed_multi")  # K5, K6 on layers too large for a cluster
 BIG_SIDE = 4400  # px: a layer of 4400 rows of 138 words does not fit one cluster's shared memory
 PATH_RUNS = {"main": "main path, synthetic 2000x1500, steps 1-13, card run",
@@ -1437,15 +1448,15 @@ def phase_frontend(stats: dict) -> dict:
 
 
 def poster_sample(seed: int = 2, limit: int = KMEANS_SAMPLE):
-    """The device mode's subsample of the synthetic 2000 x 1500 poster on the
-    card, as stage 02 makes it: (image tensor, sample indices, float Lab
-    sample (limit, 3))."""
+    """The device mode's subsample of the synthetic 2000 x 1500 poster, drawn
+    on the card as stage 02 draws it: (image tensor, sample indices, float
+    Lab sample (limit, 3)), all on the card."""
     import torch
 
     from plotweave_torch.ops.kmeans import lab_sample, subsample_indices
 
     img = torch.from_numpy(synthetic_image(seed, 1500, 2000)[0]).to("cuda")
-    idx = subsample_indices(42, 1500 * 2000, limit)
+    idx = subsample_indices(42, 1500 * 2000, limit, img.device)
     return img, idx, lab_sample(img, idx)
 
 
@@ -1485,27 +1496,54 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
     print(f"K8 lab_sample: its Lab gives K7's labels exactly on all 2^24 colours (8 centres), within {lab_err:.2e} "
           f"of the plain Lab (tolerance 1e-3); a gather of {KMEANS_SAMPLE} indices == the pixels in place")
 
-    # --- the poster's sample: what the main path gives the fit
+    # --- K8's draw against its plain version on the CPU, index for index
+    n_px = 1500 * 2000
+    draws = [(n_px, KMEANS_SAMPLE, seed, 32) for seed in range(8)] + [
+        (KMEANS_SAMPLE + 1, KMEANS_SAMPLE, 8, 32), (n_px, 1, 9, 32), (2, 1, 10, 32), (5000, 700, 11, 32),
+        (BIG_SIDE * BIG_SIDE, KMEANS_SAMPLE, 12, 32),
+        (n_px, KMEANS_SAMPLE, 13, 12), (100_000, 999, 14, 4), (70_000, 3, 15, 1)]  # narrowed keys: ties at the threshold
+    for n, limit, seed, bits in draws:
+        got = kmeans.subsample_indices(seed, n, limit, dev, bits)
+        check(torch.equal(got.cpu(), kmeans.subsample_indices(seed, n, limit, "cpu", bits)),
+              f"K8 subsample n={n} limit={limit} seed={seed} key bits {bits}: the card's draw != the plain draw")
+    print(f"K8 subsample == plain on the CPU index for index: {len(draws)} draws (3,000,000 -> 200,000 on 8 seeds, "
+          f"n = limit + 1, limit = 1, 2 pixels, {BIG_SIDE} x {BIG_SIDE}, keys narrowed to 12, 4 and 1 bits)")
+
+    # --- the poster's sample, drawn on the card: what the main path gives the fit
     poster, idx, sample = poster_sample()
     quant = torch.round(sample)  # integer Lab: many duplicate rows
     small = torch.from_numpy(np.concatenate([rng.normal(c, 2.0, (194, 3)) for c in
                                              ((20, 20, 20), (80, 100, 120), (200, 128, 128), (240, 200, 180))] +
                                             [np.full((1, 3), 7.0)]).astype(np.float32)).to(dev)  # 777 rows
-    same = torch.full((5000, 3), 7.0, device=dev)  # every weight is the floor 1e-12
+    same = torch.full((5000, 3), 7.0, device=dev)  # every weight is the floor 1
+    wide = kmeans.lab_sample(poster, kmeans.subsample_indices(43, n_px, 250_000, dev))  # too large to stay resident
     n_kpp = 0
     for name, data in (("200,000 poster rows", sample), ("200,000 integer rows", quant), ("777 rows", small),
-                       ("5,000 coincident rows", same)):
-        for k in (2, 4, 8):
-            first, uniforms = kmeans.seed_stream(1000 + k, 16, k, data.shape[0])  # 16 seeds
-            got_c, got_p = kernels.kpp_init_cuda(data, k, first.to(dev), uniforms.to(dev))
-            reps = range(16) if data.shape[0] <= 5000 or k == 4 else range(4)  # the plain version is a long loop
-            for a in reps:
-                ref_c, ref_p = kmeans.kpp_init_plain(data, k, int(first[a]), uniforms[a])
-                check(torch.equal(got_p[a], ref_p) and torch.equal(got_c[a], ref_c),
-                      f"K8 kpp_init {name} k={k} seed {a}: picked {got_p[a].tolist()}, plain {ref_p.tolist()}")
-                n_kpp += 1
-    print(f"K8 kpp_init == plain (the same picked rows): {n_kpp} (sample, k, seed) cases on the poster's sample, "
-          f"integer rows with duplicates, 777 rows and 5,000 coincident rows, k = 2, 4, 8")
+                       ("5 rows", small[:5].contiguous()), ("5,000 coincident rows", same), ("250,000 rows", wide)):
+        routes = [kernels.kpp_schedule(data.shape[0])["route"]]
+        routes += [r for r in kernels.KPP_ROUTES if r not in routes and name != "250,000 rows"]
+        for route in routes:
+            for k in (1, 2, 4, 8):
+                first, uniforms = kmeans.seed_stream(1000 + k, 16, k, data.shape[0])  # 16 seeds
+                got_c, got_p = kernels.kpp_init_cuda(data, k, first.to(dev), uniforms.to(dev), route)
+                for a in range(16):
+                    ref_c, ref_p = kmeans.kpp_init_plain(data, k, int(first[a]), uniforms[a])
+                    check(torch.equal(got_p[a], ref_p) and torch.equal(got_c[a], ref_c),
+                          f"K8 kpp_init {name} {route} k={k} seed {a}: picked {got_p[a].tolist()}, plain {ref_p.tolist()}")
+                    n_kpp += 1
+    edges = (0.0, 1e-45, 2.0**-24, 0.999999, float(np.nextafter(np.float32(1), np.float32(0))), 1.0)
+    for u in edges:
+        first = torch.tensor([0, 17, KMEANS_SAMPLE - 1], dtype=torch.int32)
+        uniforms = torch.full((3, 3), u, dtype=torch.float32)
+        got = kernels.kpp_init_cuda(sample, 4, first.to(dev), uniforms.to(dev))[1]
+        for a in range(3):
+            ref = kmeans.kpp_init_plain(sample, 4, int(first[a]), uniforms[a])[1]
+            check(torch.equal(got[a], ref), f"K8 kpp_init u={u} attempt {a}: picked {got[a].tolist()}, plain {ref.tolist()}")
+            n_kpp += 1
+    print(f"K8 kpp_init == plain (the same picked rows and centres): {n_kpp} (sample, route, k, seed) cases on the "
+          f"poster's sample drawn on the card, integer rows with duplicates, 777 and 5 rows, 5,000 coincident rows and "
+          f"250,000 rows (streamed), on both routes where they fit, k = 1, 2, 4, 8, and u at {edges}")
+    del wide
 
     # --- the fit
     def fit_case(name, data, inits, iters):
@@ -1584,7 +1622,15 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
           f"(tolerance 1e-5), iterations and the winning attempt equal, two runs bit-equal, the one-launch loop "
           f"bit-equal to its own single steps, k = 8 from k-means++ seeds step by step within 1e-4 of the plain step")
 
-    # K8 at the main path's shape: 200,000 rows, k = 4, 3 attempts, 40 iterations
+    # K8 at the main path's shape: 3,000,000 pixels -> 200,000 rows, k = 4, 3 attempts, 40 iterations
+    def draw():
+        return kmeans.subsample_indices(42, n_px, KMEANS_SAMPLE, dev)
+
+    stats["K8 subsample"] = {
+        "max_abs_err": 0, "ms": cuda_ms(draw, 20),
+        "plain_ms": cuda_ms(lambda: kmeans.subsample_indices_plain(42, n_px, KMEANS_SAMPLE, dev), 3),
+        "alone_ms": profiled_ms(draw, "subsample", 20),
+        **bound(4 * KMEANS_SAMPLE, DRAW_PASSES * n_px * DRAW_OPS_PER_KEY, INT32_OPS)}
     n, k, attempts = sample.shape[0], 4, 3
     first, uniforms = kmeans.seed_stream(42, attempts, k, n)
     first_d, uniforms_d, idx_d = first.to(dev), uniforms.to(dev), idx.to(dev)
@@ -1609,9 +1655,9 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
         "alone_ms": profiled_ms(lambda: kernels.lloyd_fit_cuda(sample, inits, 40), "lloyd_fit", 10),
         "passes": passes, "iterations": kernels.STATS["lloyd_fit"][0].tolist(),
         **bound(12 * n + 24 * attempts * k, passes * n * k * LLOYD_FLOPS_PER_CENTER, FP32_OPS)}
-    for key in ("K8 lab_sample", "K8 kpp_init", "K8 lloyd_fit"):
+    for key in ("K8 subsample", "K8 lab_sample", "K8 kpp_init", "K8 lloyd_fit"):
         st = stats[key]
-        print(f"{key} at {n} x 3, k = {k}, {attempts} attempts: {st['ms']:.4f} ms a call"
+        print(f"{key} at {n_px} -> {n} x 3, k = {k}, {attempts} attempts: {st['ms']:.4f} ms a call"
               + (f" ({st['alone_ms']:.4f} alone)" if st.get("alone_ms") else "")
               + f", plain PyTorch on the card {st['plain_ms']:.3f} ms, bound {st['bound_ms']:.5f} ms by {st['bound_by']}"
               + (f"; iterations {st['iterations']}, the sample read {passes} times" if key == "K8 lloyd_fit" else ""))
@@ -1807,11 +1853,11 @@ def phase_device_kmeans_path(work: Path, stats: dict) -> dict:
 
     stats["device-kmeans trace"] = only_own_kernels(
         stage, "device_init_stage 2000x1500, fused, one call",
-        {"lab_sample": 1, "kpp_init": 1, "lloyd_fit": 1, "assign_nearest": 1, "morph_steps": 2, "boards_to_rows": 3,
-         "edge_tiles": 1, "hysteresis_cluster": 1, "zs_cluster": 1})
+        {"subsample": 1, "lab_sample": 1, "kpp_init": 1, "lloyd_fit": 1, "assign_nearest": 1, "morph_steps": 2,
+         "boards_to_rows": 3, "edge_tiles": 1, "hysteresis_cluster": 1, "zs_cluster": 1})
     stats["device-kmeans stage ms"] = cuda_ms(stage, 5)
     print(f"device_init_stage 2000x1500, fused: {stats['device-kmeans stage ms']:.3f} ms a call (CUDA events; the "
-          f"host draws the subsample's indices inside it)")
+          f"subsample drawn on the card, only the seeds' random numbers uploaded)")
     return counts
 
 
@@ -2378,6 +2424,125 @@ def phase_k9_ab(other: str) -> dict:
                           + " / ".join(f"{a:.4f}" if a else "not caught" for a in row[k]["alone_ms"]) + " ms"
                           for k in ("other", "this")), flush=True)
     print(json.dumps({"k9_ab": result}))
+    return result
+
+
+K8_AB_REPS = 7  # stage 02 runs a turn
+
+
+def kmeans_times() -> dict:
+    """K8's seeding and stage 02's device mode of the checkout that ``ROOT``
+    names, through that checkout's own code, on the synthetic 2000 x 1500
+    poster: ``kpp_init_cuda`` on a 200,000-row sample of it (the same rows
+    for every checkout: numpy's draw, gathered by ``lab_sample_cuda``), k =
+    4, 3 attempts, ms a call (CUDA events) and alone (``torch.profiler``),
+    and the picks' digest; ``device_init_stage`` (fused, as the runner calls
+    it) in host wall ms a call, synchronised, K8_AB_REPS calls; and stage
+    02's seconds of the CLI, steps 1-4 with ``kmeans_init: "device"``, three
+    runs.  Run after ``phase_probe``."""
+    import hashlib
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import kernels, kmeans
+    from plotweave_torch.stages.s02_color_extract import device_init_stage
+
+    kernels.build()
+    dev = torch.device("cuda")
+    img_np = synthetic_image(2, 1500, 2000)[0]
+    img = torch.from_numpy(img_np).to(dev)
+    idx = np.sort(np.random.default_rng(42).choice(1500 * 2000, KMEANS_SAMPLE, replace=False)).astype(np.int32)
+    sample = kernels.lab_sample_cuda(img, torch.from_numpy(idx).to(dev))
+    first, uniforms = kmeans.seed_stream(42, 3, 4, KMEANS_SAMPLE)
+    fd, ud = first.to(dev), uniforms.to(dev)
+
+    def seeds():
+        return kernels.kpp_init_cuda(sample, 4, fd, ud)
+
+    picks = seeds()[1].cpu().numpy()
+    out = {"kpp": {"digest": hashlib.sha256(picks.tobytes()).hexdigest(), "ms": cuda_ms(seeds, 20),
+                   "alone_ms": profiled_ms(seeds, "kpp_init", 10)}}
+
+    def stage():
+        device_init_stage(img, 4, 40, 3, KMEANS_SAMPLE, 42, True, *EDGE_PARAMS)
+        torch.cuda.synchronize()
+
+    stage()
+    walls = []
+    for _ in range(K8_AB_REPS):
+        t0 = time.perf_counter()
+        stage()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["stage_wall_ms"] = walls
+    with tempfile.TemporaryDirectory(prefix="pw_k8ab_") as tmp:
+        image = str(Path(tmp) / "poster.png")
+        cv2.imwrite(image, img_np)
+        out["s02_s"] = [run_main(image, Path(tmp) / f"run{i}", "auto", end_step=4,
+                                 settings={"kmeans_init": "device"})["s02_color_extract"] for i in range(3)]
+    return out
+
+
+def phase_kpp_scaling() -> dict:
+    """K8's seeding alone (``torch.profiler``) at 200,000 rows of the poster's
+    sample, 3 attempts, k = 1, 2, 4, 8, on both routes: k = 1 is the launch
+    and the first centre only, so the slope over k is the time of a draw
+    (two cluster barriers, the update, the search) and k = 2 less k = 1 adds
+    the rows' load.  Run in a fresh process after ``phase_probe``: late in a
+    long one the profiler loses events."""
+    import torch
+
+    from plotweave_torch.ops import kernels, kmeans
+
+    dev = torch.device("cuda")
+    sample = poster_sample()[2]
+    out = {}
+    for route in kernels.KPP_ROUTES:
+        for k in (1, 2, 4, 8):
+            first, uniforms = kmeans.seed_stream(42, 3, k, KMEANS_SAMPLE)
+            fd, ud = first.to(dev), uniforms.to(dev)
+
+            def call(k=k, fd=fd, ud=ud, route=route):
+                return kernels.kpp_init_cuda(sample, k, fd, ud, route)
+
+            out[f"{route} k={k}"] = {"ms": cuda_ms(call, 20), "alone_ms": profiled_ms(call, "kpp_init", 10)}
+    for key, v in out.items():
+        print(f"K8 kpp_init {key}: {v['ms']:.4f} ms a call, alone "
+              + (f"{v['alone_ms']:.4f}" if v["alone_ms"] else "not caught") + " ms", flush=True)
+    print(json.dumps({"kpp_scaling": out}))
+    return out
+
+
+def phase_kmeans_ab(other: str) -> dict:
+    """K8's seeding and stage 02's device mode of this checkout against the
+    one at ``other`` (``git archive <rev> | tar -x -C .checkout/other``), in
+    turns other, this, this, other, each in a process of its own that runs
+    :func:`kmeans_times` with ``ROOT`` set to its checkout.  The picks differ
+    by contract between the seeding's designs, so only times are compared;
+    the seeding's bound is the phase-8 one at the same shape."""
+    runs = ab_turns(other, "kmeans_times", "K8")
+    n, k, attempts = KMEANS_SAMPLE, 4, 3
+    b = bound(12 * n + 12 * attempts * k, attempts * (k - 1) * n * KPP_FLOPS_PER_DRAW, FP32_OPS)
+    result = {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+    for key, v in runs.items():
+        result[key] = {"kpp_ms": [r["kpp"]["ms"] for r in v], "kpp_alone_ms": [r["kpp"]["alone_ms"] for r in v],
+                       "kpp_share_alone": [b["bound_ms"] / r["kpp"]["alone_ms"] if r["kpp"]["alone_ms"] else None
+                                           for r in v],
+                       "stage_wall_ms": [r["stage_wall_ms"] for r in v], "s02_s": [r["s02_s"] for r in v]}
+        check(len({r["kpp"]["digest"] for r in v}) == 1, f"K8 A/B: the {key} checkout's picks differ between turns")
+
+    def ms_list(xs):
+        return " / ".join(f"{x:.4f}" if x else "not caught" for x in xs)
+
+    for key in ("other", "this"):
+        r = result[key]
+        med = [sorted(w)[len(w) // 2] for w in r["stage_wall_ms"]]
+        print(f"K8 A/B {key}: seeding {ms_list(r['kpp_ms'])} ms a call, alone {ms_list(r['kpp_alone_ms'])} ms "
+              f"(bound {b['bound_ms']:.5f} ms, {b['bound_by']}); device_init_stage wall median "
+              + " / ".join(f"{m:.2f}" for m in med) + " ms a call; stage 02 of the CLI "
+              + " / ".join("[" + ", ".join(f"{x:.3f}" for x in s) + "]" for s in r["s02_s"]) + " s", flush=True)
+    print(json.dumps({"k8_ab": result}))
     return result
 
 
@@ -3097,6 +3262,8 @@ def main() -> None:
              "plotweave/ops/pallas_kernels.py:99", "K12"),
             ("K7 assign_nearest (boards with counts)", "device-kmeans", "assign_nearest",
              "plotweave_torch/csrc/assign_nearest.cu", "plotweave/stages/s02_color_extract.py:50", "K7 counts"),
+            ("K8 kmeans, subsample", "device-kmeans", "subsample", k8, "plotweave/stages/s02_color_extract.py:127",
+             "K8 subsample"),
             ("K8 kmeans, lab_sample", "device-kmeans", "lab_sample", k8, "plotweave/stages/s02_color_extract.py:123",
              "K8 lab_sample"),
             ("K8 kmeans, kpp_init", "device-kmeans", "kpp_init", k8, "plotweave/ops/kmeans.py:124", "K8 kpp_init"),

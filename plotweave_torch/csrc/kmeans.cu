@@ -3,23 +3,56 @@
 //
 // Replaces the XLA programs of plotweave/ops/kmeans.py (_lloyd,
 // _kpp_init_device, kmeans_fit_device) and the subsample of
-// plotweave/stages/s02_color_extract.py::_device_init_stage.  Entry points:
+// plotweave/stages/s02_color_extract.py::_device_init_stage (its
+// jax.random.choice without replacement, :127-129).  Entry points:
 //
+// - pw_subsample: the subsample's draw, on the device, with no host read.
+//   Pixel i < n gets the 32-bit key fmix32(i * a + b mod 2^32), murmur3's
+//   finalizer, with (a odd, b) two words of splitmix64(seed) (the host's
+//   only part, ops/kmeans.py::draw_words); a bijection of i, so for one seed
+//   no two keys tie unless narrowed (>> shift, which the checks use to make
+//   ties).  The subsample is the `limit` pixels of least (key, index), in
+//   increasing index order.  One cooperative launch of at most 1,024 CTAs of
+//   1,024 threads, each owning a run of whole 1,024-pixel tiles: a radix
+//   select over the key (11, 11, then 10 bits: a shared-memory histogram of
+//   the digit over the keys inside the prefix found so far, merged into
+//   device memory with integer atomics, one grid.sync(), then every CTA
+//   finds the same digit from the merged counts), which gives the threshold
+//   key K and m, the number of keys equal to K to take; then each CTA counts
+//   its keys below and equal to K, one grid.sync(), and each works out from
+//   every CTA's counts its quota of equal keys (the first m in index order
+//   across CTAs) and its first output slot, and writes its tiles' indices,
+//   each tile ranked by one CTA-wide scan.  Keys are recomputed in each of
+//   the five passes, never stored.
 // - pw_lab_sample: gathers `n` pixels of a BGR image by index and converts
 //   them to float Lab with lab.cuh's arithmetic, K7's bit for bit (this file
 //   is compiled with --fmad=false like K7).
-// - pw_kpp_init: k-means++ seeding of every attempt, one block per attempt:
-//   the first centre by a given index, then k - 1 draws with probability
-//   proportional to max(d2, 1e-12), d2 the squared distance to the nearest
-//   centre so far (kept in device scratch, updated by min).  The random
-//   numbers come from the host (one index and k - 1 uniforms per attempt), so
-//   the draw is a pure function: the first index, in index order, whose
-//   running sum R(i) exceeds u * total.  The running sum has a FIXED order,
-//   which the plain version (ops/kmeans.py::kpp_init_plain) repeats: lane t of
-//   1024 owns the chunk [t L, (t + 1) L), L = ceil(n / 1024), and sums it from
-//   0 in index order; lane totals are summed in order within each warp of 32
-//   lanes and the 32 warp totals in order; R(i) = (warp offset + lane offset)
-//   + (the chunk's sum up to and including i).
+// - pw_kpp_init: k-means++ seeding of every attempt: the first centre by a
+//   given index, then k - 1 draws, each the first row i whose running sum
+//   R(i) of the integer weights w = max(floor(d2 2^16), 1) (at most 2^36)
+//   exceeds target = floor(total u) (the last row where none does: u = 1),
+//   d2 = (e0^2 + e1^2) + e2^2 in float32 the squared distance to the nearest
+//   centre so far, updated by min.  The random numbers come from the host
+//   (one index and k - 1 uniforms per attempt).  Integer sums are exact in
+//   any order, so the picks depend on no order of additions
+//   (ops/kmeans.py::kpp_init_plain: cumsum and searchsorted); target is exact
+//   (kpp_target).  Overflow: w < 2^36 and n < 2^27, so every sum is below
+//   2^63; the cap binds only where d2 >= 2^20 (a distance of 1,024; Lab in
+//   OpenCV's 8-bit scaling has d2 < 3 * 255^2 < 2^18), and the wrappers
+//   refuse n >= 2^27.  Design: one thread block cluster of 16 CTAs of 512
+//   threads per attempt; CTA r owns rows [r P, (r + 1) P), P = ceil(n / 16),
+//   in tiles of 512 rows, one row a thread, so every load is coalesced.
+//   Where a CTA's rows fit (16 bytes a row: 200,000 rows take 200 KB a
+//   CTA), they and their d2 stay in shared memory and the sample is read
+//   once; else (the streamed route) the rows are read each draw and d2 lives
+//   in device scratch.  A draw: every thread updates its rows' d2 and w, a
+//   warp sums its w (two redux.sync, of the low and the high 18 bits) and
+//   adds both sums to its tile's (32-bit shared-memory atomics), the CTA sums its tiles and stores its total into every peer
+//   (distributed shared memory); one cluster.sync(); every CTA sums the 16
+//   totals in rank order to its offset and the grand total, and computes
+//   target; only the CTA whose range holds target searches: warp 0 finds the
+//   tile from the tile totals, the CTA rescans that one tile (one scan), and
+//   thread 0 stores the pick and its row into every peer; one cluster.sync().
 // - pw_lloyd_fit: every attempt's whole Lloyd loop in ONE launch, one thread
 //   block cluster of 16 CTAs per attempt, with the stop test on the device
 //   (a launch and a flag read per iteration would be host-bound: up to 40
@@ -43,11 +76,22 @@
 // decision).  The partials are double-buffered, which makes one
 // cluster.sync() per iteration enough.
 //
-// Bound.  Operations: about 9 float operations per centre, point and
+// Bound.  The fit: about 9 float operations per centre, point and
 // iteration.  The sample (2.4 MB at 200,000 points) is read from L2 by 16 CTAs
 // per iteration; a cooperative grid over all SMs would read it faster but pay
 // a grid-wide barrier per iteration, and three attempts already run side by
-// side on 48 SMs.  On an H100 the times are in PERF.md.
+// side on 48 SMs.  The draw: the hash, 5 passes x n x about 10 integer
+// operations (1.5e8 at 3,000,000 pixels, 9 us at the INT32 peak), against
+// 0.8 MB written.  The seeding: 12 bytes a row read once; its chain of two
+// cluster barriers a draw binds it.  On an H100 the times are in PERF.md.
+//
+// Prediction (written before the first run on the card; the earlier seeding, one
+// CTA of 1,024 threads an attempt with uncoalesced chunks, took 1.104 ms
+// alone at 200,000 x 3, k = 4, 3 attempts): the seeding 15-30 us a call there
+// (3-6 us a draw for the update, the two cluster barriers and the one-tile
+// rescan, 3-6 us to load the rows); the draw 20-60 us at 3,000,000 -> 200,000
+// (five passes of about 1-3 us each, four grid barriers, the global
+// histogram merges), against about 60 ms of host torch.randperm before.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -64,8 +108,12 @@ constexpr int kMaxK = 8;           // centres the fit's register accumulators ho
 constexpr int kCluster = 16;       // CTAs per attempt (a non-portable cluster size)
 constexpr int kFitThreads = 512;   // threads per CTA of the fit
 constexpr int kFitWarps = kFitThreads / 32;
-constexpr int kInitThreads = 1024;  // lanes of the seeding's running sum
+constexpr int kInitThreads = 512;   // threads per CTA of the seeding: a tile is one row a thread
 constexpr int kInitWarps = kInitThreads / 32;
+constexpr int kDrawThreads = 1024;  // threads per CTA of the draw; also the most CTAs it takes
+constexpr int kDrawWarps = kDrawThreads / 32;
+constexpr int kDigits = 2048;       // histogram buckets of one round of the draw's radix select
+constexpr int kMaxSmem = 232448;    // 227 KB, the opt-in limit of one CTA
 
 __global__ void lab_sample(const uint8_t* __restrict__ bgr, const int32_t* __restrict__ idx, float* __restrict__ out,
                            int n) {
@@ -82,80 +130,314 @@ __global__ void lab_sample(const uint8_t* __restrict__ bgr, const int32_t* __res
   out[3 * (long)i + 2] = lab2;
 }
 
-// One block per attempt; see the header for the running sum's order.
-__global__ void __launch_bounds__(kInitThreads)
-    kpp_init(const float* __restrict__ sample, int n, int k, const int32_t* __restrict__ first,
-             const float* __restrict__ uniforms, float* __restrict__ d2_all, float* __restrict__ centers_all,
-             int32_t* __restrict__ picks_all) {
-  __shared__ float lane_tot[kInitThreads];
-  __shared__ float lane_off[kInitThreads];
-  __shared__ float warp_tot[kInitWarps];
-  __shared__ float warp_off[kInitWarps];
-  __shared__ float total_s;
-  __shared__ float c_s[3];
-  __shared__ int hit_s;
-  const int a = blockIdx.x, t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const long len = ((long)n + kInitThreads - 1) / kInitThreads;
-  const long lo = min((long)t * len, (long)n), hi = min(lo + len, (long)n);
-  float* d2 = d2_all + (long)a * n;
-  float* centers = centers_all + (long)a * k * 3;
-  int idx = first[a];
-  for (int j = 0; j < k; ++j) {
-    if (t < 3) {
-      const float v = sample[3 * (long)idx + t];
-      c_s[t] = v;
-      centers[3 * j + t] = v;
-    }
-    if (t == 0) {
-      picks_all[a * k + j] = idx;
-      hit_s = n;
+// ---------------------------------------------------------------- the draw
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85ebca6bu;
+  h ^= h >> 13;
+  h *= 0xc2b2ae35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// The draw's key of pixel i: murmur3's 32-bit finalizer of i * a + b (mod 2^32), narrowed by `shift` bits.
+__device__ __forceinline__ uint32_t draw_key(uint32_t i, uint32_t a, uint32_t b, int shift) {
+  return fmix32(i * a + b) >> shift;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_inclusive_scan(T x) {
+  const int lane = threadIdx.x & 31;
+  for (int off = 1; off < 32; off <<= 1) {
+    const T y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  return x;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T x) {
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Exclusive scan of v over the CTA (kWarps warps, every thread calls it);
+// total gets the CTA's sum.  slots: kWarps values of shared memory.
+template <typename T, int kWarps>
+__device__ __forceinline__ T block_exclusive_scan(T v, T* slots, T& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T x = warp_inclusive_scan(v);
+  if (lane == 31) slots[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    const T y = warp_inclusive_scan(lane < kWarps ? slots[lane] : T(0));
+    if (lane < kWarps) slots[lane] = y;
+  }
+  __syncthreads();
+  const T excl = x - v + (warp > 0 ? slots[warp - 1] : T(0));
+  total = slots[kWarps - 1];
+  __syncthreads();  // the slots are written again by the next scan
+  return excl;
+}
+
+// One cooperative launch; CTA q owns the pixels [q chunk, (q + 1) chunk).
+// hist: 3 rounds x kDigits counts, zeroed by the caller; counts: 2 per CTA.
+__global__ void __launch_bounds__(kDrawThreads)
+    subsample_draw(int n, int limit, uint32_t a, uint32_t b, int shift, long chunk, uint32_t* __restrict__ hist,
+                   int* __restrict__ counts, int32_t* __restrict__ out) {
+  __shared__ uint32_t h_s[kDigits];
+  __shared__ int slots[kDrawWarps];
+  __shared__ int found[2];
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
+  const long lo = min((long)blockIdx.x * chunk, (long)n), hi = min(lo + chunk, (long)n);
+
+  // the radix select: 11, 11 and 10 bits of the key, counting only the keys inside the prefix found so far
+  uint32_t prefix = 0, mask = 0;
+  int need = limit;  // keys still to take inside the prefix
+  for (int round = 0; round < 3; ++round) {
+    const int sh = round == 0 ? 21 : round == 1 ? 10 : 0;
+    const uint32_t digit = round == 2 ? 0x3ffu : 0x7ffu;
+    for (int j = tid; j < kDigits; j += kDrawThreads) h_s[j] = 0;
+    __syncthreads();
+    for (long i = lo + tid; i < hi; i += kDrawThreads) {
+      const uint32_t key = draw_key((uint32_t)i, a, b, shift);
+      if ((key & mask) == prefix) atomicAdd(&h_s[(key >> sh) & digit], 1u);
     }
     __syncthreads();
-    if (j == k - 1) break;
-    const float c0 = c_s[0], c1 = c_s[1], c2 = c_s[2];
-    float run = 0.0f;
-    for (long i = lo; i < hi; ++i) {
-      const float e0 = sample[3 * i] - c0, e1 = sample[3 * i + 1] - c1, e2 = sample[3 * i + 2] - c2;
-      float d = (e0 * e0 + e1 * e1) + e2 * e2;
-      if (j > 0) d = fminf(d2[i], d);
-      d2[i] = d;
-      run = run + fmaxf(d, 1e-12f);
-    }
-    lane_tot[t] = run;
-    __syncthreads();
-    if (lane == 0) {
-      float r = 0.0f;
-      for (int l = 0; l < 32; ++l) {
-        lane_off[t + l] = r;
-        r = r + lane_tot[t + l];
-      }
-      warp_tot[warp] = r;
+    uint32_t* g = hist + round * kDigits;
+    for (int j = tid; j < kDigits; j += kDrawThreads)
+      if (h_s[j]) atomicAdd(&g[j], h_s[j]);
+    grid.sync();
+    // every CTA finds the same digit: the first whose running count reaches need
+    const int c0 = (int)__ldcg(g + 2 * tid), c1 = (int)__ldcg(g + 2 * tid + 1);
+    int sum;
+    const int below = block_exclusive_scan<int, kDrawWarps>(c0 + c1, slots, sum);
+    if (below < need && need <= below + c0) {
+      found[0] = 2 * tid;
+      found[1] = below;
+    } else if (below + c0 < need && need <= below + c0 + c1) {
+      found[0] = 2 * tid + 1;
+      found[1] = below + c0;
     }
     __syncthreads();
-    if (t == 0) {
-      float r = 0.0f;
-      for (int v = 0; v < kInitWarps; ++v) {
-        warp_off[v] = r;
-        r = r + warp_tot[v];
-      }
-      total_s = r;
+    prefix |= (uint32_t)found[0] << sh;
+    mask |= digit << sh;
+    need -= found[1];
+    __syncthreads();  // found is written again in the next round
+  }
+
+  // the threshold key is prefix; take every key below it and the first `need` keys equal to it in index order
+  int lt = 0, eq = 0;
+  for (long i = lo + tid; i < hi; i += kDrawThreads) {
+    const uint32_t key = draw_key((uint32_t)i, a, b, shift);
+    lt += key < prefix;
+    eq += key == prefix;
+  }
+  int lt_cta, eq_cta;
+  block_exclusive_scan<int, kDrawWarps>(lt, slots, lt_cta);
+  block_exclusive_scan<int, kDrawWarps>(eq, slots, eq_cta);
+  if (tid == 0) {
+    counts[2 * blockIdx.x] = lt_cta;
+    counts[2 * blockIdx.x + 1] = eq_cta;
+  }
+  grid.sync();
+  // thread q stands for CTA q (gridDim.x <= kDrawThreads): its quota of equal keys and its first output slot
+  const int q_lt = tid < (int)gridDim.x ? __ldcg(counts + 2 * tid) : 0;
+  const int q_eq = tid < (int)gridDim.x ? __ldcg(counts + 2 * tid + 1) : 0;
+  int all;
+  const int eq_before = block_exclusive_scan<int, kDrawWarps>(q_eq, slots, all);
+  const int q_quota = min(max(need - eq_before, 0), q_eq);
+  const int q_base = block_exclusive_scan<int, kDrawWarps>(q_lt + q_quota, slots, all);
+  if (tid == (int)blockIdx.x) {
+    found[0] = q_base;
+    found[1] = q_quota;
+  }
+  __syncthreads();
+  const int base = found[0], quota = found[1];
+
+  // the compaction, a tile of kDrawThreads pixels at a time in index order
+  int lt_run = 0, eq_run = 0;
+  for (long t0 = lo; t0 < hi; t0 += kDrawThreads) {
+    const long i = t0 + tid;
+    int is_lt = 0, is_eq = 0;
+    if (i < hi) {
+      const uint32_t key = draw_key((uint32_t)i, a, b, shift);
+      is_lt = key < prefix;
+      is_eq = key == prefix;
     }
-    __syncthreads();
-    const float base = warp_off[warp] + lane_off[t];
-    const float target = uniforms[a * (k - 1) + j] * total_s;
-    run = 0.0f;
-    for (long i = lo; i < hi; ++i) {
-      run = run + fmaxf(d2[i], 1e-12f);
-      if (base + run > target) {
-        atomicMin(&hit_s, (int)i);
-        break;
-      }
-    }
-    __syncthreads();
-    idx = hit_s < n ? hit_s : n - 1;  // u * total rounded up to the whole sum: the last point
-    __syncthreads();                  // every thread has read hit_s and c_s before thread 0 rewrites them
+    int tile;
+    const int before = block_exclusive_scan<int, kDrawWarps>((is_eq << 16) | is_lt, slots, tile);
+    const int eq_rank = eq_run + (before >> 16);
+    if (is_lt || (is_eq && eq_rank < quota)) out[base + lt_run + (before & 0xffff) + min(eq_rank, quota)] = (int32_t)i;
+    lt_run += tile & 0xffff;
+    eq_run += tile >> 16;
   }
 }
+
+// ------------------------------------------------------------ the seeding
+
+// w = max(floor(d2 2^16), 1), at most 2^36 (d2 >= 2^20 saturates); NaN counts as the cap.
+__device__ __forceinline__ unsigned long long kpp_weight(float d2) {
+  const unsigned long long w = (unsigned long long)fminf(d2 * 65536.0f, 68719476736.0f);
+  return w > 0ull ? w : 1ull;
+}
+
+// floor(total u) exactly, u a float32 in [0, 1] (below 0 reads as 0, above 1 as 1): u = m 2^-q with m < 2^24
+// and q >= 24; total = hi 2^24 + lo, so floor(total m / 2^24) = hi m + floor(lo m / 2^24), no product above 2^63.
+__device__ __forceinline__ unsigned long long kpp_target(unsigned long long total, float u) {
+  const uint32_t bits = __float_as_uint(u);
+  if (bits >= 0x80000000u || bits == 0u) return 0ull;
+  if (bits >= 0x3f800000u) return total;
+  const uint32_t e8 = bits >> 23, f23 = bits & 0x7fffffu;
+  const unsigned long long m = e8 ? (f23 | 0x800000u) : f23;
+  const int q = e8 ? 150 - (int)e8 : 149;
+  const unsigned long long v = (total >> 24) * m + (((total & 0xffffffull) * m) >> 24);
+  return q - 24 >= 64 ? 0ull : v >> (q - 24);
+}
+
+struct InitShared {
+  float4 pick;                            // this draw's pick: its index's bits, then its row; pushed by its CTA
+  unsigned long long totals[kCluster];    // every CTA's total of this draw, pushed by each CTA
+  unsigned long long cta_total;
+  unsigned long long slots[kInitWarps];   // the CTA's scans; the warps' parts of the CTA's total
+  unsigned long long rest;                // the picker's residual inside its tile
+  int tile, local;
+};
+
+// One cluster of kCluster CTAs per attempt; see the header.  rows: a CTA's
+// rows, tiles = ceil(rows / kInitThreads).  A tile's total is kept as the
+// sums of its weights' low and high 18 bits (each below 2^27), added by
+// 32-bit shared-memory atomics: a 64-bit shared atomic add is a
+// compare-and-swap loop, and 16 warps add to each tile.  kResident: the
+// CTA's rows and d2 in shared memory after the tile totals, else the rows
+// read from the sample and d2 in d2_all (attempts, n).
+template <bool kResident>
+__global__ void __launch_bounds__(kInitThreads)
+    kpp_init(const float* __restrict__ sample, int n, int k, int rows, int tiles, const int32_t* __restrict__ first,
+             const float* __restrict__ uniforms, float* __restrict__ d2_all, float* __restrict__ centers_all,
+             int32_t* __restrict__ picks_all) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ InitShared s;
+  uint32_t* tile_lo = reinterpret_cast<uint32_t*>(dyn);
+  uint32_t* tile_hi = tile_lo + tiles;
+  float* xs = reinterpret_cast<float*>(tile_hi + tiles);  // resident: x0, x1, x2 and d2, rows values each
+  auto tile_tot = [&](int t) -> unsigned long long { return ((unsigned long long)tile_hi[t] << 18) + tile_lo[t]; };
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), a = blockIdx.x / kCluster;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long lo = min((long)rank * rows, (long)n);
+  const int len = (int)(min(lo + rows, (long)n) - lo);
+  float* d2 = kResident ? xs + 3 * (long)rows : d2_all + (long)a * n + lo;
+  const float* src = sample + 3 * lo;
+  auto coord = [&](int r, int c) -> float { return kResident ? xs[(long)c * rows + r] : src[3 * (long)r + c]; };
+
+  int idx = first[a];
+  float c0 = sample[3 * (long)idx], c1 = sample[3 * (long)idx + 1], c2 = sample[3 * (long)idx + 2];
+  if (rank == 0 && tid == 0) {
+    picks_all[(long)a * k] = idx;
+    centers_all[(long)a * k * 3] = c0;
+    centers_all[(long)a * k * 3 + 1] = c1;
+    centers_all[(long)a * k * 3 + 2] = c2;
+  }
+  if (k == 1) return;
+  if (kResident)  // coalesced: the CTA's 3 len floats in order
+    for (int f = tid; f < 3 * len; f += kInitThreads) xs[(long)(f % 3) * rows + f / 3] = src[f];
+
+  for (int j = 1; j < k; ++j) {
+    // d2 and w against the last centre; every tile's total and the CTA's, integer sums in any order
+    for (int t = tid; t < tiles; t += kInitThreads) tile_lo[t] = tile_hi[t] = 0u;
+    __syncthreads();
+    for (int t = 0; t < tiles; ++t) {
+      const int r = t * kInitThreads + tid;
+      unsigned long long w = 0ull;
+      if (r < len) {
+        const float e0 = coord(r, 0) - c0, e1 = coord(r, 1) - c1, e2 = coord(r, 2) - c2;
+        float d = (e0 * e0 + e1 * e1) + e2 * e2;
+        if (j > 1) d = fminf(d2[r], d);
+        d2[r] = d;
+        w = kpp_weight(d);
+      }
+      const uint32_t lo_sum = __reduce_add_sync(0xffffffffu, (uint32_t)(w & 0x3ffffull));  // below 2^23
+      const uint32_t hi_sum = __reduce_add_sync(0xffffffffu, (uint32_t)(w >> 18));
+      if (lane == 0) {
+        if (lo_sum) atomicAdd(&tile_lo[t], lo_sum);
+        if (hi_sum) atomicAdd(&tile_hi[t], hi_sum);
+      }
+    }
+    __syncthreads();
+    unsigned long long part = 0ull;
+    for (int t = tid; t < tiles; t += kInitThreads) part += tile_tot(t);
+    part = warp_sum(part);
+    if (lane == 0) s.slots[warp] = part;
+    __syncthreads();
+    if (tid == 0) {
+      unsigned long long sum = 0ull;
+      for (int v = 0; v < kInitWarps; ++v) sum += s.slots[v];
+      s.cta_total = sum;
+    }
+    __syncthreads();
+    if (tid < kCluster) cluster.map_shared_rank(&s.totals[0], tid)[rank] = s.cta_total;
+    cluster.sync();  // every CTA's total is in every CTA
+
+    unsigned long long off = 0ull, total = 0ull;
+    for (int q = 0; q < kCluster; ++q) {
+      const unsigned long long v = s.totals[q];
+      off += q < rank ? v : 0ull;
+      total += v;
+    }
+    const unsigned long long target = kpp_target(total, uniforms[(long)a * (k - 1) + j - 1]);
+    const bool past = target >= total;  // u = 1: no running sum exceeds it, the last row
+    if (past ? rank == (n - 1) / rows : off <= target && target < off + s.totals[rank]) {
+      int local = len - 1;
+      if (!past) {
+        const unsigned long long res = target - off;
+        if (warp == 0) {  // the tile: lane l sums a run of tiles, the first lane whose running sum exceeds res
+          const int per = (tiles + 31) / 32;
+          const int t0 = min(lane * per, tiles), t1 = min(t0 + per, tiles);
+          unsigned long long own = 0ull;
+          for (int t = t0; t < t1; ++t) own += tile_tot(t);
+          const unsigned long long incl = warp_inclusive_scan(own);
+          if (lane == __ffs(__ballot_sync(0xffffffffu, incl > res)) - 1) {
+            unsigned long long rest = res - (incl - own);
+            int t = t0;
+            while (rest >= tile_tot(t)) rest -= tile_tot(t++);
+            s.tile = t;
+            s.rest = rest;
+          }
+        }
+        __syncthreads();
+        const int r = s.tile * kInitThreads + tid;  // the tile's rescan: one row a thread
+        const unsigned long long w = r < len ? kpp_weight(d2[r]) : 0ull;
+        unsigned long long sum;
+        const unsigned long long before = block_exclusive_scan<unsigned long long, kInitWarps>(w, s.slots, sum);
+        if (before <= s.rest && s.rest < before + w) s.local = r;
+        __syncthreads();
+        local = s.local;
+      }
+      if (tid == 0) {
+        const float4 p = make_float4(__int_as_float((int)(lo + local)), coord(local, 0), coord(local, 1),
+                                     coord(local, 2));
+        for (int q = 0; q < kCluster; ++q) *cluster.map_shared_rank(&s.pick, q) = p;
+      }
+    }
+    cluster.sync();  // the pick is in every CTA
+    const float4 p = s.pick;
+    idx = __float_as_int(p.x);
+    c0 = p.y;
+    c1 = p.z;
+    c2 = p.w;
+    if (rank == 0 && tid == 0) {
+      picks_all[(long)a * k + j] = idx;
+      centers_all[((long)a * k + j) * 3] = c0;
+      centers_all[((long)a * k + j) * 3 + 1] = c1;
+      centers_all[((long)a * k + j) * 3 + 2] = c2;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- the fit
 
 struct FitShared {
   float cen[kMaxK * 3];              // the centres of this iteration
@@ -376,15 +658,73 @@ int pw_lab_sample(const uint8_t* bgr, const int32_t* idx, float* out, int n, voi
   return (int)cudaGetLastError();
 }
 
-// k-means++ seeds of `attempts` attempts on sample (n, 3): first (attempts,)
-// int32 indices, uniforms (attempts, k - 1) float32 in [0, 1), d2 (attempts,
-// n) float32 scratch -> centers (attempts, k, 3) and picks (attempts, k), the
-// chosen indices.  Returns a CUDA error code.
+// The subsample of n pixels: the `limit` pixels of least (key, index), key =
+// draw_key(i, a, b, shift), written to out (limit,) int32 in increasing index
+// order; 1 <= limit < n.  scratch: 3 * 2048 + 2 * 1024 uint32 words (three
+// rounds' histograms, then two counts a CTA).  Makes a memset
+// and one cooperative launch.  Returns a CUDA error code.
+int pw_subsample(int n, int limit, unsigned a, unsigned b, int shift, int32_t* out, uint32_t* scratch,
+                 void* stream) {
+  if (n < 2 || limit < 1 || limit >= n || shift < 0 || shift > 31) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(uint32_t) * 3 * kDigits, s);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, subsample_draw, kDrawThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  long grid = (long)sms * per_sm;
+  grid = grid < kDrawThreads ? grid : kDrawThreads;
+  const long tiles = ((long)n + kDrawThreads - 1) / kDrawThreads;
+  grid = grid < tiles ? grid : tiles;
+  if (grid < 1) return (int)cudaErrorInvalidConfiguration;
+  long chunk = ((tiles + grid - 1) / grid) * kDrawThreads;  // whole tiles a CTA
+  grid = ((long)n + chunk - 1) / chunk;
+  uint32_t* hist = scratch;
+  int* counts = reinterpret_cast<int*>(scratch + 3 * kDigits);
+  void* args[] = {&n, &limit, &a, &b, &shift, &chunk, &hist, &counts, &out};
+  err = cudaLaunchCooperativeKernel((const void*)subsample_draw, dim3((unsigned)grid), dim3(kDrawThreads), args, 0, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// k-means++ seeds of `attempts` attempts on sample (n, 3), n < 2^27: first
+// (attempts,) int32 indices, uniforms (attempts, k - 1) float32 in [0, 1] ->
+// centers (attempts, k, 3) and picks (attempts, k), the chosen indices.  One
+// cluster of kCluster CTAs an attempt; resident (nonzero): each CTA holds its
+// rows and their d2 in shared memory, else d2 (attempts, n) float32 is
+// scratch in device memory.  Returns a CUDA error code.
 int pw_kpp_init(const float* sample, int n, int k, int attempts, const int32_t* first, const float* uniforms,
-                float* d2, float* centers, int32_t* picks, void* stream) {
-  if (n <= 0 || k <= 0 || attempts <= 0) return (int)cudaErrorInvalidValue;
-  kpp_init<<<attempts, kInitThreads, 0, static_cast<cudaStream_t>(stream)>>>(sample, n, k, first, uniforms, d2,
-                                                                             centers, picks);
+                float* d2, float* centers, int32_t* picks, int resident, void* stream) {
+  if (n <= 0 || n >= (1 << 27) || k <= 0 || attempts <= 0 || (!resident && d2 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  int rows = (n + kCluster - 1) / kCluster, tiles = (rows + kInitThreads - 1) / kInitThreads;
+  const size_t smem = sizeof(unsigned long long) * (size_t)tiles + (resident ? 16 * (size_t)rows : 0);
+  if (smem + sizeof(InitShared) > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const void* kernel = resident ? (const void*)kpp_init<true> : (const void*)kpp_init<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)(attempts * kCluster));
+  cfg.blockDim = dim3(kInitThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int fit = 0;
+  err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (fit < 1) return (int)cudaErrorInvalidConfiguration;
+  void* args[] = {&sample, &n, &k, &rows, &tiles, &first, &uniforms, &d2, &centers, &picks};
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -35,14 +35,18 @@
   int32 labels or as the k one-hot bitboards, the latter also with the k
   pixel counts of one image; replaces the XLA fusion of ``assign_nearest``
   and the argmin and counts of stage 02's ``_assign_tail``.
-- K8 ``lab_sample_cuda``, ``kpp_init_cuda`` and ``lloyd_fit_cuda``
-  (``csrc/kmeans.cu``): the device k-means of ``kmeans_init: "device"``: the
-  float Lab of a subsample (K7's arithmetic through ``csrc/lab.cuh``), the
-  k-means++ seeds of every attempt from host-drawn random numbers, and every
-  attempt's whole Lloyd loop with the choice of the best in one launch (one
-  thread block cluster per attempt, the stop test on the device, sums in a
-  fixed order); replaces the XLA programs of ``_lloyd``, ``_kpp_init_device``
-  and ``kmeans_fit_device``.
+- K8 ``subsample_cuda``, ``lab_sample_cuda``, ``kpp_init_cuda`` and
+  ``lloyd_fit_cuda`` (``csrc/kmeans.cu``): the device k-means of
+  ``kmeans_init: "device"``: the subsample's draw (a radix select over
+  hashed keys and a compaction in index order, one cooperative launch), the
+  float Lab of the subsample (K7's arithmetic through ``csrc/lab.cuh``), the
+  k-means++ seeds of every attempt from host-drawn random numbers (one thread
+  block cluster per attempt, integer running sums, the rows resident in
+  shared memory where they fit: :func:`kpp_schedule`), and every attempt's
+  whole Lloyd loop with the choice of the best in one launch (one cluster
+  per attempt, the stop test on the device, sums in a fixed order); replaces
+  the subsample of ``_device_init_stage`` and the XLA programs of
+  ``_lloyd``, ``_kpp_init_device`` and ``kmeans_fit_device``.
 - K11 ``morph_dense_cuda`` (``csrc/morph_dense.cu``): a whole list of gray
   (uint8) erosions and dilations by any structuring element in one launch,
   each block holding a tile and the list's halo in shared memory; replaces
@@ -164,10 +168,20 @@ CLUSTER_SIZE = 16
 MAX_SMEM = 232448
 ROUTES = ("resident", "multi")
 
-# K8: the centres one fit holds in registers (``kMaxK`` in csrc/kmeans.cu) and
-# the lanes of the seeding's running sum (``kInitThreads``)
+# K8: the centres one fit holds in registers (``kMaxK`` in csrc/kmeans.cu); the
+# seeding's threads a CTA (``kInitThreads``: a tile is one row a thread), the
+# shared memory it keeps beside the tile totals and rows (``InitShared``, with
+# room), its weights max(floor(d2 2^16), 1) capped at 2^36, and the rows it
+# takes (n 2^36 < 2^63); the draw's scratch (three rounds of 2,048 buckets, two
+# counts for each of at most 1,024 CTAs)
 KMEANS_MAX_K = 8
-KPP_LANES = 1024
+KPP_THREADS = 512
+KPP_STATIC_SMEM = 512
+KPP_SCALE_BITS = 16
+KPP_WEIGHT_CAP = 1 << 36
+KPP_MAX_N = 1 << 27
+KPP_ROUTES = ("resident", "streamed")
+DRAW_SCRATCH_WORDS = 3 * 2048 + 2 * 1024
 
 # K11's tile of output, rows x pixels, and the halo (the summed radius of the
 # steps of one launch) beyond which a further step starts a launch of its own:
@@ -196,7 +210,7 @@ REFINE_MIN_N, REFINE_MAX_N = 3, 8192
 # kernel launches per wrapper and route, counted where each wrapper calls into its library
 LAUNCHES = {"bitpack": 0, "edge_candidates": 0, "zhang_suen_packed": 0, "zhang_suen_packed_multi": 0,
             "hysteresis": 0, "hysteresis_multi": 0, "morph_bits": 0, "assign_nearest": 0, "zhang_suen_dense": 0,
-            "lab_sample": 0, "kpp_init": 0, "lloyd_fit": 0, "assign_points": 0, "morph_dense": 0,
+            "subsample": 0, "lab_sample": 0, "kpp_init": 0, "lloyd_fit": 0, "assign_points": 0, "morph_dense": 0,
             "greedy_tour": 0, "refine_tour": 0, "area_resize_frac": 0, "area_resize_int": 0, "bezier_sample": 0}
 
 # what the last call of each fixpoint route took: for the resident routes a
@@ -280,7 +294,7 @@ def build(names=None) -> dict:
     return paths
 
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+_P, _I, _U, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
     "bitpack": {"pw_rows_to_boards": [_P, _P, _L, _I, _P],
                 "pw_boards_to_rows": [_P, _P, _L, _I, _P],
@@ -296,8 +310,9 @@ _SIGNATURES = {
     "assign_nearest": {"pw_assign_nearest": [_P, _P, _P, _I, _L, _P],
                        "pw_assign_boards": [_P, _P, _P, _P, _I, _L, _I, _I, _P]},
     "zs_dense": {"pw_zs_tiles_run": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
-    "kmeans": {"pw_lab_sample": [_P, _P, _P, _I, _P],
-               "pw_kpp_init": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "kmeans": {"pw_subsample": [_I, _I, _U, _U, _I, _P, _P, _P],
+               "pw_lab_sample": [_P, _P, _P, _I, _P],
+               "pw_kpp_init": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
                "pw_lloyd_fit": [_P, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P],
                "pw_assign_points": [_P, _L, _P, _I, _P, _P]},
     "morph_dense": {"pw_morph_dense_run": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
@@ -922,30 +937,77 @@ def lab_sample_cuda(image: torch.Tensor, idx: torch.Tensor | None = None) -> tor
     return out
 
 
-def kpp_init_cuda(sample: torch.Tensor, k: int, first: torch.Tensor, uniforms: torch.Tensor):
+def kpp_schedule(n: int, route: str | None = None) -> dict:
+    """K8's seeding of n rows, as ``pw_kpp_init`` runs it: ``rows`` a CTA of
+    the cluster (``⌈n / CLUSTER_SIZE⌉``), ``tiles`` of :data:`KPP_THREADS`
+    rows each, and the route: ``resident`` (each CTA's rows and their d²,
+    16 bytes a row, in shared memory after the tiles' totals) where that
+    fits, else ``streamed`` (the rows read each draw, d² in device scratch);
+    ``route`` names one (``resident`` must fit)."""
+    rows = -(-n // CLUSTER_SIZE)
+    tiles = -(-rows // KPP_THREADS)
+    fits = 8 * tiles + 16 * rows + KPP_STATIC_SMEM <= MAX_SMEM
+    if route is None:
+        route = "resident" if fits else "streamed"
+    if route not in KPP_ROUTES or (route == "resident" and not fits):
+        raise ValueError(f"kpp_init: route {route!r} for {n} rows (routes {KPP_ROUTES}; resident up to "
+                         f"{CLUSTER_SIZE} x {(MAX_SMEM - KPP_STATIC_SMEM) // 16} rows)")
+    return {"route": route, "rows": rows, "tiles": tiles}
+
+
+def kpp_init_cuda(sample: torch.Tensor, k: int, first: torch.Tensor, uniforms: torch.Tensor,
+                  route: str | None = None):
     """K8's seeding: ``ops.kmeans.kpp_init_plain`` for every attempt in one
-    launch.  ``sample`` (n, 3) float32, ``first`` (attempts,) int32 indices
-    and ``uniforms`` (attempts, k - 1) float32 in [0, 1), all on one CUDA
-    device → (centres (attempts, k, 3) float32, picked indices (attempts, k)
-    int32)."""
+    launch.  ``sample`` (n, 3) float32, n < :data:`KPP_MAX_N` (the weights'
+    sum stays below 2^63), ``first`` (attempts,) int32 indices and
+    ``uniforms`` (attempts, k - 1) float32 in [0, 1], all on one CUDA device
+    → (centres (attempts, k, 3) float32, picked indices (attempts, k)
+    int32).  ``route`` as :func:`kpp_schedule` takes it (by size where
+    None)."""
     _check_f32("kpp_init", sample, (3,))
     n, attempts = sample.shape[0], first.numel()
-    if sample.dim() != 2 or not 0 < n < 2**31 - KPP_LANES or k < 1 or attempts < 1:
+    if sample.dim() != 2 or k < 1 or attempts < 1:
         raise ValueError(f"kpp_init: expected an (n, 3) sample, k >= 1 and an attempt, got {tuple(sample.shape)}, {k}")
+    if not 0 < n < KPP_MAX_N:
+        raise ValueError(f"kpp_init: {n} rows; the seeding takes 1 to {KPP_MAX_N - 1} (a sum of weights below 2^63)")
     _check_f32("kpp_init", uniforms, (attempts, k - 1), sample.device)
     if not (first.device == sample.device and first.dtype == torch.int32 and first.is_contiguous()
             and first.dim() == 1):
         raise ValueError(f"kpp_init: expected contiguous (attempts,) int32 first indices on {sample.device}")
+    resident = kpp_schedule(n, route)["route"] == "resident"
     lib = load("kmeans")
     with _guard(sample.device):
         centers = torch.empty((attempts, k, 3), dtype=torch.float32, device=sample.device)
         picks = torch.empty((attempts, k), dtype=torch.int32, device=sample.device)
-        d2 = torch.empty((attempts, n), dtype=torch.float32, device=sample.device)
-        err = lib.pw_kpp_init(sample.data_ptr(), n, k, attempts, first.data_ptr(), uniforms.data_ptr(), d2.data_ptr(),
-                              centers.data_ptr(), picks.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        d2 = None if resident else torch.empty((attempts, n), dtype=torch.float32, device=sample.device)
+        err = lib.pw_kpp_init(sample.data_ptr(), n, k, attempts, first.data_ptr(), uniforms.data_ptr(),
+                              None if d2 is None else d2.data_ptr(), centers.data_ptr(), picks.data_ptr(),
+                              int(resident), torch.cuda.current_stream().cuda_stream)
         _count("kpp_init")
         _raise_on(lib, "kpp_init", err)
     return centers, picks
+
+
+def subsample_cuda(words: tuple, n: int, limit: int, device, shift: int = 0) -> torch.Tensor:
+    """K8's draw: ``ops.kmeans.subsample_indices_plain`` on a CUDA device in
+    one cooperative launch (and a memset), nothing read back.  ``words``:
+    the key words (a, b) of ``ops.kmeans.draw_words``; keys narrowed by
+    ``shift`` bits; 1 <= ``limit`` < ``n`` < 2^31 → (limit,) int32 indices,
+    increasing."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"subsample: expected a CUDA device, got {device}")
+    if not 1 <= limit < n < 2**31 or not 0 <= shift <= 31:
+        raise ValueError(f"subsample: expected 1 <= limit < n < 2^31 and a shift of 0 to 31, got {limit}, {n}, {shift}")
+    lib = load("kmeans")
+    with _guard(device):
+        out = torch.empty(limit, dtype=torch.int32, device=device)
+        scratch = torch.empty(DRAW_SCRATCH_WORDS, dtype=torch.int32, device=device)
+        err = lib.pw_subsample(n, limit, int(words[0]), int(words[1]), int(shift), out.data_ptr(), scratch.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+        _count("subsample")
+        _raise_on(lib, "subsample", err)
+    return out
 
 
 def lloyd_fit_cuda(sample: torch.Tensor, init: torch.Tensor, iters: int, eps: float = 0.5,

@@ -18,17 +18,21 @@ Two entries:
 - :func:`kmeans_fit_device` (stage 02 with ``kmeans_init: "device"``): seeds
   drawn on the device from host-drawn random numbers, and the fits.
 
-**The seed stream of the device mode.**  ``jax.random`` cannot be reproduced,
-so the port defines its own, from CPU ``torch.Generator`` objects seeded as the
-JAX package seeds its keys: ``seed`` for the subsample
-(:func:`subsample_indices`: the first ``limit`` entries of
-``torch.randperm(n)``), ``seed + 1000·a`` for attempt ``a``
-(:func:`seed_stream`: one ``torch.randint`` index, then k − 1 ``torch.rand``
-float32 uniforms).  The numbers are drawn on the host, so the stream is the
-same for the card and for ``raster_device: "cpu"``.  A draw picks the first
-index whose running sum of ``max(d², 1e-12)`` exceeds ``u · total``, the
-running sum taken in the fixed order :func:`kpp_init_plain` spells out.  The
-result is deterministic per seed; it is not the JAX stream and not numpy's.
+**The random numbers of the device mode.**  ``jax.random`` cannot be
+reproduced, so the port defines its own, the same for the card and for
+``raster_device: "cpu"``.  The subsample (:func:`subsample_indices`) is drawn
+on the image's device: pixel i gets the 32-bit key ``fmix32(i·a + b mod
+2³²)`` (murmur3's finalizer; ``a`` odd and ``b`` two words of
+``splitmix64(seed)``, :func:`draw_words`), and the subsample is the ``limit``
+pixels of least ``(key, i)``, in increasing index order.  Only the seeds'
+k + 1 numbers per attempt come from host generators, a few bytes:
+:func:`seed_stream` seeds a CPU ``torch.Generator`` with ``seed + 1000·a``
+for attempt ``a`` (as the JAX package seeds its keys) and draws one
+``torch.randint`` index, then k − 1 ``torch.rand`` float32 uniforms.  A draw
+of the seeding picks the first row whose running sum of the integer weights
+``max(⌊d²·2¹⁶⌋, 1)`` exceeds ``⌊total·u⌋`` (:func:`kpp_init_plain`); integer
+sums are exact in any order.  The result is deterministic per seed; it is not
+the JAX stream and not numpy's.
 
 On a CUDA tensor every function here runs its kernel (K8; 3-column data and
 at most 8 centres), on a CPU tensor its plain version, and raises for any
@@ -37,14 +41,17 @@ other device.
 
 from __future__ import annotations
 
+import math
+from fractions import Fraction
+
 import numpy as np
 import torch
 
 from .colorspace import bgr_to_lab_u8
-from .kernels import KPP_LANES
+from .kernels import KPP_MAX_N, KPP_SCALE_BITS, KPP_WEIGHT_CAP
 from .thinning import _on_card
 
-KPP_WARP = 32  # lanes whose totals are summed in order before the warps' totals are
+_M32, _M64 = 0xFFFFFFFF, 0xFFFFFFFFFFFFFFFF
 
 
 def _sum_cols(x: torch.Tensor) -> torch.Tensor:
@@ -114,21 +121,28 @@ def lloyd_fits(data: torch.Tensor, inits: torch.Tensor, iters: int, eps: float =
     return fit
 
 
+def kpp_weights(d2: torch.Tensor) -> torch.Tensor:
+    """The seeding's int64 weights of float32 squared distances:
+    ``max(⌊d²·2¹⁶⌋, 1)``, at most :data:`KPP_WEIGHT_CAP` (finite d²)."""
+    scaled = (d2 * float(1 << KPP_SCALE_BITS)).clamp(max=float(KPP_WEIGHT_CAP))
+    return scaled.to(torch.int64).clamp(min=1)
+
+
+def kpp_target(total: int, u: float) -> int:
+    """``⌊total·u⌋`` exactly, ``u`` (a float32 value) clamped to [0, 1]."""
+    return math.floor(Fraction(min(max(float(u), 0.0), 1.0)) * total)
+
+
 def kpp_init_plain(sample: torch.Tensor, k: int, first: int, uniforms):
     """k-means++ seeds of one attempt: the first centre is row ``first``, each
     further one the first row, in index order, whose running sum ``R(i)`` of
-    ``w = max(d², 1e-12)`` exceeds ``u · total`` (the last row if none does),
-    where d² is the squared distance to the nearest centre so far, ``(e0² +
-    e1²) + e2²``, updated by ``min`` after each draw.  The running sum has the
-    kernel's fixed order: lane t of :data:`KPP_LANES` owns rows ``[t·L, (t +
-    1)·L)``, ``L = ⌈n / KPP_LANES⌉``, and sums them from 0 in index order; the
-    lanes' totals are summed in order within each warp of 32 lanes and the
-    warps' totals in order; ``R(i) = (warp offset + lane offset) + (the
-    chunk's sum up to and including i)`` and ``total`` is the warps' sum.
-    → (centres (k, D), picked rows (k,) int32): the plain version of kernel
-    K8's seeding."""
+    the integer weights :func:`kpp_weights` of d² exceeds ``⌊total·u⌋``
+    (:func:`kpp_target`; the last row if none does, which is ``u = 1``), where
+    d² is the squared distance to the nearest centre so far, ``(e0² + e1²) +
+    e2²`` in float32, updated by ``min`` after each draw.  Integer sums are
+    exact, so the picks depend on no order of additions.  → (centres (k, D),
+    picked rows (k,) int32): the plain version of kernel K8's seeding."""
     n = sample.shape[0]
-    length = -(-n // KPP_LANES)
     idx, picks, d2 = int(first), [], None
     for j in range(k):
         picks.append(idx)
@@ -137,28 +151,10 @@ def kpp_init_plain(sample: torch.Tensor, k: int, first: int, uniforms):
         e = sample - sample[idx]
         d = _sum_cols(e * e)
         d2 = d if d2 is None else torch.minimum(d2, d)
-        w = torch.zeros(KPP_LANES * length, dtype=sample.dtype, device=sample.device)
-        w[:n] = d2.clamp(min=1e-12)
-        w = w.view(KPP_LANES, length)
-        run, cols = torch.zeros(KPP_LANES, dtype=sample.dtype, device=sample.device), []
-        for c in range(length):
-            run = run + w[:, c]
-            cols.append(run)
-        chunk = torch.stack(cols, dim=1)  # (lanes, L): each chunk's inclusive running sum
-        lane_tot = run.view(-1, KPP_WARP)
-        acc, offs = torch.zeros(lane_tot.shape[0], dtype=sample.dtype, device=sample.device), []
-        for lane in range(KPP_WARP):
-            offs.append(acc)
-            acc = acc + lane_tot[:, lane]
-        lane_off = torch.stack(offs, dim=1)  # (warps, 32), exclusive within the warp
-        total, warp_off = torch.zeros((), dtype=sample.dtype, device=sample.device), []
-        for v in range(acc.shape[0]):
-            warp_off.append(total)
-            total = total + acc[v]
-        base = (torch.stack(warp_off)[:, None] + lane_off).view(-1)
-        target = torch.as_tensor(uniforms[j], dtype=sample.dtype).to(sample.device) * total
-        hits = ((base[:, None] + chunk) > target).view(-1)[:n].nonzero()
-        idx = int(hits[0]) if hits.numel() else n - 1
+        run = torch.cumsum(kpp_weights(d2), 0)
+        target = kpp_target(int(run[-1]), float(uniforms[j]))
+        hit = int(torch.searchsorted(run, torch.tensor([target], device=run.device), right=True))
+        idx = min(hit, n - 1)
     picks_t = torch.tensor(picks, dtype=torch.int32, device=sample.device)
     return sample[picks_t.long()], picks_t
 
@@ -168,8 +164,12 @@ def kpp_init(sample: torch.Tensor, k: int, first: torch.Tensor, uniforms: torch.
     and ``uniforms`` (attempts, k − 1) float32, CPU tensors as
     :func:`seed_stream` draws them → (centres (attempts, k, D), picked rows
     (attempts, k) int32) on the sample's device: kernel K8 (one launch) for a
-    CUDA sample, the plain version for a CPU sample, else raise."""
+    CUDA sample, the plain version for a CPU sample, else raise.  A sample of
+    :data:`KPP_MAX_N` rows or more is refused: its weights' sum could
+    overflow 63 bits."""
     n = sample.shape[0]
+    if not 0 < n < KPP_MAX_N:
+        raise ValueError(f"kpp_init: {n} rows; the seeding takes 1 to {KPP_MAX_N - 1}")
     if first.numel() and not 0 <= int(first.min()) <= int(first.max()) < n:
         raise ValueError(f"kpp_init: first indices outside the sample's {n} rows")
     if _on_card("kpp_init", sample):
@@ -180,12 +180,62 @@ def kpp_init(sample: torch.Tensor, k: int, first: torch.Tensor, uniforms: torch.
     return torch.stack([f[0] for f in fits]), torch.stack([f[1] for f in fits])
 
 
-def subsample_indices(seed: int, n: int, limit: int) -> torch.Tensor:
-    """The device mode's subsample: ``limit`` of ``n`` indices without
-    replacement, int32 on the CPU (see the module docstring)."""
-    g = torch.Generator(device="cpu")
-    g.manual_seed(int(seed))
-    return torch.randperm(n, generator=g)[:limit].to(torch.int32)
+def draw_words(seed: int) -> tuple:
+    """The draw's two key words of ``seed``: ``z = splitmix64(seed)``, ``a =
+    (z >> 32) | 1`` (odd, so ``i·a + b`` is a bijection mod 2³²) and ``b = z
+    mod 2³²``."""
+    z = (int(seed) + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    z ^= z >> 31
+    return (z >> 32) | 1, z & _M32
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x·c mod 2³²`` for int64 ``x`` in [0, 2³²): the product in 16-bit
+    halves of ``c``, so nothing exceeds 2⁴⁹."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def draw_keys(seed: int, n: int, device="cpu", key_bits: int = 32) -> torch.Tensor:
+    """The draw's key of every pixel ``i < n``: ``fmix32(i·a + b mod 2³²) >>
+    (32 − key_bits)``, as int64 (narrower keys make ties; the checks use them)."""
+    a, b = draw_words(seed)
+    h = (torch.arange(n, dtype=torch.int64, device=device) * a + b) & _M32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return h >> (32 - key_bits)
+
+
+def subsample_indices_plain(seed: int, n: int, limit: int, device="cpu", key_bits: int = 32) -> torch.Tensor:
+    """The ``limit`` indices below ``n`` of least ``(key, index)``
+    (:func:`draw_keys`), increasing, int32 on ``device``; every index in order
+    where ``n ≤ limit``."""
+    if n <= limit:
+        return torch.arange(n, dtype=torch.int32, device=device)
+    comp = (draw_keys(seed, n, device, key_bits) << 31) + torch.arange(n, dtype=torch.int64, device=device)
+    return torch.nonzero(comp <= torch.kthvalue(comp, limit).values).flatten().to(torch.int32)
+
+
+def subsample_indices(seed: int, n: int, limit: int, device="cpu", key_bits: int = 32) -> torch.Tensor:
+    """The device mode's subsample (see the module docstring): ``limit`` of
+    ``n`` indices without replacement, increasing, int32 on ``device``:
+    kernel K8's draw for a CUDA device (nothing read back), the plain version
+    for the CPU, else raise; every index in order where ``n ≤ limit``."""
+    device = torch.device(device)
+    if limit < 1 or not 0 < n < 2**31 or not 1 <= key_bits <= 32:
+        raise ValueError(f"subsample_indices: expected 0 < n < 2^31, limit >= 1 and 1 to 32 key bits, got n = {n}, "
+                         f"limit = {limit}, {key_bits} bits")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"subsample_indices: no kernel for device {device}")
+    if device.type == "cuda" and n > limit:
+        from .kernels import subsample_cuda  # noqa: PLC0415
+
+        return subsample_cuda(draw_words(seed), n, limit, device, 32 - key_bits)
+    return subsample_indices_plain(seed, n, limit, device, key_bits)
 
 
 def seed_stream(seed: int, attempts: int, k: int, n: int):
@@ -208,20 +258,24 @@ def kmeans_fit_device(sample: torch.Tensor, k: int, attempts: int, iters: int, s
     ``kmeans_fit_device``): k-means++ seeds from :func:`seed_stream`, the
     Lloyd fit of each attempt, the first of least compactness → the winning
     (k, D) centres on the sample's device (in ``out`` when given).  On the
-    card two launches of K8 and no read back."""
+    card two launches of K8, an upload of the seeds' k + 1 numbers per
+    attempt, and no read back."""
     first, uniforms = seed_stream(seed, attempts, k, sample.shape[0])
     inits, _ = kpp_init(sample, k, first, uniforms)
     return lloyd_fits(sample, inits, iters, out=out)[0]
 
 
 def lab_sample(image: torch.Tensor, idx: torch.Tensor | None = None) -> torch.Tensor:
-    """The float Lab of the pixels ``idx`` (a CPU integer tensor of indices
-    into the flattened pixels, checked here; every pixel where None) of a
-    (..., 3) uint8 BGR image → (n, 3) float32 on the image's device: kernel
-    K8's sampler for a CUDA image, ``bgr_to_lab_u8`` of the gathered pixels
-    for a CPU image, else raise."""
+    """The float Lab of the pixels ``idx`` (an integer tensor of indices into
+    the flattened pixels, checked here where it lies on the CPU; on the
+    image's CUDA device, as :func:`subsample_indices` draws them there, it is
+    taken as it is, with no read back; every pixel where None) of a (..., 3)
+    uint8 BGR image → (n, 3) float32 on the image's device: kernel K8's
+    sampler for a CUDA image, ``bgr_to_lab_u8`` of the gathered pixels for a
+    CPU image, else raise."""
     px = image.numel() // 3
-    if idx is not None and idx.numel() and not 0 <= int(idx.min()) <= int(idx.max()) < px:
+    if (idx is not None and idx.device.type == "cpu" and idx.numel()
+            and not 0 <= int(idx.min()) <= int(idx.max()) < px):
         raise ValueError(f"lab_sample: indices outside the image's {px} pixels")
     if _on_card("lab_sample", image):
         from .kernels import lab_sample_cuda  # noqa: PLC0415

@@ -19,8 +19,10 @@ stages 03 and 04 take its blob from the derived-artifact registry.
 and the Lloyd fits (kernel K8), the all-pixel assignment with its counts
 (K7), the masks' open and close (K2), their packed rows (K1) and, when fused,
 the chain, all into one blob and one download.  Its random numbers are the
-port's own seed stream (``ops/kmeans.py``): deterministic per seed, the same
-on the card and on the CPU, not the JAX package's and not cv2-compatible.
+port's own (``ops/kmeans.py``): the subsample drawn on the raster device by
+hashed keys, and only the seeds' k + 1 numbers per attempt from host
+generators; deterministic per seed, the same on the card and on the CPU, not
+the JAX package's and not cv2-compatible.
 
 ``extraction_mode: "swatch"`` thresholds on the host and cleans each mask
 with the gray morphology (kernel K11) on the raster device.
@@ -138,18 +140,19 @@ def device_init_stage(img: torch.Tensor, k: int, iters: int, attempts: int, limi
     tensor) → (one flat uint8 blob on that device: the winning centres (k, 3)
     float32, the counts (k,) int32, the cleaned masks packed (k, H, ⌈W/8⌉)
     and, when fused, the chain's [packed edges][packed skeletons]; the cleaned
-    masks as bitboards).  On the card: K8 (sampler, seeds, fits), K7 with
-    counts, K2, K1 and the chain's kernels, every one writing its part of the
-    blob in place; nothing is read back here.  The subsample and the seeds'
-    random numbers come from the host (``ops/kmeans.py``), so the result is
-    deterministic per seed on either device; float sums differ between the
-    card and the CPU only in their last digits."""
+    masks as bitboards).  On the card: K8 (the subsample's draw, sampler,
+    seeds, fits), K7 with counts, K2, K1 and the chain's kernels, every one
+    writing its part of the blob in place; nothing is read back here.  The
+    subsample is drawn on the image's device; only the seeds' k + 1 numbers
+    per attempt come from host generators, a few bytes (``ops/kmeans.py``).
+    So the result is deterministic per seed on either device; float sums
+    differ between the card and the CPU only in their last digits."""
     h, w = img.shape[:2]
     w8 = -(-w // 8)
     n_masks = k * h * w8
     blob = torch.empty(16 * k + (3 if fuse else 1) * n_masks, dtype=torch.uint8, device=img.device)
     centers = blob[: 12 * k].view(torch.float32).view(k, 3)
-    sample = lab_sample(img, subsample_indices(seed, h * w, limit) if h * w > limit else None)
+    sample = lab_sample(img, subsample_indices(seed, h * w, limit, img.device) if h * w > limit else None)
     kmeans_fit_device(sample, k, attempts, iters, seed, out=centers)
     _, _, masks_b = assign_tail(img, centers, k, open_iters, close_iters,
                                 counts=blob[12 * k : 16 * k].view(torch.int32),

@@ -32,6 +32,7 @@ from plotweave_torch.ops.thinning import unpack_bitboards_plain
 
 BLOBS = [(20, 20, 20), (80, 100, 120), (200, 128, 128), (240, 200, 180)]
 NEAR_TIE = 0.01
+SUBSAMPLE = 5000  # kmeans_sample_limit of the runner's subsampled device-mode runs (the image has 12,288 pixels)
 
 
 def blobs(seed: int = 0, n: int = 500) -> np.ndarray:
@@ -144,10 +145,14 @@ def test_seed_stream_is_deterministic_per_seed():
     c = tkm.seed_stream(43, 3, 4, 1000)
     assert not torch.equal(a[1], c[1])
     assert len({float(u[0]) for u in a[1]}) == 3  # attempts differ
+    # the subsample: hashed keys drawn on the image's device, the least 700 in increasing index order
     idx = tkm.subsample_indices(42, 5000, 700)
-    assert idx.dtype == torch.int32 and len(set(idx.tolist())) == 700 and int(idx.max()) < 5000
-    assert torch.equal(idx, tkm.subsample_indices(42, 5000, 700))
+    assert idx.dtype == torch.int32 and idx.numel() == 700 and int(idx.min()) >= 0 and int(idx.max()) < 5000
+    assert bool((idx[1:] > idx[:-1]).all())
+    assert torch.equal(idx, tkm.subsample_indices(42, 5000, 700, "cpu"))
     assert not torch.equal(idx, tkm.subsample_indices(41, 5000, 700))
+    keys = tkm.draw_keys(42, 5000)
+    assert int(keys[idx.long()].max()) < int(keys[torch.ones(5000, dtype=torch.bool).index_fill_(0, idx.long(), False)].min())
 
 
 @pytest.mark.parametrize("k", [1, 2, 4, 8])
@@ -177,9 +182,22 @@ def test_kpp_init_plain_edges_of_the_running_sum():
     sample = torch.from_numpy(blobs(11, 300))
     n = sample.shape[0]
     lo = tkm.kpp_init_plain(sample, 2, 0, torch.tensor([0.0]))[1]
-    assert int(lo[1]) == 0  # u = 0: row 0's own weight, max(0, 1e-12), already exceeds 0
-    hi = tkm.kpp_init_plain(sample, 2, 0, torch.tensor([1.0]))[1]  # u * total exceeds no running sum
+    assert int(lo[1]) == 0  # u = 0: row 0's own weight, max(floor(0 * 2^16), 1) = 1, already exceeds 0
+    hi = tkm.kpp_init_plain(sample, 2, 0, torch.tensor([1.0]))[1]  # floor(total * 1) = total: no running sum exceeds it
     assert int(hi[1]) == n - 1
+    # in between: the first row whose integer running sum exceeds floor(total * u), in Python integers
+    e = sample - sample[0]
+    w = [max(min(int(float(x) * 65536), 2**36), 1) for x in (e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1]) + e[:, 2] * e[:, 2]]
+    total = sum(w)
+    for u in (2.0**-24, 0.25, 0.5, 0.999999):
+        target = int(total * u)  # u is a dyadic float: exact here
+        run, want = 0, None
+        for i, x in enumerate(w):
+            run += x
+            if run > target:
+                want = i
+                break
+        assert int(tkm.kpp_init_plain(sample, 2, 0, torch.tensor([u]))[1][1]) == want
 
 
 def test_kpp_init_plain_second_draw_follows_d2_weights():
@@ -354,19 +372,20 @@ def device_mode_runs(tmp_path_factory):
         run_pipeline(cfg, step, step)
     cfg, jax_device = _tiny_cfg(base, "jax_device", jax_load, raster_device="cpu", kmeans_init="device")
     jax_run(cfg, 1, 13)
-    return {"exact": exact, "device": device, "stepwise": stepwise, "jax": jax_device}, list(cfg.color_names)
+    # a subsample: 5,000 of the image's 12,288 pixels
+    cfg, sub = _tiny_cfg(base, "sub", load_config, raster_device="cpu", kmeans_init="device",
+                         kmeans_sample_limit=SUBSAMPLE)
+    run_pipeline(cfg, 1, 13)
+    cfg, jax_sub = _tiny_cfg(base, "jax_sub", jax_load, raster_device="cpu", kmeans_init="device",
+                             kmeans_sample_limit=SUBSAMPLE)
+    jax_run(cfg, 1, 13)
+    return ({"exact": exact, "device": device, "stepwise": stepwise, "jax": jax_device, "sub": sub, "jax_sub": jax_sub},
+            list(cfg.color_names))
 
 
-@pytest.mark.parametrize("other", ["exact", "jax"])
-@pytest.mark.parametrize("fname", ["mask.png", "edges.png", "contours.pkl", "plot_stream.bin"])
-def test_device_mode_through_the_runner(device_mode_runs, other, fname):
-    """Twin of the JAX package's ``test_kmeans_device_init_mode``: on the
-    separable image the device mode's artifacts equal the host-exact mode's,
-    and the JAX package's device mode's."""
+def _same_artifacts(mine, ref, names, fname):
     import cv2
 
-    outs, names = device_mode_runs
-    mine, ref = outs["device"], outs[other]
     if fname == "plot_stream.bin":
         assert (mine / fname).read_bytes() == (ref / fname).read_bytes()
         return
@@ -381,6 +400,28 @@ def test_device_mode_through_the_runner(device_mode_runs, other, fname):
             assert len(a) == len(b)
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+@pytest.mark.parametrize("other", ["exact", "jax"])
+@pytest.mark.parametrize("fname", ["mask.png", "edges.png", "contours.pkl", "plot_stream.bin"])
+def test_device_mode_through_the_runner(device_mode_runs, other, fname):
+    """Twin of the JAX package's ``test_kmeans_device_init_mode``: on the
+    separable image the device mode's artifacts equal the host-exact mode's,
+    and the JAX package's device mode's."""
+    outs, names = device_mode_runs
+    _same_artifacts(outs["device"], outs[other], names, fname)
+
+
+@pytest.mark.parametrize("other", ["exact", "jax", "jax_sub"])
+@pytest.mark.parametrize("fname", ["mask.png", "edges.png", "contours.pkl", "plot_stream.bin"])
+def test_device_mode_with_a_subsample_through_the_runner(device_mode_runs, other, fname):
+    """The device mode with ``kmeans_sample_limit`` below the image's pixels,
+    so the subsample is drawn (the port's hashed keys; the JAX package's
+    ``jax.random.choice``): on the separable image its artifacts equal the
+    host-exact mode's and the JAX package's device mode's, with and without
+    a subsample."""
+    outs, names = device_mode_runs
+    _same_artifacts(outs["sub"], outs[other], names, fname)
 
 
 def test_device_mode_palette_matches_jax(device_mode_runs):
