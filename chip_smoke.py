@@ -72,15 +72,16 @@ Phases:
 8. the kernels of stage 02's other modes vs their plain versions on the card:
    K8's draw (``pw_subsample``) index for index against the plain version on
    the CPU (the poster's 3,000,000 pixels -> 200,000 on 8 seeds, n = limit +
-   1, limit = 1, 2 pixels, 4400 x 4400 pixels, and keys narrowed to 12, 4
-   and 1 bits, so that thousands of keys tie at the threshold); K8's sampler
+   1, limit = 1, limit = n - 1, 2 pixels, 4400 x 4400 pixels); K8's sampler
    (``pw_lab_sample``) against K7 over all 2^24 colours (its
    Lab, put through K7's distance rule in plain PyTorch, must give K7's
-   labels exactly; within 1e-3 of the plain Lab) and a gather by index;
+   labels exactly; within 1e-3 of the plain Lab), a gather by index, and
+   indices outside the image on the card refused by ``lab_sample``;
    ``pw_kpp_init`` (the same picked rows and centres as the plain version for
    16 seeds, k = 1, 2, 4, 8, on the poster's sample drawn on the card, on
    integer rows with duplicates, 777 rows, 5 rows, an all-coincident sample
-   and 250,000 rows, on both routes where they fit, and at the edges of u:
+   231,697 and 250,000 rows, each on the route its size takes (the last two
+   streamed, the others resident), and at the edges of u:
    0, the least float, 2^-24, 0.999999, the float below 1, and 1);
    ``pw_lloyd_fit`` at 200,000 x 3 and 777 x 3, k = 1,
    4, 8, ``iters`` 1 and 40 and an init that leaves a cluster empty (centres
@@ -228,9 +229,9 @@ DEVICE_KMEANS_LAUNCHES = {"subsample": 1, "lab_sample": 1, "kpp_init": 1, "lloyd
 # float operations of K8 per point: per centre and pass 9 (the dot product 5, the expanded distance 3, the
 # compare); the seeding per draw 12: the distance 8, the min, the scaling, the cap and the conversion
 LLOYD_FLOPS_PER_CENTER, KPP_FLOPS_PER_DRAW, POWF_FLOPS = 9, 12, 40
-# K8's draw: integer operations per key and pass (the hash 10: a multiply-add, two multiplies, three shifts and
-# three XORs, the narrowing shift) and its passes over the keys (three radix rounds, the counts, the compaction)
-DRAW_OPS_PER_KEY, DRAW_PASSES = 10, 5
+# K8's draw: integer operations per key, the hash (a multiply-add, two multiplies, three shifts and three XORs) and
+# the compare with the threshold; the draw needs each key once (the kernel recomputes it in five passes)
+DRAW_OPS_PER_KEY = 10
 MULTI_KERNELS = ("hysteresis_multi", "zhang_suen_packed_multi")  # K5, K6 on layers too large for a cluster
 BIG_SIDE = 4400  # px: a layer of 4400 rows of 138 words does not fit one cluster's shared memory
 PATH_RUNS = {"main": "main path, synthetic 2000x1500, steps 1-13, card run",
@@ -1492,22 +1493,29 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
     idx = torch.from_numpy(rng.integers(0, 2**24, KMEANS_SAMPLE).astype(np.int32))
     check(torch.equal(kmeans.lab_sample(img, idx), lab[idx.long().to(dev)]),
           "K8 lab_sample: a gather by index != the same pixels in place")
+    for bad in ([-1], [2**24], [0, 2**24 + 5]):  # indices on the card, outside the image: refused before any launch
+        try:
+            kmeans.lab_sample(img, torch.tensor(bad, dtype=torch.int32, device=dev))
+            fail(f"K8 lab_sample: indices {bad} on the card, outside the image's 2^24 pixels, were not refused")
+        except ValueError:
+            pass
+    torch.cuda.synchronize()
     del v, img, lab
     print(f"K8 lab_sample: its Lab gives K7's labels exactly on all 2^24 colours (8 centres), within {lab_err:.2e} "
-          f"of the plain Lab (tolerance 1e-3); a gather of {KMEANS_SAMPLE} indices == the pixels in place")
+          f"of the plain Lab (tolerance 1e-3); a gather of {KMEANS_SAMPLE} indices == the pixels in place; indices "
+          f"outside the image on the card refused")
 
     # --- K8's draw against its plain version on the CPU, index for index
     n_px = 1500 * 2000
-    draws = [(n_px, KMEANS_SAMPLE, seed, 32) for seed in range(8)] + [
-        (KMEANS_SAMPLE + 1, KMEANS_SAMPLE, 8, 32), (n_px, 1, 9, 32), (2, 1, 10, 32), (5000, 700, 11, 32),
-        (BIG_SIDE * BIG_SIDE, KMEANS_SAMPLE, 12, 32),
-        (n_px, KMEANS_SAMPLE, 13, 12), (100_000, 999, 14, 4), (70_000, 3, 15, 1)]  # narrowed keys: ties at the threshold
-    for n, limit, seed, bits in draws:
-        got = kmeans.subsample_indices(seed, n, limit, dev, bits)
-        check(torch.equal(got.cpu(), kmeans.subsample_indices(seed, n, limit, "cpu", bits)),
-              f"K8 subsample n={n} limit={limit} seed={seed} key bits {bits}: the card's draw != the plain draw")
+    draws = [(n_px, KMEANS_SAMPLE, seed) for seed in range(8)] + [
+        (KMEANS_SAMPLE + 1, KMEANS_SAMPLE, 8), (n_px, 1, 9), (2, 1, 10), (5000, 700, 11),
+        (BIG_SIDE * BIG_SIDE, KMEANS_SAMPLE, 12), (n_px, n_px - 1, 13), (100_000, 999, 14), (70_000, 3, 15)]
+    for n, limit, seed in draws:
+        got = kmeans.subsample_indices(seed, n, limit, dev)
+        check(torch.equal(got.cpu(), kmeans.subsample_indices(seed, n, limit, "cpu")),
+              f"K8 subsample n={n} limit={limit} seed={seed}: the card's draw != the plain draw")
     print(f"K8 subsample == plain on the CPU index for index: {len(draws)} draws (3,000,000 -> 200,000 on 8 seeds, "
-          f"n = limit + 1, limit = 1, 2 pixels, {BIG_SIDE} x {BIG_SIDE}, keys narrowed to 12, 4 and 1 bits)")
+          f"n = limit + 1, limit = 1, limit = n - 1, 2 pixels, {BIG_SIDE} x {BIG_SIDE}, 100,000 -> 999, 70,000 -> 3)")
 
     # --- the poster's sample, drawn on the card: what the main path gives the fit
     poster, idx, sample = poster_sample()
@@ -1516,34 +1524,39 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
                                              ((20, 20, 20), (80, 100, 120), (200, 128, 128), (240, 200, 180))] +
                                             [np.full((1, 3), 7.0)]).astype(np.float32)).to(dev)  # 777 rows
     same = torch.full((5000, 3), 7.0, device=dev)  # every weight is the floor 1
-    wide = kmeans.lab_sample(poster, kmeans.subsample_indices(43, n_px, 250_000, dev))  # too large to stay resident
+    # too large to stay resident: the first size the streamed route takes, and more
+    edge = kmeans.subsample_lab(poster, 44, 231_697)
+    wide = kmeans.subsample_lab(poster, 43, 250_000)
     n_kpp = 0
     for name, data in (("200,000 poster rows", sample), ("200,000 integer rows", quant), ("777 rows", small),
-                       ("5 rows", small[:5].contiguous()), ("5,000 coincident rows", same), ("250,000 rows", wide)):
-        routes = [kernels.kpp_schedule(data.shape[0])["route"]]
-        routes += [r for r in kernels.KPP_ROUTES if r not in routes and name != "250,000 rows"]
-        for route in routes:
-            for k in (1, 2, 4, 8):
-                first, uniforms = kmeans.seed_stream(1000 + k, 16, k, data.shape[0])  # 16 seeds
-                got_c, got_p = kernels.kpp_init_cuda(data, k, first.to(dev), uniforms.to(dev), route)
-                for a in range(16):
-                    ref_c, ref_p = kmeans.kpp_init_plain(data, k, int(first[a]), uniforms[a])
-                    check(torch.equal(got_p[a], ref_p) and torch.equal(got_c[a], ref_c),
-                          f"K8 kpp_init {name} {route} k={k} seed {a}: picked {got_p[a].tolist()}, plain {ref_p.tolist()}")
-                    n_kpp += 1
+                       ("5 rows", small[:5].contiguous()), ("5,000 coincident rows", same), ("231,697 rows", edge),
+                       ("250,000 rows", wide)):
+        route = kernels.kpp_schedule(data.shape[0])["route"]
+        check(route == ("streamed" if data.shape[0] > 231_696 else "resident"), f"K8 kpp_init {name}: route {route}")
+        for k in (1, 2, 4, 8):
+            first, uniforms = kmeans.seed_stream(1000 + k, 16, k, data.shape[0])  # 16 seeds
+            got_c, got_p = kernels.kpp_init_cuda(data, k, first.to(dev), uniforms.to(dev))
+            for a in range(16):
+                ref_c, ref_p = kmeans.kpp_init_plain(data, k, int(first[a]), uniforms[a])
+                check(torch.equal(got_p[a], ref_p) and torch.equal(got_c[a], ref_c),
+                      f"K8 kpp_init {name} {route} k={k} seed {a}: picked {got_p[a].tolist()}, plain {ref_p.tolist()}")
+                n_kpp += 1
     edges = (0.0, 1e-45, 2.0**-24, 0.999999, float(np.nextafter(np.float32(1), np.float32(0))), 1.0)
-    for u in edges:
-        first = torch.tensor([0, 17, KMEANS_SAMPLE - 1], dtype=torch.int32)
-        uniforms = torch.full((3, 3), u, dtype=torch.float32)
-        got = kernels.kpp_init_cuda(sample, 4, first.to(dev), uniforms.to(dev))[1]
-        for a in range(3):
-            ref = kmeans.kpp_init_plain(sample, 4, int(first[a]), uniforms[a])[1]
-            check(torch.equal(got[a], ref), f"K8 kpp_init u={u} attempt {a}: picked {got[a].tolist()}, plain {ref.tolist()}")
-            n_kpp += 1
+    for name, data in (("200,000 poster rows", sample), ("250,000 rows", wide)):  # one sample on each route
+        for u in edges:
+            first = torch.tensor([0, 17, data.shape[0] - 1], dtype=torch.int32)
+            uniforms = torch.full((3, 3), u, dtype=torch.float32)
+            got = kernels.kpp_init_cuda(data, 4, first.to(dev), uniforms.to(dev))[1]
+            for a in range(3):
+                ref = kmeans.kpp_init_plain(data, 4, int(first[a]), uniforms[a])[1]
+                check(torch.equal(got[a], ref),
+                      f"K8 kpp_init {name} u={u} attempt {a}: picked {got[a].tolist()}, plain {ref.tolist()}")
+                n_kpp += 1
     print(f"K8 kpp_init == plain (the same picked rows and centres): {n_kpp} (sample, route, k, seed) cases on the "
           f"poster's sample drawn on the card, integer rows with duplicates, 777 and 5 rows, 5,000 coincident rows and "
-          f"250,000 rows (streamed), on both routes where they fit, k = 1, 2, 4, 8, and u at {edges}")
-    del wide
+          f"231,697 and 250,000 rows (streamed), each on the route its size takes, k = 1, 2, 4, 8, and u at {edges} "
+          f"on a sample of each route")
+    del edge, wide
 
     # --- the fit
     def fit_case(name, data, inits, iters):
@@ -1630,7 +1643,7 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
         "max_abs_err": 0, "ms": cuda_ms(draw, 20),
         "plain_ms": cuda_ms(lambda: kmeans.subsample_indices_plain(42, n_px, KMEANS_SAMPLE, dev), 3),
         "alone_ms": profiled_ms(draw, "subsample", 20),
-        **bound(4 * KMEANS_SAMPLE, DRAW_PASSES * n_px * DRAW_OPS_PER_KEY, INT32_OPS)}
+        **bound(4 * KMEANS_SAMPLE, n_px * DRAW_OPS_PER_KEY, INT32_OPS)}
     n, k, attempts = sample.shape[0], 4, 3
     first, uniforms = kmeans.seed_stream(42, attempts, k, n)
     first_d, uniforms_d, idx_d = first.to(dev), uniforms.to(dev), idx.to(dev)
@@ -2485,28 +2498,31 @@ def kmeans_times() -> dict:
 
 
 def phase_kpp_scaling() -> dict:
-    """K8's seeding alone (``torch.profiler``) at 200,000 rows of the poster's
-    sample, 3 attempts, k = 1, 2, 4, 8, on both routes: k = 1 is the launch
-    and the first centre only, so the slope over k is the time of a draw
-    (two cluster barriers, the update, the search) and k = 2 less k = 1 adds
-    the rows' load.  Run in a fresh process after ``phase_probe``: late in a
-    long one the profiler loses events."""
+    """K8's seeding alone (``torch.profiler``) and a call (CUDA events), 3
+    attempts, k = 1, 2, 4, 8, on each route where its size takes it: the
+    poster's 200,000-row sample (resident) and a 250,000-row one (streamed).
+    k = 1 is the launch and the first centre only, so the slope over k is
+    the time of a draw (two cluster barriers, the update, the search) and
+    k = 2 less k = 1 adds the rows' load.  Run in a fresh process after
+    ``phase_probe``: late in a long one the profiler loses events."""
     import torch
 
     from plotweave_torch.ops import kernels, kmeans
 
     dev = torch.device("cuda")
-    sample = poster_sample()[2]
+    poster, _, sample = poster_sample()
     out = {}
-    for route in kernels.KPP_ROUTES:
+    for data in (sample, kmeans.subsample_lab(poster, 43, 250_000)):
+        n = data.shape[0]
+        route = kernels.kpp_schedule(n)["route"]
         for k in (1, 2, 4, 8):
-            first, uniforms = kmeans.seed_stream(42, 3, k, KMEANS_SAMPLE)
+            first, uniforms = kmeans.seed_stream(42, 3, k, n)
             fd, ud = first.to(dev), uniforms.to(dev)
 
-            def call(k=k, fd=fd, ud=ud, route=route):
-                return kernels.kpp_init_cuda(sample, k, fd, ud, route)
+            def call(data=data, k=k, fd=fd, ud=ud):
+                return kernels.kpp_init_cuda(data, k, fd, ud)
 
-            out[f"{route} k={k}"] = {"ms": cuda_ms(call, 20), "alone_ms": profiled_ms(call, "kpp_init", 10)}
+            out[f"{route} {n} k={k}"] = {"ms": cuda_ms(call, 20), "alone_ms": profiled_ms(call, "kpp_init", 10)}
     for key, v in out.items():
         print(f"K8 kpp_init {key}: {v['ms']:.4f} ms a call, alone "
               + (f"{v['alone_ms']:.4f}" if v["alone_ms"] else "not caught") + " ms", flush=True)

@@ -9,21 +9,18 @@
 // - pw_subsample: the subsample's draw, on the device, with no host read.
 //   Pixel i < n gets the 32-bit key fmix32(i * a + b mod 2^32), murmur3's
 //   finalizer, with (a odd, b) two words of splitmix64(seed) (the host's
-//   only part, ops/kmeans.py::draw_words); a bijection of i, so for one seed
-//   no two keys tie unless narrowed (>> shift, which the checks use to make
-//   ties).  The subsample is the `limit` pixels of least (key, index), in
-//   increasing index order.  One cooperative launch of at most 1,024 CTAs of
-//   1,024 threads, each owning a run of whole 1,024-pixel tiles: a radix
-//   select over the key (11, 11, then 10 bits: a shared-memory histogram of
-//   the digit over the keys inside the prefix found so far, merged into
-//   device memory with integer atomics, one grid.sync(), then every CTA
-//   finds the same digit from the merged counts), which gives the threshold
-//   key K and m, the number of keys equal to K to take; then each CTA counts
-//   its keys below and equal to K, one grid.sync(), and each works out from
-//   every CTA's counts its quota of equal keys (the first m in index order
-//   across CTAs) and its first output slot, and writes its tiles' indices,
-//   each tile ranked by one CTA-wide scan.  Keys are recomputed in each of
-//   the five passes, never stored.
+//   only part, ops/kmeans.py::draw_words).  Both steps are bijections of i,
+//   so no two of a seed's keys are equal.  The subsample is the `limit`
+//   pixels of least key, in increasing index order.  One cooperative launch
+//   of at most 1,024 CTAs of 1,024 threads, each owning a run of whole
+//   1,024-pixel tiles: a radix select over the key (11, 11, then 10 bits: a
+//   shared-memory histogram of the digit over the keys inside the prefix
+//   found so far, merged into device memory with integer atomics, one
+//   grid.sync(), then every CTA finds the same digit from the merged counts),
+//   which gives K, the limit-th least key; then each CTA counts its keys
+//   <= K, one grid.sync(), each takes its first output slot from every CTA's
+//   counts, and writes its tiles' indices, each tile ranked by one CTA-wide
+//   scan.  Keys are recomputed in each of the five passes, never stored.
 // - pw_lab_sample: gathers `n` pixels of a BGR image by index and converts
 //   them to float Lab with lab.cuh's arithmetic, K7's bit for bit (this file
 //   is compiled with --fmad=false like K7).
@@ -80,9 +77,9 @@
 // iteration.  The sample (2.4 MB at 200,000 points) is read from L2 by 16 CTAs
 // per iteration; a cooperative grid over all SMs would read it faster but pay
 // a grid-wide barrier per iteration, and three attempts already run side by
-// side on 48 SMs.  The draw: the hash, 5 passes x n x about 10 integer
-// operations (1.5e8 at 3,000,000 pixels, 9 us at the INT32 peak), against
-// 0.8 MB written.  The seeding: 12 bytes a row read once; its chain of two
+// side on 48 SMs.  The draw: the hash once a key, n x about 10 integer
+// operations (3e7 at 3,000,000 pixels, 1.8 us at the INT32 peak), against
+// 0.8 MB written (0.24 us); the kernel hashes each key five times.  The seeding: 12 bytes a row read once; its chain of two
 // cluster barriers a draw binds it.  On an H100 the times are in PERF.md.
 //
 // Prediction (written before the first run on the card; the earlier seeding, one
@@ -141,10 +138,8 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-// The draw's key of pixel i: murmur3's 32-bit finalizer of i * a + b (mod 2^32), narrowed by `shift` bits.
-__device__ __forceinline__ uint32_t draw_key(uint32_t i, uint32_t a, uint32_t b, int shift) {
-  return fmix32(i * a + b) >> shift;
-}
+// The draw's key of pixel i: murmur3's 32-bit finalizer of i * a + b (mod 2^32).
+__device__ __forceinline__ uint32_t draw_key(uint32_t i, uint32_t a, uint32_t b) { return fmix32(i * a + b); }
 
 template <typename T>
 __device__ __forceinline__ T warp_inclusive_scan(T x) {
@@ -182,9 +177,9 @@ __device__ __forceinline__ T block_exclusive_scan(T v, T* slots, T& total) {
 }
 
 // One cooperative launch; CTA q owns the pixels [q chunk, (q + 1) chunk).
-// hist: 3 rounds x kDigits counts, zeroed by the caller; counts: 2 per CTA.
+// hist: 3 rounds x kDigits counts, zeroed by the caller; counts: one per CTA.
 __global__ void __launch_bounds__(kDrawThreads)
-    subsample_draw(int n, int limit, uint32_t a, uint32_t b, int shift, long chunk, uint32_t* __restrict__ hist,
+    subsample_draw(int n, int limit, uint32_t a, uint32_t b, long chunk, uint32_t* __restrict__ hist,
                    int* __restrict__ counts, int32_t* __restrict__ out) {
   __shared__ uint32_t h_s[kDigits];
   __shared__ int slots[kDrawWarps];
@@ -195,14 +190,14 @@ __global__ void __launch_bounds__(kDrawThreads)
 
   // the radix select: 11, 11 and 10 bits of the key, counting only the keys inside the prefix found so far
   uint32_t prefix = 0, mask = 0;
-  int need = limit;  // keys still to take inside the prefix
+  int need = limit;  // the rank, among the keys inside the prefix, of the limit-th least key
   for (int round = 0; round < 3; ++round) {
     const int sh = round == 0 ? 21 : round == 1 ? 10 : 0;
     const uint32_t digit = round == 2 ? 0x3ffu : 0x7ffu;
     for (int j = tid; j < kDigits; j += kDrawThreads) h_s[j] = 0;
     __syncthreads();
     for (long i = lo + tid; i < hi; i += kDrawThreads) {
-      const uint32_t key = draw_key((uint32_t)i, a, b, shift);
+      const uint32_t key = draw_key((uint32_t)i, a, b);
       if ((key & mask) == prefix) atomicAdd(&h_s[(key >> sh) & digit], 1u);
     }
     __syncthreads();
@@ -228,51 +223,28 @@ __global__ void __launch_bounds__(kDrawThreads)
     __syncthreads();  // found is written again in the next round
   }
 
-  // the threshold key is prefix; take every key below it and the first `need` keys equal to it in index order
-  int lt = 0, eq = 0;
-  for (long i = lo + tid; i < hi; i += kDrawThreads) {
-    const uint32_t key = draw_key((uint32_t)i, a, b, shift);
-    lt += key < prefix;
-    eq += key == prefix;
-  }
-  int lt_cta, eq_cta;
-  block_exclusive_scan<int, kDrawWarps>(lt, slots, lt_cta);
-  block_exclusive_scan<int, kDrawWarps>(eq, slots, eq_cta);
-  if (tid == 0) {
-    counts[2 * blockIdx.x] = lt_cta;
-    counts[2 * blockIdx.x + 1] = eq_cta;
-  }
+  // prefix is the limit-th least key: take every key up to it
+  int take = 0;
+  for (long i = lo + tid; i < hi; i += kDrawThreads) take += draw_key((uint32_t)i, a, b) <= prefix;
+  int take_cta;
+  block_exclusive_scan<int, kDrawWarps>(take, slots, take_cta);
+  if (tid == 0) counts[blockIdx.x] = take_cta;
   grid.sync();
-  // thread q stands for CTA q (gridDim.x <= kDrawThreads): its quota of equal keys and its first output slot
-  const int q_lt = tid < (int)gridDim.x ? __ldcg(counts + 2 * tid) : 0;
-  const int q_eq = tid < (int)gridDim.x ? __ldcg(counts + 2 * tid + 1) : 0;
+  // thread q stands for CTA q (gridDim.x <= kDrawThreads): its first output slot
   int all;
-  const int eq_before = block_exclusive_scan<int, kDrawWarps>(q_eq, slots, all);
-  const int q_quota = min(max(need - eq_before, 0), q_eq);
-  const int q_base = block_exclusive_scan<int, kDrawWarps>(q_lt + q_quota, slots, all);
-  if (tid == (int)blockIdx.x) {
-    found[0] = q_base;
-    found[1] = q_quota;
-  }
+  const int q_base = block_exclusive_scan<int, kDrawWarps>(tid < (int)gridDim.x ? __ldcg(counts + tid) : 0, slots, all);
+  if (tid == (int)blockIdx.x) found[0] = q_base;
   __syncthreads();
-  const int base = found[0], quota = found[1];
+  int base = found[0];
 
   // the compaction, a tile of kDrawThreads pixels at a time in index order
-  int lt_run = 0, eq_run = 0;
   for (long t0 = lo; t0 < hi; t0 += kDrawThreads) {
     const long i = t0 + tid;
-    int is_lt = 0, is_eq = 0;
-    if (i < hi) {
-      const uint32_t key = draw_key((uint32_t)i, a, b, shift);
-      is_lt = key < prefix;
-      is_eq = key == prefix;
-    }
+    const int is_taken = i < hi && draw_key((uint32_t)i, a, b) <= prefix;
     int tile;
-    const int before = block_exclusive_scan<int, kDrawWarps>((is_eq << 16) | is_lt, slots, tile);
-    const int eq_rank = eq_run + (before >> 16);
-    if (is_lt || (is_eq && eq_rank < quota)) out[base + lt_run + (before & 0xffff) + min(eq_rank, quota)] = (int32_t)i;
-    lt_run += tile & 0xffff;
-    eq_run += tile >> 16;
+    const int before = block_exclusive_scan<int, kDrawWarps>(is_taken, slots, tile);
+    if (is_taken) out[base + before] = (int32_t)i;
+    base += tile;
   }
 }
 
@@ -658,14 +630,13 @@ int pw_lab_sample(const uint8_t* bgr, const int32_t* idx, float* out, int n, voi
   return (int)cudaGetLastError();
 }
 
-// The subsample of n pixels: the `limit` pixels of least (key, index), key =
-// draw_key(i, a, b, shift), written to out (limit,) int32 in increasing index
-// order; 1 <= limit < n.  scratch: 3 * 2048 + 2 * 1024 uint32 words (three
-// rounds' histograms, then two counts a CTA).  Makes a memset
-// and one cooperative launch.  Returns a CUDA error code.
-int pw_subsample(int n, int limit, unsigned a, unsigned b, int shift, int32_t* out, uint32_t* scratch,
-                 void* stream) {
-  if (n < 2 || limit < 1 || limit >= n || shift < 0 || shift > 31) return (int)cudaErrorInvalidValue;
+// The subsample of n pixels: the `limit` pixels of least key draw_key(i, a,
+// b), written to out (limit,) int32 in increasing index order; 1 <= limit <
+// n.  scratch: 3 * 2048 + 1024 uint32 words (three rounds' histograms, then a
+// count a CTA).  Makes a memset and one cooperative launch.  Returns a CUDA
+// error code.
+int pw_subsample(int n, int limit, unsigned a, unsigned b, int32_t* out, uint32_t* scratch, void* stream) {
+  if (n < 2 || limit < 1 || limit >= n) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(uint32_t) * 3 * kDigits, s);
   int dev = 0, sms = 0, per_sm = 0;
@@ -683,7 +654,7 @@ int pw_subsample(int n, int limit, unsigned a, unsigned b, int shift, int32_t* o
   grid = ((long)n + chunk - 1) / chunk;
   uint32_t* hist = scratch;
   int* counts = reinterpret_cast<int*>(scratch + 3 * kDigits);
-  void* args[] = {&n, &limit, &a, &b, &shift, &chunk, &hist, &counts, &out};
+  void* args[] = {&n, &limit, &a, &b, &chunk, &hist, &counts, &out};
   err = cudaLaunchCooperativeKernel((const void*)subsample_draw, dim3((unsigned)grid), dim3(kDrawThreads), args, 0, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

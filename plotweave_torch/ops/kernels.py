@@ -181,7 +181,7 @@ KPP_SCALE_BITS = 16
 KPP_WEIGHT_CAP = 1 << 36
 KPP_MAX_N = 1 << 27
 KPP_ROUTES = ("resident", "streamed")
-DRAW_SCRATCH_WORDS = 3 * 2048 + 2 * 1024
+DRAW_SCRATCH_WORDS = 3 * 2048 + 1024
 
 # K11's tile of output, rows x pixels, and the halo (the summed radius of the
 # steps of one launch) beyond which a further step starts a launch of its own:
@@ -310,7 +310,7 @@ _SIGNATURES = {
     "assign_nearest": {"pw_assign_nearest": [_P, _P, _P, _I, _L, _P],
                        "pw_assign_boards": [_P, _P, _P, _P, _I, _L, _I, _I, _P]},
     "zs_dense": {"pw_zs_tiles_run": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
-    "kmeans": {"pw_subsample": [_I, _I, _U, _U, _I, _P, _P, _P],
+    "kmeans": {"pw_subsample": [_I, _I, _U, _U, _P, _P, _P],
                "pw_lab_sample": [_P, _P, _P, _I, _P],
                "pw_kpp_init": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
                "pw_lloyd_fit": [_P, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P],
@@ -915,9 +915,10 @@ def _check_f32(name: str, t: torch.Tensor, shape_tail: tuple, device=None) -> No
 def lab_sample_cuda(image: torch.Tensor, idx: torch.Tensor | None = None) -> torch.Tensor:
     """K8's sampler: the float Lab (K7's arithmetic, bit for bit) of the
     pixels ``idx`` ((n,) int32 on the image's device, indices into the
-    flattened pixels, which the caller has checked on the host:
-    ``ops.kmeans.lab_sample``) of a CUDA (..., 3) uint8 image → (n, 3)
-    float32; every pixel in order where ``idx`` is None."""
+    flattened pixels, which the caller has checked or drawn below the pixel
+    count: ``ops.kmeans.lab_sample``, ``subsample_lab``) of a CUDA (..., 3)
+    uint8 image → (n, 3) float32; every pixel in order where ``idx`` is
+    None."""
     _check_dense("lab_sample", image, (torch.uint8,))
     if image.shape[-1] != 3:
         raise ValueError(f"lab_sample: expected a (..., 3) image, got {tuple(image.shape)}")
@@ -937,33 +938,26 @@ def lab_sample_cuda(image: torch.Tensor, idx: torch.Tensor | None = None) -> tor
     return out
 
 
-def kpp_schedule(n: int, route: str | None = None) -> dict:
+def kpp_schedule(n: int) -> dict:
     """K8's seeding of n rows, as ``pw_kpp_init`` runs it: ``rows`` a CTA of
     the cluster (``⌈n / CLUSTER_SIZE⌉``), ``tiles`` of :data:`KPP_THREADS`
-    rows each, and the route: ``resident`` (each CTA's rows and their d²,
-    16 bytes a row, in shared memory after the tiles' totals) where that
-    fits, else ``streamed`` (the rows read each draw, d² in device scratch);
-    ``route`` names one (``resident`` must fit)."""
+    rows each, and the route by size: ``resident`` (each CTA's rows and
+    their d², 16 bytes a row, in shared memory after the tiles' totals)
+    where that fits, about 230,000 rows, else ``streamed`` (the rows read
+    each draw, d² in device scratch)."""
     rows = -(-n // CLUSTER_SIZE)
     tiles = -(-rows // KPP_THREADS)
     fits = 8 * tiles + 16 * rows + KPP_STATIC_SMEM <= MAX_SMEM
-    if route is None:
-        route = "resident" if fits else "streamed"
-    if route not in KPP_ROUTES or (route == "resident" and not fits):
-        raise ValueError(f"kpp_init: route {route!r} for {n} rows (routes {KPP_ROUTES}; resident up to "
-                         f"{CLUSTER_SIZE} x {(MAX_SMEM - KPP_STATIC_SMEM) // 16} rows)")
-    return {"route": route, "rows": rows, "tiles": tiles}
+    return {"route": "resident" if fits else "streamed", "rows": rows, "tiles": tiles}
 
 
-def kpp_init_cuda(sample: torch.Tensor, k: int, first: torch.Tensor, uniforms: torch.Tensor,
-                  route: str | None = None):
+def kpp_init_cuda(sample: torch.Tensor, k: int, first: torch.Tensor, uniforms: torch.Tensor):
     """K8's seeding: ``ops.kmeans.kpp_init_plain`` for every attempt in one
-    launch.  ``sample`` (n, 3) float32, n < :data:`KPP_MAX_N` (the weights'
-    sum stays below 2^63), ``first`` (attempts,) int32 indices and
-    ``uniforms`` (attempts, k - 1) float32 in [0, 1], all on one CUDA device
-    → (centres (attempts, k, 3) float32, picked indices (attempts, k)
-    int32).  ``route`` as :func:`kpp_schedule` takes it (by size where
-    None)."""
+    launch, on the route :func:`kpp_schedule` gives.  ``sample`` (n, 3)
+    float32, n < :data:`KPP_MAX_N` (the weights' sum stays below 2^63),
+    ``first`` (attempts,) int32 indices and ``uniforms`` (attempts, k - 1)
+    float32 in [0, 1], all on one CUDA device → (centres (attempts, k, 3)
+    float32, picked indices (attempts, k) int32)."""
     _check_f32("kpp_init", sample, (3,))
     n, attempts = sample.shape[0], first.numel()
     if sample.dim() != 2 or k < 1 or attempts < 1:
@@ -974,7 +968,7 @@ def kpp_init_cuda(sample: torch.Tensor, k: int, first: torch.Tensor, uniforms: t
     if not (first.device == sample.device and first.dtype == torch.int32 and first.is_contiguous()
             and first.dim() == 1):
         raise ValueError(f"kpp_init: expected contiguous (attempts,) int32 first indices on {sample.device}")
-    resident = kpp_schedule(n, route)["route"] == "resident"
+    resident = kpp_schedule(n)["route"] == "resident"
     lib = load("kmeans")
     with _guard(sample.device):
         centers = torch.empty((attempts, k, 3), dtype=torch.float32, device=sample.device)
@@ -988,22 +982,21 @@ def kpp_init_cuda(sample: torch.Tensor, k: int, first: torch.Tensor, uniforms: t
     return centers, picks
 
 
-def subsample_cuda(words: tuple, n: int, limit: int, device, shift: int = 0) -> torch.Tensor:
+def subsample_cuda(words: tuple, n: int, limit: int, device) -> torch.Tensor:
     """K8's draw: ``ops.kmeans.subsample_indices_plain`` on a CUDA device in
     one cooperative launch (and a memset), nothing read back.  ``words``:
-    the key words (a, b) of ``ops.kmeans.draw_words``; keys narrowed by
-    ``shift`` bits; 1 <= ``limit`` < ``n`` < 2^31 → (limit,) int32 indices,
-    increasing."""
+    the key words (a, b) of ``ops.kmeans.draw_words``; 1 <= ``limit`` <
+    ``n`` < 2^31 → (limit,) int32 indices, increasing."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"subsample: expected a CUDA device, got {device}")
-    if not 1 <= limit < n < 2**31 or not 0 <= shift <= 31:
-        raise ValueError(f"subsample: expected 1 <= limit < n < 2^31 and a shift of 0 to 31, got {limit}, {n}, {shift}")
+    if not 1 <= limit < n < 2**31:
+        raise ValueError(f"subsample: expected 1 <= limit < n < 2^31, got {limit}, {n}")
     lib = load("kmeans")
     with _guard(device):
         out = torch.empty(limit, dtype=torch.int32, device=device)
         scratch = torch.empty(DRAW_SCRATCH_WORDS, dtype=torch.int32, device=device)
-        err = lib.pw_subsample(n, limit, int(words[0]), int(words[1]), int(shift), out.data_ptr(), scratch.data_ptr(),
+        err = lib.pw_subsample(n, limit, int(words[0]), int(words[1]), out.data_ptr(), scratch.data_ptr(),
                                torch.cuda.current_stream().cuda_stream)
         _count("subsample")
         _raise_on(lib, "subsample", err)

@@ -23,8 +23,9 @@ reproduced, so the port defines its own, the same for the card and for
 ``raster_device: "cpu"``.  The subsample (:func:`subsample_indices`) is drawn
 on the image's device: pixel i gets the 32-bit key ``fmix32(i·a + b mod
 2³²)`` (murmur3's finalizer; ``a`` odd and ``b`` two words of
-``splitmix64(seed)``, :func:`draw_words`), and the subsample is the ``limit``
-pixels of least ``(key, i)``, in increasing index order.  Only the seeds'
+``splitmix64(seed)``, :func:`draw_words`; a bijection of i, so no two keys
+are equal), and the subsample is the ``limit`` pixels of least key, in
+increasing index order.  Only the seeds'
 k + 1 numbers per attempt come from host generators, a few bytes:
 :func:`seed_stream` seeds a CPU ``torch.Generator`` with ``seed + 1000·a``
 for attempt ``a`` (as the JAX package seeds its keys) and draws one
@@ -197,45 +198,43 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
 
 
-def draw_keys(seed: int, n: int, device="cpu", key_bits: int = 32) -> torch.Tensor:
-    """The draw's key of every pixel ``i < n``: ``fmix32(i·a + b mod 2³²) >>
-    (32 − key_bits)``, as int64 (narrower keys make ties; the checks use them)."""
+def draw_keys(seed: int, n: int, device="cpu") -> torch.Tensor:
+    """The draw's key of every pixel ``i < n``: ``fmix32(i·a + b mod 2³²)``,
+    as int64; distinct, since both steps are bijections of ``i``."""
     a, b = draw_words(seed)
     h = (torch.arange(n, dtype=torch.int64, device=device) * a + b) & _M32
     h = h ^ (h >> 16)
     h = _mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
     h = _mul32(h, 0xC2B2AE35)
-    h = h ^ (h >> 16)
-    return h >> (32 - key_bits)
+    return h ^ (h >> 16)
 
 
-def subsample_indices_plain(seed: int, n: int, limit: int, device="cpu", key_bits: int = 32) -> torch.Tensor:
-    """The ``limit`` indices below ``n`` of least ``(key, index)``
-    (:func:`draw_keys`), increasing, int32 on ``device``; every index in order
-    where ``n ≤ limit``."""
+def subsample_indices_plain(seed: int, n: int, limit: int, device="cpu") -> torch.Tensor:
+    """The ``limit`` indices below ``n`` of least key (:func:`draw_keys`),
+    increasing, int32 on ``device``; every index in order where ``n ≤
+    limit``."""
     if n <= limit:
         return torch.arange(n, dtype=torch.int32, device=device)
-    comp = (draw_keys(seed, n, device, key_bits) << 31) + torch.arange(n, dtype=torch.int64, device=device)
-    return torch.nonzero(comp <= torch.kthvalue(comp, limit).values).flatten().to(torch.int32)
+    keys = draw_keys(seed, n, device)
+    return torch.nonzero(keys <= torch.kthvalue(keys, limit).values).flatten().to(torch.int32)
 
 
-def subsample_indices(seed: int, n: int, limit: int, device="cpu", key_bits: int = 32) -> torch.Tensor:
+def subsample_indices(seed: int, n: int, limit: int, device="cpu") -> torch.Tensor:
     """The device mode's subsample (see the module docstring): ``limit`` of
     ``n`` indices without replacement, increasing, int32 on ``device``:
     kernel K8's draw for a CUDA device (nothing read back), the plain version
     for the CPU, else raise; every index in order where ``n ≤ limit``."""
     device = torch.device(device)
-    if limit < 1 or not 0 < n < 2**31 or not 1 <= key_bits <= 32:
-        raise ValueError(f"subsample_indices: expected 0 < n < 2^31, limit >= 1 and 1 to 32 key bits, got n = {n}, "
-                         f"limit = {limit}, {key_bits} bits")
+    if limit < 1 or not 0 < n < 2**31:
+        raise ValueError(f"subsample_indices: expected 0 < n < 2^31 and limit >= 1, got n = {n}, limit = {limit}")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"subsample_indices: no kernel for device {device}")
     if device.type == "cuda" and n > limit:
         from .kernels import subsample_cuda  # noqa: PLC0415
 
-        return subsample_cuda(draw_words(seed), n, limit, device, 32 - key_bits)
-    return subsample_indices_plain(seed, n, limit, device, key_bits)
+        return subsample_cuda(draw_words(seed), n, limit, device)
+    return subsample_indices_plain(seed, n, limit, device)
 
 
 def seed_stream(seed: int, attempts: int, k: int, n: int):
@@ -267,15 +266,13 @@ def kmeans_fit_device(sample: torch.Tensor, k: int, attempts: int, iters: int, s
 
 def lab_sample(image: torch.Tensor, idx: torch.Tensor | None = None) -> torch.Tensor:
     """The float Lab of the pixels ``idx`` (an integer tensor of indices into
-    the flattened pixels, checked here where it lies on the CPU; on the
-    image's CUDA device, as :func:`subsample_indices` draws them there, it is
-    taken as it is, with no read back; every pixel where None) of a (..., 3)
+    the flattened pixels, checked here wherever it lies, which reads a CUDA
+    tensor's least and greatest back; every pixel where None) of a (..., 3)
     uint8 BGR image → (n, 3) float32 on the image's device: kernel K8's
     sampler for a CUDA image, ``bgr_to_lab_u8`` of the gathered pixels for a
     CPU image, else raise."""
     px = image.numel() // 3
-    if (idx is not None and idx.device.type == "cpu" and idx.numel()
-            and not 0 <= int(idx.min()) <= int(idx.max()) < px):
+    if idx is not None and idx.numel() and not 0 <= int(idx.min()) <= int(idx.max()) < px:
         raise ValueError(f"lab_sample: indices outside the image's {px} pixels")
     if _on_card("lab_sample", image):
         from .kernels import lab_sample_cuda  # noqa: PLC0415
@@ -283,6 +280,23 @@ def lab_sample(image: torch.Tensor, idx: torch.Tensor | None = None) -> torch.Te
         return lab_sample_cuda(image, None if idx is None else idx.to(torch.int32).to(image.device))
     flat = image.reshape(-1, 3)
     return bgr_to_lab_u8(flat if idx is None else flat[idx.long()])
+
+
+def subsample_lab(image: torch.Tensor, seed: int, limit: int) -> torch.Tensor:
+    """The device mode's sample: the float Lab (:func:`lab_sample`) of the
+    pixels :func:`subsample_indices` draws from a (..., 3) uint8 BGR image on
+    its device, every pixel in order where it has no more than ``limit`` →
+    (n, 3) float32.  The indices are drawn below the pixel count, so on the
+    card they go to the sampler as they are and nothing is read back."""
+    px = image.numel() // 3
+    if px <= limit:
+        return lab_sample(image)
+    idx = subsample_indices(seed, px, limit, image.device)
+    if _on_card("lab_sample", image):
+        from .kernels import lab_sample_cuda  # noqa: PLC0415
+
+        return lab_sample_cuda(image, idx)
+    return lab_sample(image, idx)
 
 
 def assign_points_plain(data: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:

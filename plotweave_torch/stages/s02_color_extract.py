@@ -48,7 +48,7 @@ from ..ops.bitpack import boards_to_rows, rows_to_boards
 from ..ops.canny import canny_boards
 from ..ops.cvkmeans import assign_labels, cv_kmeans
 from ..ops.frontend import assign_boards_counts
-from ..ops.kmeans import kmeans_fit_device, lab_sample, subsample_indices
+from ..ops.kmeans import kmeans_fit_device, subsample_lab
 from ..ops.morphology import _valid_bits, morph_close, morph_open, morph_program, morph_steps
 from ..ops.thinning import zhang_suen_packed
 from ..utils import (fetch_device_artifact, read_image, register_derived_artifact, register_device_artifact,
@@ -152,7 +152,7 @@ def device_init_stage(img: torch.Tensor, k: int, iters: int, attempts: int, limi
     n_masks = k * h * w8
     blob = torch.empty(16 * k + (3 if fuse else 1) * n_masks, dtype=torch.uint8, device=img.device)
     centers = blob[: 12 * k].view(torch.float32).view(k, 3)
-    sample = lab_sample(img, subsample_indices(seed, h * w, limit, img.device) if h * w > limit else None)
+    sample = subsample_lab(img, seed, limit)
     kmeans_fit_device(sample, k, attempts, iters, seed, out=centers)
     _, _, masks_b = assign_tail(img, centers, k, open_iters, close_iters,
                                 counts=blob[12 * k : 16 * k].view(torch.int32),

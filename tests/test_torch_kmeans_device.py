@@ -4,14 +4,14 @@
 kernels' schedules (``csrc/kmeans.cu``: ``subsample_draw``, ``kpp_init``)
 held to the plain versions exactly.
 
-The draw: the ``limit`` pixels of least ``(fmix32(i·a + b mod 2³²) >> shift,
-i)``, in increasing index order.  The emulation runs the kernel's CTAs (runs
-of whole tiles), its three radix rounds (a histogram per CTA merged into one,
-then the digit every CTA finds from the merged counts), the per-CTA counts,
-each CTA's quota of keys equal to the threshold and its first output slot,
-and the compaction tile by tile with the packed (equal, below) scan, into an
-output of garbage that every slot must be written in exactly once.  Narrowed
-keys make ties at the threshold.
+The draw: the ``limit`` pixels of least ``fmix32(i·a + b mod 2³²)`` (a
+bijection of i, so the keys are distinct), in increasing index order.  The
+emulation runs the kernel's CTAs (runs of whole tiles), its three radix
+rounds (a histogram per CTA merged into one, then the digit every CTA finds
+from the merged counts), which end on the limit-th least key K, the per-CTA
+counts of keys up to K, each CTA's first output slot, and the compaction
+tile by tile with one scan, into an output of garbage that every slot must
+be written in exactly once.
 
 The seeding: integer weights ``max(⌊d²·2¹⁶⌋, 1)``, the first row whose
 running sum exceeds ``⌊total·u⌋``.  The emulation runs 16 CTAs of a cluster,
@@ -42,7 +42,7 @@ ROUNDS = ((21, 0x7FF), (10, 0x7FF), (0, 0x3FF))  # (shift, digit mask) of the ra
 # --- the draw -----------------------------------------------------------------------
 
 
-def np_keys(seed: int, n: int, key_bits: int = 32) -> np.ndarray:
+def np_keys(seed: int, n: int) -> np.ndarray:
     """The draw's keys with numpy's wrapping uint32 arithmetic (the kernel's)."""
     a, b = tkm.draw_words(seed)
     h = np.arange(n, dtype=np.uint32) * np.uint32(a) + np.uint32(b)
@@ -51,7 +51,7 @@ def np_keys(seed: int, n: int, key_bits: int = 32) -> np.ndarray:
     h ^= h >> np.uint32(13)
     h *= np.uint32(0xC2B2AE35)
     h ^= h >> np.uint32(16)
-    return h >> np.uint32(32 - key_bits)
+    return h
 
 
 def exclusive(v: np.ndarray) -> np.ndarray:
@@ -66,8 +66,8 @@ def draw_grid(n: int, max_grid: int, threads: int):
     return -(-n // chunk), chunk
 
 
-def emulate_draw(seed: int, n: int, limit: int, key_bits: int, max_grid: int, threads: int) -> np.ndarray:
-    keys = np_keys(seed, n, key_bits).astype(np.int64)
+def emulate_draw(seed: int, n: int, limit: int, max_grid: int, threads: int) -> np.ndarray:
+    keys = np_keys(seed, n).astype(np.int64)
     grid, chunk = draw_grid(n, max_grid, threads)
     ranges = [(q * chunk, min(q * chunk + chunk, n)) for q in range(grid)]
     prefix, mask, need = 0, 0, limit
@@ -87,30 +87,20 @@ def emulate_draw(seed: int, n: int, limit: int, key_bits: int, max_grid: int, th
         prefix |= found[0] << sh
         mask |= digit << sh
         need -= found[1]
-    counts = np.array([((keys[lo:hi] < prefix).sum(), (keys[lo:hi] == prefix).sum()) for lo, hi in ranges])
-    eq_before = exclusive(counts[:, 1])
-    quota = np.clip(need - eq_before, 0, counts[:, 1])
-    base = exclusive(counts[:, 0] + quota)
+    assert need == 1 and (keys == prefix).sum() == 1  # prefix is one key, the limit-th least
+    counts = np.array([(keys[lo:hi] <= prefix).sum() for lo, hi in ranges])
+    base = exclusive(counts)
     out = np.full(limit, -7, np.int64)  # garbage
     writes = np.zeros(limit, np.int64)
     for q, (lo, hi) in enumerate(ranges):
-        lt_run = eq_run = 0
+        run = base[q]
         for t0 in range(lo, hi, threads):
             i = np.arange(t0, t0 + threads)
-            valid = i < hi
-            k = np.where(valid, keys[np.minimum(i, n - 1)], -1)
-            is_lt = (valid & (k < prefix)).astype(np.int64)
-            is_eq = (valid & (k == prefix)).astype(np.int64)
-            packed = (is_eq << 16) | is_lt
-            before = exclusive(packed)
-            tile = int(packed.sum())
-            eq_rank = eq_run + (before >> 16)
-            take = (is_lt == 1) | ((is_eq == 1) & (eq_rank < quota[q]))
-            pos = base[q] + lt_run + (before & 0xFFFF) + np.minimum(eq_rank, quota[q])
-            out[pos[take]] = i[take]
-            np.add.at(writes, pos[take], 1)
-            lt_run += tile & 0xFFFF
-            eq_run += tile >> 16
+            taken = ((i < hi) & (keys[np.minimum(i, n - 1)] <= prefix)).astype(np.int64)
+            pos = run + exclusive(taken)
+            out[pos[taken == 1]] = i[taken == 1]
+            np.add.at(writes, pos[taken == 1], 1)
+            run += int(taken.sum())
     assert (writes == 1).all()  # every slot written once
     return out
 
@@ -125,22 +115,21 @@ def test_draw_plain_takes_limit_distinct_increasing(n, limit):
     assert len({tuple(tkm.subsample_indices(s, n, limit).tolist()) for s in range(8)}) > 1  # seeds differ
 
 
-@pytest.mark.parametrize("key_bits", [32, 8, 3])
-def test_draw_plain_is_the_least_keys(key_bits):
+@pytest.mark.parametrize("seed,n,limit", [(7, 6000, 1234), (8, 4097, 4096), (2**40 + 9, 30_000, 17)])
+def test_draw_plain_is_the_least_keys(seed, n, limit):
     """The plain draw against its definition, with numpy's uint32 hash: the
-    ``limit`` least (key, index) pairs, ties to the smaller index."""
-    n, limit = 6000, 1234
-    keys = np_keys(7, n, key_bits)
-    np.testing.assert_array_equal(tkm.draw_keys(7, n, key_bits=key_bits).numpy(), keys.astype(np.int64))
-    order = np.lexsort((np.arange(n), keys))[:limit]
-    np.testing.assert_array_equal(tkm.subsample_indices(7, n, limit, key_bits=key_bits).numpy(), np.sort(order))
+    ``limit`` least keys."""
+    keys = np_keys(seed, n)
+    np.testing.assert_array_equal(tkm.draw_keys(seed, n).numpy(), keys.astype(np.int64))
+    order = np.argsort(keys, kind="stable")[:limit]
+    np.testing.assert_array_equal(tkm.subsample_indices(seed, n, limit).numpy(), np.sort(order))
 
 
-def test_draw_keys_are_a_bijection_per_seed():
-    for seed in (0, 1, 42, 2**40 + 3, -5):
-        a, b = tkm.draw_words(seed)
-        assert a % 2 == 1 and 0 <= a < 2**32 and 0 <= b < 2**32
-        assert len(np.unique(np_keys(seed, 200_000))) == 200_000
+@pytest.mark.parametrize("seed", [0, 1, 42, 2**40 + 3, -5])
+def test_draw_keys_are_a_bijection_per_seed(seed):
+    a, b = tkm.draw_words(seed)
+    assert a % 2 == 1 and 0 <= a < 2**32 and 0 <= b < 2**32
+    assert len(np.unique(np_keys(seed, 200_000))) == 200_000
 
 
 def test_draw_plain_roughly_uniform_over_seeds():
@@ -166,26 +155,42 @@ def test_draw_dispatch_raises():
     with pytest.raises(ValueError):
         tkm.subsample_indices(1, 100, 0)
     with pytest.raises(ValueError):
-        tkm.subsample_indices(1, 100, 10, key_bits=33)
+        tkm.subsample_indices(1, 2**31, 10)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.subsample_cuda(tkm.draw_words(1), 100, 10, "cpu")
 
 
-@pytest.mark.parametrize("n,limit,key_bits,max_grid,threads", [
-    (5000, 700, 32, 3, 64),
-    (5000, 700, 4, 3, 64),  # 16 key values: hundreds of ties at the threshold, across CTAs
-    (3000, 1, 32, 2, 64),
-    (3000, 2999, 32, 5, 64),
-    (3001, 1500, 6, 7, 32),
-    (200_000, 20_000, 32, 132, 1024),
-    (200_000, 20_000, 10, 132, 1024),
-    (1025, 1024, 32, 264, 1024),
-    (70_000, 3, 1, 9, 256),  # two key values
-    (2, 1, 32, 132, 1024),
+@pytest.mark.parametrize("n,limit,seed,max_grid,threads", [
+    (5000, 700, 11, 3, 64),
+    (5000, 4999, 12, 3, 64),  # the threshold is the greatest key but one
+    (3000, 1, 11, 2, 64),
+    (3000, 2999, 11, 5, 64),
+    (3001, 1500, 13, 7, 32),
+    (200_000, 20_000, 11, 132, 1024),
+    (200_000, 199_999, 14, 132, 1024),
+    (1025, 1024, 11, 264, 1024),
+    (70_000, 3, 15, 9, 256),
+    (2, 1, 11, 132, 1024),
 ])
-def test_draw_emulated_schedule_equals_plain(n, limit, key_bits, max_grid, threads):
-    got = emulate_draw(11, n, limit, key_bits, max_grid, threads)
-    np.testing.assert_array_equal(got, tkm.subsample_indices_plain(11, n, limit, key_bits=key_bits).numpy())
+def test_draw_emulated_schedule_equals_plain(n, limit, seed, max_grid, threads):
+    got = emulate_draw(seed, n, limit, max_grid, threads)
+    np.testing.assert_array_equal(got, tkm.subsample_indices_plain(seed, n, limit).numpy())
+
+
+@pytest.mark.parametrize("limit", [1, 40, 98, 99, 500])
+def test_subsample_lab_is_the_labs_of_the_drawn_pixels(limit):
+    rng = np.random.default_rng(limit)
+    img = torch.from_numpy(rng.integers(0, 256, (9, 11, 3), dtype=np.uint8))
+    want = tkm.lab_sample(img, tkm.subsample_indices(5, 99, limit)) if limit < 99 else tkm.lab_sample(img)
+    assert torch.equal(tkm.subsample_lab(img, 5, limit), want)
+    assert tkm.subsample_lab(img, 5, limit).shape == (min(limit, 99), 3)
+
+
+@pytest.mark.parametrize("idx", [[-1], [99], [0, 5, 99], [2**40]])
+def test_lab_sample_refuses_indices_outside_the_image(idx):
+    img = torch.zeros((9, 11, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="outside"):
+        tkm.lab_sample(img, torch.tensor(idx, dtype=torch.int64))
 
 
 # --- the seeding --------------------------------------------------------------------
@@ -361,9 +366,8 @@ def test_kpp_refuses_a_sample_whose_sums_could_overflow():
 
 def test_kpp_schedule_routes():
     assert kernels.kpp_schedule(200_000)["route"] == "resident"  # the default subsample fits: read once
+    assert kernels.kpp_schedule(231_696) == {"route": "resident", "rows": 14_481, "tiles": 29}  # the largest that fits
+    assert kernels.kpp_schedule(231_697)["route"] == "streamed"
     assert kernels.kpp_schedule(250_000)["route"] == "streamed"
-    assert kernels.kpp_schedule(200_000, "streamed")["route"] == "streamed"
-    with pytest.raises(ValueError):
-        kernels.kpp_schedule(250_000, "resident")
-    with pytest.raises(ValueError):
-        kernels.kpp_schedule(10, "other")
+    assert kernels.kpp_schedule(kernels.KPP_MAX_N - 1)["route"] == "streamed"
+    assert {kernels.kpp_schedule(n)["route"] for n in (1, 5, 2048, 231_696, 231_697, 10**6)} == set(kernels.KPP_ROUTES)
