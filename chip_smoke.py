@@ -93,9 +93,12 @@ Phases:
    and ``ops.kmeans.kmeans`` card vs CPU; K7's counts equal to a bincount of
    its own labels; K11 byte-equal to its plain version on gray and binary
    images, rect / ellipse / cross, ``ksize`` 1, 2, 3, 5, 7, 31, iterations
-   0-3, all four programs, odd shapes, H or W below the radius, a batch, a
-   list that takes several launches, and 4 x 1500 x 2000, beside
-   ``max_pool2d``'s time for the rect element;
+   0-3, all four programs, odd shapes, H or W below the radius, a batch,
+   lists that take several launches (by the halo cap, by the parameter
+   block's room, a rect 31 step alone), widths 1999 and 1011 and a base at
+   an odd offset (the byte route), 4 x 1500 x 2000, and the swatch path's
+   stacked call of four masks in one launch, beside ``max_pool2d``'s time
+   for the rect element and the trace of that call;
 9. the device-k-means path: ``pipeline.main`` with ``kmeans_init: "device"``
    on the synthetic 2000 x 1500 poster, steps 1-13, on the card and with
    ``--raster-device cpu``: each mask against the host-exact run's by IoU >=
@@ -105,7 +108,7 @@ Phases:
    kernels must all be the port's own;
 10. the swatch path: ``extraction_mode: "swatch"`` on the poster with its four
    generating colours, steps 1-13, card == cpu on every artifact, K11
-   launched twice a layer, its trace the port's own;
+   launched once for all the layers, its trace the port's own;
 11. the batch path: ``run_pipeline_batch`` over 8 seeded 2000 x 1500 images and
    2 of another shape, steps 1-4, 4 workers: every mask, edges and contours
    file byte-equal to sequential runs, fewer grouped calls than images, a
@@ -215,7 +218,7 @@ CHAIN_LAUNCHES = {"bitpack": 3, "morph_bits": 1, "edge_candidates": 1, "hysteres
 # the kernels of plotweave_torch/csrc by a part of their names, as a profiler's trace shows them
 OWN_KERNELS = ("rows_to_boards", "boards_to_rows", "boards_to_dense", "dense_to_boards", "labels_to_boards",
                "morph_steps", "edge_tiles", "hysteresis_cluster", "hysteresis_sweep", "zs_cluster", "zs_subpass",
-               "assign_nearest", "zs_tiles", "subsample", "lab_sample", "kpp_init", "lloyd_fit", "assign_points", "morph_dense",
+               "assign_nearest", "zs_tiles", "subsample", "lab_sample", "kpp_init", "lloyd_fit", "assign_points", "morph_runs",
                "greedy_tour", "refine_tour", "area_frac", "area_int", "bezier_sample")
 # stage 03's mask open and close at the default config (ellipse 3, 1 and 1): K2's step list on the main path
 MAIN_PATH_STEPS = (("ellipse", 3, "e"), ("ellipse", 3, "d"), ("ellipse", 3, "d"), ("ellipse", 3, "e"))
@@ -271,6 +274,20 @@ def bound(nbytes: float, ops: float, rate: float) -> dict:
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
+
+
+def k11_bound(numel: int, steps) -> dict:
+    """K11's bound on ``numel`` pixels: each read once and written once, and
+    the separable form's min/max (per step and pixel, a run of L pixels L - 1
+    across on each of its rows' planes, the run's rows and the runs folded
+    down; rect 3: 2 + 2) at four bytes a 32-bit INT32 operation."""
+    from plotweave_torch.ops import kernels
+
+    per_pixel = 0
+    for shape, ksize, _ in steps:
+        runs = kernels.element_runs(shape, ksize)[1]
+        per_pixel += sum(dx1 - dx0 for dx0, dx1, _ in runs) + sum(len(dys) for *_, dys in runs) - 1
+    return bound(2 * numel, numel * per_pixel / 4, INT32_OPS)
 
 
 def fail(msg: str) -> None:
@@ -351,6 +368,22 @@ def profiled_ms(fn, name: str, reps: int):
     return us / len(groups) / 1e3 if us else None
 
 
+def profiled_each(fn, names, reps: int):
+    """Device milliseconds of each kernel launch of one call of ``fn`` whose
+    name holds one of ``names``, in launch order, from ``torch.profiler``:
+    the mean over the whole calls the trace caught (all but the first) that
+    show the same number of such launches; None where it caught none."""
+    try:
+        groups = traced(fn, reps + 1)[1:]
+    except RuntimeError as e:  # a measurement only: say so and go on
+        print(f"  torch.profiler failed: {e}")
+        return None
+    per = [[device_us(e) for e in g if any(n in e.name for n in names)] for g in groups]
+    most = max((len(p) for p in per), default=0)
+    per = [p for p in per if len(p) == most and most]
+    return [sum(p[i] for p in per) / len(per) / 1e3 for i in range(most)] if per else None
+
+
 def device_kernels(fn) -> dict:
     """{kernel name: launches} of the device kernels one call of ``fn`` runs
     (the last call of a trace; empty where the trace caught nothing)."""
@@ -360,13 +393,16 @@ def device_kernels(fn) -> dict:
     return counts
 
 
-def only_own_kernels(fn, what: str, expect: dict) -> dict:
-    """Fail if a trace of TRACE_CALLS calls of ``fn`` shows a device kernel
+def only_own_kernels(fn, what: str, expect: dict, timed: str = "", calls: int = TRACE_CALLS) -> dict:
+    """Fail if a trace of ``calls`` calls of ``fn`` shows a device kernel
     that is not one of ``plotweave_torch/csrc``'s, or if the last call's
     kernels are not ``expect`` ({part of the name: launches}) in any of three
-    traces (a trace that lost events is taken again); returns those."""
+    traces (a trace that lost events is taken again); returns those.  With
+    ``timed``, returns {"kernels": those, "alone_ms": the device ms a call of
+    the kernels whose name holds ``timed``, over the calls after the first},
+    from the same trace (a profiler session fewer than ``profiled_ms``)."""
     for attempt in range(3):
-        groups = traced(fn)
+        groups = traced(fn, calls)
         foreign = sorted({e.name for g in groups for e in g if not any(own in e.name for own in OWN_KERNELS)})
         check(not foreign, f"{what}: device kernels that are not the port's own: {foreign}")
         short: dict = {}
@@ -379,7 +415,10 @@ def only_own_kernels(fn, what: str, expect: dict) -> dict:
     check(short == expect, f"{what}: the trace's last call ran {short}, expected {expect}")
     print(f"{what}: every device kernel in the trace of {len(groups)} calls is the port's own, and the last call "
           f"ran {short} (torch.profiler)")
-    return short
+    if not timed:
+        return short
+    us = sum(device_us(e) for g in groups[1:] for e in g if timed in e.name)
+    return {"kernels": short, "alone_ms": us / (len(groups) - 1) / 1e3 if us else None}
 
 
 def bare_k2(x, valid, steps):
@@ -1062,6 +1101,15 @@ def phase_chain(stats: dict) -> None:
                         "boards_to_rows_plain_ms": cuda_ms(lambda: bitpack.boards_to_rows_plain(cand, w), 3),
                         "plain_device_kernels": sum(device_kernels(k1_chain_plain).values()),
                         **bound(3 * (board_bytes + row_bytes), 0, INT32_OPS)}
+    # each of the chain's three K1 launches alone, in launch order: rows -> boards, boards -> rows twice; each
+    # reads one layout of the four masks and writes the other
+    each = profiled_each(k1_chain, ("rows_to_boards", "boards_to_rows"), 20)
+    one = bound(board_bytes + row_bytes, 0, INT32_OPS)["bound_ms"]
+    stats["K1 rows"].update(alone_ms_each=each, bound_ms_each=one, alone_ms=sum(each) if each else None)
+    if each:
+        print("  K1's three chain launches alone (torch.profiler): " + ", ".join(
+            f"{what} {t:.4f} ms ({100 * one / t:.1f} % of its bound {one:.5f} ms)"
+            for what, t in zip(("rows -> boards", "boards -> rows (masks)", "boards -> rows (candidates)"), each)))
     stats["K3+K4"] = {"max_abs_err": 0, "ms": cuda_ms(k34, 20),
                       "plain_ms": cuda_ms(lambda: edge_candidates_plain(m, w, bk, lo, hi), 3),
                       "alone_ms": profiled_ms(k34, "edge_tiles", 20),
@@ -1754,14 +1802,22 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
     binary = (x > 128).to(torch.uint8) * 255
     check(torch.equal(morphology.morph_binary_packed(binary, "rect", 3, 1, "ed"),
                       morphology.morph_plain(binary, "rect", 3, 1, "ed")), "morph_binary_packed (K1, K2, K1) != K11's plain")
-    # a list longer than one launch's halo: several launches
-    long_list = morphology.morph_program("rect", 3, kernels.DENSE_HALO_CAP + 2, "ed")
-    before = kernels.LAUNCHES["morph_dense"]
-    got = kernels.morph_dense_cuda(x, long_list)
-    check(kernels.LAUNCHES["morph_dense"] - before == 3 and torch.equal(got, morphology.morph_dense_plain(x, long_list)),
-          f"K11: {len(long_list)} steps took {kernels.LAUNCHES['morph_dense'] - before} launches or != plain")
+    # lists longer than one launch: by the halo cap, by the parameter block's room, and a step alone
+    launches = []
+    for long_list in (morphology.morph_program("rect", 3, kernels.DENSE_HALO_CAP + 2, "ed"),
+                      morphology.morph_program("cross", 1, kernels.DENSE_MAX_STEPS // 2 + 4, "ed"),
+                      morphology.morph_program("ellipse", 5, 3, "ed") + (("rect", 31, "d"),)):
+        want = len(kernels.dense_morph_schedule(kernels.dense_morph_sizes(long_list)))
+        before = kernels.LAUNCHES["morph_dense"]
+        got = kernels.morph_dense_cuda(x, long_list)
+        took = kernels.LAUNCHES["morph_dense"] - before
+        check(took == want > 1 and torch.equal(got, morphology.morph_dense_plain(x, long_list)),
+              f"K11: {len(long_list)} steps took {took} launches (expected {want} > 1) or != plain")
+        launches.append(took)
+        n_k11 += 1
     big = gray(*CHAIN_SHAPE)
     big_bin = (big > 128).to(torch.uint8) * 255
+    swatch = morphology.morph_program("rect", 3, 1, "ed") + morphology.morph_program("rect", 3, 1, "de")
     for src in (big, big_bin):
         for el, ksize, program, iterations in (("rect", 3, "ed", 1), ("rect", 3, "de", 1), ("ellipse", 5, "ed", 2),
                                                ("cross", 7, "d", 1)):
@@ -1769,38 +1825,58 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
             check(torch.equal(kernels.morph_dense_cuda(src, steps), morphology.morph_dense_plain(src, steps)),
                   f"K11 {CHAIN_SHAPE} {el} {ksize} {program} x{iterations}")
             n_k11 += 1
-    # the swatch path's shape: one 1500 x 2000 mask, opened, then closed (two launches of two steps)
+        # widths that are not multiples of 16 (the byte route), an odd offset (16-byte rows, a misaligned base)
+        for cut in (src[:, :, :1999], src[:, :777, 3:1014], src.flatten()[5:5 + 2 * 1500 * 1984].view(2, 1500, 1984)):
+            cut = cut.contiguous()
+            for steps in (swatch, morphology.morph_program("ellipse", 5, 2, "ed")):
+                check(torch.equal(kernels.morph_dense_cuda(cut, steps), morphology.morph_dense_plain(cut, steps)),
+                      f"K11 {tuple(cut.shape)} at offset {cut.storage_offset()} {steps[0]} x{len(steps)}")
+                n_k11 += 1
+    # the swatch path's call: the four masks stacked, opened and closed in one launch of four steps
+    before = kernels.LAUNCHES["morph_dense"]
+    got = kernels.morph_dense_cuda(big_bin, swatch)
+    check(kernels.LAUNCHES["morph_dense"] - before == 1 and torch.equal(got, morphology.morph_dense_plain(big_bin, swatch)),
+          "K11: the stacked swatch call != plain or not one launch")
+    n_k11 += 1
     mask = big_bin[0].contiguous()
 
-    def swatch_clean(m=mask):
-        return morphology.morph_close(morphology.morph_open(m, "rect", 3, 1), "rect", 3, 1)
+    def swatch_call(m=big_bin):
+        return morphology.morph_dense(m, swatch)
 
-    def swatch_plain(m=mask):
-        return morphology.morph_plain(morphology.morph_plain(m, "rect", 3, 1, "ed"), "rect", 3, 1, "de")
+    def swatch_plain(m=big_bin):
+        return morphology.morph_dense_plain(m, swatch)
 
-    def swatch_pool(m=mask):  # the one case a library call covers: a rect element is a max pooling
+    def swatch_pool(m=big_bin):  # the one case a library call covers: a rect element is a max pooling
         import torch.nn.functional as F
 
-        t = m.to(torch.float16)[None, None]
+        t = m.to(torch.float16)[:, None]
         t = F.max_pool2d(-F.max_pool2d(-t, 3, 1, 1), 3, 1, 1)
         t = -F.max_pool2d(-F.max_pool2d(t, 3, 1, 1), 3, 1, 1)
-        return t[0, 0].to(torch.uint8)
+        return t[:, 0].to(torch.uint8)
 
-    check(torch.equal(swatch_clean(), swatch_plain()) and torch.equal(swatch_clean(), swatch_pool()),
-          "K11 open+close at 1500x2000 != plain or != max_pool2d")
-    stats["K11"] = {"max_abs_err": 0, "ms": cuda_ms(swatch_clean, 20), "plain_ms": cuda_ms(swatch_plain, 5),
-                    "alone_ms": profiled_ms(swatch_clean, "morph_dense", 20),
-                    **bound(2 * 2 * mask.numel(), 4 * 9 * mask.numel(), INT32_OPS)}
+    check(torch.equal(swatch_call(), swatch_plain()) and torch.equal(swatch_call(), swatch_pool()),
+          "K11 swatch call at 4x1500x2000 != plain or != max_pool2d")
+    # the kernel alone and the trace's check of its launches from one profiler session (a long process has
+    # lost every event of its later sessions; phase_k11_ab times one mask alone)
+    trace = only_own_kernels(swatch_call, "swatch mode's open and close, four masks", {"morph_runs": 1},
+                             timed="morph_runs", calls=21)
+    stats["K11 trace"] = trace["kernels"]
+    stats["K11"] = {"max_abs_err": 0, "ms": cuda_ms(swatch_call, 20), "plain_ms": cuda_ms(swatch_plain, 5),
+                    "alone_ms": trace["alone_ms"], **k11_bound(big_bin.numel(), swatch)}
     stats["K11"]["library_ms"] = cuda_ms(swatch_pool, 10)
+    one = {**k11_bound(mask.numel(), swatch), "ms": cuda_ms(lambda: swatch_call(mask), 20),
+           "library_ms": cuda_ms(lambda: swatch_pool(mask[None]), 10)}
+    stats["K11 one mask"] = one
     st = stats["K11"]
     print(f"K11 == plain: {n_k11} (shape, element, ksize, program, iterations) cases on {len(shapes)} shapes and "
           f"{CHAIN_SHAPE}, gray and binary, ksize 1, 2, 3, 5, 7, 31, through erode/dilate/morph_open/morph_close, "
-          f"{len(long_list)} steps in 3 launches")
-    print(f"K11 at 1500x2000, rect 3 open then close (two launches): {st['ms']:.4f} ms"
-          + (f" ({st['alone_ms']:.4f} alone)" if st.get("alone_ms") else "") + f", plain {st['plain_ms']:.3f} ms, "
-          f"max_pool2d (float16, conversions included) {st['library_ms']:.4f} ms, bound {st['bound_ms']:.5f} ms by "
-          f"{st['bound_by']}")
-    stats["K11 trace"] = only_own_kernels(swatch_clean, "swatch mode's open and close, one mask", {"morph_dense": 2})
+          f"lists of {launches} launches, widths 1999, 1011 and 1984 at an odd offset, the stacked swatch call")
+    for what, r in (("4x1500x2000, the swatch call (one launch of four steps)", st),
+                    ("one 1500x2000 mask, open then close (one launch)", one)):
+        print(f"K11 at {what}: {r['ms']:.4f} ms a call" + (f" ({r['alone_ms']:.4f} alone)" if r.get("alone_ms") else "")
+              + (f", plain {r['plain_ms']:.3f} ms" if "plain_ms" in r else "")
+              + f", max_pool2d (float16, conversions included) {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']}" + (f", {100 * r['bound_ms'] / r['alone_ms']:.1f} % of it alone" if r.get("alone_ms") else ""))
     return tool
 
 
@@ -1886,8 +1962,8 @@ def phase_swatch_path(work: Path) -> dict:
     kernels.reset_launches()
     times = run_main(image, work / "swatch_cuda", "auto", settings=settings)
     counts = dict(kernels.LAUNCHES)
-    check(counts["morph_dense"] == 2 * len(names), f"swatch path: K11 launched {counts['morph_dense']} times, expected "
-          f"{2 * len(names)}: {counts}")
+    check(counts["morph_dense"] == 1, f"swatch path: K11 launched {counts['morph_dense']} times, expected one for "
+          f"the {len(names)} masks: {counts}")
     run_main(image, work / "swatch_cpu", "cpu", settings=settings)
     diff = same_artifacts(work / "swatch_cuda", work / "swatch_cpu", names)
     check(not diff, f"swatch path: card run != cpu run: {diff}")
@@ -2437,6 +2513,232 @@ def phase_k9_ab(other: str) -> dict:
                           + " / ".join(f"{a:.4f}" if a else "not caught" for a in row[k]["alone_ms"]) + " ms"
                           for k in ("other", "this")), flush=True)
     print(json.dumps({"k9_ab": result}))
+    return result
+
+
+K11_AB_CASES = (("one mask, rect 3 open then close", 1, ("rect", 3, 1, "ed"), ("rect", 3, 1, "de")),
+                ("four masks stacked, the swatch call", 4, ("rect", 3, 1, "ed"), ("rect", 3, 1, "de")),
+                ("one mask, ellipse 5 x 2 open", 1, ("ellipse", 5, 2, "ed")),
+                ("one mask, rect 31 open", 1, ("rect", 31, 1, "ed")))
+
+
+def k11_masks():
+    """The swatch path's four masks on the card: the synthetic 2000 x 1500
+    poster's layers, 0 / 255, stacked."""
+    import numpy as np
+    import torch
+
+    k, h, w = CHAIN_SHAPE
+    _, bins = synthetic_image(1, h, w)
+    return torch.from_numpy(np.stack([(bins == j).astype(np.uint8) * 255 for j in range(k)])).to("cuda")
+
+
+def k11_case(masks, case):
+    """(input, step list) of a K11_AB_CASES row."""
+    from plotweave_torch.ops import morphology
+
+    _, k, *programs = case
+    steps = sum((morphology.morph_program(*p) for p in programs), ())
+    return (masks[0] if k == 1 else masks[:k].contiguous()), steps
+
+
+def k11_times() -> dict:
+    """K11 of the checkout that ``ROOT`` names, through that checkout's own
+    ``morphology.morph_dense``, on :data:`K11_AB_CASES`: per case a digest of
+    the output, ms a call (CUDA events) and alone (``torch.profiler``, every
+    kernel of the call).  Run after ``phase_probe``."""
+    import hashlib
+
+    from plotweave_torch.ops import morphology
+
+    masks = k11_masks()
+    out = {}
+    for case in K11_AB_CASES:
+        x, steps = k11_case(masks, case)
+
+        def call(x=x, steps=steps):
+            return morphology.morph_dense(x, steps)
+
+        out[case[0]] = {"digest": hashlib.sha256(call().cpu().numpy().tobytes()).hexdigest(),
+                        "ms": cuda_ms(call, 3 if "31" in case[0] else 20),
+                        "alone_ms": profiled_ms(call, "morph_", 3 if "31" in case[0] else 10)}
+    return out
+
+
+def phase_k11_ab(other: str) -> dict:
+    """K11 of this checkout against the one at ``other`` (another commit's:
+    ``git archive <rev> | tar -x -C .checkout/other``), in turns other, this,
+    this, other, each in a process of its own that runs :func:`k11_times`
+    with ``ROOT`` set to its checkout: both must give the same bytes in every
+    case; per case ms a call, alone, the bound (``k11_bound``) and the share."""
+    runs = ab_turns(other, "k11_times", "K11")
+    masks = k11_masks()
+    result = {}
+    for case in K11_AB_CASES:
+        name = case[0]
+        rows = {k: [r[name] for r in v] for k, v in runs.items()}
+        seen = {r["digest"] for v in rows.values() for r in v}
+        check(len(seen) == 1, f"K11 A/B {name}: the two checkouts differ: {sorted(seen)}")
+        x, steps = k11_case(masks, case)
+        b = k11_bound(x.numel(), steps)
+        row = {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+        for k, v in rows.items():
+            row[k] = {"ms": [r["ms"] for r in v], "alone_ms": [r["alone_ms"] for r in v],
+                      "share_alone": [b["bound_ms"] / r["alone_ms"] if r["alone_ms"] else None for r in v]}
+        result[name] = row
+        print(f"K11 A/B {name}, bound {b['bound_ms']:.5f} ms ({b['bound_by']}): "
+              + "; ".join(f"{k} " + " / ".join(f"{m:.4f}" for m in row[k]["ms"]) + " ms a call, alone "
+                          + " / ".join(f"{a:.4f}" if a else "not caught" for a in row[k]["alone_ms"]) + " ms ("
+                          + " / ".join(f"{100 * x:.1f}" if x else "-" for x in row[k]["share_alone"])
+                          + " % of the bound)" for k in ("other", "this")), flush=True)
+    print(json.dumps({"k11_ab": result}))
+    return result
+
+
+K11_BUILDS = (("-DPW_MORPH_DPX=1",), ("-DPW_MORPH_DPX=0",), ("-DPW_MORPH_ROLL_WORDS=1",),
+              ("-DPW_MORPH_ROLL_WORDS=1", "-DPW_MORPH_MIN_BLOCKS=4"), ("-DPW_MORPH_ROLL_WORDS=2", "-DPW_MORPH_MIN_BLOCKS=3"),
+              ("-DPW_MORPH_ROLL_WORDS=4",))
+
+
+def phase_k11_variants(caps=(2, 4, 8, 16, 32), tiles=((32, 128), (64, 128), (128, 128), (64, 64), (32, 256)),
+                       builds=K11_BUILDS, build_tiles=((64, 128), (128, 128))) -> dict:
+    """K11's byte min/max, rolling columns, occupancy, halo cap and tile on
+    the card.  The source built with each set of flags in ``builds`` and
+    -DPW_MORPH_PROBE (-DPW_MORPH_DPX=1: DPX three-input min/max on widened
+    u16 pairs, 0: ``__vminu4`` / ``__vmaxu4``; -DPW_MORPH_ROLL_WORDS: word
+    columns a thread of a rolling rect step owns; -DPW_MORPH_MIN_BLOCKS: CTAs
+    an SM in the launch bounds): the SASS of ``probe_op3`` (one min and one
+    max of three words) by ``cuobjdump -sass``, each build's swatch call on
+    the four masks and on one (byte-equal to the plain version; ms a call and
+    alone); then, on the default build, 32 rect-3 steps on one mask under
+    each halo cap in ``caps``, the swatch call on each tile in ``tiles``, with
+    one load buffer, and the time by steps.  Run after ``phase_probe``."""
+    import collections
+    import ctypes
+    import re
+
+    import torch
+
+    from plotweave_torch.ops import kernels, morphology
+
+    out_dir = Path(tempfile.mkdtemp(prefix="pw_k11_"))
+    masks = k11_masks()
+    swatch = morphology.morph_program("rect", 3, 1, "ed") + morphology.morph_program("rect", 3, 1, "de")
+    ell = morphology.morph_program("ellipse", 5, 2, "ed")
+    want4, want1 = morphology.morph_dense_plain(masks, swatch), morphology.morph_dense_plain(masks[0], swatch)
+    kernels.load("morph_dense")
+    default = kernels._libs["morph_dense"]
+    cuobjdump = shutil.which("cuobjdump") or str(Path(kernels._nvcc()).with_name("cuobjdump"))
+    schedule, default_tile = kernels.dense_morph_schedule, (kernels.DENSE_TILE, kernels.DENSE_ROLL_TILE)
+    result: dict = {"variants": {}}
+    try:
+        for flags in builds:
+            tag = " ".join(flags)
+            path = out_dir / f"morph_dense_{len(result['variants'])}.so"
+            built = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS["morph_dense"], *flags,
+                                    "-DPW_MORPH_PROBE", "-o", str(path), str(kernels.CSRC / "morph_dense.cu")],
+                                   capture_output=True, text=True)
+            check(built.returncode == 0, f"K11 with {tag} did not build:\n{built.stdout}{built.stderr}")
+            ptxas = [line.strip() for line in (built.stdout + built.stderr).splitlines()
+                     if "registers" in line or "spill" in line]
+            sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True).stdout
+            funcs = re.split(r"\n\s*Function : ", sass)
+            probe = next((f for f in funcs if "probe_op3" in f.splitlines()[0]), "")
+            ops = [m.group(1) for m in re.finditer(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", probe)]
+            kernel = next((f for f in funcs if "morph_runs" in f.splitlines()[0]), "")
+            kernel_ops = collections.Counter(m.group(1).split(".")[0] for m in re.finditer(
+                r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", kernel))
+            lib = ctypes.CDLL(str(path))
+            for fn, argtypes in kernels._SIGNATURES["morph_dense"].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.pw_error_string.argtypes, lib.pw_error_string.restype = [ctypes.c_int], ctypes.c_char_p
+            kernels._libs["morph_dense"] = lib
+            check(torch.equal(morphology.morph_dense(masks, swatch), want4)
+                  and torch.equal(morphology.morph_dense(masks[0], swatch), want1)
+                  and torch.equal(morphology.morph_dense(masks, ell), morphology.morph_dense_plain(masks, ell)),
+                  f"K11 {tag}: the swatch call or ellipse 5 x 2 != plain")
+            row = {"probe_sass": collections.Counter(ops), "probe_instructions": len(ops),
+                   "kernel_minmax": {k: v for k, v in kernel_ops.items() if k in ("VIMNMX", "VIMNMX3", "IMNMX", "PRMT",
+                                                                                   "VMNMX", "LOP3", "SHF", "ISETP")},
+                   "ptxas": ptxas,
+                   "ms4": cuda_ms(lambda: morphology.morph_dense(masks, swatch), 20),
+                   "alone4": profiled_ms(lambda: morphology.morph_dense(masks, swatch), "morph_runs", 10),
+                   "ms1": cuda_ms(lambda: morphology.morph_dense(masks[0], swatch), 20),
+                   "alone1": profiled_ms(lambda: morphology.morph_dense(masks[0], swatch), "morph_runs", 10)}
+            for tile in build_tiles:  # the tile interacts with the registers and the columns a thread owns
+                kernels.DENSE_TILE = kernels.DENSE_ROLL_TILE = tile
+                kernels.dense_morph_schedule.cache_clear()
+                check(torch.equal(morphology.morph_dense(masks, swatch), want4), f"K11 {tag} on tile {tile} != plain")
+                for case in K11_AB_CASES:
+                    x, steps = k11_case(masks, case)
+                    row[f"alone {tile} {case[0]}"] = profiled_ms(lambda: morphology.morph_dense(x, steps), "morph_runs",
+                                                                 3 if "31" in case[0] else 10)
+            kernels.DENSE_TILE, kernels.DENSE_ROLL_TILE = default_tile
+            kernels.dense_morph_schedule.cache_clear()
+            result["variants"][tag] = row
+            print(f"K11 {tag}: probe_op3 "
+                  f"{len(ops)} SASS instructions {dict(row['probe_sass'])}; morph_runs min/max-related "
+                  f"{row['kernel_minmax']}; {'; '.join(ptxas[-2:])}", flush=True)
+            print(f"  swatch call, four masks {row['ms4']:.4f} ms a call ({row['alone4']}), one mask {row['ms1']:.4f} "
+                  f"({row['alone1']}) alone; " + ", ".join(f"{k[6:]} {v:.4f}" for k, v in row.items()
+                                                            if k.startswith("alone (") and v),
+                  flush=True)
+        kernels._libs["morph_dense"] = default
+        one = masks[0]
+        steps = morphology.morph_program("rect", 3, 16, "ed")
+        want = morphology.morph_dense_plain(one, steps)
+        saved_cap = kernels.DENSE_HALO_CAP
+        result["caps"] = {}
+        for cap in caps:
+            kernels.DENSE_HALO_CAP = cap
+            kernels.dense_morph_schedule.cache_clear()
+            check(torch.equal(morphology.morph_dense(one, steps), want), f"K11 with halo cap {cap} != plain")
+            result["caps"][cap] = {"launches": len(kernels.dense_morph_schedule(kernels.dense_morph_sizes(steps))),
+                                   "ms": cuda_ms(lambda: morphology.morph_dense(one, steps), 10),
+                                   "alone_ms": profiled_ms(lambda: morphology.morph_dense(one, steps), "morph_runs", 5)}
+        kernels.DENSE_HALO_CAP = saved_cap
+        result["tiles"] = {}
+        for tile in tiles:  # both tiles: the swatch call's launch has no H plane
+            kernels.DENSE_TILE = kernels.DENSE_ROLL_TILE = tile
+            kernels.dense_morph_schedule.cache_clear()
+            check(torch.equal(morphology.morph_dense(masks, swatch), want4), f"K11 on tile {tile} != plain")
+            result["tiles"][str(tile)] = {
+                "ms4": cuda_ms(lambda: morphology.morph_dense(masks, swatch), 20),
+                "alone4": profiled_ms(lambda: morphology.morph_dense(masks, swatch), "morph_runs", 10),
+                "alone1": profiled_ms(lambda: morphology.morph_dense(masks[0], swatch), "morph_runs", 10)}
+        kernels.DENSE_TILE, kernels.DENSE_ROLL_TILE = default_tile
+        kernels.dense_morph_schedule.cache_clear()
+        # the second load buffer off (more CTAs an SM, no load behind the steps), and the time by steps
+        result["prefetch"] = {}
+        for on in (True, False):
+            kernels.dense_morph_schedule = schedule if on else (lambda sizes: tuple(g[:5] + (False,) for g in schedule(sizes)))
+            check(torch.equal(morphology.morph_dense(masks, swatch), want4), f"K11 prefetch={on} != plain")
+            result["prefetch"][on] = {"alone4": profiled_ms(lambda: morphology.morph_dense(masks, swatch), "morph_runs", 10),
+                                      "alone1": profiled_ms(lambda: morphology.morph_dense(masks[0], swatch), "morph_runs", 10)}
+        kernels.dense_morph_schedule = schedule
+        result["steps"] = {}
+        for name, steps in (("rect 1, one step", (("rect", 1, "e"),)), ("the swatch list, 4 steps", swatch),
+                            ("the swatch list twice, 8 steps", swatch + swatch)):
+            check(torch.equal(morphology.morph_dense(masks, steps), morphology.morph_dense_plain(masks, steps)),
+                  f"K11 {name} != plain")
+            result["steps"][name] = profiled_ms(lambda: morphology.morph_dense(masks, steps), "morph_runs", 10)
+    finally:
+        kernels.dense_morph_schedule = schedule
+        kernels.DENSE_TILE, kernels.DENSE_ROLL_TILE = default_tile
+        kernels._libs["morph_dense"] = default
+        kernels.dense_morph_schedule.cache_clear()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print("K11 halo cap, 32 rect-3 steps on one 1500x2000 mask: " + "; ".join(
+        f"cap {c}: {r['launches']} launches, {r['ms']:.4f} ms a call, {r['alone_ms']} alone"
+        for c, r in result["caps"].items()))
+    print("K11 tile, the swatch call: " + "; ".join(
+        f"{t}: four masks {r['ms4']:.4f} ms a call, {r['alone4']} alone, one mask {r['alone1']} alone"
+        for t, r in result["tiles"].items()))
+    print("K11 on the four masks alone: " + "; ".join(f"prefetch {on}: {r['alone4']} ms (one mask {r['alone1']})"
+                                                      for on, r in result["prefetch"].items())
+          + "; " + "; ".join(f"{name}: {t} ms" for name, t in result["steps"].items()))
+    print(json.dumps({"k11_variants": result}, default=dict))
     return result
 
 

@@ -48,10 +48,13 @@
   the subsample of ``_device_init_stage`` and the XLA programs of
   ``_lloyd``, ``_kpp_init_device`` and ``kmeans_fit_device``.
 - K11 ``morph_dense_cuda`` (``csrc/morph_dense.cu``): a whole list of gray
-  (uint8) erosions and dilations by any structuring element in one launch,
-  each block holding a tile and the list's halo in shared memory; replaces
-  the XLA fusion of ``_morph``.  :func:`dense_morph_schedule` splits a list
-  into segments before any launch.
+  (uint8) erosions and dilations by rect, ellipse or cross elements in one
+  launch, every plane of a stack too: each element cut into row runs
+  (:func:`element_runs`), a horizontal and a vertical pass a run over 16
+  packed pixels a thread, persistent CTAs that load the next tile and its
+  halo by ``cp.async`` while they run the steps on this one; replaces the XLA
+  fusion of ``_morph``.  :func:`dense_morph_schedule` splits a list into
+  segments before any launch.
 - K12 ``zhang_suen_dense_cuda`` (``csrc/zs_dense.cu``): dense Zhang–Suen,
   packed to 32 pixels a word on load and bit-sliced in shared memory, up to
   :data:`ZS_CHUNK` iterations per launch on tiles with a halo of two rows
@@ -183,12 +186,22 @@ KPP_MAX_N = 1 << 27
 KPP_ROUTES = ("resident", "streamed")
 DRAW_SCRATCH_WORDS = 3 * 2048 + 1024
 
-# K11's tile of output, rows x pixels, and the halo (the summed radius of the
-# steps of one launch) beyond which a further step starts a launch of its own:
-# a block recomputes its halo, so past this the recomputation costs more than
-# a launch
-DENSE_TILE = (32, 64)
-DENSE_HALO_CAP = 16
+# K11's tile of output, rows x pixels (pixels a multiple of 16): the larger
+# one for a launch whose steps need no H plane (rects that roll their rows in
+# registers), whose CTAs take less shared memory; and the halo (the summed
+# radius of the steps of one launch) beyond which a further step starts a
+# launch of its own: past it a CTA recomputes more than a launch costs.
+# Measured on the H100 (PERF.md): 32 rect-3 steps on one mask took 0.118,
+# 0.109 and 0.112 ms alone under caps 4, 8 and 16; the swatch call 0.038 ms
+# on 128 x 128 tiles against 0.052 on 64 x 128, an ellipse 5 x 2 0.038
+# against 0.044 ms the other way round.  Then the bytes of slack on each side
+# of a shared row (``kSlack``), and the parameter block's room (``kMaxSteps``,
+# ``kMaxGroups``, ``kMaxDys`` in csrc/morph_dense.cu)
+DENSE_TILE = (64, 128)
+DENSE_ROLL_TILE = (128, 128)
+DENSE_HALO_CAP = 8
+DENSE_SLACK = 32
+DENSE_MAX_STEPS, DENSE_MAX_GROUPS, DENSE_MAX_DYS = 32, 128, 640
 
 # K9: the CTAs of its cluster route (``kCluster`` in csrc/greedy_tour.cu), the
 # shared memory a point takes (start and end, and a meta word) and a bound on
@@ -1059,75 +1072,129 @@ def assign_points_cuda(data: torch.Tensor, centers: torch.Tensor) -> torch.Tenso
 
 
 @functools.lru_cache(maxsize=None)
-def element_taps(shape: str, ksize: int):
-    """The structuring element as K11 takes it: (radius, ((dy, dx), ...)) of
-    its set cells around the anchor ``ksize // 2``."""
+def element_runs(shape: str, ksize: int):
+    """The structuring element as K11 takes it: (radius, ((dx0, dx1, (dy, ...)),
+    ...)), each row's runs of consecutive set cells [dx0, dx1] around the
+    anchor ``ksize // 2``, with the rows dy that hold each run, by run."""
     se = structuring_element(shape, ksize)
     ry, rx = se.shape[0] // 2, se.shape[1] // 2
-    ys, xs = np.nonzero(se)
-    if len(ys) == 0:
+    rows: dict = {}
+    for i, row in enumerate(se.tolist()):
+        j = 0
+        while j < len(row):
+            if row[j]:
+                end = j
+                while end + 1 < len(row) and row[end + 1]:
+                    end += 1
+                rows.setdefault((j - rx, end - rx), []).append(i - ry)
+                j = end + 1
+            else:
+                j += 1
+    if not rows:
         raise ValueError(f"morph: {shape} {ksize} has no set cell")
-    return max(ry, rx), tuple((y - ry, x - rx) for y, x in zip(ys.tolist(), xs.tolist()))
+    return max(ry, rx), tuple((dx0, dx1, tuple(dys)) for (dx0, dx1), dys in sorted(rows.items()))
 
 
-def dense_morph_smem_bytes(th: int, tw: int, halo: int, max_taps: int) -> int:
-    """Shared memory one block of K11 takes (``csrc/morph_dense.cu``): two
-    buffers of the tile and its halo, bytes, and the taps of one step."""
-    return 2 * -(-(th + 2 * halo) * (tw + 2 * halo) // 4) * 4 + 4 * max_taps
+def dense_morph_smem_bytes(th: int, tw: int, halo: int, first_radius: int, h_first, prefetch: bool) -> int:
+    """Shared memory one CTA of K11 takes (``csrc/morph_dense.cu``): rows of
+    the tile, ``halo`` rows and ``halo`` rounded up to 16 columns on each
+    side and DENSE_SLACK bytes before and after; one or two load buffers, the
+    odd steps' buffer (the window after the first step) and the H plane from
+    region row ``h_first`` to as far from the bottom (none for None)."""
+    hx = -(-halo // 16) * 16
+    rh = th + 2 * halo
+    h_rows = 0 if h_first is None else rh - 2 * h_first
+    return (tw + 2 * hx + 2 * DENSE_SLACK) * (rh * (2 if prefetch else 1) + rh - 2 * first_radius + h_rows)
+
+
+def _rolls(runs) -> bool:
+    """A rect of side 2 to 5, one run [-K/2, (K-1)/2] over the same rows: the
+    steps ``roll_step`` runs in registers, without the H plane."""
+    if len(runs) != 1:
+        return False
+    dx0, dx1, dys = runs[0]
+    side = dx1 - dx0 + 1
+    return 2 <= side <= 5 and dx0 == -(side // 2) and tuple(dys) == tuple(range(dx0, dx1 + 1))
 
 
 @functools.lru_cache(maxsize=None)
-def dense_morph_schedule(radii: tuple, taps: tuple) -> tuple:
-    """K11's launches for steps of radii ``radii`` with ``taps`` set cells
-    each: ((first step, end step, tile rows, tile pixels, summed radius, most
-    taps), ...), one launch each.  Consecutive steps share a launch while
-    their summed radius stays within :data:`DENSE_HALO_CAP` and a block of
-    :data:`DENSE_TILE` with that halo fits :data:`MAX_SMEM`; a step whose
-    radius alone exceeds either starts a launch of its own, on a smaller tile
-    where it must, and raises where no tile fits."""
+def dense_morph_sizes(steps: tuple) -> tuple:
+    """Per step what :func:`dense_morph_schedule` needs: (radius, runs, rows
+    of runs, reach): reach is the largest |dy| of a run that takes an H pass
+    (one other than [0, 0], in a step that does not roll), -1 for none."""
+    sizes = []
+    for shape, ksize, _ in steps:
+        radius, runs = element_runs(shape, ksize)
+        reach = -1 if _rolls(runs) else max(
+            (abs(dy) for dx0, dx1, dys in runs if (dx0, dx1) != (0, 0) for dy in dys), default=-1)
+        sizes.append((radius, len(runs), sum(len(dys) for *_, dys in runs), reach))
+    return tuple(sizes)
+
+
+@functools.lru_cache(maxsize=None)
+def dense_morph_schedule(sizes: tuple) -> tuple:
+    """K11's launches for steps of ``sizes`` (:func:`dense_morph_sizes`):
+    ((first step, end step, tile rows, tile pixels, summed radius,
+    prefetch), ...), one launch each.  Consecutive steps share a launch while
+    their summed radius stays within :data:`DENSE_HALO_CAP`, their runs and
+    rows fit the kernel's parameter block (:data:`DENSE_MAX_STEPS`,
+    :data:`DENSE_MAX_GROUPS`, :data:`DENSE_MAX_DYS`) and a CTA of
+    :data:`DENSE_TILE` with two load buffers fits :data:`MAX_SMEM`; a step
+    that fits none of these alone starts a launch of its own, with one load
+    buffer and on a smaller tile where it must, and raises where nothing fits.
+    A launch with no H plane takes :data:`DENSE_ROLL_TILE` where it fits."""
     th, tw = DENSE_TILE
     segments, start = [], 0
-    while start < len(radii):
-        stop, halo, most = start, 0, 0
-        while (stop < len(radii) and halo + radii[stop] <= DENSE_HALO_CAP
-               and dense_morph_smem_bytes(th, tw, halo + radii[stop], max(most, taps[stop])) <= MAX_SMEM):
-            halo, most, stop = halo + radii[stop], max(most, taps[stop]), stop + 1
-        sh, sw = th, tw
+    while start < len(sizes):
+        stop, halo, groups, dys, h_first = start, 0, 0, 0, None
+        r1 = sizes[start][0]
+        while stop < len(sizes):
+            radius, g, d, reach = sizes[stop]
+            h = h_first if h_first is not None or reach < 0 else halo + radius - reach
+            if (halo + radius > DENSE_HALO_CAP or stop - start + 1 > DENSE_MAX_STEPS
+                    or groups + g > DENSE_MAX_GROUPS or dys + d > DENSE_MAX_DYS
+                    or dense_morph_smem_bytes(th, tw, halo + radius, r1, h, True) > MAX_SMEM):
+                break
+            halo, groups, dys, stop, h_first = halo + radius, groups + g, dys + d, stop + 1, h
+        sh, sw, prefetch = th, tw, True
         if stop == start:
-            halo, most, stop = radii[start], taps[start], start + 1
-            while dense_morph_smem_bytes(sh, sw, halo, most) > MAX_SMEM:
+            halo, g, d, reach = sizes[start]
+            if g > DENSE_MAX_GROUPS or d > DENSE_MAX_DYS:
+                raise ValueError(f"morph: a step of {g} runs over {d} rows exceeds the kernel's parameter block")
+            h_first = None if reach < 0 else halo - reach
+            stop, prefetch = start + 1, dense_morph_smem_bytes(sh, sw, halo, halo, h_first, True) <= MAX_SMEM
+            while not prefetch and dense_morph_smem_bytes(sh, sw, halo, halo, h_first, False) > MAX_SMEM:
                 if sh > 1:
                     sh = -(-sh // 2)
-                elif sw > 1:
-                    sw = -(-sw // 2)
+                elif sw > 16:
+                    sw = -(-sw // 32) * 16
                 else:
-                    raise ValueError(f"morph: a step of radius {halo} with {most} taps does not fit one block's "
-                                     f"shared memory")
-        segments.append((start, stop, sh, sw, halo, most))
+                    raise ValueError(f"morph: a step of radius {halo} does not fit one CTA's shared memory")
+        if h_first is None and (sh, sw) == (th, tw) and prefetch and dense_morph_smem_bytes(
+                *DENSE_ROLL_TILE, halo, r1, None, True) <= MAX_SMEM:
+            sh, sw = DENSE_ROLL_TILE
+        segments.append((start, stop, sh, sw, halo, prefetch))
         start = stop
     return tuple(segments)
 
 
-_dense_tables: dict = {}  # (steps, device) → K11's step table on the device, the steps' radii and tap counts
+_dense_tables: dict = {}  # (steps, first, end) -> K11's step table of that segment, host int32
 
 
-def _dense_table(steps: tuple, device: torch.device):
-    """K11's step table (``csrc/morph_dense.cu``): per step (is a dilation,
-    radius, taps, index of its first tap), then the taps as (dy << 16) | (dx &
-    0xffff), int32 on ``device``; built once per step list and device."""
-    key = (steps, device)
+def _dense_table(steps: tuple, start: int, stop: int) -> np.ndarray:
+    """K11's step table of steps ``start`` to ``stop`` (``csrc/morph_dense.cu``,
+    ``pw_morph_dense_run``): the number of steps, then per step (is a
+    dilation, radius, runs) and per run (dx0, dx1, rows, the rows' dy ...);
+    host int32, built once per segment."""
+    key = (steps, start, stop)
     if key not in _dense_tables:
-        heads, packed, radii, counts = [], [], [], []
-        for shape, ksize, op in steps:
-            radius, taps = element_taps(shape, ksize)
-            if radius > 32767:
-                raise ValueError(f"morph: ksize {ksize} exceeds the kernel's tap range")
-            heads += [int(op == "d"), radius, len(taps), 4 * len(steps) + len(packed)]
-            packed += [(((dy & 0xffff) << 16) | (dx & 0xffff)) for dy, dx in taps]
-            radii.append(radius)
-            counts.append(len(taps))
-        words = np.array(heads + packed, dtype=np.uint32).view(np.int32)
-        _dense_tables[key] = torch.from_numpy(words.copy()).to(device), tuple(radii), tuple(counts)
+        words = [stop - start]
+        for shape, ksize, op in steps[start:stop]:
+            radius, runs = element_runs(shape, ksize)
+            words += [int(op == "d"), radius, len(runs)]
+            for dx0, dx1, dys in runs:
+                words += [dx0, dx1, len(dys), *dys]
+        _dense_tables[key] = np.array(words, dtype=np.int32)
     return _dense_tables[key]
 
 
@@ -1142,23 +1209,25 @@ def morph_dense_cuda(x: torch.Tensor, steps) -> torch.Tensor:
     steps = tuple(steps)
     if not steps:
         return x
-    table, radii, counts = _dense_table(steps, x.device)
+    sizes = dense_morph_sizes(steps)
+    if any(radius > 32767 for radius, *_ in sizes):
+        raise ValueError("morph: a ksize exceeds the kernel's range")
+    segments = dense_morph_schedule(sizes)
     if x.numel() == 0:
         return x.clone()
     h, w = x.shape[-2:]
     k = x.numel() // (h * w)
-    segments = dense_morph_schedule(radii, counts)
-    if k > 65535 or any(-(-h // sh) > 65535 for _, _, sh, *_ in segments):
-        raise ValueError(f"morph: {tuple(x.shape)} exceeds the kernel's grid")
     lib = load("morph_dense")
     with _guard(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         bufs = [torch.empty_like(x) for _ in range(min(2, len(segments)))]
         src = x
-        for j, (start, stop, sh, sw, halo, most) in enumerate(segments):
+        for j, (start, stop, sh, sw, halo, prefetch) in enumerate(segments):
             dst = bufs[j % 2]
-            err = lib.pw_morph_dense_run(src.data_ptr(), dst.data_ptr(), table.data_ptr(), start, stop - start, halo,
-                                         sh, sw, most, k, h, w, stream)
+            table = _dense_table(steps, start, stop)
+            aligned = w % 16 == 0 and src.data_ptr() % 16 == 0 and dst.data_ptr() % 16 == 0
+            err = lib.pw_morph_dense_run(src.data_ptr(), dst.data_ptr(), table.ctypes.data, len(table), k, h, w, sh,
+                                         sw, halo, int(prefetch), int(aligned), stream)
             _count("morph_dense")
             _raise_on(lib, "morph", err)
             src = dst

@@ -49,7 +49,7 @@ from ..ops.canny import canny_boards
 from ..ops.cvkmeans import assign_labels, cv_kmeans
 from ..ops.frontend import assign_boards_counts
 from ..ops.kmeans import kmeans_fit_device, subsample_lab
-from ..ops.morphology import _valid_bits, morph_close, morph_open, morph_program, morph_steps
+from ..ops.morphology import _valid_bits, morph_dense, morph_program, morph_steps
 from ..ops.thinning import zhang_suen_packed
 from ..utils import (fetch_device_artifact, read_image, register_derived_artifact, register_device_artifact,
                      save_json, thread_map, write_image)
@@ -262,16 +262,17 @@ def resolve_shard_n(cfg: PipelineConfig, h: int, w: int) -> int:
 
 def swatch_mode(cfg: PipelineConfig, img: np.ndarray) -> None:
     """Threshold ±tolerance around each swatch, trying both channel orders and
-    keeping the better-covered mask (02:82-109); each mask is opened and
-    closed (3×3 rect) by the gray morphology on the raster device (K11)."""
+    keeping the better-covered mask (02:82-109); the masks, stacked, are
+    opened and closed (3×3 rect) by the gray morphology on the raster device
+    in one call (K11: one launch of four steps), one upload and one download."""
     device = raster_device(cfg)
     tol = int(cfg.color_tolerance)
     names: List[str] = list(cfg.color_names)
     colors = list(cfg.colors)
     if not colors or len(colors) < len(names):
         raise RuntimeError("swatch mode: 'colors' must have ≥ len(color_names) entries.")
-    for i, name in enumerate(names):
-        d = layer_dir(cfg, name)
+    masks = []
+    for i in range(len(names)):
         raw = tuple(int(v) for v in colors[i])
         for candidate in ((raw[2], raw[1], raw[0]), raw):  # RGB→BGR first, then as-is
             lo = np.maximum(np.array(candidate) - tol, 0).astype(np.uint8)
@@ -281,9 +282,12 @@ def swatch_mode(cfg: PipelineConfig, img: np.ndarray) -> None:
                 best = m
             elif int(np.count_nonzero(m)) > int(np.count_nonzero(best)):
                 best = m
-        best_t = torch.from_numpy(best).to(device)
-        mask = morph_close(morph_open(best_t, "rect", 3, 1), "rect", 3, 1).cpu().numpy()
-        write_image(os.path.join(d, "mask.png"), mask)
+        masks.append(best)
+    if masks:
+        steps = morph_program("rect", 3, 1, "ed") + morph_program("rect", 3, 1, "de")  # open, then close
+        masks = morph_dense(torch.from_numpy(np.stack(masks)).to(device), steps).cpu().numpy()
+    for name, mask in zip(names, masks):
+        write_image(os.path.join(layer_dir(cfg, name), "mask.png"), mask)
         print(f"Extracted (swatch): {name} | nz={int(np.count_nonzero(mask))}")
     print("Color extraction: done.")
 

@@ -17,6 +17,7 @@ import torch
 from plotweave.ops import morphology as jmorph
 from plotweave_torch import ops as port_ops
 from plotweave_torch.ops import kernels, morphology
+from test_torch_morph_dense_schedule import emulate_k11
 
 jcanny = importlib.import_module("plotweave.ops.canny")  # the package binds `canny` to a function
 
@@ -117,79 +118,52 @@ def test_morphology_refuses_other_dtypes_and_devices():
 # --- K11's schedule and tiles ------------------------------------------------------
 
 
-def test_element_taps_anchor_and_radius():
-    assert kernels.element_taps("rect", 3) == (1, tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)))
-    assert kernels.element_taps("rect", 2) == (1, ((-1, -1), (-1, 0), (0, -1), (0, 0)))  # anchor ksize // 2
-    assert kernels.element_taps("cross", 5)[0] == 2 and len(kernels.element_taps("cross", 5)[1]) == 9
-    assert kernels.element_taps("ellipse", 1) == (0, ((0, 0),))
+def test_element_runs_anchor_and_radius():
+    assert kernels.element_runs("rect", 3) == (1, ((-1, 1, (-1, 0, 1)),))
+    assert kernels.element_runs("rect", 2) == (1, ((-1, 0, (-1, 0)),))  # anchor ksize // 2
+    assert kernels.element_runs("cross", 5) == (2, ((-2, 2, (0,)), (0, 0, (-2, -1, 1, 2))))
+    assert kernels.element_runs("ellipse", 1) == (0, ((0, 0, (0,)),))
 
 
 def test_dense_morph_schedule():
     th, tw = kernels.DENSE_TILE
-    # the swatch program: one launch, halo 2
-    assert kernels.dense_morph_schedule((1, 1), (9, 9)) == ((0, 2, th, tw, 2, 9),)
+    sizes = kernels.dense_morph_sizes
+    # rect 3 rolls its rows in registers (no H plane); a cross's long run is on its middle row only
+    assert sizes((("rect", 3, "e"), ("cross", 5, "d"), ("ellipse", 7, "e"))) == ((1, 1, 3, -1), (2, 2, 5, 0),
+                                                                                (3, 3, 7, 2))
+    # the swatch program, open then close: one launch of four steps, halo 4, the next tile prefetched, the
+    # larger tile (every step rolls its rows: no H plane)
+    swatch = morphology.morph_program("rect", 3, 1, "ed") + morphology.morph_program("rect", 3, 1, "de")
+    assert kernels.dense_morph_schedule(sizes(swatch)) == ((0, 4, *kernels.DENSE_ROLL_TILE, 4, True),)
+    assert kernels.dense_morph_schedule(sizes(morphology.morph_program("ellipse", 3, 2, "ed"))) == (
+        (0, 4, th, tw, 4, True),)
     # steps share a launch up to the halo cap, then a new launch starts
     cap = kernels.DENSE_HALO_CAP
-    segs = kernels.dense_morph_schedule((1,) * (cap + 3), (9,) * (cap + 3))
+    segs = kernels.dense_morph_schedule(sizes((("rect", 3, "e"),) * (cap + 3)))
     assert [(a, b, halo) for a, b, _, _, halo, _ in segs] == [(0, cap, cap), (cap, cap + 3, 3)]
     # a step larger than the cap runs alone on the full tile where it fits
-    segs = kernels.dense_morph_schedule((1, 40, 1), (9, 81 * 81, 9))
-    assert [(a, b, sh, sw, halo) for a, b, sh, sw, halo, _ in segs] == [(0, 1, th, tw, 1), (1, 2, th, tw, 40),
-                                                                        (2, 3, th, tw, 1)]
-    for seg in segs:
-        assert kernels.dense_morph_smem_bytes(seg[2], seg[3], seg[4], seg[5]) <= kernels.MAX_SMEM
-    # a step whose halo does not fit the full tile takes a smaller one; one that fits no tile raises
-    (_, _, sh, sw, halo, most), = kernels.dense_morph_schedule((150,), (601,))  # a cross of ksize 301
-    assert (sh, sw) != (th, tw) and kernels.dense_morph_smem_bytes(sh, sw, halo, most) <= kernels.MAX_SMEM
+    steps = (("rect", 3, "e"), ("rect", 81, "d"), ("rect", 3, "e"))
+    segs = kernels.dense_morph_schedule(sizes(steps))
+    rth, rtw = kernels.DENSE_ROLL_TILE
+    assert [(a, b, sh, sw, halo) for a, b, sh, sw, halo, _ in segs] == [(0, 1, rth, rtw, 1), (1, 2, th, tw, 40),
+                                                                        (2, 3, rth, rtw, 1)]
+    for a, _, sh, sw, halo, prefetch in segs:
+        radius, _, _, reach = sizes(steps)[a]
+        h_first = None if reach < 0 else radius - reach
+        assert kernels.dense_morph_smem_bytes(sh, sw, halo, radius, h_first, prefetch) <= kernels.MAX_SMEM
+    # a step whose halo does not fit the full tile takes one load buffer and a smaller tile; one that fits no
+    # tile, or whose runs exceed the parameter block, raises
+    (_, _, sh, sw, halo, prefetch), = kernels.dense_morph_schedule(sizes((("cross", 301, "e"),)))
+    assert (sh, sw) != (th, tw) and not prefetch
+    assert kernels.dense_morph_smem_bytes(sh, sw, halo, 150, 150, False) <= kernels.MAX_SMEM
     with pytest.raises(ValueError):
-        kernels.dense_morph_schedule((300,), (601 * 601,))
-
-
-def emulate_dense_tiles(x: np.ndarray, steps, rng) -> np.ndarray:
-    """``csrc/morph_dense.cu`` in numpy, launch by launch and tile by tile: a
-    region of the tile and the launch's halo, garbage in every cell outside
-    the image and in every cell a step may not read yet, two buffers, windows
-    that shrink by each step's radius, coordinate tests on rim tiles only."""
-    h, w = x.shape[-2:]
-    table = [(op == "d", *kernels.element_taps(shape, ksize)) for shape, ksize, op in steps]
-    segments = kernels.dense_morph_schedule(tuple(t[1] for t in table), tuple(len(t[2]) for t in table))
-    src = x.reshape(-1, h, w)
-    for start, stop, th, tw, halo, _ in segments:
-        dst = rng.integers(0, 256, src.shape, dtype=np.uint8)
-        ah, aw = th + 2 * halo, tw + 2 * halo
-        for img in range(src.shape[0]):
-            for ty in range(-(-h // th)):
-                for tx in range(-(-w // tw)):
-                    y0, x0 = ty * th - halo, tx * tw - halo
-                    rim = y0 < 0 or x0 < 0 or y0 + ah > h or x0 + aw > w
-                    a = rng.integers(0, 256, (ah, aw), dtype=np.uint8)
-                    b = rng.integers(0, 256, (ah, aw), dtype=np.uint8)
-                    ys, xs = np.arange(y0, y0 + ah), np.arange(x0, x0 + aw)
-                    inside = ((ys >= 0) & (ys < h))[:, None] & ((xs >= 0) & (xs < w))[None, :]
-                    a[inside] = src[img][np.clip(ys, 0, h - 1)[:, None], np.clip(xs, 0, w - 1)[None, :]][inside]
-                    margin = 0
-                    for is_max, radius, taps in table[start:stop]:
-                        margin += radius
-                        pad = 0 if is_max else 255
-                        for ry in range(margin, ah - margin):
-                            for rx in range(margin, aw - margin):
-                                if rim and not inside[ry, rx]:
-                                    continue
-                                acc = pad
-                                for dy, dx in taps:
-                                    if rim and not (0 <= y0 + ry + dy < h and 0 <= x0 + rx + dx < w):
-                                        v = pad
-                                    else:
-                                        v = int(a[ry + dy, rx + dx])
-                                    acc = max(acc, v) if is_max else min(acc, v)
-                                b[ry, rx] = acc
-                        a, b = b, a
-                    assert margin == halo
-                    tile = a[halo : halo + th, halo : halo + tw]
-                    oy, ox = ty * th, tx * tw
-                    dst[img, oy : oy + th, ox : ox + tw] = tile[: max(0, h - oy), : max(0, w - ox)]
-        src = dst
-    return src.reshape(x.shape)
+        kernels.dense_morph_schedule(sizes((("rect", 601, "e"),)))
+    with pytest.raises(ValueError):
+        kernels.dense_morph_schedule(((100, kernels.DENSE_MAX_GROUPS + 1, 201, 100),))
+    # the H plane: none for rolling rects, from the first step with an H pass otherwise
+    rect, ellipse = sizes((("rect", 3, "e"),))[0], sizes((("ellipse", 5, "e"),))[0]
+    assert kernels.dense_morph_smem_bytes(th, tw, 4, 1, None, True) < kernels.dense_morph_smem_bytes(th, tw, 4, 1, 2, True)
+    assert rect[3] == -1 and ellipse[3] == 1
 
 
 @pytest.mark.parametrize("steps", [
@@ -199,43 +173,46 @@ def emulate_dense_tiles(x: np.ndarray, steps, rng) -> np.ndarray:
     (("cross", 4, "d"),),
 ], ids=["open", "close", "mixed", "even"])
 def test_dense_tile_schedule_emulated(steps, monkeypatch):
-    """The kernel's tiles, halo, margins and rim tests give the plain
+    """The kernel's tiles, halo, windows, runs and rim fill give the plain
     version's bytes, on an image with interior tiles, rim tiles and a ragged
-    edge (small tiles keep the emulation quick)."""
+    edge (small tiles keep the emulation quick; ``emulate_k11``)."""
     monkeypatch.setattr(kernels, "DENSE_TILE", (8, 16))
+    monkeypatch.setattr(kernels, "DENSE_ROLL_TILE", (16, 32))
     kernels.dense_morph_schedule.cache_clear()
     try:
         rng = np.random.default_rng(7)
-        for dims in ((2, 37, 61), (5, 9), (30, 50)):
+        for dims in ((2, 37, 61), (5, 9), (30, 50), (3, 24, 32)):
             x = gray(rng, *dims)
             want = morphology.morph_dense_plain(torch.from_numpy(x), steps).numpy()
-            np.testing.assert_array_equal(emulate_dense_tiles(x, steps, rng), want, err_msg=str(dims))
+            np.testing.assert_array_equal(emulate_k11(x, steps, rng), want, err_msg=str(dims))
     finally:
         kernels.dense_morph_schedule.cache_clear()
 
 
 def test_dense_tile_schedule_emulated_over_two_launches(monkeypatch):
     monkeypatch.setattr(kernels, "DENSE_TILE", (8, 16))
+    monkeypatch.setattr(kernels, "DENSE_ROLL_TILE", (16, 32))
     monkeypatch.setattr(kernels, "DENSE_HALO_CAP", 2)
     kernels.dense_morph_schedule.cache_clear()
     try:
         rng = np.random.default_rng(8)
         steps = morphology.morph_program("rect", 3, 2, "ed") + (("ellipse", 7, "d"),)
-        assert len(kernels.dense_morph_schedule((1, 1, 1, 1, 3), (9, 9, 9, 9, 29))) == 3
+        assert len(kernels.dense_morph_schedule(kernels.dense_morph_sizes(steps))) == 3
         x = gray(rng, 2, 21, 40)
         want = morphology.morph_dense_plain(torch.from_numpy(x), steps).numpy()
-        np.testing.assert_array_equal(emulate_dense_tiles(x, steps, rng), want)
+        np.testing.assert_array_equal(emulate_k11(x, steps, rng), want)
     finally:
         kernels.dense_morph_schedule.cache_clear()
 
 
-def test_dense_step_table_packs_signed_taps():
-    table, radii, counts = kernels._dense_table((("rect", 2, "e"), ("cross", 3, "d")), torch.device("cpu"))
-    t = table.tolist()
-    assert radii == (1, 1) and counts == (4, 5)
-    assert t[:8] == [0, 1, 4, 8, 1, 1, 5, 12]
-    taps = [((v >> 16), ((v & 0xFFFF) ^ 0x8000) - 0x8000) for v in t[8:]]  # an arithmetic shift, a sign-extended short
-    assert taps == list(kernels.element_taps("rect", 2)[1]) + list(kernels.element_taps("cross", 3)[1])
+def test_dense_step_table_lists_runs():
+    steps = (("rect", 2, "e"), ("cross", 3, "d"))
+    table = kernels._dense_table(steps, 0, 2)
+    assert table.dtype == np.int32
+    assert table.tolist() == [2,
+                              0, 1, 1, -1, 0, 2, -1, 0,  # erode, radius 1, one run [-1, 0] on rows -1 and 0
+                              1, 1, 2, -1, 1, 1, 0, 0, 0, 2, -1, 1]  # dilate: [-1, 1] on row 0, [0, 0] on -1, 1
+    assert kernels._dense_table(steps, 1, 2).tolist()[0] == 1
 
 
 # --- swatch mode through the runner ------------------------------------------------
@@ -302,6 +279,23 @@ def test_swatch_mode_through_the_runner(swatch_runs, fname):
             assert len(x) == len(y), layer
             for p, q in zip(x, y):
                 np.testing.assert_array_equal(np.asarray(p), np.asarray(q))
+
+
+def test_swatch_stacked_call_equals_two_calls_a_layer(swatch_runs):
+    """The stacked open-and-close (one K11 call of four steps over every layer)
+    writes the masks that an open and then a close of each layer alone gives."""
+    import cv2
+
+    outs, img, cfg = swatch_runs
+    tol = cfg["color_tolerance"]
+    for name, raw in zip(NAMES, cfg["colors"]):
+        cands = []
+        for cand in (raw[::-1], raw):
+            lo, hi = np.maximum(np.array(cand) - tol, 0), np.minimum(np.array(cand) + tol, 255)
+            cands.append((np.all(img >= lo, axis=2) & np.all(img <= hi, axis=2)).astype(np.uint8) * 255)
+        best = cands[1] if np.count_nonzero(cands[1]) > np.count_nonzero(cands[0]) else cands[0]
+        mask = morphology.morph_close(morphology.morph_open(torch.from_numpy(best), "rect", 3, 1), "rect", 3, 1)
+        np.testing.assert_array_equal(cv2.imread(str(outs["port"] / name / "mask.png"), 0), mask.numpy(), err_msg=name)
 
 
 def test_swatch_mode_both_channel_orders_win(swatch_runs):
