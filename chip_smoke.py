@@ -278,15 +278,17 @@ def bound(nbytes: float, ops: float, rate: float) -> dict:
 
 def k11_bound(numel: int, steps) -> dict:
     """K11's bound on ``numel`` pixels: each read once and written once, and
-    the separable form's min/max (per step and pixel, a run of L pixels L - 1
-    across on each of its rows' planes, the run's rows and the runs folded
-    down; rect 3: 2 + 2) at four bytes a 32-bit INT32 operation."""
+    the separable form's min/max at four bytes a 32-bit INT32 operation.  Per
+    step and pixel, a run of L pixels takes min(L - 1, 3) across (direct, or
+    van Herk / Gil-Werman's prefix, suffix and join past three), the run's R
+    rows min(R - 1, 3) down, and the runs one each to fold: rect 3 2 + 2,
+    rect 31 3 + 3."""
     from plotweave_torch.ops import kernels
 
     per_pixel = 0
     for shape, ksize, _ in steps:
         runs = kernels.element_runs(shape, ksize)[1]
-        per_pixel += sum(dx1 - dx0 for dx0, dx1, _ in runs) + sum(len(dys) for *_, dys in runs) - 1
+        per_pixel += sum(min(dx1 - dx0, 3) + min(len(dys) - 1, 3) for dx0, dx1, dys in runs) + len(runs) - 1
     return bound(2 * numel, numel * per_pixel / 4, INT32_OPS)
 
 
@@ -2592,153 +2594,6 @@ def phase_k11_ab(other: str) -> dict:
                           + " / ".join(f"{100 * x:.1f}" if x else "-" for x in row[k]["share_alone"])
                           + " % of the bound)" for k in ("other", "this")), flush=True)
     print(json.dumps({"k11_ab": result}))
-    return result
-
-
-K11_BUILDS = (("-DPW_MORPH_DPX=1",), ("-DPW_MORPH_DPX=0",), ("-DPW_MORPH_ROLL_WORDS=1",),
-              ("-DPW_MORPH_ROLL_WORDS=1", "-DPW_MORPH_MIN_BLOCKS=4"), ("-DPW_MORPH_ROLL_WORDS=2", "-DPW_MORPH_MIN_BLOCKS=3"),
-              ("-DPW_MORPH_ROLL_WORDS=4",))
-
-
-def phase_k11_variants(caps=(2, 4, 8, 16, 32), tiles=((32, 128), (64, 128), (128, 128), (64, 64), (32, 256)),
-                       builds=K11_BUILDS, build_tiles=((64, 128), (128, 128))) -> dict:
-    """K11's byte min/max, rolling columns, occupancy, halo cap and tile on
-    the card.  The source built with each set of flags in ``builds`` and
-    -DPW_MORPH_PROBE (-DPW_MORPH_DPX=1: DPX three-input min/max on widened
-    u16 pairs, 0: ``__vminu4`` / ``__vmaxu4``; -DPW_MORPH_ROLL_WORDS: word
-    columns a thread of a rolling rect step owns; -DPW_MORPH_MIN_BLOCKS: CTAs
-    an SM in the launch bounds): the SASS of ``probe_op3`` (one min and one
-    max of three words) by ``cuobjdump -sass``, each build's swatch call on
-    the four masks and on one (byte-equal to the plain version; ms a call and
-    alone); then, on the default build, 32 rect-3 steps on one mask under
-    each halo cap in ``caps``, the swatch call on each tile in ``tiles``, with
-    one load buffer, and the time by steps.  Run after ``phase_probe``."""
-    import collections
-    import ctypes
-    import re
-
-    import torch
-
-    from plotweave_torch.ops import kernels, morphology
-
-    out_dir = Path(tempfile.mkdtemp(prefix="pw_k11_"))
-    masks = k11_masks()
-    swatch = morphology.morph_program("rect", 3, 1, "ed") + morphology.morph_program("rect", 3, 1, "de")
-    ell = morphology.morph_program("ellipse", 5, 2, "ed")
-    want4, want1 = morphology.morph_dense_plain(masks, swatch), morphology.morph_dense_plain(masks[0], swatch)
-    kernels.load("morph_dense")
-    default = kernels._libs["morph_dense"]
-    cuobjdump = shutil.which("cuobjdump") or str(Path(kernels._nvcc()).with_name("cuobjdump"))
-    schedule, default_tile = kernels.dense_morph_schedule, (kernels.DENSE_TILE, kernels.DENSE_ROLL_TILE)
-    result: dict = {"variants": {}}
-    try:
-        for flags in builds:
-            tag = " ".join(flags)
-            path = out_dir / f"morph_dense_{len(result['variants'])}.so"
-            built = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS["morph_dense"], *flags,
-                                    "-DPW_MORPH_PROBE", "-o", str(path), str(kernels.CSRC / "morph_dense.cu")],
-                                   capture_output=True, text=True)
-            check(built.returncode == 0, f"K11 with {tag} did not build:\n{built.stdout}{built.stderr}")
-            ptxas = [line.strip() for line in (built.stdout + built.stderr).splitlines()
-                     if "registers" in line or "spill" in line]
-            sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True).stdout
-            funcs = re.split(r"\n\s*Function : ", sass)
-            probe = next((f for f in funcs if "probe_op3" in f.splitlines()[0]), "")
-            ops = [m.group(1) for m in re.finditer(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", probe)]
-            kernel = next((f for f in funcs if "morph_runs" in f.splitlines()[0]), "")
-            kernel_ops = collections.Counter(m.group(1).split(".")[0] for m in re.finditer(
-                r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", kernel))
-            lib = ctypes.CDLL(str(path))
-            for fn, argtypes in kernels._SIGNATURES["morph_dense"].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            lib.pw_error_string.argtypes, lib.pw_error_string.restype = [ctypes.c_int], ctypes.c_char_p
-            kernels._libs["morph_dense"] = lib
-            check(torch.equal(morphology.morph_dense(masks, swatch), want4)
-                  and torch.equal(morphology.morph_dense(masks[0], swatch), want1)
-                  and torch.equal(morphology.morph_dense(masks, ell), morphology.morph_dense_plain(masks, ell)),
-                  f"K11 {tag}: the swatch call or ellipse 5 x 2 != plain")
-            row = {"probe_sass": collections.Counter(ops), "probe_instructions": len(ops),
-                   "kernel_minmax": {k: v for k, v in kernel_ops.items() if k in ("VIMNMX", "VIMNMX3", "IMNMX", "PRMT",
-                                                                                   "VMNMX", "LOP3", "SHF", "ISETP")},
-                   "ptxas": ptxas,
-                   "ms4": cuda_ms(lambda: morphology.morph_dense(masks, swatch), 20),
-                   "alone4": profiled_ms(lambda: morphology.morph_dense(masks, swatch), "morph_runs", 10),
-                   "ms1": cuda_ms(lambda: morphology.morph_dense(masks[0], swatch), 20),
-                   "alone1": profiled_ms(lambda: morphology.morph_dense(masks[0], swatch), "morph_runs", 10)}
-            for tile in build_tiles:  # the tile interacts with the registers and the columns a thread owns
-                kernels.DENSE_TILE = kernels.DENSE_ROLL_TILE = tile
-                kernels.dense_morph_schedule.cache_clear()
-                check(torch.equal(morphology.morph_dense(masks, swatch), want4), f"K11 {tag} on tile {tile} != plain")
-                for case in K11_AB_CASES:
-                    x, steps = k11_case(masks, case)
-                    row[f"alone {tile} {case[0]}"] = profiled_ms(lambda: morphology.morph_dense(x, steps), "morph_runs",
-                                                                 3 if "31" in case[0] else 10)
-            kernels.DENSE_TILE, kernels.DENSE_ROLL_TILE = default_tile
-            kernels.dense_morph_schedule.cache_clear()
-            result["variants"][tag] = row
-            print(f"K11 {tag}: probe_op3 "
-                  f"{len(ops)} SASS instructions {dict(row['probe_sass'])}; morph_runs min/max-related "
-                  f"{row['kernel_minmax']}; {'; '.join(ptxas[-2:])}", flush=True)
-            print(f"  swatch call, four masks {row['ms4']:.4f} ms a call ({row['alone4']}), one mask {row['ms1']:.4f} "
-                  f"({row['alone1']}) alone; " + ", ".join(f"{k[6:]} {v:.4f}" for k, v in row.items()
-                                                            if k.startswith("alone (") and v),
-                  flush=True)
-        kernels._libs["morph_dense"] = default
-        one = masks[0]
-        steps = morphology.morph_program("rect", 3, 16, "ed")
-        want = morphology.morph_dense_plain(one, steps)
-        saved_cap = kernels.DENSE_HALO_CAP
-        result["caps"] = {}
-        for cap in caps:
-            kernels.DENSE_HALO_CAP = cap
-            kernels.dense_morph_schedule.cache_clear()
-            check(torch.equal(morphology.morph_dense(one, steps), want), f"K11 with halo cap {cap} != plain")
-            result["caps"][cap] = {"launches": len(kernels.dense_morph_schedule(kernels.dense_morph_sizes(steps))),
-                                   "ms": cuda_ms(lambda: morphology.morph_dense(one, steps), 10),
-                                   "alone_ms": profiled_ms(lambda: morphology.morph_dense(one, steps), "morph_runs", 5)}
-        kernels.DENSE_HALO_CAP = saved_cap
-        result["tiles"] = {}
-        for tile in tiles:  # both tiles: the swatch call's launch has no H plane
-            kernels.DENSE_TILE = kernels.DENSE_ROLL_TILE = tile
-            kernels.dense_morph_schedule.cache_clear()
-            check(torch.equal(morphology.morph_dense(masks, swatch), want4), f"K11 on tile {tile} != plain")
-            result["tiles"][str(tile)] = {
-                "ms4": cuda_ms(lambda: morphology.morph_dense(masks, swatch), 20),
-                "alone4": profiled_ms(lambda: morphology.morph_dense(masks, swatch), "morph_runs", 10),
-                "alone1": profiled_ms(lambda: morphology.morph_dense(masks[0], swatch), "morph_runs", 10)}
-        kernels.DENSE_TILE, kernels.DENSE_ROLL_TILE = default_tile
-        kernels.dense_morph_schedule.cache_clear()
-        # the second load buffer off (more CTAs an SM, no load behind the steps), and the time by steps
-        result["prefetch"] = {}
-        for on in (True, False):
-            kernels.dense_morph_schedule = schedule if on else (lambda sizes: tuple(g[:5] + (False,) for g in schedule(sizes)))
-            check(torch.equal(morphology.morph_dense(masks, swatch), want4), f"K11 prefetch={on} != plain")
-            result["prefetch"][on] = {"alone4": profiled_ms(lambda: morphology.morph_dense(masks, swatch), "morph_runs", 10),
-                                      "alone1": profiled_ms(lambda: morphology.morph_dense(masks[0], swatch), "morph_runs", 10)}
-        kernels.dense_morph_schedule = schedule
-        result["steps"] = {}
-        for name, steps in (("rect 1, one step", (("rect", 1, "e"),)), ("the swatch list, 4 steps", swatch),
-                            ("the swatch list twice, 8 steps", swatch + swatch)):
-            check(torch.equal(morphology.morph_dense(masks, steps), morphology.morph_dense_plain(masks, steps)),
-                  f"K11 {name} != plain")
-            result["steps"][name] = profiled_ms(lambda: morphology.morph_dense(masks, steps), "morph_runs", 10)
-    finally:
-        kernels.dense_morph_schedule = schedule
-        kernels.DENSE_TILE, kernels.DENSE_ROLL_TILE = default_tile
-        kernels._libs["morph_dense"] = default
-        kernels.dense_morph_schedule.cache_clear()
-        shutil.rmtree(out_dir, ignore_errors=True)
-    print("K11 halo cap, 32 rect-3 steps on one 1500x2000 mask: " + "; ".join(
-        f"cap {c}: {r['launches']} launches, {r['ms']:.4f} ms a call, {r['alone_ms']} alone"
-        for c, r in result["caps"].items()))
-    print("K11 tile, the swatch call: " + "; ".join(
-        f"{t}: four masks {r['ms4']:.4f} ms a call, {r['alone4']} alone, one mask {r['alone1']} alone"
-        for t, r in result["tiles"].items()))
-    print("K11 on the four masks alone: " + "; ".join(f"prefetch {on}: {r['alone4']} ms (one mask {r['alone1']})"
-                                                      for on, r in result["prefetch"].items())
-          + "; " + "; ".join(f"{name}: {t} ms" for name, t in result["steps"].items()))
-    print(json.dumps({"k11_variants": result}, default=dict))
     return result
 
 

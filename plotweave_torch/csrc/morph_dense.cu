@@ -28,10 +28,10 @@
 // (every shift an immediate), a longer one walks its words four pixels at a
 // time.  Min and max work on four bytes at once (op3: widened to two u16
 // lanes by __byte_perm and reduced with Hopper's DPX three-input min/max,
-// VIMNMX3; the build with -DPW_MORPH_DPX=0 takes __vminu4 / __vmaxu4, which
-// compile to LOP3 and shift sequences and ran slower, PERF.md).  A rect of
+// VIMNMX3; __vminu4 / __vmaxu4 compile to LOP3 and shift sequences and ran
+// slower, PERF.md).  A rect of
 // side 2 to 5 (every step of swatch mode, morph_open and morph_close at their
-// defaults) skips the H plane: a thread owns kRollWords word columns and a
+// defaults) skips the H plane: a thread owns two word columns and a
 // segment of rows, widens each word it loads to u16 pairs once, cuts the
 // run's windows from them, and keeps the last K rows of the run's min/max in
 // registers (roll_step).  No `/` or `%` runs per pixel: a pass walks its
@@ -64,22 +64,14 @@
 // for the first design's two launches: one thread a byte, every tap a decoded
 // (dy, dx), a division a pixel, the taps restaged each step); the swatch
 // run's four masks, stacked, in one launch of 10-20 us.  Both missed (PERF.md):
-// each step of a rect 3 over the four masks takes some 12 us, where its
-// counted operations and shared-memory traffic take about a third of that
+// each step of a rect 3 over the four masks takes some 8.5 us, where its
+// counted operations and shared-memory traffic take a third or less of that
 // (what stalls the rest is not measured: no stall profiler runs on the card's
 // machine), and a launch of one identity step, its loads, rim and stores,
-// takes 14 us.
-//
-// Measurement builds: -DPW_MORPH_DPX=0 (the byte ops), -DPW_MORPH_ROLL_WORDS
-// (word columns a thread of roll_step owns), -DPW_MORPH_MIN_BLOCKS (CTAs an SM
-// in the launch bounds); chip_smoke.py::phase_k11_variants times each.
+// takes 10.4 us.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#ifndef PW_MORPH_DPX
-#define PW_MORPH_DPX 1  // 1: DPX three-input min/max on widened pairs; 0: __vminu4 / __vmaxu4
-#endif
 
 namespace {
 
@@ -88,14 +80,7 @@ constexpr int kSlack = 32;  // bytes of slack before and after each shared row
 constexpr int kFastRun = 9;  // the longest run on the unrolled path
 constexpr int kMaxSteps = 32, kMaxGroups = 128, kMaxDys = 640;  // a launch's parameter block
 constexpr int kMaxDevices = 64;
-#ifndef PW_MORPH_ROLL_WORDS
-#define PW_MORPH_ROLL_WORDS 2
-#endif
-#ifndef PW_MORPH_MIN_BLOCKS
-#define PW_MORPH_MIN_BLOCKS 1
-#endif
-constexpr int kRollWords = PW_MORPH_ROLL_WORDS;  // word columns a thread of roll_step owns (1, 2 or 4)
-static_assert(kRollWords == 1 || kRollWords == 2 || kRollWords == 4, "a window's words divide into whole columns");
+constexpr int kRollWords = 2;  // word columns a thread of roll_step owns: one 8-byte load a row
 // __byte_perm selectors: the even bytes into two u16 lanes, the odd bytes, and the two lanes' low bytes back
 constexpr unsigned kEvens = 0x4240, kOdds = 0x4341, kInterleave = 0x6240;
 
@@ -120,22 +105,14 @@ __device__ __forceinline__ uint32_t odds(uint32_t a) { return __byte_perm(a, 0, 
 // Bytewise min (max) of three words.
 template <bool kMax>
 __device__ __forceinline__ uint32_t op3(uint32_t a, uint32_t b, uint32_t c) {
-#if PW_MORPH_DPX
   const uint32_t e = kMax ? __vimax3_u16x2(evens(a), evens(b), evens(c)) : __vimin3_u16x2(evens(a), evens(b), evens(c));
   const uint32_t o = kMax ? __vimax3_u16x2(odds(a), odds(b), odds(c)) : __vimin3_u16x2(odds(a), odds(b), odds(c));
   return __byte_perm(e, o, kInterleave);
-#else
-  return kMax ? __vmaxu4(__vmaxu4(a, b), c) : __vminu4(__vminu4(a, b), c);
-#endif
 }
 
 template <bool kMax>
 __device__ __forceinline__ uint32_t op2(uint32_t a, uint32_t b) {
-#if PW_MORPH_DPX
   return op3<kMax>(a, b, b);
-#else
-  return kMax ? __vmaxu4(a, b) : __vminu4(a, b);
-#endif
 }
 
 template <bool kMax>
@@ -355,7 +332,7 @@ __device__ __forceinline__ uint32_t lanes_all(const uint32_t* v) {
 }
 
 // A rect step of side K (run [-K/2, (K-1)/2] over the same rows) without
-// the H plane: a thread owns kRollWords word columns of the window and a
+// the H plane: a thread owns two word columns of the window and a
 // segment of its rows, walks down them, widens each word it loads to u16
 // pairs once, keeps the last K rows of the run's min/max in registers (the
 // slot of a row is its index mod K, so nothing moves) and writes each output
@@ -367,6 +344,7 @@ __device__ void roll_step(const uint8_t* __restrict__ a, uint8_t* __restrict__ d
   const int ng = (w1 - w0) / W, rows = y1 - y0;
   const int segs = ng >= kThreads ? 1 : kThreads / ng, len = (rows + segs - 1) / segs;
   const int stride = S / 4;
+  static_assert(W == 2, "a row's words come in one uint2 load");
   for (int u = threadIdx.x; u < segs * ng; u += kThreads) {
     const int seg = u / ng, col = w0 + W * (u - seg * ng);
     const int ya = y0 + seg * len, yb = min(ya + len, y1);
@@ -383,15 +361,8 @@ __device__ void roll_step(const uint8_t* __restrict__ a, uint8_t* __restrict__ d
           uint32_t wv[W + 2], ev[W + 2], ov[W + 2];  // the words -1 .. W of the row, and widened
           wv[0] = q[-1];
           wv[W + 1] = q[W];
-          if constexpr (W == 1) {
-            wv[1] = q[0];
-          } else if constexpr (W == 2) {
-            const uint2 v = *reinterpret_cast<const uint2*>(q);
-            wv[1] = v.x, wv[2] = v.y;
-          } else {
-            const uint4 v = *reinterpret_cast<const uint4*>(q);
-            wv[1] = v.x, wv[2] = v.y, wv[3] = v.z, wv[4] = v.w;
-          }
+          const uint2 v = *reinterpret_cast<const uint2*>(q);
+          wv[1] = v.x, wv[2] = v.y;
 #pragma unroll
           for (int j = 0; j < W + 2; ++j) {
             ev[j] = evens(wv[j]);
@@ -421,14 +392,7 @@ __device__ void roll_step(const uint8_t* __restrict__ a, uint8_t* __restrict__ d
               for (int i = 0; i < K; ++i) e[i] = re[i][j], o[i] = ro[i][j];
               out[j] = __byte_perm(lanes_all<K, kMax>(e), lanes_all<K, kMax>(o), kInterleave);
             }
-            uint32_t* p = dst + (row - kHi) * stride;
-            if constexpr (W == 1) {
-              p[0] = out[0];
-            } else if constexpr (W == 2) {
-              *reinterpret_cast<uint2*>(p) = make_uint2(out[0], out[1]);
-            } else {
-              *reinterpret_cast<uint4*>(p) = make_uint4(out[0], out[1], out[2], out[3]);
-            }
+            *reinterpret_cast<uint2*>(dst + (row - kHi) * stride) = make_uint2(out[0], out[1]);
           }
         }
       }
@@ -469,7 +433,7 @@ __device__ void run_step(const Program& p, const Step& st, const uint8_t* a, uin
 // rows the first step with an H pass reaches; no later step reaches beyond
 // them; none where every step is a [0, 0] run or rolls its rows); every
 // row S bytes, its cells from byte kSlack.
-__global__ void __launch_bounds__(kThreads, PW_MORPH_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, 1)
     morph_runs(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, const __grid_constant__ Program p) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int S = p.stride, rh = p.th + 2 * p.halo, rw = p.tw + 2 * p.hx, nc = rw / 16;
@@ -537,15 +501,6 @@ __global__ void __launch_bounds__(kThreads, PW_MORPH_MIN_BLOCKS)
     if (p.prefetch) par ^= 1;
   }
 }
-
-#ifdef PW_MORPH_PROBE
-// One op3 of each kind on words from memory, for reading its SASS (cuobjdump -sass).
-__global__ void probe_op3(const uint32_t* __restrict__ x, uint32_t* __restrict__ y) {
-  const int i = threadIdx.x;
-  y[2 * i] = op3<false>(x[3 * i], x[3 * i + 1], x[3 * i + 2]);
-  y[2 * i + 1] = op3<true>(x[3 * i], x[3 * i + 1], x[3 * i + 2]);
-}
-#endif
 
 }  // namespace
 

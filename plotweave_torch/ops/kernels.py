@@ -191,15 +191,16 @@ DRAW_SCRATCH_WORDS = 3 * 2048 + 1024
 # registers), whose CTAs take less shared memory; and the halo (the summed
 # radius of the steps of one launch) beyond which a further step starts a
 # launch of its own: past it a CTA recomputes more than a launch costs.
-# Measured on the H100 (PERF.md): 32 rect-3 steps on one mask took 0.118,
-# 0.109 and 0.112 ms alone under caps 4, 8 and 16; the swatch call 0.038 ms
-# on 128 x 128 tiles against 0.052 on 64 x 128, an ellipse 5 x 2 0.038
-# against 0.044 ms the other way round.  Then the bytes of slack on each side
+# Measured on the H100 (PERF.md): 32 rect-3 steps on one mask took 0.116,
+# 0.108, 0.106 and 0.173 ms alone under caps 4, 8, 16 and 32 (8 and 16
+# within noise: 16 kept); the swatch call 0.038 ms on 128 x 128 tiles
+# against 0.051 on 64 x 128, an ellipse 5 x 2 0.038 against 0.043 ms the
+# other way round.  Then the bytes of slack on each side
 # of a shared row (``kSlack``), and the parameter block's room (``kMaxSteps``,
 # ``kMaxGroups``, ``kMaxDys`` in csrc/morph_dense.cu)
 DENSE_TILE = (64, 128)
 DENSE_ROLL_TILE = (128, 128)
-DENSE_HALO_CAP = 8
+DENSE_HALO_CAP = 16
 DENSE_SLACK = 32
 DENSE_MAX_STEPS, DENSE_MAX_GROUPS, DENSE_MAX_DYS = 32, 128, 640
 

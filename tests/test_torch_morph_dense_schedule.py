@@ -16,7 +16,7 @@ word columns with its rows' min/max widened to u16 pairs (``roll_step``, no H
 plane), and the store.  Every buffer starts as
 garbage, so a step that reads a cell it may not read gives other bytes.  The
 byte ops are the kernel's: ``__byte_perm`` with its selectors (read from the
-source) and DPX three-input min/max on u16 lanes, or ``__vminu4``/``__vmaxu4``.
+source) and DPX three-input min/max on u16 lanes.
 """
 
 from __future__ import annotations
@@ -82,22 +82,21 @@ def lanes(bits: int, f, *xs):
     return np.asarray(out, np.uint32)
 
 
-def op3(a, b, c, is_max: bool, dpx: bool):
-    """The kernel's ``op3``: bytewise min (max) of three words."""
+def op3(a, b, c, is_max: bool):
+    """The kernel's ``op3``: bytewise min (max) of three words, as DPX on
+    the even and the odd bytes widened to u16 lanes."""
     f = np.maximum if is_max else np.minimum
 
     def f3(p, q, r):
         return f(f(p, q), r)
 
-    if dpx:
-        e = lanes(16, f3, *(byte_perm(v, 0, EVENS) for v in (a, b, c)))
-        o = lanes(16, f3, *(byte_perm(v, 0, ODDS) for v in (a, b, c)))
-        return byte_perm(e, o, INTERLEAVE)
-    return lanes(8, f, lanes(8, f, a, b), c)
+    e = lanes(16, f3, *(byte_perm(v, 0, EVENS) for v in (a, b, c)))
+    o = lanes(16, f3, *(byte_perm(v, 0, ODDS) for v in (a, b, c)))
+    return byte_perm(e, o, INTERLEAVE)
 
 
-def op2(a, b, is_max: bool, dpx: bool):
-    return op3(a, b, b, is_max, dpx) if dpx else lanes(8, np.maximum if is_max else np.minimum, a, b)
+def op2(a, b, is_max: bool):
+    return op3(a, b, b, is_max)
 
 
 # --- the kernel, pass by pass -------------------------------------------------------
@@ -108,7 +107,7 @@ def offsets(buf: int, S: int, y0: int, y1: int, c0: int, c1: int) -> np.ndarray:
     return buf + np.arange(y0, y1)[:, None] * S + 16 * np.arange(c0, c1)[None, :]
 
 
-def hpass(words, a, hb, S, y0, y1, c0, c1, dx0, L, is_max, dpx):
+def hpass(words, a, hb, S, y0, y1, c0, c1, dx0, L, is_max):
     off = offsets(0, S, y0, y1, c0, c1)
     qa, s = dx0 >> 2, (dx0 & 3) * 8
     wi = (a + off) // 4 + qa
@@ -122,7 +121,7 @@ def hpass(words, a, hb, S, y0, y1, c0, c1, dx0, L, is_max, dpx):
                  for i in range(L)]
             acc = v[0]
             for i in range(1, L, 2):
-                acc = op3(acc, v[i], v[i + 1], is_max, dpx) if i + 1 < L else op2(acc, v[i], is_max, dpx)
+                acc = op3(acc, v[i], v[i + 1], is_max) if i + 1 < L else op2(acc, v[i], is_max)
             r.append(acc)
     else:
         for j in range(4):
@@ -137,23 +136,23 @@ def hpass(words, a, hb, S, y0, y1, c0, c1, dx0, L, is_max, dpx):
                 v1 = funnelshift_r(cur, nxt, 8) if left > 1 else cur
                 v2 = funnelshift_r(cur, nxt, 16) if left > 2 else cur
                 v3 = funnelshift_r(cur, nxt, 24) if left > 3 else cur
-                acc = op3(op3(acc, cur, v1, is_max, dpx), v2, v3, is_max, dpx)
+                acc = op3(op3(acc, cur, v1, is_max), v2, v3, is_max)
                 w1, cur = w2, nxt
             r.append(acc)
     for j in range(4):
         words[(hb + off) // 4 + j] = r[j]
 
 
-def vpass(words, hb, d, S, y0, y1, c0, c1, dys, first, is_max, dpx):
+def vpass(words, hb, d, S, y0, y1, c0, c1, dys, first, is_max):
     off = offsets(0, S, y0, y1, c0, c1)
     out = []
     for j in range(4):
         rows = [words[(hb + off + dy * S) // 4 + j] for dy in dys]
         acc = rows[0]
         for i in range(1, len(rows), 2):
-            acc = op3(acc, rows[i], rows[i + 1], is_max, dpx) if i + 1 < len(rows) else op2(acc, rows[i], is_max, dpx)
+            acc = op3(acc, rows[i], rows[i + 1], is_max) if i + 1 < len(rows) else op2(acc, rows[i], is_max)
         if not first:
-            acc = op2(acc, words[(d + off) // 4 + j], is_max, dpx)
+            acc = op2(acc, words[(d + off) // 4 + j], is_max)
         out.append(acc)
     for j in range(4):
         words[(d + off) // 4 + j] = out[j]
@@ -203,7 +202,7 @@ def roll_step(words, a, d, S, y0, y1, w0, w1, side, is_max):
     words[(d + np.arange(y0, y1)[:, None] * S) // 4 + np.arange(w0, w1)[None, :]] = out
 
 
-def emulate_k11(x: np.ndarray, steps, rng, dpx: bool = True, ctas: int = 3, force_bytes: bool = False):
+def emulate_k11(x: np.ndarray, steps, rng, ctas: int = 3, force_bytes: bool = False):
     """K11 on a (..., H, W) uint8 array, launch by launch, CTA by CTA."""
     h, w = x.shape[-2:]
     src = x.reshape(-1, h, w)
@@ -287,9 +286,9 @@ def emulate_k11(x: np.ndarray, steps, rng, dpx: bool = True, ctas: int = 3, forc
                         hsrc = a
                         if (dx0, dx1) != (0, 0):
                             hpass(words, a, hbuf, S, m + min(dys), rh - m + max(dys), c0, c1, dx0, dx1 - dx0 + 1,
-                                  is_max, dpx)
+                                  is_max)
                             hsrc = hbuf
-                        vpass(words, hsrc, d, S, m, rh - m, c0, c1, dys, gi == 0, is_max, dpx)
+                        vpass(words, hsrc, d, S, m, rh - m, c0, c1, dys, gi == 0, is_max)
                     a, d = d, a
                 tile = np.lib.stride_tricks.as_strided(smem[a + halo * S + hx:], (th, tw), (S, 1))
                 dst[img, gy: gy + th, gx: gx + tw] = tile[: max(0, h - gy), : max(0, w - gx)]
@@ -361,15 +360,14 @@ def test_rolling_steps_take_no_h_plane(shape):
 
 
 @pytest.mark.parametrize("is_max", [False, True])
-@pytest.mark.parametrize("dpx", [False, True])
-def test_op3_is_bytewise(dpx, is_max):
+def test_op3_is_bytewise(is_max):
     rng = np.random.default_rng(4)
     a, b, c = (rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32) for _ in range(3))
     a[:16] = [0, 0xFFFFFFFF, 0x00FF00FF, 0xFF00FF00] * 4
     f = np.maximum if is_max else np.minimum
     want = f(f(a.view(np.uint8), b.view(np.uint8)), c.view(np.uint8)).view(np.uint32)
-    np.testing.assert_array_equal(op3(a, b, c, is_max, dpx), want)
-    np.testing.assert_array_equal(op2(a, b, is_max, dpx), f(a.view(np.uint8), b.view(np.uint8)).view(np.uint32))
+    np.testing.assert_array_equal(op3(a, b, c, is_max), want)
+    np.testing.assert_array_equal(op2(a, b, is_max), f(a.view(np.uint8), b.view(np.uint8)).view(np.uint32))
 
 
 # widths none of them multiples of 4 or 16; 1 x 1, 1 x W and H x 1 planes; k = 1 and 4 stacked layers
@@ -389,8 +387,7 @@ def test_k11_emulated_matches_plain_and_jax(shape, ksize):
                 if ksize == 31 and iterations > 1:
                     continue  # one step of radius 15 a launch: two steps cover the long runs
                 steps = morphology.morph_program(shape, ksize, iterations, program)
-                check_emulated(src, steps, rng, jax_too=(program, iterations) == ("ed", 1) and len(dims) == 3,
-                               dpx=n % 2 == 0)
+                check_emulated(src, steps, rng, jax_too=(program, iterations) == ("ed", 1) and len(dims) == 3)
                 n += 1
     assert n >= 40
 
@@ -412,8 +409,8 @@ def test_k11_emulated_aligned_route_with_prefetch(steps, monkeypatch):
         rng = np.random.default_rng(9)
         for dims in ((4, 21, 48), (37, 64), (16, 16)):
             x = gray(rng, *dims)
-            for dpx in (False, True):
-                check_emulated(x, steps, rng, dpx=dpx, ctas=2)
+            for ctas in (2, 3):
+                check_emulated(x, steps, rng, ctas=ctas)
             check_emulated((x > 120).astype(np.uint8) * 255, steps, rng, force_bytes=True, ctas=5)
     finally:
         kernels.dense_morph_schedule.cache_clear()
