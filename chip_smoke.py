@@ -32,7 +32,12 @@ Phases:
    conversions (rows ↔ boards, boards → dense uint8 and int32, dense uint8,
    bool and int32 → boards, labels → boards, into a blob at an odd offset)
    on ragged widths (W mod 32 and mod 8 ≠ 0, W < 32, H = 1) and at
-   4 × 1500 × 2000; K3+K4 byte-equal to its plain version on seeded gray
+   4 × 1500 × 2000; K1 folded into K2 and K6 (``fold_cases``): K2 from packed
+   rows and its packed-row store, K6 writing the edges and skeletons as
+   packed rows into a blob at an odd offset and as dense bytes, on both
+   routes, against K1 plus the unfused kernels and the plain composites, on
+   ragged widths and groups of images, every byte outside the outputs kept;
+   K3+K4 byte-equal to its plain version on seeded gray
    images (rows on and off a word boundary) and on binary boards, on every
    template instance (``ksize`` 1, 3, 5, 7, 9) and on the general path
    (``ksize`` 4, 11, 63 and 301, a ``sigma`` so small that the centre tap is
@@ -41,13 +46,14 @@ Phases:
    tiles only and of several tiles each way, its blur-only mode, and
    1 × 4400 × 4400 from a board and from a dense image;
 4. ``chain_from_clean`` at 4 × 1500 × 2000 on the card vs on the CPU: its
-   launches (three K1, one each of K2, K3+K4, K5 and K6), a
-   ``torch.profiler`` trace of one call whose device kernels must all be the
-   port's own (copies and memsets apart), device times (CUDA events) of the
-   chain, of K1 and K3+K4 (from the chain's boards and from the same masks
-   as a dense image, at blur 5 and 7, a call and the kernel alone), and of K5
-   and K6 on each route, beside their plain versions on the card and the
-   count of device kernels those launch;
+   launches (one each of K2, K3+K4, K5 and K6; no K1), a ``torch.profiler``
+   trace of one call whose device kernels must all be the port's own (copies
+   and memsets apart), device times (CUDA events) of the chain, of K2 from
+   the packed rows, K3+K4 (from the chain's boards and from the same masks
+   as a dense image, at blur 5 and 7, a call and the kernel alone), K5 and
+   K6 on each route and K6 storing the blob, beside their plain versions on
+   the card and the count of device kernels those launch, and of K1's two
+   boards → rows launches at 1 × 4400 × 4400 (the big route's blob);
 5. ``plotweave_torch.pipeline.main`` steps 1–13 on a seeded synthetic
    2000 × 1500 image and on the four configs of ``tests/golden/e2e``, and
    steps 1–4 on a seeded 4400 × 4400 image (``max_dimension`` 4400, so K5
@@ -55,14 +61,15 @@ Phases:
    card) and ``cpu``; every mask.png, edges.png, contours.pkl and
    plot_stream.bin must be byte-equal.  The launch counts are set to 0 just
    before the synthetic image's card run and read just after it (the
-   chain's launches exactly: K1 three times, K2, K3+K4 and the resident K5
-   and K6 once), and likewise around the 4400 × 4400 card run (K5 and K6 by
-   the multi-launch route);
+   chain's launches exactly: K2, K3+K4 and the resident K5 and K6 once, K1
+   never), and likewise around the 4400 × 4400 card run (K5 and K6 by the
+   multi-launch route, K1 twice for the blob);
 6. ``raster_frontend`` on a seeded 2000 × 1500 image, k = 4, through both
    thinning routes on the card and on the CPU: labels by the near-tie rule,
    edges and skeletons byte-equal from the same labels, the launches of each
-   route (K7, K2, K3+K4, K5 once each, then K6 and two K1, or K12 in at most
-   two launches and three K1), a ``torch.profiler`` trace of one call per
+   route (K7, K2, K3+K4, K5 once each, then K6 storing both dense outputs
+   and no K1, or K12 in at most two launches and three K1), a
+   ``torch.profiler`` trace of one call per
    route whose device kernels must all be the port's own, with device times
    of each route and of every kernel at the front-end's shapes beside its
    plain version, K2's, K3+K4's, K7's and K12's kernel time alone
@@ -168,9 +175,9 @@ Phases:
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
 launches in the one run of phase 5 or 6 that drives it (the synthetic
-2000 × 1500 image for K1, K2, K3+K4 and the resident K5 and K6, the
-4400 × 4400 image for the multi-launch K5 and K6, the front-end calls for
-K7, K12 and K1's dense side, the device-k-means run for K8 and K7's counts,
+2000 × 1500 image for K2, K3+K4 and the resident K5 and K6, the
+4400 × 4400 image for the multi-launch K5 and K6 and K1's boards → rows, the
+front-end calls for K7, K12 and K1's dense side, the device-k-means run for K8 and K7's counts,
 the tools' k-means call for K8's assignment, the swatch run for K11, the
 quality run for K9 and K10, phase 14's resize path for K13 and its poster
 run for K14), its
@@ -186,7 +193,9 @@ checkout before ``phase_probe`` it times that tree), ``phase_k34_sweep()``
 (K3+K4's tile rows and minimum blocks per SM), ``phase_k10_ab(other)`` and
 ``phase_k10_phases()`` (K10 against another checkout's, in turns, and its
 clock64 cycles by phase), ``phase_k9_phases()`` and ``phase_k9_ab(other)``
-(the same for K9, with its chain floor: run the phases first).  Each phase's wall seconds
+(the same for K9, with its chain floor: run the phases first),
+``phase_k1_fold_ab(other)`` (the chain, K2 and K6 alone, the grouped call
+of 8 and the front-end against another checkout's, in turns).  Each phase's wall seconds
 are printed before the ``kernels`` line.
 """
 
@@ -211,10 +220,10 @@ EDGE_PARAMS = (3, 1, 1, 5, 22, 70)  # (mk, oi, ci, bk, lo, hi): the default conf
 FRONTEND_SHAPE = (1500, 2000)  # H, W: bench.py --frontend's image size
 BENCH_CENTERS = [[40, 128, 128], [110, 140, 120], [180, 150, 140], [240, 128, 126]]  # bench.py:509-511
 NEAR_TIE = 0.01  # a label may differ only where the two nearest centres are this close (float64)
-# K1, K2, K3+K4, K5, K6 (resident): every device step of the chain between the upload and the blob
-MAIN_PATH_KERNELS = ("bitpack", "morph_bits", "edge_candidates", "hysteresis", "zhang_suen_packed")
-# launches of one chain call: rows -> boards, K2, K3+K4, K5, K6, and boards -> rows for edges and skeletons
-CHAIN_LAUNCHES = {"bitpack": 3, "morph_bits": 1, "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 1}
+# K2, K3+K4, K5, K6 (resident): every device step of the chain between the upload and the blob
+MAIN_PATH_KERNELS = ("morph_bits", "edge_candidates", "hysteresis", "zhang_suen_packed")
+# launches of one chain call: K2 loading the packed rows, K3+K4, K5, K6 storing the blob's two halves; no K1
+CHAIN_LAUNCHES = {"morph_bits": 1, "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 1}
 # the kernels of plotweave_torch/csrc by a part of their names, as a profiler's trace shows them
 OWN_KERNELS = ("rows_to_boards", "boards_to_rows", "boards_to_dense", "dense_to_boards", "labels_to_boards",
                "morph_steps", "edge_tiles", "hysteresis_cluster", "hysteresis_sweep", "zs_cluster", "zs_subpass",
@@ -225,10 +234,10 @@ MAIN_PATH_STEPS = (("ellipse", 3, "e"), ("ellipse", 3, "d"), ("ellipse", 3, "d")
 POSTER_PALETTE = [[30, 25, 20], [70, 90, 190], [140, 175, 220], [225, 220, 215]]  # synthetic_image's four tones, BGR
 KMEANS_SAMPLE = 200_000  # the default kmeans_sample_limit
 # one run of stage 02 in device mode, fused: K8 four times (the draw, the sampler, the seeds, the fits), K7 with
-# counts, K2 for the masks and for the chain, K1 for the masks' rows and the chain's two halves, then the chain's
-# K3+K4, K5, K6
+# counts, K2 for the masks (storing their packed rows too) and for the chain, then the chain's K3+K4, K5 and K6
+# (storing its two halves); no K1
 DEVICE_KMEANS_LAUNCHES = {"subsample": 1, "lab_sample": 1, "kpp_init": 1, "lloyd_fit": 1, "assign_nearest": 1, "morph_bits": 2,
-                          "bitpack": 3, "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 1}
+                          "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 1}
 # float operations of K8 per point: per centre and pass 9 (the dot product 5, the expanded distance 3, the
 # compare); the seeding per draw 12: the distance 8, the min, the scaling, the cap and the conversion
 LLOYD_FLOPS_PER_CENTER, KPP_FLOPS_PER_DRAW, POWF_FLOPS = 9, 12, 40
@@ -433,8 +442,8 @@ def bare_k2(x, valid, steps):
     table, radii = kernels._step_table(steps, x.device)
     (start, stop, band, radius), = kernels.morph_schedule(radii, x.shape[-2], x.shape[-1])
     lib, out = kernels.load("morph_bits"), torch.empty_like(x)
-    args = (x.data_ptr(), out.data_ptr(), valid.data_ptr(), table.data_ptr(), start, stop - start, radius, band,
-            *x.shape, torch.cuda.current_stream().cuda_stream)
+    args = (x.data_ptr(), None, out.data_ptr(), None, valid.data_ptr(), table.data_ptr(), start, stop - start, radius,
+            band, *x.shape, 0, torch.cuda.current_stream().cuda_stream)
 
     def launch(keep=(x, out, valid, table)):  # the tensors live as long as the launches
         check(lib.pw_morph_steps_run(*args) == 0, "K2: a bare launch failed")
@@ -950,6 +959,91 @@ def phase_layout_and_edge_kernels(stats: dict) -> None:
                 near_tie_flips(img.reshape(-1, 3), c.cpu().numpy(), labels.reshape(-1),
                                assign_nearest_plain(img, c, len(c)).reshape(-1), f"K7 {shape} k={len(c)}")
     print("K7 boards == one-hot boards of K7's labels: 6 shapes x k = 4, 8, 1, aligned and 5 bytes off")
+    fold_cases()
+
+
+# (images, layers an image, H, W) of the fold's checks: ragged widths (W mod 32 and mod 8 != 0, W < 8), groups of
+# images, rows fewer than K6's 16 CTAs, and the main path's width
+FOLD_SHAPES = [(1, 1, 1, 1), (1, 2, 5, 7), (3, 4, 11, 8), (1, 3, 17, 31), (2, 1, 40, 32), (3, 4, 33, 33),
+               (1, 4, 64, 250), (2, 4, 100, 2000), (8, 4, 45, 2000)]
+
+
+def fold_cases() -> int:
+    """K1 folded into K2's load and store and K6's stores, against K1 plus
+    the unfused kernels and against the plain composites on the card, on
+    :data:`FOLD_SHAPES`: K2 from packed rows (step lists of 0, 4 and 8
+    steps), its packed-row store from rows and from boards, into a buffer of
+    sentinels at an odd offset; K6 writing the edges and the skeletons as
+    packed rows into a blob at an odd offset (max_iter 120, 1 and 0) and as
+    dense bytes (aligned, and one byte off so that the byte stores run), on
+    the resident route and by the multi-launch route with K1.  Every byte
+    outside the outputs must keep its sentinel.  Returns the cases held."""
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import kernels, morphology, thinning
+    from plotweave_torch.ops.frontend import frontend_steps
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(41)
+    n = 0
+
+    def sentinel_buf(numel: int, offset: int):
+        """A buffer of sentinels and the contiguous ``numel`` bytes at ``offset`` in it."""
+        buf = torch.full((offset + numel + 7,), 0xAB, dtype=torch.uint8, device=dev)
+        return buf, buf[offset : offset + numel]
+
+    def untouched(buf, offset: int, numel: int) -> bool:
+        return bool((buf[:offset] == 0xAB).all() and (buf[offset + numel :] == 0xAB).all())
+
+    for b, k, h, w in FOLD_SHAPES:
+        shape = (b, k, h, -(-w // 8))
+        rows = torch.from_numpy(np.packbits(random_boards(rng, b * k, h, w).reshape(b, k, h, w) > 0, axis=-1)).to(dev)
+        rows[..., -1] |= (1 << (-w % 8)) - 1  # padding bits set: the load drops them
+        valid = morphology._valid_bits(w, dev)
+        for steps in ((), MAIN_PATH_STEPS, frontend_steps()):
+            n += 1
+            buf, out = sentinel_buf(rows.numel(), 3)
+            got = kernels.morph_steps_cuda(rows, valid, steps, w, out.view(shape))
+            base = kernels.rows_to_boards_cuda(rows, w)
+            ref = kernels.morph_steps_cuda(base, valid, steps) if steps else base
+            check(torch.equal(got, ref) and torch.equal(got, morphology.morph_steps_plain(rows, valid, steps, w)),
+                  f"K2 from packed rows {shape} {len(steps)} steps != K1 then K2, or != plain")
+            check(torch.equal(out.view(shape), kernels.boards_to_rows_cuda(ref, w)) and untouched(buf, 3, out.numel()),
+                  f"K2's packed-row store {shape} {len(steps)} steps != K2 then K1, or wrote outside its rows")
+            buf2, out2 = sentinel_buf(rows.numel(), 5)
+            got2 = kernels.morph_steps_cuda(base, valid, steps, w, out2.view(shape))  # boards in, rows out
+            check(torch.equal(got2, ref) and torch.equal(out2, out) and untouched(buf2, 5, out2.numel()),
+                  f"K2 boards in, packed rows out {shape} {len(steps)} steps")
+        edges = thinning.pack_bitboards(torch.from_numpy(random_boards(rng, b * k, h, w)).to(dev))
+        for route in ("resident", "multi"):
+            for max_iter in ((120, 1, 0) if route == "resident" else (120,)):
+                n += 1
+                skel = (kernels.zhang_suen_packed_cuda(edges, max_iter, True, route=route) if max_iter else edges)
+                buf, blob = sentinel_buf(2 * rows.numel(), 3)
+                halves = blob.view(b, 2, k, h, -1)
+                kernels.zhang_suen_into_cuda(edges, w, halves[:, 0], halves[:, 1], "rows", max_iter, True, route)
+                ref_e = kernels.boards_to_rows_cuda(edges, w).view(shape)
+                ref_s = kernels.boards_to_rows_cuda(skel, w).view(shape)
+                plain = torch.empty_like(halves)
+                thinning.zhang_suen_into_plain(edges, w, plain[:, 0], plain[:, 1], "rows", max_iter, True)
+                check(torch.equal(halves[:, 0], ref_e) and torch.equal(halves[:, 1], ref_s) and torch.equal(halves, plain)
+                      and untouched(buf, 3, blob.numel()),
+                      f"K6 into a blob {shape} {route} max_iter {max_iter} != K6 then K1, or != plain, or wrote outside")
+                for offset in (0, 1):  # a 16-byte aligned output, and one byte off it (byte stores)
+                    dense = b * k * h * w
+                    buf_e, out_e = sentinel_buf(dense, 16 + offset)
+                    buf_s, out_s = sentinel_buf(dense, 16 + offset)
+                    kernels.zhang_suen_into_cuda(edges, w, out_e.view(-1, 1, h, w), out_s.view(-1, 1, h, w), "dense",
+                                                 max_iter, True, route)
+                    check(torch.equal(out_e.view(-1, h, w), kernels.boards_to_dense_cuda(edges, w, 255))
+                          and torch.equal(out_s.view(-1, h, w), kernels.boards_to_dense_cuda(skel, w, 1))
+                          and untouched(buf_e, 16 + offset, dense) and untouched(buf_s, 16 + offset, dense),
+                          f"K6 dense {shape} {route} max_iter {max_iter} offset {offset} != K6 then K1, or wrote outside")
+    print(f"K1 fold == K1 plus the unfused kernels == plain: {n} cases on {len(FOLD_SHAPES)} shapes (K2 from packed "
+          f"rows with 0, 4 and 8 steps and its packed-row store; K6 into a blob at an odd offset, max_iter 120, 1, 0, "
+          f"and dense, aligned and one byte off, on both routes); no byte outside the outputs written")
+    return n
 
 
 def k34_times(m, w: int) -> dict:
@@ -982,14 +1076,13 @@ def chain_masks(shape=CHAIN_SHAPE):
     import numpy as np
     import torch
 
-    from plotweave_torch.ops import bitpack
     from plotweave_torch.stages.s02_color_extract import open_close_boards
 
     k, h, w = shape
     _, bins = synthetic_image(1, h, w)
     packed = np.packbits(np.stack([bins == j for j in range(k)]), axis=-1)
     mk, oi, ci, *_ = EDGE_PARAMS
-    return open_close_boards(bitpack.rows_to_boards(torch.from_numpy(packed).to("cuda"), w), w, oi, ci, "ellipse", mk)
+    return open_close_boards(torch.from_numpy(packed).to("cuda"), w, oi, ci, "ellipse", mk)
 
 
 def phase_k34_times() -> dict:
@@ -1047,7 +1140,8 @@ def phase_chain(stats: dict) -> None:
     from plotweave_torch.ops.canny import canny_candidates_plain, edge_candidates_plain, hysteresis_plain
     from plotweave_torch.ops.filters import gaussian_blur_u8_plain
     from plotweave_torch.ops.kernels import hysteresis_cuda, zhang_suen_packed_cuda
-    from plotweave_torch.ops.thinning import dense_from_boards_plain, zhang_suen_packed_plain
+    from plotweave_torch.ops.morphology import _valid_bits, morph_steps_plain
+    from plotweave_torch.ops.thinning import dense_from_boards_plain, zhang_suen_into_plain, zhang_suen_packed_plain
     from plotweave_torch.stages.s02_color_extract import chain_from_clean, open_close_boards
 
     k, h, w = CHAIN_SHAPE
@@ -1069,49 +1163,35 @@ def phase_chain(stats: dict) -> None:
     print(f"chain {k}x{h}x{w}: card == CPU ({ref.numel()} blob bytes, {nz} set bits); launches {n}")
     stats["chain trace"] = only_own_kernels(
         lambda: chain_from_clean(packed, w, *EDGE_PARAMS, device=cuda), f"chain {k}x{h}x{w}, one call",
-        {"rows_to_boards": 1, "morph_steps": 1, "edge_tiles": 1, "hysteresis_cluster": 1, "zs_cluster": 1,
-         "boards_to_rows": 2})
+        {"morph_steps": 1, "edge_tiles": 1, "hysteresis_cluster": 1, "zs_cluster": 1})
 
     # the kernels' inputs at the main path's shapes, as the chain makes them
     mk, oi, ci, bk, lo, hi = EDGE_PARAMS
     rows = torch.from_numpy(packed).to(cuda)
-    masks_b = bitpack.rows_to_boards(rows, w)
-    m = open_close_boards(masks_b, w, oi, ci, "ellipse", mk)
+    valid = _valid_bits(w, cuda)
+    m = open_close_boards(rows, w, oi, ci, "ellipse", mk)
     cand, strong = kernels.edge_candidates_cuda(m, w, bk, lo, hi)
     cand_p, strong_p = edge_candidates_plain(m, w, bk, lo, hi)
-    check(torch.equal(masks_b, bitpack.rows_to_boards_plain(rows, w)), f"K1 rows -> boards != plain at {k}x{h}x{w}")
     check(torch.equal(cand, cand_p) and torch.equal(strong, strong_p), f"K3+K4 != plain at {k}x{h}x{w}")
-    board_bytes, row_bytes = masks_b.numel() * 4, rows.numel()
-    blob = torch.empty((2, *rows.shape), dtype=torch.uint8, device=cuda)
+    board_bytes, row_bytes = m.numel() * 4, rows.numel()
 
-    def k1_chain():  # the chain's three conversions
-        b = kernels.rows_to_boards_cuda(rows, w)
-        kernels.boards_to_rows_cuda(b, w, out=blob[0])
-        kernels.boards_to_rows_cuda(cand, w, out=blob[1])
+    # K2 as the chain calls it: the cleaned masks' packed rows in, the open and close, boards out
+    def k2():
+        return kernels.morph_steps_cuda(rows, valid, MAIN_PATH_STEPS, w)
 
-    def k1_chain_plain():
-        bitpack.rows_to_boards_plain(rows, w)
-        torch.cat([bitpack.boards_to_rows_plain(masks_b, w), bitpack.boards_to_rows_plain(cand, w)])
+    def k2_plain():
+        return morph_steps_plain(rows, valid, MAIN_PATH_STEPS, w)
+
+    taps = sum(bin(t).count("1") for shape, ksize, _ in MAIN_PATH_STEPS for t in kernels.element_rows(shape, ksize)[1])
+    stats["K2"] = {"max_abs_err": max_abs_err(k2(), k2_plain()), "ms": cuda_ms(k2, 20), "plain_ms": cuda_ms(k2_plain, 5),
+                   "alone_ms": profiled_ms(k2, "morph_steps", 20),
+                   # a funnel shift and an OR per tap and word
+                   **bound(row_bytes + board_bytes + valid.numel() * 4, m.numel() * 2 * taps, INT32_OPS)}
+    check(stats["K2"]["max_abs_err"] == 0 and torch.equal(k2(), m), f"K2 from packed rows != plain at {k}x{h}x{w}")
 
     def k34():
         return kernels.edge_candidates_cuda(m, w, bk, lo, hi)
 
-    stats["K1 rows"] = {"max_abs_err": 0, "ms": cuda_ms(k1_chain, 20), "plain_ms": cuda_ms(k1_chain_plain, 3),
-                        "rows_to_boards_ms": cuda_ms(lambda: kernels.rows_to_boards_cuda(rows, w), 20),
-                        "boards_to_rows_ms": cuda_ms(lambda: kernels.boards_to_rows_cuda(cand, w, out=blob[1]), 20),
-                        "rows_to_boards_plain_ms": cuda_ms(lambda: bitpack.rows_to_boards_plain(rows, w), 3),
-                        "boards_to_rows_plain_ms": cuda_ms(lambda: bitpack.boards_to_rows_plain(cand, w), 3),
-                        "plain_device_kernels": sum(device_kernels(k1_chain_plain).values()),
-                        **bound(3 * (board_bytes + row_bytes), 0, INT32_OPS)}
-    # each of the chain's three K1 launches alone, in launch order: rows -> boards, boards -> rows twice; each
-    # reads one layout of the four masks and writes the other
-    each = profiled_each(k1_chain, ("rows_to_boards", "boards_to_rows"), 20)
-    one = bound(board_bytes + row_bytes, 0, INT32_OPS)["bound_ms"]
-    stats["K1 rows"].update(alone_ms_each=each, bound_ms_each=one, alone_ms=sum(each) if each else None)
-    if each:
-        print("  K1's three chain launches alone (torch.profiler): " + ", ".join(
-            f"{what} {t:.4f} ms ({100 * one / t:.1f} % of its bound {one:.5f} ms)"
-            for what, t in zip(("rows -> boards", "boards -> rows (masks)", "boards -> rows (candidates)"), each)))
     stats["K3+K4"] = {"max_abs_err": 0, "ms": cuda_ms(k34, 20),
                       "plain_ms": cuda_ms(lambda: edge_candidates_plain(m, w, bk, lo, hi), 3),
                       "alone_ms": profiled_ms(k34, "edge_tiles", 20),
@@ -1133,16 +1213,41 @@ def phase_chain(stats: dict) -> None:
     print(f"  plain K3 (blur, ksize {bk}) {st['k3_plain_ms']:.4f} ms in {st['k3_plain_device_kernels']} device "
           f"kernels, plain K4 (Sobel, NMS, thresholds) {st['k4_plain_ms']:.4f} ms in {st['k4_plain_device_kernels']}; "
           f"the kernel's blur-only mode on the dense mask {st['blur_only_ms']:.4f} ms a call")
-    for key, what in (("K1 rows", "rows -> boards and two boards -> rows, the chain's three launches"),
-                      ("K3+K4", f"from a board, ksize {bk}")):
+
+    # K1 where a path still launches it as the chain's store: the 4400 x 4400 layer, too large for K6's resident
+    # route, whose edges and skeletons K1 packs into the blob after K6's multi-launch route (two launches)
+    big = kernels.dense_to_boards_cuda(torch.from_numpy(random_boards(np.random.default_rng(9), 1, BIG_SIDE,
+                                                                      BIG_SIDE)).to(cuda))
+    big_blob = torch.empty((2, *big.shape[:-1], -(-BIG_SIDE // 8)), dtype=torch.uint8, device=cuda)
+
+    def k1_store():
+        kernels.boards_to_rows_cuda(big, BIG_SIDE, out=big_blob[0])
+        kernels.boards_to_rows_cuda(big, BIG_SIDE, out=big_blob[1])
+
+    def k1_store_plain():
+        return torch.stack([bitpack.boards_to_rows_plain(big, BIG_SIDE)] * 2)
+
+    k1_store()
+    each = profiled_each(k1_store, ("boards_to_rows",), 20)
+    one = bound(big.numel() * 4 + big_blob[0].numel(), 0, INT32_OPS)["bound_ms"]
+    stats["K1 rows"] = {"max_abs_err": max_abs_err(big_blob, k1_store_plain()), "ms": cuda_ms(k1_store, 20),
+                        "plain_ms": cuda_ms(k1_store_plain, 3),
+                        "plain_device_kernels": sum(device_kernels(k1_store_plain).values()),
+                        "alone_ms_each": each, "bound_ms_each": one, "alone_ms": sum(each) if each else None,
+                        **bound(2 * (big.numel() * 4 + big_blob[0].numel()), 0, INT32_OPS)}
+    check(stats["K1 rows"]["max_abs_err"] == 0, f"K1 boards -> rows != plain at 1x{BIG_SIDE}x{BIG_SIDE}")
+    if each:
+        print(f"  K1's two boards -> rows launches of the {BIG_SIDE}x{BIG_SIDE} route alone (torch.profiler): "
+              + ", ".join(f"{t:.4f} ms ({100 * one / t:.1f} % of its bound {one:.5f} ms)" for t in each))
+    for key, what in (("K2", f"{k}x{h}x{w}, the chain's {len(MAIN_PATH_STEPS)} steps from packed rows"),
+                      ("K3+K4", f"{k}x{h}x{w} from a board, ksize {bk}"),
+                      ("K1 rows", f"boards -> rows twice at 1x{BIG_SIDE}x{BIG_SIDE}")):
         st = stats[key]
-        print(f"{key} at {k}x{h}x{w} ({what}): kernel {st['ms']:.4f} ms, plain PyTorch on the card "
-              f"{st['plain_ms']:.4f} ms in {st['plain_device_kernels']} device kernels, bound "
-              f"{st['bound_ms']:.5f} ms by {st['bound_by']}" + (f", kernel alone {st['alone_ms']:.4f} ms (torch.profiler)"
-                                     if st.get("alone_ms") else ""))
-    st = stats["K1 rows"]
-    print(f"  K1 alone: rows -> boards {st['rows_to_boards_ms']:.4f} ms (plain {st['rows_to_boards_plain_ms']:.4f}), "
-          f"boards -> rows {st['boards_to_rows_ms']:.4f} ms (plain {st['boards_to_rows_plain_ms']:.4f})")
+        print(f"{key} ({what}): kernel {st['ms']:.4f} ms, plain PyTorch on the card "
+              f"{st['plain_ms']:.4f} ms" + (f" in {st['plain_device_kernels']} device kernels" if "plain_device_kernels"
+                                              in st else "")
+              + f", bound {st['bound_ms']:.5f} ms by {st['bound_by']}" + (f", kernel alone {st['alone_ms']:.4f} ms "
+                                                                          f"(torch.profiler)" if st.get("alone_ms") else ""))
     edges_p = hysteresis_plain(cand, strong)
     skel_p = zhang_suen_packed_plain(edges_p, 120, True)
     plain = {"K5": cuda_ms(lambda: hysteresis_plain(cand, strong), 3),
@@ -1166,12 +1271,31 @@ def phase_chain(stats: dict) -> None:
         times[name] = {"K5": cuda_ms(lambda: hysteresis_cuda(cand, strong, route=route), 20),
                        "K6": cuda_ms(lambda: zhang_suen_packed_cuda(edges_p, 120, True, route=route), 20)}
     words = edges_p.numel()
+    k6_ops = sum(k6_iters) * (words // k) * 2 * ZS_OPS_PER_WORD
+
+    # K6 as the chain calls it: the edges' board in, both halves of the blob out, no board
+    blob = torch.empty((2, k, h, -(-w // 8)), dtype=torch.uint8, device=cuda)
+
+    def k6():
+        kernels.zhang_suen_into_cuda(edges_p, w, blob[None, 0], blob[None, 1], "rows", 120, True)
+        return blob
+
+    def k6_plain():
+        out = torch.empty_like(blob)
+        zhang_suen_into_plain(edges_p, w, out[None, 0], out[None, 1], "rows", 120, True)
+        return out
+
     bounds = {"K5": bound(3 * board, words * HYST_OPS_PER_WORD, INT32_OPS),
-              "K6": bound(2 * board, sum(k6_iters) * (words // k) * 2 * ZS_OPS_PER_WORD, INT32_OPS)}
-    for key in ("K5", "K6"):
-        stats[key] = {"max_abs_err": 0, "ms": times["resident"][key], "plain_ms": plain[key], **bounds[key]}
-        stats[key + " multi"] = {"max_abs_err": 0, "ms": times["multi-launch"][key], "plain_ms": plain[key],
-                                 **bounds[key]}
+              "K6": bound(board + blob.numel(), k6_ops, INT32_OPS),
+              "K6 multi": bound(2 * board, k6_ops, INT32_OPS)}
+    stats["K5"] = {"max_abs_err": 0, "ms": times["resident"]["K5"], "plain_ms": plain["K5"], **bounds["K5"]}
+    stats["K5 multi"] = {"max_abs_err": 0, "ms": times["multi-launch"]["K5"], "plain_ms": plain["K5"], **bounds["K5"]}
+    stats["K6"] = {"max_abs_err": max_abs_err(k6(), k6_plain()), "ms": cuda_ms(k6, 20), "plain_ms": cuda_ms(k6_plain, 3),
+                   "alone_ms": profiled_ms(k6, "zs_cluster", 20), "board_out_ms": times["resident"]["K6"],
+                   **bounds["K6"]}
+    stats["K6 multi"] = {"max_abs_err": 0, "ms": times["multi-launch"]["K6"], "plain_ms": plain["K6"],
+                         **bounds["K6 multi"]}
+    check(stats["K6"]["max_abs_err"] == 0, f"K6 into the blob != plain at {k}x{h}x{w}")
     stats["chain routes"] = times
     chain_ms = cuda_ms(lambda: chain_from_clean(packed, w, *EDGE_PARAMS, device=cuda), 20)
     stats["chain ms"] = chain_ms
@@ -1180,8 +1304,12 @@ def phase_chain(stats: dict) -> None:
     print(f"K6 iterations per layer {k6_iters}; K5 (rounds, most sweeps of a CTA) per layer {k5_stats}")
     for key in ("K5", "K6"):
         s = stats[key]
-        print(f"{key} at {k}x{h}x{w}: " + ", ".join(f"{name} {times[name][key]:.4f} ms" for name in ROUTES)
+        print(f"{key} at {k}x{h}x{w}, board out: " + ", ".join(f"{name} {times[name][key]:.4f} ms" for name in ROUTES)
               + f"; plain PyTorch on the card {plain[key]:.4f} ms; bound {s['bound_ms']:.5f} ms by {s['bound_by']}")
+    s = stats["K6"]
+    print(f"K6 at {k}x{h}x{w} as the chain calls it (both halves of the blob out): {s['ms']:.4f} ms a call, "
+          + (f"{s['alone_ms']:.4f} ms alone, " if s.get("alone_ms") else "")
+          + f"plain {s['plain_ms']:.4f} ms, bound {s['bound_ms']:.5f} ms by {s['bound_by']}")
 
 
 def run_main(image: str, out: Path, device: str, config: Path | None = None, end_step: int = 13,
@@ -1228,8 +1356,8 @@ def phase_main_path(work: Path) -> dict:
     wall_cuda = time.perf_counter() - t0
     first = dict(kernels.LAUNCHES)
     check(all(first[n] > 0 for n in MAIN_PATH_KERNELS), f"main path did not launch K2, K5 and K6: {first}")
-    check({n: first[n] for n in CHAIN_LAUNCHES} == CHAIN_LAUNCHES,
-          f"main path: the chain's launches are {first}, expected {CHAIN_LAUNCHES}")
+    check({n: first[n] for n in CHAIN_LAUNCHES} == CHAIN_LAUNCHES and first["bitpack"] == 0,
+          f"main path: the chain's launches are {first}, expected {CHAIN_LAUNCHES} and no K1")
     check(first["hysteresis_multi"] == first["zhang_suen_packed_multi"] == 0,
           f"main path at 2000x1500 left the resident route: {first}")
     t0 = time.perf_counter()
@@ -1282,7 +1410,8 @@ def phase_main_path(work: Path) -> dict:
         runs[device] = run_main(image, out, device, out / "config.json", end_step=4)
         if device == "auto":
             big = dict(kernels.LAUNCHES)
-    check(all(big[n] > 0 for n in MULTI_KERNELS) and big["morph_bits"] == 1 and big["bitpack"] == 3
+    # K2 loads the packed rows; K6's multi-launch route leaves the blob to K1, one launch for each half
+    check(all(big[n] > 0 for n in MULTI_KERNELS) and big["morph_bits"] == 1 and big["bitpack"] == 2
           and big["edge_candidates"] == 1 and big["hysteresis"] == big["zhang_suen_packed"] == 0,
           f"{BIG_SIDE}x{BIG_SIDE}: launches {big}")
     diff = same_artifacts(work / "big_auto", work / "big_cpu", names, stream=False)
@@ -1340,9 +1469,9 @@ def phase_frontend(stats: dict) -> dict:
         out[route] = raster_frontend(img, c, k=4, pallas_thinning=route)
         torch.cuda.synchronize()
         launches[route] = dict(kernels.LAUNCHES)
-    # K7, K2, K3+K4, K5, then K6 and two K1 (edges, skeletons), or K1, K12 and two more K1
+    # K7, K2, K3+K4, K5, then K6 storing both dense outputs, or K1, K12 and two more K1
     need = {False: {"assign_nearest": 1, "morph_bits": 1, "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 1,
-                    "bitpack": 2},
+                    "bitpack": 0},
             True: {"assign_nearest": 1, "morph_bits": 1, "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 0,
                    "bitpack": 3}}
     for route, counts in need.items():
@@ -1365,10 +1494,10 @@ def phase_frontend(stats: dict) -> dict:
     print(f"front-end {h}x{w} k=4: card == CPU from the same labels, both routes; K12 route == K6 route; "
           f"{int(edges.count_nonzero())} edge px, {int(skel.count_nonzero())} skeleton px; "
           f"launches default {launches[False]}, dense {launches[True]}")
-    common = {"assign_nearest": 1, "morph_steps": 1, "edge_tiles": 1, "hysteresis_cluster": 1, "boards_to_dense": 2}
+    common = {"assign_nearest": 1, "morph_steps": 1, "edge_tiles": 1, "hysteresis_cluster": 1}
     for route, name, rest in ((False, "default route", {"zs_cluster": 1}),
-                              (True, "dense route",
-                               {"zs_tiles": launches[True]["zhang_suen_dense"], "dense_to_boards": 1})):
+                              (True, "dense route", {"zs_tiles": launches[True]["zhang_suen_dense"], "boards_to_dense": 2,
+                                                     "dense_to_boards": 1})):
         stats[f"front-end trace {route}"] = only_own_kernels(
             lambda route=route: raster_frontend(img, c, k=4, pallas_thinning=route),
             f"front-end {h}x{w}, {name}, one call", {**common, **rest})
@@ -1402,11 +1531,11 @@ def phase_frontend(stats: dict) -> dict:
     k2 = unpack_bitboards_plain(k2_b, w)
     taps = sum(bin(m).count("1") for shape, ksize, _ in steps for m in kernels.element_rows(shape, ksize)[1])
     board = masks_b.numel() * 4
-    stats["K2"] = {"max_abs_err": max_abs_err(k2, unpack_bitboards_plain(morph_steps_plain(masks_b, valid, steps), w)),
-                   "ms": cuda_ms(k2_call, 20),
-                   "plain_ms": cuda_ms(lambda: morph_steps_plain(masks_b, valid, steps), 5),
-                   # a funnel shift and an OR per tap and word
-                   **bound(2 * board + valid.numel() * 4, masks_b.numel() * 2 * taps, INT32_OPS)}
+    stats["K2 front-end"] = {
+        "max_abs_err": max_abs_err(k2, unpack_bitboards_plain(morph_steps_plain(masks_b, valid, steps), w)),
+        "ms": cuda_ms(k2_call, 20), "plain_ms": cuda_ms(lambda: morph_steps_plain(masks_b, valid, steps), 5),
+        # a funnel shift and an OR per tap and word
+        **bound(2 * board + valid.numel() * 4, masks_b.numel() * 2 * taps, INT32_OPS)}
 
     # K3+K4 at the front-end's blur (ksize 7) and K1's dense side at 4 x H x W
     def k34():
@@ -1422,7 +1551,7 @@ def phase_frontend(stats: dict) -> dict:
           and torch.equal(kernels.boards_to_dense_cuda(edges_b, w, 255), edges),
           "K1 != plain at the front-end's shapes")
 
-    def k1_dense():  # the default route's two conversions
+    def k1_dense():  # the K12 route's two conversions back to dense
         kernels.boards_to_dense_cuda(edges_b, w, 255)
         kernels.boards_to_dense_cuda(k2_b, w, 1)
 
@@ -1453,7 +1582,8 @@ def phase_frontend(stats: dict) -> dict:
                     "plain_ms": cuda_ms(lambda: zhang_suen_dense_plain(edges), 2),
                     **bound(edges.numel() * edges.element_size() + k12.numel() * 4,
                             sum(iters) * h * -(-w // 32) * 2 * ZS_OPS_PER_WORD, INT32_OPS)}
-    check(stats["K2"]["max_abs_err"] == 0 and stats["K12"]["max_abs_err"] == 0, "K2 or K12 != plain at full size")
+    check(stats["K2 front-end"]["max_abs_err"] == 0 and stats["K12"]["max_abs_err"] == 0,
+          "K2 or K12 != plain at full size")
 
     # K2's host time per call (no sync: the card keeps up), and the kernels' device time alone
     torch.cuda.synchronize()
@@ -1477,7 +1607,7 @@ def phase_frontend(stats: dict) -> dict:
           f"a call ({st['labels_alone_ms'] or float('nan'):.4f} alone), plain {st['labels_plain_ms']:.4f} ms, bound "
           f"{st['labels_bound']['bound_ms']:.5f} ms by {st['labels_bound']['bound_by']}; {flops / px:.1f} float "
           f"operations a pixel")
-    for name, what in (("K2", "the front-end's 8 steps, one call"), ("K12", f"4x{h}x{w}"),
+    for name, what in (("K2 front-end", "the front-end's 8 steps, one call"), ("K12", f"4x{h}x{w}"),
                        ("K3+K4 front-end", f"4x{h}x{w} from a board, ksize 7"),
                        ("K1 dense", f"two boards -> dense uint8 at 4x{h}x{w}"),
                        ("K1 pack", f"dense uint8 -> boards at 4x{h}x{w}")):
@@ -1945,7 +2075,7 @@ def phase_device_kmeans_path(work: Path, stats: dict) -> dict:
     stats["device-kmeans trace"] = only_own_kernels(
         stage, "device_init_stage 2000x1500, fused, one call",
         {"subsample": 1, "lab_sample": 1, "kpp_init": 1, "lloyd_fit": 1, "assign_nearest": 1, "morph_steps": 2,
-         "boards_to_rows": 3, "edge_tiles": 1, "hysteresis_cluster": 1, "zs_cluster": 1})
+         "edge_tiles": 1, "hysteresis_cluster": 1, "zs_cluster": 1})
     stats["device-kmeans stage ms"] = cuda_ms(stage, 5)
     print(f"device_init_stage 2000x1500, fused: {stats['device-kmeans stage ms']:.3f} ms a call (CUDA events; the "
           f"subsample drawn on the card, only the seeds' random numbers uploaded)")
@@ -2044,8 +2174,7 @@ def phase_batch_path(work: Path, stats: dict) -> None:
     got = chain_blob_batch(packed, w, *EDGE_PARAMS, device=torch.device("cuda"))
     torch.cuda.synchronize()
     group = {n: c for n, c in kernels.LAUNCHES.items() if c}
-    check(group == {"bitpack": 1 + 2 * 8, "morph_bits": 1, "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 1},
-          f"a grouped chain call of 8 launched {group}")
+    check(group == CHAIN_LAUNCHES, f"a grouped chain call of 8 launched {group}, expected {CHAIN_LAUNCHES}")
     for b in range(8):
         check(torch.equal(got[b], chain_from_clean(packed[b], w, *EDGE_PARAMS, device=torch.device("cuda"))),
               f"grouped chain call: row {b} != the solo call's blob")
@@ -2594,6 +2723,104 @@ def phase_k11_ab(other: str) -> dict:
                           + " / ".join(f"{100 * x:.1f}" if x else "-" for x in row[k]["share_alone"])
                           + " % of the bound)" for k in ("other", "this")), flush=True)
     print(json.dumps({"k11_ab": result}))
+    return result
+
+
+K1_FOLD_GROUP = 8  # images of the A/B's grouped chain call
+K1_FOLD_CALLS = ("chain", "grouped call of 8", "front-end")
+
+
+def k1_fold_inputs():
+    """The K1 fold A/B's inputs, the same for every checkout: the chain's
+    packed masks (4 x 1500 x 2000 px, as ``phase_chain``), a group of 8 (those
+    masks rolled down 37 rows an image), and the front-end's image and
+    centres on the card."""
+    import numpy as np
+    import torch
+
+    k, h, w = CHAIN_SHAPE
+    _, bins = synthetic_image(1, h, w)
+    packed = np.packbits(np.stack([bins == j for j in range(k)]), axis=-1)
+    group = np.stack([np.roll(packed, 37 * i, axis=-2) for i in range(K1_FOLD_GROUP)])
+    img = torch.from_numpy(synthetic_image(3, *FRONTEND_SHAPE)[0]).to("cuda")
+    return packed, group, img, torch.tensor(BENCH_CENTERS, dtype=torch.float32, device="cuda")
+
+
+def kernel_ms(fn, reps: int) -> dict:
+    """{kernel, by its ``OWN_KERNELS`` name: device ms a call} of ``fn``, from
+    ``torch.profiler`` over the whole calls the trace caught (all but the
+    first); empty where it caught none."""
+    try:
+        groups = traced(fn, reps + 1)[1:]
+    except RuntimeError as e:  # a measurement only: say so and go on
+        print(f"  torch.profiler failed: {e}")
+        return {}
+    out: dict = {}
+    for g in groups:
+        for e in g:
+            own = next((o for o in OWN_KERNELS if o in e.name), e.name)
+            out[own] = out.get(own, 0.0) + device_us(e) / 1e3 / len(groups)
+    return out
+
+
+def k1_fold_times() -> dict:
+    """The chain call, the grouped call of 8 and the front-end call (K6
+    route) of the checkout that ``ROOT`` names, through that checkout's own
+    code, on :func:`k1_fold_inputs`: per call a digest of its output, its
+    launches by wrapper, ms a call (CUDA events, the chain's upload included)
+    and each kernel's ms alone (``torch.profiler``: K2 ``morph_steps``, K6
+    ``zs_cluster``, K1's conversions).  Run after ``phase_probe``."""
+    import hashlib
+
+    import torch
+
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.ops.frontend import raster_frontend
+    from plotweave_torch.stages.s02_color_extract import chain_blob_batch, chain_from_clean
+
+    packed, group, img, centers = k1_fold_inputs()
+    w, cuda = CHAIN_SHAPE[-1], torch.device("cuda")
+    calls = {"chain": (lambda: chain_from_clean(packed, w, *EDGE_PARAMS, device=cuda), 20),
+             "grouped call of 8": (lambda: chain_blob_batch(group, w, *EDGE_PARAMS, device=cuda), 5),
+             "front-end": (lambda: raster_frontend(img, centers, k=4), 20)}
+    out = {}
+    for name, (fn, reps) in calls.items():
+        kernels.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in kernels.LAUNCHES.items() if c}
+        data = b"".join(t.cpu().numpy().tobytes() for t in (res if isinstance(res, tuple) else (res,)))
+        out[name] = {"digest": hashlib.sha256(data).hexdigest(), "launches": launches, "ms": cuda_ms(fn, reps),
+                     "alone_ms": kernel_ms(fn, min(reps, 10))}
+    return out
+
+
+def phase_k1_fold_ab(other: str) -> dict:
+    """The K1 fold of this checkout against the one at ``other`` (the
+    parent's: ``git archive <rev> | tar -x -C .checkout/other``): first
+    :func:`fold_cases` (the fused bytes against K1 plus the unfused kernels),
+    then :func:`k1_fold_times` in turns other, this, this, other, each in a
+    process of its own with ``ROOT`` set to its checkout.  Both must give
+    the same bytes on every call; per call the launches, ms a call and each
+    kernel's ms alone."""
+    fold_cases()
+    runs = ab_turns(other, "k1_fold_times", "K1 fold")
+    result = {}
+    for name in K1_FOLD_CALLS:
+        rows = {key: [r[name] for r in v] for key, v in runs.items()}
+        seen = {r["digest"] for v in rows.values() for r in v}
+        check(len(seen) == 1, f"K1 fold A/B {name}: the two checkouts differ: {sorted(seen)}")
+        row = {}
+        for key, v in rows.items():
+            names = sorted({n for r in v for n in r["alone_ms"]})
+            row[key] = {"launches": v[0]["launches"], "ms": [r["ms"] for r in v],
+                        "alone_ms": {n: [r["alone_ms"].get(n) for r in v] for n in names}}
+        result[name] = row
+        print(f"K1 fold A/B {name}: " + "; ".join(
+            f"{key} {row[key]['launches']}, " + " / ".join(f"{m:.4f}" for m in row[key]["ms"]) + " ms a call, alone "
+            + ", ".join(f"{n} " + " / ".join(f"{a:.4f}" if a else "-" for a in t) for n, t in row[key]["alone_ms"].items())
+            for key in ("other", "this")), flush=True)
+    print(json.dumps({"k1_fold_ab": result}))
     return result
 
 
@@ -3341,7 +3568,8 @@ def phase_shard_path(work: Path) -> None:
     kernels.reset_launches()
     run_main(str(work / "synthetic.png"), out, "auto", flags=("--shard-rows", "4"))
     launched = {n: kernels.LAUNCHES[n] for n in CHAIN_LAUNCHES}
-    check(launched == CHAIN_LAUNCHES, f"--shard-rows 4 on one card: the chain launched {launched}")
+    check(launched == CHAIN_LAUNCHES and kernels.LAUNCHES["bitpack"] == 0,
+          f"--shard-rows 4 on one card: the chain launched {launched}, K1 {kernels.LAUNCHES['bitpack']}")
     check("row-sharded over 1 device(s)" in Path(f"{out}.log").read_text(), "--shard-rows 4: no [shard] line")
     check((out / "plot_stream.bin").read_bytes() == (work / "synthetic_cuda" / "plot_stream.bin").read_bytes(),
           "--shard-rows 4 on one card: plot_stream.bin != phase 5's card run")
@@ -3413,19 +3641,21 @@ def main() -> None:
     src = "plotweave_torch/csrc/bitboard_fixpoints.cu"
     k1 = "plotweave_torch/csrc/bitpack.cu"
     k8 = "plotweave_torch/csrc/kmeans.cu"
-    rows = [("K1 bitpack, rows <-> boards (the chain's three launches)", "main", "bitpack", k1,
-             "plotweave/ops/bitpack.py:15", "K1 rows"),
-            ("K1 bitpack, boards -> dense (the front-end's two launches)", "front-end", "bitpack", k1,
+    # K1 where a path still launches it: the 4400 x 4400 route's blob after K6's multi-launch route, and K12's
+    # route of the front-end; the chain and the front-end's K6 route fold it into K2 and K6
+    rows = [("K1 bitpack, boards -> rows (the 4400x4400 route's two launches, after K6's multi-launch route)", "big",
+             "bitpack", k1, "plotweave/ops/bitpack.py:15", "K1 rows"),
+            ("K1 bitpack, boards -> dense (two of the K12 route's three K1 launches)", "front-end dense", "bitpack", k1,
              "plotweave/ops/thinning.py:178", "K1 dense"),
-            ("K1 bitpack, dense -> boards (one of the dense route's three K1 launches)", "front-end dense",
+            ("K1 bitpack, dense -> boards (one of the K12 route's three K1 launches)", "front-end dense",
              "bitpack", k1, "plotweave/ops/thinning.py:166", "K1 pack"),
-            ("K2 morph_bits", "main", "morph_bits", "plotweave_torch/csrc/morph_bits.cu",
-             "plotweave/ops/morphology.py:133", "K2"),
+            ("K2 morph_bits (its load converting the packed rows)", "main", "morph_bits",
+             "plotweave_torch/csrc/morph_bits.cu", "plotweave/ops/morphology.py:133", "K2"),
             ("K3+K4 edge_candidates", "main", "edge_candidates", "plotweave_torch/csrc/edge_candidates.cu",
              "plotweave/ops/canny.py:59", "K3+K4"),
             ("K5 hysteresis, resident", "main", "hysteresis", src, "plotweave/ops/canny.py:133", "K5"),
             ("K5 hysteresis, multi-launch", "big", "hysteresis_multi", src, "plotweave/ops/canny.py:133", "K5 multi"),
-            ("K6 zhang_suen_packed, resident", "main", "zhang_suen_packed", src,
+            ("K6 zhang_suen_packed, resident (storing the blob's two halves)", "main", "zhang_suen_packed", src,
              "plotweave/ops/pallas_kernels.py:179", "K6"),
             ("K6 zhang_suen_packed, multi-launch", "big", "zhang_suen_packed_multi", src,
              "plotweave/ops/pallas_kernels.py:179", "K6 multi"),

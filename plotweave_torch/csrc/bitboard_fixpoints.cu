@@ -49,6 +49,16 @@
 //   same board: an iteration past a layer's fixpoint changes nothing
 //   (plotweave/ops/thinning.py:11-14).
 //
+//   K6's stores (the chain's K1 fold): given a layout, each CTA writes its
+//   rows of the input, the edges, right after the load, and its rows of the
+//   result, the skeletons, at its store, as packed rows (each word's 1-4
+//   bytes inside the row, the bits at and beyond W zero; stage 02's blob) or
+//   as dense bytes (the edges 255, the skeletons 1, 16-byte stores where a
+//   row is a multiple of 16 px; the front-end's outputs), so no conversion
+//   launch follows K6.  The board output is then optional.  At 4 x 1500 x
+//   2000 px that adds 3 MB of packed stores (24 MB dense) to a kernel bound
+//   by operations.
+//
 //   K5: the result is the set of cand pixels 8-connected through cand to a
 //   pixel of cand & dilate8(strong) (the plain version's first sweep, taken
 //   here while the layer loads, so that any strong works): the least
@@ -83,7 +93,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "zs_word.cuh"  // Row3, shifted, full_add, zs_word (shared with K12)
+#include "bitlayout.cuh"  // store_row_word, store_dense_word (shared with K1, K2)
+#include "zs_word.cuh"     // Row3, shifted, full_add, zs_word (shared with K12)
 
 namespace cg = cooperative_groups;
 
@@ -93,6 +104,7 @@ constexpr int kThreads = 256;           // multi-launch route
 constexpr int kClusterThreads = 512;    // resident route
 constexpr int kMaxSmem = 232448;        // 227 KB, the opt-in limit of one CTA
 constexpr int kCluster = 16;            // CTAs per cluster (a non-portable size)
+constexpr int kRows = 1, kDense = 2;    // K6's layouts of its edges and skeletons (0: none)
 
 __device__ __forceinline__ uint32_t dilate_row(const Row3& q) {
   return q.mid | shifted(q, 1) | shifted(q, -1);
@@ -264,10 +276,27 @@ __device__ __forceinline__ void store_rows(uint32_t* dst, const uint32_t* src, i
     for (int w = threadIdx.x % 32; w < nw; w += 32) dst[(long)r * nw + w] = src[r * stride + w + 1];
 }
 
+// One CTA's rows of a layer into a packed-row (kRows) or dense (kDense)
+// output whose row 0 of those rows is `dst`: each word's 1-4 bytes of a
+// packed row, or its 1-32 pixels as `value` where set.
+__device__ __forceinline__ void store_layout(uint8_t* __restrict__ dst, const uint32_t* src, int nrows, int nw,
+                                             int stride, int width, int layout, uint32_t value, bool vec) {
+  const int rb = layout == kRows ? (width + 7) / 8 : width;
+  for (int r = threadIdx.x / 32; r < nrows; r += kClusterThreads / 32)
+    for (int w = threadIdx.x % 32; w < nw; w += 32) {
+      const uint32_t v = src[r * stride + w + 1];
+      if (layout == kRows)
+        store_row_word(dst + (long)r * rb, w, rb, width, v);
+      else
+        store_dense_word(dst + (long)r * rb, w, width, v, value, vec);
+    }
+}
+
 template <bool ROTATED>
 __global__ void __launch_bounds__(kClusterThreads)
     zs_cluster(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int* __restrict__ iters,
-               int k, int h, int nw, int max_iter) {
+               uint8_t* __restrict__ edges, uint8_t* __restrict__ skels, long img_stride, int group, int layout,
+               int k, int h, int nw, int width, int vec, int max_iter) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ uint32_t smem[];
   const int rank = (int)cluster.block_rank();
@@ -290,11 +319,16 @@ __global__ void __launch_bounds__(kClusterThreads)
   const Strips st(nrows, nw);
   const int items = st.strips * nw;
 
+  const int rb = layout == kRows ? (width + 7) / 8 : width;  // bytes of an output row
   for (int layer = blockIdx.x / kCluster; layer < k; layer += gridDim.x / kCluster) {
     const long base = ((long)layer * h + row0) * nw;
+    // this CTA's first row in each output: layer = b group + l at b img_stride + l h rb
+    const long half = layout ? (long)(layer / group) * img_stride + ((long)(layer % group) * h + row0) * rb : 0;
     __syncthreads();  // the zero fill, or the previous layer's store, is done
     load_rows(x, in + base, nrows, nw, stride);
     cluster.sync();  // every CTA's rows are in place before a halo is read
+    // the input is the edges: written from x before subpass 2 first changes it, past a cluster barrier
+    if (layout) store_layout(edges + half, x, nrows, nw, stride, width, layout, 255u, vec);
     int it = 0;
     while (it < max_iter) {
       for (int item = threadIdx.x; item < items; item += kClusterThreads) {
@@ -316,7 +350,8 @@ __global__ void __launch_bounds__(kClusterThreads)
       if (!any) break;
     }
     if (rank == 0 && threadIdx.x == 0) iters[layer] = it;
-    store_rows(out + base, x, nrows, nw, stride);
+    if (out) store_rows(out + base, x, nrows, nw, stride);
+    if (layout) store_layout(skels + half, x, nrows, nw, stride, width, layout, 1u, vec);
   }
   cluster.sync();  // no CTA leaves while a neighbour may still read its flags
 }
@@ -474,14 +509,26 @@ size_t cluster_smem_bytes(int kind, int h, int nw) {
 
 extern "C" {
 
-// K6, resident: the Zhang-Suen fixpoint of `in` into `out` (both (k, h, nw)),
-// one cluster of 16 CTAs per layer; iters[layer] gets the iterations it ran.
-// Returns a CUDA error code (0 on success).
-int pw_zs_cluster_run(const uint32_t* in, uint32_t* out, int* iters, int k, int h, int nw,
-                      int max_iter, int rotated, void* stream) {
-  if (k <= 0 || h <= 0 || nw <= 0) return (int)cudaErrorInvalidValue;
+// K6, resident: the Zhang-Suen fixpoint of `in` ((k, h, nw) boards), one
+// cluster of 16 CTAs per layer; iters[layer] gets the iterations it ran.
+// The result goes to `out` where it is not null.  With `layout` 1 (packed
+// rows, ceil(width/8) bytes a row) or 2 (dense bytes, width a row; the edges
+// 255, the skeletons 1), the input's rows (the edges) go to `edges` and the
+// result's (the skeletons) to `skels`, layer L = b group + l at byte
+// b img_stride + l h row_bytes of each (the chain's blob: skels = edges +
+// group h row_bytes, img_stride = 2 group h row_bytes).  Returns a CUDA error
+// code (0 on success).
+int pw_zs_cluster_run(const uint32_t* in, uint32_t* out, int* iters, uint8_t* edges, uint8_t* skels,
+                      long img_stride, int group, int layout, int k, int h, int nw, int width, int max_iter,
+                      int rotated, void* stream) {
+  if (k <= 0 || h <= 0 || nw <= 0 || layout < 0 || layout > kDense) return (int)cudaErrorInvalidValue;
+  if (layout ? (!edges || !skels || group <= 0 || k % group || width <= 0 || (width + 31) / 32 != nw) : !out)
+    return (int)cudaErrorInvalidValue;
+  int vec = layout == kDense && width % 16 == 0 && img_stride % 16 == 0 && (uintptr_t)edges % 16 == 0 &&
+            (uintptr_t)skels % 16 == 0;
   size_t smem = cluster_smem_bytes(0, h, nw);
-  void* args[] = {&in, &out, &iters, &k, &h, &nw, &max_iter};
+  void* args[] = {&in, &out, &iters, &edges, &skels, &img_stride, &group, &layout, &k, &h, &nw, &width, &vec,
+                  &max_iter};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(rotated ? launch_cluster(zs_cluster<true>, k, smem, s, args)
                        : launch_cluster(zs_cluster<false>, k, smem, s, args));

@@ -7,11 +7,12 @@
 // (:166) and unpack_bitboards (:178), which eager PyTorch runs as a dozen
 // launches over int32 and int64 planes.
 //
-// Layouts.  Packed rows: 8 px a byte, MSB first (np.packbits), a row of W px
-// is ceil(W/8) bytes, so rows are not 4-byte aligned.  Bitboards: 32 px a
-// 32-bit word, LSB first, a row is ceil(W/32) words; bit j of word n is
-// column 32 n + j.  Dense: one element a pixel.  Every board written here
-// has its bits at and beyond W zero: K2, K5 and K6 rely on that.
+// Layouts (csrc/bitlayout.cuh, whose word conversions K2's packed-row load
+// and K6's stores share).  Packed rows: 8 px a byte, MSB first (np.packbits),
+// a row of W px is ceil(W/8) bytes, so rows are not 4-byte aligned.
+// Bitboards: 32 px a 32-bit word, LSB first, a row is ceil(W/32) words; bit j
+// of word n is column 32 n + j.  Dense: one element a pixel.  Every board
+// written here has its bits at and beyond W zero: K2, K5 and K6 rely on that.
 //
 // - pw_rows_to_boards: a thread per word gathers the row's 4 bytes (the last
 //   word of a row the 1-3 that remain), reverses the bits inside each byte
@@ -34,23 +35,21 @@
 // rows and boards are 1.5 MB each and the dense uint8 planes 12 MB.  On an
 // H100 80GB HBM3 at 700 W two boards -> dense launches there take 9.0 us
 // against 8.1 us of bytes, and a wrapper call 25-60 us of host time
-// (PERF.md): a conversion costs its launch, not its kernel.
+// (PERF.md): a conversion costs its launch, not its kernel.  So the raster
+// chain, the device k-means stage and the front-end's K6 route launch none
+// of these: K2 loads packed rows and stores them beside its boards, and K6
+// stores the edges and the skeletons as packed rows or dense bytes
+// (morph_bits.cu, bitboard_fixpoints.cu).  They remain for the plotweave.ops
+// surface, a layer too large for K6's resident route, and K12's route.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bitlayout.cuh"  // valid_mask, brev_bytes, row_word, store_row_word, store_dense16 (shared with K2, K6)
+
 namespace {
 
 constexpr int kThreads = 256;
-
-// bits [0, w - 32 * word) of word `word` of a row of w px
-__device__ __forceinline__ uint32_t valid_mask(int word, int w) {
-  const int n = w - 32 * word;
-  return n >= 32 ? 0xffffffffu : (n <= 0 ? 0u : ((1u << n) - 1u));
-}
-
-// the bits of each byte reversed, the bytes in place
-__device__ __forceinline__ uint32_t brev_bytes(uint32_t u) { return __byte_perm(__brev(u), 0u, 0x0123); }
 
 __global__ void __launch_bounds__(kThreads)
     rows_to_boards(const uint8_t* __restrict__ rows, uint32_t* __restrict__ boards, long n_words, int nw, int wb,
@@ -59,11 +58,7 @@ __global__ void __launch_bounds__(kThreads)
   if (i >= n_words) return;
   const long row = i / nw;
   const int word = (int)(i - row * nw);
-  const uint8_t* p = rows + row * wb + 4 * word;
-  const int nb = min(4, wb - 4 * word);
-  uint32_t u = 0u;
-  for (int b = 0; b < nb; ++b) u |= (uint32_t)p[b] << (8 * b);
-  boards[i] = brev_bytes(u) & valid_mask(word, w);
+  boards[i] = row_word(rows + row * wb, word, wb, w);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -73,15 +68,8 @@ __global__ void __launch_bounds__(kThreads)
   if (i >= n_words) return;
   const long row = i / nw;
   const int word = (int)(i - row * nw);
-  const uint32_t u = brev_bytes(boards[i] & valid_mask(word, w));
-  uint8_t* p = rows + row * wb + 4 * word;
-  const int nb = min(4, wb - 4 * word);
-  for (int b = 0; b < nb; ++b) p[b] = (uint8_t)(u >> (8 * b));
+  store_row_word(rows + row * wb, word, wb, w, boards[i]);
 }
-
-// 4 bits -> 4 bytes of 0/1: bit j lands on bit 8 j (the four shifted copies
-// do not overlap, so the multiply carries nothing)
-__device__ __forceinline__ uint32_t spread4(uint32_t nibble) { return (nibble * 0x00204081u) & 0x01010101u; }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -93,13 +81,11 @@ __global__ void __launch_bounds__(kThreads)
   const int x0 = 16 * (int)(i - row * chunks);
   const uint32_t bits = (boards[row * nw + (x0 >> 5)] >> (x0 & 31)) & 0xffffu;
   T* p = dense + row * w + x0;
-  if (sizeof(T) == 1 && vec && x0 + 16 <= w) {
-    const uint32_t v = (uint32_t)value;
-    *reinterpret_cast<uint4*>(p) = make_uint4(spread4(bits & 15u) * v, spread4((bits >> 4) & 15u) * v,
-                                              spread4((bits >> 8) & 15u) * v, spread4(bits >> 12) * v);
+  const int n = min(16, w - x0);
+  if constexpr (sizeof(T) == 1) {
+    store_dense16(reinterpret_cast<uint8_t*>(p), bits, n, (uint32_t)value, vec);
     return;
   }
-  const int n = min(16, w - x0);
   for (int j = 0; j < n; ++j) p[j] = (T)(((bits >> j) & 1u) ? value : 0);
 }
 

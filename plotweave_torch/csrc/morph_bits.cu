@@ -39,6 +39,17 @@
 // are staged in shared memory, double-buffered by step parity, so one
 // barrier per step serves both the board and the masks.
 //
+// Packed rows in and out (the chain's K1 fold).  Where the caller hands it
+// packed rows (8 px a byte, MSB first, ceil(W/8) bytes a row, so not 4-byte
+// aligned) instead of a board, the load builds each word from the row's own
+// 1-4 bytes as K1's pw_rows_to_boards does (csrc/bitlayout.cuh: the bits of
+// each byte reversed, the bits at and beyond W cleared), so the chain's
+// upload goes straight into K2 with no conversion launch.  Where it hands
+// an output for packed rows, the store writes each word's 1-4 bytes there
+// beside the board (stage 02's device mode: the cleaned masks into the
+// stage's blob).  Only a launch's first segment reads rows and only its last
+// writes them; a list of no steps is one launch that converts.
+//
 // The step table is a small int64 device buffer that the wrapper builds once
 // per step list and caches (ops/kernels.py::_step_table): per step a header
 // (erode, row radius, rows of taps, index of its first mask), then the masks.
@@ -62,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bitlayout.cuh"  // row_word, store_row_word (shared with K1, K6)
+
 namespace {
 
 constexpr int kLanes = 32;        // threadIdx.x: words of a row, one warp
@@ -76,9 +89,10 @@ size_t smem_bytes(int band, int radius, int nw) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-    morph_steps(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                const uint32_t* __restrict__ valid, const long long* __restrict__ table, int step0,
-                int n_steps, int radius, int band, int h, int nw) {
+    morph_steps(const uint32_t* __restrict__ in, const uint8_t* __restrict__ rows_in, uint32_t* __restrict__ out,
+                uint8_t* __restrict__ rows_out, const uint32_t* __restrict__ valid,
+                const long long* __restrict__ table, int step0, int n_steps, int radius, int band, int h, int nw,
+                int width) {
   extern __shared__ uint32_t smem[];
   __shared__ unsigned long long masks[2][kMaxRows];  // the step's masks, by step parity
   const int stride = nw + 2;
@@ -89,13 +103,19 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t* b1 = b0 + rows * stride;
   const int g0 = blockIdx.x * band - radius;  // the layer row of buffer row 0
   const long layer = (long)blockIdx.y * h * nw;
+  const int wb = (width + 7) / 8;  // bytes of a packed row
+  const long layer_rows = (long)blockIdx.y * h * wb;
 
   for (int j = tid; j < stride; j += kThreads) vs[j] = (j >= 1 && j <= nw) ? valid[j - 1] : 0u;
   for (int i = ty; i < rows; i += kRowLanes) {
     const int g = g0 + i;
     const bool inside = g >= 0 && g < h;
     for (int j = tx; j < stride; j += kLanes) {
-      b0[i * stride + j] = (inside && j >= 1 && j <= nw) ? in[layer + (long)g * nw + j - 1] : 0u;
+      uint32_t v = 0u;
+      if (inside && j >= 1 && j <= nw)
+        v = rows_in ? row_word(rows_in + layer_rows + (long)g * wb, j - 1, wb, width)
+                    : in[layer + (long)g * nw + j - 1];
+      b0[i * stride + j] = v;
       b1[i * stride + j] = 0u;
     }
   }
@@ -182,7 +202,11 @@ __global__ void __launch_bounds__(kThreads)
 
   // the band's own rows: buffer rows [radius, radius + band), inside the layer
   for (int i = radius + ty; i < radius + band && g0 + i < h; i += kRowLanes)
-    for (int w = tx; w < nw; w += kLanes) out[layer + (long)(g0 + i) * nw + w] = x[i * stride + w + 1];
+    for (int w = tx; w < nw; w += kLanes) {
+      const uint32_t v = x[i * stride + w + 1];
+      out[layer + (long)(g0 + i) * nw + w] = v;
+      if (rows_out) store_row_word(rows_out + layer_rows + (long)(g0 + i) * wb, w, wb, width, v);
+    }
 }
 
 }  // namespace
@@ -190,14 +214,20 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // Steps [step0, step0 + n_steps) of the step table `table` (device memory,
-// see above) applied to the board `in`, written to `out` (no overlap).
-// `radius` is the sum of those steps' row radii and `band` the output rows
-// of one block.  Returns a CUDA error code (0 on success);
-// cudaErrorInvalidValue for arguments the kernel does not take.
-int pw_morph_steps_run(const uint32_t* in, uint32_t* out, const uint32_t* valid, const long long* table,
-                       int step0, int n_steps, int radius, int band, int k, int h, int nw, void* stream) {
-  if (k <= 0 || k > 65535 || h <= 0 || nw <= 0 || n_steps <= 0 || step0 < 0 || band <= 0 || radius < 0)
+// see above) applied to the board `in`, or to the packed rows `rows_in` of
+// `width` px (k, h, ceil(width/8)) bytes when `in` is null, written to
+// `out` (no overlap), and as packed rows to `rows_out` too when it is not
+// null.  `radius` is the sum of those steps' row radii and `band` the output
+// rows of one block; n_steps may be 0 (a layout conversion alone).  Returns a
+// CUDA error code (0 on success); cudaErrorInvalidValue for arguments the
+// kernel does not take.
+int pw_morph_steps_run(const uint32_t* in, const uint8_t* rows_in, uint32_t* out, uint8_t* rows_out,
+                       const uint32_t* valid, const long long* table, int step0, int n_steps, int radius, int band,
+                       int k, int h, int nw, int width, void* stream) {
+  if (k <= 0 || k > 65535 || h <= 0 || nw <= 0 || n_steps < 0 || step0 < 0 || band <= 0 || radius < 0 ||
+      (in == nullptr) == (rows_in == nullptr) || out == nullptr)
     return (int)cudaErrorInvalidValue;
+  if ((rows_in || rows_out) && (width <= 0 || (width + 31) / 32 != nw)) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(band, radius, nw);  // dynamic, beside the static masks
   if (smem + sizeof(unsigned long long) * 2 * kMaxRows > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem + sizeof(unsigned long long) * 2 * kMaxRows > 48 * 1024) {
@@ -206,7 +236,7 @@ int pw_morph_steps_run(const uint32_t* in, uint32_t* out, const uint32_t* valid,
   }
   dim3 grid((unsigned)((h + band - 1) / band), (unsigned)k);
   morph_steps<<<grid, dim3(kLanes, kRowLanes), smem, static_cast<cudaStream_t>(stream)>>>(
-      in, out, valid, table, step0, n_steps, radius, band, h, nw);
+      in, rows_in, out, rows_out, valid, table, step0, n_steps, radius, band, h, nw, width);
   return (int)cudaGetLastError();
 }
 

@@ -2,11 +2,13 @@
 
 Twin of ``plotweave/ops/bitpack.py``: the fused chain's input (cleaned masks)
 and its output blob (edges, then skeletons) use this layout.  The chain works
-on the int32 bitboards of ``ops/thinning.py`` (32 px a word, LSB-first), so
-:func:`rows_to_boards` and :func:`boards_to_rows` convert between the two
-directly.  On a CUDA tensor every function here runs kernel K1
-(``ops/kernels.py``, ``csrc/bitpack.cu``), on a CPU tensor its plain version,
-and raises for any other device.
+on the int32 bitboards of ``ops/thinning.py`` (32 px a word, LSB-first);
+:func:`rows_to_boards_plain` and :func:`boards_to_rows_plain` convert between
+the two, the plain versions of K2's packed-row load and store and K6's
+packed-row stores, which do it on the card with no launch of their own.  On
+a CUDA tensor every public function here runs kernel K1 (``ops/kernels.py``,
+``csrc/bitpack.cu``), on a CPU tensor its plain version, and raises for any
+other device.
 """
 
 from __future__ import annotations
@@ -73,26 +75,6 @@ def bitunpack_rows(packed: torch.Tensor, width: int) -> torch.Tensor:
         dense = boards_to_dense_cuda(boards, width, 1)
         return dense[0] if packed.dim() == 1 else dense
     return bitunpack_rows_plain(packed, width)
-
-
-def rows_to_boards(packed: torch.Tensor, width: int) -> torch.Tensor:
-    """:func:`rows_to_boards_plain` on the tensor's device."""
-    if _on_card("rows_to_boards", packed):
-        from .kernels import rows_to_boards_cuda  # noqa: PLC0415
-
-        return rows_to_boards_cuda(packed, width)
-    return rows_to_boards_plain(packed, width)
-
-
-def boards_to_rows(boards: torch.Tensor, width: int, out: torch.Tensor | None = None) -> torch.Tensor:
-    """:func:`boards_to_rows_plain` on the tensor's device, written into
-    ``out`` (uint8, the rows' shape, on that device) when given."""
-    if _on_card("boards_to_rows", boards):
-        from .kernels import boards_to_rows_cuda  # noqa: PLC0415
-
-        return boards_to_rows_cuda(boards, width, out)
-    rows = boards_to_rows_plain(boards, width)
-    return rows if out is None else out.copy_(rows.reshape(out.shape))
 
 
 def unpack_rows(packed: np.ndarray, width: int) -> np.ndarray:

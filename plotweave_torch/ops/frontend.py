@@ -5,9 +5,10 @@ Lab conversion and the nearest of k centres as one-hot bitboards (kernel K7
 on the card: no labels reach device memory), four packed morphology programs
 as one step list (kernel K2, one launch), the Q8 blur with Canny's Sobel, NMS
 and thresholds (kernel K3+K4, one launch), the hysteresis (kernel K5) and
-Zhang–Suen thinning: the packed fixpoint K6 by default, or the dense kernel
-K12 with ``pallas_thinning=True``; kernel K1 turns the boards into the dense
-outputs.  Leading batch dims are allowed on the default route.  Everything
+Zhang–Suen thinning: the packed fixpoint K6 by default, whose stores write
+both dense outputs, or the dense kernel K12 with ``pallas_thinning=True``,
+where kernel K1 turns the boards into dense bytes and back.  Leading batch
+dims are allowed on the default route.  Everything
 runs on the device of the image: on the card every step is a kernel of
 ``csrc/``, on the CPU its plain version.  After the labels the chain is
 integer, so from the same labels its bytes are the same on either device.
@@ -24,7 +25,7 @@ from .canny import canny_boards
 from .colorspace import _M, _WHITE, bgr_to_lab_u8
 from .morphology import _valid_bits, morph_program, morph_steps
 from .thinning import (
-    _on_card, dense_from_boards, pack_bitboards, pack_bitboards_plain, zhang_suen_dense, zhang_suen_packed)
+    _on_card, dense_from_boards, pack_bitboards, pack_bitboards_plain, zhang_suen_dense, zhang_suen_into)
 
 
 def _centers_on(centers, device: torch.device, k: int) -> torch.Tensor:
@@ -181,18 +182,22 @@ def frontend_from_boards(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The front-end after the assignment, over bitboards → (edges,
     skeletons), each (..., k, H, W) uint8; see :func:`raster_frontend` for
-    the parameters.  On the card: K2, K3+K4, K5, then K6 and K1, or K1, K12
-    and K1."""
+    the parameters.  On the card: K2, K3+K4, K5, then K6 writing both outputs
+    (a layer too large for K6's resident route: K6's launches, then K1's), or
+    K1, K12 and K1."""
     steps = frontend_steps(extract_iters, edge_kernel, edge_iters)
     masks_b = morph_steps(masks_b, _valid_bits(w, masks_b.device), steps)
     # the hysteresis board feeds the packed thinner in the same encoding
     edges_b = canny_boards(masks_b, w, blur_kernel, low, high)
-    edges = dense_from_boards(edges_b, w, 255)
     if pallas_thinning:
+        edges = dense_from_boards(edges_b, w, 255)
         skel_b = pack_bitboards(zhang_suen_dense(edges, max_iter=thin_iters, rotated=True))
-    else:
-        skel_b = zhang_suen_packed(edges_b, max_iter=thin_iters, rotated=True)
-    return edges, dense_from_boards(skel_b, w, 1)
+        return edges, dense_from_boards(skel_b, w, 1)
+    h = edges_b.shape[-2]
+    edges = torch.empty((*edges_b.shape[:-1], w), dtype=torch.uint8, device=edges_b.device)
+    skels = torch.empty_like(edges)
+    zhang_suen_into(edges_b, w, edges.view(-1, 1, h, w), skels.view(-1, 1, h, w), "dense", thin_iters, True)
+    return edges, skels
 
 
 def frontend_from_labels(labels: torch.Tensor, k: int, **params) -> Tuple[torch.Tensor, torch.Tensor]:

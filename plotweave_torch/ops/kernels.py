@@ -4,13 +4,16 @@
   ``dense_to_boards_cuda`` and ``labels_to_boards_cuda`` (``csrc/bitpack.cu``):
   the conversions between packed rows (8 px a byte), bitboards (32 px a word)
   and dense pixels; replace the XLA fusions of ``bitpack_rows``,
-  ``bitunpack_rows``, ``pack_bitboards`` and ``unpack_bitboards``.
+  ``bitunpack_rows``, ``pack_bitboards`` and ``unpack_bitboards``.  The raster
+  chain, the device k-means stage and the front-end's K6 route launch none of
+  them: K2's load and store and K6's stores convert (``csrc/bitlayout.cuh``).
 - K2 ``morph_steps_cuda`` (``csrc/morph_bits.cu``): a whole sequence of
   packed dilations and erosions in one launch, each block holding a band of
   rows and the sequence's halo in shared memory; replaces the XLA fusion of
-  ``morph_bits`` and chains of its calls.  :func:`morph_schedule` splits a
-  sequence whose halo does not fit into segments, one launch each, before
-  any launch (the defaults are one segment).
+  ``morph_bits`` and chains of its calls.  It takes packed rows as well as
+  boards and can store packed rows beside its boards.  :func:`morph_schedule`
+  splits a sequence whose halo does not fit into segments, one launch each,
+  before any launch (the defaults are one segment).
 - K3+K4 ``edge_candidates_cuda`` and ``gaussian_blur_cuda``
   (``csrc/edge_candidates.cu``): the Q8 blur, Sobel, magnitude, sector NMS
   and double threshold in one launch, from a bitboard or a uint8 image to
@@ -29,7 +32,9 @@
   launch per call (launch names ``zhang_suen_packed``, ``hysteresis``); a
   larger layer runs the multi-launch kernels, one launch per subpass or
   sweep and one host check per chunk (``zhang_suen_packed_multi``,
-  ``hysteresis_multi``).
+  ``hysteresis_multi``).  ``zhang_suen_into_cuda`` is K6 writing its input,
+  the edges, and its result, the skeletons, as packed rows or dense bytes
+  from its resident launch (the multi-launch route: K6, then K1).
 - K7 ``assign_nearest_cuda`` and ``assign_boards_cuda``
   (``csrc/assign_nearest.cu``): Lab and the nearest centre in one pass, as
   int32 labels or as the k one-hot bitboards, the latter also with the k
@@ -316,11 +321,11 @@ _SIGNATURES = {
                 "pw_dense_to_boards": [_P, _P, _L, _I, _I, _P],
                 "pw_labels_to_boards": [_P, _P, _L, _I, _I, _I, _P]},
     "edge_candidates": {"pw_edge_candidates": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
-    "bitboard_fixpoints": {"pw_zs_cluster_run": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bitboard_fixpoints": {"pw_zs_cluster_run": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                            "pw_hysteresis_cluster_run": [_P, _P, _P, _P, _I, _I, _I, _P],
                            "pw_zs_packed_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                            "pw_hysteresis_run": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
-    "morph_bits": {"pw_morph_steps_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "morph_bits": {"pw_morph_steps_run": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "assign_nearest": {"pw_assign_nearest": [_P, _P, _P, _I, _L, _P],
                        "pw_assign_boards": [_P, _P, _P, _P, _I, _L, _I, _I, _P]},
     "zs_dense": {"pw_zs_tiles_run": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
@@ -437,9 +442,12 @@ def boards_to_rows_cuda(boards: torch.Tensor, w: int, out: torch.Tensor | None =
     return _bitpack("pw_boards_to_rows", shape, torch.uint8, boards, boards.numel() // boards.shape[-1], w, out=out)
 
 
-def boards_to_dense_cuda(boards: torch.Tensor, w: int, value: int = 1, dtype=torch.uint8) -> torch.Tensor:
+def boards_to_dense_cuda(boards: torch.Tensor, w: int, value: int = 1, dtype=torch.uint8,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
     """K1: CUDA bitboards (..., H, ⌈w/32⌉) → dense (..., H, w) uint8 or int32,
-    ``value`` where the bit is set and 0 elsewhere."""
+    ``value`` where the bit is set and 0 elsewhere; written into ``out`` (a
+    contiguous tensor of ``dtype`` of that many elements on the boards'
+    device) when given."""
     _check("boards_to_dense", boards)
     _check_width("boards_to_dense", boards, w)
     if dtype not in (torch.uint8, torch.int32) or not 0 <= value <= 255:
@@ -447,8 +455,13 @@ def boards_to_dense_cuda(boards: torch.Tensor, w: int, value: int = 1, dtype=tor
     n_rows = boards.numel() // boards.shape[-1]
     if n_rows * w >= 2**31:
         raise ValueError(f"boards_to_dense: {n_rows * w} pixels exceed the kernel's index range")
+    if out is not None:
+        _check_dense("boards_to_dense", out, (dtype,))
+        if out.device != boards.device or out.numel() != n_rows * w:
+            raise ValueError(f"boards_to_dense: out {tuple(out.shape)} on {out.device} does not take {n_rows} rows "
+                             f"of {w} px")
     return _bitpack("pw_boards_to_dense", (*boards.shape[:-1], w), dtype, boards, n_rows, w, value,
-                    1 if dtype == torch.uint8 else 4)
+                    1 if dtype == torch.uint8 else 4, out=out)
 
 
 def dense_to_boards_cuda(dense: torch.Tensor) -> torch.Tensor:
@@ -655,8 +668,8 @@ def zhang_suen_packed_cuda(packed: torch.Tensor, max_iter: int = 120, rotated: b
         out = torch.empty_like(packed)
         if route == "resident":
             iters = torch.empty(k, dtype=torch.int32, device=packed.device)
-            err = lib.pw_zs_cluster_run(packed.data_ptr(), out.data_ptr(), iters.data_ptr(), k, h, nw,
-                                        max_iter, int(rotated), stream)
+            err = lib.pw_zs_cluster_run(packed.data_ptr(), out.data_ptr(), iters.data_ptr(), None, None, 0, 1, 0,
+                                        k, h, nw, 0, max_iter, int(rotated), stream)
             _count("zhang_suen_packed")
             _raise_on(lib, "zhang_suen_packed", err)
             STATS["zhang_suen_packed"] = iters
@@ -676,6 +689,77 @@ def zhang_suen_packed_cuda(packed: torch.Tensor, max_iter: int = 120, rotated: b
                 break
         STATS["zhang_suen_packed_multi"] = done
     return out
+
+
+# K6's layouts of the edges and skeletons it writes (``kRows``, ``kDense`` in csrc/bitboard_fixpoints.cu)
+LAYOUTS = {"rows": 1, "dense": 2}
+
+
+def row_bytes(layout: str, w: int) -> int:
+    """Bytes of one output row of ``w`` px: packed rows ⌈w/8⌉, dense w."""
+    return -(-w // 8) if layout == "rows" else w
+
+
+def layer_offset(layer: int, group: int, h: int, rb: int, img_stride: int) -> int:
+    """Where K6's store puts layer ``layer`` = b·group + l of its input in
+    an output of ``h`` rows of ``rb`` bytes a layer: byte b·img_stride +
+    l·h·rb (``zs_cluster``'s ``half``)."""
+    return (layer // group) * img_stride + (layer % group) * h * rb
+
+
+def _check_halves(name: str, packed: torch.Tensor, w: int, edges: torch.Tensor, skels: torch.Tensor,
+                  layout: str) -> tuple:
+    """(k, h, nw) of the boards and (B, group, image stride) of two uint8
+    outputs (B, group, H, row bytes) on their device, each image's (group, H,
+    row bytes) contiguous and the two with one image stride."""
+    k, h, nw = _check(name, packed)
+    _check_width(name, packed, w)
+    if layout not in LAYOUTS:
+        raise ValueError(f"{name}: layout {layout!r} is none of {tuple(LAYOUTS)}")
+    rb = row_bytes(layout, w)
+    for t in (edges, skels):
+        if not (t.device == packed.device and t.dtype == torch.uint8 and t.dim() == 4 and t.shape[2:] == (h, rb)
+                and t.shape == edges.shape and t.stride()[1:] == (h * rb, rb, 1) and t.stride(0) == edges.stride(0)):
+            raise ValueError(f"{name}: expected two uint8 (B, group, {h}, {rb}) outputs on {packed.device} with "
+                             f"contiguous images and one image stride, got {tuple(t.shape)} {t.stride()} {t.dtype}")
+    b, group = edges.shape[:2]
+    if b * group != k:
+        raise ValueError(f"{name}: outputs of {b} x {group} layers for {k} layers of boards")
+    return k, h, nw, b, group, edges.stride(0)
+
+
+def zhang_suen_into_cuda(packed: torch.Tensor, w: int, edges: torch.Tensor, skels: torch.Tensor,
+                         layout: str = "rows", max_iter: int = 120, rotated: bool = True,
+                         route: str | None = None) -> None:
+    """K6 with its stores: ``ops.thinning.zhang_suen_into_plain`` on CUDA
+    bitboards.  Writes the input's layers (the edges) into ``edges`` and
+    their fixpoint (the skeletons) into ``skels``, layer b·group + l at
+    ``[b, l]`` of each, in ``layout`` (:data:`LAYOUTS`: packed rows, or dense
+    bytes 255 / 1), by :func:`fixpoint_route`: the resident route in its one
+    launch (max_iter 0 too), the multi-launch route by K6's launches and then
+    K1 for each image's edges and skeletons."""
+    k, h, nw, b, group, img_stride = _check_halves("zhang_suen_into", packed, w, edges, skels, layout)
+    route = fixpoint_route("zhang_suen_packed", h, nw, route)
+    if packed.numel() == 0:
+        return
+    if route == "multi":
+        skel_b = zhang_suen_packed_cuda(packed, max_iter, rotated, route)
+        for src, dst, value in ((packed, edges, 255), (skel_b, skels, 1)):
+            for i, layers in enumerate(src.view(b, group, h, nw)):
+                if layout == "rows":
+                    boards_to_rows_cuda(layers, w, out=dst[i])
+                else:
+                    boards_to_dense_cuda(layers, w, value, out=dst[i])
+        return
+    lib = load("bitboard_fixpoints")
+    with _guard(packed.device):
+        iters = torch.empty(k, dtype=torch.int32, device=packed.device)
+        err = lib.pw_zs_cluster_run(packed.data_ptr(), None, iters.data_ptr(), edges.data_ptr(), skels.data_ptr(),
+                                    img_stride, group, LAYOUTS[layout], k, h, nw, w, max_iter, int(rotated),
+                                    torch.cuda.current_stream().cuda_stream)
+        _count("zhang_suen_packed")
+        _raise_on(lib, "zhang_suen_into", err)
+        STATS["zhang_suen_packed"] = iters
 
 
 def hysteresis_cuda(cand: torch.Tensor, strong: torch.Tensor, route: str | None = None) -> torch.Tensor:
@@ -781,32 +865,66 @@ def _step_table(steps: tuple, device: torch.device):
     return _tables[key]
 
 
-def morph_steps_cuda(x: torch.Tensor, valid: torch.Tensor, steps) -> torch.Tensor:
-    """K2: ``ops.morphology.morph_steps_plain``'s step list on CUDA
-    bitboards, one launch per segment of :func:`morph_schedule` (one at the
-    defaults); returns ``x`` itself for an empty list, else a new board."""
-    k, h, nw = _check("morph_bits", x)
+def _check_rows(name: str, rows: torch.Tensor, w: int) -> tuple:
+    """(layers, h) of CUDA uint8 packed rows (..., H, ⌈w/8⌉)."""
+    _check_dense(name, rows, (torch.uint8,))
+    if rows.dim() < 2 or w <= 0 or rows.shape[-1] != -(-w // 8):
+        raise ValueError(f"{name}: expected (..., H, ⌈{w}/8⌉) packed rows, got {tuple(rows.shape)}")
+    h = rows.shape[-2]
+    return (rows.numel() // (h * rows.shape[-1]) if h else 0), h
+
+
+def morph_steps_cuda(x: torch.Tensor, valid: torch.Tensor, steps, width: int | None = None,
+                     rows_out: torch.Tensor | None = None) -> torch.Tensor:
+    """K2: ``ops.morphology.morph_steps_plain``'s step list on CUDA bitboards,
+    or on uint8 packed rows (..., H, ⌈width/8⌉) that its load converts, one
+    launch per segment of :func:`morph_schedule` (one at the defaults) → a
+    new board.  ``rows_out`` (a contiguous uint8 tensor of as many bytes as
+    the rows, on that device, e.g. a view into a blob) receives the result's
+    packed rows from the same launch.  An empty list returns ``x`` itself for
+    a board and no ``rows_out``, else it is one launch that converts."""
+    rows_in = x.dtype == torch.uint8
+    if rows_in:
+        if width is None:
+            raise ValueError("morph_bits: packed rows need their width")
+        k, h = _check_rows("morph_bits", x, width)
+        nw = -(-width // 32)
+    else:
+        k, h, nw = _check("morph_bits", x)
     if not (valid.is_cuda and valid.device == x.device and valid.dtype == torch.int32
             and valid.is_contiguous() and tuple(valid.shape) == (nw,)):
         raise ValueError(f"morph_bits: valid must be a contiguous ({nw},) int32 tensor on {x.device}")
+    if rows_out is not None:
+        if width is None or -(-width // 32) != nw:
+            raise ValueError(f"morph_bits: rows_out needs the width of rows of {nw} words")
+        _check_dense("morph_bits", rows_out, (torch.uint8,))
+        if rows_out.device != x.device or rows_out.numel() != k * h * -(-width // 8):
+            raise ValueError(f"morph_bits: rows_out {tuple(rows_out.shape)} on {rows_out.device} does not take "
+                             f"{k} x {h} rows of {width} px")
     steps = tuple(steps)
-    if not steps:
+    if not steps and not rows_in and rows_out is None:
         return x
     table, radii = _step_table(steps, x.device)
+    shape = (*x.shape[:-1], nw)
     if x.numel() == 0:
-        return x.clone()
+        return torch.empty(shape, dtype=torch.int32, device=x.device)
     if k > 65535:
         raise ValueError(f"morph_bits: {k} layers exceed the kernel's grid")
-    segments = morph_schedule(radii, h, nw)
+    # a list of no steps is one launch that converts
+    segments = morph_schedule(radii, h, nw) or ((0, 0, max(1, min(MORPH_BAND, h)), 0),)
     lib = load("morph_bits")
     with _guard(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        bufs = [torch.empty_like(x) for _ in range(min(2, len(segments)))]
+        bufs = [torch.empty(shape, dtype=torch.int32, device=x.device) for _ in range(min(2, len(segments)))]
         src = x
         for j, (start, stop, band, radius) in enumerate(segments):
             dst = bufs[j % 2]
-            err = lib.pw_morph_steps_run(src.data_ptr(), dst.data_ptr(), valid.data_ptr(), table.data_ptr(), start,
-                                         stop - start, radius, band, k, h, nw, stream)
+            first_rows = rows_in and j == 0
+            last_rows = rows_out is not None and j == len(segments) - 1
+            err = lib.pw_morph_steps_run(None if first_rows else src.data_ptr(), src.data_ptr() if first_rows else None,
+                                         dst.data_ptr(), rows_out.data_ptr() if last_rows else None, valid.data_ptr(),
+                                         table.data_ptr(), start, stop - start, radius, band, k, h, nw, width or 0,
+                                         stream)
             _count("morph_bits")
             _raise_on(lib, "morph_bits", err)
             src = dst

@@ -16,7 +16,9 @@ element (the zero fill is OpenCV's non-feeding border); erosion is
 not constrain it.  A step list ((shape, ksize, op), ...) chains such ops;
 :func:`morph_steps` runs it through kernel K2 on a CUDA tensor and
 :func:`morph_steps_plain` on a CPU tensor, and :func:`morph_bits` is one
-program of the JAX package's signature as a step list.
+program of the JAX package's signature as a step list.  Both take packed rows
+(8 px a byte) in place of a board and can write the result's packed rows as
+well: on the card K2's load and store convert, with no launch of K1.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import functools
 import numpy as np
 import torch
 
+from .bitpack import boards_to_rows_plain, rows_to_boards_plain
 from .thinning import _shift_rows, _shift_words, lsr
 
 
@@ -91,16 +94,24 @@ def morph_program(shape: str, ksize: int, iterations: int, program: str) -> tupl
     return tuple((shape, ksize, op) for op in program for _ in range(iterations))
 
 
-def morph_steps_plain(x: torch.Tensor, valid: torch.Tensor, steps) -> torch.Tensor:
+def morph_steps_plain(x: torch.Tensor, valid: torch.Tensor, steps, width: int | None = None,
+                      rows_out: torch.Tensor | None = None) -> torch.Tensor:
     """A step list on bitboards, each step (shape, ksize, op) one dilation
     (op 'd') or erosion (any other op) by its element, in order: the chained
-    calls of the JAX package's ``morph_bits``."""
+    calls of the JAX package's ``morph_bits``.  ``x`` may be uint8 packed
+    rows (..., H, ⌈width/8⌉) instead, converted first; ``rows_out`` (uint8,
+    as many bytes as the rows) receives the result's packed rows.  Returns
+    the result's board."""
+    if x.dtype == torch.uint8:
+        x = rows_to_boards_plain(x, width)
     for shape, ksize, op in steps:
         se = structuring_element(shape, ksize)
         if op == "d":
             x = _dilate_bits(x, se)
         else:
             x = (~_dilate_bits((~x) & valid, se)) & valid
+    if rows_out is not None:
+        rows_out.copy_(boards_to_rows_plain(x, width).reshape(rows_out.shape))
     return x
 
 
@@ -111,18 +122,21 @@ def morph_bits_plain(x: torch.Tensor, valid: torch.Tensor, shape: str, ksize: in
     return morph_steps_plain(x, valid, morph_program(shape, ksize, iterations, program))
 
 
-def morph_steps(x: torch.Tensor, valid: torch.Tensor, steps) -> torch.Tensor:
+def morph_steps(x: torch.Tensor, valid: torch.Tensor, steps, width: int | None = None,
+                rows_out: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`morph_steps_plain`'s step list on (..., H, NW) int32 bitboards
-    (``valid`` from :func:`_valid_bits`).  A CUDA tensor runs kernel K2
-    (``ops/kernels.py``), the whole list in one launch at the defaults; a CPU
+    or (..., H, ⌈width/8⌉) uint8 packed rows (``valid`` from
+    :func:`_valid_bits`), the result's packed rows into ``rows_out`` when
+    given.  A CUDA tensor runs kernel K2 (``ops/kernels.py``), the whole list
+    in one launch at the defaults, its load and store converting; a CPU
     tensor the plain version; any other device raises."""
     if x.is_cuda:
         from .kernels import morph_steps_cuda  # noqa: PLC0415
 
-        return morph_steps_cuda(x, valid, steps)
+        return morph_steps_cuda(x, valid, steps, width, rows_out)
     if x.device.type != "cpu":
         raise ValueError(f"morph_bits: no kernel for device {x.device}")
-    return morph_steps_plain(x, valid, steps)
+    return morph_steps_plain(x, valid, steps, width, rows_out)
 
 
 def morph_bits(x: torch.Tensor, valid: torch.Tensor, shape: str, ksize: int,

@@ -15,7 +15,10 @@ on a CUDA tensor, the plain versions on a CPU tensor.
 :func:`zhang_suen_packed` is the fixpoint: on a CUDA tensor it runs the
 hand-written kernel (``ops/kernels.py``), on a CPU tensor the plain version
 below.  Iterations past the fixpoint are no-ops, and one convergence flag
-covers every layer, as in the JAX ``while_loop``.
+covers every layer, as in the JAX ``while_loop``.  :func:`zhang_suen_into`
+writes the fixpoint's input (the edges) and its result (the skeletons) as
+packed rows or dense bytes into given outputs: on the card from K6's own
+launch, with no launch of K1.
 
 :func:`zhang_suen_dense` is the same thinning on dense 0/1 pixels, the
 front-end's ``pallas_thinning=True`` route: kernel K12 on a CUDA tensor,
@@ -209,6 +212,38 @@ def zhang_suen_packed(packed: torch.Tensor, max_iter: int = 120, rotated: bool =
     if packed.device.type != "cpu":
         raise ValueError(f"zhang_suen_packed: no kernel for device {packed.device}")
     return zhang_suen_packed_plain(packed, max_iter, rotated)
+
+
+def zhang_suen_into_plain(packed: torch.Tensor, width: int, edges: torch.Tensor, skels: torch.Tensor,
+                          layout: str = "rows", max_iter: int = 120, rotated: bool = True) -> None:
+    """Writes the edge boards ``packed`` (B·group layers, (..., H, NW)) and
+    their :func:`zhang_suen_packed_plain` fixpoint into ``edges`` and
+    ``skels`` (B, group, H, row bytes): as packed rows (``layout`` "rows",
+    ⌈width/8⌉ bytes a row) or dense bytes ("dense", the edges 255, the
+    skeletons 1).  The plain version of ``ops.kernels.zhang_suen_into_cuda``:
+    K1's plain conversions after the plain K6."""
+    from .bitpack import boards_to_rows_plain  # noqa: PLC0415 (bitpack imports this module)
+
+    skel = zhang_suen_packed_plain(packed, max_iter, rotated)
+    for src, dst, value in ((packed, edges, 255), (skel, skels, 1)):
+        rows = boards_to_rows_plain(src, width) if layout == "rows" else dense_from_boards_plain(src, width, value)
+        dst.copy_(rows.reshape(dst.shape))
+
+
+def zhang_suen_into(packed: torch.Tensor, width: int, edges: torch.Tensor, skels: torch.Tensor,
+                    layout: str = "rows", max_iter: int = 120, rotated: bool = True) -> None:
+    """:func:`zhang_suen_into_plain` on the boards' device: kernel K6 with its
+    stores for a CUDA tensor (``ops/kernels.py``), the plain version for a CPU
+    tensor, else raise."""
+    if layout not in ("rows", "dense"):
+        raise ValueError(f"zhang_suen_into: layout {layout!r} is neither 'rows' nor 'dense'")
+    if packed.is_cuda:
+        from .kernels import zhang_suen_into_cuda  # noqa: PLC0415
+
+        return zhang_suen_into_cuda(packed, width, edges, skels, layout, max_iter, rotated)
+    if packed.device.type != "cpu":
+        raise ValueError(f"zhang_suen_into: no kernel for device {packed.device}")
+    return zhang_suen_into_plain(packed, width, edges, skels, layout, max_iter, rotated)
 
 
 def zhang_suen(binary: torch.Tensor, max_iter: int = 120, rotated: bool = True) -> torch.Tensor:

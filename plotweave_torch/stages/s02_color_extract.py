@@ -17,8 +17,8 @@ stages 03 and 04 take its blob from the derived-artifact registry.
 ``kmeans_init: "device"`` runs the whole stage on the raster device
 (:func:`device_init_stage`): the float Lab of a subsample, k-means++ seeds
 and the Lloyd fits (kernel K8), the all-pixel assignment with its counts
-(K7), the masks' open and close (K2), their packed rows (K1) and, when fused,
-the chain, all into one blob and one download.  Its random numbers are the
+(K7), the masks' open and close with their packed rows (K2) and, when
+fused, the chain, all into one blob and one download.  Its random numbers are the
 port's own (``ops/kmeans.py``): the subsample drawn on the raster device by
 hashed keys, and only the seeds' k + 1 numbers per attempt from host
 generators; deterministic per seed, the same on the card and on the CPU, not
@@ -44,53 +44,53 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
-from ..ops.bitpack import boards_to_rows, rows_to_boards
 from ..ops.canny import canny_boards
 from ..ops.cvkmeans import assign_labels, cv_kmeans
 from ..ops.frontend import assign_boards_counts
 from ..ops.kmeans import kmeans_fit_device, subsample_lab
 from ..ops.morphology import _valid_bits, morph_dense, morph_program, morph_steps
-from ..ops.thinning import zhang_suen_packed
+from ..ops.thinning import zhang_suen_into
 from ..utils import (fetch_device_artifact, read_image, register_derived_artifact, register_device_artifact,
                      save_json, thread_map, write_image)
 from ..utils.devices import raster_device
 from .common import chain_key, darkness_rank, edge_params, layer_dir
 
 
-def open_close_boards(masks_b: torch.Tensor, w: int, open_iters: int, close_iters: int,
-                      shape: str = "rect", ksize: int = 3) -> torch.Tensor:
-    """Open, then close, binary masks held as bitboards, as one step list of
-    the packed morphology (K2: one launch on the card)."""
+def open_close_boards(masks: torch.Tensor, w: int, open_iters: int, close_iters: int, shape: str = "rect",
+                      ksize: int = 3, rows_out: torch.Tensor | None = None) -> torch.Tensor:
+    """Open, then close, binary masks held as bitboards or as packed rows
+    (uint8, ⌈w/8⌉ bytes a row), as one step list of the packed morphology →
+    the result's bitboards, its packed rows also into ``rows_out`` when given
+    (K2: one launch on the card, whose load and store convert)."""
     steps = morph_program(shape, ksize, open_iters, "ed") + morph_program(shape, ksize, close_iters, "de")
-    return morph_steps(masks_b, _valid_bits(w, masks_b.device), steps)
+    return morph_steps(masks, _valid_bits(w, masks.device), steps, w, rows_out)
 
 
-def edges_from_boards(masks_b: torch.Tensor, w: int, mk: int, oi: int, ci: int, bk: int, lo: int,
+def edges_from_boards(masks: torch.Tensor, w: int, mk: int, oi: int, ci: int, bk: int, lo: int,
                       hi: int) -> torch.Tensor:
-    """Stage 03 over bitboards: the masks' open and close, the blur and Canny
-    → the edges as bitboards (K2, K3+K4 and K5 on the card)."""
-    return canny_boards(open_close_boards(masks_b, w, oi, ci, "ellipse", mk), w, bk, lo, hi)
+    """Stage 03 over bitboards or packed rows: the masks' open and close, the
+    blur and Canny → the edges as bitboards (K2, K3+K4 and K5 on the card)."""
+    return canny_boards(open_close_boards(masks, w, oi, ci, "ellipse", mk), w, bk, lo, hi)
 
 
-def chain_tail(masks_b: torch.Tensor, w: int, mk: int, oi: int, ci: int, bk: int, lo: int, hi: int,
+def chain_tail(masks: torch.Tensor, w: int, mk: int, oi: int, ci: int, bk: int, lo: int, hi: int,
                out: torch.Tensor | None = None) -> torch.Tensor:
     """Stage 03's morphology, blur and Canny and stage 04's thinning over the
-    cleaned masks as (..., k, H, ⌈W/32⌉) bitboards → packed (..., 2, k, H,
-    ⌈W/8⌉) edges, then skeletons, in one tensor (written into ``out``, a
-    contiguous uint8 tensor of that many bytes on that device, when given).
-    Leading dims are images: the kernels take them as more layers, and each
-    image's two halves are written in place, so image b's part, flattened, is
-    the solo call's blob."""
+    cleaned masks as (..., k, H, ⌈W/32⌉) bitboards or (..., k, H, ⌈W/8⌉)
+    packed rows → packed (..., 2, k, H, ⌈W/8⌉) edges, then skeletons, in one
+    tensor (written into ``out``, a contiguous uint8 tensor of that many
+    bytes on that device, when given).  Leading dims are images: the kernels
+    take them as more layers, and each image's two halves are written in
+    place, so image b's part, flattened, is the solo call's blob.  On the
+    card: K2, K3+K4, K5 and K6, whose stores write both halves (a layer too
+    large for K6's resident route: K6's launches, then K1's)."""
     # the hysteresis board feeds the thinner in the same encoding
-    edges_b = edges_from_boards(masks_b, w, mk, oi, ci, bk, lo, hi)
-    skels_b = zhang_suen_packed(edges_b, max_iter=120, rotated=True)
-    *lead, k, h, nw = masks_b.shape
+    edges_b = edges_from_boards(masks, w, mk, oi, ci, bk, lo, hi)
+    *lead, k, h, _ = masks.shape
     shape = (*lead, 2, k, h, -(-w // 8))
-    blob = torch.empty(shape, dtype=torch.uint8, device=masks_b.device) if out is None else out.view(shape)
+    blob = torch.empty(shape, dtype=torch.uint8, device=masks.device) if out is None else out.view(shape)
     halves = blob.view(-1, 2, k, h, shape[-1])
-    for b, (e, s) in enumerate(zip(edges_b.view(-1, k, h, nw), skels_b.view(-1, k, h, nw))):
-        boards_to_rows(e, w, out=halves[b, 0])
-        boards_to_rows(s, w, out=halves[b, 1])
+    zhang_suen_into(edges_b, w, halves[:, 0], halves[:, 1], "rows", max_iter=120, rotated=True)
     return blob
 
 
@@ -99,10 +99,11 @@ def chain_from_clean(packed_clean, w: int, mk: int, oi: int, ci: int, bk: int, l
     """The fused 03→04 chain over stage 02's cleaned masks, packed
     (k, H, ⌈W/8⌉) uint8, on ``device`` → one flat uint8 blob
     [packed edges (k·H·⌈W/8⌉)][packed skeletons], in cluster order.  On the
-    card every step between the upload and the blob is a kernel: K1, K2,
-    K3+K4, K5, K6, K1."""
+    card every step between the upload and the blob is a kernel, four
+    launches: K2 (loading the packed rows), K3+K4, K5, K6 (storing the
+    blob)."""
     packed = torch.as_tensor(packed_clean, dtype=torch.uint8, device=device)
-    return chain_tail(rows_to_boards(packed, w), w, mk, oi, ci, bk, lo, hi).reshape(-1)
+    return chain_tail(packed, w, mk, oi, ci, bk, lo, hi).reshape(-1)
 
 
 def chain_blob_batch(packed_clean, w: int, mk: int, oi: int, ci: int, bk: int, lo: int, hi: int,
@@ -114,7 +115,7 @@ def chain_blob_batch(packed_clean, w: int, mk: int, oi: int, ci: int, bk: int, l
     relies on this: ``parallel/batchrun.py``).  One upload; the caller makes
     the one download."""
     packed = torch.as_tensor(packed_clean, dtype=torch.uint8, device=device)
-    return chain_tail(rows_to_boards(packed, w), w, mk, oi, ci, bk, lo, hi).reshape(packed.shape[0], -1)
+    return chain_tail(packed, w, mk, oi, ci, bk, lo, hi).reshape(packed.shape[0], -1)
 
 
 def assign_tail(img: torch.Tensor, centers: torch.Tensor, k: int, open_iters: int, close_iters: int,
@@ -122,14 +123,16 @@ def assign_tail(img: torch.Tensor, centers: torch.Tensor, k: int, open_iters: in
     """All-pixel nearest-centre assignment of one (H, W, 3) uint8 BGR image →
     (counts (k,) int32, the cleaned masks packed (k, H, ⌈W/8⌉) uint8, the
     cleaned masks as bitboards); twin of the JAX stage's ``_assign_tail``.  On
-    the card K7 with counts, K2 (3×3 rect open, then close) and K1; ``counts``
-    and ``out`` receive the counts and the packed rows when given (views into
-    the stage's blob).  K7 takes ``Σ (lab − c)²``, not the fit's expanded
-    form, so a label may differ from the JAX stage's at a near tie only."""
-    w = img.shape[1]
+    the card K7 with counts and K2 (3×3 rect open, then close, its store
+    writing the packed rows too); ``counts`` and ``out`` receive the counts
+    and the packed rows when given (views into the stage's blob).  K7 takes
+    ``Σ (lab − c)²``, not the fit's expanded form, so a label may differ from
+    the JAX stage's at a near tie only."""
+    h, w = img.shape[:2]
     boards, counts = assign_boards_counts(img, centers, k, counts)
-    masks_b = open_close_boards(boards, w, open_iters, close_iters, "rect", 3)
-    return counts, boards_to_rows(masks_b, w, out=out), masks_b
+    rows = torch.empty((k, h, -(-w // 8)), dtype=torch.uint8, device=img.device) if out is None else out
+    masks_b = open_close_boards(boards, w, open_iters, close_iters, "rect", 3, rows_out=rows)
+    return counts, rows, masks_b
 
 
 def device_init_stage(img: torch.Tensor, k: int, iters: int, attempts: int, limit: int, seed: int, fuse: bool,
@@ -141,7 +144,7 @@ def device_init_stage(img: torch.Tensor, k: int, iters: int, attempts: int, limi
     float32, the counts (k,) int32, the cleaned masks packed (k, H, ⌈W/8⌉)
     and, when fused, the chain's [packed edges][packed skeletons]; the cleaned
     masks as bitboards).  On the card: K8 (the subsample's draw, sampler,
-    seeds, fits), K7 with counts, K2, K1 and the chain's kernels, every one
+    seeds, fits), K7 with counts, K2 and the chain's kernels, every one
     writing its part of the blob in place; nothing is read back here.  The
     subsample is drawn on the image's device; only the seeds' k + 1 numbers
     per attempt come from host generators, a few bytes (``ops/kmeans.py``).

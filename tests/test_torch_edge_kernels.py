@@ -24,7 +24,7 @@ import torch
 from plotweave.ops import bitpack as jbitpack
 from plotweave.ops import filters as jfilters
 from plotweave.ops import thinning as jthin
-from plotweave_torch.ops import bitpack, filters, kernels, thinning
+from plotweave_torch.ops import bitpack, filters, kernels, morphology, thinning
 
 # the package exports the function ``canny``, as ``plotweave.ops`` does, so the module is named in full
 canny = importlib.import_module("plotweave_torch.ops.canny")
@@ -486,7 +486,7 @@ def test_k1_plain_conversions_match_jax(w):
     rows = rng.integers(0, 256, (2, 5, -(-w // 8)), dtype=np.uint8)
     bits = np.asarray(jbitpack.bitunpack_rows(jnp.asarray(rows), w))
     np.testing.assert_array_equal(bits, np.unpackbits(rows, axis=-1)[..., :w])
-    boards = bitpack.rows_to_boards(torch.from_numpy(rows), w)
+    boards = bitpack.rows_to_boards_plain(torch.from_numpy(rows), w)
     np.testing.assert_array_equal(bitboards_to_jax(boards), np.asarray(jthin.pack_bitboards(jnp.asarray(bits))))
     valid = thinning.pack_bitboards_plain(torch.ones((1, w)))
     assert torch.equal(boards & valid, boards)
@@ -495,16 +495,16 @@ def test_k1_plain_conversions_match_jax(w):
     words = rng.integers(0, 2**32, (2, 5, -(-w // 32)), dtype=np.uint64).astype(np.uint32)
     dense = np.asarray(jthin.unpack_bitboards(jnp.asarray(words), w))
     np.testing.assert_array_equal(thinning.unpack_bitboards(bitboards_from_jax(words), w).numpy(), dense)
-    got = bitpack.boards_to_rows(bitboards_from_jax(words), w)
+    got = bitpack.boards_to_rows_plain(bitboards_from_jax(words), w)
     np.testing.assert_array_equal(got.numpy(), np.packbits(dense > 0, axis=-1))
     np.testing.assert_array_equal(got.numpy(), np.asarray(jbitpack.bitpack_rows(jnp.asarray(dense))))
     for value in (1, 255):
         got = thinning.dense_from_boards(bitboards_from_jax(words), w, value)
         assert got.dtype == torch.uint8
         np.testing.assert_array_equal(got.numpy(), dense.astype(np.uint8) * value)
-    # into a given tensor: the chain writes its blob in place
+    # into a given tensor, by K2's packed-row store: stage 02's device mode writes the masks' rows in place
     out = torch.full((2, 2, 5, -(-w // 8)), 0xAB, dtype=torch.uint8)
-    assert bitpack.boards_to_rows(bitboards_from_jax(words), w, out=out[1]) is not None
+    assert morphology.morph_steps(bitboards_from_jax(words), morphology._valid_bits(w), (), w, out[1]) is not None
     np.testing.assert_array_equal(out[1].numpy(), np.packbits(dense > 0, axis=-1))
     assert bool((out[0] == 0xAB).all())
 
@@ -517,8 +517,10 @@ def test_new_dispatchers_raise_for_other_devices():
     b = torch.zeros((1, 4, 2), dtype=torch.int32, device=meta)
     for call in (lambda: thinning.pack_bitboards(u8), lambda: thinning.unpack_bitboards(b, 40),
                  lambda: thinning.dense_from_boards(b, 40, 255), lambda: bitpack.bitpack_rows(u8),
-                 lambda: bitpack.bitunpack_rows(u8[..., :5], 40), lambda: bitpack.rows_to_boards(u8[..., :5], 40),
-                 lambda: bitpack.boards_to_rows(b, 40), lambda: filters.gaussian_blur_u8(u8, 5),
+                 lambda: bitpack.bitunpack_rows(u8[..., :5], 40),
+                 lambda: morphology.morph_steps(u8[..., :5], b[0, 0], (), 40),
+                 lambda: thinning.zhang_suen_into(b, 40, u8[None, ..., :5], u8[None, ..., :5]),
+                 lambda: filters.gaussian_blur_u8(u8, 5),
                  lambda: canny.edge_candidates(b, 40, 5, 22, 70), lambda: canny.canny_candidates(u8, 22, 70),
                  lambda: onehot_boards(b, 4),
                  lambda: assign_boards(torch.zeros((4, 4, 3), dtype=torch.uint8, device=meta),
