@@ -84,13 +84,19 @@ Phases:
    Lab, put through K7's distance rule in plain PyTorch, must give K7's
    labels exactly; within 1e-3 of the plain Lab), a gather by index, and
    indices outside the image on the card refused by ``lab_sample``;
-   ``pw_kpp_init`` (the same picked rows and centres as the plain version for
-   16 seeds, k = 1, 2, 4, 8, on the poster's sample drawn on the card, on
-   integer rows with duplicates, 777 rows, 5 rows, an all-coincident sample
-   231,697 and 250,000 rows, each on the route its size takes (the last two
-   streamed, the others resident), and at the edges of u:
-   0, the least float, 2^-24, 0.999999, the float below 1, and 1);
-   ``pw_lloyd_fit`` at 200,000 x 3 and 777 x 3, k = 1,
+   ``pw_kmeans_fit``'s seeds (the launch with no iteration: the same picked
+   rows and centres as the plain version for 16 seeds, k = 1, 2, 4, 8, on the
+   poster's sample drawn on the card, on integer rows with duplicates, 777
+   rows, 5 rows, an all-coincident sample, 231,697 and 250,000 rows, each on
+   the route its size takes (the last two streamed, the others resident),
+   and at the edges of u: 0, the least float, 2^-24, 0.999999, the float
+   below 1, and 1); ``pw_kmeans_fit``, seeds and fits in one launch, against
+   ``kpp_init_plain`` + ``lloyd_fits_plain`` at 200,000 rows (resident) and
+   250,000 (streamed), k = 1 and 4 on the poster, k = 8 on eight blobs and on
+   four distinct rows (empty clusters), iterations 0, 1 and 40 (picks equal,
+   centres within 1e-3, compactness within 1e-5 relative at its own centres,
+   iterations and the winning attempt equal, two runs bit-equal);
+   ``pw_lloyd_fit`` at 200,000 x 3, 777 x 3 and 250,000 x 3, k = 1,
    4, 8, ``iters`` 1 and 40 and an init that leaves a cluster empty (centres
    within 1e-3, compactness within 1e-5 relative of the plain version's at
    the same centres and within 1e-3 of the plain fit's, iterations equal,
@@ -195,7 +201,10 @@ checkout before ``phase_probe`` it times that tree), ``phase_k34_sweep()``
 clock64 cycles by phase), ``phase_k9_phases()`` and ``phase_k9_ab(other)``
 (the same for K9, with its chain floor: run the phases first),
 ``phase_k1_fold_ab(other)`` (the chain, K2 and K6 alone, the grouped call
-of 8 and the front-end against another checkout's, in turns).  Each phase's wall seconds
+of 8 and the front-end against another checkout's, in turns),
+``phase_kmeans_ab(other)`` and ``phase_k8_phases()`` (K8's seeds and fits
+and stage 02's device mode against another checkout's, in turns, and the
+launch's clock64 cycles by phase).  Each phase's wall seconds
 are printed before the ``kernels`` line.
 """
 
@@ -227,16 +236,16 @@ CHAIN_LAUNCHES = {"morph_bits": 1, "edge_candidates": 1, "hysteresis": 1, "zhang
 # the kernels of plotweave_torch/csrc by a part of their names, as a profiler's trace shows them
 OWN_KERNELS = ("rows_to_boards", "boards_to_rows", "boards_to_dense", "dense_to_boards", "labels_to_boards",
                "morph_steps", "edge_tiles", "hysteresis_cluster", "hysteresis_sweep", "zs_cluster", "zs_subpass",
-               "assign_nearest", "zs_tiles", "subsample", "lab_sample", "kpp_init", "lloyd_fit", "assign_points", "morph_runs",
+               "assign_nearest", "zs_tiles", "subsample", "lab_sample", "kmeans_fit", "lloyd_fit", "assign_points", "morph_runs",
                "greedy_tour", "refine_tour", "area_frac", "area_int", "bezier_sample")
 # stage 03's mask open and close at the default config (ellipse 3, 1 and 1): K2's step list on the main path
 MAIN_PATH_STEPS = (("ellipse", 3, "e"), ("ellipse", 3, "d"), ("ellipse", 3, "d"), ("ellipse", 3, "e"))
 POSTER_PALETTE = [[30, 25, 20], [70, 90, 190], [140, 175, 220], [225, 220, 215]]  # synthetic_image's four tones, BGR
 KMEANS_SAMPLE = 200_000  # the default kmeans_sample_limit
-# one run of stage 02 in device mode, fused: K8 four times (the draw, the sampler, the seeds, the fits), K7 with
-# counts, K2 for the masks (storing their packed rows too) and for the chain, then the chain's K3+K4, K5 and K6
-# (storing its two halves); no K1
-DEVICE_KMEANS_LAUNCHES = {"subsample": 1, "lab_sample": 1, "kpp_init": 1, "lloyd_fit": 1, "assign_nearest": 1, "morph_bits": 2,
+# one run of stage 02 in device mode, fused: K8 three times (the draw, the sampler, the seeds and fits in one
+# launch), K7 with counts, K2 for the masks (storing their packed rows too) and for the chain, then the chain's
+# K3+K4, K5 and K6 (storing its two halves); no K1
+DEVICE_KMEANS_LAUNCHES = {"subsample": 1, "lab_sample": 1, "kmeans_fit": 1, "assign_nearest": 1, "morph_bits": 2,
                           "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 1}
 # float operations of K8 per point: per centre and pass 9 (the dot product 5, the expanded distance 3, the
 # compare); the seeding per draw 12: the distance 8, the min, the scaling, the cap and the conversion
@@ -299,6 +308,16 @@ def k11_bound(numel: int, steps) -> dict:
         runs = kernels.element_runs(shape, ksize)[1]
         per_pixel += sum(min(dx1 - dx0, 3) + min(len(dys) - 1, 3) for dx0, dx1, dys in runs) + len(runs) - 1
     return bound(2 * numel, numel * per_pixel / 4, INT32_OPS)
+
+
+def kmeans_fit_bound(n: int, k: int, attempts: int, passes: int) -> dict:
+    """K8's seeds and fits of ``attempts`` attempts on n rows: the sample read
+    once (12 bytes a row), the draws, picks, centres, compactness and
+    iterations moved once, against the seeding's operations (n a draw and
+    attempt) and the fit's (n k a pass, ``passes`` over all attempts) at the
+    float32 rate."""
+    nbytes = 12 * n + 4 * attempts * k + 16 * attempts * k + 8 * attempts + 12 * k
+    return bound(nbytes, (attempts * (k - 1) * KPP_FLOPS_PER_DRAW + passes * k * LLOYD_FLOPS_PER_CENTER) * n, FP32_OPS)
 
 
 def fail(msg: str) -> None:
@@ -1707,56 +1726,106 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
     # too large to stay resident: the first size the streamed route takes, and more
     edge = kmeans.subsample_lab(poster, 44, 231_697)
     wide = kmeans.subsample_lab(poster, 43, 250_000)
+    # the seeds: the seeds-and-fits launch with no iteration (ops.kmeans.kpp_init on the card)
     n_kpp = 0
     for name, data in (("200,000 poster rows", sample), ("200,000 integer rows", quant), ("777 rows", small),
                        ("5 rows", small[:5].contiguous()), ("5,000 coincident rows", same), ("231,697 rows", edge),
                        ("250,000 rows", wide)):
         route = kernels.kpp_schedule(data.shape[0])["route"]
-        check(route == ("streamed" if data.shape[0] > 231_696 else "resident"), f"K8 kpp_init {name}: route {route}")
+        check(route == ("streamed" if data.shape[0] > 231_696 else "resident"), f"K8 kmeans_fit {name}: route {route}")
         for k in (1, 2, 4, 8):
             first, uniforms = kmeans.seed_stream(1000 + k, 16, k, data.shape[0])  # 16 seeds
-            got_c, got_p = kernels.kpp_init_cuda(data, k, first.to(dev), uniforms.to(dev))
+            got_c, got_p = kmeans.kpp_init(data, k, first, uniforms)
             for a in range(16):
                 ref_c, ref_p = kmeans.kpp_init_plain(data, k, int(first[a]), uniforms[a])
                 check(torch.equal(got_p[a], ref_p) and torch.equal(got_c[a], ref_c),
-                      f"K8 kpp_init {name} {route} k={k} seed {a}: picked {got_p[a].tolist()}, plain {ref_p.tolist()}")
+                      f"K8 seeds {name} {route} k={k} seed {a}: picked {got_p[a].tolist()}, plain {ref_p.tolist()}")
                 n_kpp += 1
     edges = (0.0, 1e-45, 2.0**-24, 0.999999, float(np.nextafter(np.float32(1), np.float32(0))), 1.0)
     for name, data in (("200,000 poster rows", sample), ("250,000 rows", wide)):  # one sample on each route
         for u in edges:
             first = torch.tensor([0, 17, data.shape[0] - 1], dtype=torch.int32)
             uniforms = torch.full((3, 3), u, dtype=torch.float32)
-            got = kernels.kpp_init_cuda(data, 4, first.to(dev), uniforms.to(dev))[1]
+            got = kmeans.kpp_init(data, 4, first, uniforms)[1]
             for a in range(3):
                 ref = kmeans.kpp_init_plain(data, 4, int(first[a]), uniforms[a])[1]
                 check(torch.equal(got[a], ref),
-                      f"K8 kpp_init {name} u={u} attempt {a}: picked {got[a].tolist()}, plain {ref.tolist()}")
+                      f"K8 seeds {name} u={u} attempt {a}: picked {got[a].tolist()}, plain {ref.tolist()}")
                 n_kpp += 1
-    print(f"K8 kpp_init == plain (the same picked rows and centres): {n_kpp} (sample, route, k, seed) cases on the "
-          f"poster's sample drawn on the card, integer rows with duplicates, 777 and 5 rows, 5,000 coincident rows and "
-          f"231,697 and 250,000 rows (streamed), each on the route its size takes, k = 1, 2, 4, 8, and u at {edges} "
-          f"on a sample of each route")
-    del edge, wide
+    print(f"K8 kmeans_fit's seeds (no iteration) == plain (the same picked rows and centres): {n_kpp} (sample, route, "
+          f"k, seed) cases on the poster's sample drawn on the card, integer rows with duplicates, 777 and 5 rows, "
+          f"5,000 coincident rows and 231,697 and 250,000 rows (streamed), each on the route its size takes, k = 1, "
+          f"2, 4, 8, and u at {edges} on a sample of each route")
+    del edge
 
-    # --- the fit
+    def fit_checks(name, data, got, ref):
+        """A fit (best, centres, compactness, iterations) against its plain version's: centres within 1e-3,
+        compactness within 1e-5 relative at its own centres and 1e-3 of the plain fit's, the same iterations and
+        the same winning attempt."""
+        err = float((got[1] - ref[1]).abs().max())
+        check(err <= 1e-3, f"K8 {name}: centres off by {err} > 1e-3")
+        # the kernel's last pass against the plain version's AT THE KERNEL'S CENTRES: only the sum's order differs
+        comp = max(rel_err(float(c), float(kmeans.lloyd_plain(data, cen, 0)[1])) for c, cen in zip(got[2], got[1]))
+        check(comp <= 1e-5, f"K8 {name}: compactness off by {comp} > 1e-5 relative at its own centres")
+        # against the plain fit's: before convergence a centre is not the mean of its final members, so the
+        # centres' last digits (within 1e-3) move the compactness in first order
+        loose = max(rel_err(float(a), float(b)) for a, b in zip(got[2], ref[2]))
+        check(loose <= 1e-3, f"K8 {name}: compactness off the plain fit's by {loose} > 1e-3 relative")
+        check(torch.equal(got[3], ref[3]), f"K8 {name}: iterations {got[3].tolist()} != {ref[3].tolist()}")
+        check(float((got[0] - ref[0]).abs().max()) <= 1e-3, f"K8 {name}: another attempt won")
+        return err, comp
+
+    # --- the seeds and fits in one launch against kpp_init_plain + lloyd_fits_plain on both routes.  k = 8 on
+    # eight separable blobs whose k-means++ seeds fall one a blob (where two seeds share a blob, the boundary between
+    # them runs through dense rows and the last digits of a sum decide which rows a centre wins: that case is held
+    # step by step below), and an empty cluster: four distinct rows repeated, k = 8
+    def eight_blobs(n: int):
+        g = np.random.default_rng(8)
+        parts = [g.normal(c, 2.0, (n // 8, 3)) for c in pens.cpu().numpy()]
+        return torch.from_numpy(np.concatenate(parts).astype(np.float32)).to(dev)
+
+    def four_rows(n: int):
+        """Four distinct integer rows, repeated: every sum of them is exact, so every attempt's compactness is
+        exactly 0 and the first attempt wins (an inexact mean would leave the expanded form's rounding to decide)."""
+        return pens[[0, 2, 5, 7]].repeat(n // 4, 1).contiguous()
+
+    worst, n_fused = (0.0, 0.0), 0
+    for data_4, n in ((sample, KMEANS_SAMPLE), (wide, 250_000)):
+        route = kernels.kpp_schedule(n)["route"]
+        for label, data, k in (("poster", data_4, 1), ("poster", data_4, 4), ("eight blobs", eight_blobs(n), 8),
+                               ("four distinct rows, empty clusters", four_rows(n), 8)):
+            first, uniforms = kmeans.seed_stream(7, 3, k, n)
+            draws = kmeans.seed_draws(first, uniforms).to(dev)
+            for iters in (0, 1, 40):
+                name = f"kmeans_fit {n} rows {route} {label} k={k} iters={iters}"
+                got = kernels.kmeans_fit_cuda(data, draws, iters)
+                best_idx = int(kernels.STATS["kmeans_fit"][2])
+                again = kernels.kmeans_fit_cuda(data, draws, iters)
+                check(all(torch.equal(x, y) for x, y in zip(got, again)), f"K8 {name}: two runs differ")
+                ref = kmeans.kmeans_fit_plain(data, k, first, uniforms, iters)
+                check(torch.equal(got[4], ref[4]), f"K8 {name}: picked {got[4].tolist()}, plain {ref[4].tolist()}")
+                worst = tuple(max(x, y) for x, y in zip(worst, fit_checks(name, data, got, ref)))
+                ref_idx = min(range(3), key=lambda a: (float(ref[2][a]), a))
+                check(best_idx == ref_idx, f"K8 {name}: attempt {best_idx} won, plain {ref_idx}")
+                if iters == 0:
+                    check(torch.equal(got[1], data[got[4].long()]), f"K8 {name}: no iteration moved the seeds")
+                if label.startswith("four"):  # the last four seeds repeat earlier ones: their clusters stay empty
+                    check(torch.equal(got[1][:, 4:], data[got[4][:, 4:].long()]), f"K8 {name}: an empty cluster moved")
+                n_fused += 1
+    print(f"K8 kmeans_fit == kpp_init_plain + lloyd_fits_plain: {n_fused} cases at 200,000 rows (resident) and "
+          f"250,000 (streamed), k = 1 and 4 on the poster, 8 on eight blobs and on four distinct rows (empty "
+          f"clusters), iterations 0, 1 and 40; picks equal, centres within {worst[0]:.2e} (tolerance 1e-3), "
+          f"compactness within {worst[1]:.2e} relative at its own centres (tolerance 1e-5), iterations and the "
+          f"winning attempt equal, two runs bit-equal")
+
+    # --- the fit alone from given seeds (the tools' kmeans): the same body
     def fit_case(name, data, inits, iters):
         got = kernels.lloyd_fit_cuda(data, inits, iters)
         again = kernels.lloyd_fit_cuda(data, inits, iters)
         check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K8 lloyd_fit {name}: two runs differ")
-        ref = kmeans.lloyd_fits_plain(data, inits, iters)
-        err = float((got[1] - ref[1]).abs().max())
-        check(err <= 1e-3, f"K8 lloyd_fit {name}: centres off by {err} > 1e-3")
-        # the kernel's last pass against the plain version's AT THE KERNEL'S CENTRES: only the sum's order differs
-        comp = max(rel_err(float(c), float(kmeans.lloyd_plain(data, cen, 0)[1])) for c, cen in zip(got[2], got[1]))
-        check(comp <= 1e-5, f"K8 lloyd_fit {name}: compactness off by {comp} > 1e-5 relative at its own centres")
-        # against the plain fit's: before convergence a centre is not the mean of its final members, so the
-        # centres' last digits (within 1e-3) move the compactness in first order
-        loose = max(rel_err(float(a), float(b)) for a, b in zip(got[2], ref[2]))
-        check(loose <= 1e-3, f"K8 lloyd_fit {name}: compactness off the plain fit's by {loose} > 1e-3 relative")
-        check(torch.equal(got[3], ref[3]), f"K8 lloyd_fit {name}: iterations {got[3].tolist()} != {ref[3].tolist()}")
-        check(float((got[0] - ref[0]).abs().max()) <= 1e-3, f"K8 lloyd_fit {name}: another attempt won")
+        out = fit_checks(f"lloyd_fit {name}", data, got, kmeans.lloyd_fits_plain(data, inits, iters))
         stepwise_case(name, data, inits, iters, got)
-        return err, comp
+        return out
 
     def stepwise_case(name, data, inits, iters, got, plain_steps: int = 0):
         """The fused loop against its own single-iteration launches with the
@@ -1787,13 +1856,13 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
         parts = [rng.normal(c, 5.0, (rows, 3)) for c in pens.cpu().numpy()] + [np.full((extra, 3), 7.0)]
         return torch.from_numpy(np.concatenate(parts).astype(np.float32)).to(dev)
 
-    eight = {"200,000 x 3": blobs8(25_000, 0), "777 x 3": blobs8(97, 1)}
-    worst, n_fit = (0.0, 0.0), 0
-    for name, four in (("200,000 x 3", sample), ("777 x 3", small)):
+    eight = {"200,000 x 3": blobs8(25_000, 0), "777 x 3": blobs8(97, 1), "250,000 x 3": blobs8(31_250, 0)}
+    n_fit = 0
+    for name, four in (("200,000 x 3", sample), ("777 x 3", small), ("250,000 x 3", wide)):
         for k in (1, 4, 8):
             data = eight[name] if k == 8 else four
             first, uniforms = kmeans.seed_stream(7, 3, k, data.shape[0])
-            inits = kernels.kpp_init_cuda(data, k, first.to(dev), uniforms.to(dev))[0]
+            inits = kmeans.kpp_init(data, k, first, uniforms)[0]
             if k == 8:
                 hard = (data, inits)
                 inits = (pens[None] + torch.from_numpy(rng.normal(0, 3.0, (3, 8, 3)).astype(np.float32)).to(dev)).contiguous()
@@ -1810,10 +1879,12 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
         check(torch.equal(kernels.lloyd_fit_cuda(data, inits, 40)[1][0, 3], inits[0, 3]),
               f"K8 lloyd_fit {name}: an empty cluster moved")
         n_fit += 1
-    print(f"K8 lloyd_fit == plain: {n_fit} cases at 200,000 x 3 and 777 x 3, k = 1, 4, 8, iters 1 and 40, an empty "
-          f"cluster; centres within {worst[0]:.2e} (tolerance 1e-3), compactness within {worst[1]:.2e} relative "
-          f"(tolerance 1e-5), iterations and the winning attempt equal, two runs bit-equal, the one-launch loop "
-          f"bit-equal to its own single steps, k = 8 from k-means++ seeds step by step within 1e-4 of the plain step")
+    print(f"K8 lloyd_fit == plain: {n_fit} cases at 200,000 x 3 and 777 x 3 (resident) and 250,000 x 3 (streamed), "
+          f"k = 1, 4, 8, iters 1 and 40, an empty cluster; centres within {worst[0]:.2e} (tolerance 1e-3), "
+          f"compactness within {worst[1]:.2e} relative (tolerance 1e-5), iterations and the winning attempt equal, "
+          f"two runs bit-equal, the one-launch loop bit-equal to its own single steps, k = 8 from k-means++ seeds "
+          f"step by step within 1e-4 of the plain step")
+    del wide
 
     # K8 at the main path's shape: 3,000,000 pixels -> 200,000 rows, k = 4, 3 attempts, 40 iterations
     def draw():
@@ -1826,34 +1897,34 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
         **bound(4 * KMEANS_SAMPLE, n_px * DRAW_OPS_PER_KEY, INT32_OPS)}
     n, k, attempts = sample.shape[0], 4, 3
     first, uniforms = kmeans.seed_stream(42, attempts, k, n)
-    first_d, uniforms_d, idx_d = first.to(dev), uniforms.to(dev), idx.to(dev)
-    inits = kernels.kpp_init_cuda(sample, k, first_d, uniforms_d)[0]
-    kernels.lloyd_fit_cuda(sample, inits, 40)
+    draws_d, idx_d = kmeans.seed_draws(first, uniforms).to(dev), idx.to(dev)
+    inits = kernels.kmeans_fit_cuda(sample, draws_d, 0)[1]
+    fused = kernels.kmeans_fit_cuda(sample, draws_d, 40)
     torch.cuda.synchronize()
-    passes = int(kernels.STATS["lloyd_fit"][0].sum()) + attempts  # every iteration and the last assignment
+    passes = int(fused[3].sum()) + attempts  # every iteration and the last assignment
+    err = float((fused[1] - kmeans.kmeans_fit_plain(sample, k, first, uniforms, 40)[1]).abs().max())
     px = poster.reshape(-1, 3)[idx_d.long()]
     stats["K8 lab_sample"] = {
         "max_abs_err": lab_err, "ms": cuda_ms(lambda: kernels.lab_sample_cuda(poster, idx_d), 20),
         "plain_ms": cuda_ms(lambda: bgr_to_lab_u8(poster.reshape(-1, 3)[idx_d.long()]), 5),
         "alone_ms": profiled_ms(lambda: kernels.lab_sample_cuda(poster, idx_d), "lab_sample", 20),
         **bound(n * (4 + 3 + 12), k7_flops(px, 0) + 3 * n * POWF_FLOPS, FP32_OPS)}
-    stats["K8 kpp_init"] = {
-        "max_abs_err": 0, "ms": cuda_ms(lambda: kernels.kpp_init_cuda(sample, k, first_d, uniforms_d), 10),
-        "plain_ms": cuda_ms(lambda: [kmeans.kpp_init_plain(sample, k, int(f), u) for f, u in zip(first, uniforms)], 1),
-        "alone_ms": profiled_ms(lambda: kernels.kpp_init_cuda(sample, k, first_d, uniforms_d), "kpp_init", 10),
-        **bound(12 * n + 12 * attempts * k, attempts * (k - 1) * n * KPP_FLOPS_PER_DRAW, FP32_OPS)}
+    stats["K8 kmeans_fit"] = {
+        "max_abs_err": err, "ms": cuda_ms(lambda: kernels.kmeans_fit_cuda(sample, draws_d, 40), 10),
+        "plain_ms": cuda_ms(lambda: kmeans.kmeans_fit_plain(sample, k, first, uniforms, 40), 1),
+        "alone_ms": profiled_ms(lambda: kernels.kmeans_fit_cuda(sample, draws_d, 40), "kmeans_fit", 10),
+        "passes": passes, "iterations": fused[3].tolist(), **kmeans_fit_bound(n, k, attempts, passes)}
     stats["K8 lloyd_fit"] = {
         "max_abs_err": worst[0], "ms": cuda_ms(lambda: kernels.lloyd_fit_cuda(sample, inits, 40), 10),
         "plain_ms": cuda_ms(lambda: kmeans.lloyd_fits_plain(sample, inits, 40), 1),
         "alone_ms": profiled_ms(lambda: kernels.lloyd_fit_cuda(sample, inits, 40), "lloyd_fit", 10),
-        "passes": passes, "iterations": kernels.STATS["lloyd_fit"][0].tolist(),
-        **bound(12 * n + 24 * attempts * k, passes * n * k * LLOYD_FLOPS_PER_CENTER, FP32_OPS)}
-    for key in ("K8 subsample", "K8 lab_sample", "K8 kpp_init", "K8 lloyd_fit"):
+        "passes": passes, **bound(12 * n + 24 * attempts * k, passes * n * k * LLOYD_FLOPS_PER_CENTER, FP32_OPS)}
+    for key in ("K8 subsample", "K8 lab_sample", "K8 kmeans_fit", "K8 lloyd_fit"):
         st = stats[key]
         print(f"{key} at {n_px} -> {n} x 3, k = {k}, {attempts} attempts: {st['ms']:.4f} ms a call"
               + (f" ({st['alone_ms']:.4f} alone)" if st.get("alone_ms") else "")
               + f", plain PyTorch on the card {st['plain_ms']:.3f} ms, bound {st['bound_ms']:.5f} ms by {st['bound_by']}"
-              + (f"; iterations {st['iterations']}, the sample read {passes} times" if key == "K8 lloyd_fit" else ""))
+              + (f"; iterations {st['iterations']}, the sample scanned {passes} times" if "iterations" in st else ""))
 
     # --- the tools' k-means on the card: K8's fit and assignment, card vs CPU
     data = np.concatenate([rng.normal(c, 6.0, (12500, 3)) for c in POSTER_PALETTE]).astype(np.float32)
@@ -2074,7 +2145,7 @@ def phase_device_kmeans_path(work: Path, stats: dict) -> dict:
 
     stats["device-kmeans trace"] = only_own_kernels(
         stage, "device_init_stage 2000x1500, fused, one call",
-        {"subsample": 1, "lab_sample": 1, "kpp_init": 1, "lloyd_fit": 1, "assign_nearest": 1, "morph_steps": 2,
+        {"subsample": 1, "lab_sample": 1, "kmeans_fit": 1, "assign_nearest": 1, "morph_steps": 2,
          "edge_tiles": 1, "hysteresis_cluster": 1, "zs_cluster": 1})
     stats["device-kmeans stage ms"] = cuda_ms(stage, 5)
     print(f"device_init_stage 2000x1500, fused: {stats['device-kmeans stage ms']:.3f} ms a call (CUDA events; the "
@@ -2828,15 +2899,19 @@ K8_AB_REPS = 7  # stage 02 runs a turn
 
 
 def kmeans_times() -> dict:
-    """K8's seeding and stage 02's device mode of the checkout that ``ROOT``
-    names, through that checkout's own code, on the synthetic 2000 x 1500
-    poster: ``kpp_init_cuda`` on a 200,000-row sample of it (the same rows
-    for every checkout: numpy's draw, gathered by ``lab_sample_cuda``), k =
-    4, 3 attempts, ms a call (CUDA events) and alone (``torch.profiler``),
-    and the picks' digest; ``device_init_stage`` (fused, as the runner calls
-    it) in host wall ms a call, synchronised, K8_AB_REPS calls; and stage
-    02's seconds of the CLI, steps 1-4 with ``kmeans_init: "device"``, three
-    runs.  Run after ``phase_probe``."""
+    """K8's seeds and fits and stage 02's device mode of the checkout that
+    ``ROOT`` names, through that checkout's own code, on the synthetic
+    2000 x 1500 poster: the seeds and fits of 3 attempts, k = 4, 40
+    iterations, on a 200,000-row sample of it (the same rows for every
+    checkout: numpy's draw, gathered by ``lab_sample_cuda``), through
+    ``kmeans_fit_cuda`` where the checkout has it (one launch), else through
+    ``kpp_init_cuda`` and ``lloyd_fit_cuda`` (two): ms a call (CUDA events),
+    the kernels' ms alone (``torch.profiler``, summed over the call's
+    kernels), the launches, the picks' digest, the iterations and the best
+    centres; ``device_init_stage`` (fused, as the runner calls it) in host
+    wall ms a call, synchronised, K8_AB_REPS calls; and stage 02's seconds of
+    the CLI, steps 1-4 with ``kmeans_init: "device"``, three runs.  Run after
+    ``phase_probe``."""
     import hashlib
 
     import cv2
@@ -2853,14 +2928,28 @@ def kmeans_times() -> dict:
     idx = np.sort(np.random.default_rng(42).choice(1500 * 2000, KMEANS_SAMPLE, replace=False)).astype(np.int32)
     sample = kernels.lab_sample_cuda(img, torch.from_numpy(idx).to(dev))
     first, uniforms = kmeans.seed_stream(42, 3, 4, KMEANS_SAMPLE)
-    fd, ud = first.to(dev), uniforms.to(dev)
+    if hasattr(kernels, "kmeans_fit_cuda"):
+        draws = kmeans.seed_draws(first, uniforms).to(dev)
 
-    def seeds():
-        return kernels.kpp_init_cuda(sample, 4, fd, ud)
+        def fit():
+            got = kernels.kmeans_fit_cuda(sample, draws, 40)
+            return got[4], got[0], got[3]
+    else:
+        fd, ud = first.to(dev), uniforms.to(dev)
 
-    picks = seeds()[1].cpu().numpy()
-    out = {"kpp": {"digest": hashlib.sha256(picks.tobytes()).hexdigest(), "ms": cuda_ms(seeds, 20),
-                   "alone_ms": profiled_ms(seeds, "kpp_init", 10)}}
+        def fit():
+            centers, picks = kernels.kpp_init_cuda(sample, 4, fd, ud)
+            got = kernels.lloyd_fit_cuda(sample, centers, 40)
+            return picks, got[0], got[3]
+
+    kernels.reset_launches()
+    picks, best, its = fit()
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in kernels.LAUNCHES.items() if c}
+    alone = kernel_ms(fit, 10)
+    out = {"fit": {"digest": hashlib.sha256(picks.cpu().numpy().tobytes()).hexdigest(), "best": best.cpu().tolist(),
+                   "iterations": its.cpu().tolist(), "launches": launches, "ms": cuda_ms(fit, 20),
+                   "alone_ms": sum(alone.values()) if alone else None, "kernels_alone_ms": alone}}
 
     def stage():
         device_init_stage(img, 4, 40, 3, KMEANS_SAMPLE, 42, True, *EDGE_PARAMS)
@@ -2881,56 +2970,30 @@ def kmeans_times() -> dict:
     return out
 
 
-def phase_kpp_scaling() -> dict:
-    """K8's seeding alone (``torch.profiler``) and a call (CUDA events), 3
-    attempts, k = 1, 2, 4, 8, on each route where its size takes it: the
-    poster's 200,000-row sample (resident) and a 250,000-row one (streamed).
-    k = 1 is the launch and the first centre only, so the slope over k is
-    the time of a draw (two cluster barriers, the update, the search) and
-    k = 2 less k = 1 adds the rows' load.  Run in a fresh process after
-    ``phase_probe``: late in a long one the profiler loses events."""
-    import torch
-
-    from plotweave_torch.ops import kernels, kmeans
-
-    dev = torch.device("cuda")
-    poster, _, sample = poster_sample()
-    out = {}
-    for data in (sample, kmeans.subsample_lab(poster, 43, 250_000)):
-        n = data.shape[0]
-        route = kernels.kpp_schedule(n)["route"]
-        for k in (1, 2, 4, 8):
-            first, uniforms = kmeans.seed_stream(42, 3, k, n)
-            fd, ud = first.to(dev), uniforms.to(dev)
-
-            def call(data=data, k=k, fd=fd, ud=ud):
-                return kernels.kpp_init_cuda(data, k, fd, ud)
-
-            out[f"{route} {n} k={k}"] = {"ms": cuda_ms(call, 20), "alone_ms": profiled_ms(call, "kpp_init", 10)}
-    for key, v in out.items():
-        print(f"K8 kpp_init {key}: {v['ms']:.4f} ms a call, alone "
-              + (f"{v['alone_ms']:.4f}" if v["alone_ms"] else "not caught") + " ms", flush=True)
-    print(json.dumps({"kpp_scaling": out}))
-    return out
-
-
 def phase_kmeans_ab(other: str) -> dict:
-    """K8's seeding and stage 02's device mode of this checkout against the
-    one at ``other`` (``git archive <rev> | tar -x -C .checkout/other``), in
-    turns other, this, this, other, each in a process of its own that runs
-    :func:`kmeans_times` with ``ROOT`` set to its checkout.  The picks differ
-    by contract between the seeding's designs, so only times are compared;
-    the seeding's bound is the phase-8 one at the same shape."""
+    """K8's seeds and fits and stage 02's device mode of this checkout against
+    the one at ``other`` (``git archive <rev> | tar -x -C .checkout/other``),
+    in turns other, this, this, other, each in a process of its own that runs
+    :func:`kmeans_times` with ``ROOT`` set to its checkout.  The seeding's
+    picks are the same function in both, so they must be equal, and so must
+    the iterations; the best centres within 1e-3 (the fits' sums run in
+    another order).  The bound is phase 8's at the same shape."""
     runs = ab_turns(other, "kmeans_times", "K8")
+    fits = [r["fit"] for v in runs.values() for r in v]
+    check(len({f["digest"] for f in fits}) == 1, "K8 A/B: the picks differ between turns or checkouts")
+    check(len({tuple(f["iterations"]) for f in fits}) == 1, "K8 A/B: the iterations differ")
+    err = max(abs(x - y) for f in fits for rx, ry in zip(f["best"], fits[0]["best"]) for x, y in zip(rx, ry))
+    check(err <= 1e-3, f"K8 A/B: the best centres differ by {err} > 1e-3")
     n, k, attempts = KMEANS_SAMPLE, 4, 3
-    b = bound(12 * n + 12 * attempts * k, attempts * (k - 1) * n * KPP_FLOPS_PER_DRAW, FP32_OPS)
-    result = {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+    b = kmeans_fit_bound(n, k, attempts, sum(fits[0]["iterations"]) + attempts)
+    result = {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "best_err": err}
     for key, v in runs.items():
-        result[key] = {"kpp_ms": [r["kpp"]["ms"] for r in v], "kpp_alone_ms": [r["kpp"]["alone_ms"] for r in v],
-                       "kpp_share_alone": [b["bound_ms"] / r["kpp"]["alone_ms"] if r["kpp"]["alone_ms"] else None
-                                           for r in v],
+        result[key] = {"launches": v[0]["fit"]["launches"], "ms": [r["fit"]["ms"] for r in v],
+                       "alone_ms": [r["fit"]["alone_ms"] for r in v],
+                       "kernels_alone_ms": [r["fit"]["kernels_alone_ms"] for r in v],
+                       "share_alone": [b["bound_ms"] / r["fit"]["alone_ms"] if r["fit"]["alone_ms"] else None
+                                       for r in v],
                        "stage_wall_ms": [r["stage_wall_ms"] for r in v], "s02_s": [r["s02_s"] for r in v]}
-        check(len({r["kpp"]["digest"] for r in v}) == 1, f"K8 A/B: the {key} checkout's picks differ between turns")
 
     def ms_list(xs):
         return " / ".join(f"{x:.4f}" if x else "not caught" for x in xs)
@@ -2938,11 +3001,100 @@ def phase_kmeans_ab(other: str) -> dict:
     for key in ("other", "this"):
         r = result[key]
         med = [sorted(w)[len(w) // 2] for w in r["stage_wall_ms"]]
-        print(f"K8 A/B {key}: seeding {ms_list(r['kpp_ms'])} ms a call, alone {ms_list(r['kpp_alone_ms'])} ms "
-              f"(bound {b['bound_ms']:.5f} ms, {b['bound_by']}); device_init_stage wall median "
-              + " / ".join(f"{m:.2f}" for m in med) + " ms a call; stage 02 of the CLI "
-              + " / ".join("[" + ", ".join(f"{x:.3f}" for x in s) + "]" for s in r["s02_s"]) + " s", flush=True)
+        print(f"K8 A/B {key}: launches {r['launches']}; seeds and fits {ms_list(r['ms'])} ms a call, alone "
+              f"{ms_list(r['alone_ms'])} ms (bound {b['bound_ms']:.5f} ms, {b['bound_by']}; by kernel "
+              + "; ".join(", ".join(f"{n} {t:.4f}" for n, t in d.items()) for d in r["kernels_alone_ms"])
+              + "); device_init_stage wall median " + " / ".join(f"{m:.2f}" for m in med) + " ms a call; stage 02 "
+              "of the CLI " + " / ".join("[" + ", ".join(f"{x:.3f}" for x in s) + "]" for s in r["s02_s"]) + " s",
+              flush=True)
+    print(f"K8 A/B: picks and iterations equal in every turn, best centres within {err:.2e}")
     print(json.dumps({"k8_ab": result}))
+    return result
+
+
+# csrc/kmeans.cu's phase slots: passes run, compactness, total, the first draw's, the first pass's
+K8_PHASE_SLOTS, K8_PHASE_PASSES, K8_PHASE_COMP, K8_PHASE_TOTAL, K8_PHASE_DRAW, K8_PHASE_PASS = 128, 8, 9, 11, 16, 64
+
+
+def phase_k8_phases() -> dict:
+    """CTA 0's clock64 cycles in each phase of K8's seeds-and-fits launch
+    (the row load; each draw's update, its totals and barrier, its search
+    and barrier; each Lloyd pass's scan and its reduction, new centres and
+    barriers; the compactness; thread 0's view, the others wait at the
+    barriers that end each phase), from a build of ``csrc/kmeans.cu`` with
+    ``-DPW_KMEANS_PHASES`` held bit-equal to the wrapper's, on the poster's
+    200,000-row sample (resident) and a 250,000-row one (streamed), k = 1, 4
+    and 8, 3 attempts, 40 iterations, and of the fit alone from the same seeds
+    at k = 4; each launch's ms by CUDA events around bare launches, which
+    turns the cycles into microseconds.  Run after ``phase_probe``."""
+    import ctypes
+
+    import torch
+
+    from plotweave_torch.ops import kernels, kmeans
+
+    out_dir = Path(tempfile.mkdtemp(prefix="pw_k8_phases_"))
+    path = out_dir / "kmeans_phases.so"
+    built = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS["kmeans"], "-DPW_KMEANS_PHASES", "-o", str(path),
+                            str(kernels.CSRC / "kmeans.cu")], capture_output=True, text=True)
+    check(built.returncode == 0, f"K8 with -DPW_KMEANS_PHASES did not build:\n{built.stdout}{built.stderr}")
+    lib = ctypes.CDLL(str(path))
+    for fn in ("pw_kmeans_fit", "pw_lloyd_fit"):
+        getattr(lib, fn).argtypes = kernels._SIGNATURES["kmeans"][fn]
+    lib.pw_kmeans_phases.argtypes = [ctypes.c_void_p]
+    dev = torch.device("cuda")
+    poster, _, sample = poster_sample()
+    result = {}
+    for data in (sample, kmeans.subsample_lab(poster, 43, 250_000)):
+        n = data.shape[0]
+        route = kernels.kpp_schedule(n)["route"]
+        for k, fused in ((1, True), (4, True), (8, True), (4, False)):
+            first, uniforms = kmeans.seed_stream(42, 3, k, n)
+            draws = kmeans.seed_draws(first, uniforms).to(dev)
+            seeds = kernels.kmeans_fit_cuda(data, draws, 0)[1]
+            want = kernels.kmeans_fit_cuda(data, draws, 40) if fused else kernels.lloyd_fit_cuda(data, seeds, 40)
+            best, centers, comp, picks, its, done, best_idx, d2 = kernels._fit_outputs(
+                3, k, 0 if route == "resident" else 3 * n, dev)
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def launch():
+                if fused:
+                    err = lib.pw_kmeans_fit(data.data_ptr(), n, k, 3, draws.data_ptr(), 40, 0.5,
+                                            int(route == "resident"), d2.data_ptr() if d2.numel() else None,
+                                            picks.data_ptr(), centers.data_ptr(), comp.data_ptr(), its.data_ptr(),
+                                            done.data_ptr(), best.data_ptr(), best_idx.data_ptr(), stream)
+                else:
+                    err = lib.pw_lloyd_fit(data.data_ptr(), n, k, 3, seeds.data_ptr(), 40, 0.5,
+                                           int(route == "resident"), centers.data_ptr(), comp.data_ptr(),
+                                           its.data_ptr(), done.data_ptr(), best.data_ptr(), best_idx.data_ptr(), stream)
+                check(err == 0, f"K8 phases: launch failed ({err})")
+
+            launch()
+            torch.cuda.synchronize()
+            name = f"{'kmeans_fit' if fused else 'lloyd_fit'} {route} {n} k={k}"
+            same = [best.view(k, 3), centers.view(3, k, 3), comp, its] + ([picks.view(3, k)] if fused else [])
+            check(all(torch.equal(x, y) for x, y in zip(same, want)), f"K8 phases {name}: the phases build differs "
+                  "from the wrapper's")
+            cyc = (ctypes.c_ulonglong * K8_PHASE_SLOTS)()
+            check(lib.pw_kmeans_phases(cyc) == 0, "K8 phases: the phase cycles could not be read")
+            passes, total = int(cyc[K8_PHASE_PASSES]), int(cyc[K8_PHASE_TOTAL])
+            ms = cuda_ms(launch, 10)
+            us = ms * 1e3 / total  # microseconds a cycle of CTA 0
+            draws = [[cyc[K8_PHASE_DRAW + 3 * (j - 1) + i] * us for i in range(3)] for j in range(1, k)] if fused else []
+            row = {"ms": ms, "cycles": total, "passes": passes, "load_us": cyc[0] * us, "draws_us": draws,
+                   "scan_us": [cyc[K8_PHASE_PASS + 2 * i] * us for i in range(passes)],
+                   "reduce_us": [cyc[K8_PHASE_PASS + 2 * i + 1] * us for i in range(passes)],
+                   "comp_us": [cyc[K8_PHASE_COMP] * us, cyc[K8_PHASE_COMP + 1] * us]}
+            result[name] = row
+            fit_us = sum(row["scan_us"]) + sum(row["reduce_us"]) + sum(row["comp_us"])
+            print(f"K8 phases {name}: {ms:.4f} ms a bare launch ({total} cycles of CTA 0); load "
+                  f"{row['load_us']:.2f} us, draws (update + totals + search) "
+                  + " / ".join("+".join(f"{x:.2f}" for x in d) for d in row["draws_us"]) + " us, "
+                  f"{passes} passes: scan " + " / ".join(f"{x:.2f}" for x in row["scan_us"]) + " us, reduction and "
+                  "barrier " + " / ".join(f"{x:.2f}" for x in row["reduce_us"]) + f" us; compactness "
+                  f"{row['comp_us'][0]:.2f} + {row['comp_us'][1]:.2f} us; the fit {fit_us:.2f} us", flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(json.dumps({"k8_phases": result}))
     return result
 
 
@@ -3669,8 +3821,10 @@ def main() -> None:
              "K8 subsample"),
             ("K8 kmeans, lab_sample", "device-kmeans", "lab_sample", k8, "plotweave/stages/s02_color_extract.py:123",
              "K8 lab_sample"),
-            ("K8 kmeans, kpp_init", "device-kmeans", "kpp_init", k8, "plotweave/ops/kmeans.py:124", "K8 kpp_init"),
-            ("K8 kmeans, lloyd_fit", "device-kmeans", "lloyd_fit", k8, "plotweave/ops/kmeans.py:24", "K8 lloyd_fit"),
+            ("K8 kmeans, seeds and fits in one launch (kmeans_fit)", "device-kmeans", "kmeans_fit", k8,
+             "plotweave/ops/kmeans.py:149", "K8 kmeans_fit"),
+            ("K8 kmeans, the fits from the host's seeds (lloyd_fit)", "kmeans-tool", "lloyd_fit", k8,
+             "plotweave/ops/kmeans.py:24", "K8 lloyd_fit"),
             ("K8 kmeans, assign_points", "kmeans-tool", "assign_points", k8, "plotweave/ops/kmeans.py:114",
              "K8 assign_points"),
             ("K11 morph_dense", "swatch", "morph_dense", "plotweave_torch/csrc/morph_dense.cu",

@@ -24,71 +24,60 @@
 // - pw_lab_sample: gathers `n` pixels of a BGR image by index and converts
 //   them to float Lab with lab.cuh's arithmetic, K7's bit for bit (this file
 //   is compiled with --fmad=false like K7).
-// - pw_kpp_init: k-means++ seeding of every attempt: the first centre by a
-//   given index, then k - 1 draws, each the first row i whose running sum
-//   R(i) of the integer weights w = max(floor(d2 2^16), 1) (at most 2^36)
-//   exceeds target = floor(total u) (the last row where none does: u = 1),
-//   d2 = (e0^2 + e1^2) + e2^2 in float32 the squared distance to the nearest
-//   centre so far, updated by min.  The random numbers come from the host
-//   (one index and k - 1 uniforms per attempt).  Integer sums are exact in
-//   any order, so the picks depend on no order of additions
-//   (ops/kmeans.py::kpp_init_plain: cumsum and searchsorted); target is exact
-//   (kpp_target).  Overflow: w < 2^36 and n < 2^27, so every sum is below
-//   2^63; the cap binds only where d2 >= 2^20 (a distance of 1,024; Lab in
-//   OpenCV's 8-bit scaling has d2 < 3 * 255^2 < 2^18), and the wrappers
-//   refuse n >= 2^27.  Design: one thread block cluster of 16 CTAs of 512
-//   threads per attempt; CTA r owns rows [r P, (r + 1) P), P = ceil(n / 16),
-//   in tiles of 512 rows, one row a thread, so every load is coalesced.
-//   Where a CTA's rows fit (16 bytes a row: 200,000 rows take 200 KB a
-//   CTA), they and their d2 stay in shared memory and the sample is read
-//   once; else (the streamed route) the rows are read each draw and d2 lives
-//   in device scratch.  A draw: every thread updates its rows' d2 and w, a
-//   warp sums its w (two redux.sync, of the low and the high 18 bits) and
-//   adds both sums to its tile's (32-bit shared-memory atomics), the CTA sums its tiles and stores its total into every peer
-//   (distributed shared memory); one cluster.sync(); every CTA sums the 16
-//   totals in rank order to its offset and the grand total, and computes
-//   target; only the CTA whose range holds target searches: warp 0 finds the
-//   tile from the tile totals, the CTA rescans that one tile (one scan), and
-//   thread 0 stores the pick and its row into every peer; one cluster.sync().
-// - pw_lloyd_fit: every attempt's whole Lloyd loop in ONE launch, one thread
-//   block cluster of 16 CTAs per attempt, with the stop test on the device
-//   (a launch and a flag read per iteration would be host-bound: up to 40
-//   iterations x 3 attempts), and the choice of the best attempt by the last
-//   cluster to finish.  No host read anywhere.
+// - pw_kmeans_fit: the device mode's seeds and fits of every attempt in ONE launch (kernel kmeans_fit), one
+//   thread block cluster of 16 CTAs of 512 threads per attempt; CTA r owns rows [r P, (r + 1) P), P = ceil(n /
+//   16).  The rows are loaded once into shared memory where they fit (the resident route: three columns,
+//   xs[c P + r], and a d2 column, 16 bytes a row; 231,696 rows, ops/kernels.py::kpp_schedule), else read each
+//   draw and pass, 4,096 rows at a time, through a stage in shared memory by coalesced loads (the streamed
+//   route, d2 in device scratch).  Then, over the same rows:
+//   * the k-means++ seeds: the first centre by a given index, then k - 1 draws, each the first row i whose
+//     running sum R(i) of the integer weights w = max(floor(d2 2^16), 1) (at most 2^36) exceeds target =
+//     floor(total u) (the last row where none does: u = 1), d2 = (e0^2 + e1^2) + e2^2 in float32 the squared
+//     distance to the nearest centre so far, updated by min.  The random numbers come from the host (one index
+//     and k - 1 uniforms per attempt, packed in `draws`).  Integer sums are exact in any order, so the picks
+//     depend on no order of additions (ops/kmeans.py::kpp_init_plain: cumsum and searchsorted); target is exact
+//     (kpp_target).  Overflow: w < 2^36 and n < 2^27, so every sum is below 2^63; the cap binds only where d2 >=
+//     2^20 (a distance of 1,024; Lab in OpenCV's 8-bit scaling has d2 < 3 * 255^2 < 2^18), and the wrappers
+//     refuse n >= 2^27.  A draw: every thread updates its rows' d2 and w, one row a thread and tile, a warp sums
+//     its w (two redux.sync, of the low and the high 18 bits) and adds both sums to its tile's (32-bit
+//     shared-memory atomics), the CTA sums its tiles and stores its total into every peer (distributed shared
+//     memory); one cluster.sync(); every CTA sums the 16 totals in rank order to its offset and the grand total,
+//     and computes target; only the CTA whose range holds target searches: warp 0 finds the tile from the tile
+//     totals, the CTA rescans that one tile (one scan), and thread 0 stores the pick and its row into every
+//     peer; one cluster.sync();
+//   * the Lloyd loop of every attempt, with the stop test on the device (a launch and a flag read per iteration
+//     would be host-bound: up to 40 iterations x 3 attempts); d2 is dead after the last draw, and the fit's
+//     scratch takes its place;
+//   * the choice of the best attempt by the last cluster to finish.  No host read anywhere.
+// - pw_lloyd_fit: the same fit body (kernel lloyd_fit) from seeds given by the host: the tools' kmeans().
+// - pw_assign_points: the all-point assignment of ops/kmeans.py::kmeans, by the fit's distance.
 //
-// - pw_assign_points: the all-point assignment of ops/kmeans.py::kmeans, by
-//   the fit's distance.
+// The fit.  The kernels are instantiated on k (1 to 8), so a point costs k centres; the centres and |c|^2 stay in
+// registers for the whole pass.  Distances are |x|^2 - 2 x.c + |c|^2 in float32 as _lloyd's, each three-term
+// sum as (a + b) + c, first minimum wins, an empty cluster keeps its centre, shift = the largest centre
+// movement, loop while shift > eps and it < iters, then one more assignment for the compactness (sum of the
+// minimal d2, which this expanded form can make slightly negative: kept, it decides which attempt wins).  No
+// TF32, no FMA, no float atomics.  Every float sum has a fixed order, the same on every run, so a seed gives the
+// same centres every time:
+//   1. a thread adds its rows in order, r = tid, tid + 512, ... of its CTA's range;
+//   2. a warp: lane l adds lane l + o's value for o = 16, 8, 4, 2, 1 (__shfl_down_sync), lane 0 keeps it;
+//   3. a CTA: its 16 warps' values by the same tree over 16 lanes (o = 8, 4, 2, 1, lane w holding warp w's);
+//   4. the cluster: the 16 CTAs' values, read through distributed shared memory by 16 lanes at once (lane q from
+//      CTA q), by the same 16-lane tree.
+// The counts are integers.  In every CTA the first k threads then compute the new centres from the same totals
+// (each division and square root in IEEE float32), and every thread reads them, so every CTA takes the same
+// stop decision.  The CTAs' partials are double-buffered, which makes one cluster.sync() a
+// pass enough.
 //
-// Numbers.  Distances are |x|^2 - 2 x.c + |c|^2 in float32 as _lloyd's, each
-// three-term sum as (a + b) + c, first minimum wins, an empty cluster keeps
-// its centre, shift = the largest centre movement, loop while shift > eps
-// and it < iters, then one more assignment for the compactness (sum of the
-// minimal d2, which this expanded form can make slightly negative: kept, it
-// decides which attempt wins).  No TF32, no FMA, no float atomics.  The sums
-// have a fixed order, so a seed gives the same centres on every run: thread
-// (its points i = rank * T + tid, stride 16 T, in order) -> warp (shuffle
-// tree) -> block (warps in order) -> cluster (CTA ranks in order, read through
-// distributed shared memory between cluster.sync()s; every CTA computes the
-// same new centres from the same numbers and so takes the same stop
-// decision).  The partials are double-buffered, which makes one
-// cluster.sync() per iteration enough.
+// Bound.  The fit: about 9 float operations per centre, point and pass.  The seeding: 12 bytes a row read once;
+// its chain of two cluster barriers a draw binds it.  Together: the sample read once (12 bytes a row) against
+// the seeding's and the fit's operations.  A cooperative grid over all SMs would scan faster but pay a grid-wide
+// barrier a pass; three attempts already run side by side on 48 SMs.  The draw: the hash once a key, n x about
+// 10 integer operations (3e7 at 3,000,000 pixels, 1.8 us at the INT32 peak), against 0.8 MB written (0.24 us);
+// the kernel hashes each key five times.  On an H100 the times are in PERF.md.
 //
-// Bound.  The fit: about 9 float operations per centre, point and
-// iteration.  The sample (2.4 MB at 200,000 points) is read from L2 by 16 CTAs
-// per iteration; a cooperative grid over all SMs would read it faster but pay
-// a grid-wide barrier per iteration, and three attempts already run side by
-// side on 48 SMs.  The draw: the hash once a key, n x about 10 integer
-// operations (3e7 at 3,000,000 pixels, 1.8 us at the INT32 peak), against
-// 0.8 MB written (0.24 us); the kernel hashes each key five times.  The seeding: 12 bytes a row read once; its chain of two
-// cluster barriers a draw binds it.  On an H100 the times are in PERF.md.
-//
-// Prediction (written before the first run on the card; the earlier seeding, one
-// CTA of 1,024 threads an attempt with uncoalesced chunks, took 1.104 ms
-// alone at 200,000 x 3, k = 4, 3 attempts): the seeding 15-30 us a call there
-// (3-6 us a draw for the update, the two cluster barriers and the one-tile
-// rescan, 3-6 us to load the rows); the draw 20-60 us at 3,000,000 -> 200,000
-// (five passes of about 1-3 us each, four grid barriers, the global
-// histogram merges), against about 60 ms of host torch.randperm before.
+// Built with -DPW_KMEANS_PHASES, kmeans_fit and lloyd_fit record CTA 0's clock64 cycles for the row load, each
+// draw, each pass's scan and its reduction and barrier, and the compactness (phase_cycles, pw_kmeans_phases).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -101,12 +90,17 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxK = 8;           // centres the fit's register accumulators hold
+constexpr int kMaxK = 8;           // centres a fit holds in registers (a template parameter, 1 to 8)
 constexpr int kCluster = 16;       // CTAs per attempt (a non-portable cluster size)
-constexpr int kFitThreads = 512;   // threads per CTA of the fit
-constexpr int kFitWarps = kFitThreads / 32;
-constexpr int kInitThreads = 512;   // threads per CTA of the seeding: a tile is one row a thread
-constexpr int kInitWarps = kInitThreads / 32;
+constexpr int kThreads = 512;      // threads per CTA of the seeds and fits: a tile is one row a thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxVals = 4 * kMaxK;  // the sums of a Lloyd pass: 3 k coordinates, then k counts
+constexpr int kStageTiles = 8;     // the streamed route's stage: 8 tiles of rows copied at once
+constexpr int kStageRows = kStageTiles * kThreads;
+// the fit's shared scratch (bytes): the warps' partials, the CTA's (double-buffered) and the cluster's totals,
+// and the new centres (x, y, z, |c|^2 and the movement of each)
+constexpr int kFitScratch = 4 * (kMaxVals * kWarps + 3 * kMaxVals + 5 * kMaxK);
+constexpr int kStaticSmem = 512;   // a bound on either fit kernel's static shared memory
 constexpr int kDrawThreads = 1024;  // threads per CTA of the draw; also the most CTAs it takes
 constexpr int kDrawWarps = kDrawThreads / 32;
 constexpr int kDigits = 2048;       // histogram buckets of one round of the draw's radix select
@@ -248,7 +242,7 @@ __global__ void __launch_bounds__(kDrawThreads)
   }
 }
 
-// ------------------------------------------------------------ the seeding
+// ------------------------------------------------------- the seeds and fits
 
 // w = max(floor(d2 2^16), 1), at most 2^36 (d2 >= 2^20 saturates); NaN counts as the cap.
 __device__ __forceinline__ unsigned long long kpp_weight(float d2) {
@@ -269,63 +263,183 @@ __device__ __forceinline__ unsigned long long kpp_target(unsigned long long tota
   return q - 24 >= 64 ? 0ull : v >> (q - 24);
 }
 
-struct InitShared {
+// The arguments of both launches: kmeans_fit (seeds from `draws`, then the fits) and lloyd_fit (the fits from
+// `init`).  tiles: the seeding's tiles of a CTA (0 for lloyd_fit, whose shared memory holds no tile totals).
+struct FitArgs {
+  const float* sample;   // (n, 3)
+  const float* draws;    // kmeans_fit: (attempts, k), the first centre's row as int32 bits, then k - 1 uniforms
+  const float* init;     // lloyd_fit: (attempts, k, 3) seeds
+  float* d2_all;         // kmeans_fit, streamed route: (attempts, n) scratch
+  int32_t* picks_all;    // kmeans_fit: (attempts, k) the seeds' rows
+  float* centers_all;    // (attempts, k, 3)
+  float* comp_all;       // (attempts,)
+  int32_t* iters_all;    // (attempts,)
+  int* done;             // zeroed before the launch; the last attempt to finish picks the best
+  float* best;           // (k, 3)
+  int32_t* best_idx;
+  int n, rows, tiles, attempts, iters;
+  float eps;
+};
+
+#ifdef PW_KMEANS_PHASES
+// CTA 0's thread 0: the clock64 cycles of each phase of the last launch (kPhase* slots; draw j's update, its
+// totals and barrier, its search and barrier in slots kPhaseDraw + 3 (j - 1) + 0, 1, 2; pass p's scan in slot
+// kPhasePass + 2 p, its reduction, new centres and barriers in the next), and the passes run.
+constexpr int kPhaseSlots = 128, kPhaseLoad = 0, kPhasePasses = 8, kPhaseComp = 9, kPhaseTotal = 11,
+              kPhaseDraw = 16, kPhasePass = 64;
+__device__ unsigned long long phase_cycles[kPhaseSlots];
+struct PhaseClock {
+  unsigned long long start, t;
+  __device__ __forceinline__ void begin() { start = t = clock64(); }
+  __device__ __forceinline__ void mark(int slot) {
+    const unsigned long long now = clock64();
+    if (blockIdx.x == 0 && threadIdx.x == 0 && slot < kPhaseSlots) phase_cycles[slot] = now - t;
+    t = now;
+  }
+  __device__ __forceinline__ void value(int slot, unsigned long long v) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) phase_cycles[slot] = v;
+  }
+  __device__ __forceinline__ void total() { value(kPhaseTotal, clock64() - start); }
+};
+#else
+constexpr int kPhaseLoad = 0, kPhasePasses = 8, kPhaseComp = 9, kPhaseDraw = 16, kPhasePass = 64;
+struct PhaseClock {
+  __device__ __forceinline__ void begin() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void value(int, unsigned long long) {}
+  __device__ __forceinline__ void total() {}
+};
+#endif
+
+// A CTA's dynamic shared memory: the seeding's tile totals (tiles low words, tiles high words); then, resident,
+// the rows' three columns (xs[c rows + r]) and a region that holds d2 during the seeding and the fit's scratch
+// after the last draw (d2 is dead there); streamed, a stage of kStageTiles tiles of rows in the same column
+// layout (xs[c kStageRows + r]) and the fit's scratch.  The scratch: the warps' partials (kMaxVals x kWarps
+// words), this CTA's partials, double-buffered (2 x kMaxVals; peers read them), the cluster's totals (kMaxVals)
+// and the new centres (5 kMaxK).
+struct Smem {
+  uint32_t* tile_lo;
+  uint32_t* tile_hi;
+  float* xs;  // resident: the rows; streamed: the stage
+  float* d2;
+  uint32_t* wpart;
+  uint32_t* part;
+  uint32_t* tot;
+  float* upd;
+};
+
+template <bool kResident>
+__device__ __forceinline__ Smem smem_layout(unsigned char* dyn, int rows, int tiles) {
+  Smem m;
+  m.tile_lo = reinterpret_cast<uint32_t*>(dyn);
+  m.tile_hi = m.tile_lo + tiles;
+  m.xs = reinterpret_cast<float*>(m.tile_hi + tiles);
+  m.d2 = m.xs + (kResident ? 3 * (long)rows : 3 * (long)kStageRows);
+  m.wpart = reinterpret_cast<uint32_t*>(m.d2);
+  m.part = m.wpart + kMaxVals * kWarps;
+  m.tot = m.part + 2 * kMaxVals;
+  m.upd = reinterpret_cast<float*>(m.tot + kMaxVals);
+  return m;
+}
+
+// The CTA's rows into shared memory, resident route: its 3 len floats in order, one a thread and step (coalesced).
+template <bool kResident>
+__device__ __forceinline__ void load_rows(const Smem& m, const float* src, int rows, int len) {
+  if (kResident)
+    for (int f = threadIdx.x; f < 3 * len; f += kThreads) m.xs[(long)(f % 3) * rows + f / 3] = src[f];
+  __syncthreads();
+}
+
+// Row r = t kThreads + tid of the CTA into (x0, x1, x2) where r < len.  Resident: from the columns.  Streamed: at
+// every kStageTiles-th tile the CTA first copies the next kStageRows rows from the sample into the stage, one float
+// a thread and step in order (coalesced; no thread reads at a 12-byte stride), so every thread of the CTA calls it
+// for every t in order (two barriers a stage).
+template <bool kResident>
+__device__ __forceinline__ void tile_row(const Smem& m, const float* src, int rows, int len, int t, float& x0,
+                                         float& x1, float& x2) {
+  const int tid = threadIdx.x, r = t * kThreads + tid;
+  if (!kResident) {
+    const int rr = (t % kStageTiles) * kThreads + tid;
+    if (t % kStageTiles == 0) {
+      const int r0 = t * kThreads, cnt = 3 * max(min(kStageRows, len - r0), 0);
+      __syncthreads();  // every thread has read the last stage
+#pragma unroll 8
+      for (int f = tid; f < cnt; f += kThreads) m.xs[(f % 3) * kStageRows + f / 3] = src[3 * (long)r0 + f];
+      __syncthreads();
+    }
+    if (r < len) {
+      x0 = m.xs[rr];
+      x1 = m.xs[kStageRows + rr];
+      x2 = m.xs[2 * kStageRows + rr];
+    }
+  } else if (r < len) {
+    x0 = m.xs[r];
+    x1 = m.xs[rows + r];
+    x2 = m.xs[2 * (long)rows + r];
+  }
+}
+
+// visit(x0, x1, x2) for each of this thread's rows in order: r = tid, tid + kThreads, ... < len.
+template <bool kResident, typename F>
+__device__ __forceinline__ void scan_rows(const Smem& m, const float* src, int rows, int len, F&& visit) {
+  if (kResident) {
+#pragma unroll 2
+    for (int r = threadIdx.x; r < len; r += kThreads) visit(m.xs[r], m.xs[rows + r], m.xs[2 * (long)rows + r]);
+  } else {
+    const int tiles = (rows + kThreads - 1) / kThreads;
+    for (int t = 0; t < tiles; ++t) {
+      float x0 = 0.0f, x1 = 0.0f, x2 = 0.0f;
+      tile_row<false>(m, src, rows, len, t, x0, x1, x2);
+      if (t * kThreads + (int)threadIdx.x < len) visit(x0, x1, x2);
+    }
+  }
+}
+
+struct SeedShared {
   float4 pick;                            // this draw's pick: its index's bits, then its row; pushed by its CTA
   unsigned long long totals[kCluster];    // every CTA's total of this draw, pushed by each CTA
   unsigned long long cta_total;
-  unsigned long long slots[kInitWarps];   // the CTA's scans; the warps' parts of the CTA's total
+  unsigned long long slots[kWarps];       // the CTA's scans; the warps' parts of the CTA's total
   unsigned long long rest;                // the picker's residual inside its tile
   int tile, local;
 };
 
-// One cluster of kCluster CTAs per attempt; see the header.  rows: a CTA's
-// rows, tiles = ceil(rows / kInitThreads).  A tile's total is kept as the
-// sums of its weights' low and high 18 bits (each below 2^27), added by
-// 32-bit shared-memory atomics: a 64-bit shared atomic add is a
-// compare-and-swap loop, and 16 warps add to each tile.  kResident: the
-// CTA's rows and d2 in shared memory after the tile totals, else the rows
-// read from the sample and d2 in d2_all (attempts, n).
-template <bool kResident>
-__global__ void __launch_bounds__(kInitThreads)
-    kpp_init(const float* __restrict__ sample, int n, int k, int rows, int tiles, const int32_t* __restrict__ first,
-             const float* __restrict__ uniforms, float* __restrict__ d2_all, float* __restrict__ centers_all,
-             int32_t* __restrict__ picks_all) {
-  extern __shared__ __align__(16) unsigned char dyn[];
-  __shared__ InitShared s;
-  uint32_t* tile_lo = reinterpret_cast<uint32_t*>(dyn);
-  uint32_t* tile_hi = tile_lo + tiles;
-  float* xs = reinterpret_cast<float*>(tile_hi + tiles);  // resident: x0, x1, x2 and d2, rows values each
-  auto tile_tot = [&](int t) -> unsigned long long { return ((unsigned long long)tile_hi[t] << 18) + tile_lo[t]; };
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), a = blockIdx.x / kCluster;
+// The k-means++ seeds of attempt a (see the header), into seeds (3 K floats of this CTA's shared memory, written
+// by thread 0) and picks_all (by CTA 0).  A tile's total is kept as the sums of its weights' low and high 18 bits
+// (each below 2^27), added by 32-bit shared-memory atomics: a 64-bit shared atomic add is a compare-and-swap loop,
+// and 16 warps add to each tile.
+template <int K, bool kResident>
+__device__ __forceinline__ void kpp_seed(const FitArgs& p, const Smem& m, const float* src, long lo, int len, int a,
+                                         int rank, SeedShared& s, float* seeds, cg::cluster_group& cluster,
+                                         PhaseClock& clk) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long lo = min((long)rank * rows, (long)n);
-  const int len = (int)(min(lo + rows, (long)n) - lo);
-  float* d2 = kResident ? xs + 3 * (long)rows : d2_all + (long)a * n + lo;
-  const float* src = sample + 3 * lo;
-  auto coord = [&](int r, int c) -> float { return kResident ? xs[(long)c * rows + r] : src[3 * (long)r + c]; };
+  const int n = p.n, rows = p.rows, tiles = p.tiles;
+  uint32_t* tile_lo = m.tile_lo;
+  uint32_t* tile_hi = m.tile_hi;
+  auto tile_tot = [&](int t) -> unsigned long long { return ((unsigned long long)tile_hi[t] << 18) + tile_lo[t]; };
+  float* d2 = kResident ? m.d2 : p.d2_all + (long)a * n + lo;
+  auto coord = [&](int r, int c) -> float { return kResident ? m.xs[(long)c * rows + r] : src[3 * (long)r + c]; };
+  const float* draws = p.draws + (long)a * K;
 
-  int idx = first[a];
-  float c0 = sample[3 * (long)idx], c1 = sample[3 * (long)idx + 1], c2 = sample[3 * (long)idx + 2];
-  if (rank == 0 && tid == 0) {
-    picks_all[(long)a * k] = idx;
-    centers_all[(long)a * k * 3] = c0;
-    centers_all[(long)a * k * 3 + 1] = c1;
-    centers_all[(long)a * k * 3 + 2] = c2;
+  int idx = __float_as_int(draws[0]);
+  float c0 = p.sample[3 * (long)idx], c1 = p.sample[3 * (long)idx + 1], c2 = p.sample[3 * (long)idx + 2];
+  if (tid == 0) {
+    seeds[0] = c0;
+    seeds[1] = c1;
+    seeds[2] = c2;
+    if (rank == 0) p.picks_all[(long)a * K] = idx;
   }
-  if (k == 1) return;
-  if (kResident)  // coalesced: the CTA's 3 len floats in order
-    for (int f = tid; f < 3 * len; f += kInitThreads) xs[(long)(f % 3) * rows + f / 3] = src[f];
-
-  for (int j = 1; j < k; ++j) {
+  for (int j = 1; j < K; ++j) {
     // d2 and w against the last centre; every tile's total and the CTA's, integer sums in any order
-    for (int t = tid; t < tiles; t += kInitThreads) tile_lo[t] = tile_hi[t] = 0u;
+    for (int t = tid; t < tiles; t += kThreads) tile_lo[t] = tile_hi[t] = 0u;
     __syncthreads();
     for (int t = 0; t < tiles; ++t) {
-      const int r = t * kInitThreads + tid;
+      const int r = t * kThreads + tid;
+      float x0 = 0.0f, x1 = 0.0f, x2 = 0.0f;
+      tile_row<kResident>(m, src, rows, len, t, x0, x1, x2);
       unsigned long long w = 0ull;
       if (r < len) {
-        const float e0 = coord(r, 0) - c0, e1 = coord(r, 1) - c1, e2 = coord(r, 2) - c2;
+        const float e0 = x0 - c0, e1 = x1 - c1, e2 = x2 - c2;
         float d = (e0 * e0 + e1 * e1) + e2 * e2;
         if (j > 1) d = fminf(d2[r], d);
         d2[r] = d;
@@ -339,19 +453,21 @@ __global__ void __launch_bounds__(kInitThreads)
       }
     }
     __syncthreads();
+    clk.mark(kPhaseDraw + 3 * (j - 1));
     unsigned long long part = 0ull;
-    for (int t = tid; t < tiles; t += kInitThreads) part += tile_tot(t);
+    for (int t = tid; t < tiles; t += kThreads) part += tile_tot(t);
     part = warp_sum(part);
     if (lane == 0) s.slots[warp] = part;
     __syncthreads();
     if (tid == 0) {
       unsigned long long sum = 0ull;
-      for (int v = 0; v < kInitWarps; ++v) sum += s.slots[v];
+      for (int v = 0; v < kWarps; ++v) sum += s.slots[v];
       s.cta_total = sum;
     }
     __syncthreads();
     if (tid < kCluster) cluster.map_shared_rank(&s.totals[0], tid)[rank] = s.cta_total;
     cluster.sync();  // every CTA's total is in every CTA
+    clk.mark(kPhaseDraw + 3 * (j - 1) + 1);
 
     unsigned long long off = 0ull, total = 0ull;
     for (int q = 0; q < kCluster; ++q) {
@@ -359,7 +475,7 @@ __global__ void __launch_bounds__(kInitThreads)
       off += q < rank ? v : 0ull;
       total += v;
     }
-    const unsigned long long target = kpp_target(total, uniforms[(long)a * (k - 1) + j - 1]);
+    const unsigned long long target = kpp_target(total, draws[j]);
     const bool past = target >= total;  // u = 1: no running sum exceeds it, the last row
     if (past ? rank == (n - 1) / rows : off <= target && target < off + s.totals[rank]) {
       int local = len - 1;
@@ -380,61 +496,321 @@ __global__ void __launch_bounds__(kInitThreads)
           }
         }
         __syncthreads();
-        const int r = s.tile * kInitThreads + tid;  // the tile's rescan: one row a thread
+        const int r = s.tile * kThreads + tid;  // the tile's rescan: one row a thread
         const unsigned long long w = r < len ? kpp_weight(d2[r]) : 0ull;
         unsigned long long sum;
-        const unsigned long long before = block_exclusive_scan<unsigned long long, kInitWarps>(w, s.slots, sum);
+        const unsigned long long before = block_exclusive_scan<unsigned long long, kWarps>(w, s.slots, sum);
         if (before <= s.rest && s.rest < before + w) s.local = r;
         __syncthreads();
         local = s.local;
       }
       if (tid == 0) {
-        const float4 p = make_float4(__int_as_float((int)(lo + local)), coord(local, 0), coord(local, 1),
-                                     coord(local, 2));
-        for (int q = 0; q < kCluster; ++q) *cluster.map_shared_rank(&s.pick, q) = p;
+        const float4 pk = make_float4(__int_as_float((int)(lo + local)), coord(local, 0), coord(local, 1),
+                                      coord(local, 2));
+        for (int q = 0; q < kCluster; ++q) *cluster.map_shared_rank(&s.pick, q) = pk;
       }
     }
     cluster.sync();  // the pick is in every CTA
-    const float4 p = s.pick;
-    idx = __float_as_int(p.x);
-    c0 = p.y;
-    c1 = p.z;
-    c2 = p.w;
-    if (rank == 0 && tid == 0) {
-      picks_all[(long)a * k + j] = idx;
-      centers_all[((long)a * k + j) * 3] = c0;
-      centers_all[((long)a * k + j) * 3 + 1] = c1;
-      centers_all[((long)a * k + j) * 3 + 2] = c2;
+    const float4 pk = s.pick;
+    idx = __float_as_int(pk.x);
+    c0 = pk.y;
+    c1 = pk.z;
+    c2 = pk.w;
+    if (tid == 0) {
+      seeds[3 * j] = c0;
+      seeds[3 * j + 1] = c1;
+      seeds[3 * j + 2] = c2;
+      if (rank == 0) p.picks_all[(long)a * K + j] = idx;
     }
+    clk.mark(kPhaseDraw + 3 * (j - 1) + 2);
   }
 }
 
-// ---------------------------------------------------------------- the fit
-
-struct FitShared {
-  float cen[kMaxK * 3];              // the centres of this iteration
-  float cen2[kMaxK];                 // |c|^2
-  float next[kMaxK * 3];             // the centres of the next
-  float move[kMaxK];                 // each centre's movement
-  float warp_sum[kFitWarps][kMaxK * 3];
-  int warp_cnt[kFitWarps][kMaxK];
-  float warp_comp[kFitWarps];
-  float part_sum[2][kMaxK * 3];      // this CTA's partial sums, double-buffered; peers read them
-  int part_cnt[2][kMaxK];
-  float part_comp;
-  float tot_sum[kMaxK * 3];
-  int tot_cnt[kMaxK];
-  float shift;
-};
-
-__device__ __forceinline__ float warp_sum_f(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = v + __shfl_down_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ uint32_t add_bits(uint32_t x, uint32_t y, bool is_float) {
+  return is_float ? __float_as_uint(__uint_as_float(x) + __uint_as_float(y)) : x + y;
 }
 
-__device__ __forceinline__ int warp_sum_i(int v) {
-  for (int off = 16; off > 0; off >>= 1) v = v + __shfl_down_sync(0xffffffffu, v, off);
-  return v;
+// The cluster's totals of NV values a thread (v: the first NF float32, the rest int32, as bits), the same in every
+// CTA, into tot.  Fixed order: a warp's lanes by a tree of shuffles (lane l adds lane l + o, o = 16, 8, 4, 2, 1),
+// the CTA's 16 warps by a tree over 16 lanes (o = 8, 4, 2, 1) into part[buf], then the 16 CTAs' parts, read
+// through distributed shared memory by 16 lanes at once, by the same tree.  part is double-buffered: a CTA that
+// runs ahead writes the other buffer, so one cluster.sync() a call suffices (calls alternate buf).
+template <int NV, int NF>
+__device__ __forceinline__ void cluster_sums(const uint32_t (&v)[NV], const Smem& m, int buf,
+                                             cg::cluster_group& cluster) {
+  static_assert(kWarps == 16 && kCluster == 16 && NV <= kMaxVals, "one 16-lane tree a value");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    uint32_t x = v[j];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x = add_bits(x, __shfl_down_sync(0xffffffffu, x, o), j < NF);
+    if (lane == 0) m.wpart[j * kWarps + warp] = x;
+  }
+  __syncthreads();
+  const int j = tid >> 4, q = tid & 15;  // value j, warp or CTA q
+  const bool busy = warp < (16 * NV + 31) / 32;  // whole warps
+  uint32_t* part = m.part + buf * kMaxVals;
+  if (busy) {
+    uint32_t x = j < NV ? m.wpart[j * kWarps + q] : 0u;
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) x = add_bits(x, __shfl_down_sync(0xffffffffu, x, o, 16), j < NF);
+    if (q == 0 && j < NV) part[j] = x;
+  }
+  cluster.sync();  // every CTA's part is in place
+  if (busy) {
+    uint32_t x = j < NV ? cluster.map_shared_rank(part, q)[j] : 0u;
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) x = add_bits(x, __shfl_down_sync(0xffffffffu, x, o, 16), j < NF);
+    if (q == 0 && j < NV) m.tot[j] = x;
+  }
+  __syncthreads();
+}
+
+// The nearest of the K centres (registers) to x by _lloyd's expanded distance; the first minimum wins.
+template <int K>
+__device__ __forceinline__ int nearest_of(const float (&cx)[K], const float (&cy)[K], const float (&cz)[K],
+                                          const float (&cc)[K], float x0, float x1, float x2, float& best_d) {
+  const float sq = (x0 * x0 + x1 * x1) + x2 * x2;
+  int best = 0;
+  best_d = 0.0f;
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const float dot = (x0 * cx[c] + x1 * cy[c]) + x2 * cz[c];
+    const float d = (sq - 2.0f * dot) + cc[c];
+    if (c == 0 || d < best_d) {
+      best = c;
+      best_d = d;
+    }
+  }
+  return best;
+}
+
+// Attempt a's Lloyd loop from seeds (3 K floats) over the CTA's rows, then the compactness of its centres; the
+// last attempt to finish (done counts them) writes the centres of the first attempt of least compactness to best,
+// zeros where no compactness is below infinity, and its index to best_idx.  The centres and |c|^2 stay in
+// registers; every thread computes the same new centres from the same totals, so every CTA takes the same stop
+// decision.
+template <int K, bool kResident>
+__device__ __forceinline__ void lloyd_body(const FitArgs& p, const Smem& m, const float* src, int len, int a,
+                                           int rank, const float* seeds, cg::cluster_group& cluster,
+                                           PhaseClock& clk) {
+  constexpr int NF = 3 * K, NV = 4 * K;
+  const int tid = threadIdx.x;
+  float cx[K], cy[K], cz[K], cc[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    cx[c] = seeds[3 * c];
+    cy[c] = seeds[3 * c + 1];
+    cz[c] = seeds[3 * c + 2];
+    cc[c] = (cx[c] * cx[c] + cy[c] * cy[c]) + cz[c] * cz[c];
+  }
+  float shift = CUDART_INF_F;
+  int it = 0;
+  while (shift > p.eps && it < p.iters) {
+    float s0[K], s1[K], s2[K];
+    int cnt[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      s0[c] = s1[c] = s2[c] = 0.0f;
+      cnt[c] = 0;
+    }
+    scan_rows<kResident>(m, src, p.rows, len, [&](float x0, float x1, float x2) {
+      float d;
+      const int b = nearest_of<K>(cx, cy, cz, cc, x0, x1, x2, d);
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        if (b == c) {
+          s0[c] = s0[c] + x0;
+          s1[c] = s1[c] + x1;
+          s2[c] = s2[c] + x2;
+          cnt[c] = cnt[c] + 1;
+        }
+      }
+    });
+    clk.mark(kPhasePass + 2 * it);
+    uint32_t v[NV];
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      v[3 * c] = __float_as_uint(s0[c]);
+      v[3 * c + 1] = __float_as_uint(s1[c]);
+      v[3 * c + 2] = __float_as_uint(s2[c]);
+      v[NF + c] = (uint32_t)cnt[c];
+    }
+    cluster_sums<NV, NF>(v, m, it & 1, cluster);
+    if (tid < K) {  // thread c: centre c's new place (an empty cluster keeps its centre), |c|^2 and movement
+      float ox = cx[0], oy = cy[0], oz = cz[0];
+#pragma unroll
+      for (int c = 1; c < K; ++c) {
+        if (tid == c) {
+          ox = cx[c];
+          oy = cy[c];
+          oz = cz[c];
+        }
+      }
+      const int n_c = (int)m.tot[NF + tid];
+      const float div = fmaxf((float)n_c, 1.0f);
+      const float nx = n_c > 0 ? __uint_as_float(m.tot[3 * tid]) / div : ox;
+      const float ny = n_c > 0 ? __uint_as_float(m.tot[3 * tid + 1]) / div : oy;
+      const float nz = n_c > 0 ? __uint_as_float(m.tot[3 * tid + 2]) / div : oz;
+      const float e0 = nx - ox, e1 = ny - oy, e2 = nz - oz;
+      float* u = m.upd + 5 * tid;
+      u[0] = nx;
+      u[1] = ny;
+      u[2] = nz;
+      u[3] = (nx * nx + ny * ny) + nz * nz;
+      u[4] = sqrtf((e0 * e0 + e1 * e1) + e2 * e2);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      cx[c] = m.upd[5 * c];
+      cy[c] = m.upd[5 * c + 1];
+      cz[c] = m.upd[5 * c + 2];
+      cc[c] = m.upd[5 * c + 3];
+      shift = c == 0 ? m.upd[5 * c + 4] : fmaxf(shift, m.upd[5 * c + 4]);
+    }
+    clk.mark(kPhasePass + 2 * it + 1);
+    ++it;
+  }
+  clk.value(kPhasePasses, it);
+
+  // the compactness of the final centres
+  float comp = 0.0f;
+  scan_rows<kResident>(m, src, p.rows, len, [&](float x0, float x1, float x2) {
+    float d;
+    nearest_of<K>(cx, cy, cz, cc, x0, x1, x2, d);
+    comp = comp + d;
+  });
+  clk.mark(kPhaseComp);
+  const uint32_t vc[1] = {__float_as_uint(comp)};
+  cluster_sums<1, 1>(vc, m, it & 1, cluster);
+  clk.mark(kPhaseComp + 1);
+  if (rank == 0 && tid == 0) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      p.centers_all[((long)a * K + c) * 3] = cx[c];
+      p.centers_all[((long)a * K + c) * 3 + 1] = cy[c];
+      p.centers_all[((long)a * K + c) * 3 + 2] = cz[c];
+    }
+    p.comp_all[a] = __uint_as_float(m.tot[0]);
+    p.iters_all[a] = it;
+    __threadfence();
+    if (atomicAdd(p.done, 1) == p.attempts - 1) {
+      __threadfence();
+      const volatile float* comps = p.comp_all;
+      const volatile float* cens = p.centers_all;
+      float best_comp = CUDART_INF_F;
+      int pick = -1;
+      for (int q = 0; q < p.attempts; ++q) {
+        if (comps[q] < best_comp) {  // strict: the first of equal attempts wins
+          best_comp = comps[q];
+          pick = q;
+        }
+      }
+      for (int j = 0; j < 3 * K; ++j) p.best[j] = pick < 0 ? 0.0f : cens[(long)pick * K * 3 + j];
+      *p.best_idx = pick;
+    }
+  }
+  cluster.sync();  // no CTA leaves while a peer may still read its partials
+  clk.total();
+}
+
+// The device mode's seeds and fits in one launch: one cluster of kCluster CTAs an attempt, each CTA over its own
+// rows (loaded once, resident route), the k-means++ seeds, then the Lloyd loop over the same rows.
+template <int K, bool kResident>
+__global__ void __launch_bounds__(kThreads, 1) kmeans_fit(const FitArgs p) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ SeedShared s;
+  __shared__ float seeds[3 * K];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), a = blockIdx.x / kCluster;
+  const Smem m = smem_layout<kResident>(dyn, p.rows, p.tiles);
+  const long lo = min((long)rank * p.rows, (long)p.n);
+  const int len = (int)(min(lo + p.rows, (long)p.n) - lo);
+  const float* src = p.sample + 3 * lo;
+  PhaseClock clk;
+  clk.begin();
+  load_rows<kResident>(m, src, p.rows, len);
+  clk.mark(kPhaseLoad);
+  kpp_seed<K, kResident>(p, m, src, lo, len, a, rank, s, seeds, cluster, clk);
+  __syncthreads();  // thread 0's seeds
+  lloyd_body<K, kResident>(p, m, src, len, a, rank, seeds, cluster, clk);
+}
+
+// The fits from given seeds (init), the same body: the tools' kmeans().
+template <int K, bool kResident>
+__global__ void __launch_bounds__(kThreads, 1) lloyd_fit(const FitArgs p) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), a = blockIdx.x / kCluster;
+  const Smem m = smem_layout<kResident>(dyn, p.rows, 0);
+  const long lo = min((long)rank * p.rows, (long)p.n);
+  const int len = (int)(min(lo + p.rows, (long)p.n) - lo);
+  const float* src = p.sample + 3 * lo;
+  PhaseClock clk;
+  clk.begin();
+  load_rows<kResident>(m, src, p.rows, len);
+  clk.mark(kPhaseLoad);
+  lloyd_body<K, kResident>(p, m, src, len, a, rank, p.init + (long)a * K * 3, cluster, clk);
+}
+
+#define PW_K8_BY_K(kernel, resident)                                                                          \
+  {                                                                                                           \
+    (const void*)kernel<1, resident>, (const void*)kernel<2, resident>, (const void*)kernel<3, resident>,     \
+        (const void*)kernel<4, resident>, (const void*)kernel<5, resident>, (const void*)kernel<6, resident>, \
+        (const void*)kernel<7, resident>, (const void*)kernel<8, resident>                                    \
+  }
+// [fused][resident][k - 1]
+const void* const kFitKernels[2][2][kMaxK] = {{PW_K8_BY_K(lloyd_fit, false), PW_K8_BY_K(lloyd_fit, true)},
+                                              {PW_K8_BY_K(kmeans_fit, false), PW_K8_BY_K(kmeans_fit, true)}};
+#undef PW_K8_BY_K
+
+// Either kernel's static shared memory stays within kStaticSmem (KPP_STATIC_SMEM of ops/kernels.py), so the
+// dynamic part may take the rest of a CTA's 227 KB.
+static_assert(sizeof(SeedShared) + sizeof(float) * 3 * kMaxK <= kStaticSmem, "static shared memory");
+
+// A CTA's dynamic shared memory (smem_layout).
+size_t fit_smem(int rows, int tiles, bool resident) {
+  const size_t region = resident ? (4 * (size_t)rows > (size_t)kFitScratch ? 4 * (size_t)rows : (size_t)kFitScratch)
+                                 : (size_t)kFitScratch;
+  return 8 * (size_t)tiles + 12 * (size_t)(resident ? rows : kStageRows) + region;
+}
+
+// One launch of kFitKernels[fused][resident][k - 1] after zeroing done.  The kernels' attributes are set once a
+// process and device.
+cudaError_t launch_fit(bool fused, bool resident, int k, FitArgs& p, cudaStream_t s) {
+  const size_t smem = fit_smem(p.rows, p.tiles, resident);
+  if (smem > (size_t)(kMaxSmem - kStaticSmem)) return cudaErrorInvalidValue;
+  const void* kernel = kFitKernels[fused][resident][k - 1];
+  static unsigned char configured[64][2][2][kMaxK];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !configured[dev][fused][resident][k - 1]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem - kStaticSmem);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) configured[dev][fused][resident][k - 1] = 1;
+  }
+  err = cudaMemsetAsync(p.done, 0, sizeof(int), s);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)(p.attempts * kCluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* args[] = {&p};
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // Nearest centre of x by _lloyd's expanded distance; the first minimum wins.
@@ -451,155 +827,6 @@ __device__ __forceinline__ int nearest(const float* cen, const float* cen2, int 
     }
   }
   return best;
-}
-
-// One cluster per attempt.  out: centers_all (attempts, k, 3), comp_all and
-// iters_all (attempts,); the last attempt to finish (done counts them) writes
-// the centres of the first attempt of least compactness to best (k, 3), zeros
-// where no compactness is below infinity, and its index to best_idx.
-__global__ void __launch_bounds__(kFitThreads)
-    lloyd_fit(const float* __restrict__ sample, int n, int k, const float* __restrict__ init_all, int iters, float eps,
-              float* __restrict__ centers_all, float* __restrict__ comp_all, int32_t* __restrict__ iters_all,
-              int attempts, int* __restrict__ done, float* __restrict__ best, int32_t* __restrict__ best_idx) {
-  __shared__ FitShared s;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int a = blockIdx.x / kCluster;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long first = (long)rank * kFitThreads + tid, stride = (long)kCluster * kFitThreads;
-
-  if (tid < 3 * k) s.cen[tid] = init_all[(long)a * k * 3 + tid];
-  __syncthreads();
-  if (tid < k) s.cen2[tid] = (s.cen[3 * tid] * s.cen[3 * tid] + s.cen[3 * tid + 1] * s.cen[3 * tid + 1])
-                             + s.cen[3 * tid + 2] * s.cen[3 * tid + 2];
-  __syncthreads();
-
-  float shift = CUDART_INF_F;
-  int it = 0;
-  while (shift > eps && it < iters) {
-    const int buf = it & 1;
-    float sum[kMaxK][3];
-    int cnt[kMaxK];
-#pragma unroll
-    for (int c = 0; c < kMaxK; ++c) {
-      sum[c][0] = sum[c][1] = sum[c][2] = 0.0f;
-      cnt[c] = 0;
-    }
-    for (long i = first; i < n; i += stride) {
-      const float x0 = sample[3 * i], x1 = sample[3 * i + 1], x2 = sample[3 * i + 2];
-      float d;
-      const int b = nearest(s.cen, s.cen2, k, x0, x1, x2, d);
-#pragma unroll
-      for (int c = 0; c < kMaxK; ++c) {
-        if (b == c) {
-          sum[c][0] = sum[c][0] + x0;
-          sum[c][1] = sum[c][1] + x1;
-          sum[c][2] = sum[c][2] + x2;
-          cnt[c] = cnt[c] + 1;
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kMaxK; ++c) {
-      if (c < k) {
-        const float v0 = warp_sum_f(sum[c][0]), v1 = warp_sum_f(sum[c][1]), v2 = warp_sum_f(sum[c][2]);
-        const int m = warp_sum_i(cnt[c]);
-        if (lane == 0) {
-          s.warp_sum[warp][3 * c] = v0;
-          s.warp_sum[warp][3 * c + 1] = v1;
-          s.warp_sum[warp][3 * c + 2] = v2;
-          s.warp_cnt[warp][c] = m;
-        }
-      }
-    }
-    __syncthreads();
-    if (tid < 3 * k) {
-      float r = 0.0f;
-      for (int v = 0; v < kFitWarps; ++v) r = r + s.warp_sum[v][tid];
-      s.part_sum[buf][tid] = r;
-    } else if (tid >= 32 && tid < 32 + k) {
-      int m = 0;
-      for (int v = 0; v < kFitWarps; ++v) m += s.warp_cnt[v][tid - 32];
-      s.part_cnt[buf][tid - 32] = m;
-    }
-    cluster.sync();  // every CTA's partials of this iteration are in place
-    if (tid < 3 * k) {
-      float r = 0.0f;
-      for (int q = 0; q < kCluster; ++q) r = r + cluster.map_shared_rank(&s.part_sum[buf][0], q)[tid];
-      s.tot_sum[tid] = r;
-    } else if (tid >= 32 && tid < 32 + k) {
-      int m = 0;
-      for (int q = 0; q < kCluster; ++q) m += cluster.map_shared_rank(&s.part_cnt[buf][0], q)[tid - 32];
-      s.tot_cnt[tid - 32] = m;
-    }
-    __syncthreads();
-    if (tid < k) {
-      const int m = s.tot_cnt[tid];
-      const float div = fmaxf((float)m, 1.0f);
-      float e[3];
-      for (int j = 0; j < 3; ++j) {
-        const float old = s.cen[3 * tid + j];
-        const float v = m > 0 ? s.tot_sum[3 * tid + j] / div : old;  // an empty cluster keeps its centre
-        s.next[3 * tid + j] = v;
-        e[j] = v - old;
-      }
-      s.move[tid] = sqrtf((e[0] * e[0] + e[1] * e[1]) + e[2] * e[2]);
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float m = s.move[0];
-      for (int c = 1; c < k; ++c) m = fmaxf(m, s.move[c]);
-      s.shift = m;
-    }
-    if (tid < 3 * k) s.cen[tid] = s.next[tid];
-    __syncthreads();
-    if (tid < k) s.cen2[tid] = (s.cen[3 * tid] * s.cen[3 * tid] + s.cen[3 * tid + 1] * s.cen[3 * tid + 1])
-                               + s.cen[3 * tid + 2] * s.cen[3 * tid + 2];
-    shift = s.shift;
-    ++it;
-    __syncthreads();
-  }
-
-  // the compactness of the final centres
-  float comp = 0.0f;
-  for (long i = first; i < n; i += stride) {
-    float d;
-    nearest(s.cen, s.cen2, k, sample[3 * i], sample[3 * i + 1], sample[3 * i + 2], d);
-    comp = comp + d;
-  }
-  comp = warp_sum_f(comp);
-  if (lane == 0) s.warp_comp[warp] = comp;
-  __syncthreads();
-  if (tid == 0) {
-    float r = 0.0f;
-    for (int v = 0; v < kFitWarps; ++v) r = r + s.warp_comp[v];
-    s.part_comp = r;
-  }
-  cluster.sync();
-  if (rank == 0 && tid == 0) {
-    float r = 0.0f;
-    for (int q = 0; q < kCluster; ++q) r = r + *cluster.map_shared_rank(&s.part_comp, q);
-    for (int j = 0; j < 3 * k; ++j) centers_all[(long)a * k * 3 + j] = s.cen[j];
-    comp_all[a] = r;
-    iters_all[a] = it;
-    __threadfence();
-    if (atomicAdd(done, 1) == attempts - 1) {
-      __threadfence();
-      const volatile float* comps = comp_all;
-      const volatile float* cens = centers_all;
-      float best_comp = CUDART_INF_F;
-      int pick = -1;
-      for (int q = 0; q < attempts; ++q) {
-        if (comps[q] < best_comp) {  // strict: the first of equal attempts wins
-          best_comp = comps[q];
-          pick = q;
-        }
-      }
-      for (int j = 0; j < 3 * k; ++j) best[j] = pick < 0 ? 0.0f : cens[(long)pick * k * 3 + j];
-      *best_idx = pick;
-    }
-  }
-  cluster.sync();  // no CTA leaves while rank 0 may still read its partial
 }
 
 // labels[i] = the nearest of the k centres to point i, by the fit's distance.
@@ -660,76 +887,69 @@ int pw_subsample(int n, int limit, unsigned a, unsigned b, int32_t* out, uint32_
   return (int)cudaGetLastError();
 }
 
-// k-means++ seeds of `attempts` attempts on sample (n, 3), n < 2^27: first
-// (attempts,) int32 indices, uniforms (attempts, k - 1) float32 in [0, 1] ->
-// centers (attempts, k, 3) and picks (attempts, k), the chosen indices.  One
-// cluster of kCluster CTAs an attempt; resident (nonzero): each CTA holds its
-// rows and their d2 in shared memory, else d2 (attempts, n) float32 is
-// scratch in device memory.  Returns a CUDA error code.
-int pw_kpp_init(const float* sample, int n, int k, int attempts, const int32_t* first, const float* uniforms,
-                float* d2, float* centers, int32_t* picks, int resident, void* stream) {
-  if (n <= 0 || n >= (1 << 27) || k <= 0 || attempts <= 0 || (!resident && d2 == nullptr))
+// The device mode's seeds and fits of `attempts` attempts on sample (n, 3), 0 < n < 2^27, 1 <= k <= 8, in one
+// launch: draws (attempts, k) float32, each attempt's first row as int32 bits, then k - 1 uniforms in [0, 1] ->
+// picks (attempts, k) int32, the seeds' rows; centers (attempts, k, 3) after `iters` Lloyd iterations at most (the
+// seeds where iters is 0); comp and iters_out (attempts,); the best attempt's centres in best (k, 3) and its index
+// in best_idx.  resident (nonzero): each CTA holds its rows in shared memory (ops/kernels.py::kpp_schedule),
+// else d2 (attempts, n) float32 is scratch in device memory.  done: an int of scratch (zeroed here).  Returns a
+// CUDA error code.
+int pw_kmeans_fit(const float* sample, int n, int k, int attempts, const float* draws, int iters, float eps,
+                  int resident, float* d2, int32_t* picks, float* centers, float* comp, int32_t* iters_out, int* done,
+                  float* best, int32_t* best_idx, void* stream) {
+  if (n <= 0 || n >= (1 << 27) || k <= 0 || k > kMaxK || attempts <= 0 || iters < 0 || (!resident && d2 == nullptr))
     return (int)cudaErrorInvalidValue;
-  int rows = (n + kCluster - 1) / kCluster, tiles = (rows + kInitThreads - 1) / kInitThreads;
-  const size_t smem = sizeof(unsigned long long) * (size_t)tiles + (resident ? 16 * (size_t)rows : 0);
-  if (smem + sizeof(InitShared) > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  const void* kernel = resident ? (const void*)kpp_init<true> : (const void*)kpp_init<false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3((unsigned)(attempts * kCluster));
-  cfg.blockDim = dim3(kInitThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int fit = 0;
-  err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
-  if (err != cudaSuccess) return (int)err;
-  if (fit < 1) return (int)cudaErrorInvalidConfiguration;
-  void* args[] = {&sample, &n, &k, &rows, &tiles, &first, &uniforms, &d2, &centers, &picks};
-  err = cudaLaunchKernelExC(&cfg, kernel, args);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  FitArgs p = {};
+  p.sample = sample;
+  p.draws = draws;
+  p.d2_all = d2;
+  p.picks_all = picks;
+  p.centers_all = centers;
+  p.comp_all = comp;
+  p.iters_all = iters_out;
+  p.done = done;
+  p.best = best;
+  p.best_idx = best_idx;
+  p.n = n;
+  p.rows = (n + kCluster - 1) / kCluster;
+  p.tiles = (p.rows + kThreads - 1) / kThreads;
+  p.attempts = attempts;
+  p.iters = iters;
+  p.eps = eps;
+  return (int)launch_fit(true, resident != 0, k, p, static_cast<cudaStream_t>(stream));
 }
 
-// The Lloyd fits of `attempts` attempts from init (attempts, k, 3), k <= 8, in
-// one launch -> centers (attempts, k, 3), comp and iters (attempts,), and the
-// best attempt's centres in best (k, 3) and its index in best_idx; done is an
-// int of scratch (zeroed here).  Returns a CUDA error code.
+// The Lloyd fits of `attempts` attempts from init (attempts, k, 3), 1 <= k <= 8, in one launch, by the same body
+// as pw_kmeans_fit's fits and on the same routes -> centers, comp, iters_out, best, best_idx as there.  Returns a
+// CUDA error code.
 int pw_lloyd_fit(const float* sample, int n, int k, int attempts, const float* init, int iters, float eps,
-                 float* centers, float* comp, int32_t* iters_out, int* done, float* best, int32_t* best_idx,
-                 void* stream) {
-  if (n <= 0 || k <= 0 || k > kMaxK || attempts <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(done, 0, sizeof(int), s);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(lloyd_fit, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3((unsigned)(attempts * kCluster));
-  cfg.blockDim = dim3(kFitThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  void* args[] = {&sample, &n, &k, &init, &iters, &eps, &centers, &comp, &iters_out, &attempts, &done, &best,
-                  &best_idx};
-  err = cudaLaunchKernelExC(&cfg, (const void*)lloyd_fit, args);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+                 int resident, float* centers, float* comp, int32_t* iters_out, int* done, float* best,
+                 int32_t* best_idx, void* stream) {
+  if (n <= 0 || k <= 0 || k > kMaxK || attempts <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
+  FitArgs p = {};
+  p.sample = sample;
+  p.init = init;
+  p.centers_all = centers;
+  p.comp_all = comp;
+  p.iters_all = iters_out;
+  p.done = done;
+  p.best = best;
+  p.best_idx = best_idx;
+  p.n = n;
+  p.rows = (n + kCluster - 1) / kCluster;
+  p.tiles = 0;
+  p.attempts = attempts;
+  p.iters = iters;
+  p.eps = eps;
+  return (int)launch_fit(false, resident != 0, k, p, static_cast<cudaStream_t>(stream));
 }
+
+#ifdef PW_KMEANS_PHASES
+// The last launch's phase cycles (kPhaseSlots values; see PhaseClock).
+int pw_kmeans_phases(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, phase_cycles, sizeof(phase_cycles));
+}
+#endif
 
 // labels (n,) int32 = the nearest of centers (k, 3) to each row of data (n,
 // 3), by the expanded distance, first minimum.  Returns a CUDA error code.

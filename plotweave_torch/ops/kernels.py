@@ -40,18 +40,20 @@
   int32 labels or as the k one-hot bitboards, the latter also with the k
   pixel counts of one image; replaces the XLA fusion of ``assign_nearest``
   and the argmin and counts of stage 02's ``_assign_tail``.
-- K8 ``subsample_cuda``, ``lab_sample_cuda``, ``kpp_init_cuda`` and
-  ``lloyd_fit_cuda`` (``csrc/kmeans.cu``): the device k-means of
-  ``kmeans_init: "device"``: the subsample's draw (a radix select over
-  hashed keys and a compaction in index order, one cooperative launch), the
-  float Lab of the subsample (K7's arithmetic through ``csrc/lab.cuh``), the
-  k-means++ seeds of every attempt from host-drawn random numbers (one thread
-  block cluster per attempt, integer running sums, the rows resident in
-  shared memory where they fit: :func:`kpp_schedule`), and every attempt's
-  whole Lloyd loop with the choice of the best in one launch (one cluster
-  per attempt, the stop test on the device, sums in a fixed order); replaces
-  the subsample of ``_device_init_stage`` and the XLA programs of
-  ``_lloyd``, ``_kpp_init_device`` and ``kmeans_fit_device``.
+- K8 ``subsample_cuda``, ``lab_sample_cuda``, ``kmeans_fit_cuda``,
+  ``lloyd_fit_cuda`` and ``assign_points_cuda`` (``csrc/kmeans.cu``): the
+  device k-means of ``kmeans_init: "device"``: the subsample's draw (a radix
+  select over hashed keys and a compaction in index order, one cooperative
+  launch), the float Lab of the subsample (K7's arithmetic through
+  ``csrc/lab.cuh``), then in ONE launch the k-means++ seeds of every attempt
+  from host-drawn random numbers and every attempt's whole Lloyd loop with
+  the choice of the best (one thread block cluster per attempt over rows
+  held in shared memory where they fit, :func:`kpp_schedule`; integer
+  running sums for the seeds, float sums in a fixed order, the stop test on
+  the device); ``lloyd_fit_cuda`` runs the same fit from the host's seeds
+  (the tools' ``kmeans``).  Replaces the subsample of
+  ``_device_init_stage`` and the XLA programs of ``_lloyd``,
+  ``_kpp_init_device`` and ``kmeans_fit_device``.
 - K11 ``morph_dense_cuda`` (``csrc/morph_dense.cu``): a whole list of gray
   (uint8) erosions and dilations by rect, ellipse or cross elements in one
   launch, every plane of a stack too: each element cut into row runs
@@ -177,14 +179,18 @@ MAX_SMEM = 232448
 ROUTES = ("resident", "multi")
 
 # K8: the centres one fit holds in registers (``kMaxK`` in csrc/kmeans.cu); the
-# seeding's threads a CTA (``kInitThreads``: a tile is one row a thread), the
-# shared memory it keeps beside the tile totals and rows (``InitShared``, with
-# room), its weights max(floor(d2 2^16), 1) capped at 2^36, and the rows it
+# seeds-and-fits launch's threads a CTA (``kThreads``: a tile is one row a
+# thread), a bound on its static shared memory (``kStaticSmem``), the fit's
+# shared scratch, which takes the place of the dead d² column (``kFitScratch``),
+# and the tiles the streamed route stages at once (``kStageTiles``);
+# the seeding's weights max(floor(d2 2^16), 1) capped at 2^36, and the rows it
 # takes (n 2^36 < 2^63); the draw's scratch (three rounds of 2,048 buckets, two
 # counts for each of at most 1,024 CTAs)
 KMEANS_MAX_K = 8
 KPP_THREADS = 512
 KPP_STATIC_SMEM = 512
+FIT_SCRATCH_BYTES = 4 * (4 * KMEANS_MAX_K * 16 + 3 * 4 * KMEANS_MAX_K + 5 * KMEANS_MAX_K)
+FIT_STAGE_TILES = 8
 KPP_SCALE_BITS = 16
 KPP_WEIGHT_CAP = 1 << 36
 KPP_MAX_N = 1 << 27
@@ -229,15 +235,15 @@ REFINE_MIN_N, REFINE_MAX_N = 3, 8192
 # kernel launches per wrapper and route, counted where each wrapper calls into its library
 LAUNCHES = {"bitpack": 0, "edge_candidates": 0, "zhang_suen_packed": 0, "zhang_suen_packed_multi": 0,
             "hysteresis": 0, "hysteresis_multi": 0, "morph_bits": 0, "assign_nearest": 0, "zhang_suen_dense": 0,
-            "subsample": 0, "lab_sample": 0, "kpp_init": 0, "lloyd_fit": 0, "assign_points": 0, "morph_dense": 0,
+            "subsample": 0, "lab_sample": 0, "kmeans_fit": 0, "lloyd_fit": 0, "assign_points": 0, "morph_dense": 0,
             "greedy_tour": 0, "refine_tour": 0, "area_resize_frac": 0, "area_resize_int": 0, "bezier_sample": 0}
 
 # what the last call of each fixpoint route took: for the resident routes a
 # device tensor, K6 (k,) iterations per layer, K5 (k, 2) rounds and the most
 # sweeps one CTA ran per layer; for the multi-launch routes and K12 the
-# iterations or sweeps launched; for K8's fit the device tensors (iterations
-# per attempt, compactness per attempt, index of the best attempt).  Only read
-# by ``chip_smoke.py``.
+# iterations or sweeps launched; for K8's fits (``kmeans_fit``, ``lloyd_fit``)
+# the device tensors (iterations per attempt, compactness per attempt, index of
+# the best attempt).  Only read by ``chip_smoke.py``.
 STATS: dict = {}
 
 build_log: dict = {}  # library → nvcc's output (ptxas register and spill report) of its last build
@@ -331,8 +337,8 @@ _SIGNATURES = {
     "zs_dense": {"pw_zs_tiles_run": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "kmeans": {"pw_subsample": [_I, _I, _U, _U, _P, _P, _P],
                "pw_lab_sample": [_P, _P, _P, _I, _P],
-               "pw_kpp_init": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
-               "pw_lloyd_fit": [_P, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P],
+               "pw_kmeans_fit": [_P, _I, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+               "pw_lloyd_fit": [_P, _I, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P],
                "pw_assign_points": [_P, _L, _P, _I, _P, _P]},
     "morph_dense": {"pw_morph_dense_run": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "greedy_tour": {"pw_greedy_tour": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]},
@@ -1071,47 +1077,70 @@ def lab_sample_cuda(image: torch.Tensor, idx: torch.Tensor | None = None) -> tor
 
 
 def kpp_schedule(n: int) -> dict:
-    """K8's seeding of n rows, as ``pw_kpp_init`` runs it: ``rows`` a CTA of
-    the cluster (``⌈n / CLUSTER_SIZE⌉``), ``tiles`` of :data:`KPP_THREADS`
-    rows each, and the route by size: ``resident`` (each CTA's rows and
-    their d², 16 bytes a row, in shared memory after the tiles' totals)
-    where that fits, about 230,000 rows, else ``streamed`` (the rows read
-    each draw, d² in device scratch)."""
+    """K8's seeds and fits of n rows, as ``pw_kmeans_fit`` and
+    ``pw_lloyd_fit`` run them: ``rows`` a CTA of the cluster (``⌈n /
+    CLUSTER_SIZE⌉``), ``tiles`` of :data:`KPP_THREADS` rows each, and the route
+    by size: ``resident`` (each CTA's rows and their d², 16 bytes a row, in
+    shared memory after the tiles' totals, the fit's scratch in place of d²
+    once the seeds are drawn) where that fits, about 230,000 rows, else
+    ``streamed`` (the rows read as coalesced tiles each draw and pass, d² in
+    device scratch)."""
     rows = -(-n // CLUSTER_SIZE)
     tiles = -(-rows // KPP_THREADS)
-    fits = 8 * tiles + 16 * rows + KPP_STATIC_SMEM <= MAX_SMEM
+    fits = 8 * tiles + 12 * rows + max(4 * rows, FIT_SCRATCH_BYTES) + KPP_STATIC_SMEM <= MAX_SMEM
     return {"route": "resident" if fits else "streamed", "rows": rows, "tiles": tiles}
 
 
-def kpp_init_cuda(sample: torch.Tensor, k: int, first: torch.Tensor, uniforms: torch.Tensor):
-    """K8's seeding: ``ops.kmeans.kpp_init_plain`` for every attempt in one
-    launch, on the route :func:`kpp_schedule` gives.  ``sample`` (n, 3)
-    float32, n < :data:`KPP_MAX_N` (the weights' sum stays below 2^63),
-    ``first`` (attempts,) int32 indices and ``uniforms`` (attempts, k - 1)
-    float32 in [0, 1], all on one CUDA device → (centres (attempts, k, 3)
-    float32, picked indices (attempts, k) int32)."""
-    _check_f32("kpp_init", sample, (3,))
-    n, attempts = sample.shape[0], first.numel()
-    if sample.dim() != 2 or k < 1 or attempts < 1:
-        raise ValueError(f"kpp_init: expected an (n, 3) sample, k >= 1 and an attempt, got {tuple(sample.shape)}, {k}")
-    if not 0 < n < KPP_MAX_N:
-        raise ValueError(f"kpp_init: {n} rows; the seeding takes 1 to {KPP_MAX_N - 1} (a sum of weights below 2^63)")
-    _check_f32("kpp_init", uniforms, (attempts, k - 1), sample.device)
-    if not (first.device == sample.device and first.dtype == torch.int32 and first.is_contiguous()
-            and first.dim() == 1):
-        raise ValueError(f"kpp_init: expected contiguous (attempts,) int32 first indices on {sample.device}")
+def _fit_outputs(attempts: int, k: int, extra: int, device) -> tuple:
+    """One float32 allocation for K8's fit outputs: the best centres (k, 3),
+    centres (attempts, k, 3), compactness (attempts,), then int32 picks
+    (attempts, k), iterations (attempts,), the done counter and the best
+    attempt's index, then ``extra`` floats of scratch, all flat."""
+    sizes = (3 * k, 3 * attempts * k, attempts, attempts * k, attempts, 1, 1, extra)
+    parts = list(torch.split(torch.empty(sum(sizes), dtype=torch.float32, device=device), sizes))
+    for i in (3, 4, 5, 6):
+        parts[i] = parts[i].view(torch.int32)
+    return tuple(parts)
+
+
+def kmeans_fit_cuda(sample: torch.Tensor, draws: torch.Tensor, iters: int, eps: float = 0.5,
+                    out: torch.Tensor | None = None):
+    """K8's seeds and fits in one launch: ``ops.kmeans.kmeans_fit_plain``
+    (``kpp_init_plain``, then ``lloyd_fits_plain`` from its seeds) on the
+    route :func:`kpp_schedule` gives.  ``sample`` (n, 3) float32, n <
+    :data:`KPP_MAX_N` (the weights' sum stays below 2^63); ``draws``
+    (attempts, k) float32 on its device, k <= :data:`KMEANS_MAX_K`: each
+    attempt's first row as int32 bits, then its k − 1 uniforms in [0, 1]
+    (``ops.kmeans.seed_draws``) → (best centres (k, 3), written into ``out``
+    when given: a contiguous float32 tensor of 3 k elements on that device;
+    centres (attempts, k, 3), the seeds where ``iters`` is 0; compactness
+    (attempts,); iterations (attempts,) int32; the seeds' rows (attempts, k)
+    int32), all on the device.  Nothing is read back here."""
+    _check_f32("kmeans_fit", sample, (3,))
+    if draws.dim() != 2:
+        raise ValueError(f"kmeans_fit: expected (attempts, k) draws, got {tuple(draws.shape)}")
+    n, (attempts, k) = sample.shape[0], draws.shape
+    _check_f32("kmeans_fit", draws, (attempts, k), sample.device)
+    if sample.dim() != 2 or not 0 < n < KPP_MAX_N or attempts < 1 or not 1 <= k <= KMEANS_MAX_K or iters < 0:
+        raise ValueError(f"kmeans_fit: expected an (n, 3) sample of 1 to {KPP_MAX_N - 1} rows (a sum of weights "
+                         f"below 2^63), 1 to {KMEANS_MAX_K} centres and iterations >= 0, got {tuple(sample.shape)}, "
+                         f"k = {k}, {iters}")
+    if out is not None:
+        _check_f32("kmeans_fit", out.reshape(-1), (3 * k,), sample.device)
     resident = kpp_schedule(n)["route"] == "resident"
     lib = load("kmeans")
     with _guard(sample.device):
-        centers = torch.empty((attempts, k, 3), dtype=torch.float32, device=sample.device)
-        picks = torch.empty((attempts, k), dtype=torch.int32, device=sample.device)
-        d2 = None if resident else torch.empty((attempts, n), dtype=torch.float32, device=sample.device)
-        err = lib.pw_kpp_init(sample.data_ptr(), n, k, attempts, first.data_ptr(), uniforms.data_ptr(),
-                              None if d2 is None else d2.data_ptr(), centers.data_ptr(), picks.data_ptr(),
-                              int(resident), torch.cuda.current_stream().cuda_stream)
-        _count("kpp_init")
-        _raise_on(lib, "kpp_init", err)
-    return centers, picks
+        best, centers, comp, picks, its, done, best_idx, d2 = _fit_outputs(attempts, k, 0 if resident else attempts * n,
+                                                                           sample.device)
+        best = best if out is None else out
+        err = lib.pw_kmeans_fit(sample.data_ptr(), n, k, attempts, draws.data_ptr(), int(iters), float(eps),
+                                int(resident), None if resident else d2.data_ptr(), picks.data_ptr(),
+                                centers.data_ptr(), comp.data_ptr(), its.data_ptr(), done.data_ptr(), best.data_ptr(),
+                                best_idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        _count("kmeans_fit")
+        _raise_on(lib, "kmeans_fit", err)
+        STATS["kmeans_fit"] = (its, comp, best_idx)
+    return best.view(k, 3), centers.view(attempts, k, 3), comp, its, picks.view(attempts, k)
 
 
 def subsample_cuda(words: tuple, n: int, limit: int, device) -> torch.Tensor:
@@ -1137,38 +1166,37 @@ def subsample_cuda(words: tuple, n: int, limit: int, device) -> torch.Tensor:
 
 def lloyd_fit_cuda(sample: torch.Tensor, init: torch.Tensor, iters: int, eps: float = 0.5,
                    out: torch.Tensor | None = None):
-    """K8's fit: ``ops.kmeans.lloyd_plain`` from each of ``init``'s
-    (attempts, k, 3) seeds on the CUDA (n, 3) float32 ``sample`` and the
-    choice of the first attempt of least compactness, all in one launch →
-    (best centres (k, 3), written into ``out`` when given: a contiguous
-    float32 tensor of 3 k elements on that device; centres (attempts, k, 3);
-    compactness (attempts,); iterations (attempts,) int32), all on the
-    device.  Nothing is read back here."""
+    """K8's fits from given seeds: ``ops.kmeans.lloyd_plain`` from each of
+    ``init``'s (attempts, k, 3) seeds on the CUDA (n, 3) float32 ``sample``
+    and the choice of the first attempt of least compactness, all in one
+    launch of the fit body of :func:`kmeans_fit_cuda`, on the route
+    :func:`kpp_schedule` gives → (best centres (k, 3), written into ``out``
+    when given: a contiguous float32 tensor of 3 k elements on that device;
+    centres (attempts, k, 3); compactness (attempts,); iterations (attempts,)
+    int32), all on the device.  Nothing is read back here."""
     _check_f32("lloyd_fit", sample, (3,))
     if init.dim() != 3:
         raise ValueError(f"lloyd_fit: expected (attempts, k, 3) seeds, got {tuple(init.shape)}")
     attempts, k = init.shape[:2]
     _check_f32("lloyd_fit", init, (attempts, k, 3), sample.device)
     n = sample.shape[0]
-    if sample.dim() != 2 or not 0 < n < 2**31 or attempts < 1 or not 1 <= k <= KMEANS_MAX_K:
-        raise ValueError(f"lloyd_fit: expected an (n, 3) sample and 1 to {KMEANS_MAX_K} centres, got "
-                         f"{tuple(sample.shape)}, k = {k}")
+    if sample.dim() != 2 or not 0 < n < 2**31 or attempts < 1 or not 1 <= k <= KMEANS_MAX_K or iters < 0:
+        raise ValueError(f"lloyd_fit: expected an (n, 3) sample, 1 to {KMEANS_MAX_K} centres and iterations >= 0, "
+                         f"got {tuple(sample.shape)}, k = {k}, {iters}")
     if out is not None:
         _check_f32("lloyd_fit", out.reshape(-1), (3 * k,), sample.device)
+    resident = kpp_schedule(n)["route"] == "resident"
     lib = load("kmeans")
     with _guard(sample.device):
-        best = torch.empty((k, 3), dtype=torch.float32, device=sample.device) if out is None else out
-        centers = torch.empty((attempts, k, 3), dtype=torch.float32, device=sample.device)
-        comp = torch.empty(attempts, dtype=torch.float32, device=sample.device)
-        counters = torch.empty(attempts + 2, dtype=torch.int32, device=sample.device)  # iterations, done, best index
+        best, centers, comp, _, its, done, best_idx, _ = _fit_outputs(attempts, k, 0, sample.device)
+        best = best if out is None else out
         err = lib.pw_lloyd_fit(sample.data_ptr(), n, k, attempts, init.data_ptr(), int(iters), float(eps),
-                               centers.data_ptr(), comp.data_ptr(), counters.data_ptr(),
-                               counters.data_ptr() + 4 * attempts, best.data_ptr(),
-                               counters.data_ptr() + 4 * (attempts + 1), torch.cuda.current_stream().cuda_stream)
+                               int(resident), centers.data_ptr(), comp.data_ptr(), its.data_ptr(), done.data_ptr(),
+                               best.data_ptr(), best_idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
         _count("lloyd_fit")
         _raise_on(lib, "lloyd_fit", err)
-        STATS["lloyd_fit"] = (counters[:attempts], comp, counters[attempts + 1])
-    return best.view(k, 3), centers, comp, counters[:attempts]
+        STATS["lloyd_fit"] = (its, comp, best_idx)
+    return best.view(k, 3), centers.view(attempts, k, 3), comp, its
 
 
 def assign_points_cuda(data: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:

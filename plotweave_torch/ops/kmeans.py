@@ -16,7 +16,8 @@ Two entries:
   the host from numpy's Generator, the stream of the JAX package's
   ``kmeans``, then the Lloyd fits and the assignment on ``device``.
 - :func:`kmeans_fit_device` (stage 02 with ``kmeans_init: "device"``): seeds
-  drawn on the device from host-drawn random numbers, and the fits.
+  drawn on the device from host-drawn random numbers, and the fits, in one
+  launch of K8 on the card (:func:`kmeans_fits`).
 
 **The random numbers of the device mode.**  ``jax.random`` cannot be
 reproduced, so the port defines its own, the same for the card and for
@@ -164,21 +165,67 @@ def kpp_init(sample: torch.Tensor, k: int, first: torch.Tensor, uniforms: torch.
     """:func:`kpp_init_plain` for every attempt: ``first`` (attempts,) int32
     and ``uniforms`` (attempts, k − 1) float32, CPU tensors as
     :func:`seed_stream` draws them → (centres (attempts, k, D), picked rows
-    (attempts, k) int32) on the sample's device: kernel K8 (one launch) for a
-    CUDA sample, the plain version for a CPU sample, else raise.  A sample of
-    :data:`KPP_MAX_N` rows or more is refused: its weights' sum could
-    overflow 63 bits."""
+    (attempts, k) int32) on the sample's device: kernel K8's seeds-and-fits
+    launch with no iteration (Lloyd from zero iterations returns the seeds)
+    for a CUDA sample, the plain version for a CPU sample, else raise.  A
+    sample of :data:`KPP_MAX_N` rows or more is refused: its weights' sum
+    could overflow 63 bits."""
+    _check_seeds(sample, first)
+    if _on_card("kpp_init", sample):
+        from .kernels import kmeans_fit_cuda  # noqa: PLC0415
+
+        fit = kmeans_fit_cuda(sample, seed_draws(first, uniforms).to(sample.device), 0)
+        return fit[1], fit[4]
+    fits = [kpp_init_plain(sample, k, int(f), u) for f, u in zip(first.tolist(), uniforms)]
+    return torch.stack([f[0] for f in fits]), torch.stack([f[1] for f in fits])
+
+
+def _check_seeds(sample: torch.Tensor, first: torch.Tensor) -> None:
     n = sample.shape[0]
     if not 0 < n < KPP_MAX_N:
         raise ValueError(f"kpp_init: {n} rows; the seeding takes 1 to {KPP_MAX_N - 1}")
     if first.numel() and not 0 <= int(first.min()) <= int(first.max()) < n:
         raise ValueError(f"kpp_init: first indices outside the sample's {n} rows")
-    if _on_card("kpp_init", sample):
-        from .kernels import kpp_init_cuda  # noqa: PLC0415
 
-        return kpp_init_cuda(sample, k, first.to(sample.device), uniforms.to(sample.device))
-    fits = [kpp_init_plain(sample, k, int(f), u) for f, u in zip(first.tolist(), uniforms)]
-    return torch.stack([f[0] for f in fits]), torch.stack([f[1] for f in fits])
+
+def seed_draws(first: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
+    """The seeding's random numbers packed as K8 takes them, one upload:
+    (attempts, k) float32, each attempt's ``first`` index as int32 bits, then
+    its k − 1 ``uniforms``."""
+    return torch.cat([first.to(torch.int32)[:, None], uniforms.to(torch.float32).view(torch.int32)], 1).view(
+        torch.float32)
+
+
+def kmeans_fit_plain(sample: torch.Tensor, k: int, first: torch.Tensor, uniforms: torch.Tensor, iters: int,
+                     eps: float = 0.5):
+    """:func:`kpp_init_plain` for every attempt, then :func:`lloyd_fits_plain`
+    from its seeds → (best centres (k, D), centres (attempts, k, D),
+    compactness (attempts,), iterations (attempts,) int32, the seeds' rows
+    (attempts, k) int32): the plain version of kernel K8's seeds-and-fits
+    launch."""
+    seeds = [kpp_init_plain(sample, k, int(f), u) for f, u in zip(first.tolist(), uniforms)]
+    return (*lloyd_fits_plain(sample, torch.stack([s[0] for s in seeds]), iters, eps),
+            torch.stack([s[1] for s in seeds]))
+
+
+def kmeans_fits(sample: torch.Tensor, k: int, first: torch.Tensor, uniforms: torch.Tensor, iters: int,
+                eps: float = 0.5, out: torch.Tensor | None = None):
+    """:func:`kmeans_fit_plain` on the sample's device: kernel K8's
+    seeds-and-fits launch for a CUDA sample (the random numbers uploaded in
+    one copy, nothing read back), the plain version for a CPU sample, else
+    raise.  ``first`` (attempts,) int32 and ``uniforms`` (attempts, k − 1)
+    float32 as :func:`seed_stream` draws them; ``out`` (3 k float32 elements
+    on the sample's device) receives the best centres when given."""
+    _check_seeds(sample, first)
+    if _on_card("kmeans_fits", sample):
+        from .kernels import kmeans_fit_cuda  # noqa: PLC0415
+
+        return kmeans_fit_cuda(sample, seed_draws(first, uniforms).to(sample.device), iters, eps, out)
+    fit = kmeans_fit_plain(sample, k, first, uniforms, iters, eps)
+    if out is not None:
+        out.view(fit[0].shape).copy_(fit[0])
+        return (out.view(fit[0].shape), *fit[1:])
+    return fit
 
 
 def draw_words(seed: int) -> tuple:
@@ -257,11 +304,10 @@ def kmeans_fit_device(sample: torch.Tensor, k: int, attempts: int, iters: int, s
     ``kmeans_fit_device``): k-means++ seeds from :func:`seed_stream`, the
     Lloyd fit of each attempt, the first of least compactness → the winning
     (k, D) centres on the sample's device (in ``out`` when given).  On the
-    card two launches of K8, an upload of the seeds' k + 1 numbers per
-    attempt, and no read back."""
+    card one launch of K8 for seeds and fits, one upload of the seeds' k
+    numbers per attempt, and no read back."""
     first, uniforms = seed_stream(seed, attempts, k, sample.shape[0])
-    inits, _ = kpp_init(sample, k, first, uniforms)
-    return lloyd_fits(sample, inits, iters, out=out)[0]
+    return kmeans_fits(sample, k, first, uniforms, iters, out=out)[0]
 
 
 def lab_sample(image: torch.Tensor, idx: torch.Tensor | None = None) -> torch.Tensor:

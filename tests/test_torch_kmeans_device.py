@@ -371,3 +371,289 @@ def test_kpp_schedule_routes():
     assert kernels.kpp_schedule(250_000)["route"] == "streamed"
     assert kernels.kpp_schedule(kernels.KPP_MAX_N - 1)["route"] == "streamed"
     assert {kernels.kpp_schedule(n)["route"] for n in (1, 5, 2048, 231_696, 231_697, 10**6)} == set(kernels.KPP_ROUTES)
+
+
+# --- the seeds and fits in one launch -------------------------------------------------
+
+
+def tree(v: np.ndarray) -> np.ndarray:
+    """The kernel's shuffle tree over the last axis (a power of two): lane l
+    adds lane l + o for o = L/2, ..., 1; lane 0's value."""
+    v = v.copy()
+    o = v.shape[-1] // 2
+    while o:
+        v[..., :o] = v[..., :o] + v[..., o: 2 * o]
+        o //= 2
+    return v[..., 0]
+
+
+def np_nearest(x: np.ndarray, cen: np.ndarray):
+    """The nearest of the centres to each row by the expanded distance, each
+    float32 operation in the kernel's order; the first minimum wins →
+    (labels, minimal distances)."""
+    f2 = np.float32(2.0)
+    sq = (x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]) + x[:, 2] * x[:, 2]
+    best, best_d = np.zeros(len(x), np.int64), None
+    for c in range(len(cen)):
+        cc = (cen[c, 0] * cen[c, 0] + cen[c, 1] * cen[c, 1]) + cen[c, 2] * cen[c, 2]
+        dot = (x[:, 0] * cen[c, 0] + x[:, 1] * cen[c, 1]) + x[:, 2] * cen[c, 2]
+        d = (sq - f2 * dot) + cc
+        if best_d is None:
+            best_d = d
+        else:
+            better = d < best_d
+            best, best_d = np.where(better, c, best), np.where(better, d, best_d)
+    return best, best_d
+
+
+class FitCta:
+    """One CTA's shared memory as the fit sees it, every cell NaN until
+    written: the rows' columns (resident; NaN past the CTA's len rows) or a
+    stage of FIT_STAGE_TILES tiles (streamed; NaN past the staged rows before
+    each copy), and the fit's scratch in the dead d² region (warps' partials,
+    the double-buffered part, the totals)."""
+
+    def __init__(self, sample: np.ndarray, lo: int, length: int, rows: int, threads: int, route: str):
+        self.lo, self.len, self.rows, self.threads, self.route = lo, length, rows, threads, route
+        self.tiles = -(-rows // threads)
+        self.xs = np.full((3, rows), np.nan, np.float32)
+        if route == "resident":  # the coalesced load: the CTA's 3 len floats in order
+            flat = sample[lo: lo + length].reshape(-1)
+            f = np.arange(3 * length)
+            self.xs[f % 3, f // 3] = flat[f]
+        self.sample = sample
+        words = kernels.FIT_SCRATCH_BYTES // 4
+        self.scratch = np.full(max(words, rows if route == "resident" else 0), np.nan)  # the dead d² column
+        self.wpart, self.part, self.tot = 0, 32 * 16, 32 * 16 + 2 * 32
+
+    def tile(self, t: int):
+        """Tile t's rows, one a thread (NaN where r >= len), as scan_rows reads them."""
+        r = t * self.threads + np.arange(self.threads)
+        valid = r < self.len
+        if self.route == "resident":
+            x = self.xs[:, np.minimum(r, self.rows - 1)].T
+        else:  # every FIT_STAGE_TILES-th tile, the next tiles' rows copied in order, one float a thread and step
+            per = kernels.FIT_STAGE_TILES * self.threads
+            if t % kernels.FIT_STAGE_TILES == 0:
+                self.stage = np.full((3, per), np.nan, np.float32)
+                cnt = 3 * max(min(per, self.len - t * self.threads), 0)
+                flat = self.sample[self.lo + t * self.threads:].reshape(-1)
+                f = np.arange(cnt)
+                self.stage[f % 3, f // 3] = flat[f]
+            rr = (t % kernels.FIT_STAGE_TILES) * self.threads + np.arange(self.threads)
+            x = self.stage[:, rr].T
+        return np.where(valid[:, None], x, np.float32(0)), valid
+
+
+def cluster_sums(ctas, vals_per_cta, nf: int, buf: int, warps: int) -> np.ndarray:
+    """The kernel's cluster_sums: each CTA's (threads, NV) values by a warp
+    tree into its warps' partials, a tree over its warps into part[buf],
+    then the 16 CTAs' parts by a tree over 16 lanes → the totals, written to
+    and read back from every CTA's scratch."""
+    nv = vals_per_cta[0].shape[1]
+    for cta, v in zip(ctas, vals_per_cta):
+        per_warp = tree(np.moveaxis(v.reshape(warps, 32, nv), 1, -1))  # (warps, nv)
+        for j in range(nv):
+            cta.scratch[cta.wpart + j * 16: cta.wpart + j * 16 + warps] = per_warp[:, j]
+        for j in range(nv):
+            w = cta.scratch[cta.wpart + j * 16: cta.wpart + j * 16 + warps]
+            w = w.astype(np.float32) if j < nf else w.astype(np.int64)
+            cta.scratch[cta.part + buf * 32 + j] = tree(w)
+    for cta in ctas:  # every CTA reads the 16 parts
+        for j in range(nv):
+            p = np.array([c.scratch[c.part + buf * 32 + j] for c in ctas])
+            cta.scratch[cta.tot + j] = tree(p.astype(np.float32) if j < nf else p.astype(np.int64))
+    tot = ctas[0].scratch[ctas[0].tot: ctas[0].tot + nv]
+    assert not np.isnan(tot).any()  # no cell was read before it was written
+    assert all(np.array_equal(c.scratch[c.tot: c.tot + nv], tot) for c in ctas)
+    return tot
+
+
+def emulate_lloyd(sample: np.ndarray, seeds: np.ndarray, iters: int, route: str, threads: int, eps: float = 0.5):
+    """The fit body of ``kmeans_fit`` / ``lloyd_fit`` for one attempt: 16
+    CTAs over contiguous rows, each thread's rows in order, every sum in the
+    kernel's order (a thread's sequential float32 adds, the warp tree, the
+    CTA's 16-warp tree, the cluster's 16-CTA tree), the same new centres in
+    every thread → (centres, compactness, iterations)."""
+    n, k = len(sample), len(seeds)
+    rows = -(-n // CLUSTER)
+    warps = threads // 32
+    ctas = [FitCta(sample, min(r * rows, n), min(r * rows + rows, n) - min(r * rows, n), rows, threads, route)
+            for r in range(CLUSTER)]
+    cen = seeds.astype(np.float32).copy()
+    shift, it = np.float32(np.inf), 0
+    while shift > eps and it < iters:
+        vals = []
+        for cta in ctas:
+            s = np.zeros((threads, k, 3), np.float32)
+            cnt = np.zeros((threads, k), np.int64)
+            for t in range(cta.tiles):
+                x, valid = cta.tile(t)
+                lab, _ = np_nearest(x, cen)
+                for c in range(k):
+                    hit = valid & (lab == c)
+                    s[hit, c] = s[hit, c] + x[hit]
+                    cnt[hit, c] += 1
+            v = np.concatenate([s.reshape(threads, 3 * k).astype(np.float64), cnt.astype(np.float64)], 1)
+            vals.append(v)
+        tot = cluster_sums(ctas, vals, 3 * k, it & 1, warps)
+        sums, counts = tot[: 3 * k].astype(np.float32).reshape(k, 3), tot[3 * k:].astype(np.int64)
+        new = np.where(counts[:, None] > 0, sums / np.maximum(counts, 1).astype(np.float32)[:, None], cen)
+        e = new - cen
+        shift = np.sqrt((e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1]) + e[:, 2] * e[:, 2]).max()
+        cen, it = new.astype(np.float32), it + 1
+    comp = []
+    for cta in ctas:
+        acc = np.zeros(threads, np.float32)
+        for t in range(cta.tiles):
+            x, valid = cta.tile(t)
+            _, d = np_nearest(x, cen)
+            acc = np.where(valid, acc + d, acc)
+        comp.append(acc.astype(np.float64)[:, None])
+    total = cluster_sums(ctas, comp, 1, it & 1, warps)
+    return cen, np.float32(total[0]), it
+
+
+def emulate_kmeans_fit(sample: np.ndarray, k: int, first, uniforms, iters: int, route: str, threads: int):
+    """``kmeans_fit``: each attempt's seeds as :func:`emulate_kpp` draws them,
+    then :func:`emulate_lloyd` from them, and the first attempt of least
+    compactness → (best, centres, compactness, iterations, picks)."""
+    picks, fits = [], []
+    for a in range(len(first)):
+        p = emulate_kpp(sample, k, int(first[a]), np.asarray(uniforms[a]), route, threads)
+        picks.append(p)
+        fits.append(emulate_lloyd(sample, sample[p], iters, route, threads))
+    comps = [f[1] for f in fits]
+    best, best_comp = np.zeros((k, 3), np.float32), np.inf
+    for f in fits:
+        if f[1] < best_comp:
+            best, best_comp = f[0], f[1]
+    return best, np.stack([f[0] for f in fits]), np.array(comps), np.array([f[2] for f in fits]), np.array(picks)
+
+
+PENS = np.array([[30, 128, 128], [60, 150, 100], [90, 110, 160], [120, 170, 170], [150, 90, 120],
+                 [180, 140, 200], [210, 120, 90], [245, 128, 128]], np.float32)
+
+
+def fit_sample(n: int, blobs: int, seed: int = 31) -> np.ndarray:
+    """``blobs`` separable blobs of Lab-like rows, rounded to quarters (duplicate rows and distance ties)."""
+    g = np.random.default_rng(seed)
+    x = PENS[:blobs][g.integers(0, blobs, n)] + g.normal(0, 2.0, (n, 3))
+    return (np.round(x * 4) / 4).astype(np.float32)
+
+
+def check_fused(sample: np.ndarray, k: int, iters: int, route: str, threads: int, seed: int = 7):
+    """The emulated launch against ``kmeans_fit_plain`` and against JAX's ``_lloyd`` from the same seeds."""
+    import jax.numpy as jnp
+
+    from plotweave.ops import kmeans as jkm
+
+    first, uniforms = tkm.seed_stream(seed, 3, k, len(sample))
+    got = emulate_kmeans_fit(sample, k, first, uniforms.numpy(), iters, route, threads)
+    ref = tkm.kmeans_fit_plain(torch.from_numpy(sample), k, first, uniforms, iters)
+    np.testing.assert_array_equal(got[4], ref[4].numpy())  # the picks
+    np.testing.assert_allclose(got[1], ref[1].numpy(), rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(got[3], ref[3].numpy())  # iterations
+    np.testing.assert_allclose(got[0], ref[0].numpy(), rtol=0, atol=1e-3)  # the same attempt won
+    assert int(np.argmin(got[2])) == int(np.argmin(ref[2].numpy()))
+    np.testing.assert_allclose(got[2], ref[2].numpy(), rtol=1e-3, atol=0)
+    for a in range(3):
+        centers, _ = jkm._lloyd(jnp.asarray(sample), jnp.asarray(sample[got[4][a]]), iters)
+        np.testing.assert_allclose(got[1][a], np.asarray(centers), rtol=0, atol=1e-3)
+    return got
+
+
+@pytest.mark.parametrize("route", kernels.KPP_ROUTES)
+@pytest.mark.parametrize("n", [5, 200, 16 * 3 * 64 + 7])  # below 16 CTAs, below a tile, ragged tiles
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_fused_emulated_schedule_equals_plain_and_jax(k, n, route):
+    check_fused(fit_sample(n, max(k, 1), seed=n + k), k, 40, route, threads=64)
+
+
+@pytest.mark.parametrize("route", kernels.KPP_ROUTES)
+@pytest.mark.parametrize("iters", [0, 1])
+def test_fused_emulated_few_iterations(iters, route):
+    sample = fit_sample(3 * 1024 + 5, 4, seed=3)
+    got = check_fused(sample, 4, iters, route, threads=64)
+    if iters == 0:  # Lloyd from zero iterations returns the seeds
+        np.testing.assert_array_equal(got[1], sample[got[4]])
+
+
+def test_fused_emulated_at_the_kernels_tile():
+    n = 20_000  # 1,250 rows a CTA: three tiles of KPP_THREADS, the last ragged; 16 warps a CTA
+    assert kernels.kpp_schedule(n) == {"route": "resident", "rows": 1250, "tiles": 3}
+    for route in kernels.KPP_ROUTES:
+        check_fused(fit_sample(n, 4, seed=5), 4, 40, route, threads=kernels.KPP_THREADS)
+
+
+@pytest.mark.parametrize("route", kernels.KPP_ROUTES)
+def test_fused_emulated_empty_clusters_keep_their_seeds(route):
+    """Four distinct rows repeated and k = 8: the last four seeds repeat
+    earlier ones, which win their rows (first minimum), so their clusters
+    stay empty and keep their centres."""
+    sample = np.repeat(PENS[[0, 2, 5, 7]], 300, axis=0)
+    got = check_fused(sample, 8, 40, route, threads=64)
+    np.testing.assert_array_equal(got[1][:, 4:], sample[got[4][:, 4:]])
+    assert (got[3] == 1).all()
+
+
+def test_fit_scratch_fits_the_dead_d2_column():
+    assert kernels.FIT_SCRATCH_BYTES == 4 * (32 * 16 + 3 * 32 + 5 * 8)  # warps' partials, part[2], totals, centres
+    assert kernels.FIT_SCRATCH_BYTES + kernels.KPP_STATIC_SMEM < kernels.MAX_SMEM
+    # at the resident limit the d² column (4 bytes a row) is far larger than the scratch: the limit is unchanged
+    rows = kernels.kpp_schedule(231_696)["rows"]
+    assert 4 * rows > kernels.FIT_SCRATCH_BYTES
+    assert kernels.kpp_schedule(1) == {"route": "resident", "rows": 1, "tiles": 1}
+
+
+def test_fit_outputs_are_one_allocation():
+    best, centers, comp, picks, its, done, best_idx, d2 = kernels._fit_outputs(3, 4, 10, "cpu")
+    assert [t.numel() for t in (best, centers, comp, picks, its, done, best_idx, d2)] == [12, 36, 3, 12, 3, 1, 1, 10]
+    assert [t.dtype for t in (picks, its, done, best_idx)] == [torch.int32] * 4
+    assert {t.untyped_storage().data_ptr() for t in (best, centers, comp, picks, its, done, best_idx, d2)} == {
+        best.untyped_storage().data_ptr()}
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_seed_draws_pack_first_and_uniforms(k):
+    first, uniforms = tkm.seed_stream(11, 4, k, 1000)
+    draws = tkm.seed_draws(first, uniforms)
+    assert draws.shape == (4, k) and draws.dtype == torch.float32 and draws.is_contiguous()
+    assert torch.equal(draws.view(torch.int32)[:, 0], first)
+    assert torch.equal(draws[:, 1:], uniforms)
+
+
+def test_kmeans_fits_on_the_cpu_is_the_plain_fit():
+    sample = torch.from_numpy(fit_sample(3000, 4))
+    first, uniforms = tkm.seed_stream(5, 3, 4, 3000)
+    got = tkm.kmeans_fits(sample, 4, first, uniforms, 40)
+    ref = tkm.kmeans_fit_plain(sample, 4, first, uniforms, 40)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    out = torch.full((12,), -1.0)
+    assert torch.equal(tkm.kmeans_fits(sample, 4, first, uniforms, 40, out=out)[0], ref[0])
+    assert torch.equal(out.view(4, 3), ref[0])
+    assert torch.equal(tkm.kmeans_fit_device(sample, 4, 3, 40, 5), ref[0])
+    seeds = tkm.kpp_init(sample, 4, first, uniforms)
+    assert torch.equal(seeds[1], ref[4]) and torch.equal(tkm.lloyd_fits_plain(sample, seeds[0], 40)[1], ref[1])
+
+
+def test_kmeans_fit_cuda_refuses_what_it_does_not_take():
+    pts = torch.zeros((10, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.kmeans_fit_cuda(pts, torch.zeros((1, 2)), 3)
+    meta = torch.empty((10, 3), device="meta")
+    with pytest.raises(ValueError):
+        tkm.kmeans_fits(meta, 2, torch.zeros(1, dtype=torch.int32), torch.zeros((1, 1)), 3)
+    with pytest.raises(ValueError, match="outside"):
+        tkm.kmeans_fits(pts, 2, torch.tensor([10], dtype=torch.int32), torch.zeros((1, 1)), 3)
+    with pytest.raises(ValueError, match="rows"):
+        tkm.kmeans_fits(torch.empty((kernels.KPP_MAX_N, 3), device="meta"), 2, torch.zeros(1, dtype=torch.int32),
+                        torch.zeros((1, 1)), 3)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_fused_emulated_streamed_over_several_stages(k):
+    """1,101 rows a CTA in tiles of 64: 18 tiles, staged 8, 8 and 2 at a time, the last ragged."""
+    sample = fit_sample(16 * 1101 - 5, 4, seed=17)
+    assert -(-(-(-len(sample) // CLUSTER)) // 64) == 18
+    check_fused(sample, k, 40, "streamed", threads=64)

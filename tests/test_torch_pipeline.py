@@ -346,7 +346,7 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
         "import plotweave_torch.ops.kernels as k\n"
         "assert k.LAUNCHES == {'bitpack': 0, 'edge_candidates': 0, 'zhang_suen_packed': 0, "
         "'zhang_suen_packed_multi': 0, 'hysteresis': 0, 'hysteresis_multi': 0, 'morph_bits': 0, "
-        "'assign_nearest': 0, 'zhang_suen_dense': 0, 'subsample': 0, 'lab_sample': 0, 'kpp_init': 0, 'lloyd_fit': 0, "
+        "'assign_nearest': 0, 'zhang_suen_dense': 0, 'subsample': 0, 'lab_sample': 0, 'kmeans_fit': 0, 'lloyd_fit': 0, "
         "'assign_points': 0, 'morph_dense': 0, 'greedy_tour': 0, 'refine_tour': 0, 'area_resize_frac': 0, "
         "'area_resize_int': 0, 'bezier_sample': 0}\n"
         "try:\n"
@@ -383,7 +383,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                    torch.zeros(4, dtype=torch.int32))
     pts = torch.zeros((10, 3))
     for call in (lambda: kernels.lab_sample_cuda(torch.zeros((4, 4, 3), dtype=torch.uint8)),
-                 lambda: kernels.kpp_init_cuda(pts, 2, torch.zeros(1, dtype=torch.int32), torch.zeros((1, 1))),
+                 lambda: kernels.kmeans_fit_cuda(pts, torch.zeros((1, 2)), 3),
                  lambda: kernels.subsample_cuda((1, 0), 10, 5, "cpu"),
                  lambda: kernels.lloyd_fit_cuda(pts, torch.zeros((1, 2, 3)), 3),
                  lambda: kernels.assign_points_cuda(pts, torch.zeros((2, 3))),
