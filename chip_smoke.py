@@ -178,6 +178,22 @@ Phases:
    ``gcode_to_stream`` on the G-code goldens; and the main path on the card
    with ``--shard-rows 4`` (one card: the unsharded chain), its
    ``plot_stream.bin`` byte-equal to phase 5's.
+15. the JAX package's meshes, after phase 14: ``frontend_batch`` over a data
+   mesh that names the card twice on four seeded 2000 x 1500 posters, k = 4,
+   both thinning routes, byte-equal to one ``raster_frontend`` call over the
+   batch, its launches those of one call a shard (K7, K2, K3+K4, K5 and K6 or
+   K12 once a shard), a ``torch.profiler`` trace of one call whose device
+   kernels are the port's own (the gather is copies); ``run_pipeline_batch``
+   over four of phase 11's images, steps 1-4, ``devices=[cuda:0, cuda:0]``,
+   every artifact byte-equal to phase 11's sequential runs and its "[batch]
+   mesh data-parallelism over 2 device(s)" line; ``sharded_chain`` over a
+   4-shard CPU space mesh on the chain's 4 x 1500 x 2000 masks, byte-equal to
+   the card's ``chain_from_clean`` blob, its host seconds beside the CPU's
+   model name and the card chain's ms; the main path with ``--raster-device
+   cpu --shard-rows 4`` in a process whose ``XLA_FLAGS`` sets 4 CPU devices,
+   row-sharded over 4 and ``plot_stream.bin`` byte-equal to phase 5's card
+   run; and ``sharded_chain`` over two shards on the card raising
+   ``NotImplementedError`` naming Item 10b before any launch.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
 launches in the one run of phase 5 or 6 that drives it (the synthetic
@@ -3741,6 +3757,182 @@ def phase_vector_and_shard(work: Path, stats: dict) -> dict:
     return launches
 
 
+# --- phase 15: the JAX package's meshes ----------------------------------------------------------------------------
+
+MESH_POSTERS = 4  # frontend_batch's batch: posters of phase 6's size, two on each data shard
+SHARD_CPUS = 4  # the CPU pool of (c) and (d): --shard-rows 4 over four CPU devices
+
+
+def cpu_model() -> str:
+    """The host CPU's model name: /proc/cpuinfo's, else lscpu's, else the
+    architecture's."""
+    import platform
+
+    lines = Path("/proc/cpuinfo").read_text().splitlines()
+    with contextlib.suppress(OSError):
+        lines += subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout.splitlines()
+    for line in lines:
+        key, _, value = line.partition(":")
+        if key.strip().lower() == "model name" and value.strip():
+            return value.strip()
+    return platform.processor() or platform.machine()
+
+
+def launched_now() -> dict:
+    from plotweave_torch.ops import kernels
+
+    return {n: c for n, c in kernels.LAUNCHES.items() if c}
+
+
+def phase_mesh(work: Path, stats: dict) -> dict:
+    """Phase 15: (a) ``frontend_batch`` over a data mesh that names the card
+    twice, both thinning routes, against one ``raster_frontend`` call; (b)
+    ``run_pipeline_batch(devices=[cuda:0, cuda:0])`` against phase 11's
+    sequential runs; (c) ``sharded_chain`` over a 4-shard CPU space mesh
+    against the card's ``chain_from_clean``; (d) the main path with
+    ``--raster-device cpu --shard-rows 4`` in a process whose ``XLA_FLAGS``
+    sets 4 CPU devices, against phase 5's card run; (e) ``sharded_chain``
+    over two shards on the card raising, naming Item 10b, with no launch."""
+    import os
+    import re
+
+    import numpy as np
+    import torch
+
+    from plotweave_torch.config import load_config
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.ops.frontend import raster_frontend
+    from plotweave_torch.parallel import frontend_batch, make_mesh, sharded_chain
+    from plotweave_torch.pipeline import run_pipeline_batch
+    from plotweave_torch.stages.s02_color_extract import chain_from_clean
+
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    twice = [card, card]
+    seconds, out = {}, {}
+
+    # (a) two images a data shard, each shard one raster_frontend call on the card
+    t0 = time.perf_counter()
+    h, w = FRONTEND_SHAPE
+    imgs = torch.from_numpy(np.stack([synthetic_image(200 + i, h, w)[0] for i in range(MESH_POSTERS)])).to(card)
+    c = torch.from_numpy(np.array(BENCH_CENTERS, np.float32)).to(card)
+    data = make_mesh((2,), ("data",), devices=twice)
+    half = MESH_POSTERS // 2
+    for route in (False, True):
+        solo = raster_frontend(imgs, c, k=4, pallas_thinning=route)
+        kernels.reset_launches()
+        got = frontend_batch(data, imgs, c, k=4, pallas_thinning=route)
+        torch.cuda.synchronize()
+        launches = launched_now()
+        kernels.reset_launches()
+        for part in (imgs[:half], imgs[half:]):
+            raster_frontend(part, c, k=4, pallas_thinning=route)
+        torch.cuda.synchronize()
+        check(launches == launched_now(), f"frontend_batch (pallas_thinning={route}): launches {launches}, its two "
+              f"shards' raster_frontend calls {launched_now()}")
+        once = ("assign_nearest", "morph_bits", "edge_candidates", "hysteresis") + (() if route else ("zhang_suen_packed",))
+        check(all(launches.get(n) == 2 for n in once) and launches.get("bitpack", 0) == (6 if route else 0)
+              and (launches.get("zhang_suen_dense", 0) >= 2) == route,
+              f"frontend_batch (pallas_thinning={route}): launches {launches}, expected each front-end kernel once a "
+              "data shard")
+        check(torch.equal(got[0].cpu(), solo[0].cpu()) and torch.equal(got[1].cpu(), solo[1].cpu()),
+              f"frontend_batch (pallas_thinning={route}) != one raster_frontend call over the batch")
+        common = {"assign_nearest": 2, "morph_steps": 2, "edge_tiles": 2, "hysteresis_cluster": 2}
+        rest = ({"zs_tiles": launches.get("zhang_suen_dense"), "boards_to_dense": 4, "dense_to_boards": 2} if route
+                else {"zs_cluster": 2})
+        only_own_kernels(lambda route=route: frontend_batch(data, imgs, c, k=4, pallas_thinning=route),
+                         f"frontend_batch, {MESH_POSTERS} x {h}x{w} over [cuda:0, cuda:0], pallas_thinning={route}",
+                         {**common, **rest})
+        out[f"frontend_batch ms {route}"] = cuda_ms(lambda route=route: frontend_batch(
+            data, imgs, c, k=4, pallas_thinning=route), 5)
+        out[f"raster_frontend ms {route}"] = cuda_ms(lambda route=route: raster_frontend(
+            imgs, c, k=4, pallas_thinning=route), 5)
+        print(f"frontend_batch, {MESH_POSTERS} posters {h}x{w} k=4 over [cuda:0, cuda:0], pallas_thinning={route}: == "
+              f"one raster_frontend call; launches {launches}; {out[f'frontend_batch ms {route}']:.3f} ms a call "
+              f"against {out[f'raster_frontend ms {route}']:.3f} for the one call (CUDA events)")
+    seconds["a"] = time.perf_counter() - t0
+
+    # (b) phase 11's first four images through the batch runner, the data axis naming the card twice
+    t0 = time.perf_counter()
+    cfgs = []
+    for i in range(4):
+        run = work / "mesh_batch" / f"run{i}"
+        run.mkdir(parents=True)
+        (run / "config.json").write_text(json.dumps({"input_image": str(work / f"batch{i}.png"), "output_dir": str(run)}))
+        cfgs.append(load_config(str(run / "config.json")))
+    kernels.reset_launches()
+    with open(work / "mesh_batch.log", "w") as log, contextlib.redirect_stdout(log):
+        times = run_pipeline_batch(cfgs, 1, 4, devices=twice)
+    launches = launched_now()
+    text = (work / "mesh_batch.log").read_text()
+    check(all(t > 0 for t in times), f"run_pipeline_batch over [cuda:0, cuda:0]: an image failed: {times}")
+    check("[batch] mesh data-parallelism over 2 device(s)" in text, "run_pipeline_batch: no data-parallelism line")
+    m = re.search(r"grouped: (\d+) image chain\(s\) in (\d+) grouped call", text)
+    check(m is not None and int(m.group(1)) == 4, "run_pipeline_batch over [cuda:0, cuda:0]: not every chain grouped")
+    groups = int(m.group(2))
+    chain = [launches.get(n, 0) for n in CHAIN_LAUNCHES]
+    check(len(set(chain)) == 1 and groups <= chain[0] <= 2 * groups,
+          f"run_pipeline_batch: {groups} groups over two data shards, launches {launches}")
+    names = list(cfgs[0].color_names)
+    for i, cfg in enumerate(cfgs):
+        diff = same_artifacts(work / "batch_seq" / f"run{i}", Path(cfg.output_dir), names, stream=False)
+        check(not diff, f"run_pipeline_batch over [cuda:0, cuda:0]: image {i} != phase 11's sequential run: {diff}")
+    seconds["b"] = time.perf_counter() - t0
+    print(f"run_pipeline_batch, 4 images 2000x1500, steps 1-4, devices [cuda:0, cuda:0]: every mask, edges and "
+          f"contours file == phase 11's sequential runs; 4 chains in {groups} groups, launches {launches}; "
+          f"{seconds['b']:.2f} s")
+
+    # (c) the chain's masks row-sharded over four CPU devices against the card's blob
+    t0 = time.perf_counter()
+    k, h, w = CHAIN_SHAPE
+    _, bins = synthetic_image(1, h, w)
+    packed = np.packbits(np.stack([bins == j for j in range(k)]), axis=-1)
+    blob = chain_from_clean(packed, w, *EDGE_PARAMS, device=card).cpu()
+    out["card chain ms"] = cuda_ms(lambda: chain_from_clean(packed, w, *EDGE_PARAMS, device=card), 5)
+    space = make_mesh((SHARD_CPUS,), ("space",), devices=[cpu] * SHARD_CPUS)
+    t1 = time.perf_counter()
+    host = sharded_chain(space, packed, w, *EDGE_PARAMS)
+    out["host sharded chain s"] = time.perf_counter() - t1
+    out["cpu"] = cpu_model()
+    check(torch.equal(host, blob), f"sharded_chain over {SHARD_CPUS} CPU shards != the card's chain_from_clean blob")
+    seconds["c"] = time.perf_counter() - t0
+    print(f"sharded_chain over a {SHARD_CPUS}-shard CPU space mesh, {k}x{h}x{w}: == the card's chain_from_clean "
+          f"blob; {out['host sharded chain s']:.3f} s on the host ({out['cpu']}, {os.cpu_count()} logical CPUs) "
+          f"against {out['card chain ms']:.3f} ms a call on the card (CUDA events, upload included)")
+
+    # (d) the main path on the CPU pool, in a process of its own whose XLA_FLAGS sets its size
+    t0 = time.perf_counter()
+    run = work / "synthetic_cpu_shard4"
+    env = dict(os.environ, XLA_FLAGS=f"--xla_force_host_platform_device_count={SHARD_CPUS}")
+    proc = subprocess.run([sys.executable, "-m", "plotweave_torch", str(work / "synthetic.png"), "--output", str(run),
+                           "--raster-device", "cpu", "--shard-rows", "4"], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    Path(f"{run}.log").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"--raster-device cpu --shard-rows 4: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    check(f"[shard] raster chain row-sharded over {SHARD_CPUS} device(s)" in proc.stdout,
+          "--raster-device cpu --shard-rows 4: no [shard] line for 4 devices")
+    check((run / "plot_stream.bin").read_bytes() == (work / "synthetic_cuda" / "plot_stream.bin").read_bytes(),
+          "--raster-device cpu --shard-rows 4: plot_stream.bin != phase 5's card run")
+    seconds["d"] = time.perf_counter() - t0
+    print(f"main path, synthetic 2000x1500, --raster-device cpu --shard-rows 4 over {SHARD_CPUS} CPU devices: "
+          f"row-sharded over 4; plot_stream.bin == phase 5's card run; {seconds['d']:.1f} s in its own process")
+
+    # (e) two shards on the card: no slab kernels yet, so it raises before any launch
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    try:
+        sharded_chain(make_mesh((2,), ("space",), devices=twice), packed, w, *EDGE_PARAMS)
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    check("Item 10b" in raised, f"sharded_chain over [cuda:0, cuda:0] did not raise naming Item 10b: {raised!r}")
+    check(not launched_now(), f"sharded_chain over [cuda:0, cuda:0] launched {launched_now()}")
+    seconds["e"] = time.perf_counter() - t0
+    print(f"sharded_chain over [cuda:0, cuda:0]: raises ({raised}); no launch")
+    print("phase 15 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    stats["mesh"] = out
+    return out
+
+
 def phase_entry() -> None:
     import torch
 
@@ -3786,6 +3978,7 @@ def main() -> None:
         timed(phase_tour_kernels, stats)
         paths["quality"] = timed(phase_quality_path, Path(tmp), stats)
         paths["vector"] = timed(phase_vector_and_shard, Path(tmp), stats)["vector"]
+        timed(phase_mesh, Path(tmp), stats)
         paths["resize"] = resize_launches
     print("phase wall seconds: " + ", ".join(f"{name} {s:.1f}" for name, s in seconds.items()))
 

@@ -77,12 +77,18 @@ def hysteresis(cand: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
 def canny_candidates_plain(img: torch.Tensor, low: int, high: int):
     """Sobel, sector NMS and the double threshold of (..., H, W) uint8 →
     (candidate, strong) int32 bitboards: the hysteresis inputs."""
+    gx, gy = _sobel_pair(img)
+    cand, strong = nms_thresholds(gx, gy, gx.abs() + gy.abs(), low, high)
+    return pack_bitboards_plain(cand), pack_bitboards_plain(strong)
+
+
+def nms_thresholds(gx: torch.Tensor, gy: torch.Tensor, mag: torch.Tensor, low: int, high: int):
+    """Q15 sector NMS of the L1 magnitude ``mag`` and the double threshold →
+    (candidate, strong) bool pixels; ``mag`` beyond the border reads as 0."""
     if low > high:
         low, high = high, low
     # L1 magnitude ≤ 2040, so the thresholds clamp into int16 range losslessly
     low, high = min(low, 2041), min(high, 2041)
-    gx, gy = _sobel_pair(img)
-    mag = gx.abs() + gy.abs()
 
     # sector NMS; magnitude beyond the border reads as 0
     m_l, m_r = _nbr(mag, 0, -1), _nbr(mag, 0, 1)
@@ -106,8 +112,7 @@ def canny_candidates_plain(img: torch.Tensor, low: int, high: int):
     keep = torch.where(horiz, keep_h, torch.where(vert, keep_v, keep_d))
 
     cand = (mag > low) & keep
-    strong = cand & (mag > high)
-    return pack_bitboards_plain(cand), pack_bitboards_plain(strong)
+    return cand, cand & (mag > high)
 
 
 def edge_candidates_plain(x: torch.Tensor, w: int, ksize: int, low: int, high: int, sigma: float = 0.0):

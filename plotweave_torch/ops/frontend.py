@@ -8,9 +8,9 @@ and thresholds (kernel K3+K4, one launch), the hysteresis (kernel K5) and
 Zhang–Suen thinning: the packed fixpoint K6 by default, whose stores write
 both dense outputs, or the dense kernel K12 with ``pallas_thinning=True``,
 where kernel K1 turns the boards into dense bytes and back.  Leading batch
-dims are allowed on the default route.  Everything
-runs on the device of the image: on the card every step is a kernel of
-``csrc/``, on the CPU its plain version.  After the labels the chain is
+dims are allowed on both routes.  Everything runs on the device of the
+image: on the card every step is a kernel of ``csrc/``, on the CPU its plain
+version.  After the labels the chain is
 integer, so from the same labels its bytes are the same on either device.
 """
 
@@ -189,11 +189,12 @@ def frontend_from_boards(
     masks_b = morph_steps(masks_b, _valid_bits(w, masks_b.device), steps)
     # the hysteresis board feeds the packed thinner in the same encoding
     edges_b = canny_boards(masks_b, w, blur_kernel, low, high)
+    h = edges_b.shape[-2]
     if pallas_thinning:
         edges = dense_from_boards(edges_b, w, 255)
-        skel_b = pack_bitboards(zhang_suen_dense(edges, max_iter=thin_iters, rotated=True))
-        return edges, dense_from_boards(skel_b, w, 1)
-    h = edges_b.shape[-2]
+        # the images of a batch are more planes to K12
+        skel_b = pack_bitboards(zhang_suen_dense(edges.view(-1, h, w), max_iter=thin_iters, rotated=True))
+        return edges, dense_from_boards(skel_b, w, 1).view(edges.shape)
     edges = torch.empty((*edges_b.shape[:-1], w), dtype=torch.uint8, device=edges_b.device)
     skels = torch.empty_like(edges)
     zhang_suen_into(edges_b, w, edges.view(-1, 1, h, w), skels.view(-1, 1, h, w), "dense", thin_iters, True)
@@ -225,9 +226,9 @@ def raster_frontend(
     ``pallas_thinning=True`` thins with the dense fixpoint
     (:func:`ops.thinning.zhang_suen_dense`, kernel K12, the port of
     ``zhang_suen_pallas``) instead of the packed one; the skeletons are the
-    same.  Like the JAX kernel it takes no batch dims and raises
-    ``ValueError`` for a batched image.  The keyword keeps its JAX name so a
-    call site ports by its import alone."""
+    same.  A batch's images are more planes to it, where the JAX kernel
+    takes no batch dims (so ``frontend_batch`` runs this route too).  The
+    keyword keeps its JAX name so a call site ports by its import alone."""
     return frontend_from_boards(
         assign_boards(image, centers, k), image.shape[-2], extract_iters=extract_iters, edge_kernel=edge_kernel,
         edge_iters=edge_iters, blur_kernel=blur_kernel, low=low, high=high, thin_iters=thin_iters,

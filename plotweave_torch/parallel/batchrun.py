@@ -3,7 +3,7 @@
 
 The batch runner's host threads already overlap one image's host stages with
 the others' device work, but each image's fused 02→04 chain would still pay
-its own upload, seven kernel launches and download.  This module groups the
+its own upload, four kernel launches and download.  This module groups the
 chain calls that arrive from concurrent worker threads into ONE call over a
 leading batch dimension (``stages/s02_color_extract.py::chain_blob_batch``):
 the kernels take the images as more layers, so one upload, one launch
@@ -12,20 +12,23 @@ byte-equal to its solo call (all chain compute is integer).
 
 Scheduling is CONTINUOUS BATCHING (the inference-server pattern), as in the
 JAX package: a single dispatcher thread owns the device; whenever it is free
-it takes every pending submission for one (shape, params, device) key and
-runs them as one grouped call.  Submissions that arrive while a call is in
+it takes every pending submission for one (shape, params) key and runs
+them as one grouped call.  Submissions that arrive while a call is in
 flight simply accumulate — groups therefore grow exactly when the device is
 the bottleneck and stay small when it is not, with no tuning.  Host work
 keeps flowing on the worker threads throughout.  A short accumulation guard
 (group ≥ live-worker capacity, all live workers parked, or a small linger)
 batches the opening group before the pipeline has warmed.
 
-What differs from the JAX package: there is no mesh, no ``shard_map`` and no
-cache of compiled programs, the key gains the raster device, and groups are
-NOT padded.  The JAX batcher pads a group to a power of two by repeating its
-first image only to bound the number of XLA compiles, one per distinct batch
-shape; PyTorch runs eagerly and the kernels take any layer count, so a group
-of five runs as five.
+The group runs over the mesh's ``data`` axis, as the JAX package's
+``shard_map`` does: it is split over the axis's devices, one
+``chain_blob_batch`` call each (on a card, its kernels), and the rows are
+gathered into host memory.  A mesh may name one card more than once.  What
+differs from the JAX package: no cache of compiled programs, and groups are
+NOT padded.  The JAX batcher pads a group to a power of two a device by
+repeating its first image only to bound the number of XLA compiles, one per
+distinct batch shape; PyTorch runs eagerly and the kernels take any layer
+count, so a group of five over two devices runs as three and two.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from .mesh import data_sharding
 
 _ACTIVE: Optional["DeviceBatcher"] = None
 _ACTIVE_LOCK = threading.Lock()
@@ -68,7 +73,9 @@ class DeviceBatcher:
     owns a single dispatcher thread, so at most one grouped call is ever in
     flight."""
 
-    def __init__(self, n_workers: int, n_images: int, linger_s: float = 0.2):
+    def __init__(self, mesh, n_workers: int, n_images: int, linger_s: float = 0.2):
+        self.mesh = mesh
+        self._sharding = data_sharding(mesh)
         self._workers = max(1, int(n_workers))
         self._images_left = int(n_images)
         self._cv = threading.Condition()
@@ -105,12 +112,12 @@ class DeviceBatcher:
         return max(1, min(self._workers, self._images_left))
 
     # ---- the stage-02 entry point ----
-    def run_chain(self, packed_np: np.ndarray, w: int, params: Tuple[int, ...], device) -> np.ndarray:
+    def run_chain(self, packed_np: np.ndarray, w: int, params: Tuple[int, ...]) -> np.ndarray:
         """(k, H, ⌈W/8⌉) uint8 packed CLEANED masks → flat uint8 blob
         [packed edges][packed skeletons], identical to stage 02's solo
-        ``chain_from_clean`` download on ``device``.  Blocks until the
-        dispatcher has run this submission's group."""
-        key = (packed_np.shape, int(w), tuple(int(p) for p in params), str(device))
+        ``chain_from_clean`` download.  Blocks until the dispatcher has run
+        this submission's group."""
+        key = (packed_np.shape, int(w), tuple(int(p) for p in params))
         slot = [None, None]
         with self._cv:
             if self._shutdown:
@@ -206,21 +213,21 @@ class DeviceBatcher:
             self._dispatch(key, batch)
 
     def _dispatch(self, key, batch: List[list]) -> None:
-        """Stack the group to (B, k, H, ⌈W/8⌉), make one upload, one chain
-        call and one download, scatter the rows.
+        """Stack the group to (B, k, H, ⌈W/8⌉), split it over the mesh's
+        data devices, make one chain call on each (launched all before the
+        first download), gather the rows into host memory and scatter them.
 
         Called from the dispatcher thread with the condition lock RELEASED;
         the batch list is private to this thread and waiters re-check their
         slots under the lock on notify."""
-        import torch  # noqa: PLC0415
-
         from ..stages.s02_color_extract import chain_blob_batch  # noqa: PLC0415
 
         b = len(batch)
         try:
-            _shape, w, params, device = key
-            out = chain_blob_batch(np.stack([a for a, _ in batch]), w, *params, device=torch.device(device))
-            out = out.cpu().numpy()
+            _shape, w, params = key
+            parts = [chain_blob_batch(part, w, *params, device=dev)
+                     for dev, part in self._sharding.split(np.stack([a for a, _ in batch]))]
+            out = self._sharding.gather(parts, "cpu").numpy()
         except Exception as ex:  # noqa: BLE001 — deliver to every waiter
             with self._cv:
                 for _, slot in batch:

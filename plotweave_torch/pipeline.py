@@ -193,31 +193,42 @@ def run_pipeline_batch(
     end_step: int = 13,
     workers: int = 0,
     mesh_dp: bool | None = None,
+    devices=None,
 ) -> List[float]:
     """Throughput mode for many images: each image runs the full pipeline; a
     host thread pool overlaps one image's host-side stages (tracing, dedup,
     stream emission, PNG encodes) with the device work of the others.  The
-    per-image fused 02→04 chain calls additionally rendezvous into ONE grouped
-    chain call over a leading batch dimension (``parallel/batchrun.py``): one
-    upload, one launch sequence and one download carry every image of the
-    group.  ``mesh_dp`` (the JAX package's name, kept so that a call site
-    ports by its import alone) groups the chain calls: None = whenever there
-    is more than one image.  Images are independent, so outputs are
-    byte-for-byte the same as sequential runs.  An image that fails is
-    reported and does not stop the others.  Returns per-image wall seconds,
-    -1.0 for a failed image."""
+    per-image fused 02→04 chain calls additionally rendezvous into grouped
+    chain calls over a mesh ``data`` axis (``parallel/batchrun.py``): a group
+    is split over the axis's devices, one call each, so one upload, one
+    launch sequence and one download a device carry every image of the
+    group.  ``mesh_dp`` None = whenever there is more than one image.
+    ``devices`` (the data axis; it may name one card twice) defaults to the
+    CUDA cards, or the CPU pool when every image asks for
+    ``raster_device: "cpu"``; an image whose raster device is not on the
+    mesh's platform runs its chain alone.  Images are independent, so
+    outputs are byte-for-byte the same as sequential runs.  An image that
+    fails is reported and does not stop the others.  Returns per-image wall
+    seconds, -1.0 for a failed image."""
     from concurrent.futures import ThreadPoolExecutor  # noqa: PLC0415
 
-    use_batcher = (mesh_dp is None or mesh_dp) and len(cfgs) > 1
+    from .parallel.mesh import default_devices, make_mesh  # noqa: PLC0415
+
+    devs: list = []
+    if (mesh_dp is None or mesh_dp) and len(cfgs) > 1:
+        cpu = all(str(c.raster_device).lower() == "cpu" for c in cfgs)
+        devs = list(devices) if devices is not None else default_devices("cpu" if cpu else "cuda")
+    ndev = len(devs)
     if not workers:
-        workers = min(4, max(1, len(cfgs)))
+        # enough concurrent submitters to fill the data axis, or a useful one-device group
+        workers = min(len(cfgs), max(4, ndev)) if ndev else min(4, max(1, len(cfgs)))
 
     batcher = None
-    if use_batcher:
+    if ndev:
         from .parallel.batchrun import DeviceBatcher, batcher_ctx  # noqa: PLC0415
 
-        batcher = DeviceBatcher(workers, len(cfgs))
-        print("[batch] chain calls of concurrent images are grouped into one call each")
+        batcher = DeviceBatcher(make_mesh((ndev,), ("data",), devices=devs), workers, len(cfgs))
+        print(f"[batch] mesh data-parallelism over {ndev} device(s)")
 
     def one(cfg: PipelineConfig) -> float:
         t0 = time.perf_counter()
@@ -273,8 +284,9 @@ def parse_args(argv=None):
         type=int,
         dest="shard_rows",
         help="row-shard the stage 02-04 raster chain over up to N devices (fitted to the "
-        "largest row divisor <= device count; on one card or the CPU the unsharded chain, "
-        "byte-identical; more than one card is not ported)",
+        "largest row divisor <= device count: the CUDA cards, or with --raster-device cpu the "
+        "CPU pool that --xla_force_host_platform_device_count in XLA_FLAGS sets; one device runs "
+        "the unsharded chain, byte-identical; more than one card is not ported)",
     )
     ap.add_argument(
         "--batch-dir",

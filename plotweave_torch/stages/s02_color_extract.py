@@ -29,9 +29,13 @@ with the gray morphology (kernel K11) on the raster device.
 
 ``shard_rows`` / ``shard_auto_mpx`` resolve the shard count as the JAX
 package does (:func:`resolve_shard_n`), over ``torch.cuda.device_count()``
-cards, or one device with ``raster_device: "cpu"``.  A count of one runs the
-unsharded chain, byte-identical to the JAX package's 1-device sharded
-program; a count above one (row sharding over several cards) is not ported.
+cards, or with ``raster_device: "cpu"`` over the CPU pool
+(``parallel.mesh.cpu_device_count()``, read from ``XLA_FLAGS`` as the JAX
+package's CPU backend reads it).  The fused chain then runs
+``parallel.spatial.sharded_chain`` over a ``space`` mesh of that many
+devices: one shard is the unsharded chain (on a card, its kernels), several
+CPU shards the row-sharded plain programs; several cards raise until their
+slab kernels exist (ROADMAP.md, Queue 1, Item 10b).
 """
 
 from __future__ import annotations
@@ -50,9 +54,11 @@ from ..ops.frontend import assign_boards_counts
 from ..ops.kmeans import kmeans_fit_device, subsample_lab
 from ..ops.morphology import _valid_bits, morph_dense, morph_program, morph_steps
 from ..ops.thinning import zhang_suen_into
+from ..parallel.mesh import cpu_device_count, default_devices, make_mesh
+from ..parallel.spatial import fit_shard_rows, sharded_chain
 from ..utils import (fetch_device_artifact, read_image, register_derived_artifact, register_device_artifact,
                      save_json, thread_map, write_image)
-from ..utils.devices import raster_device
+from ..utils.devices import not_ported, raster_device
 from .common import chain_key, darkness_rank, edge_params, layer_dir
 
 
@@ -209,25 +215,8 @@ class _BgFetch:
         return self._box["v"]
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to plotweave_torch yet (ROADMAP.md, {item})")
-
-
-# the halo stencils of the JAX package's sharded chain read at most 3 rows
-# beyond a shard, so each shard must hold this many rows at least
-MIN_ROWS_PER_SHARD = 8
-
-
-def fit_shard_rows(h: int, requested: int, n_devices: int, max_radius: int = 0) -> int:
-    """Largest shard count ≤ min(requested, n_devices) that divides ``h``
-    evenly and leaves at least max(MIN_ROWS_PER_SHARD, ``max_radius`` + 1)
-    rows per shard (a copy of ``plotweave/parallel/spatial.py``'s)."""
-    min_rows = max(MIN_ROWS_PER_SHARD, int(max_radius) + 1)
-    cap = max(1, min(int(requested), int(n_devices), int(h) // min_rows or 1))
-    for n in range(cap, 0, -1):
-        if h % n == 0:
-            return n
-    return 1
+def _on_cpu(cfg: PipelineConfig) -> bool:
+    return str(getattr(cfg, "raster_device", "auto")).lower() == "cpu"
 
 
 def resolve_shard_n(cfg: PipelineConfig, h: int, w: int) -> int:
@@ -236,8 +225,8 @@ def resolve_shard_n(cfg: PipelineConfig, h: int, w: int) -> int:
 
     ``shard_rows`` N>0 fits N to the largest row-divisor ≤ min(N, device
     count); ``shard_auto_mpx`` engages over all devices when the image
-    exceeds that many megapixels.  The devices are the CUDA cards, or one
-    with ``raster_device: "cpu"``."""
+    exceeds that many megapixels.  The devices are the CUDA cards, or the
+    CPU pool with ``raster_device: "cpu"``."""
     req = int(getattr(cfg, "shard_rows", 0) or 0)
     auto = float(getattr(cfg, "shard_auto_mpx", 0) or 0)
     if req <= 0 and auto <= 0:
@@ -246,7 +235,7 @@ def resolve_shard_n(cfg: PipelineConfig, h: int, w: int) -> int:
     # shrink the shard count
     mk, _oi, _ci, bk, _lo, _hi = edge_params(cfg)
     max_radius = max(2, mk // 2, bk // 2)
-    ndev = 1 if str(getattr(cfg, "raster_device", "auto")).lower() == "cpu" else torch.cuda.device_count()
+    ndev = cpu_device_count() if _on_cpu(cfg) else torch.cuda.device_count()
     if req > 0:
         n = fit_shard_rows(h, req, ndev, max_radius)
         if n < min(req, ndev) and max_radius * 2 + 1 > 17:
@@ -379,23 +368,30 @@ def run(cfg: PipelineConfig) -> None:
         return _finish_kmeans(cfg, names, k, w, centers, counts0, lambda ci: masks8[ci], None)
 
     shard_n = resolve_shard_n(cfg, h, w)
-    if shard_n > 1:
-        raise _not_ported(f"row sharding over {shard_n} cards", "Queue 1, Item 10")
-    if shard_n == 1:
-        print("[shard] raster chain row-sharded over 1 device(s): the unsharded chain, byte-identical")
+    if shard_n > 1 and not _on_cpu(cfg):
+        raise not_ported(f"row sharding over {shard_n} cards", "Queue 1, Item 10b")
     device = raster_device(cfg)
+    if shard_n >= 1:
+        mesh = make_mesh((shard_n,), ("space",), devices=default_devices(device.type))
+        print(f"[shard] raster chain row-sharded over {shard_n} device(s)")
     packed_np = np.stack([np.packbits(m > 0, axis=-1) for m in masks8])
     w8 = (w + 7) // 8
     from ..parallel.batchrun import active_batcher  # noqa: PLC0415
 
-    # a batch run's, which this image's fused chain call joins unless sharding was asked for
+    # a batch run's, which this image's fused chain call joins unless sharding was asked for or the
+    # batcher's mesh is on another platform than this image's raster device
     batcher = active_batcher() if shard_n < 1 else None
+    if batcher is not None and batcher.mesh.platform != device.type:
+        batcher = None
 
     def chain():
         if batcher is not None:
             # a batch run: this image's chain call joins its siblings' in one grouped call
-            return batcher.run_chain(packed_np, w, edge_params(cfg), device).reshape(2 * k, h, w8)
-        blob = chain_from_clean(packed_np, w, *edge_params(cfg), device=device)
+            return batcher.run_chain(packed_np, w, edge_params(cfg)).reshape(2 * k, h, w8)
+        if shard_n >= 1:
+            blob = sharded_chain(mesh, packed_np, w, *edge_params(cfg))
+        else:
+            blob = chain_from_clean(packed_np, w, *edge_params(cfg), device=device)
         return blob.cpu().numpy().reshape(2 * k, h, w8)
 
     fetch = _BgFetch(chain)

@@ -22,12 +22,14 @@ import torch
 
 from plotweave_torch.config import load_config
 from plotweave_torch.parallel import batchrun
+from plotweave_torch.parallel.mesh import make_mesh
 from plotweave_torch.pipeline import main, run_pipeline, run_pipeline_batch, stage_clock
 from plotweave_torch.stages.s02_color_extract import chain_blob_batch, chain_from_clean
 
 PARAMS = (3, 1, 1, 5, 22, 70)
 LAYERS = ["layer_dark", "layer_mid", "layer_skin", "layer_light"]
 CPU = torch.device("cpu")
+MESH = make_mesh((1,), ("data",), devices=[CPU])  # the batcher's data axis: one group, one chain call
 WAIT = 120  # seconds: every join and wait of these tests gives up after this
 
 
@@ -98,13 +100,13 @@ def test_chain_blob_batch_rows_are_the_solo_blobs_and_the_jax_rows(shape):
 # --- the batcher ------------------------------------------------------------------------
 
 
-def _submit_all(batcher, arrays, w=70, device=CPU, params=PARAMS):
+def _submit_all(batcher, arrays, w=70, params=PARAMS):
     """Submit each array from its own thread; → (results, errors) by index."""
     results, errors = {}, {}
 
     def work(i, arr):
         try:
-            results[i] = batcher.run_chain(arr, w, params, device)
+            results[i] = batcher.run_chain(arr, w, params)
         except Exception as e:  # noqa: BLE001 — the test inspects it
             errors[i] = e
 
@@ -119,7 +121,7 @@ def _submit_all(batcher, arrays, w=70, device=CPU, params=PARAMS):
 
 def test_batcher_groups_concurrent_submissions():
     arrays = [_packed_masks(i, 4, 40, 70) for i in range(6)]
-    batcher = batchrun.DeviceBatcher(n_workers=6, n_images=6, linger_s=5.0)
+    batcher = batchrun.DeviceBatcher(MESH, n_workers=6, n_images=6, linger_s=5.0)
     try:
         results, errors = _submit_all(batcher, arrays)
     finally:
@@ -132,7 +134,7 @@ def test_batcher_groups_concurrent_submissions():
 
 def test_batcher_more_images_than_one_group_and_a_ragged_last_group():
     arrays = [_packed_masks(20 + i, 2, 33, 70) for i in range(7)]
-    batcher = batchrun.DeviceBatcher(n_workers=3, n_images=7, linger_s=5.0)
+    batcher = batchrun.DeviceBatcher(MESH, n_workers=3, n_images=7, linger_s=5.0)
     results = {}
     lock = threading.Lock()
     pending = list(enumerate(arrays))
@@ -143,7 +145,7 @@ def test_batcher_more_images_than_one_group_and_a_ragged_last_group():
                 if not pending:
                     return
                 i, arr = pending.pop(0)
-            results[i] = batcher.run_chain(arr, 70, PARAMS, CPU)
+            results[i] = batcher.run_chain(arr, 70, PARAMS)
             batcher.image_finished()
 
     threads = [threading.Thread(target=worker, daemon=True) for _ in range(3)]
@@ -161,11 +163,11 @@ def test_batcher_more_images_than_one_group_and_a_ragged_last_group():
 def test_batcher_mixed_shapes_and_devices_group_by_key():
     a = [_packed_masks(40 + i, 4, 40, 70) for i in range(2)]
     b = [_packed_masks(50 + i, 4, 25, 64) for i in range(2)]
-    batcher = batchrun.DeviceBatcher(n_workers=4, n_images=4, linger_s=0.3)
+    batcher = batchrun.DeviceBatcher(MESH, n_workers=4, n_images=4, linger_s=0.3)
     results = {}
 
     def work(tag, i, arr, w):
-        results[tag, i] = batcher.run_chain(arr, w, PARAMS, CPU)
+        results[tag, i] = batcher.run_chain(arr, w, PARAMS)
 
     threads = [threading.Thread(target=work, args=("a", i, arr, 70), daemon=True) for i, arr in enumerate(a)]
     threads += [threading.Thread(target=work, args=("b", i, arr, 64), daemon=True) for i, arr in enumerate(b)]
@@ -183,7 +185,7 @@ def test_batcher_mixed_shapes_and_devices_group_by_key():
 
 def test_batcher_delivers_a_chain_error_to_its_whole_group_and_goes_on():
     good = [_packed_masks(60 + i, 4, 40, 70) for i in range(2)]
-    batcher = batchrun.DeviceBatcher(n_workers=2, n_images=4, linger_s=5.0)
+    batcher = batchrun.DeviceBatcher(MESH, n_workers=2, n_images=4, linger_s=5.0)
     try:
         # three edge parameters instead of six: the chain call raises for this group
         bad_results, bad_errors = _submit_all(batcher, good, params=PARAMS[:3])
@@ -195,7 +197,7 @@ def test_batcher_delivers_a_chain_error_to_its_whole_group_and_goes_on():
 
 
 def test_batcher_dispatcher_death_raises_in_every_waiter(monkeypatch):
-    batcher = batchrun.DeviceBatcher(n_workers=3, n_images=3, linger_s=5.0)
+    batcher = batchrun.DeviceBatcher(MESH, n_workers=3, n_images=3, linger_s=5.0)
 
     def die(key, batch):
         raise SystemExit("dispatcher killed")  # not an Exception: _dispatch's own handler does not see it
@@ -206,26 +208,26 @@ def test_batcher_dispatcher_death_raises_in_every_waiter(monkeypatch):
     assert not results and len(errors) == 3
     assert all(isinstance(e, RuntimeError) and "dispatcher exited" in str(e) for e in errors.values())
     with pytest.raises(RuntimeError, match="closed"):  # a later submission raises instead of parking
-        batcher.run_chain(_packed_masks(1, 4, 40, 70), 70, PARAMS, CPU)
+        batcher.run_chain(_packed_masks(1, 4, 40, 70), 70, PARAMS)
     batcher.close()
 
 
 def test_batcher_ctx_is_exclusive_and_cleans_up():
     assert batchrun.active_batcher() is None
-    with batchrun.batcher_ctx(batchrun.DeviceBatcher(1, 1)) as b:
+    with batchrun.batcher_ctx(batchrun.DeviceBatcher(MESH, 1, 1)) as b:
         assert batchrun.active_batcher() is b
         with pytest.raises(RuntimeError, match="already active"):
-            with batchrun.batcher_ctx(batchrun.DeviceBatcher(1, 1)):
+            with batchrun.batcher_ctx(batchrun.DeviceBatcher(MESH, 1, 1)):
                 pass
     assert batchrun.active_batcher() is None
     with pytest.raises(RuntimeError, match="closed"):
-        b.run_chain(_packed_masks(1, 4, 40, 70), 70, PARAMS, CPU)
+        b.run_chain(_packed_masks(1, 4, 40, 70), 70, PARAMS)
 
 
 def test_trailing_group_does_not_wait_for_finished_images():
     """With 4 workers declared and 3 images already finished, a lone
     submission is a full group: it runs long before the linger."""
-    batcher = batchrun.DeviceBatcher(n_workers=4, n_images=4, linger_s=60.0)
+    batcher = batchrun.DeviceBatcher(MESH, n_workers=4, n_images=4, linger_s=60.0)
     for _ in range(3):
         batcher.image_finished()
     t0 = time.monotonic()

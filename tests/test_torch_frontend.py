@@ -207,9 +207,19 @@ def test_raster_frontend_parameters_match_jax():
 
 
 def test_pallas_thinning_rejects_a_batch():
+    """The dense route no longer rejects a batch (``frontend_batch`` runs it):
+    its images are more planes of K12, where the JAX kernel takes none.
+    Each image's outputs are its solo call's, and the skeletons are
+    ``zhang_suen_pallas`` of the batch's edges, one image at a time."""
     img = torch.from_numpy(poster(9, (2, 32, 40)))
-    with pytest.raises(ValueError):
-        raster_frontend(img, BENCH_CENTERS, pallas_thinning=True)
+    edges, skel = raster_frontend(img, BENCH_CENTERS, pallas_thinning=True)
+    assert tuple(skel.shape) == (2, 4, 32, 40)
+    for i in range(2):
+        e, s = raster_frontend(img[i], BENCH_CENTERS, pallas_thinning=True)
+        assert torch.equal(edges[i], e) and torch.equal(skel[i], s)
+        ref_s = np.asarray(zhang_suen_pallas(edges[i].numpy(), max_iter=120, rotated=True, interpret=True))
+        np.testing.assert_array_equal(skel[i].numpy(), ref_s.astype(np.uint8))
+    assert skel.any()
 
 
 def test_entry_cpu():

@@ -550,7 +550,7 @@ def test_utils_analysis_matches_jax_package(tmp_path, capsys):
                                                (100, 8, 8, 30), (97, 4, 4, 2), (1, 2, 2, 0), (64, 0, 4, 2)])
 def test_fit_shard_rows_is_the_jax_packages(h, req, ndev, radius):
     from plotweave.parallel.spatial import fit_shard_rows as jfit
-    from plotweave_torch.stages.s02_color_extract import fit_shard_rows
+    from plotweave_torch.parallel.spatial import fit_shard_rows
 
     assert fit_shard_rows(h, req, ndev, radius) == jfit(h, req, ndev, radius)
 
@@ -575,17 +575,30 @@ def _run_base(out: Path, **extra):
     return (out / "plot_stream.bin").read_bytes()
 
 
-@pytest.mark.parametrize("override,note", [
-    ({"shard_rows": 1}, "row-sharded over 1 device(s)"),
-    ({"shard_rows": 4}, "row-sharded over 1 device(s)"),
-    ({"shard_auto_mpx": 0.01}, None),
-    ({"shard_rows": 4, "kmeans_init": "device"}, "[shard] note: row sharding applies to the fused host-exact"),
+def _cpu_pool(monkeypatch, n: int) -> None:
+    """The CPU pool of both packages: ``--xla_force_host_platform_device_count``."""
+    monkeypatch.setenv("XLA_FLAGS", f"--xla_force_host_platform_device_count={n}")
+
+
+@pytest.mark.parametrize("override,note,cpus", [
+    pytest.param({"shard_rows": 1}, "row-sharded over 1 device(s)", 1, id="override0-row-sharded over 1 device(s)"),
+    pytest.param({"shard_rows": 4}, "row-sharded over 1 device(s)", 1, id="override1-row-sharded over 1 device(s)"),
+    pytest.param({"shard_auto_mpx": 0.01}, None, 1, id="override2-note2"),
+    pytest.param({"shard_rows": 4, "kmeans_init": "device"}, "[shard] note: row sharding applies to the fused host-exact",
+                 1, id="override3-[shard] note: row sharding applies to the fused host-exact"),
+    pytest.param({"shard_rows": 4}, "[shard] raster chain row-sharded over 4 device(s)", 4, id="4-cpus-shard-rows"),
+    pytest.param({"shard_auto_mpx": 0.01}, "[shard] raster chain row-sharded over 4 device(s)", 4, id="4-cpus-auto"),
 ])
-def test_row_sharding_on_one_device_equals_the_unsharded_run(tmp_path, capsys, golden_stream, override, note):
-    """``shard_rows`` / ``shard_auto_mpx`` on one device (the CPU here; one
-    card on the card) run the unsharded chain, byte-equal to the JAX
-    package's 1-device sharded program and so to the golden stream; the
-    device mode prints the JAX package's note and runs unsharded."""
+def test_row_sharding_on_one_device_equals_the_unsharded_run(tmp_path, capsys, monkeypatch, golden_stream, override,
+                                                             note, cpus):
+    """``shard_rows`` / ``shard_auto_mpx`` on the CPU shard over the CPU pool
+    that ``XLA_FLAGS`` sets, as the JAX package does.  A pool of one runs the
+    unsharded chain, byte-equal to the JAX package's 1-device sharded program
+    and so to the golden stream, and auto never engages; a pool of four runs
+    the row-sharded chain over four shards and prints the JAX package's
+    line, byte-equal all the same.  The device mode prints the JAX package's
+    note and runs unsharded."""
+    _cpu_pool(monkeypatch, cpus)
     data = _run_base(tmp_path / "run", raster_device="cpu", **override)
     if "kmeans_init" not in override:
         assert data == golden_stream
@@ -598,17 +611,21 @@ def test_row_sharding_on_one_device_equals_the_unsharded_run(tmp_path, capsys, g
 
 def test_row_sharding_over_several_cards_raises(tmp_path, monkeypatch):
     """More than one card would shard the chain: not ported (ROADMAP.md,
-    Item 10); one card resolves to the unsharded chain."""
+    Queue 1, Item 10b); one card resolves to the unsharded chain.  On the CPU
+    the count is the CPU pool's: one, or the four that ``XLA_FLAGS`` sets."""
     from plotweave_torch.config import PipelineConfig
     from plotweave_torch.stages import s02_color_extract as s02
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     cfg = PipelineConfig(shard_rows=4)
     assert s02.resolve_shard_n(cfg, 1500, 2000) == 4
+    _cpu_pool(monkeypatch, 1)
     assert s02.resolve_shard_n(PipelineConfig(shard_rows=4, raster_device="cpu"), 1500, 2000) == 1
+    _cpu_pool(monkeypatch, 4)
+    assert s02.resolve_shard_n(PipelineConfig(shard_rows=4, raster_device="cpu"), 1500, 2000) == 4
     assert s02.resolve_shard_n(PipelineConfig(shard_auto_mpx=1.0), 1500, 2000) == 4
     assert s02.resolve_shard_n(PipelineConfig(shard_auto_mpx=5.0), 1500, 2000) == 0
-    with pytest.raises(NotImplementedError, match="Item 10"):
+    with pytest.raises(NotImplementedError, match="Item 10b"):
         _run_base(tmp_path / "run", shard_rows=2)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert s02.resolve_shard_n(cfg, 1500, 2000) == 1

@@ -226,13 +226,15 @@ def test_auto_raster_device_raises_without_cuda(tmp_path, monkeypatch):
     ids=["shard-rows", "shard-auto"],
 )
 def test_unported_modes_raise(tmp_path, monkeypatch, override):
-    """Row sharding runs on one device (``tests/test_torch_frontends.py``);
-    over more than one card it is not ported and raises."""
+    """Row sharding runs on one card or over the CPU pool
+    (``tests/test_torch_frontends.py``, ``tests/test_torch_mesh.py``); over
+    more than one card it needs the kernels' slab modes, ROADMAP.md Queue 1,
+    Item 10b, and raises."""
     from plotweave_torch.pipeline import run_pipeline
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     cfg = load_config(str(_write_cfg("base_cfg.json", tmp_path / "x", **override)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1, Item 10b"):
         run_pipeline(cfg, 1, 4)
 
 
