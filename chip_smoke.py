@@ -192,8 +192,23 @@ Phases:
    model name and the card chain's ms; the main path with ``--raster-device
    cpu --shard-rows 4`` in a process whose ``XLA_FLAGS`` sets 4 CPU devices,
    row-sharded over 4 and ``plot_stream.bin`` byte-equal to phase 5's card
-   run; and ``sharded_chain`` over two shards on the card raising
-   ``NotImplementedError`` naming Item 10b before any launch.
+   run.
+16. the ``space`` axis on the card (``phase_space_mesh``): each slab mode
+   (K3+K4 from boards and dense images, blur-only too; K5; K6 storing packed
+   rows and dense bytes at a row) against its plain slab version on the same
+   buffers at 2 x 256 x 1000, every slab position (top, middle, bottom,
+   alone), a weak edge crossing all four slabs (at least 5 hysteresis
+   rounds), a thick disc thinned in rounds, also capped mid-round, and
+   K11's gray programs over four slabs against the unsharded K11;
+   ``sharded_chain`` over ``[cuda:0] * 4`` and over the 6 shards that 8 fit
+   to at 4 x 1500 x 2000, byte-equal to the card's ``chain_from_clean``,
+   K2 and K3+K4 launched once a shard and K5 and K6 once a shard a round,
+   a trace of the port's own kernels, its ms beside the unsharded chain's;
+   over ``[cuda:0] * 4`` on a 4400 x 4400 layer (every slab on K5's and
+   K6's resident route, where the layer takes the multi-launch route),
+   byte-equal to the unsharded chain; ``spatial_frontend`` over ``[cuda:0]
+   * 4`` and ``grid_frontend`` data 2 x space 2 on phase 6's posters,
+   byte-equal to ``raster_frontend``; ``dryrun_multichip(4, [cuda:0] * 4)``.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
 launches in the one run of phase 5 or 6 that drives it (the synthetic
@@ -250,6 +265,8 @@ MAIN_PATH_KERNELS = ("morph_bits", "edge_candidates", "hysteresis", "zhang_suen_
 # launches of one chain call: K2 loading the packed rows, K3+K4, K5, K6 storing the blob's two halves; no K1
 CHAIN_LAUNCHES = {"morph_bits": 1, "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 1}
 # the kernels of plotweave_torch/csrc by a part of their names, as a profiler's trace shows them
+# PyTorch's kernel of ``copy_`` between strided views on one card: row sharding's halo exchange (``widen``)
+COPY_KERNELS = ("direct_copy_kernel",)
 OWN_KERNELS = ("rows_to_boards", "boards_to_rows", "boards_to_dense", "dense_to_boards", "labels_to_boards",
                "morph_steps", "edge_tiles", "hysteresis_cluster", "hysteresis_sweep", "zs_cluster", "zs_subpass",
                "assign_nearest", "zs_tiles", "subsample", "lab_sample", "kmeans_fit", "lloyd_fit", "assign_points", "morph_runs",
@@ -280,7 +297,9 @@ PATH_RUNS = {"main": "main path, synthetic 2000x1500, steps 1-13, card run",
              "swatch": "main path with extraction_mode=swatch, synthetic 2000x1500, steps 1-13, card run",
              "quality": "main path with --preset quality, dot-field poster 2000x1500, steps 1-13, card run",
              "resize": "resize_if_needed(img, 2000) on a 4032x3024 and a 4000x3000 image on the card",
-             "vector": "svg2stream --sampling-backend torch on the seeded A3 traced poster, card run"}
+             "vector": "svg2stream --sampling-backend torch on the seeded A3 traced poster, card run",
+             "sharded": "sharded_chain over [cuda:0] x 4, 4x1500x2000, one call",
+             "blur slab": "blur_halo over [cuda:0] x 4, 2x1500x2000 gray, one call"}
 
 # the card's peaks (H100 SXM): HBM bytes/s, float32 outside the tensor cores,
 # INT32 lanes (132 SMs x 64 lanes x 1.98 GHz)
@@ -439,9 +458,12 @@ def device_kernels(fn) -> dict:
     return counts
 
 
-def only_own_kernels(fn, what: str, expect: dict, timed: str = "", calls: int = TRACE_CALLS) -> dict:
+def only_own_kernels(fn, what: str, expect: dict, timed: str = "", calls: int = TRACE_CALLS,
+                     copies: bool = False) -> dict:
     """Fail if a trace of ``calls`` calls of ``fn`` shows a device kernel
-    that is not one of ``plotweave_torch/csrc``'s, or if the last call's
+    that is not one of ``plotweave_torch/csrc``'s (with ``copies``, nor
+    PyTorch's ``copy_`` kernel, which moves rows between strided views and
+    is counted apart, under "copies"), or if the last call's
     kernels are not ``expect`` ({part of the name: launches}) in any of three
     traces (a trace that lost events is taken again); returns those.  With
     ``timed``, returns {"kernels": those, "alone_ms": the device ms a call of
@@ -449,18 +471,26 @@ def only_own_kernels(fn, what: str, expect: dict, timed: str = "", calls: int = 
     from the same trace (a profiler session fewer than ``profiled_ms``)."""
     for attempt in range(3):
         groups = traced(fn, calls)
-        foreign = sorted({e.name for g in groups for e in g if not any(own in e.name for own in OWN_KERNELS)})
+        allowed = OWN_KERNELS + (COPY_KERNELS if copies else ())
+        foreign = sorted({e.name for g in groups for e in g if not any(own in e.name for own in allowed)})
         check(not foreign, f"{what}: device kernels that are not the port's own: {foreign}")
         short: dict = {}
+        n_copies = 0
         for e in (groups or [[]])[-1]:
-            own = next(own for own in OWN_KERNELS if own in e.name)
-            short[own] = short.get(own, 0) + 1
+            own = next((own for own in OWN_KERNELS if own in e.name), None)
+            if own is None:
+                n_copies += 1
+            else:
+                short[own] = short.get(own, 0) + 1
         if short == expect:
             break
         print(f"  {what}: trace {attempt + 1} shows {short} in its last call, expected {expect}")
     check(short == expect, f"{what}: the trace's last call ran {short}, expected {expect}")
-    print(f"{what}: every device kernel in the trace of {len(groups)} calls is the port's own, and the last call "
-          f"ran {short} (torch.profiler)")
+    print(f"{what}: every device kernel in the trace of {len(groups)} calls is the port's own"
+          + (" or a copy" if copies else "") + f", and the last call ran {short}"
+          + (f" and {n_copies} copy kernels" if copies else "") + " (torch.profiler)")
+    if copies:
+        short = {**short, "copies": n_copies}
     if not timed:
         return short
     us = sum(device_us(e) for g in groups[1:] for e in g if timed in e.name)
@@ -3791,8 +3821,7 @@ def phase_mesh(work: Path, stats: dict) -> dict:
     sequential runs; (c) ``sharded_chain`` over a 4-shard CPU space mesh
     against the card's ``chain_from_clean``; (d) the main path with
     ``--raster-device cpu --shard-rows 4`` in a process whose ``XLA_FLAGS``
-    sets 4 CPU devices, against phase 5's card run; (e) ``sharded_chain``
-    over two shards on the card raising, naming Item 10b, with no launch."""
+    sets 4 CPU devices, against phase 5's card run."""
     import os
     import re
 
@@ -3916,20 +3945,319 @@ def phase_mesh(work: Path, stats: dict) -> dict:
     print(f"main path, synthetic 2000x1500, --raster-device cpu --shard-rows 4 over {SHARD_CPUS} CPU devices: "
           f"row-sharded over 4; plot_stream.bin == phase 5's card run; {seconds['d']:.1f} s in its own process")
 
-    # (e) two shards on the card: no slab kernels yet, so it raises before any launch
-    t0 = time.perf_counter()
-    kernels.reset_launches()
-    try:
-        sharded_chain(make_mesh((2,), ("space",), devices=twice), packed, w, *EDGE_PARAMS)
-        raised = ""
-    except NotImplementedError as e:
-        raised = str(e)
-    check("Item 10b" in raised, f"sharded_chain over [cuda:0, cuda:0] did not raise naming Item 10b: {raised!r}")
-    check(not launched_now(), f"sharded_chain over [cuda:0, cuda:0] launched {launched_now()}")
-    seconds["e"] = time.perf_counter() - t0
-    print(f"sharded_chain over [cuda:0, cuda:0]: raises ({raised}); no launch")
     print("phase 15 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     stats["mesh"] = out
+    return out
+
+
+SPACE_SHARDS = (4, 8)  # phase 16: the shards asked for the chain (fit_shard_rows: 1500 rows take 4 and 6)
+SLAB_CASE = (2, 256, 1000)  # layers, H, W: four slabs of 64 rows, 31.25 words a row
+
+
+def space_rounds() -> dict:
+    """The rounds of the last sharded program's fixpoints."""
+    from plotweave_torch.ops import kernels
+
+    return {"hysteresis": kernels.STATS["hysteresis_rounds"], "thinning": kernels.STATS["thinning_rounds"]}
+
+
+def slab_positions(x, halo: int):
+    """The four slabs of ``x`` widened by ``halo`` rows (top, two middles,
+    bottom) and ``x`` alone, on the card: (buffer, top, bottom) each."""
+    import torch
+
+    from plotweave_torch.parallel.spatial import split_rows, widen
+
+    return widen(split_rows(x, [torch.device("cuda", 0)] * 4), halo) + [(x, 0, 0)]
+
+
+def slab_cases(stats: dict) -> None:
+    """Each slab kernel against its plain slab version on the card, on the
+    same buffers: every slab position, a width of 31.25 words, a weak edge
+    that crosses every shard, a thick disc that needs many iterations."""
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.ops.canny import edge_candidates_plain, edge_candidates_slab_plain, hysteresis_slab_plain
+    from plotweave_torch.ops.filters import gaussian_blur_slab_plain
+    from plotweave_torch.ops.morphology import morph_dense, morph_program
+    from plotweave_torch.ops.thinning import zhang_suen_slab_plain
+    from plotweave_torch.parallel.spatial import canny_halo, morph_prog_halo, split_rows, thin_halo
+
+    card = torch.device("cuda", 0)
+    k, h, w = SLAB_CASE
+    mk, oi, ci, bk, lo, hi = EDGE_PARAMS
+    rng = np.random.default_rng(16)
+    yy, xx = np.mgrid[0:h, 0:w]
+    gray = np.stack([synthetic_image(16 + i, h, w)[0][..., i] for i in range(k)])
+    boards = kernels.dense_to_boards_cuda(torch.from_numpy(random_boards(rng, k, h, w)).to(card))
+    dense = torch.from_numpy(gray).to(card)
+    n = 0
+    for x, what in ((boards, "a board"), (dense, "a dense image")):
+        for ksize in (bk, 7):
+            for buf, top, bottom in slab_positions(x, ksize // 2 + 2):
+                got = kernels.edge_candidates_slab_cuda(buf, w, ksize, lo, hi, top, bottom)
+                ref = edge_candidates_slab_plain(buf, w, ksize, lo, hi, top, bottom)
+                check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                      f"K3+K4 slab mode != plain: {what}, ksize {ksize}, halos {top}, {bottom}")
+                n += 1
+            for buf, top, bottom in slab_positions(x, ksize // 2):
+                got = kernels.gaussian_blur_slab_cuda(buf, ksize, top, bottom, w)
+                check(torch.equal(got, gaussian_blur_slab_plain(buf, ksize, top, bottom, w)),
+                      f"K3+K4 blur-only slab mode != plain: {what}, ksize {ksize}, halos {top}, {bottom}")
+                n += 1
+    # the hysteresis of a weak step down every row, strong only in the last rows: each slab's seeds come from below
+    weak = np.zeros((k, h, w), np.uint8)
+    weak[:, :, 300:] = 10
+    weak[:, -6:, 300:] = 40
+    weak_c = torch.from_numpy(weak).to(card)
+    cand, strong = (t.contiguous() for t in edge_candidates_plain(weak_c, w, 1, lo, hi))
+    flag_k, flag_p = torch.empty(1, dtype=torch.int32, device=card), torch.empty(1, dtype=torch.int32, device=card)
+    for source in (strong, kernels.hysteresis_cuda(cand, strong)):
+        for (buf, top, bottom), c in zip(slab_positions(source, 1), split_rows(cand, [card] * 4) + [cand]):
+            got = kernels.hysteresis_slab_cuda(c, buf, top, bottom, flag_k)
+            ref = hysteresis_slab_plain(c, buf, top, bottom, flag_p)
+            check(torch.equal(got, ref) and int(flag_k) == int(flag_p),
+                  f"K5 slab mode != plain: halos {top}, {bottom}, flag {int(flag_k)} against {int(flag_p)}")
+            n += 1
+    # the gray morphology (K11, no slab mode) on slabs widened by the program's summed radius
+    for shape, ksize, iterations, program in (("ellipse", 7, 2, "ed"), ("rect", 3, 1, "de"), ("cross", 5, 1, "ed")):
+        got = torch.cat(morph_prog_halo(split_rows(dense, [card] * 4), shape, ksize, iterations, program), dim=-2)
+        check(torch.equal(got, morph_dense(dense, morph_program(shape, ksize, iterations, program))),
+              f"morph_prog_halo over 4 card slabs, {shape} {ksize} x {iterations} {program}: != unsharded K11")
+        n += 1
+    edges = torch.cat(canny_halo(split_rows(weak_c, [card] * 4), lo, hi), dim=-2)
+    rounds = kernels.STATS["hysteresis_rounds"]
+    ref = kernels.boards_to_dense_cuda(kernels.hysteresis_cuda(cand, strong), w, 255)
+    check(torch.equal(edges, ref) and bool(ref[:, 0].any()) and rounds >= 5,
+          f"the weak edge over 4 card slabs: != unsharded, or {rounds} rounds")
+    # thinning of a thick disc, 80 px across, in rounds of at most 32 iterations; also capped mid-round
+    disc = ((yy - 128) ** 2 + (xx - 500) ** 2 <= 80**2) | ((yy > 10) & (yy < 246) & (xx > 100) & (xx < 160))
+    disc_d = torch.from_numpy(np.stack([disc] * k).astype(np.uint8)).to(card)
+    disc_b = kernels.dense_to_boards_cuda(disc_d)
+    rb = -(-w // 8)
+    for layout in ("rows", "dense"):
+        width = rb if layout == "rows" else w
+        for buf, top, bottom in slab_positions(disc_b, 2 * 16):
+            own = buf.shape[-2] - top - bottom
+            outs = [torch.full((2, 1, k, h, width), 0xA5, dtype=torch.uint8, device=card) for _ in range(2)]
+            got = kernels.zhang_suen_slab_cuda(buf, top, bottom, 16, flag_k, w, outs[0][0], outs[0][1], layout, h - own)
+            ref = zhang_suen_slab_plain(buf, top, bottom, 16, flag_p, w, outs[1][0], outs[1][1], layout, h - own)
+            check(torch.equal(got, ref) and int(flag_k) == int(flag_p) and torch.equal(outs[0], outs[1]),
+                  f"K6 slab mode != plain: {layout}, halos {top}, {bottom}, row {h - own}")
+            n += 1
+    for max_iter in (120, 45):
+        skels = thin_halo(split_rows(disc_d, [card] * 4), max_iter)
+        ref = kernels.boards_to_dense_cuda(kernels.zhang_suen_packed_cuda(disc_b, max_iter), w, 1, torch.int32)
+        check(torch.equal(torch.cat(skels, dim=-2), ref), f"the thick disc over 4 card slabs, max_iter {max_iter}: "
+              "!= unsharded K6")
+        print(f"  thin_halo over 4 card slabs, max_iter {max_iter}: == unsharded K6 in {kernels.STATS['thinning_rounds']} rounds")
+    print(f"slab modes: {n} cases of K3+K4 (boards, dense, blur only), K5 and K6 (rows, dense) == their plain slab "
+          f"versions on the card at {k}x{h}x{w} (top, middle, bottom, alone), and K11's programs over 4 card slabs == "
+          f"unsharded; the weak edge over 4 card slabs == unsharded in {rounds} hysteresis rounds")
+
+
+def phase_space_mesh(work: Path, stats: dict) -> dict:
+    """Phase 16: the ``space`` axis on the card.  (a) each slab kernel
+    against its plain slab version; (b) ``sharded_chain`` over ``[cuda:0] *
+    4`` and ``* 8`` on the chain's 4 x 1500 x 2000 masks against the card's
+    ``chain_from_clean``, launches per shard and round, a trace; (c) over
+    ``[cuda:0] * 4`` on the 4400 x 4400 layer against the unsharded
+    chain's multi-launch route; (d) ``spatial_frontend`` and ``grid_frontend``
+    against ``raster_frontend``; (e) ``dryrun_multichip(4, [cuda:0] * 4)``."""
+    import numpy as np
+    import torch
+
+    from plotweave_torch.entry import dryrun_multichip
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.ops.canny import edge_candidates_slab_plain, hysteresis_slab_plain
+    from plotweave_torch.ops.filters import gaussian_blur_slab_plain
+    from plotweave_torch.ops.frontend import raster_frontend
+    from plotweave_torch.ops.morphology import _valid_bits
+    from plotweave_torch.ops.thinning import zhang_suen_slab_plain
+    from plotweave_torch.parallel import make_mesh, sharded_chain
+    from plotweave_torch.parallel.spatial import (
+        blur_halo, fit_shard_rows, grid_frontend, spatial_frontend, split_rows, widen)
+    from plotweave_torch.stages.s02_color_extract import chain_from_clean
+
+    card = torch.device("cuda", 0)
+    seconds, out = {}, {}
+
+    t0 = time.perf_counter()
+    slab_cases(stats)
+    seconds["a"] = time.perf_counter() - t0
+
+    # (b) the chain's masks over 4 and 8 card slabs
+    t0 = time.perf_counter()
+    k, h, w = CHAIN_SHAPE
+    mk, oi, ci, bk, lo, hi = EDGE_PARAMS
+    _, bins = synthetic_image(1, h, w)
+    packed = torch.from_numpy(np.packbits(np.stack([bins == j for j in range(k)]), axis=-1)).to(card)
+    solo = chain_from_clean(packed, w, *EDGE_PARAMS, device=card)
+    out["chain ms"] = cuda_ms(lambda: chain_from_clean(packed, w, *EDGE_PARAMS, device=card), 10)
+    for asked in SPACE_SHARDS:
+        n = fit_shard_rows(h, asked, asked, max(2, mk // 2, bk // 2))
+        space = make_mesh((n,), ("space",), devices=[card] * n)
+        kernels.reset_launches()
+        blob = sharded_chain(space, packed, w, *EDGE_PARAMS)
+        torch.cuda.synchronize()
+        launches, rounds = launched_now(), space_rounds()
+        check(torch.equal(blob, solo), f"sharded_chain over [cuda:0] x {n} != the card's chain_from_clean")
+        want = {"morph_bits": n, "edge_candidates_slab": n, "hysteresis_slab": n * rounds["hysteresis"],
+                "zhang_suen_packed_slab": n * rounds["thinning"]}
+        check(launches == want, f"sharded_chain over [cuda:0] x {n}: launches {launches}, expected {want}")
+        trace = only_own_kernels(lambda space=space: sharded_chain(space, packed, w, *EDGE_PARAMS),
+                                 f"sharded_chain over [cuda:0] x {n}, {k}x{h}x{w}",
+                                 {"morph_steps": n, "edge_tiles": n, "hysteresis_cluster": want["hysteresis_slab"],
+                                  "zs_cluster": want["zhang_suen_packed_slab"]}, timed="", copies=True)
+        ms = cuda_ms(lambda space=space: sharded_chain(space, packed, w, *EDGE_PARAMS), 10)
+        alone = profiled_ms(lambda space=space: sharded_chain(space, packed, w, *EDGE_PARAMS), "", 5)
+        out[f"sharded {n}"] = {"ms": ms, "kernels alone ms": alone, "launches": launches, "rounds": rounds,
+                               "trace": trace}
+        if asked == SPACE_SHARDS[0]:
+            out["sharded launches"] = launches
+        print(f"sharded_chain over [cuda:0] x {n} ({asked} asked), {k}x{h}x{w}: == chain_from_clean; hysteresis {rounds['hysteresis']} "
+              f"rounds, thinning {rounds['thinning']} (m = {kernels.thinning_round(h // n, -(-w // 32), 120)}); "
+              f"launches {launches}; {ms:.3f} ms a call (CUDA events), kernels alone "
+              + (f"{alone:.3f} ms" if alone else "not measured")
+              + f"; the unsharded chain {out['chain ms']:.3f} ms a call")
+    seconds["b"] = time.perf_counter() - t0
+
+    # the kernels' rows at the 4-shard chain's shapes: the slabs as sharded_chain hands them over
+    n = fit_shard_rows(h, SPACE_SHARDS[0], SPACE_SHARDS[0])
+    steps = MAIN_PATH_STEPS
+    radius = sum(ks // 2 for _, ks, _ in steps) + bk // 2 + 2
+    bufs = [(kernels.morph_steps_cuda(buf, _valid_bits(w, card), steps, w), top, bottom)
+            for buf, top, bottom in widen(split_rows(packed, [card] * n), radius)]
+    mid, top, bottom = bufs[1]
+    words = k * (h // n) * -(-w // 32)
+
+    def k34():
+        return kernels.edge_candidates_slab_cuda(mid, w, bk, lo, hi, top, bottom)
+
+    cand, strong = k34()
+    ref = edge_candidates_slab_plain(mid, w, bk, lo, hi, top, bottom)
+    stats["K3+K4 slab"] = {"max_abs_err": max(max_abs_err(cand, ref[0]), max_abs_err(strong, ref[1])),
+                           "ms": cuda_ms(k34, 20), "plain_ms": cuda_ms(
+                               lambda: edge_candidates_slab_plain(mid, w, bk, lo, hi, top, bottom), 3),
+                           "alone_ms": profiled_ms(k34, "edge_tiles", 20),
+                           **bound(mid.numel() * 4 + 2 * words * 4, k * (h // n) * w * (2 * bk + EDGE_OPS_FIXED),
+                                   INT32_OPS)}
+    dense_mid = torch.from_numpy(np.stack([synthetic_image(5, mid.shape[-2], w)[0][..., 0]] * k)).to(card)
+
+    def blur():
+        return kernels.gaussian_blur_slab_cuda(dense_mid, bk, bk // 2, bk // 2)
+
+    stats["K3+K4 blur slab"] = {"max_abs_err": max_abs_err(blur(), gaussian_blur_slab_plain(dense_mid, bk, bk // 2,
+                                                                                            bk // 2)),
+                                "ms": cuda_ms(blur, 20),
+                                "plain_ms": cuda_ms(lambda: gaussian_blur_slab_plain(dense_mid, bk, bk // 2, bk // 2), 3),
+                                "alone_ms": profiled_ms(blur, "edge_tiles", 20),
+                                **bound(dense_mid.numel() + k * (dense_mid.shape[-2] - 2 * (bk // 2)) * w, k * (
+                                    dense_mid.shape[-2] - 2 * (bk // 2)) * w * (2 * bk + 4), INT32_OPS)}
+    e_buf = torch.cat([strong[:, -1:], strong, strong[:, :1]], dim=1)  # a one-row halo on each side
+    flag = torch.empty(1, dtype=torch.int32, device=card)
+
+    def k5():
+        return kernels.hysteresis_slab_cuda(cand, e_buf, 1, 1, flag)
+
+    stats["K5 slab"] = {"max_abs_err": max_abs_err(k5(), hysteresis_slab_plain(cand, e_buf, 1, 1, flag.clone())),
+                        "ms": cuda_ms(k5, 20), "plain_ms": cuda_ms(
+                            lambda: hysteresis_slab_plain(cand, e_buf, 1, 1, flag.clone()), 3),
+                        "alone_ms": profiled_ms(k5, "hysteresis_cluster", 20),
+                        **bound(2 * words * 4 + e_buf.numel() * 4, words * HYST_OPS_PER_WORD, INT32_OPS)}
+    m = kernels.thinning_round(h // n, -(-w // 32), 120)
+    z_buf = widen(split_rows(kernels.hysteresis_cuda(*kernels.edge_candidates_cuda(
+        kernels.morph_steps_cuda(packed, _valid_bits(w, card), steps, w), w, bk, lo, hi)), [card] * n), 2 * m)[1]
+    zb, ztop, zbottom = z_buf
+    blob = torch.empty((2, 1, k, h, -(-w // 8)), dtype=torch.uint8, device=card)
+
+    def k6():
+        return kernels.zhang_suen_slab_cuda(zb, ztop, zbottom, m, flag, w, blob[0], blob[1], "rows", h // n)
+
+    blob_p = blob.clone()
+    got6 = k6()
+    ref6 = zhang_suen_slab_plain(zb, ztop, zbottom, m, flag.clone(), w, blob_p[0], blob_p[1], "rows", h // n)
+    iters = kernels.STATS["zhang_suen_packed_slab"].tolist()  # each layer's iterations
+    stats["K6 slab"] = {"max_abs_err": max(max_abs_err(got6, ref6), max_abs_err(blob, blob_p)), "ms": cuda_ms(k6, 20),
+                        "plain_ms": cuda_ms(lambda: zhang_suen_slab_plain(zb, ztop, zbottom, m, flag.clone(), w,
+                                                                          blob_p[0], blob_p[1], "rows", h // n), 3),
+                        "alone_ms": profiled_ms(k6, "zs_cluster", 20), "iterations": iters,
+                        **bound(zb.numel() * 4 + 2 * k * (h // n) * -(-w // 8) + words * 4,
+                                sum(iters) * (words // k) * 2 * ZS_OPS_PER_WORD, INT32_OPS)}
+    for key in ("K3+K4 slab", "K3+K4 blur slab", "K5 slab", "K6 slab"):
+        st = stats[key]
+        check(st["max_abs_err"] == 0, f"{key} != plain at the 4-shard chain's middle slab")
+        print(f"{key} at the 4-shard chain's middle slab: {st['ms']:.4f} ms a call, "
+              + (f"{st['alone_ms']:.4f} ms alone, " if st.get("alone_ms") else "")
+              + f"plain {st['plain_ms']:.4f} ms, bound {st['bound_ms']:.5f} ms by {st['bound_by']}")
+
+    # blur_halo over [cuda:0] x 4: the path of the blur-only slab mode's launches
+    dense = torch.from_numpy(np.stack([synthetic_image(6, h, w)[0][..., 0]] * k)).to(card)
+    slabs = split_rows(dense, [card] * 4)
+    kernels.reset_launches()
+    blurred = blur_halo(slabs, bk)
+    torch.cuda.synchronize()
+    out["blur launches"] = launched_now()
+    check(torch.equal(torch.cat(blurred, dim=-2), kernels.gaussian_blur_cuda(dense, bk)),
+          "blur_halo over [cuda:0] x 4 != the unsharded blur")
+
+    # (c) the 4400 x 4400 layer: one cluster per slab where the whole layer takes the multi-launch route
+    t0 = time.perf_counter()
+    big_bins = synthetic_image(7, BIG_SIDE, BIG_SIDE)[1]
+    big = torch.from_numpy(np.packbits((big_bins == 0)[None], axis=-1)).to(card)
+    solo = chain_from_clean(big, BIG_SIDE, *EDGE_PARAMS, device=card)
+    space = make_mesh((4,), ("space",), devices=[card] * 4)
+    kernels.reset_launches()
+    blob = sharded_chain(space, big, BIG_SIDE, *EDGE_PARAMS)
+    torch.cuda.synchronize()
+    launches = launched_now()
+    check(torch.equal(blob, solo), f"sharded_chain over [cuda:0] x 4 != chain_from_clean at 1x{BIG_SIDE}x{BIG_SIDE}")
+    check(not any(name in launches for name in MULTI_KERNELS), f"the 4400 x 4400 slabs took the multi-launch "
+          f"route: {launches}")
+    out["big"] = {"sharded ms": cuda_ms(lambda: sharded_chain(space, big, BIG_SIDE, *EDGE_PARAMS), 5),
+                  "unsharded ms": cuda_ms(lambda: chain_from_clean(big, BIG_SIDE, *EDGE_PARAMS, device=card), 5),
+                  "launches": launches, "rounds": space_rounds()}
+    print(f"sharded_chain over [cuda:0] x 4 at 1x{BIG_SIDE}x{BIG_SIDE}: == chain_from_clean; launches {launches}, "
+          f"rounds {out['big']['rounds']}; {out['big']['sharded ms']:.3f} ms a call against the unsharded chain's "
+          f"{out['big']['unsharded ms']:.3f} (multi-launch route; CUDA events)")
+    seconds["c"] = time.perf_counter() - t0
+
+    # (d) the sharded front-ends against raster_frontend
+    t0 = time.perf_counter()
+    fh, fw = FRONTEND_SHAPE
+    imgs = torch.from_numpy(np.stack([synthetic_image(3 + i, fh, fw)[0] for i in range(2)])).to(card)
+    c = torch.from_numpy(np.array(BENCH_CENTERS, np.float32)).to(card)
+    kernels.reset_launches()
+    e, s = spatial_frontend(make_mesh((4,), ("space",), devices=[card] * 4), imgs[0], c, k=4)
+    torch.cuda.synchronize()
+    launches = launched_now()
+    e1, s1 = raster_frontend(imgs[0], c, k=4)
+    check(torch.equal(e, e1) and torch.equal(s, s1), f"spatial_frontend over [cuda:0] x 4 != raster_frontend at "
+          f"{fh}x{fw}")
+    grid = make_mesh((2, 2), ("data", "space"), devices=[card] * 4)
+    eg, sg = grid_frontend(grid, imgs, c, k=4)
+    e2, s2 = raster_frontend(imgs, c, k=4)
+    check(torch.equal(eg, e2) and torch.equal(sg, s2), "grid_frontend data 2 x space 2 != one raster_frontend call")
+    out["front-ends"] = {"spatial ms": cuda_ms(lambda: spatial_frontend(
+        make_mesh((4,), ("space",), devices=[card] * 4), imgs[0], c, k=4), 5),
+        "raster ms": cuda_ms(lambda: raster_frontend(imgs[0], c, k=4), 5), "launches": launches}
+    print(f"spatial_frontend over [cuda:0] x 4, {fh}x{fw} k=4: == raster_frontend; launches {launches}; "
+          f"{out['front-ends']['spatial ms']:.3f} ms a call against {out['front-ends']['raster ms']:.3f}; "
+          f"grid_frontend data 2 x space 2 over two posters == one raster_frontend call")
+    seconds["d"] = time.perf_counter() - t0
+
+    # (e) the dry run's twin over one card named four times
+    t0 = time.perf_counter()
+    with open(work / "dryrun.log", "w") as log, contextlib.redirect_stdout(log):
+        dryrun_multichip(4, [card] * 4)
+    lines = [ln for ln in (work / "dryrun.log").read_text().splitlines() if ln.startswith("[dryrun]")]
+    check(lines and lines[-1].startswith("[dryrun] ALL OK"), f"dryrun_multichip(4): {lines[-3:]}")
+    print("dryrun_multichip(4, [cuda:0] x 4): " + "; ".join(ln.removeprefix("[dryrun] ") for ln in lines))
+    seconds["e"] = time.perf_counter() - t0
+    print("phase 16 seconds: " + ", ".join(f"{key} {v:.1f}" for key, v in seconds.items()))
+    stats["space"] = out
     return out
 
 
@@ -3979,6 +4307,8 @@ def main() -> None:
         paths["quality"] = timed(phase_quality_path, Path(tmp), stats)
         paths["vector"] = timed(phase_vector_and_shard, Path(tmp), stats)["vector"]
         timed(phase_mesh, Path(tmp), stats)
+        space = timed(phase_space_mesh, Path(tmp), stats)
+        paths["sharded"], paths["blur slab"] = space["sharded launches"], space["blur launches"]
         paths["resize"] = resize_launches
     print("phase wall seconds: " + ", ".join(f"{name} {s:.1f}" for name, s in seconds.items()))
 
@@ -4004,6 +4334,14 @@ def main() -> None:
              "plotweave/ops/pallas_kernels.py:179", "K6"),
             ("K6 zhang_suen_packed, multi-launch", "big", "zhang_suen_packed_multi", src,
              "plotweave/ops/pallas_kernels.py:179", "K6 multi"),
+            ("K3+K4 edge_candidates, slab mode", "sharded", "edge_candidates_slab",
+             "plotweave_torch/csrc/edge_candidates.cu", "plotweave/parallel/spatial.py:164", "K3+K4 slab"),
+            ("K3+K4 blur only, slab mode", "blur slab", "edge_candidates_slab",
+             "plotweave_torch/csrc/edge_candidates.cu", "plotweave/parallel/spatial.py:151", "K3+K4 blur slab"),
+            ("K5 hysteresis, slab mode", "sharded", "hysteresis_slab", src, "plotweave/parallel/spatial.py:199",
+             "K5 slab"),
+            ("K6 zhang_suen_packed, slab mode (storing the blob's rows at the slab's row)", "sharded",
+             "zhang_suen_packed_slab", src, "plotweave/parallel/spatial.py:215", "K6 slab"),
             ("K7 assign_nearest (boards)", "front-end", "assign_nearest", "plotweave_torch/csrc/assign_nearest.cu",
              "plotweave/ops/frontend.py:24", "K7"),
             ("K12 zhang_suen_dense", "front-end dense", "zhang_suen_dense", "plotweave_torch/csrc/zs_dense.cu",

@@ -75,6 +75,31 @@
 //   launch, not launches: a sweep carries growth down (or up) a whole strip
 //   and 32 pixels along a row, a round carries it across a CTA boundary.
 //
+// Slab mode (row sharding, parallel/spatial.py): a layer is a slab of
+// `top` + `own` + `bottom` rows, the shard's own rows widened by rows copied
+// from its neighbours (a side with 0 halo rows is the image's border, where
+// rows outside read as zero, as today), and the kernels write only the own
+// rows, plus a changed flag in device memory that the host reads once a
+// round for all shards (zeroed here before the launch).
+//
+//   K5 takes cand for the own rows only and the edges for the whole slab:
+//   a halo row's cand is its edges, so the halo rows are seeds that cannot
+//   grow.  Its result is the fixpoint of the own rows under those seeds; the
+//   flag says whether an own row gained a bit over its edges.
+//
+//   K6 runs at most max_iter iterations (one round) on the slab, with 2 m
+//   halo rows a side for a round of m: a subpass reads one row beyond its
+//   own, so the own rows are exact for 2 m subpasses.  A layer still stops
+//   at the slab's own fixpoint (past it nothing changes).  The flag says
+//   whether the round's last iteration changed an own row: the rounds of all
+//   shards end when no shard's did, which is the JAX loop's global flag.
+//   Its stores put the own rows at row out_row0 of layers of out_h rows (the
+//   unsharded image's blob or dense outputs), the board output holds only
+//   the own rows, and the edges are stored only where given (the first
+//   round's input).
+//
+// Unsharded calls are top 0, own = h, out_row0 0, out_h = h, no flag.
+//
 // Shared memory per CTA (words, stride NW + 2, rpc = ceil(H / 16) rows):
 // K6 (2 rpc + 1) stride, K5 (2 rpc + 5) stride, plus two flags.  At 1500 x
 // 63 words that is 49 KB; the default max_dimension of 2000 rows takes
@@ -233,11 +258,11 @@ struct Strips {
 
 // One Zhang-Suen subpass down one strip of word column w: reads `src`,
 // writes dst (padded, same stride).  The second subpass overwrites x in
-// place, so `dst` is then the iteration's input as well; returns whether
-// any word changed.
+// place, so `dst` is then the iteration's input as well; returns bit 0 where
+// any word changed and bit 1 where a word of an own row [own0, own1) did.
 template <bool FIRST, bool ROTATED>
-__device__ __forceinline__ bool zs_strip(const Rows& src, uint32_t* dst, int w, int r0, int r1) {
-  bool changed = false;
+__device__ __forceinline__ int zs_strip(const Rows& src, uint32_t* dst, int w, int r0, int r1, int own0, int own1) {
+  int changed = 0;
   Row3 rows[3];
   rows[0] = row3(src.at(r0 - 1), w);
   rows[1] = row3(src.at(r0), w);
@@ -245,7 +270,7 @@ __device__ __forceinline__ bool zs_strip(const Rows& src, uint32_t* dst, int w, 
     rows[2] = row3(src.at(r + 1), w);
     uint32_t res = zs_word<FIRST, ROTATED>(rows);
     uint32_t* out = dst + r * src.stride + w + 1;
-    if (!FIRST) changed |= (*out != res);
+    if (!FIRST && *out != res) changed |= (r >= own0 && r < own1) ? 3 : 1;
     *out = res;
     rows[0] = rows[1];
     rows[1] = rows[2];
@@ -295,8 +320,9 @@ __device__ __forceinline__ void store_layout(uint8_t* __restrict__ dst, const ui
 template <bool ROTATED>
 __global__ void __launch_bounds__(kClusterThreads)
     zs_cluster(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int* __restrict__ iters,
-               uint8_t* __restrict__ edges, uint8_t* __restrict__ skels, long img_stride, int group, int layout,
-               int k, int h, int nw, int width, int vec, int max_iter) {
+               uint8_t* __restrict__ edges, uint8_t* __restrict__ skels, int* __restrict__ changed_g, long img_stride,
+               int group, int layout, int k, int h, int nw, int width, int vec, int max_iter, int top, int own,
+               int out_row0, int out_h) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ uint32_t smem[];
   const int rank = (int)cluster.block_rank();
@@ -318,31 +344,38 @@ __global__ void __launch_bounds__(kClusterThreads)
           has_below ? cluster.map_shared_rank(y, rank + 1) : zero, nrows, stride};
   const Strips st(nrows, nw);
   const int items = st.strips * nw;
+  // this CTA's own rows, [s0, s1) of the layer, and the same in its own row numbers
+  const int s0 = max(row0, top), s1 = min(row0 + nrows, top + own), ns = s1 - s0;
+  const int own0 = top - row0, own1 = top + own - row0;
+  const uint32_t* xs0 = x + (s0 - row0) * stride;
 
   const int rb = layout == kRows ? (width + 7) / 8 : width;  // bytes of an output row
   for (int layer = blockIdx.x / kCluster; layer < k; layer += gridDim.x / kCluster) {
     const long base = ((long)layer * h + row0) * nw;
-    // this CTA's first row in each output: layer = b group + l at b img_stride + l h rb
-    const long half = layout ? (long)(layer / group) * img_stride + ((long)(layer % group) * h + row0) * rb : 0;
+    // this CTA's first own row in each output: layer = b group + l at b img_stride + (l out_h + out_row0) rb
+    const long half =
+        layout && ns > 0 ? (long)(layer / group) * img_stride + ((long)(layer % group) * out_h + out_row0 + s0 - top) * rb
+                         : 0;
     __syncthreads();  // the zero fill, or the previous layer's store, is done
     load_rows(x, in + base, nrows, nw, stride);
     cluster.sync();  // every CTA's rows are in place before a halo is read
     // the input is the edges: written from x before subpass 2 first changes it, past a cluster barrier
-    if (layout) store_layout(edges + half, x, nrows, nw, stride, width, layout, 255u, vec);
-    int it = 0;
+    if (layout && edges && ns > 0) store_layout(edges + half, xs0, ns, nw, stride, width, layout, 255u, vec);
+    int it = 0, own_changed = 0;
     while (it < max_iter) {
       for (int item = threadIdx.x; item < items; item += kClusterThreads) {
         int s = item / nw, w = item - s * nw;
-        zs_strip<true, ROTATED>(xs, y, w, s * st.len, min(nrows, (s + 1) * st.len));
+        zs_strip<true, ROTATED>(xs, y, w, s * st.len, min(nrows, (s + 1) * st.len), own0, own1);
       }
       cluster.sync();
-      bool changed = false;
+      int changed = 0;
       for (int item = threadIdx.x; item < items; item += kClusterThreads) {
         int s = item / nw, w = item - s * nw;
-        changed |= zs_strip<false, ROTATED>(ys, x, w, s * st.len, min(nrows, (s + 1) * st.len));
+        changed |= zs_strip<false, ROTATED>(ys, x, w, s * st.len, min(nrows, (s + 1) * st.len), own0, own1);
       }
       // flag[it & 1] was last read before the barrier that ended iteration it - 1
-      int local = __syncthreads_or(changed);
+      int local = __syncthreads_or(changed & 1);
+      own_changed = __syncthreads_or(changed & 2);  // this iteration's, so the last one's after the loop
       if (threadIdx.x == 0) flag[it & 1] = local;
       cluster.sync();
       bool any = cluster_any(cluster, flag + (it & 1));
@@ -350,8 +383,9 @@ __global__ void __launch_bounds__(kClusterThreads)
       if (!any) break;
     }
     if (rank == 0 && threadIdx.x == 0) iters[layer] = it;
-    if (out) store_rows(out + base, x, nrows, nw, stride);
-    if (layout) store_layout(skels + half, x, nrows, nw, stride, width, layout, 1u, vec);
+    if (changed_g && own_changed && threadIdx.x == 0) *changed_g = 1;
+    if (out && ns > 0) store_rows(out + ((long)layer * own + s0 - top) * nw, xs0, ns, nw, stride);
+    if (layout && ns > 0) store_layout(skels + half, xs0, ns, nw, stride, width, layout, 1u, vec);
   }
   cluster.sync();  // no CTA leaves while a neighbour may still read its flags
 }
@@ -387,7 +421,8 @@ __device__ __forceinline__ bool grow_strip(const Rows& e, uint32_t* own, const u
 
 __global__ void __launch_bounds__(kClusterThreads)
     hysteresis_cluster(const uint32_t* __restrict__ cand_g, const uint32_t* __restrict__ strong_g,
-                       uint32_t* __restrict__ out, int* __restrict__ stats, int k, int h, int nw) {
+                       uint32_t* __restrict__ out, int* __restrict__ stats, int* __restrict__ changed_g, int k, int h,
+                       int nw, int top, int own) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ uint32_t smem[];
   const int rank = (int)cluster.block_rank();
@@ -413,12 +448,18 @@ __global__ void __launch_bounds__(kClusterThreads)
   }
   const Strips st(nrows, nw);
   const int items = st.strips * nw;
+  const int s0 = max(row0, top), s1 = min(row0 + nrows, top + own), ns = s1 - s0;  // this CTA's own rows
 
   for (int layer = blockIdx.x / kCluster; layer < k; layer += gridDim.x / kCluster) {
-    const long base = ((long)layer * h + row0) * nw;
     const uint32_t* strong = strong_g + (long)layer * h * nw;
     __syncthreads();  // the zero fill, or the previous layer's store, is done
-    load_rows(cand, cand_g + base, nrows, nw, stride);
+    // cand of an own row from cand_g (own rows a layer); of a halo row, its edges: a seed that cannot grow
+    for (int r = threadIdx.x / 32; r < nrows; r += kClusterThreads / 32) {
+      const int y = row0 + r;
+      const uint32_t* src = y >= top && y < top + own ? cand_g + ((long)layer * own + y - top) * nw : strong + (long)y * nw;
+      for (int w = threadIdx.x % 32; w < nw; w += 32) cp_async4(cand + r * stride + w + 1, src + w);
+    }
+    cp_async_wait_all();
     __syncthreads();
     // the first sweep, cand & dilate8(strong), from strong in device memory
     for (int r = threadIdx.x / 32; r < nrows; r += kClusterThreads / 32)
@@ -463,7 +504,17 @@ __global__ void __launch_bounds__(kClusterThreads)
       if (rank == 0) stats[2 * layer] = round;
       atomicMax(stats + 2 * layer + 1, sweeps);
     }
-    store_rows(out + base, e, nrows, nw, stride);
+    if (ns > 0) {
+      uint32_t* dst = out + ((long)layer * own + s0 - top) * nw;
+      const uint32_t* src = e + (s0 - row0) * stride;
+      store_rows(dst, src, ns, nw, stride);
+      if (changed_g) {  // did an own row gain a bit over its edges (the input)?
+        bool grew = false;
+        for (int r = threadIdx.x / 32; r < ns; r += kClusterThreads / 32)
+          for (int w = threadIdx.x % 32; w < nw; w += 32) grew |= src[r * stride + w + 1] != strong[(long)(s0 + r) * nw + w];
+        if (grew) *changed_g = 1;
+      }
+    }
   }
   cluster.sync();  // no CTA leaves while a neighbour may still read its rows or flags
 }
@@ -511,40 +562,56 @@ extern "C" {
 
 // K6, resident: the Zhang-Suen fixpoint of `in` ((k, h, nw) boards), one
 // cluster of 16 CTAs per layer; iters[layer] gets the iterations it ran.
-// The result goes to `out` where it is not null.  With `layout` 1 (packed
-// rows, ceil(width/8) bytes a row) or 2 (dense bytes, width a row; the edges
-// 255, the skeletons 1), the input's rows (the edges) go to `edges` and the
+// The result's own rows [top, top + own) go to `out` ((k, own, nw)) where it
+// is not null.  With `layout` 1 (packed rows, ceil(width/8) bytes a row) or
+// 2 (dense bytes, width a row; the edges 255, the skeletons 1), the input's
+// own rows (the edges, where `edges` is not null) go to `edges` and the
 // result's (the skeletons) to `skels`, layer L = b group + l at byte
-// b img_stride + l h row_bytes of each (the chain's blob: skels = edges +
-// group h row_bytes, img_stride = 2 group h row_bytes).  Returns a CUDA error
-// code (0 on success).
-int pw_zs_cluster_run(const uint32_t* in, uint32_t* out, int* iters, uint8_t* edges, uint8_t* skels,
+// b img_stride + (l out_h + out_row0) row_bytes of each (the chain's blob:
+// skels = edges + group out_h row_bytes, img_stride = 2 group out_h
+// row_bytes).  `changed`, where not null, is set where the last iteration
+// changed an own row (slab mode).  Returns a CUDA error code (0 on
+// success).
+int pw_zs_cluster_run(const uint32_t* in, uint32_t* out, int* iters, uint8_t* edges, uint8_t* skels, int* changed,
                       long img_stride, int group, int layout, int k, int h, int nw, int width, int max_iter,
-                      int rotated, void* stream) {
+                      int rotated, int top, int own, int out_row0, int out_h, void* stream) {
   if (k <= 0 || h <= 0 || nw <= 0 || layout < 0 || layout > kDense) return (int)cudaErrorInvalidValue;
-  if (layout ? (!edges || !skels || group <= 0 || k % group || width <= 0 || (width + 31) / 32 != nw) : !out)
+  if (top < 0 || own <= 0 || top + own > h || out_row0 < 0 || out_row0 + own > out_h) return (int)cudaErrorInvalidValue;
+  if (layout ? (!skels || group <= 0 || k % group || width <= 0 || (width + 31) / 32 != nw) : !out)
     return (int)cudaErrorInvalidValue;
-  int vec = layout == kDense && width % 16 == 0 && img_stride % 16 == 0 && (uintptr_t)edges % 16 == 0 &&
+  int vec = layout == kDense && width % 16 == 0 && img_stride % 16 == 0 && (!edges || (uintptr_t)edges % 16 == 0) &&
             (uintptr_t)skels % 16 == 0;
   size_t smem = cluster_smem_bytes(0, h, nw);
-  void* args[] = {&in, &out, &iters, &edges, &skels, &img_stride, &group, &layout, &k, &h, &nw, &width, &vec,
-                  &max_iter};
+  void* args[] = {&in, &out, &iters, &edges, &skels, &changed, &img_stride, &group, &layout, &k, &h, &nw, &width,
+                  &vec, &max_iter, &top, &own, &out_row0, &out_h};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (changed) {
+    cudaError_t err = cudaMemsetAsync(changed, 0, sizeof(int), s);
+    if (err != cudaSuccess) return (int)err;
+  }
   return (int)(rotated ? launch_cluster(zs_cluster<true>, k, smem, s, args)
                        : launch_cluster(zs_cluster<false>, k, smem, s, args));
 }
 
 // K5, resident: the hysteresis fixpoint of (cand, strong) into `out`;
 // stats[2 layer] gets the rounds and stats[2 layer + 1] (zeroed here) the
-// most sweeps one CTA ran.  Returns a CUDA error code.
+// most sweeps one CTA ran.  `strong` has h rows a layer; cand and `out` the
+// own rows [top, top + own) of them, whose cand the halo rows' strong
+// replaces (slab mode; top 0 and own h unsharded).  `changed`, where not
+// null, is set where an own row of the result differs from its strong.
+// Returns a CUDA error code.
 int pw_hysteresis_cluster_run(const uint32_t* cand, const uint32_t* strong, uint32_t* out,
-                              int* stats, int k, int h, int nw, void* stream) {
-  if (k <= 0 || h <= 0 || nw <= 0) return (int)cudaErrorInvalidValue;
+                              int* stats, int* changed, int k, int h, int nw, int top, int own, void* stream) {
+  if (k <= 0 || h <= 0 || nw <= 0 || top < 0 || own <= 0 || top + own > h) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(stats, 0, sizeof(int) * 2 * k, s);
   if (err != cudaSuccess) return (int)err;
+  if (changed) {
+    err = cudaMemsetAsync(changed, 0, sizeof(int), s);
+    if (err != cudaSuccess) return (int)err;
+  }
   size_t smem = cluster_smem_bytes(1, h, nw);
-  void* args[] = {&cand, &strong, &out, &stats, &k, &h, &nw};
+  void* args[] = {&cand, &strong, &out, &stats, &changed, &k, &h, &nw, &top, &own};
   return (int)launch_cluster(hysteresis_cluster, k, smem, s, args);
 }
 

@@ -79,6 +79,19 @@
 // NMS's border, which also keeps the bits at and beyond W zero) and tests which
 // rows and words of the boards exist.
 //
+// Slab mode (row sharding, parallel/spatial.py): the input is a slab of
+// `top` + `own` + `bottom` rows, the shard's own rows widened by rows copied
+// from its neighbours, and only the own rows are written, at their own row
+// 0.  The kernel treats the whole buffer as the image: the tiles cover the
+// own rows, a tile is interior where its region lies inside the buffer and
+// inside the own rows, and the rim's reflect-101, replicate and zero
+// magnitude apply at the buffer's ends.  A side with 0 halo rows is the
+// image's border, so there they are today's rules; a side with at least
+// ksize / 2 + 2 halo rows (ksize / 2 blur-only) keeps every cell that an own
+// row reads inside the buffer, so there they change nothing an own row
+// reads (the caller checks those counts).  Unsharded calls are top 0,
+// bottom 0.
+//
 // Any other ksize (even, above 9) or taps that do not fit a byte (a sigma so
 // small that one tap is 256) take the general path: passes 1 and 3 as above,
 // pass 2 as a row pass over uint16 sums in shared memory and a column pass
@@ -316,7 +329,7 @@ __device__ __forceinline__ void blur_general(const Layout& L, const uint32_t* in
 template <bool kRim>
 __device__ __forceinline__ void sobel_nms_walk(const Layout& L, const uint32_t* blur_s, uint32_t* __restrict__ cand,
                                                uint32_t* __restrict__ strong, int th, int y0, int x0, int h, int w,
-                                               int nw, int low, int high) {
+                                               int nw, int low, int high, int top, int yend) {
   const int nss = L.tw / 4, nseg = max(1, kThreads / nss), rps = (th + nseg - 1) / nseg;
   const int tid = threadIdx.x;
   const bool active = tid < nss * nseg;  // every thread walks (the shuffles want whole warps); only these store
@@ -379,9 +392,9 @@ __device__ __forceinline__ void sobel_nms_walk(const Layout& L, const uint32_t* 
               sbits |= __shfl_xor_sync(kFull, sbits, o);
             }
             bool store = active && (s & 7) == 0 && i < i1;
-            if (kRim) store = store && y0 + i < h && x0 / 32 + (s >> 3) < nw;
+            if (kRim) store = store && y0 + i < yend && x0 / 32 + (s >> 3) < nw;
             if (store) {
-              const long o = (long)(y0 + i) * nw + x0 / 32 + (s >> 3);
+              const long o = (long)(y0 + i - top) * nw + x0 / 32 + (s >> 3);
               cand[o] = cbits;
               strong[o] = sbits;
             }
@@ -397,7 +410,7 @@ __device__ __forceinline__ void tile(const Layout& L, uint32_t* smem, const void
                                      uint32_t* __restrict__ cand, uint32_t* __restrict__ strong,
                                      uint8_t* __restrict__ blurred, const int* __restrict__ taps, int ksize, int th,
                                      int y0, int x0, long layer, int h, int w, int nw, int low, int high,
-                                     int aligned) {
+                                     int aligned, int top, int own) {
   uint32_t* blur_s = smem;
   uint32_t* in_s = blur_s + L.bh * L.bwords;
   uint32_t* aux_s = in_s + L.ah * L.in_words;
@@ -429,16 +442,16 @@ __device__ __forceinline__ void tile(const Layout& L, uint32_t* smem, const void
   uint8_t* blur_b = reinterpret_cast<uint8_t*>(blur_s);
   const int bw = L.tw + 4;
   if (blurred != nullptr) {  // blur only: the tile's own pixels, a word of four where the rows allow
-    uint8_t* dst = blurred + layer * h * w;
+    uint8_t* dst = blurred + (layer * own + y0 - top) * w;  // the tile's first row: own row y0 - top
     for (int idx = tid; idx < th * (L.tw / 4); idx += kThreads) {
       const int i = idx / (L.tw / 4), s = idx - i * (L.tw / 4), y = y0 + i, x = x0 + 4 * s;
-      if (y < h && x < w) {
+      if (y < top + own && x < w) {
         const uint32_t* row = blur_s + (i + 2) * L.bwords + s;
         const uint32_t word = __funnelshift_r(row[0], row[1], 16);
         if (aligned & 2) {
-          *reinterpret_cast<uint32_t*>(dst + (long)y * w + x) = word;
+          *reinterpret_cast<uint32_t*>(dst + (long)i * w + x) = word;
         } else {
-          for (int p = 0; p < 4 && x + p < w; ++p) dst[(long)y * w + x + p] = (uint8_t)(word >> (8 * p));
+          for (int p = 0; p < 4 && x + p < w; ++p) dst[(long)i * w + x + p] = (uint8_t)(word >> (8 * p));
         }
       }
     }
@@ -457,7 +470,8 @@ __device__ __forceinline__ void tile(const Layout& L, uint32_t* smem, const void
   }
 
   // 3. Sobel once a pixel, the NMS one row behind, a word of each board per eight lanes
-  sobel_nms_walk<kRim>(L, blur_s, cand + layer * h * nw, strong + layer * h * nw, th, y0, x0, h, w, nw, low, high);
+  sobel_nms_walk<kRim>(L, blur_s, cand + layer * own * nw, strong + layer * own * nw, th, y0, x0, h, w, nw, low, high,
+                       top, top + own);
 }
 
 // KS: the template instance of the fast path (ksize itself), or 0 for the
@@ -466,23 +480,24 @@ template <int KS, bool kBoards>
 __global__ void __launch_bounds__(kThreads, PW_EDGE_MIN_BLOCKS)
     edge_tiles(const void* __restrict__ in, uint32_t* __restrict__ cand, uint32_t* __restrict__ strong,
                uint8_t* __restrict__ blurred, const int* __restrict__ taps, int ksize, int th, int tww, int h, int w,
-               int nw, int low, int high, int aligned) {
+               int nw, int low, int high, int aligned, int top, int own) {
   extern __shared__ __align__(16) uint32_t smem[];
   const Layout L = make_layout(th, tww, ksize, kBoards, KS > 0);
-  const int y0 = blockIdx.y * th, x0 = blockIdx.x * L.tw;
+  // h counts the buffer's rows; the tiles cover its own rows [top, top + own)
+  const int y0 = top + blockIdx.y * th, x0 = blockIdx.x * L.tw;
   const long layer = blockIdx.z;
-  // interior: the tile's region with its halo lies inside the image
-  const bool interior = y0 >= L.R && y0 + th + L.R <= h && x0 >= L.R && x0 + L.tw + L.R <= w;
+  // interior: the tile's region with its halo lies inside the buffer, and its rows are own rows
+  const bool interior = y0 >= L.R && y0 + th + L.R <= h && y0 + th <= top + own && x0 >= L.R && x0 + L.tw + L.R <= w;
   if (interior)
     tile<KS, kBoards, false>(L, smem, in, cand, strong, blurred, taps, ksize, th, y0, x0, layer, h, w, nw, low, high,
-                             aligned);
+                             aligned, top, own);
   else
     tile<KS, kBoards, true>(L, smem, in, cand, strong, blurred, taps, ksize, th, y0, x0, layer, h, w, nw, low, high,
-                            aligned);
+                            aligned, top, own);
 }
 
 using Kernel = void (*)(const void*, uint32_t*, uint32_t*, uint8_t*, const int*, int, int, int, int, int, int, int,
-                        int, int);
+                        int, int, int, int);
 
 template <bool kBoards>
 Kernel pick(int fast) {
@@ -502,23 +517,26 @@ Kernel pick(int fast) {
 extern "C" {
 
 // `in`: (k, h, ceil(w/32)) words when boards_in, else (k, h, w) bytes.  With
-// `blurred` null, writes the cand and strong boards (k, h, ceil(w/32)) for the
-// thresholds low <= high (swapped and clamped by the caller); else writes
-// only the blurred (k, h, w) bytes.  `taps`: ksize Q8 ints in device memory.
+// `blurred` null, writes the cand and strong boards (k, own, ceil(w/32)) for
+// the thresholds low <= high (swapped and clamped by the caller); else writes
+// only the blurred (k, own, w) bytes: rows [top, top + own) of the input,
+// the rows around them read as image rows (slab mode; top 0 and own h
+// unsharded).  `taps`: ksize Q8 ints in device memory.
 // `fast`: ksize itself (1, 3, 5, 7 or 9) where every tap lies in 0..255 (or
 // ksize is 1), which the caller vouches for, else 0: the general path.  A
 // block owns th rows x tww words.  Returns a CUDA error code (0 on success),
 // cudaErrorInvalidValue for arguments the kernel does not take.
 int pw_edge_candidates(const void* in, int boards_in, uint32_t* cand, uint32_t* strong, uint8_t* blurred,
                        const int* taps, int ksize, int fast, int th, int tww, int k, int h, int w, int low, int high,
-                       void* stream) {
+                       int top, int own, void* stream) {
   if (k <= 0 || k > 65535 || h <= 0 || w <= 0 || ksize <= 0 || th <= 0 || tww <= 0 || tww > 4)
     return (int)cudaErrorInvalidValue;
+  if (top < 0 || own <= 0 || top + own > h) return (int)cudaErrorInvalidValue;
   if (fast != 0 && fast != ksize) return (int)cudaErrorInvalidValue;
   Kernel kernel = boards_in ? pick<true>(fast) : pick<false>(fast);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const int nw = (w + 31) / 32;
-  const unsigned gx = (unsigned)((nw + tww - 1) / tww), gy = (unsigned)((h + th - 1) / th);
+  const unsigned gx = (unsigned)((nw + tww - 1) / tww), gy = (unsigned)((own + th - 1) / th);
   if (gy > 65535u) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(make_layout(th, tww, ksize, boards_in != 0, fast != 0), ksize);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -533,7 +551,7 @@ int pw_edge_candidates(const void* in, int boards_in, uint32_t* cand, uint32_t* 
     if (blurred != nullptr && reinterpret_cast<uintptr_t>(blurred) % 4 == 0) aligned |= 2;
   }
   kernel<<<dim3(gx, gy, (unsigned)k), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      in, cand, strong, blurred, taps, ksize, th, tww, h, w, nw, low, high, aligned);
+      in, cand, strong, blurred, taps, ksize, th, tww, h, w, nw, low, high, aligned, top, own);
   return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .filters import gaussian_blur_u8_plain
+from .filters import gaussian_blur_u8_plain, slab_rows
 from .thinning import _nbr_bits, _shift_rows, dense_from_boards, dense_from_boards_plain, pack_bitboards_plain
 
 _TG22 = 13573  # tan(22.5°) in Q15
@@ -159,3 +159,63 @@ def canny_packed(img: torch.Tensor, low: int, high: int):
     """(..., H, W) uint8 → (dense uint8 0/255 edges, int32 bitboard edges)."""
     edges_b = hysteresis(*canny_candidates(img, low, high))
     return dense_from_boards(edges_b, img.shape[-1], 255), edges_b
+
+
+def edge_candidates_slab_plain(x: torch.Tensor, w: int, ksize: int, low: int, high: int, top: int, bottom: int,
+                               sigma: float = 0.0):
+    """The plain version of K3+K4's slab mode: ``x`` is a slab of ``top`` +
+    rows + ``bottom`` rows (a bitboard or a uint8 image, as
+    :func:`edge_candidates_plain` takes), each side with 0 halo rows (the
+    image's border) or at least ``ksize // 2 + 2`` (the blur's radius, then
+    Sobel's and the NMS's row) → the (candidate, strong) bitboards of the
+    own rows: the unsharded function of the slab, its own rows kept, which
+    read no row that a border rule changes unless that side is the image's
+    border."""
+    own = slab_rows("edge_candidates_slab", x.shape[-2], top, bottom, ksize // 2 + 2)
+    cand, strong = edge_candidates_plain(x, w, ksize, low, high, sigma)
+    return cand[..., top : top + own, :], strong[..., top : top + own, :]
+
+
+def edge_candidates_slab(x: torch.Tensor, w: int, ksize: int, low: int, high: int, top: int, bottom: int,
+                         sigma: float = 0.0):
+    """:func:`edge_candidates_slab_plain` on the slab's device: K3+K4's slab
+    mode for a CUDA tensor, the plain version for a CPU tensor, else raise."""
+    if x.is_cuda:
+        from .kernels import edge_candidates_slab_cuda  # noqa: PLC0415
+
+        return edge_candidates_slab_cuda(x, w, ksize, low, high, top, bottom, sigma)
+    if x.device.type != "cpu":
+        raise ValueError(f"edge_candidates_slab: no kernel for device {x.device}")
+    return edge_candidates_slab_plain(x, w, ksize, low, high, top, bottom, sigma)
+
+
+def hysteresis_slab_plain(cand: torch.Tensor, edges: torch.Tensor, top: int, bottom: int,
+                          changed: torch.Tensor) -> torch.Tensor:
+    """The plain version of K5's slab mode.  ``edges`` is a slab of ``top``
+    + rows + ``bottom`` rows of int32 bitboards (each side 0 or at least 1
+    halo row), ``cand`` the own rows' candidates → the hysteresis fixpoint
+    of the own rows, the halo rows seeds that cannot grow (their candidates
+    are their edges; a side without them reads zero rows).  ``changed``, a
+    (1,) int32 tensor, gets 1 where an own row gained a bit over its edges,
+    else 0."""
+    own = slab_rows("hysteresis_slab", edges.shape[-2], top, bottom, 1)
+    if cand.shape[-2] != own or cand.shape[:-2] != edges.shape[:-2] or cand.shape[-1] != edges.shape[-1]:
+        raise ValueError(f"hysteresis_slab: candidates {tuple(cand.shape)} are not the own rows of edges "
+                         f"{tuple(edges.shape)} with halos {top}, {bottom}")
+    cand_h = torch.cat([edges[..., :top, :], cand, edges[..., top + own :, :]], dim=-2)
+    out = hysteresis_plain(cand_h, edges)[..., top : top + own, :]
+    changed.fill_(int(bool((out != edges[..., top : top + own, :]).any())))
+    return out
+
+
+def hysteresis_slab(cand: torch.Tensor, edges: torch.Tensor, top: int, bottom: int,
+                    changed: torch.Tensor) -> torch.Tensor:
+    """:func:`hysteresis_slab_plain` on the boards' device: K5's slab mode
+    for a CUDA tensor, the plain version for a CPU tensor, else raise."""
+    if cand.is_cuda:
+        from .kernels import hysteresis_slab_cuda  # noqa: PLC0415
+
+        return hysteresis_slab_cuda(cand, edges, top, bottom, changed)
+    if cand.device.type != "cpu":
+        raise ValueError(f"hysteresis_slab: no kernel for device {cand.device}")
+    return hysteresis_slab_plain(cand, edges, top, bottom, changed)

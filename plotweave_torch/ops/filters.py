@@ -48,6 +48,22 @@ def reflect101_index(n: int, r: int, device=None) -> torch.Tensor:
     return torch.from_numpy(i).to(device)
 
 
+def slab_rows(name: str, h: int, top: int, bottom: int, halo: int) -> int:
+    """The own rows of a slab of ``h`` rows: a shard's own rows widened by
+    ``top`` and ``bottom`` rows copied from its neighbours (row sharding,
+    ``parallel/spatial.py``).  Each side has either no halo rows (the
+    image's border, where a stencil applies its border rule) or at least
+    ``halo``, the rows its stencil reads beyond an own row; raises
+    otherwise."""
+    for side, n in (("top", top), ("bottom", bottom)):
+        if n < 0 or 0 < n < halo:
+            raise ValueError(f"{name}: a {side} halo of {n} rows; the stencil needs 0 (the image's border) or at "
+                             f"least {halo}")
+    if h - top - bottom < 1:
+        raise ValueError(f"{name}: a slab of {h} rows has no own rows inside halos of {top} and {bottom}")
+    return h - top - bottom
+
+
 def gaussian_blur_u8_plain(img: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
     """Blur (..., H, W) uint8 with a reflect-101 border; bit-exact for ksize ≤ 7."""
     kq = gaussian_kernel_q8(ksize, sigma)
@@ -79,3 +95,33 @@ def gaussian_blur_u8(img: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch
     if img.device.type != "cpu":
         raise ValueError(f"gaussian_blur_u8: no kernel for device {img.device}")
     return gaussian_blur_u8_plain(img, ksize, sigma)
+
+
+def gaussian_blur_slab_plain(x: torch.Tensor, ksize: int, top: int, bottom: int, w: int | None = None,
+                             sigma: float = 0.0) -> torch.Tensor:
+    """The blur of a slab's own rows (the plain version of K3+K4's blur-only
+    slab mode): ``x`` is a uint8 slab (..., top + rows + bottom, W), or an
+    int32 bitboard slab of width ``w`` whose set bits read as 255, and each
+    side has 0 or at least ``ksize // 2`` halo rows → (..., rows, W) uint8.
+    The halo rows are image rows, a side without them the image's border:
+    the unsharded blur of the slab, its own rows kept."""
+    own = slab_rows("gaussian_blur_slab", x.shape[-2], top, bottom, ksize // 2)
+    if x.dtype == torch.int32:
+        from .thinning import dense_from_boards_plain  # noqa: PLC0415 (thinning imports nothing of this module)
+
+        x = dense_from_boards_plain(x, w, 255)
+    return gaussian_blur_u8_plain(x, ksize, sigma)[..., top : top + own, :]
+
+
+def gaussian_blur_slab(x: torch.Tensor, ksize: int, top: int, bottom: int, w: int | None = None,
+                       sigma: float = 0.0) -> torch.Tensor:
+    """:func:`gaussian_blur_slab_plain` on the slab's device: K3+K4's
+    blur-only slab mode for a CUDA tensor, the plain version for a CPU
+    tensor, else raise."""
+    if x.is_cuda:
+        from .kernels import gaussian_blur_slab_cuda  # noqa: PLC0415
+
+        return gaussian_blur_slab_cuda(x, ksize, top, bottom, w, sigma)
+    if x.device.type != "cpu":
+        raise ValueError(f"gaussian_blur_slab: no kernel for device {x.device}")
+    return gaussian_blur_slab_plain(x, ksize, top, bottom, w, sigma)

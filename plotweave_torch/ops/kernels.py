@@ -23,7 +23,9 @@
   strip of four columns with the blur's row sums, then three rows of Sobel
   parts, in registers; only tiles on the image's rim reflect and clamp.
   :func:`edge_schedule` picks the tile and :func:`edge_fast` the path before
-  any launch.
+  any launch.  Its slab mode (``edge_candidates_slab_cuda``,
+  ``gaussian_blur_slab_cuda``; row sharding) reads a shard's rows between
+  halo rows and writes only its own.
 - K5 ``hysteresis_cuda`` and K6 ``zhang_suen_packed_cuda``
   (``csrc/bitboard_fixpoints.cu``): the bitboard fixpoints; K6 replaces
   ``zhang_suen_packed_pallas``.  Each has two routes, chosen by size before
@@ -34,7 +36,11 @@
   sweep and one host check per chunk (``zhang_suen_packed_multi``,
   ``hysteresis_multi``).  ``zhang_suen_into_cuda`` is K6 writing its input,
   the edges, and its result, the skeletons, as packed rows or dense bytes
-  from its resident launch (the multi-launch route: K6, then K1).
+  from its resident launch (the multi-launch route: K6, then K1).  Their
+  slab modes (``hysteresis_slab_cuda``, ``zhang_suen_slab_cuda``; row
+  sharding, resident route only) run on a shard's rows between halo rows,
+  write only its own rows (K6 also into the unsharded outputs at the
+  shard's row) and a changed flag for the host's one read a round.
 - K7 ``assign_nearest_cuda`` and ``assign_boards_cuda``
   (``csrc/assign_nearest.cu``): Lab and the nearest centre in one pass, as
   int32 labels or as the k one-hot bitboards, the latter also with the k
@@ -118,7 +124,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .filters import gaussian_kernel_q8
+from .filters import gaussian_kernel_q8, slab_rows
 from .morphology import structuring_element
 from .thinning import _dense_planes
 
@@ -234,7 +240,8 @@ REFINE_MIN_N, REFINE_MAX_N = 3, 8192
 
 # kernel launches per wrapper and route, counted where each wrapper calls into its library
 LAUNCHES = {"bitpack": 0, "edge_candidates": 0, "zhang_suen_packed": 0, "zhang_suen_packed_multi": 0,
-            "hysteresis": 0, "hysteresis_multi": 0, "morph_bits": 0, "assign_nearest": 0, "zhang_suen_dense": 0,
+            "hysteresis": 0, "hysteresis_multi": 0, "edge_candidates_slab": 0, "hysteresis_slab": 0,
+            "zhang_suen_packed_slab": 0, "morph_bits": 0, "assign_nearest": 0, "zhang_suen_dense": 0,
             "subsample": 0, "lab_sample": 0, "kmeans_fit": 0, "lloyd_fit": 0, "assign_points": 0, "morph_dense": 0,
             "greedy_tour": 0, "refine_tour": 0, "area_resize_frac": 0, "area_resize_int": 0, "bezier_sample": 0}
 
@@ -243,7 +250,9 @@ LAUNCHES = {"bitpack": 0, "edge_candidates": 0, "zhang_suen_packed": 0, "zhang_s
 # sweeps one CTA ran per layer; for the multi-launch routes and K12 the
 # iterations or sweeps launched; for K8's fits (``kmeans_fit``, ``lloyd_fit``)
 # the device tensors (iterations per attempt, compactness per attempt, index of
-# the best attempt).  Only read by ``chip_smoke.py``.
+# the best attempt); for row sharding's fixpoints (``parallel/spatial.py``)
+# the rounds the last sharded program took (``hysteresis_rounds``,
+# ``thinning_rounds``).  Only read by ``chip_smoke.py``.
 STATS: dict = {}
 
 build_log: dict = {}  # library → nvcc's output (ptxas register and spill report) of its last build
@@ -326,9 +335,11 @@ _SIGNATURES = {
                 "pw_boards_to_dense": [_P, _P, _L, _I, _I, _I, _P],
                 "pw_dense_to_boards": [_P, _P, _L, _I, _I, _P],
                 "pw_labels_to_boards": [_P, _P, _L, _I, _I, _I, _P]},
-    "edge_candidates": {"pw_edge_candidates": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
-    "bitboard_fixpoints": {"pw_zs_cluster_run": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-                           "pw_hysteresis_cluster_run": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "edge_candidates": {"pw_edge_candidates": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                               _P]},
+    "bitboard_fixpoints": {"pw_zs_cluster_run": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                                 _I, _I, _P],
+                           "pw_hysteresis_cluster_run": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                            "pw_zs_packed_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                            "pw_hysteresis_run": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "morph_bits": {"pw_morph_steps_run": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
@@ -567,10 +578,13 @@ def _taps_on(ksize: int, sigma: float, device: torch.device) -> torch.Tensor:
     return _taps[key]
 
 
-def _edge_launch(x: torch.Tensor, w: int | None, ksize: int, sigma: float, low: int, high: int, blur_only: bool):
+def _edge_launch(x: torch.Tensor, w: int | None, ksize: int, sigma: float, low: int, high: int, blur_only: bool,
+                 top: int = 0, bottom: int = 0):
     """One launch of K3+K4 on int32 bitboards (..., H, ⌈w/32⌉) or a uint8
-    image (..., H, W) → (cand, strong) boards, or the blurred image."""
-    name = "gaussian_blur" if blur_only else "edge_candidates"
+    image (..., H, W) → (cand, strong) boards, or the blurred image, of rows
+    [top, H - bottom) (slab mode where a halo is not 0: ``ops.filters.slab_rows``
+    checks the halos)."""
+    name = ("gaussian_blur" if blur_only else "edge_candidates") + ("_slab" if top or bottom else "")
     if x.dtype == torch.int32:
         k, h, nw = _check(name, x)
         if w is None:
@@ -588,23 +602,24 @@ def _edge_launch(x: torch.Tensor, w: int | None, ksize: int, sigma: float, low: 
         raise ValueError(f"{name}: ksize {ksize} < 1")
     if k * h * w >= 2**31 or k > 65535:
         raise ValueError(f"{name}: {k} layers of {h} x {w} px exceed the kernel's grid")
+    own = slab_rows(name, h, top, bottom, ksize // 2 + (0 if blur_only else 2)) if h else 0
     with _guard(x.device):
         if blur_only:
-            outs = (torch.empty((*lead, h, w), dtype=torch.uint8, device=x.device),)
+            outs = (torch.empty((*lead, own, w), dtype=torch.uint8, device=x.device),)
         else:
-            both = torch.empty((2, *lead, h, nw), dtype=torch.int32, device=x.device)
+            both = torch.empty((2, *lead, own, nw), dtype=torch.int32, device=x.device)
             outs = (both[0], both[1])
         if outs[0].numel():
             boards, fast = x.dtype == torch.int32, edge_fast(ksize, sigma)
-            th, tww = edge_schedule(ksize, k, h, nw, boards, fast)
+            th, tww = edge_schedule(ksize, k, own, nw, boards, fast)
             taps = _taps_on(ksize, sigma, x.device)
             lib = load("edge_candidates")
             cand, strong, blurred = (None, None, outs[0].data_ptr()) if blur_only else (
                 outs[0].data_ptr(), outs[1].data_ptr(), None)
             err = lib.pw_edge_candidates(x.data_ptr(), int(boards), cand, strong, blurred, taps.data_ptr(), ksize,
-                                         ksize if fast else 0, th, tww, k, h, w, low, high,
+                                         ksize if fast else 0, th, tww, k, h, w, low, high, top, own,
                                          torch.cuda.current_stream().cuda_stream)
-            _count("edge_candidates")
+            _count("edge_candidates_slab" if top or bottom else "edge_candidates")
             _raise_on(lib, name, err)
     return outs
 
@@ -624,6 +639,26 @@ def gaussian_blur_cuda(img: torch.Tensor, ksize: int, sigma: float = 0.0) -> tor
     if img.dtype != torch.uint8:
         raise TypeError(f"gaussian_blur: expected a uint8 image, got {img.dtype}")
     return _edge_launch(img, None, ksize, sigma, 0, 0, True)[0]
+
+
+def edge_candidates_slab_cuda(x: torch.Tensor, w: int, ksize: int, low: int, high: int, top: int, bottom: int,
+                              sigma: float = 0.0):
+    """K3+K4's slab mode: ``ops.canny.edge_candidates_slab_plain`` in one
+    launch.  ``x`` is a CUDA slab of ``top`` + rows + ``bottom`` rows (a
+    bitboard or a uint8 image), each side 0 or at least ``ksize // 2 + 2``
+    halo rows → the own rows' (candidate, strong) bitboards."""
+    if low > high:
+        low, high = high, low
+    return _edge_launch(x, w, ksize, sigma, min(low, 2041), min(high, 2041), False, top, bottom)
+
+
+def gaussian_blur_slab_cuda(x: torch.Tensor, ksize: int, top: int, bottom: int, w: int | None = None,
+                            sigma: float = 0.0) -> torch.Tensor:
+    """K3+K4's blur-only slab mode: ``ops.filters.gaussian_blur_slab_plain``
+    of a CUDA uint8 slab, or a bitboard slab of width ``w``, in one launch."""
+    if x.dtype == torch.int32 and w is None:
+        raise ValueError("gaussian_blur_slab: bitboards need their width in pixels")
+    return _edge_launch(x, w, ksize, sigma, 0, 0, True, top, bottom)[0]
 
 
 def resident_smem_bytes(kernel: str, h: int, nw: int) -> int:
@@ -674,8 +709,8 @@ def zhang_suen_packed_cuda(packed: torch.Tensor, max_iter: int = 120, rotated: b
         out = torch.empty_like(packed)
         if route == "resident":
             iters = torch.empty(k, dtype=torch.int32, device=packed.device)
-            err = lib.pw_zs_cluster_run(packed.data_ptr(), out.data_ptr(), iters.data_ptr(), None, None, 0, 1, 0,
-                                        k, h, nw, 0, max_iter, int(rotated), stream)
+            err = lib.pw_zs_cluster_run(packed.data_ptr(), out.data_ptr(), iters.data_ptr(), None, None, None, 0, 1,
+                                        0, k, h, nw, 0, max_iter, int(rotated), 0, h, 0, h, stream)
             _count("zhang_suen_packed")
             _raise_on(lib, "zhang_suen_packed", err)
             STATS["zhang_suen_packed"] = iters
@@ -706,11 +741,12 @@ def row_bytes(layout: str, w: int) -> int:
     return -(-w // 8) if layout == "rows" else w
 
 
-def layer_offset(layer: int, group: int, h: int, rb: int, img_stride: int) -> int:
+def layer_offset(layer: int, group: int, h: int, rb: int, img_stride: int, row0: int = 0) -> int:
     """Where K6's store puts layer ``layer`` = b·group + l of its input in
-    an output of ``h`` rows of ``rb`` bytes a layer: byte b·img_stride +
-    l·h·rb (``zs_cluster``'s ``half``)."""
-    return (layer // group) * img_stride + (layer % group) * h * rb
+    an output of ``h`` rows of ``rb`` bytes a layer, from row ``row0`` (a
+    slab's first own row in slab mode): byte b·img_stride + (l·h + row0)·rb
+    (``zs_cluster``'s ``half``)."""
+    return (layer // group) * img_stride + ((layer % group) * h + row0) * rb
 
 
 def _check_halves(name: str, packed: torch.Tensor, w: int, edges: torch.Tensor, skels: torch.Tensor,
@@ -761,8 +797,8 @@ def zhang_suen_into_cuda(packed: torch.Tensor, w: int, edges: torch.Tensor, skel
     with _guard(packed.device):
         iters = torch.empty(k, dtype=torch.int32, device=packed.device)
         err = lib.pw_zs_cluster_run(packed.data_ptr(), None, iters.data_ptr(), edges.data_ptr(), skels.data_ptr(),
-                                    img_stride, group, LAYOUTS[layout], k, h, nw, w, max_iter, int(rotated),
-                                    torch.cuda.current_stream().cuda_stream)
+                                    None, img_stride, group, LAYOUTS[layout], k, h, nw, w, max_iter, int(rotated),
+                                    0, h, 0, h, torch.cuda.current_stream().cuda_stream)
         _count("zhang_suen_packed")
         _raise_on(lib, "zhang_suen_into", err)
         STATS["zhang_suen_packed"] = iters
@@ -782,7 +818,7 @@ def hysteresis_cuda(cand: torch.Tensor, strong: torch.Tensor, route: str | None 
             out = torch.empty_like(cand)
             stats = torch.empty((k, 2), dtype=torch.int32, device=cand.device)  # zeroed by the library
             err = lib.pw_hysteresis_cluster_run(cand.data_ptr(), strong.data_ptr(), out.data_ptr(),
-                                                stats.data_ptr(), k, h, nw, stream)
+                                                stats.data_ptr(), None, k, h, nw, 0, h, stream)
             _count("hysteresis")
             _raise_on(lib, "hysteresis", err)
             STATS["hysteresis"] = stats
@@ -802,6 +838,107 @@ def hysteresis_cuda(cand: torch.Tensor, strong: torch.Tensor, route: str | None 
                 STATS["hysteresis_multi"] = done
                 return e0
     raise RuntimeError("hysteresis: no fixpoint within the sweeps cand allows")
+
+
+def _slab_flag(name: str, changed: torch.Tensor, device: torch.device) -> None:
+    if not (changed.device == device and changed.dtype == torch.int32 and changed.numel() == 1
+            and changed.is_contiguous()):
+        raise ValueError(f"{name}: the changed flag must be one contiguous int32 on {device}")
+
+
+def _slab_resident(name: str, kernel: str, h: int, nw: int) -> None:
+    if not resident(kernel, h, nw):
+        raise ValueError(f"{name}: a slab of {h} rows of {nw} words does not fit one cluster's shared memory "
+                         "(the slab modes run the resident route only: shard the image over more slabs)")
+
+
+def hysteresis_slab_cuda(cand: torch.Tensor, edges: torch.Tensor, top: int, bottom: int,
+                         changed: torch.Tensor) -> torch.Tensor:
+    """K5's slab mode: ``ops.canny.hysteresis_slab_plain`` on CUDA bitboards
+    in one launch of the resident route.  ``changed`` (one int32 on the
+    device, e.g. a shard's slot of a round's flags) is set where an own row
+    gained a bit; the host reads it."""
+    k, h, nw = _check("hysteresis_slab", edges)
+    own = slab_rows("hysteresis_slab", h, top, bottom, 1)
+    kc, hc, nwc = _check("hysteresis_slab", cand)
+    if (kc, hc, nwc) != (k, own, nw) or cand.device != edges.device:
+        raise ValueError(f"hysteresis_slab: candidates {tuple(cand.shape)} are not the own rows of edges "
+                         f"{tuple(edges.shape)} with halos {top}, {bottom}")
+    _slab_flag("hysteresis_slab", changed, edges.device)
+    _slab_resident("hysteresis_slab", "hysteresis", h, nw)
+    lib = load("bitboard_fixpoints")
+    with _guard(edges.device):
+        out = torch.empty_like(cand)
+        stats = torch.empty((k, 2), dtype=torch.int32, device=edges.device)  # rounds and sweeps, not read
+        err = lib.pw_hysteresis_cluster_run(cand.data_ptr(), edges.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                                            changed.data_ptr(), k, h, nw, top, own,
+                                            torch.cuda.current_stream().cuda_stream)
+        _count("hysteresis_slab")
+        _raise_on(lib, "hysteresis_slab", err)
+    return out
+
+
+def zhang_suen_slab_cuda(x: torch.Tensor, top: int, bottom: int, iters: int, changed: torch.Tensor,
+                         w: int | None = None, edges: torch.Tensor | None = None, skels: torch.Tensor | None = None,
+                         layout: str = "rows", row0: int = 0, rotated: bool = True) -> torch.Tensor:
+    """K6's slab mode: ``ops.thinning.zhang_suen_slab_plain`` on CUDA
+    bitboards in one launch of the resident route → the own rows' boards.
+    ``changed`` (one int32 on the device) is set where the last iteration
+    changed an own row.  ``edges`` (optional) and ``skels`` (B, group, H, row
+    bytes) uint8 on the device, each image contiguous and both with one
+    image stride, receive the own rows at rows [row0, row0 + rows) of each
+    layer, from the same launch."""
+    k, h, nw = _check("zhang_suen_slab", x)
+    own = slab_rows("zhang_suen_slab", h, top, bottom, 2 * iters)
+    _slab_flag("zhang_suen_slab", changed, x.device)
+    _slab_resident("zhang_suen_slab", "zhang_suen_packed", h, nw)
+    if iters < 0:
+        raise ValueError(f"zhang_suen_slab: {iters} iterations")
+    img_stride, group = 0, 1
+    if skels is not None:
+        if w is None or layout not in LAYOUTS:
+            raise ValueError(f"zhang_suen_slab: stores need the width and a layout of {tuple(LAYOUTS)}")
+        _check_width("zhang_suen_slab", x, w)
+        rb = row_bytes(layout, w)
+        for t in (skels,) if edges is None else (edges, skels):
+            if not (t.device == x.device and t.dtype == torch.uint8 and t.dim() == 4 and t.shape[3] == rb
+                    and t.shape == skels.shape and t.stride()[1:] == (t.shape[2] * rb, rb, 1)
+                    and t.stride(0) == skels.stride(0) and 0 <= row0 and row0 + own <= t.shape[2]):
+                raise ValueError(f"zhang_suen_slab: expected uint8 (B, group, H, {rb}) outputs on {x.device} with "
+                                 f"contiguous images and one image stride, holding rows {row0}..{row0 + own}, got "
+                                 f"{tuple(t.shape)} {t.stride()} {t.dtype}")
+        group, img_stride = skels.shape[1], skels.stride(0)
+        if skels.shape[0] * group != k:
+            raise ValueError(f"zhang_suen_slab: outputs of {skels.shape[0]} x {group} layers for {k} layers")
+    elif edges is not None:
+        raise ValueError("zhang_suen_slab: edges are stored beside the skeletons only")
+    lib = load("bitboard_fixpoints")
+    with _guard(x.device):
+        out = torch.empty((*x.shape[:-2], own, nw), dtype=torch.int32, device=x.device)
+        iter_counts = torch.empty(k, dtype=torch.int32, device=x.device)
+        err = lib.pw_zs_cluster_run(x.data_ptr(), out.data_ptr(), iter_counts.data_ptr(),
+                                    None if edges is None else edges.data_ptr(),
+                                    None if skels is None else skels.data_ptr(), changed.data_ptr(), img_stride, group,
+                                    LAYOUTS[layout] if skels is not None else 0, k, h, nw, w or 0, iters,
+                                    int(rotated), top, own, row0, skels.shape[2] if skels is not None else own,
+                                    torch.cuda.current_stream().cuda_stream)
+        _count("zhang_suen_packed_slab")
+        _raise_on(lib, "zhang_suen_slab", err)
+        STATS["zhang_suen_packed_slab"] = iter_counts
+    return out
+
+
+def thinning_round(rows: int, nw: int, max_iter: int) -> int:
+    """Row sharding's Zhang–Suen round, ``m`` iterations on slabs of
+    ``rows`` own rows of ``nw`` words widened by 2 m rows a side: as long as
+    the neighbours can give (m ≤ rows / 2) and ``max_iter`` allows, halved
+    while the widened slab does not fit K6's resident route.  Each launch
+    stops at its slab's fixpoint, so a longer round costs rows, not
+    iterations, and saves rounds: a launch and a flag read each."""
+    m = max(1, min(max_iter, rows // 2))
+    while m > 1 and not resident("zhang_suen_packed", rows + 4 * m, nw):
+        m //= 2
+    return m
 
 
 @functools.lru_cache(maxsize=None)

@@ -246,6 +246,57 @@ def zhang_suen_into(packed: torch.Tensor, width: int, edges: torch.Tensor, skels
     return zhang_suen_into_plain(packed, width, edges, skels, layout, max_iter, rotated)
 
 
+def zhang_suen_slab_plain(x: torch.Tensor, top: int, bottom: int, iters: int, changed: torch.Tensor,
+                          w: int | None = None, edges: torch.Tensor | None = None, skels: torch.Tensor | None = None,
+                          layout: str = "rows", row0: int = 0, rotated: bool = True) -> torch.Tensor:
+    """The plain version of K6's slab mode, one round of row sharding's
+    thinning.  ``x`` is a slab of int32 bitboards (..., top + rows + bottom,
+    NW), each side with 0 halo rows (the image's border) or at least
+    ``2 * iters``: at most ``iters`` iterations run on the slab, rows beyond
+    it zero, stopping after one that changes nothing in it, and a subpass
+    reads one row beyond its own, so the own rows come out exact.  Returns
+    the own rows.  ``changed``, a (1,) int32 tensor, gets 1 where the last
+    iteration changed an own row, else 0.  Where given, ``edges`` and
+    ``skels`` (B, group, H, row bytes; ``w`` px a row) receive the input's
+    and the result's own rows at rows [row0, row0 + rows) of each layer, as
+    :func:`zhang_suen_into_plain` lays out a whole image."""
+    from .bitpack import boards_to_rows_plain  # noqa: PLC0415 (bitpack imports this module)
+    from .filters import slab_rows  # noqa: PLC0415
+
+    own = slab_rows("zhang_suen_slab", x.shape[-2], top, bottom, 2 * iters)
+    x0, last = x, False
+    for _ in range(iters):
+        x2 = _subpass_bits(_subpass_bits(x, True, rotated), False, rotated)
+        diff = x2 != x
+        last, x = bool(diff[..., top : top + own, :].any()), x2
+        if not bool(diff.any()):
+            break
+    changed.fill_(int(last))
+    for src, dst, value in ((x0, edges, 255), (x, skels, 1)):
+        if dst is not None:
+            src = src[..., top : top + own, :]
+            rows = boards_to_rows_plain(src, w) if layout == "rows" else dense_from_boards_plain(src, w, value)
+            dst[:, :, row0 : row0 + own, :].copy_(rows.reshape(*dst.shape[:2], own, dst.shape[-1]))
+    return x[..., top : top + own, :]
+
+
+def zhang_suen_slab(x: torch.Tensor, top: int, bottom: int, iters: int, changed: torch.Tensor,
+                    w: int | None = None, edges: torch.Tensor | None = None, skels: torch.Tensor | None = None,
+                    layout: str = "rows", row0: int = 0, rotated: bool = True) -> torch.Tensor:
+    """:func:`zhang_suen_slab_plain` on the boards' device: K6's slab mode
+    with its stores for a CUDA tensor, the plain version for a CPU tensor,
+    else raise."""
+    if layout not in ("rows", "dense"):
+        raise ValueError(f"zhang_suen_slab: layout {layout!r} is neither 'rows' nor 'dense'")
+    if x.is_cuda:
+        from .kernels import zhang_suen_slab_cuda  # noqa: PLC0415
+
+        return zhang_suen_slab_cuda(x, top, bottom, iters, changed, w, edges, skels, layout, row0, rotated)
+    if x.device.type != "cpu":
+        raise ValueError(f"zhang_suen_slab: no kernel for device {x.device}")
+    return zhang_suen_slab_plain(x, top, bottom, iters, changed, w, edges, skels, layout, row0, rotated)
+
+
 def zhang_suen(binary: torch.Tensor, max_iter: int = 120, rotated: bool = True) -> torch.Tensor:
     """Thin (..., H, W) 0/nonzero images to 1-px skeletons; int32 0/1.
 

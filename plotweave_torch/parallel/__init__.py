@@ -3,8 +3,8 @@
 - a batch of images → split over a ``data`` mesh axis (``batch.py``): each
   device runs its share through the fused front-end's kernels;
 - one large image → row slabs over a ``space`` axis with halo rows copied
-  between neighbours (``spatial.py``): plain per-shard programs on CPU
-  meshes, the kernels' slab modes still to come for cards;
+  between neighbours (``spatial.py``): one schedule, the kernels' slab
+  modes on cards and their plain versions on CPU meshes;
 - the batch runner's grouped chain calls → split over the ``data`` axis
   (``batchrun.py``).
 """

@@ -33,9 +33,9 @@ cards, or with ``raster_device: "cpu"`` over the CPU pool
 (``parallel.mesh.cpu_device_count()``, read from ``XLA_FLAGS`` as the JAX
 package's CPU backend reads it).  The fused chain then runs
 ``parallel.spatial.sharded_chain`` over a ``space`` mesh of that many
-devices: one shard is the unsharded chain (on a card, its kernels), several
-CPU shards the row-sharded plain programs; several cards raise until their
-slab kernels exist (ROADMAP.md, Queue 1, Item 10b).
+devices, each card once: one shard is the unsharded chain (on a card, its
+kernels), several shards the row-sharded schedule, on cards through the slab
+modes of its kernels, on CPU shards through their plain versions.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ from ..parallel.mesh import cpu_device_count, default_devices, make_mesh
 from ..parallel.spatial import fit_shard_rows, sharded_chain
 from ..utils import (fetch_device_artifact, read_image, register_derived_artifact, register_device_artifact,
                      save_json, thread_map, write_image)
-from ..utils.devices import not_ported, raster_device
+from ..utils.devices import raster_device
 from .common import chain_key, darkness_rank, edge_params, layer_dir
 
 
@@ -368,8 +368,6 @@ def run(cfg: PipelineConfig) -> None:
         return _finish_kmeans(cfg, names, k, w, centers, counts0, lambda ci: masks8[ci], None)
 
     shard_n = resolve_shard_n(cfg, h, w)
-    if shard_n > 1 and not _on_cpu(cfg):
-        raise not_ported(f"row sharding over {shard_n} cards", "Queue 1, Item 10b")
     device = raster_device(cfg)
     if shard_n >= 1:
         mesh = make_mesh((shard_n,), ("space",), devices=default_devices(device.type))

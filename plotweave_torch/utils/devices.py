@@ -38,11 +38,6 @@ def raster_device(cfg) -> torch.device:
     return device_for(getattr(cfg, "raster_device", "auto"))
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a mode of the JAX package that the port does not run yet."""
-    return NotImplementedError(f"{what} is not ported to plotweave_torch yet (ROADMAP.md, {item})")
-
-
 def add_raster_device_flag(parser) -> None:
     """The ``--raster-device {auto,cpu}`` CLI flag."""
     parser.add_argument(

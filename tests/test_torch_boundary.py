@@ -14,12 +14,15 @@ equal to the originals.
   for each function the main path calls, on seeded inputs.
 - Four processes that build the port's native library into one fresh
   directory at the same moment all load it.
+- The package's heap retention is the JAX package's ``_retain_heap``,
+  character for character, called at import.
 """
 
 from __future__ import annotations
 
 import ast
 import dataclasses
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -46,6 +49,39 @@ def test_no_import_of_plotweave_or_jax(path):
     bad = [(line, mod) for line, mod in _imported_modules(path)
            if mod.split(".")[0] in ("plotweave", "jax", "jaxlib")]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def _top_level(path: Path, name: str):
+    """(the source text of the module-level function ``name``, the module's
+    top-level statements)."""
+    text = path.read_text()
+    body = ast.parse(text, str(path)).body
+    fn = next(node for node in body if isinstance(node, ast.FunctionDef) and node.name == name)
+    return ast.get_source_segment(text, fn), body
+
+
+def test_heap_retention_pinned_to_original():
+    """The port's package keeps freed large buffers in the heap as the JAX
+    package does: ``plotweave_torch/__init__.py`` carries
+    ``plotweave/__init__.py``'s ``_retain_heap`` (glibc ``mallopt``, opted
+    out by ``PLOTWEAVE_NO_MALLOC_TUNE``) character for character, and calls
+    it at import as the original does (read as text: nothing of
+    ``plotweave`` is imported)."""
+    mine, body = _top_level(REPO / "plotweave_torch" / "__init__.py", "_retain_heap")
+    original, original_body = _top_level(REPO / "plotweave" / "__init__.py", "_retain_heap")
+    assert mine == original and "PLOTWEAVE_NO_MALLOC_TUNE" in mine
+    for statements in (body, original_body):
+        assert any(isinstance(node, ast.Expr) and isinstance(node.value, ast.Call)
+                   and getattr(node.value.func, "id", None) == "_retain_heap" for node in statements)
+
+
+def test_heap_retention_runs_at_import_and_opts_out():
+    """Importing the port in a fresh process runs the retention (or skips it
+    under the opt-out) without an error."""
+    for env in ({}, {"PLOTWEAVE_NO_MALLOC_TUNE": "1"}):
+        proc = subprocess.run([sys.executable, "-c", "import plotweave_torch; print('ok')"], cwd=REPO,
+                              env={**os.environ, **env}, capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
 # --- every copied module against its original ----------------------------------

@@ -146,7 +146,7 @@ def funnel(lo: np.ndarray, hi: np.ndarray, shift) -> np.ndarray:
 
 
 def emulate_edge_tiles(x: torch.Tensor, w: int, ksize: int, sigma: float, low: int, high: int, tile, rng,
-                       blur_only: bool = False, fast=None):
+                       blur_only: bool = False, fast=None, top: int = 0, bottom: int = 0):
     """csrc/edge_candidates.cu's blocks, one tile at a time, in its own index
     relations: the input region loaded as words (a board) or bytes (a dense
     image), by plain coordinates in an interior tile and by reflect-101 in a
@@ -159,7 +159,10 @@ def emulate_edge_tiles(x: torch.Tensor, w: int, ksize: int, sigma: float, low: i
     garbage: the bits and bytes of the input region beside its pixels, the
     blurred cells outside the image before the fix-up, the slots before their
     first write.  Returns (cand, strong) int32 bitboards, or the blurred
-    image."""
+    image.  With ``top`` and ``bottom`` (the slab mode) ``x`` is a slab whose
+    tiles cover rows [top, H - bottom), stored at their own row 0: a tile is
+    interior only inside the buffer and the own rows, and the rim's rules
+    apply at the buffer's ends."""
     if low > high:
         low, high = high, low
     low, high = min(low, 2041), min(high, 2041)
@@ -170,21 +173,22 @@ def emulate_edge_tiles(x: torch.Tensor, w: int, ksize: int, sigma: float, low: i
     assert not fast or (ksize in kernels.EDGE_FAST_KSIZES and (ksize == 1 or (taps.min() >= 0 and taps.max() <= 255)))
     src = bitboards_to_jax(x) if boards else x.numpy()
     k, h = src.shape[0], src.shape[1]
+    own_rows = h - top - bottom
     nw = -(-w // 32)
-    th, tww = tile if tile is not None else kernels.edge_schedule(ksize, k, h, nw, boards, fast)
+    th, tww = tile if tile is not None else kernels.edge_schedule(ksize, k, own_rows, nw, boards, fast)
     lay = edge_layout(th, tww, ksize, boards, fast)
     R, tw, ah, bh, hw, pad, in_words = (lay[key] for key in ("R", "tw", "ah", "bh", "hw", "pad", "in_words"))
     bw = tw + 4
-    cand = np.zeros((k, h, nw), np.uint32)
-    strong, blurred = cand.copy(), np.zeros((k, h, w), np.uint8)
-    written = np.zeros((h, nw), bool)
+    cand = np.zeros((k, own_rows, nw), np.uint32)
+    strong, blurred = cand.copy(), np.zeros((k, own_rows, w), np.uint8)
+    written = np.zeros((own_rows, nw), bool)
 
     def garbage(shape, dtype=np.uint32):
         return rng.integers(0, np.iinfo(dtype).max, shape, dtype=np.uint64).astype(dtype)
 
-    for y0 in range(0, h, th):
+    for y0 in range(top, top + own_rows, th):
         for x0 in range(0, 32 * nw, tw):
-            interior = y0 >= R and y0 + th + R <= h and x0 >= R and x0 + tw + R <= w
+            interior = y0 >= R and y0 + th + R <= h and y0 + th <= top + own_rows and x0 >= R and x0 + tw + R <= w
             ys = np.arange(y0 - R, y0 + th + R)
             if interior:
                 assert ys[0] >= 0 and ys[-1] < h  # plain coordinates
@@ -276,8 +280,8 @@ def emulate_edge_tiles(x: torch.Tensor, w: int, ksize: int, sigma: float, low: i
             assert blur_s.min() >= 0  # every cell written
 
             if blur_only:
-                ny, nx = min(th, h - y0), max(0, min(tw, w - x0))
-                blurred[:, y0 : y0 + ny, x0 : x0 + nx] = blur_s[:, 2 : 2 + ny, 2 : 2 + nx]
+                ny, nx = min(th, top + own_rows - y0), max(0, min(tw, w - x0))
+                blurred[:, y0 - top : y0 - top + ny, x0 : x0 + nx] = blur_s[:, 2 : 2 + ny, 2 : 2 + nx]
                 continue
 
             if not interior:
@@ -333,17 +337,17 @@ def emulate_edge_tiles(x: torch.Tensor, w: int, ksize: int, sigma: float, low: i
                     sb = cb & (mag > high)
                     if not i < i1:
                         continue
-                    if y0 + i >= h:
+                    if y0 + i >= top + own_rows:
                         assert not interior
                         continue
                     for bits, out in ((cb, cand), (sb, strong)):
                         words = np.packbits(bits.reshape(k, nss // 8, 32), axis=-1, bitorder="little").view(np.uint32)
                         for wj in range(nss // 8):
                             if x0 // 32 + wj < nw:
-                                out[:, y0 + i, x0 // 32 + wj] = words[:, wj, 0]
+                                out[:, y0 + i - top, x0 // 32 + wj] = words[:, wj, 0]
                             else:
                                 assert not interior
-                    written[y0 + i, x0 // 32 : x0 // 32 + nss // 8] = True
+                    written[y0 + i - top, x0 // 32 : x0 // 32 + nss // 8] = True
     if blur_only:
         return torch.from_numpy(blurred)
     assert written.all()  # each word of each row stored

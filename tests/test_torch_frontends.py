@@ -609,11 +609,16 @@ def test_row_sharding_on_one_device_equals_the_unsharded_run(tmp_path, capsys, m
         assert "[shard]" not in out  # auto never engages below two devices
 
 
-def test_row_sharding_over_several_cards_raises(tmp_path, monkeypatch):
-    """More than one card would shard the chain: not ported (ROADMAP.md,
-    Queue 1, Item 10b); one card resolves to the unsharded chain.  On the CPU
-    the count is the CPU pool's: one, or the four that ``XLA_FLAGS`` sets."""
+def test_row_sharding_over_several_cards_raises(tmp_path, monkeypatch, golden_stream):
+    """More than one card shards the chain over a ``space`` mesh of the
+    cards, each once (mocked: four cards, ``shard_rows`` 2 takes two), whose
+    route launches the slab kernels' wrappers (K2 and K3+K4 once a shard, K5
+    and K6 once a shard a round) and no plain op: the stream is the golden
+    one.  One card resolves to the unsharded chain.  On the CPU the count
+    is the CPU pool's: one, or the four that ``XLA_FLAGS`` sets."""
+    from mocked_cards import launches, stage02_on_cards
     from plotweave_torch.config import PipelineConfig
+    from plotweave_torch.ops.kernels import STATS
     from plotweave_torch.stages import s02_color_extract as s02
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
@@ -625,8 +630,12 @@ def test_row_sharding_over_several_cards_raises(tmp_path, monkeypatch):
     assert s02.resolve_shard_n(PipelineConfig(shard_rows=4, raster_device="cpu"), 1500, 2000) == 4
     assert s02.resolve_shard_n(PipelineConfig(shard_auto_mpx=1.0), 1500, 2000) == 4
     assert s02.resolve_shard_n(PipelineConfig(shard_auto_mpx=5.0), 1500, 2000) == 0
-    with pytest.raises(NotImplementedError, match="Item 10b"):
-        _run_base(tmp_path / "run", shard_rows=2)
+    calls, meshes = stage02_on_cards(monkeypatch, 4)
+    assert _run_base(tmp_path / "run", shard_rows=2) == golden_stream
+    assert meshes == [[torch.device("cuda", 0), torch.device("cuda", 1)]]
+    assert launches(calls) == {
+        "morph_steps_cuda": 2, "edge_candidates_slab_cuda": 2, "hysteresis_slab_cuda": 2 * STATS["hysteresis_rounds"],
+        "zhang_suen_slab_cuda": 2 * STATS["thinning_rounds"]}
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert s02.resolve_shard_n(cfg, 1500, 2000) == 1
     assert s02.resolve_shard_n(PipelineConfig(shard_auto_mpx=1.0), 1500, 2000) == 0

@@ -226,16 +226,31 @@ def test_auto_raster_device_raises_without_cuda(tmp_path, monkeypatch):
     ids=["shard-rows", "shard-auto"],
 )
 def test_unported_modes_raise(tmp_path, monkeypatch, override):
-    """Row sharding runs on one card or over the CPU pool
-    (``tests/test_torch_frontends.py``, ``tests/test_torch_mesh.py``); over
-    more than one card it needs the kernels' slab modes, ROADMAP.md Queue 1,
-    Item 10b, and raises."""
+    """Row sharding over more than one card (mocked: four cards, tensors
+    that say they lie on a card, ``tests/mocked_cards.py``) runs stage 02's
+    chain over a ``space`` mesh of the cards through the slab kernels'
+    wrappers, once a shard (K5 and K6 once a shard a round), and no plain
+    op; steps 1-4 give the artifacts of the unsharded run on the CPU."""
+    from mocked_cards import launches, stage02_on_cards
+    from plotweave_torch.ops.kernels import STATS
     from plotweave_torch.pipeline import run_pipeline
 
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    ref = tmp_path / "cpu"
+    run_pipeline(load_config(str(_write_cfg("base_cfg.json", ref, raster_device="cpu"))), 1, 4)
+    calls, meshes = stage02_on_cards(monkeypatch, 4)
     cfg = load_config(str(_write_cfg("base_cfg.json", tmp_path / "x", **override)))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1, Item 10b"):
-        run_pipeline(cfg, 1, 4)
+    run_pipeline(cfg, 1, 4)
+    n = len(meshes[0])
+    assert len(meshes) == 1 and n > 1 and meshes[0] == [torch.device("cuda", i) for i in range(n)]
+    assert launches(calls) == {
+        "morph_steps_cuda": n, "edge_candidates_slab_cuda": n, "hysteresis_slab_cuda": n * STATS["hysteresis_rounds"],
+        "zhang_suen_slab_cuda": n * STATS["thinning_rounds"]}
+    compared = 0
+    for f in sorted(ref.rglob("*")):
+        if f.is_file() and f.name != "config.json":
+            assert (tmp_path / "x" / f.relative_to(ref)).read_bytes() == f.read_bytes(), f.relative_to(ref)
+            compared += 1
+    assert compared >= 3 * len(cfg.color_names)
 
 
 def test_stages_07_and_12_say_when_a_plan_crosses_a_device_gate(tmp_path, capsys):
@@ -347,7 +362,8 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
         "import sys\n"
         "import plotweave_torch.ops.kernels as k\n"
         "assert k.LAUNCHES == {'bitpack': 0, 'edge_candidates': 0, 'zhang_suen_packed': 0, "
-        "'zhang_suen_packed_multi': 0, 'hysteresis': 0, 'hysteresis_multi': 0, 'morph_bits': 0, "
+        "'zhang_suen_packed_multi': 0, 'hysteresis': 0, 'hysteresis_multi': 0, 'edge_candidates_slab': 0, "
+        "'hysteresis_slab': 0, 'zhang_suen_packed_slab': 0, 'morph_bits': 0, "
         "'assign_nearest': 0, 'zhang_suen_dense': 0, 'subsample': 0, 'lab_sample': 0, 'kmeans_fit': 0, 'lloyd_fit': 0, "
         "'assign_points': 0, 'morph_dense': 0, 'greedy_tour': 0, 'refine_tour': 0, 'area_resize_frac': 0, "
         "'area_resize_int': 0, 'bezier_sample': 0}\n"

@@ -12,9 +12,11 @@ stopped at a small ``max_iter``).  The sharded chain must equal the JAX
 package's ``sharded_chain`` and the port's unsharded ``chain_from_clean``,
 also with an outsized edge kernel and its fitted shard count; the sharded
 front-ends the JAX package's, their labels checked by the near-tie rule of
-``tests/test_torch_frontend.py``.  Over several CUDA devices every sharded
-program raises before it touches a tensor.  Each JAX program is built once
-per module (``jax_program``).
+``tests/test_torch_frontend.py``.  These run the schedule that the card runs,
+with the kernels' plain slab versions.  Over mocked cards (tensors that say
+they lie on a card; ``CardTensor``) every sharded program launches the slab
+kernels' wrappers and nothing else: any plain op on such a tensor fails.
+Each JAX program is built once per module (``jax_program``).
 """
 
 from __future__ import annotations
@@ -36,10 +38,14 @@ from plotweave_torch.config import PipelineConfig
 from plotweave_torch.ops.canny import _sobel_pair
 from plotweave_torch.ops.frontend import assign_nearest, nearest_gaps
 from plotweave_torch.parallel.mesh import make_mesh
+from plotweave_torch.ops.kernels import STATS
 from plotweave_torch.parallel.spatial import (
-    blur_halo, canny_halo, gather_rows, grid_frontend, morph_prog_halo, sharded_chain, spatial_frontend, split_rows,
-    thin_halo, with_halo)
+    RoundFlags, _hysteresis_rounds, _thin_rounds, blur_halo, canny_halo, grid_frontend, morph_prog_halo, sharded_chain,
+    spatial_frontend, split_rows, thin_halo, widen)
 from plotweave_torch.stages.s02_color_extract import chain_from_clean, resolve_shard_n
+
+import mocked_cards
+from mocked_cards import CardTensor, card, cards, launches, on_mocked_cards, plain
 
 CPU = torch.device("cpu")
 NS = (1, 2, 4, 5, 8)
@@ -71,6 +77,11 @@ def jax_program(op: str, n: int, ndim: int, args: tuple):
     return jax.jit(shard_map(body, mesh=jax_mesh(n), in_specs=(spec,), out_specs=spec, check_rep=False))
 
 
+def gather_rows(slabs) -> torch.Tensor:
+    """The slabs joined along their rows on the host."""
+    return torch.cat([s.cpu() for s in slabs], dim=-2)
+
+
 def run_both(op: str, x: np.ndarray, n: int, args: tuple, port):
     """(the JAX twin's output, the port's slabs joined) on the same input."""
     ref = np.asarray(jax_program(op, n, x.ndim, args)(x))
@@ -88,12 +99,16 @@ def gray(seed: int, shape) -> np.ndarray:
 @pytest.mark.parametrize("border", ["zero", "reflect", "edge"])
 def test_with_halo_matches_jax(border, n):
     """Shards of exactly 8 rows (``MIN_ROWS_PER_SHARD``), a 3-row halo: each
-    widened slab, in order, is the JAX shard's."""
+    buffer of the card schedule's exchange (``widen``), in order, is the JAX
+    shard's widened slab (``_with_halo_b``) less the rows it builds at the
+    image's border in each border mode, which ``widen`` leaves to the slab
+    modes."""
     x = gray(n, (2, 8 * n, 13))
     ref = np.asarray(jax_program("halo", n, 3, (3, border))(x))
-    got = torch.cat(with_halo(split_rows(x, [CPU] * n), 3, border), dim=-2).numpy()
-    assert got.shape == (2, n * 14, 13)
-    np.testing.assert_array_equal(got, ref)
+    assert ref.shape == (2, n * 14, 13)
+    for i, (buf, top, bottom) in enumerate(widen(split_rows(x, [CPU] * n), 3)):
+        assert (top, bottom) == (3 if i > 0 else 0, 3 if i < n - 1 else 0)
+        np.testing.assert_array_equal(buf.numpy(), ref[:, i * 14 + 3 - top : (i + 1) * 14 - 3 + bottom])
 
 
 @pytest.mark.parametrize("n", NS)
@@ -250,36 +265,188 @@ def test_grid_frontend_matches_jax():
     np.testing.assert_array_equal(s.numpy(), np.asarray(ref_s))
 
 
+# --- the card route, on mocked cards ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_several_cuda_devices_raise_item_10b_before_any_work(monkeypatch, n):
+    """Over several CUDA devices (mocked: tensors that say they lie on a
+    card) each sharded program launches the slab kernels' wrappers, K2 and
+    K3+K4 once a shard, K5 and K6 once a shard a round, and moves rows by
+    copies: no plain op on a card, no unsharded kernel, no fallback to the
+    CPU.  Its bytes are those of the CPU mesh."""
+    calls = on_mocked_cards(monkeypatch)
+    devices = [torch.device("cuda", i) for i in range(n)]
+    k, h, w = 4, 120, 90
+    packed = packed_labels(n, k, h, w)
+    with cards():
+        mocked_cards.PEER_COPIES.clear()
+        blob = sharded_chain(make_mesh((n,), ("space",), devices=devices), card(torch.from_numpy(packed)), w,
+                             *CHAIN_ARGS)
+        assert isinstance(blob, CardTensor) and blob.device == devices[0]
+        assert torch.equal(plain(blob), chain_from_clean(packed, w, *CHAIN_ARGS, device=CPU))
+        assert launches(calls) == {"edge_candidates_slab_cuda": n, "morph_steps_cuda": n,
+                                   "hysteresis_slab_cuda": n * STATS["hysteresis_rounds"],
+                                   "zhang_suen_slab_cuda": n * STATS["thinning_rounds"]}
+        # halo rows between neighbouring cards, and each other card's rows of the blob, by peer copies
+        peers = set(mocked_cards.PEER_COPIES)
+        assert {(devices[i], devices[i + 1]) for i in range(n - 1)} <= peers
+        assert {(devices[0], d) for d in devices[1:]} <= peers
+
+        calls.clear()
+        img = poster(11)
+        e, s = spatial_frontend(make_mesh((n,), ("space",), devices=devices), card(torch.from_numpy(img)), CENTERS,
+                                k=4)
+        ref = spatial_frontend(host_mesh(n), img, CENTERS, k=4)
+        assert torch.equal(plain(e), ref[0]) and torch.equal(plain(s), ref[1])
+        assert launches(calls) == {"assign_boards_cuda": n, "edge_candidates_slab_cuda": n, "morph_steps_cuda": n,
+                                   "hysteresis_slab_cuda": n * STATS["hysteresis_rounds"],
+                                   "zhang_suen_slab_cuda": n * STATS["thinning_rounds"]}
+
+        calls.clear()
+        imgs = np.stack([poster(13 + i, 64, 48) for i in range(4)])
+        grid = make_mesh((2, n), ("data", "space"), devices=devices * 2)
+        e, s = grid_frontend(grid, card(torch.from_numpy(imgs)), CENTERS, k=4)
+        ref = grid_frontend(host_mesh(2 * n, ("data", "space"), (2, n)), imgs, CENTERS, k=4)
+        assert torch.equal(plain(e), ref[0]) and torch.equal(plain(s), ref[1])
+        assert calls.count("assign_boards_cuda") == calls.count("edge_candidates_slab_cuda") == 2 * n
+
+        calls.clear()
+        slabs = split_rows(card(torch.from_numpy(gray(3, (2, 8 * n, 21)))), devices)
+        assert [x.device for x in slabs] == devices
+        assert torch.equal(gather_rows(blur_halo(slabs, 7)), gather_rows(blur_halo(plain(slabs), 7)))
+        assert torch.equal(gather_rows(morph_prog_halo(slabs, "ellipse", 7, 1, "ed")),
+                           gather_rows(morph_prog_halo(plain(slabs), "ellipse", 7, 1, "ed")))
+        assert torch.equal(gather_rows(canny_halo(slabs, 22, 70)), gather_rows(canny_halo(plain(slabs), 22, 70)))
+        assert torch.equal(gather_rows(thin_halo(slabs, 6)), gather_rows(thin_halo(plain(slabs), 6)))
+        assert {"gaussian_blur_slab_cuda", "morph_dense_cuda", "dense_to_boards_cuda",
+                "boards_to_dense_cuda"} <= set(calls)
+
+
+@pytest.mark.parametrize("layout", ["rows", "dense"])
+@pytest.mark.parametrize("order", [(0, 1, 0, 1), (1, 0, 0, 2), (0, 0, 1, 1)])
+def test_slabs_on_several_cards_flag_and_store_apart(monkeypatch, order, layout):
+    """Slabs on different mocked cards, the outputs on the first slab's: a
+    round's flags are one tensor a card, each slab's slot on its card; a
+    slab on another card than the outputs stores its rows into its own,
+    which reach the outputs by peer copies; the thinning and hysteresis
+    rounds give the bytes of the same rounds on the host."""
+    from plotweave_torch.ops.thinning import pack_bitboards_plain
+
+    calls = on_mocked_cards(monkeypatch)
+    devices = [torch.device("cuda", i) for i in order]
+    n, k, w = len(order), 2, 45
+    x = np.zeros((k, 8 * n, w), np.uint8)
+    x[0, 2:-2, 3:40] = 1  # a thick bar over every slab
+    x[1, :, 20:23] = 1
+    weak = x.copy()
+    weak[0, :, 41:43] = 1  # a weak chain down every slab, its strong seed in the last
+    strong = np.zeros_like(weak)
+    strong[:, -2:] = weak[:, -2:]
+    packed, cand, seeds = (pack_bitboards_plain(torch.from_numpy(a)) for a in (x, weak, strong))
+    rb = w if layout == "dense" else -(-w // 8)
+    want = torch.full((2, 1, k, 8 * n, rb), 0xA5, dtype=torch.uint8)
+    ref = _thin_rounds(split_rows(packed, [CPU] * n), 120, (w, want[0], want[1], layout))
+    ref_rounds = STATS["thinning_rounds"]
+    ref_edges = _hysteresis_rounds(split_rows(cand, [CPU] * n), split_rows(seeds, [CPU] * n))
+    assert STATS["hysteresis_rounds"] >= n
+    with cards():
+        mocked_cards.PEER_COPIES.clear()
+        slabs = split_rows(card(packed), devices)
+        flags = RoundFlags(slabs)
+        assert {d: t.numel() for d, t in flags.tensors.items()} == {d: order.count(d.index) for d in devices}
+        assert [slot.device for slot in flags.slots] == devices
+        outs = card(torch.full((2, 1, k, 8 * n, rb), 0xA5, dtype=torch.uint8), devices[0])
+        got = _thin_rounds(slabs, 120, (w, outs[0], outs[1], layout))
+        assert STATS["thinning_rounds"] == ref_rounds and [g.device for g in got] == devices
+        assert torch.equal(plain(outs), want) and all(torch.equal(plain(a), b) for a, b in zip(got, ref))
+        assert {(devices[0], d) for d in devices if d != devices[0]} <= set(mocked_cards.PEER_COPIES)
+        edges = _hysteresis_rounds(split_rows(card(cand), devices), split_rows(card(seeds), devices))
+        assert all(torch.equal(plain(a), b) for a, b in zip(edges, ref_edges))
+    assert set(calls) == {"zhang_suen_slab_cuda", "hysteresis_slab_cuda"}
+
+
+def test_a_plain_op_on_a_mocked_card_fails():
+    """The mock above is not vacuous: arithmetic, a reduction or a join on a
+    card tensor fails; a view, an allocation and a copy do not, and each
+    says which mocked card it lies on."""
+    x = card(torch.zeros((2, 8, 4), dtype=torch.int32))
+    for op in (lambda: x + 1, lambda: x.any(), lambda: torch.cat([x, x]), lambda: x.to(torch.int64)):
+        with pytest.raises(AssertionError, match="on a card tensor"):
+            op()
+    y = x.new_empty((2, 4, 4), device=torch.device("cuda", 1))
+    assert isinstance(y, CardTensor) and y.device == torch.device("cuda", 1) and x.device == torch.device("cuda", 0)
+    assert y[:, :2].device == y.device and y.is_cuda
+    x[:, :4].copy_(x[:, 4:])
+    y.copy_(x[:, :4])
+    assert torch.equal(plain(y), torch.zeros((2, 4, 4), dtype=torch.int32))
+    with cards():
+        z = torch.zeros(3, device="cuda:2")
+        u = torch.ones(2).to(torch.device("cuda", 3))
+    assert (z.device, u.device) == (torch.device("cuda", 2), torch.device("cuda", 3))
+    assert isinstance(z, CardTensor) and torch.equal(plain(u), torch.ones(2))
+
+
 # --- what the twins refuse ------------------------------------------------------------------------
 
 
-def test_several_cuda_devices_raise_item_10b_before_any_work():
-    """No plain op runs on a card and nothing falls back to the unsharded
-    chain: over two CUDA devices (one card named twice) each sharded program
-    raises, naming Item 10b, before it reads its input."""
-    cards = [torch.device("cuda", 0)] * 2
-    space = make_mesh((2,), ("space",), devices=cards)
-    not_an_input = object()  # any use of it would raise something else
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1, Item 10b"):
-        sharded_chain(space, not_an_input, 90, *CHAIN_ARGS)
-    with pytest.raises(NotImplementedError, match="Item 10b"):
-        spatial_frontend(space, not_an_input, CENTERS)
-    with pytest.raises(NotImplementedError, match="Item 10b"):
-        grid_frontend(make_mesh((1, 2), ("data", "space"), devices=cards), not_an_input, CENTERS)
-
-
 def test_the_slab_programs_refuse_a_card_and_short_slabs():
+    """A slab mode refuses a device it has no kernel for, and no plain
+    version runs there; ``widen`` and the slab versions refuse halos their
+    neighbours cannot give or their stencils cannot use; one slab is both
+    edge shards and gets no halo rows."""
+    from plotweave_torch.ops.canny import edge_candidates_slab, edge_candidates_slab_plain, hysteresis_slab
+    from plotweave_torch.ops.filters import gaussian_blur_slab
+    from plotweave_torch.ops.thinning import zhang_suen_slab
+
     slab = torch.zeros((1, 8, 16), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="Item 10b"):
-        blur_halo([slab, slab.to("meta")], 3)
-    with pytest.raises(ValueError, match="border"):
-        with_halo([slab], 1, "wrap")
+    meta = torch.zeros((1, 14, 1), dtype=torch.int32, device="meta")
+    flag = torch.empty(1, dtype=torch.int32, device="meta")
+    for run in (lambda: edge_candidates_slab(meta, 16, 5, 22, 70, 3, 3),
+                lambda: gaussian_blur_slab(meta.to(torch.uint8), 5, 2, 2),
+                lambda: hysteresis_slab(meta[:, 1:-1], meta, 1, 1, flag),
+                lambda: zhang_suen_slab(meta, 2, 2, 1, flag)):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            run()
     with pytest.raises(ValueError, match="cannot give 3 halo rows"):
-        with_halo([slab, slab[:, :2]], 3, "zero")
-    with pytest.raises(ValueError, match="cannot reflect 8 rows"):
-        with_halo([slab], 8, "reflect")
+        widen([slab, slab[:, :2]], 3)
     with pytest.raises(ValueError, match="split evenly"):
         split_rows(np.zeros((1, 10, 4), np.uint8), [CPU] * 4)
-    # one slab is both edge shards: a zero or replicate border needs no rows of its own
-    one = with_halo([slab[:, :1]], 3, "edge")[0]
-    assert tuple(one.shape) == (1, 7, 16)
+    with pytest.raises(ValueError, match="at least 4"):
+        edge_candidates_slab_plain(torch.zeros((1, 14, 16), dtype=torch.uint8), 16, 5, 22, 70, 3, 3)
+    assert [(tuple(b.shape), t, u) for b, t, u in widen([slab[:, :1]], 3)] == [((1, 1, 16), 0, 0)]
+
+
+# --- the dry run's twin ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_dryrun_multichip_twin_on_the_cpu_pool(n, capsys):
+    """``entry.dryrun_multichip`` over the CPU pool (the host named n times):
+    ``grid_frontend`` (data × space as the JAX package chooses them),
+    ``sharded_chain``, the three adversarial shapes and the batch runner,
+    each certified byte for byte by the function itself."""
+    from plotweave_torch.entry import dryrun_multichip
+
+    dryrun_multichip(n, "cpu")
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[dryrun]")]
+    data = 2 if n == 4 else 1
+    assert lines[0].startswith(f"[dryrun] mesh data={data} × space={n // data}") and len(lines) == 7
+    assert lines[-1] == ("[dryrun] ALL OK: grid-2d=eq chain=eq shapes=3/3 batch=3/3 (all byte-certified vs "
+                         "unsharded/sequential)")
+
+
+def test_entry_module_runs_the_dry_run():
+    """``python -m plotweave_torch.entry cpu`` runs ``entry()`` and then the
+    dry run over the CPU pool that ``XLA_FLAGS`` sets (at least two)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=2")
+    proc = subprocess.run([sys.executable, "-m", "plotweave_torch.entry", "cpu"], cwd=Path(__file__).parent.parent,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "entry ok: [(4, 512, 512), (4, 512, 512)]" in proc.stdout
+    assert "[dryrun] mesh data=1 × space=2" in proc.stdout and "[dryrun] ALL OK" in proc.stdout
