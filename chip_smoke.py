@@ -14,12 +14,16 @@ Phases:
    centre, K8 k-means, K9 greedy tour, K10 tour refiner, K11 gray
    morphology, K12 dense Zhang–Suen, K13 INTER_AREA resize, K14 Bézier
    sampler), and the port's native host library with g++, which must load;
-3. each kernel vs its plain version on the card: K5 and K6 on both routes
-   (resident in a thread block cluster of 16 CTAs, and multi-launch), each
-   named to the wrapper, byte-equal on seeded random boards and ``thinning_cases.npz``, on a
-   1 × 4400 × 4400 layer (too large for a cluster: the multi-launch route),
-   and K5 on a full-size spiral of weak pixels with one strong seed against
-   OpenCV's connected components; K2 byte-equal to its plain version on
+3. each kernel vs its plain version on the card: K5 and K6 on all three
+   routes (resident in a thread block cluster of 16 CTAs; banded, each layer
+   cut into three bands by ``band_rows``; multi-launch), each named to the
+   wrapper, byte-equal on seeded random boards, at 4 × 1500 × 2000 and on
+   ``thinning_cases.npz``, on a 1 × 4400 × 4400 layer (too large for a
+   cluster: the banded route by size, K6 one launch, K5 one a round; the
+   bands and the clusters that fit on the card printed), and K5 on a
+   1500 × 2000 spiral of weak pixels with one strong seed (resident and
+   banded) and a 4400 × 4400 one (banded, by size) against OpenCV's
+   connected components; K2 byte-equal to its plain version on
    step lists (the front-end's 8 steps, the main path's open+close, mixed
    rect/ellipse/cross at ksize 3/5/7, iterations 0-3, a list long enough
    for two launches) on seeded random boards of odd shapes; K12 against
@@ -34,8 +38,8 @@ Phases:
    on ragged widths (W mod 32 and mod 8 ≠ 0, W < 32, H = 1) and at
    4 × 1500 × 2000; K1 folded into K2 and K6 (``fold_cases``): K2 from packed
    rows and its packed-row store, K6 writing the edges and skeletons as
-   packed rows into a blob at an odd offset and as dense bytes, on both
-   routes, against K1 plus the unfused kernels and the plain composites, on
+   packed rows into a blob at an odd offset and as dense bytes, on every
+   route, against K1 plus the unfused kernels and the plain composites, on
    ragged widths and groups of images, every byte outside the outputs kept;
    K3+K4 byte-equal to its plain version on seeded gray
    images (rows on and off a word boundary) and on binary boards, on every
@@ -52,18 +56,21 @@ Phases:
    the packed rows, K3+K4 (from the chain's boards and from the same masks
    as a dense image, at blur 5 and 7, a call and the kernel alone), K5 and
    K6 on each route and K6 storing the blob, beside their plain versions on
-   the card and the count of device kernels those launch, and of K1's two
-   boards → rows launches at 1 × 4400 × 4400 (the big route's blob);
+   the card and the count of device kernels those launch, K1's two boards →
+   rows launches at 1 × 4400 × 4400 (the multi-launch route's blob), and
+   (``big_cases``) K5 and K6 storing the blob at 1 × 4400 × 4400 on the
+   chain's own inputs, by the banded route and the multi-launch route
+   named, and the 4400 × 4400 chain's call;
 5. ``plotweave_torch.pipeline.main`` steps 1–13 on a seeded synthetic
    2000 × 1500 image and on the four configs of ``tests/golden/e2e``, and
    steps 1–4 on a seeded 4400 × 4400 image (``max_dimension`` 4400, so K5
-   and K6 take the multi-launch route), with ``--raster-device auto`` (the
+   and K6 take the banded route), with ``--raster-device auto`` (the
    card) and ``cpu``; every mask.png, edges.png, contours.pkl and
    plot_stream.bin must be byte-equal.  The launch counts are set to 0 just
    before the synthetic image's card run and read just after it (the
    chain's launches exactly: K2, K3+K4 and the resident K5 and K6 once, K1
-   never), and likewise around the 4400 × 4400 card run (K5 and K6 by the
-   multi-launch route, K1 twice for the blob);
+   never), and likewise around the 4400 × 4400 card run (K6 banded once,
+   K5 banded once a round, K1 and the multi-launch kernels never);
 6. ``raster_frontend`` on a seeded 2000 × 1500 image, k = 4, through both
    thinning routes on the card and on the CPU: labels by the near-tie rule,
    edges and skeletons byte-equal from the same labels, the launches of each
@@ -204,16 +211,21 @@ Phases:
    to at 4 x 1500 x 2000, byte-equal to the card's ``chain_from_clean``,
    K2 and K3+K4 launched once a shard and K5 and K6 once a shard a round,
    a trace of the port's own kernels, its ms beside the unsharded chain's;
-   over ``[cuda:0] * 4`` on a 4400 x 4400 layer (every slab on K5's and
-   K6's resident route, where the layer takes the multi-launch route),
-   byte-equal to the unsharded chain; ``spatial_frontend`` over ``[cuda:0]
+   over ``[cuda:0] * 4`` on a 4400 x 4400 layer (every slab one band,
+   where the layer takes the banded route), byte-equal to the unsharded
+   chain; over ``[cuda:0] * 2`` on a 4400 x 8800 layer whose slabs hold
+   more rows than one cluster (each slab mode runs its slab as bands:
+   until the banded route such a slab raised), byte-equal to the unsharded
+   chain; ``spatial_frontend`` over ``[cuda:0]
    * 4`` and ``grid_frontend`` data 2 x space 2 on phase 6's posters,
    byte-equal to ``raster_frontend``; ``dryrun_multichip(4, [cuda:0] * 4)``.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
 launches in the one run of phase 5 or 6 that drives it (the synthetic
 2000 × 1500 image for K2, K3+K4 and the resident K5 and K6, the
-4400 × 4400 image for the multi-launch K5 and K6 and K1's boards → rows, the
+4400 × 4400 image for the banded K5 and K6 (and for the rows of kernels
+that no main path launches any more, which must show 0 there: the
+multi-launch K5 and K6 and K1's boards → rows), the
 front-end calls for K7, K12 and K1's dense side, the device-k-means run for K8 and K7's counts,
 the tools' k-means call for K8's assignment, the swatch run for K11, the
 quality run for K9 and K10, phase 14's resize path for K13 and its poster
@@ -235,7 +247,10 @@ clock64 cycles by phase), ``phase_k9_phases()`` and ``phase_k9_ab(other)``
 of 8 and the front-end against another checkout's, in turns),
 ``phase_kmeans_ab(other)`` and ``phase_k8_phases()`` (K8's seeds and fits
 and stage 02's device mode against another checkout's, in turns, and the
-launch's clock64 cycles by phase).  Each phase's wall seconds
+launch's clock64 cycles by phase), ``phase_banded_ab(other)`` (K5, K6
+storing the blob and the chain at 1 × 4400 × 4400 against another
+checkout's, in turns: the banded route against the parent's multi-launch
+route and K1).  Each phase's wall seconds
 are printed before the ``kernels`` line.
 """
 
@@ -286,7 +301,9 @@ LLOYD_FLOPS_PER_CENTER, KPP_FLOPS_PER_DRAW, POWF_FLOPS = 9, 12, 40
 # K8's draw: integer operations per key, the hash (a multiply-add, two multiplies, three shifts and three XORs) and
 # the compare with the threshold; the draw needs each key once (the kernel recomputes it in five passes)
 DRAW_OPS_PER_KEY = 10
-MULTI_KERNELS = ("hysteresis_multi", "zhang_suen_packed_multi")  # K5, K6 on layers too large for a cluster
+BANDED_KERNELS = ("hysteresis_banded", "zhang_suen_packed_banded")  # K5, K6 on layers too large for a cluster
+MULTI_KERNELS = ("hysteresis_multi", "zhang_suen_packed_multi")  # K5, K6 multi-launch: only where a caller names it
+OFF_PATH = ("K1 rows", "K5 multi", "K6 multi")  # rows of the kernels line that no main path launches
 BIG_SIDE = 4400  # px: a layer of 4400 rows of 138 words does not fit one cluster's shared memory
 PATH_RUNS = {"main": "main path, synthetic 2000x1500, steps 1-13, card run",
              "big": f"main path, synthetic {BIG_SIDE}x{BIG_SIDE}, steps 1-4, card run",
@@ -559,6 +576,17 @@ def synthetic_image(seed: int, h: int, w: int):
     return np.clip(img, 0, 255).astype(np.uint8), bins
 
 
+_BIG_BINS: list = []
+
+
+def big_bins():
+    """The tone bins of the seeded 4400 x 4400 poster of phases 4 and 16,
+    made once (several seconds of host time)."""
+    if not _BIG_BINS:
+        _BIG_BINS.append(synthetic_image(7, BIG_SIDE, BIG_SIDE)[1])
+    return _BIG_BINS[0]
+
+
 def random_boards(rng, k: int, h: int, w: int):
     """Seeded (k, h, w) binary images: blobs and strokes thick enough to thin."""
     import numpy as np
@@ -633,10 +661,18 @@ def phase_build() -> None:
     print(f"native host library: {library_path().relative_to(ROOT)} loaded in {time.perf_counter() - t0:.1f} s")
 
 
-ROUTES = {"resident": "resident", "multi-launch": "multi"}  # name → K5's and K6's ``route``
+ROUTES = {"resident": "resident", "banded": "banded", "multi-launch": "multi"}  # name → K5's and K6's ``route``
+FORCED_BANDS = 3  # where a check names the banded route on a layer that fits one cluster: ⌈h / 3⌉ own rows a band
 
 
-FIXPOINT_KERNELS = ("hysteresis", "zhang_suen_packed") + MULTI_KERNELS  # K5 and K6 on either route
+def route_args(name: str, h: int) -> dict:
+    """The keywords of K5's and K6's wrappers for the route ``name`` on a
+    layer of ``h`` rows: the banded route cut into FORCED_BANDS bands."""
+    route = ROUTES[name]
+    return {"route": route, "band_rows": -(-h // FORCED_BANDS)} if route == "banded" else {"route": route}
+
+
+FIXPOINT_KERNELS = ("hysteresis", "zhang_suen_packed") + BANDED_KERNELS + MULTI_KERNELS  # K5 and K6 on every route
 
 
 def launched(before: dict, after: dict) -> set:
@@ -679,91 +715,107 @@ def phase_kernels_vs_plain(stats: dict) -> None:
     shapes = [(1, 1, 40), (1, 37, 33), (2, 64, 31), (3, 100, 95), (5, 50, 257), (8, 73, 130), (4, 200, 1),
               (6, 20, 3000)]
     runs = ((True, 120), (False, 48), (True, 2), (True, 3), (False, 11))  # 2, 3, 11 stop at max_iter
-    expect = {"resident": {"zhang_suen_packed", "hysteresis"},
-              "multi-launch": {"zhang_suen_packed_multi", "hysteresis_multi"}}
-    for name, route in ROUTES.items():
+    expect = {"resident": {"zhang_suen_packed", "hysteresis"}, "banded": set(BANDED_KERNELS),
+              "multi-launch": set(MULTI_KERNELS)}
+    for name in ROUTES:
         rng = np.random.default_rng(7)
         before = dict(kernels.LAUNCHES)
         for t in range(n_cases):
             edges = torch.from_numpy(z[f"edges_{t}"]).to(dev)
             for key, rotated, it in ((f"skel04_{t}", True, 120), (f"skel08_{t}", False, 48)):
-                got = zhang_suen_packed_cuda(pack_bitboards(edges), it, rotated, route=route)
+                got = zhang_suen_packed_cuda(pack_bitboards(edges), it, rotated, **route_args(name, edges.shape[-2]))
                 got = unpack_bitboards(got, edges.shape[-1])
                 check(np.array_equal(got.cpu().numpy(), z[key].astype(np.int32)), f"K6 {name} vs golden {key}")
-        for k, h, w in shapes:
+        for k, h, w in shapes + [CHAIN_SHAPE]:
             x = torch.from_numpy(random_boards(rng, k, h, w)).to(dev)
             b = pack_bitboards(x)
             for rotated, it in runs:
                 ref = zhang_suen_packed_plain(b, it, rotated)
-                check(torch.equal(zhang_suen_packed_cuda(b, it, rotated, route=route), ref),
+                check(torch.equal(zhang_suen_packed_cuda(b, it, rotated, **route_args(name, h)), ref),
                       f"K6 {name} {k}x{h}x{w} rot={rotated} it={it}")
             cand, strong = canny_candidates(x, 20, 60)
-            check(torch.equal(hysteresis_cuda(cand, strong, route=route), hysteresis_plain(cand, strong)),
+            check(torch.equal(hysteresis_cuda(cand, strong, **route_args(name, h)), hysteresis_plain(cand, strong)),
                   f"K5 {name} {k}x{h}x{w}")
             # strong outside cand: the first sweep drops it
             strong2 = pack_bitboards(torch.from_numpy(rng.random((k, h, w)) < 0.01).to(dev))
-            check(torch.equal(hysteresis_cuda(cand, strong2, route=route), hysteresis_plain(cand, strong2)),
+            check(torch.equal(hysteresis_cuda(cand, strong2, **route_args(name, h)), hysteresis_plain(cand, strong2)),
                   f"K5 {name} {k}x{h}x{w}, strong not in cand")
         # long weak chains: full columns of cand, one strong pixel
         cand = torch.full((2, 300, 4), -1, dtype=torch.int32, device=dev)
         strong = torch.zeros_like(cand)
         strong[0, 0, 0] = 1
-        check(torch.equal(hysteresis_cuda(cand, strong, route=route), hysteresis_plain(cand, strong)),
+        check(torch.equal(hysteresis_cuda(cand, strong, **route_args(name, 300)), hysteresis_plain(cand, strong)),
               f"K5 {name} long chain")
         got = launched(before, kernels.LAUNCHES)
         check(got == expect[name], f"{name}: launched {sorted(got)}, expected {sorted(expect[name])}")
-        print(f"K6 and K5 {name} == plain: thinning_cases.npz ({n_cases} x 2 rings), {len(shapes)} random "
-              f"shapes x {len(runs)} (ring, max_iter), K5 with strong outside cand and a 300-row chain")
+        print(f"K6 and K5 {name} == plain: thinning_cases.npz ({n_cases} x 2 rings), {len(shapes)} random shapes and "
+              f"{'x'.join(map(str, CHAIN_SHAPE))} x {len(runs)} (ring, max_iter), K5 with strong outside cand and a "
+              f"300-row chain" + (f"; each layer in {FORCED_BANDS} bands (band_rows)" if name == "banded" else ""))
 
-    # a layer larger than one cluster holds takes the multi-launch route by size
+    # a layer larger than one cluster holds takes the banded route by size: K6 one launch, K5 one a round
     rng = np.random.default_rng(8)
     x = torch.from_numpy(random_boards(rng, 1, BIG_SIDE, BIG_SIDE)).to(dev)
     b = pack_bitboards(x)
-    check(kernels.fixpoint_route("zhang_suen_packed", BIG_SIDE, b.shape[-1]) == "multi"
-          and kernels.fixpoint_route("hysteresis", BIG_SIDE, b.shape[-1]) == "multi", "the big layer fits a cluster")
+    nw = b.shape[-1]
+    check(kernels.fixpoint_route("zhang_suen_packed", BIG_SIDE, nw) == "banded"
+          and kernels.fixpoint_route("hysteresis", BIG_SIDE, nw) == "banded", "the big layer fits a cluster")
     before = dict(kernels.LAUNCHES)
     check(torch.equal(zhang_suen_packed_cuda(b, 120, True), zhang_suen_packed_plain(b, 120, True)),
           f"K6 1x{BIG_SIDE}x{BIG_SIDE}")
+    k6_rounds, k6_iters = kernels.STATS["zhang_suen_packed_banded"]
     cand, strong = canny_candidates(x, 20, 60)
     check(torch.equal(hysteresis_cuda(cand, strong), hysteresis_plain(cand, strong)), f"K5 1x{BIG_SIDE}x{BIG_SIDE}")
-    got = launched(before, kernels.LAUNCHES)
-    check(got == set(MULTI_KERNELS), f"1x{BIG_SIDE}x{BIG_SIDE}: launched {sorted(got)}")
-    print(f"K6 and K5 at 1x{BIG_SIDE}x{BIG_SIDE} == plain, by the multi-launch route "
-          f"(K6 {kernels.STATS['zhang_suen_packed_multi']} iterations, K5 {kernels.STATS['hysteresis_multi']} sweeps "
-          f"launched; launches {({n: kernels.LAUNCHES[n] - before[n] for n in MULTI_KERNELS})})")
+    k5_rounds = kernels.STATS["hysteresis_banded"][0]
+    n = {name: kernels.LAUNCHES[name] - before[name] for name in FIXPOINT_KERNELS}
+    check(n == {**dict.fromkeys(FIXPOINT_KERNELS, 0), "zhang_suen_packed_banded": k6_rounds,
+                "hysteresis_banded": k5_rounds} and k6_rounds == 1, f"1x{BIG_SIDE}x{BIG_SIDE}: launched {n}")
+    sched6, sched5 = (kernels.band_schedule(name, BIG_SIDE, nw, 120) for name in ("zhang_suen_packed", "hysteresis"))
+    fit = {name: kernels.cluster_fit(name, max(w1 - w0 for *_, w0, w1 in sc.bands), nw)
+           for name, sc in (("zhang_suen_packed", sched6), ("hysteresis", sched5))}
+    stats["bands"] = {"K6": [list(b) for b in sched6.bands], "K6 m": sched6.m, "K5": [list(b) for b in sched5.bands],
+                      "clusters that fit": fit}
+    print(f"K6 and K5 at 1x{BIG_SIDE}x{BIG_SIDE} == plain, by the banded route: K6 {len(sched6.bands)} bands "
+          f"{sched6.bands}, m {sched6.m}, {k6_rounds} round, {k6_iters.tolist()} iterations; K5 {len(sched5.bands)} "
+          f"bands, {k5_rounds} rounds (one launch and one flag read each); clusters that fit on the card at once "
+          f"(cudaOccupancyMaxActiveClusters) {fit}; launches {({k: v for k, v in n.items() if v})}")
 
-    # a full-size long weak chain: a spiral of cand with one strong seed at its outer end
-    h, w = FRONTEND_SHAPE
-    img, rings = spiral(h, w)
-    _, labels = cv2.connectedComponents(img, connectivity=8)
-    expected = (labels == labels[0, 0]).astype(np.uint8)
-    cand = pack_bitboards(torch.from_numpy(img[None]).to(dev))
-    seed = np.zeros_like(img)
-    seed[0, 0] = 1
-    strong = pack_bitboards(torch.from_numpy(seed[None]).to(dev))
-    ref = pack_bitboards(torch.from_numpy(expected[None]).to(dev))
+    # a full-size long weak chain: a spiral of cand with one strong seed at its outer end, on the resident and
+    # banded routes (the multi-launch route's sweeps took 2 s here), and at 4400 x 4400 on the banded route
     out = {}
-    for name, route in ROUTES.items():
-        before = dict(kernels.LAUNCHES)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = hysteresis_cuda(cand, strong, route=route)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        check(torch.equal(got, ref), f"K5 {name}: spiral != OpenCV's connected component of the seed")
-        n = sum(kernels.LAUNCHES[k] - before[k] for k in ("hysteresis", "hysteresis_multi"))
-        if route == "multi":
-            out[name] = {"ms": wall * 1e3, "launches": n, "sweeps": kernels.STATS["hysteresis_multi"]}
-        else:
-            rounds, sweeps = kernels.STATS["hysteresis"][0].tolist()
-            out[name] = {"ms": cuda_ms(lambda: hysteresis_cuda(cand, strong, route=route), 3), "launches": n,
-                         "rounds": rounds, "sweeps": sweeps}
+    for (h, w), names in ((FRONTEND_SHAPE, ("resident", "banded")), ((BIG_SIDE, BIG_SIDE), ("banded",))):
+        img, rings = spiral(h, w)
+        _, labels = cv2.connectedComponents(img, connectivity=8)
+        expected = (labels == labels[0, 0]).astype(np.uint8)
+        cand = pack_bitboards(torch.from_numpy(img[None]).to(dev))
+        seed = np.zeros_like(img)
+        seed[0, 0] = 1
+        strong = pack_bitboards(torch.from_numpy(seed[None]).to(dev))
+        ref = pack_bitboards(torch.from_numpy(expected[None]).to(dev))
+        for name in names:
+            args = route_args(name, h) if h < BIG_SIDE else {}  # 4400 rows: banded by size
+            before = dict(kernels.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = hysteresis_cuda(cand, strong, **args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(torch.equal(got, ref), f"K5 {name} {h}x{w}: spiral != OpenCV's connected component of the seed")
+            n = sum(kernels.LAUNCHES[k] - before[k] for k in ("hysteresis", "hysteresis_banded"))
+            if name == "banded":
+                rounds, st = kernels.STATS["hysteresis_banded"]
+                sweeps = int(st[0, 1])
+                check(n == rounds, f"K5 banded {h}x{w}: {n} launches in {rounds} rounds")
+            else:
+                rounds, sweeps = kernels.STATS["hysteresis"][0].tolist()
+            out[f"{name} {h}x{w}"] = {"ms": cuda_ms(lambda: hysteresis_cuda(cand, strong, **args), 1) if n < 50
+                                      else wall * 1e3, "launches": n, "rounds": rounds, "sweeps": sweeps}
+        print(f"K5 spiral {h}x{w} ({rings} rings, {int(img.sum())} weak px, {int(expected.sum())} reached from the "
+              f"seed) == OpenCV's connected component on the " + " and ".join(names) + " routes: " + "; ".join(
+                  f"{key} {o['ms']:.3f} ms, {o['launches']} launches, {o['rounds']} "
+                  + ("host rounds, most sweeps of a CTA in the last" if key.startswith("banded")
+                     else "rounds, most sweeps of a CTA") + f" {o['sweeps']}"
+                  for key, o in out.items() if key.endswith(f"{h}x{w}")))
     stats["K5 spiral"] = out
-    print(f"K5 spiral {h}x{w} ({rings} rings, {int(img.sum())} weak px, {int(expected.sum())} reached from the "
-          f"seed) == OpenCV's connected component on every route: " + "; ".join(
-              f"{name} {o['ms']:.3f} ms, {o['launches']} launches, "
-              + (f"{o['sweeps']} sweeps" if name == "multi-launch" else f"{o['rounds']} rounds, most sweeps of a CTA {o['sweeps']}")
-              for name, o in out.items()))
 
 
 def phase_new_kernels_vs_plain(stats: dict) -> None:
@@ -1041,8 +1093,9 @@ def fold_cases() -> int:
     sentinels at an odd offset; K6 writing the edges and the skeletons as
     packed rows into a blob at an odd offset (max_iter 120, 1 and 0) and as
     dense bytes (aligned, and one byte off so that the byte stores run), on
-    the resident route and by the multi-launch route with K1.  Every byte
-    outside the outputs must keep its sentinel.  Returns the cases held."""
+    the resident route, the banded route (each layer in FORCED_BANDS bands,
+    each band storing its own rows) and by the multi-launch route with K1.
+    Every byte outside the outputs must keep its sentinel.  Returns the cases held."""
     import numpy as np
     import torch
 
@@ -1081,13 +1134,15 @@ def fold_cases() -> int:
             check(torch.equal(got2, ref) and torch.equal(out2, out) and untouched(buf2, 5, out2.numel()),
                   f"K2 boards in, packed rows out {shape} {len(steps)} steps")
         edges = thinning.pack_bitboards(torch.from_numpy(random_boards(rng, b * k, h, w)).to(dev))
-        for route in ("resident", "multi"):
-            for max_iter in ((120, 1, 0) if route == "resident" else (120,)):
+        for name in ROUTES:
+            route, band_rows = route_args(name, h)["route"], route_args(name, h).get("band_rows")
+            for max_iter in ((120, 1, 0) if route != "multi" else (120,)):
                 n += 1
                 skel = (kernels.zhang_suen_packed_cuda(edges, max_iter, True, route=route) if max_iter else edges)
                 buf, blob = sentinel_buf(2 * rows.numel(), 3)
                 halves = blob.view(b, 2, k, h, -1)
-                kernels.zhang_suen_into_cuda(edges, w, halves[:, 0], halves[:, 1], "rows", max_iter, True, route)
+                kernels.zhang_suen_into_cuda(edges, w, halves[:, 0], halves[:, 1], "rows", max_iter, True, route,
+                                             band_rows)
                 ref_e = kernels.boards_to_rows_cuda(edges, w).view(shape)
                 ref_s = kernels.boards_to_rows_cuda(skel, w).view(shape)
                 plain = torch.empty_like(halves)
@@ -1100,14 +1155,14 @@ def fold_cases() -> int:
                     buf_e, out_e = sentinel_buf(dense, 16 + offset)
                     buf_s, out_s = sentinel_buf(dense, 16 + offset)
                     kernels.zhang_suen_into_cuda(edges, w, out_e.view(-1, 1, h, w), out_s.view(-1, 1, h, w), "dense",
-                                                 max_iter, True, route)
+                                                 max_iter, True, route, band_rows)
                     check(torch.equal(out_e.view(-1, h, w), kernels.boards_to_dense_cuda(edges, w, 255))
                           and torch.equal(out_s.view(-1, h, w), kernels.boards_to_dense_cuda(skel, w, 1))
                           and untouched(buf_e, 16 + offset, dense) and untouched(buf_s, 16 + offset, dense),
                           f"K6 dense {shape} {route} max_iter {max_iter} offset {offset} != K6 then K1, or wrote outside")
     print(f"K1 fold == K1 plus the unfused kernels == plain: {n} cases on {len(FOLD_SHAPES)} shapes (K2 from packed "
           f"rows with 0, 4 and 8 steps and its packed-row store; K6 into a blob at an odd offset, max_iter 120, 1, 0, "
-          f"and dense, aligned and one byte off, on both routes); no byte outside the outputs written")
+          f"and dense, aligned and one byte off, on every route); no byte outside the outputs written")
     return n
 
 
@@ -1279,8 +1334,8 @@ def phase_chain(stats: dict) -> None:
           f"kernels, plain K4 (Sobel, NMS, thresholds) {st['k4_plain_ms']:.4f} ms in {st['k4_plain_device_kernels']}; "
           f"the kernel's blur-only mode on the dense mask {st['blur_only_ms']:.4f} ms a call")
 
-    # K1 where a path still launches it as the chain's store: the 4400 x 4400 layer, too large for K6's resident
-    # route, whose edges and skeletons K1 packs into the blob after K6's multi-launch route (two launches)
+    # K1's boards -> rows, the chain's store after K6's multi-launch route until the banded route stored the
+    # 4400 x 4400 blob itself: on no main path now, timed where it ran (two launches at 1 x 4400 x 4400)
     big = kernels.dense_to_boards_cuda(torch.from_numpy(random_boards(np.random.default_rng(9), 1, BIG_SIDE,
                                                                       BIG_SIDE)).to(cuda))
     big_blob = torch.empty((2, *big.shape[:-1], -(-BIG_SIDE // 8)), dtype=torch.uint8, device=cuda)
@@ -1319,22 +1374,30 @@ def phase_chain(stats: dict) -> None:
              "K6": cuda_ms(lambda: zhang_suen_packed_plain(edges_p, 120, True), 3)}
     board = edges_p.numel() * 4
     times = {}
-    for name, route in ROUTES.items():
+    for name in ROUTES:
+        args = route_args(name, h)
         before = dict(kernels.LAUNCHES)
-        edges_k = hysteresis_cuda(cand, strong, route=route)
-        skel_k = zhang_suen_packed_cuda(edges_p, 120, True, route=route)
+        edges_k = hysteresis_cuda(cand, strong, **args)
+        skel_k = zhang_suen_packed_cuda(edges_p, 120, True, **args)
         n = {key: kernels.LAUNCHES[key] - before[key] for key in kernels.LAUNCHES}
         err = {"K5": max_abs_err(edges_k, edges_p), "K6": max_abs_err(skel_k, skel_p)}
         check(err == {"K5": 0, "K6": 0}, f"{name}: kernel != plain at {k}x{h}x{w}: {err}")
-        if route == "resident":
+        if name == "resident":
             check(n["hysteresis"] == 1 and n["zhang_suen_packed"] == 1 and sum(n.values()) == 2,
                   f"{name}: the resident route made {n} launches, not one per call")
             k6_iters = kernels.STATS["zhang_suen_packed"].tolist()
             k5_stats = kernels.STATS["hysteresis"].tolist()
+        elif name == "banded":
+            rounds = kernels.STATS["hysteresis_banded"][0]
+            check(n["zhang_suen_packed_banded"] == 1 and n["hysteresis_banded"] == rounds and sum(n.values()) ==
+                  1 + rounds, f"banded, {FORCED_BANDS} bands a layer: {n} launches, not one for K6 and one a round "
+                  "for K5")
+            print(f"chain banded ({FORCED_BANDS} bands a layer): launches "
+                  f"{({key: c for key, c in n.items() if c})}, K5 in {rounds} rounds")
         else:
             print(f"chain {name}: launches {({key: c for key, c in n.items() if c})}")
-        times[name] = {"K5": cuda_ms(lambda: hysteresis_cuda(cand, strong, route=route), 20),
-                       "K6": cuda_ms(lambda: zhang_suen_packed_cuda(edges_p, 120, True, route=route), 20)}
+        times[name] = {"K5": cuda_ms(lambda: hysteresis_cuda(cand, strong, **args), 20),
+                       "K6": cuda_ms(lambda: zhang_suen_packed_cuda(edges_p, 120, True, **args), 20)}
     words = edges_p.numel()
     k6_ops = sum(k6_iters) * (words // k) * 2 * ZS_OPS_PER_WORD
 
@@ -1370,11 +1433,91 @@ def phase_chain(stats: dict) -> None:
     for key in ("K5", "K6"):
         s = stats[key]
         print(f"{key} at {k}x{h}x{w}, board out: " + ", ".join(f"{name} {times[name][key]:.4f} ms" for name in ROUTES)
-              + f"; plain PyTorch on the card {plain[key]:.4f} ms; bound {s['bound_ms']:.5f} ms by {s['bound_by']}")
+              + f" (banded: {FORCED_BANDS} bands a layer); plain PyTorch on the card {plain[key]:.4f} ms; bound "
+              f"{s['bound_ms']:.5f} ms by {s['bound_by']}")
     s = stats["K6"]
     print(f"K6 at {k}x{h}x{w} as the chain calls it (both halves of the blob out): {s['ms']:.4f} ms a call, "
           + (f"{s['alone_ms']:.4f} ms alone, " if s.get("alone_ms") else "")
           + f"plain {s['plain_ms']:.4f} ms, bound {s['bound_ms']:.5f} ms by {s['bound_by']}")
+    big_cases(stats)
+
+
+def big_inputs():
+    """The 4400 x 4400 layer of phase 16 (c) as the chain makes it on the
+    card: its packed mask, the open and close (K2), the candidates (K3+K4)
+    and the edges (K5), the same for every checkout."""
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.ops.morphology import _valid_bits
+
+    cuda = torch.device("cuda")
+    bk, lo, hi = EDGE_PARAMS[3:]
+    packed = torch.from_numpy(np.packbits((big_bins() == 0)[None], axis=-1)).to(cuda)
+    m = kernels.morph_steps_cuda(packed, _valid_bits(BIG_SIDE, cuda), MAIN_PATH_STEPS, BIG_SIDE)
+    cand, strong = kernels.edge_candidates_cuda(m, BIG_SIDE, bk, lo, hi)
+    edges = kernels.hysteresis_cuda(cand, strong)
+    return packed, cand, strong, edges
+
+
+def big_cases(stats: dict) -> None:
+    """K5 and K6 at 1 x 4400 x 4400 as the chain calls them (the banded
+    route by size: K6 storing the blob), on the chain's own inputs, against
+    their plain versions on the card and the multi-launch route named; the
+    rows of the ``kernels`` line for the banded K5 and K6 (bounds on the own
+    rows: the layer's, each input read once and each output written once)."""
+    import torch
+
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.ops.canny import hysteresis_plain
+    from plotweave_torch.ops.thinning import zhang_suen_into_plain
+    from plotweave_torch.stages.s02_color_extract import chain_from_clean
+
+    packed, cand, strong, edges = big_inputs()
+    cuda = torch.device("cuda")
+    check(torch.equal(edges, hysteresis_plain(cand, strong)), f"K5 banded != plain at 1x{BIG_SIDE}x{BIG_SIDE}")
+    blob = torch.empty((2, 1, 1, BIG_SIDE, -(-BIG_SIDE // 8)), dtype=torch.uint8, device=cuda)
+    blob_p = torch.empty_like(blob)
+    zhang_suen_into_plain(edges, BIG_SIDE, blob_p[0], blob_p[1], "rows", 120, True)
+
+    def k5(route=None):
+        return kernels.hysteresis_cuda(cand, strong, route=route)
+
+    def k6(route=None):
+        kernels.zhang_suen_into_cuda(edges, BIG_SIDE, blob[0], blob[1], "rows", 120, True, route)
+        return blob
+
+    before = dict(kernels.LAUNCHES)
+    check(torch.equal(k6(), blob_p), f"K6 banded into the blob != plain at 1x{BIG_SIDE}x{BIG_SIDE}")
+    k6_rounds, iters = kernels.STATS["zhang_suen_packed_banded"]
+    iters = iters.tolist()
+    k5()
+    k5_rounds = kernels.STATS["hysteresis_banded"][0]
+    n = {name: kernels.LAUNCHES[name] - before[name] for name in kernels.LAUNCHES if kernels.LAUNCHES[name] - before[name]}
+    check(n == {"zhang_suen_packed_banded": 1, "hysteresis_banded": k5_rounds} and k6_rounds == 1,
+          f"1x{BIG_SIDE}x{BIG_SIDE} as the chain calls K5 and K6: launches {n}")
+    words, board = edges.numel(), edges.numel() * 4
+    multi = {"K5": cuda_ms(lambda: k5("multi"), 3), "K6": cuda_ms(lambda: k6("multi"), 3)}
+    check(torch.equal(k6("multi"), blob_p) and torch.equal(k5("multi"), edges), "the multi-launch route at "
+          f"1x{BIG_SIDE}x{BIG_SIDE} != plain")
+    stats["K5 banded"] = {"max_abs_err": 0, "ms": cuda_ms(k5, 10), "alone_ms": profiled_ms(k5, "hysteresis_cluster", 5),
+                          "plain_ms": cuda_ms(lambda: hysteresis_plain(cand, strong), 2), "rounds": k5_rounds,
+                          "multi_ms": multi["K5"], **bound(3 * board, words * HYST_OPS_PER_WORD, INT32_OPS)}
+    stats["K6 banded"] = {"max_abs_err": 0, "ms": cuda_ms(k6, 10), "alone_ms": profiled_ms(k6, "zs_cluster", 5),
+                          "plain_ms": cuda_ms(lambda: zhang_suen_into_plain(edges, BIG_SIDE, blob_p[0], blob_p[1],
+                                                                             "rows", 120, True), 2),
+                          "iterations": iters, "multi_ms": multi["K6"],
+                          **bound(board + blob.numel(), sum(iters) * words * 2 * ZS_OPS_PER_WORD, INT32_OPS)}
+    stats["big chain ms"] = cuda_ms(lambda: chain_from_clean(packed, BIG_SIDE, *EDGE_PARAMS, device=cuda), 10)
+    for key, what in (("K5 banded", f"{k5_rounds} rounds"), ("K6 banded", f"one round, {iters} iterations")):
+        st = stats[key]
+        print(f"{key} at 1x{BIG_SIDE}x{BIG_SIDE} as the chain calls it ({what}): {st['ms']:.4f} ms a call, "
+              + (f"{st['alone_ms']:.4f} ms alone, " if st.get("alone_ms") else "")
+              + f"multi-launch route {st['multi_ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, bound "
+              f"{st['bound_ms']:.5f} ms by {st['bound_by']}")
+    print(f"chain 1x{BIG_SIDE}x{BIG_SIDE}: {stats['big chain ms']:.3f} ms a call (CUDA events, H2D of the mask "
+          "included)")
 
 
 def run_main(image: str, out: Path, device: str, config: Path | None = None, end_step: int = 13,
@@ -1423,7 +1566,7 @@ def phase_main_path(work: Path) -> dict:
     check(all(first[n] > 0 for n in MAIN_PATH_KERNELS), f"main path did not launch K2, K5 and K6: {first}")
     check({n: first[n] for n in CHAIN_LAUNCHES} == CHAIN_LAUNCHES and first["bitpack"] == 0,
           f"main path: the chain's launches are {first}, expected {CHAIN_LAUNCHES} and no K1")
-    check(first["hysteresis_multi"] == first["zhang_suen_packed_multi"] == 0,
+    check(all(first[n] == 0 for n in BANDED_KERNELS + MULTI_KERNELS),
           f"main path at 2000x1500 left the resident route: {first}")
     t0 = time.perf_counter()
     times_cpu = run_main(image, work / "synthetic_cpu", "cpu")
@@ -1461,7 +1604,7 @@ def phase_main_path(work: Path) -> dict:
               f"card stage seconds {sum(runs['auto'].values()):.3f}")
 
     # steps 1-4 on an image whose layers do not fit one cluster: K5 and K6
-    # take the multi-launch route
+    # take the banded route
     img, _ = synthetic_image(4, BIG_SIDE, BIG_SIDE)
     image = str(work / "big.png")
     cv2.imwrite(image, img)
@@ -1475,14 +1618,18 @@ def phase_main_path(work: Path) -> dict:
         runs[device] = run_main(image, out, device, out / "config.json", end_step=4)
         if device == "auto":
             big = dict(kernels.LAUNCHES)
-    # K2 loads the packed rows; K6's multi-launch route leaves the blob to K1, one launch for each half
-    check(all(big[n] > 0 for n in MULTI_KERNELS) and big["morph_bits"] == 1 and big["bitpack"] == 2
-          and big["edge_candidates"] == 1 and big["hysteresis"] == big["zhang_suen_packed"] == 0,
-          f"{BIG_SIDE}x{BIG_SIDE}: launches {big}")
+            k5_rounds = kernels.STATS["hysteresis_banded"][0]
+    # K2 loads the packed rows; the banded K6 stores the blob in its one launch, K5 launches once a round;
+    # no K1 and no multi-launch kernel
+    check(big["morph_bits"] == 1 and big["edge_candidates"] == 1 and big["zhang_suen_packed_banded"] == 1
+          and big["hysteresis_banded"] == k5_rounds and big["bitpack"] == 0
+          and all(big[n] == 0 for n in ("hysteresis", "zhang_suen_packed") + MULTI_KERNELS),
+          f"{BIG_SIDE}x{BIG_SIDE}: launches {big}, K5 in {k5_rounds} rounds")
     diff = same_artifacts(work / "big_auto", work / "big_cpu", names, stream=False)
     check(not diff, f"{BIG_SIDE}x{BIG_SIDE} steps 1-4: card run != CPU run: {diff}")
     print(f"main path, steps 1-4 on {BIG_SIDE}x{BIG_SIDE} (max_dimension {BIG_SIDE}): card == CPU, K5 and K6 by "
-          f"the multi-launch route; launches {big}; card stage seconds {sum(runs['auto'].values()):.3f}")
+          f"the banded route (K6 one launch, K5 {k5_rounds} rounds, no K1, no multi-launch kernel); launches "
+          f"{ {n: c for n, c in big.items() if c} }; card stage seconds {sum(runs['auto'].values()):.3f}")
     return {"main": first, "big": big}
 
 
@@ -2941,6 +3088,67 @@ def phase_k1_fold_ab(other: str) -> dict:
     return result
 
 
+def banded_times() -> dict:
+    """K5, K6 storing the blob, and the chain, each at 1 x 4400 x 4400 on
+    :func:`big_inputs` by the route the size takes, through the code of the
+    checkout that ``ROOT`` names (the banded route here, the multi-launch
+    route and K1 before it): per call a digest of its output, its launches
+    by wrapper, ms a call (CUDA events, the chain's upload included) and each
+    kernel's ms alone (``torch.profiler``).  Run after ``phase_probe``."""
+    import hashlib
+
+    import torch
+
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.stages.s02_color_extract import chain_from_clean
+
+    packed, cand, strong, edges = big_inputs()
+    cuda = torch.device("cuda")
+    blob = torch.empty((2, 1, 1, BIG_SIDE, -(-BIG_SIDE // 8)), dtype=torch.uint8, device=cuda)
+
+    def k6():
+        kernels.zhang_suen_into_cuda(edges, BIG_SIDE, blob[0], blob[1], "rows", 120, True)
+        return blob
+
+    calls = {"K5": (lambda: kernels.hysteresis_cuda(cand, strong), 10), "K6 into the blob": (k6, 10),
+             "chain": (lambda: chain_from_clean(packed, BIG_SIDE, *EDGE_PARAMS, device=cuda), 10)}
+    out = {}
+    for name, (fn, reps) in calls.items():
+        kernels.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in kernels.LAUNCHES.items() if c}
+        out[name] = {"digest": hashlib.sha256(res.cpu().numpy().tobytes()).hexdigest(), "launches": launches,
+                     "ms": cuda_ms(fn, reps), "alone_ms": kernel_ms(fn, 5)}
+    return out
+
+
+def phase_banded_ab(other: str) -> dict:
+    """K5 and K6 on the 4400 x 4400 layer, and its chain, of this checkout
+    (the banded route) against the one at ``other`` (the parent's, whose
+    size rule takes the multi-launch route: ``git archive <rev> | tar -x -C
+    .checkout/other``): :func:`banded_times` in turns other, this, this,
+    other, each in a process of its own.  Both must give the same bytes."""
+    runs = ab_turns(other, "banded_times", "banded")
+    result = {}
+    for name in ("K5", "K6 into the blob", "chain"):
+        rows = {key: [r[name] for r in v] for key, v in runs.items()}
+        seen = {r["digest"] for v in rows.values() for r in v}
+        check(len(seen) == 1, f"banded A/B {name}: the two checkouts differ: {sorted(seen)}")
+        row = {}
+        for key, v in rows.items():
+            names = sorted({n for r in v for n in r["alone_ms"]})
+            row[key] = {"launches": v[0]["launches"], "ms": [r["ms"] for r in v],
+                        "alone_ms": {n: [r["alone_ms"].get(n) for r in v] for n in names}}
+        result[name] = row
+        print(f"banded A/B {name} at 1x{BIG_SIDE}x{BIG_SIDE}: " + "; ".join(
+            f"{key} {row[key]['launches']}, " + " / ".join(f"{m:.4f}" for m in row[key]["ms"]) + " ms a call, alone "
+            + ", ".join(f"{n} " + " / ".join(f"{a:.4f}" if a else "-" for a in t) for n, t in row[key]["alone_ms"].items())
+            for key in ("other", "this")), flush=True)
+    print(json.dumps({"banded_ab": result}))
+    return result
+
+
 K8_AB_REPS = 7  # stage 02 runs a turn
 
 
@@ -4058,13 +4266,64 @@ def slab_cases(stats: dict) -> None:
           f"unsharded; the weak edge over 4 card slabs == unsharded in {rounds} hysteresis rounds")
 
 
+WIDE_SHARDS = 2  # phase 16 (c): a 4400 x 8800 layer over two slabs of 2,200 rows, too large for one cluster
+
+
+def wide_slabs(out: dict) -> None:
+    """``sharded_chain`` over ``[cuda:0] * 2`` on a 4400 x 8800 layer (the
+    4400 x 4400 poster's mask beside its mirror image): slabs of 2,200 rows
+    of 275 words, widened, hold more rows than one cluster (1,664 for K6,
+    1,632 for K5), so each slab mode runs its slab as bands (K6 in one
+    launch a shard and round, K5 by rounds inside its call); byte-equal to
+    the unsharded chain (itself banded).  Until the banded route, such a
+    slab raised."""
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.parallel import make_mesh, sharded_chain
+    from plotweave_torch.stages.s02_color_extract import chain_from_clean
+
+    card = torch.device("cuda", 0)
+    bins = big_bins() == 0
+    w = 2 * BIG_SIDE
+    wide = torch.from_numpy(np.packbits(np.concatenate([bins, bins[:, ::-1]], axis=1)[None], axis=-1)).to(card)
+    rows, nw = BIG_SIDE // WIDE_SHARDS, -(-w // 32)
+    m = kernels.thinning_round(rows, nw, 120)
+    k6 = kernels.slab_bands("zhang_suen_packed", rows + 2 * m, nw, 0, rows, m)
+    k5 = kernels.slab_bands("hysteresis", rows + 1, nw, 0, rows)
+    check(len(k6.bands) > 1 and len(k5.bands) > 1, f"the {BIG_SIDE}x{w} slabs fit one cluster: {k6}, {k5}")
+    solo = chain_from_clean(wide, w, *EDGE_PARAMS, device=card)
+    space = make_mesh((WIDE_SHARDS,), ("space",), devices=[card] * WIDE_SHARDS)
+    kernels.reset_launches()
+    blob = sharded_chain(space, wide, w, *EDGE_PARAMS)
+    torch.cuda.synchronize()
+    launches, rounds = launched_now(), space_rounds()
+    check(torch.equal(blob, solo), f"sharded_chain over [cuda:0] x {WIDE_SHARDS} != chain_from_clean at "
+          f"1x{BIG_SIDE}x{w}")
+    check(launches.get("zhang_suen_packed_slab") == WIDE_SHARDS * rounds["thinning"]
+          and launches.get("hysteresis_slab", 0) >= WIDE_SHARDS * rounds["hysteresis"]
+          and launches.get("morph_bits") == launches.get("edge_candidates_slab") == WIDE_SHARDS
+          and not any(name in launches for name in MULTI_KERNELS + BANDED_KERNELS),
+          f"sharded_chain over [cuda:0] x {WIDE_SHARDS} at 1x{BIG_SIDE}x{w}: launches {launches}, rounds {rounds}")
+    out["wide"] = {"sharded ms": cuda_ms(lambda: sharded_chain(space, wide, w, *EDGE_PARAMS), 3),
+                   "unsharded ms": cuda_ms(lambda: chain_from_clean(wide, w, *EDGE_PARAMS, device=card), 3),
+                   "launches": launches, "rounds": rounds, "m": m, "K6 bands": len(k6.bands),
+                   "K5 bands": len(k5.bands)}
+    print(f"sharded_chain over [cuda:0] x {WIDE_SHARDS} at 1x{BIG_SIDE}x{w} (slabs of {rows} rows, too large for "
+          f"one cluster: K6 {len(k6.bands)} bands a slab at m = {m}, K5 {len(k5.bands)}): == chain_from_clean; "
+          f"launches {launches}, rounds {rounds}; {out['wide']['sharded ms']:.3f} ms a call against the unsharded "
+          f"chain's {out['wide']['unsharded ms']:.3f} (CUDA events)")
+
+
 def phase_space_mesh(work: Path, stats: dict) -> dict:
     """Phase 16: the ``space`` axis on the card.  (a) each slab kernel
     against its plain slab version; (b) ``sharded_chain`` over ``[cuda:0] *
     4`` and ``* 8`` on the chain's 4 x 1500 x 2000 masks against the card's
     ``chain_from_clean``, launches per shard and round, a trace; (c) over
     ``[cuda:0] * 4`` on the 4400 x 4400 layer against the unsharded
-    chain's multi-launch route; (d) ``spatial_frontend`` and ``grid_frontend``
+    chain's banded route, and over ``[cuda:0] * 2`` on a 4400 x 8800 layer
+    whose slabs do not fit one cluster (:func:`wide_slabs`); (d) ``spatial_frontend`` and ``grid_frontend``
     against ``raster_frontend``; (e) ``dryrun_multichip(4, [cuda:0] * 4)``."""
     import numpy as np
     import torch
@@ -4203,10 +4462,9 @@ def phase_space_mesh(work: Path, stats: dict) -> dict:
     check(torch.equal(torch.cat(blurred, dim=-2), kernels.gaussian_blur_cuda(dense, bk)),
           "blur_halo over [cuda:0] x 4 != the unsharded blur")
 
-    # (c) the 4400 x 4400 layer: one cluster per slab where the whole layer takes the multi-launch route
+    # (c) the 4400 x 4400 layer: one cluster per slab where the whole layer takes the banded route
     t0 = time.perf_counter()
-    big_bins = synthetic_image(7, BIG_SIDE, BIG_SIDE)[1]
-    big = torch.from_numpy(np.packbits((big_bins == 0)[None], axis=-1)).to(card)
+    big = torch.from_numpy(np.packbits((big_bins() == 0)[None], axis=-1)).to(card)
     solo = chain_from_clean(big, BIG_SIDE, *EDGE_PARAMS, device=card)
     space = make_mesh((4,), ("space",), devices=[card] * 4)
     kernels.reset_launches()
@@ -4214,14 +4472,15 @@ def phase_space_mesh(work: Path, stats: dict) -> dict:
     torch.cuda.synchronize()
     launches = launched_now()
     check(torch.equal(blob, solo), f"sharded_chain over [cuda:0] x 4 != chain_from_clean at 1x{BIG_SIDE}x{BIG_SIDE}")
-    check(not any(name in launches for name in MULTI_KERNELS), f"the 4400 x 4400 slabs took the multi-launch "
-          f"route: {launches}")
+    check(not any(name in launches for name in MULTI_KERNELS + BANDED_KERNELS), f"the 4400 x 4400 slabs left the "
+          f"slab modes: {launches}")
     out["big"] = {"sharded ms": cuda_ms(lambda: sharded_chain(space, big, BIG_SIDE, *EDGE_PARAMS), 5),
                   "unsharded ms": cuda_ms(lambda: chain_from_clean(big, BIG_SIDE, *EDGE_PARAMS, device=card), 5),
                   "launches": launches, "rounds": space_rounds()}
     print(f"sharded_chain over [cuda:0] x 4 at 1x{BIG_SIDE}x{BIG_SIDE}: == chain_from_clean; launches {launches}, "
           f"rounds {out['big']['rounds']}; {out['big']['sharded ms']:.3f} ms a call against the unsharded chain's "
-          f"{out['big']['unsharded ms']:.3f} (multi-launch route; CUDA events)")
+          f"{out['big']['unsharded ms']:.3f} (banded route; CUDA events)")
+    wide_slabs(out)
     seconds["c"] = time.perf_counter() - t0
 
     # (d) the sharded front-ends against raster_frontend
@@ -4316,10 +4575,11 @@ def main() -> None:
     src = "plotweave_torch/csrc/bitboard_fixpoints.cu"
     k1 = "plotweave_torch/csrc/bitpack.cu"
     k8 = "plotweave_torch/csrc/kmeans.cu"
-    # K1 where a path still launches it: the 4400 x 4400 route's blob after K6's multi-launch route, and K12's
-    # route of the front-end; the chain and the front-end's K6 route fold it into K2 and K6
-    rows = [("K1 bitpack, boards -> rows (the 4400x4400 route's two launches, after K6's multi-launch route)", "big",
-             "bitpack", k1, "plotweave/ops/bitpack.py:15", "K1 rows"),
+    # K1 where a path still launches it: K12's route of the front-end; the chain (the 4400 x 4400 one too, since
+    # the banded K6 stores its blob) and the front-end's K6 route fold it into K2 and K6.  The rows of OFF_PATH
+    # are kernels that no main path launches any more: their launches in the 4400 x 4400 run must be 0
+    rows = [("K1 bitpack, boards -> rows (no main path: the 4400x4400 chain's blob after K6's multi-launch route "
+             "until the banded K6 stored it)", "big", "bitpack", k1, "plotweave/ops/bitpack.py:15", "K1 rows"),
             ("K1 bitpack, boards -> dense (two of the K12 route's three K1 launches)", "front-end dense", "bitpack", k1,
              "plotweave/ops/thinning.py:178", "K1 dense"),
             ("K1 bitpack, dense -> boards (one of the K12 route's three K1 launches)", "front-end dense",
@@ -4329,11 +4589,16 @@ def main() -> None:
             ("K3+K4 edge_candidates", "main", "edge_candidates", "plotweave_torch/csrc/edge_candidates.cu",
              "plotweave/ops/canny.py:59", "K3+K4"),
             ("K5 hysteresis, resident", "main", "hysteresis", src, "plotweave/ops/canny.py:133", "K5"),
-            ("K5 hysteresis, multi-launch", "big", "hysteresis_multi", src, "plotweave/ops/canny.py:133", "K5 multi"),
+            ("K5 hysteresis, banded (one launch a round)", "big", "hysteresis_banded", src,
+             "plotweave/ops/canny.py:133", "K5 banded"),
+            ("K5 hysteresis, multi-launch (named route only, on no main path)", "big", "hysteresis_multi", src,
+             "plotweave/ops/canny.py:133", "K5 multi"),
             ("K6 zhang_suen_packed, resident (storing the blob's two halves)", "main", "zhang_suen_packed", src,
              "plotweave/ops/pallas_kernels.py:179", "K6"),
-            ("K6 zhang_suen_packed, multi-launch", "big", "zhang_suen_packed_multi", src,
-             "plotweave/ops/pallas_kernels.py:179", "K6 multi"),
+            ("K6 zhang_suen_packed, banded (one launch storing the blob's two halves)", "big",
+             "zhang_suen_packed_banded", src, "plotweave/ops/pallas_kernels.py:179", "K6 banded"),
+            ("K6 zhang_suen_packed, multi-launch (named route only, on no main path)", "big",
+             "zhang_suen_packed_multi", src, "plotweave/ops/pallas_kernels.py:179", "K6 multi"),
             ("K3+K4 edge_candidates, slab mode", "sharded", "edge_candidates_slab",
              "plotweave_torch/csrc/edge_candidates.cu", "plotweave/parallel/spatial.py:164", "K3+K4 slab"),
             ("K3+K4 blur only, slab mode", "blur slab", "edge_candidates_slab",
@@ -4374,8 +4639,11 @@ def main() -> None:
     # the contract's keys last, so that no measurement's key can stand in for one of them
     table = [{**stats[key], "name": name, "route": "cuda", "source": source, "replaces": replaces,
               "launches": paths[path][count]} for name, path, count, source, replaces, key in rows]
-    idle = [row["name"] for row in table if row["launches"] < 1]
+    off = {name for name, *_, key in rows if key in OFF_PATH}
+    idle = [row["name"] for row in table if row["launches"] < 1 and row["name"] not in off]
     check(not idle, f"kernels that their path's run did not launch: {idle}")
+    ran = [row["name"] for row in table if row["launches"] and row["name"] in off]
+    check(not ran, f"kernels on no main path that the 4400x4400 run launched: {ran}")
     print(json.dumps({"kernels": table}))
     print(info["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -24,44 +24,73 @@
 // with a host check per chunk costs tens of microseconds per iteration: the
 // fixpoints are bound by launches and round trips, not by work.
 //
-// Design: the resident route (pw_zs_cluster_run, pw_hysteresis_cluster_run).
-// One launch per call.  Each layer belongs to one thread block cluster of
-// kCluster = 16 CTAs (16 beat 8 by 1.6x on K6 at the chain's shapes); a
-// cluster loops over layers when there are more layers than clusters fit on
-// the card.  The layer's rows are split evenly over the
-// cluster's CTAs and stay in dynamic shared memory for the whole fixpoint:
-// loaded once with cp.async, stored once at the end.  A CTA reads the
-// boundary rows of its neighbour CTAs through distributed shared memory
-// (cluster.map_shared_rank) between cluster.sync()s; rows outside the layer
-// read as a zero row.  Rows are padded with a zero word on each side, so a
-// word's left and right neighbours need no test.  A thread owns a strip of
-// rows of one word column and slides a 3 x 3 word window down it, loading
-// three words per row; its indices need no 64-bit divide.  The loop ends on
-// the device.  The wrapper reads nothing back: the iterations (K6) or the
-// rounds and sweeps (K5) each layer took go into a small device buffer.
+// Design: one kernel body a fixpoint (zs_cluster, hysteresis_cluster) over
+// a band table.  A band is a run of a layer's own rows [r0, r1), held
+// resident in one thread block cluster of kCluster = 16 CTAs (16 beat 8 by
+// 1.6x on K6 at the chain's shapes) for its whole fixpoint; the cluster
+// loads its window, the band's rows and `halo` rows a side inside the
+// layer, in place from the whole layer in device memory (no widened copy).
+// Rows outside the window read as a zero row.  One launch covers every band
+// of every layer: the clusters loop over (layer, band) items when there are
+// more items than clusters fit on the card.  The window's rows are split
+// evenly over the cluster's CTAs and stay in dynamic shared memory: loaded
+// once with cp.async, stored once at the end.  A CTA reads the boundary rows
+// of its neighbour CTAs through distributed shared memory
+// (cluster.map_shared_rank) between cluster.sync()s.  Rows are padded with a
+// zero word on each side, so a word's left and right neighbours need no
+// test.  A thread owns a strip of rows of one word column and slides a 3 x 3
+// word window down it, loading three words per row; its indices need no
+// 64-bit divide.  The loop ends on the device.  The iterations (K6) or the
+// rounds and sweeps (K5) each layer took, the most over its bands, go into a
+// small device buffer.
 //
-//   K6: two boards per layer, x and the subpass-1 result y.  Subpass 1 reads
+// Routes (ops/kernels.py::band_schedule computes the same table):
+//   resident  one band a layer, the window the whole layer: one launch.
+//   banded    a layer too large for one cluster's shared memory: the fewest
+//             bands whose windows fit, their own rows evenly split.
+//             K6 runs rounds of m iterations with halo 2 m (a subpass reads
+//             one row beyond its own, so the own rows are exact for 2 m
+//             subpasses, and a band that reaches its window's fixpoint
+//             freezes its own rows, so it stops there); at 4400 x 4400 and
+//             max_iter 120, two bands and ONE round.  K5 runs rounds with
+//             halo 1: the previous round's rows outside a band are seeds
+//             that cannot grow; the host reads one changed flag a round.
+//   slab      row sharding (parallel/spatial.py): the bands split a slab's
+//             own rows [top, top + own) of a layer of `top` + `own` +
+//             `bottom` rows, one band whose window is the slab where it
+//             fits.
+//
+//   K6: two boards per band, x and the subpass-1 result y.  Subpass 1 reads
 //   x and writes y, cluster.sync(), subpass 2 reads y and writes x, then
 //   every CTA publishes whether its rows changed and cluster.sync().  Every
 //   warp then ORs the cluster's flags through DSMEM, so all CTAs leave the
-//   loop together.  A layer stops at its own fixpoint or at max_iter.  The
-//   JAX loop stops on one flag joint over all layers, and this gives the
-//   same board: an iteration past a layer's fixpoint changes nothing
-//   (plotweave/ops/thinning.py:11-14).
+//   loop together.  A band stops at max_iter or once its own rows are final:
+//   an iteration t of n that changes no row within 2 (n - t) rows of them
+//   (a row's next iteration reads 2 rows a side, so the quiet zone narrows
+//   by 2 a side an iteration and still holds the own rows at n).  A whole
+//   layer's band stops so at its fixpoint; a band of a larger window stops
+//   there too, though the rows near its window's edges, cut off from their
+//   neighbours, may change for as long as the halo lasts.  The JAX loop
+//   stops on one flag joint over all layers, and this gives the same board:
+//   an iteration past a fixpoint changes nothing
+//   (plotweave/ops/thinning.py:11-14).  `changed`, where given, is set where
+//   the last iteration of a band changed one of its own rows: the rounds end
+//   when no band's did (the JAX loop's global flag).
 //
 //   K6's stores (the chain's K1 fold): given a layout, each CTA writes its
-//   rows of the input, the edges, right after the load, and its rows of the
-//   result, the skeletons, at its store, as packed rows (each word's 1-4
-//   bytes inside the row, the bits at and beyond W zero; stage 02's blob) or
-//   as dense bytes (the edges 255, the skeletons 1, 16-byte stores where a
-//   row is a multiple of 16 px; the front-end's outputs), so no conversion
-//   launch follows K6.  The board output is then optional.  At 4 x 1500 x
-//   2000 px that adds 3 MB of packed stores (24 MB dense) to a kernel bound
-//   by operations.
+//   own rows of the input, the edges, right after the load, and its own
+//   rows of the result, the skeletons, at its store, as packed rows (each
+//   word's 1-4 bytes inside the row, the bits at and beyond W zero; stage
+//   02's blob) or as dense bytes (the edges 255, the skeletons 1, 16-byte
+//   stores where a row is a multiple of 16 px; the front-end's outputs), at
+//   row out_row0 + r - top of layers of out_h rows, so no conversion launch
+//   follows K6.  The board output is then optional.  At 4 x 1500 x 2000 px
+//   that adds 3 MB of packed stores (24 MB dense) to a kernel bound by
+//   operations.
 //
 //   K5: the result is the set of cand pixels 8-connected through cand to a
 //   pixel of cand & dilate8(strong) (the plain version's first sweep, taken
-//   here while the layer loads, so that any strong works): the least
+//   here while the band loads, so that any strong works): the least
 //   fixpoint of a monotone growth, which no order of updates changes, since
 //   every update adds only pixels of that set and a state where no update
 //   adds anything is that set.  So each CTA updates its own rows in place,
@@ -73,46 +102,27 @@
 //   in the cluster: every CTA then sat at a fixpoint of halos that no longer
 //   move.  A long weak chain therefore costs sweeps and rounds inside one
 //   launch, not launches: a sweep carries growth down (or up) a whole strip
-//   and 32 pixels along a row, a round carries it across a CTA boundary.
+//   and 32 pixels along a row, a round carries it across a CTA boundary; a
+//   host round (banded) carries it across a band boundary.  A window row
+//   outside the band's own rows takes its edges as its cand: a seed that
+//   cannot grow.  The edges are `strong`, or, from `prev` where given, the
+//   previous host round's result for the own rows [top, top + own).
+//   `changed`, where given, is set where a band's own rows differ from
+//   their edges.
 //
-// Slab mode (row sharding, parallel/spatial.py): a layer is a slab of
-// `top` + `own` + `bottom` rows, the shard's own rows widened by rows copied
-// from its neighbours (a side with 0 halo rows is the image's border, where
-// rows outside read as zero, as today), and the kernels write only the own
-// rows, plus a changed flag in device memory that the host reads once a
-// round for all shards (zeroed here before the launch).
+// Shared memory per CTA (words, stride NW + 2, rpc = ceil(widest window /
+// 16) rows): K6 (2 rpc + 1) stride, K5 (2 rpc + 5) stride, plus two flags.
+// At 1500 x 63 words that is 49 KB; the default max_dimension of 2000 rows
+// takes 64 KB; 227 KB holds a window of 3,312 rows of 138 words (K6) or
+// 3,280 (K5).  The wrapper chooses the route and bands by size before any
+// launch (ops/kernels.py::resident_smem_bytes repeats these formulas).
 //
-//   K5 takes cand for the own rows only and the edges for the whole slab:
-//   a halo row's cand is its edges, so the halo rows are seeds that cannot
-//   grow.  Its result is the fixpoint of the own rows under those seeds; the
-//   flag says whether an own row gained a bit over its edges.
-//
-//   K6 runs at most max_iter iterations (one round) on the slab, with 2 m
-//   halo rows a side for a round of m: a subpass reads one row beyond its
-//   own, so the own rows are exact for 2 m subpasses.  A layer still stops
-//   at the slab's own fixpoint (past it nothing changes).  The flag says
-//   whether the round's last iteration changed an own row: the rounds of all
-//   shards end when no shard's did, which is the JAX loop's global flag.
-//   Its stores put the own rows at row out_row0 of layers of out_h rows (the
-//   unsharded image's blob or dense outputs), the board output holds only
-//   the own rows, and the edges are stored only where given (the first
-//   round's input).
-//
-// Unsharded calls are top 0, own = h, out_row0 0, out_h = h, no flag.
-//
-// Shared memory per CTA (words, stride NW + 2, rpc = ceil(H / 16) rows):
-// K6 (2 rpc + 1) stride, K5 (2 rpc + 5) stride, plus two flags.  At 1500 x
-// 63 words that is 49 KB; the default max_dimension of 2000 rows takes
-// 64 KB.  A layer that does not fit
-// in 227 KB takes the multi-launch route; the wrapper chooses the route by
-// size before any launch (ops/kernels.py::resident_smem_bytes repeats these
-// formulas).
-//
-// The multi-launch route (pw_zs_packed_run, pw_hysteresis_run): one thread
-// per word, one launch per subpass or sweep over every layer, chunks of
-// iterations with one joint device flag per iteration that the host reads
-// once per chunk.  Iterations past a fixpoint are no-ops, so a chunk that
-// runs past convergence changes nothing.
+// The multi-launch route (pw_zs_packed_run, pw_hysteresis_run), taken only
+// where a caller names it: one thread per word, one launch per subpass or
+// sweep over every layer, chunks of iterations with one joint device flag
+// per iteration that the host reads once per chunk.  Iterations past a
+// fixpoint are no-ops, so a chunk that runs past convergence changes
+// nothing.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -213,7 +223,7 @@ cudaError_t zs_iterations(const uint32_t* src, uint32_t* a, uint32_t* b, int* fl
 }
 
 // ---------------------------------------------------------------------------
-// Resident route
+// Resident, banded and slab routes: one cluster a band
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
@@ -225,12 +235,26 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Band j of `nbands` over the own rows [top, top + own) of a layer of h
+// rows: its own rows [r0, r1), evenly split, and its window [w0, w1), the
+// own rows and `halo` rows a side inside the layer
+// (ops/kernels.py::band_table).
+struct Band {
+  int r0, r1, w0, w1;
+  __host__ __device__ Band(int j, int nbands, int top, int own, int h, int halo) {
+    r0 = top + (int)((long)j * own / nbands);
+    r1 = top + (int)((long)(j + 1) * own / nbands);
+    w0 = r0 - halo > 0 ? r0 - halo : 0;
+    w1 = r1 + halo < h ? r1 + halo : h;
+  }
+};
+
 // The three words around word w of a padded row (index 0 and nw + 1 are 0).
 __device__ __forceinline__ Row3 row3(const uint32_t* row, int w) {
   return Row3{row[w], row[w + 1], row[w + 2]};
 }
 
-// One CTA's rows of one layer: `own` holds rows [0, nrows) at `stride`
+// One CTA's rows of one band: `own` holds rows [0, nrows) at `stride`
 // words each; row -1 is `above` and row nrows is `below` (a neighbour's
 // row through DSMEM, or the zero row).
 struct Rows {
@@ -241,6 +265,25 @@ struct Rows {
   int stride;
   __device__ __forceinline__ const uint32_t* at(int i) const {
     return i < 0 ? above : (i >= nrows ? below : own + i * stride);
+  }
+};
+
+// A CTA's share of its cluster's band window [w0, w1): rows [row0, row0 +
+// nrows) of the window, rpb = ceil(window / 16) a CTA (at most the rpc that
+// shared memory is laid out for), and the own rows [s0, s1) of the layer
+// among them.
+struct Share {
+  int rpb, row0, nrows, s0, s1;
+  bool has_above, has_below;
+  __device__ Share(const Band& b, int rank) {
+    const int wr = b.w1 - b.w0;
+    rpb = (wr + kCluster - 1) / kCluster;
+    row0 = rank * rpb;
+    nrows = max(0, min(wr - row0, rpb));
+    s0 = max(b.w0 + row0, b.r0);
+    s1 = min(b.w0 + row0 + nrows, b.r1);
+    has_above = rank > 0 && nrows > 0;
+    has_below = row0 + nrows < wr;
   }
 };
 
@@ -258,10 +301,12 @@ struct Strips {
 
 // One Zhang-Suen subpass down one strip of word column w: reads `src`,
 // writes dst (padded, same stride).  The second subpass overwrites x in
-// place, so `dst` is then the iteration's input as well; returns bit 0 where
-// any word changed and bit 1 where a word of an own row [own0, own1) did.
+// place, so `dst` is then the iteration's input as well; returns bit 1
+// where a word of an own row [own0, own1) changed and bit 2 where a word of
+// a row of the zone [zone0, zone1) did.
 template <bool FIRST, bool ROTATED>
-__device__ __forceinline__ int zs_strip(const Rows& src, uint32_t* dst, int w, int r0, int r1, int own0, int own1) {
+__device__ __forceinline__ int zs_strip(const Rows& src, uint32_t* dst, int w, int r0, int r1, int own0, int own1,
+                                        int zone0, int zone1) {
   int changed = 0;
   Row3 rows[3];
   rows[0] = row3(src.at(r0 - 1), w);
@@ -270,7 +315,7 @@ __device__ __forceinline__ int zs_strip(const Rows& src, uint32_t* dst, int w, i
     rows[2] = row3(src.at(r + 1), w);
     uint32_t res = zs_word<FIRST, ROTATED>(rows);
     uint32_t* out = dst + r * src.stride + w + 1;
-    if (!FIRST && *out != res) changed |= (r >= own0 && r < own1) ? 3 : 1;
+    if (!FIRST && *out != res) changed |= (r >= own0 && r < own1 ? 2 : 0) | (r >= zone0 && r < zone1 ? 4 : 0);
     *out = res;
     rows[0] = rows[1];
     rows[1] = rows[2];
@@ -322,59 +367,62 @@ __global__ void __launch_bounds__(kClusterThreads)
     zs_cluster(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int* __restrict__ iters,
                uint8_t* __restrict__ edges, uint8_t* __restrict__ skels, int* __restrict__ changed_g, long img_stride,
                int group, int layout, int k, int h, int nw, int width, int vec, int max_iter, int top, int own,
-               int out_row0, int out_h) {
+               int out_row0, int out_h, int nbands, int halo, int rpc) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ uint32_t smem[];
   const int rank = (int)cluster.block_rank();
   const int stride = nw + 2;
-  const int rpc = (h + kCluster - 1) / kCluster;
   uint32_t* x = smem;
   uint32_t* y = x + rpc * stride;
   uint32_t* zero = y + rpc * stride;
   int* flag = reinterpret_cast<int*>(zero + stride);  // flag[2]
-  const int row0 = rank * rpc;
-  const int nrows = max(0, min(h - row0, rpc));
   for (int i = threadIdx.x; i < (2 * rpc + 1) * stride; i += kClusterThreads) smem[i] = 0u;
 
-  const bool has_above = rank > 0 && nrows > 0;
-  const bool has_below = row0 + nrows < h;
-  Rows xs{x, has_above ? cluster.map_shared_rank(x, rank - 1) + (rpc - 1) * stride : zero,
-          has_below ? cluster.map_shared_rank(x, rank + 1) : zero, nrows, stride};
-  Rows ys{y, has_above ? cluster.map_shared_rank(y, rank - 1) + (rpc - 1) * stride : zero,
-          has_below ? cluster.map_shared_rank(y, rank + 1) : zero, nrows, stride};
-  const Strips st(nrows, nw);
-  const int items = st.strips * nw;
-  // this CTA's own rows, [s0, s1) of the layer, and the same in its own row numbers
-  const int s0 = max(row0, top), s1 = min(row0 + nrows, top + own), ns = s1 - s0;
-  const int own0 = top - row0, own1 = top + own - row0;
-  const uint32_t* xs0 = x + (s0 - row0) * stride;
-
   const int rb = layout == kRows ? (width + 7) / 8 : width;  // bytes of an output row
-  for (int layer = blockIdx.x / kCluster; layer < k; layer += gridDim.x / kCluster) {
-    const long base = ((long)layer * h + row0) * nw;
+  for (int item = blockIdx.x / kCluster; item < k * nbands; item += gridDim.x / kCluster) {
+    const int layer = item / nbands;
+    const Band b(item % nbands, nbands, top, own, h, halo);
+    const Share sh(b, rank);
+    const int nrows = sh.nrows, ns = sh.s1 - sh.s0;
+    Rows xs{x, sh.has_above ? cluster.map_shared_rank(x, rank - 1) + (sh.rpb - 1) * stride : zero,
+            sh.has_below ? cluster.map_shared_rank(x, rank + 1) : zero, nrows, stride};
+    Rows ys{y, sh.has_above ? cluster.map_shared_rank(y, rank - 1) + (sh.rpb - 1) * stride : zero,
+            sh.has_below ? cluster.map_shared_rank(y, rank + 1) : zero, nrows, stride};
+    const Strips st(nrows, nw);
+    const int items = st.strips * nw;
+    // this CTA's own rows in its own row numbers
+    const int first = b.w0 + sh.row0, own0 = b.r0 - first, own1 = b.r1 - first;
+    const uint32_t* xs0 = x + (sh.s0 - first) * stride;
     // this CTA's first own row in each output: layer = b group + l at b img_stride + (l out_h + out_row0) rb
-    const long half =
-        layout && ns > 0 ? (long)(layer / group) * img_stride + ((long)(layer % group) * out_h + out_row0 + s0 - top) * rb
-                         : 0;
-    __syncthreads();  // the zero fill, or the previous layer's store, is done
-    load_rows(x, in + base, nrows, nw, stride);
+    const long half = layout && ns > 0 ? (long)(layer / group) * img_stride +
+                                             ((long)(layer % group) * out_h + out_row0 + sh.s0 - top) * rb
+                                       : 0;
+    __syncthreads();  // the zero fill, or the previous item's store, is done
+    load_rows(x, in + ((long)layer * h + first) * nw, nrows, nw, stride);
     cluster.sync();  // every CTA's rows are in place before a halo is read
     // the input is the edges: written from x before subpass 2 first changes it, past a cluster barrier
     if (layout && edges && ns > 0) store_layout(edges + half, xs0, ns, nw, stride, width, layout, 255u, vec);
     int it = 0, own_changed = 0;
     while (it < max_iter) {
-      for (int item = threadIdx.x; item < items; item += kClusterThreads) {
-        int s = item / nw, w = item - s * nw;
-        zs_strip<true, ROTATED>(xs, y, w, s * st.len, min(nrows, (s + 1) * st.len), own0, own1);
+      // the zone: the rows within 2 (max_iter - it - 1) of the band's own rows.  A row's next iteration reads
+      // the rows within 2 of it, so an iteration that changes nothing in the zone changes nothing in the zone
+      // narrowed by 2 rows a side in each later one: the own rows are then final for this launch, and the band
+      // stops.  (Its window's fixpoint implies it; the rows near the window's edges, cut off from their
+      // neighbours, may go on changing long after the own rows settle.)
+      const int zone = 2 * (max_iter - it - 1), zone0 = own0 - zone, zone1 = own1 + zone;
+      for (int item2 = threadIdx.x; item2 < items; item2 += kClusterThreads) {
+        int s = item2 / nw, w = item2 - s * nw;
+        zs_strip<true, ROTATED>(xs, y, w, s * st.len, min(nrows, (s + 1) * st.len), own0, own1, zone0, zone1);
       }
       cluster.sync();
       int changed = 0;
-      for (int item = threadIdx.x; item < items; item += kClusterThreads) {
-        int s = item / nw, w = item - s * nw;
-        changed |= zs_strip<false, ROTATED>(ys, x, w, s * st.len, min(nrows, (s + 1) * st.len), own0, own1);
+      for (int item2 = threadIdx.x; item2 < items; item2 += kClusterThreads) {
+        int s = item2 / nw, w = item2 - s * nw;
+        changed |= zs_strip<false, ROTATED>(ys, x, w, s * st.len, min(nrows, (s + 1) * st.len), own0, own1, zone0,
+                                            zone1);
       }
       // flag[it & 1] was last read before the barrier that ended iteration it - 1
-      int local = __syncthreads_or(changed & 1);
+      int local = __syncthreads_or(changed & 4);
       own_changed = __syncthreads_or(changed & 2);  // this iteration's, so the last one's after the loop
       if (threadIdx.x == 0) flag[it & 1] = local;
       cluster.sync();
@@ -382,9 +430,9 @@ __global__ void __launch_bounds__(kClusterThreads)
       ++it;
       if (!any) break;
     }
-    if (rank == 0 && threadIdx.x == 0) iters[layer] = it;
+    if (rank == 0 && threadIdx.x == 0) atomicMax(iters + layer, it);
     if (changed_g && own_changed && threadIdx.x == 0) *changed_g = 1;
-    if (out && ns > 0) store_rows(out + ((long)layer * own + s0 - top) * nw, xs0, ns, nw, stride);
+    if (out && ns > 0) store_rows(out + ((long)layer * own + sh.s0 - top) * nw, xs0, ns, nw, stride);
     if (layout && ns > 0) store_layout(skels + half, xs0, ns, nw, stride, width, layout, 1u, vec);
   }
   cluster.sync();  // no CTA leaves while a neighbour may still read its flags
@@ -421,51 +469,59 @@ __device__ __forceinline__ bool grow_strip(const Rows& e, uint32_t* own, const u
 
 __global__ void __launch_bounds__(kClusterThreads)
     hysteresis_cluster(const uint32_t* __restrict__ cand_g, const uint32_t* __restrict__ strong_g,
-                       uint32_t* __restrict__ out, int* __restrict__ stats, int* __restrict__ changed_g, int k, int h,
-                       int nw, int top, int own) {
+                       const uint32_t* __restrict__ prev_g, uint32_t* __restrict__ out, int* __restrict__ stats,
+                       int* __restrict__ changed_g, int k, int h, int nw, int top, int own, int nbands, int halo,
+                       int rpc) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ uint32_t smem[];
   const int rank = (int)cluster.block_rank();
   const int stride = nw + 2;
-  const int rpc = (h + kCluster - 1) / kCluster;
   uint32_t* cand = smem;
   uint32_t* e = cand + rpc * stride;
   uint32_t* pub = e + rpc * stride;  // pub[parity][first row, last row]
   uint32_t* zero = pub + 4 * stride;
   int* flag = reinterpret_cast<int*>(zero + stride);  // flag[2]
-  const int row0 = rank * rpc;
-  const int nrows = max(0, min(h - row0, rpc));
   for (int i = threadIdx.x; i < (2 * rpc + 5) * stride; i += kClusterThreads) smem[i] = 0u;
 
-  const bool has_above = rank > 0 && nrows > 0;
-  const bool has_below = row0 + nrows < h;
-  // the neighbours' published rows: the last row of rank - 1, the first of rank + 1
-  const uint32_t* pub_above[2] = {zero, zero};
-  const uint32_t* pub_below[2] = {zero, zero};
-  for (int p = 0; p < 2; ++p) {
-    if (has_above) pub_above[p] = cluster.map_shared_rank(pub, rank - 1) + (2 * p + 1) * stride;
-    if (has_below) pub_below[p] = cluster.map_shared_rank(pub, rank + 1) + (2 * p) * stride;
-  }
-  const Strips st(nrows, nw);
-  const int items = st.strips * nw;
-  const int s0 = max(row0, top), s1 = min(row0 + nrows, top + own), ns = s1 - s0;  // this CTA's own rows
-
-  for (int layer = blockIdx.x / kCluster; layer < k; layer += gridDim.x / kCluster) {
-    const uint32_t* strong = strong_g + (long)layer * h * nw;
-    __syncthreads();  // the zero fill, or the previous layer's store, is done
-    // cand of an own row from cand_g (own rows a layer); of a halo row, its edges: a seed that cannot grow
+  for (int item = blockIdx.x / kCluster; item < k * nbands; item += gridDim.x / kCluster) {
+    const int layer = item / nbands;
+    const Band b(item % nbands, nbands, top, own, h, halo);
+    const Share sh(b, rank);
+    const int nrows = sh.nrows, ns = sh.s1 - sh.s0, first = b.w0 + sh.row0;
+    // the neighbours' published rows: the last row of rank - 1, the first of rank + 1
+    const uint32_t* pub_above[2] = {zero, zero};
+    const uint32_t* pub_below[2] = {zero, zero};
+    for (int p = 0; p < 2; ++p) {
+      if (sh.has_above) pub_above[p] = cluster.map_shared_rank(pub, rank - 1) + (2 * p + 1) * stride;
+      if (sh.has_below) pub_below[p] = cluster.map_shared_rank(pub, rank + 1) + (2 * p) * stride;
+    }
+    const Strips st(nrows, nw);
+    const int items = st.strips * nw;
+    // the edges of layer row yy: the previous host round's own rows where given, else strong
+    auto edge_row = [&](int yy) -> const uint32_t* {
+      return prev_g && yy >= top && yy < top + own ? prev_g + ((long)layer * own + yy - top) * nw
+                                                    : strong_g + ((long)layer * h + yy) * nw;
+    };
+    __syncthreads();  // the zero fill, or the previous item's store, is done
+    // cand of a band's own row from cand_g (own rows a layer); of another window row, its edges: a seed that
+    // cannot grow
     for (int r = threadIdx.x / 32; r < nrows; r += kClusterThreads / 32) {
-      const int y = row0 + r;
-      const uint32_t* src = y >= top && y < top + own ? cand_g + ((long)layer * own + y - top) * nw : strong + (long)y * nw;
+      const int yy = first + r;
+      const uint32_t* src = yy >= b.r0 && yy < b.r1 ? cand_g + ((long)layer * own + yy - top) * nw : edge_row(yy);
       for (int w = threadIdx.x % 32; w < nw; w += 32) cp_async4(cand + r * stride + w + 1, src + w);
     }
     cp_async_wait_all();
     __syncthreads();
-    // the first sweep, cand & dilate8(strong), from strong in device memory
+    // the first sweep, cand & dilate8(edges), from the edges in device memory; rows outside the window read 0
     for (int r = threadIdx.x / 32; r < nrows; r += kClusterThreads / 32)
       for (int w = threadIdx.x % 32; w < nw; w += 32) {
         uint32_t d = 0u;
-        for (int dy = -1; dy <= 1; ++dy) d |= dilate_row(load_row(strong, row0 + r + dy, w, h, nw));
+        for (int dy = -1; dy <= 1; ++dy) {
+          const int yy = first + r + dy;
+          if (yy < b.w0 || yy >= b.w1) continue;
+          const uint32_t* row = edge_row(yy);
+          d |= dilate_row(Row3{w > 0 ? row[w - 1] : 0u, row[w], w + 1 < nw ? row[w + 1] : 0u});
+        }
         e[r * stride + w + 1] = cand[r * stride + w + 1] & d;
       }
     int sweeps = 0, round = 0;
@@ -489,8 +545,8 @@ __global__ void __launch_bounds__(kClusterThreads)
       for (int local = 1; local;) {
         bool changed = false;
         const bool down = (sweeps & 1) == 0;
-        for (int item = threadIdx.x; item < items; item += kClusterThreads) {
-          int s = item / nw, w = item - s * nw;
+        for (int item2 = threadIdx.x; item2 < items; item2 += kClusterThreads) {
+          int s = item2 / nw, w = item2 - s * nw;
           changed |= grow_strip(es, e, cand, w, s * st.len, min(nrows, (s + 1) * st.len), down);
         }
         local = __syncthreads_or(changed);
@@ -501,17 +557,18 @@ __global__ void __launch_bounds__(kClusterThreads)
       if (threadIdx.x == 0) flag[p] = changed_round;
     }
     if (threadIdx.x == 0) {
-      if (rank == 0) stats[2 * layer] = round;
+      if (rank == 0) atomicMax(stats + 2 * layer, round);
       atomicMax(stats + 2 * layer + 1, sweeps);
     }
     if (ns > 0) {
-      uint32_t* dst = out + ((long)layer * own + s0 - top) * nw;
-      const uint32_t* src = e + (s0 - row0) * stride;
-      store_rows(dst, src, ns, nw, stride);
-      if (changed_g) {  // did an own row gain a bit over its edges (the input)?
+      const uint32_t* src = e + (sh.s0 - first) * stride;
+      store_rows(out + ((long)layer * own + sh.s0 - top) * nw, src, ns, nw, stride);
+      if (changed_g) {  // did a band's own row change from its edges (this round's input)?
         bool grew = false;
-        for (int r = threadIdx.x / 32; r < ns; r += kClusterThreads / 32)
-          for (int w = threadIdx.x % 32; w < nw; w += 32) grew |= src[r * stride + w + 1] != strong[(long)(s0 + r) * nw + w];
+        for (int r = threadIdx.x / 32; r < ns; r += kClusterThreads / 32) {
+          const uint32_t* row = edge_row(sh.s0 + r);
+          for (int w = threadIdx.x % 32; w < nw; w += 32) grew |= src[r * stride + w + 1] != row[w];
+        }
         if (grew) *changed_g = 1;
       }
     }
@@ -519,40 +576,61 @@ __global__ void __launch_bounds__(kClusterThreads)
   cluster.sync();  // no CTA leaves while a neighbour may still read its rows or flags
 }
 
+// The clusters of `kernel` with `smem` bytes a CTA that fit on the card at
+// once (cudaOccupancyMaxActiveClusters), and its launch configuration.
 template <typename Kernel>
-cudaError_t launch_cluster(Kernel kernel, int k, size_t smem, cudaStream_t stream, void** args) {
+cudaError_t cluster_config(Kernel kernel, size_t smem, cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr, int* fit) {
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3((unsigned)kCluster);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int fit = 0;
-  err = cudaOccupancyMaxActiveClusters(&fit, (const void*)kernel, &cfg);
+  *cfg = {};
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->gridDim = dim3((unsigned)kCluster);
+  cfg->blockDim = dim3(kClusterThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  *fit = 0;
+  err = cudaOccupancyMaxActiveClusters(fit, (const void*)kernel, cfg);
   if (err != cudaSuccess) return err;
-  if (fit < 1) return cudaErrorInvalidConfiguration;
-  // one cluster per layer, as many as fit at once; each loops over layers
-  cfg.gridDim = dim3((unsigned)((k < fit ? k : fit) * kCluster));
+  return *fit < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+template <typename Kernel>
+cudaError_t launch_cluster(Kernel kernel, int items, size_t smem, cudaStream_t stream, void** args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int fit = 0;
+  cudaError_t err = cluster_config(kernel, smem, stream, &cfg, attr, &fit);
+  if (err != cudaSuccess) return err;
+  // one cluster per (layer, band) item, as many as fit at once; each loops over items
+  cfg.gridDim = dim3((unsigned)((items < fit ? items : fit) * kCluster));
   err = cudaLaunchKernelExC(&cfg, (const void*)kernel, args);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// Dynamic shared memory of one CTA of the resident route (kind 0: K6, 1: K5).
-size_t cluster_smem_bytes(int kind, int h, int nw) {
-  size_t rpc = (size_t)((h + kCluster - 1) / kCluster);
-  size_t rows = kind == 0 ? 2 * rpc + 1 : 2 * rpc + 5;
+// Rows a CTA holds for the widest window of a band table (0 for a bad table).
+int band_rpc(int nbands, int top, int own, int h, int halo) {
+  if (nbands < 1 || nbands > own || halo < 0) return 0;
+  int most = 0;
+  for (int j = 0; j < nbands; ++j) {
+    Band b(j, nbands, top, own, h, halo);
+    if (b.w1 - b.w0 > most) most = b.w1 - b.w0;
+  }
+  return (most + kCluster - 1) / kCluster;
+}
+
+// Dynamic shared memory of one CTA (kind 0: K6, 1: K5) holding rpc rows a board.
+size_t cluster_smem_bytes(int kind, int rpc, int nw) {
+  size_t rows = kind == 0 ? 2 * (size_t)rpc + 1 : 2 * (size_t)rpc + 5;
   return rows * (size_t)(nw + 2) * 4 + 2 * sizeof(int);
 }
 
@@ -560,49 +638,63 @@ size_t cluster_smem_bytes(int kind, int h, int nw) {
 
 extern "C" {
 
-// K6, resident: the Zhang-Suen fixpoint of `in` ((k, h, nw) boards), one
-// cluster of 16 CTAs per layer; iters[layer] gets the iterations it ran.
-// The result's own rows [top, top + own) go to `out` ((k, own, nw)) where it
-// is not null.  With `layout` 1 (packed rows, ceil(width/8) bytes a row) or
-// 2 (dense bytes, width a row; the edges 255, the skeletons 1), the input's
-// own rows (the edges, where `edges` is not null) go to `edges` and the
-// result's (the skeletons) to `skels`, layer L = b group + l at byte
-// b img_stride + (l out_h + out_row0) row_bytes of each (the chain's blob:
+// K6 over a band table: the Zhang-Suen fixpoint of `in` ((k, h, nw) boards)
+// for at most max_iter iterations, one cluster of 16 CTAs per band, bands
+// `nbands` over the own rows [top, top + own) with `halo` rows a side
+// (resident: one band, top 0, own h; banded: a round of m iterations, halo
+// 2 m; slab: the own rows of a widened slab).  iters[layer] (zeroed here)
+// gets the most iterations a band of it ran.  The result's own rows go to
+// `out` ((k, own, nw)) where it is not null.  With `layout` 1 (packed rows,
+// ceil(width/8) bytes a row) or 2 (dense bytes, width a row; the edges 255,
+// the skeletons 1), the input's own rows (the edges, where `edges` is not
+// null) go to `edges` and the result's (the skeletons) to `skels`, layer L
+// = b group + l at byte b img_stride + (l out_h + out_row0) row_bytes of
+// each, row r of the layer at row out_row0 + r - top (the chain's blob:
 // skels = edges + group out_h row_bytes, img_stride = 2 group out_h
-// row_bytes).  `changed`, where not null, is set where the last iteration
-// changed an own row (slab mode).  Returns a CUDA error code (0 on
-// success).
+// row_bytes).  `changed`, where not null, is zeroed here and set where the
+// last iteration of a band changed one of its own rows.  Returns a CUDA
+// error code (0 on success).
 int pw_zs_cluster_run(const uint32_t* in, uint32_t* out, int* iters, uint8_t* edges, uint8_t* skels, int* changed,
                       long img_stride, int group, int layout, int k, int h, int nw, int width, int max_iter,
-                      int rotated, int top, int own, int out_row0, int out_h, void* stream) {
+                      int rotated, int top, int own, int out_row0, int out_h, int nbands, int halo, void* stream) {
   if (k <= 0 || h <= 0 || nw <= 0 || layout < 0 || layout > kDense) return (int)cudaErrorInvalidValue;
   if (top < 0 || own <= 0 || top + own > h || out_row0 < 0 || out_row0 + own > out_h) return (int)cudaErrorInvalidValue;
   if (layout ? (!skels || group <= 0 || k % group || width <= 0 || (width + 31) / 32 != nw) : !out)
     return (int)cudaErrorInvalidValue;
+  const int rpc = band_rpc(nbands, top, own, h, halo);
+  if (rpc == 0 || (long)k * nbands >= (1L << 31)) return (int)cudaErrorInvalidValue;
   int vec = layout == kDense && width % 16 == 0 && img_stride % 16 == 0 && (!edges || (uintptr_t)edges % 16 == 0) &&
             (uintptr_t)skels % 16 == 0;
-  size_t smem = cluster_smem_bytes(0, h, nw);
+  size_t smem = cluster_smem_bytes(0, rpc, nw);
   void* args[] = {&in, &out, &iters, &edges, &skels, &changed, &img_stride, &group, &layout, &k, &h, &nw, &width,
-                  &vec, &max_iter, &top, &own, &out_row0, &out_h};
+                  &vec, &max_iter, &top, &own, &out_row0, &out_h, &nbands, &halo, (void*)&rpc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(iters, 0, sizeof(int) * k, s);
+  if (err != cudaSuccess) return (int)err;
   if (changed) {
-    cudaError_t err = cudaMemsetAsync(changed, 0, sizeof(int), s);
+    err = cudaMemsetAsync(changed, 0, sizeof(int), s);
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)(rotated ? launch_cluster(zs_cluster<true>, k, smem, s, args)
-                       : launch_cluster(zs_cluster<false>, k, smem, s, args));
+  return (int)(rotated ? launch_cluster(zs_cluster<true>, k * nbands, smem, s, args)
+                       : launch_cluster(zs_cluster<false>, k * nbands, smem, s, args));
 }
 
-// K5, resident: the hysteresis fixpoint of (cand, strong) into `out`;
-// stats[2 layer] gets the rounds and stats[2 layer + 1] (zeroed here) the
-// most sweeps one CTA ran.  `strong` has h rows a layer; cand and `out` the
-// own rows [top, top + own) of them, whose cand the halo rows' strong
-// replaces (slab mode; top 0 and own h unsharded).  `changed`, where not
-// null, is set where an own row of the result differs from its strong.
-// Returns a CUDA error code.
-int pw_hysteresis_cluster_run(const uint32_t* cand, const uint32_t* strong, uint32_t* out,
-                              int* stats, int* changed, int k, int h, int nw, int top, int own, void* stream) {
+// K5 over a band table: the hysteresis fixpoint of (cand, strong) into
+// `out`; stats[2 layer] gets the most rounds and stats[2 layer + 1] (both
+// zeroed here) the most sweeps one CTA of a band of it ran.  `strong` has h
+// rows a layer; cand and `out` the own rows [top, top + own) of them (slab
+// mode; top 0 and own h otherwise), split into `nbands` bands with `halo`
+// rows a side.  A window row outside its band's own rows is a seed that
+// cannot grow: its edges, from `prev` (the own rows' previous result, where
+// not null) or `strong`.  `changed`, where not null, is zeroed here and set
+// where a band's own rows of the result differ from their edges.  Returns
+// a CUDA error code.
+int pw_hysteresis_cluster_run(const uint32_t* cand, const uint32_t* strong, const uint32_t* prev, uint32_t* out,
+                              int* stats, int* changed, int k, int h, int nw, int top, int own, int nbands, int halo,
+                              void* stream) {
   if (k <= 0 || h <= 0 || nw <= 0 || top < 0 || own <= 0 || top + own > h) return (int)cudaErrorInvalidValue;
+  const int rpc = band_rpc(nbands, top, own, h, halo);
+  if (rpc == 0 || (long)k * nbands >= (1L << 31)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(stats, 0, sizeof(int) * 2 * k, s);
   if (err != cudaSuccess) return (int)err;
@@ -610,9 +702,22 @@ int pw_hysteresis_cluster_run(const uint32_t* cand, const uint32_t* strong, uint
     err = cudaMemsetAsync(changed, 0, sizeof(int), s);
     if (err != cudaSuccess) return (int)err;
   }
-  size_t smem = cluster_smem_bytes(1, h, nw);
-  void* args[] = {&cand, &strong, &out, &stats, &changed, &k, &h, &nw, &top, &own};
-  return (int)launch_cluster(hysteresis_cluster, k, smem, s, args);
+  size_t smem = cluster_smem_bytes(1, rpc, nw);
+  void* args[] = {&cand, &strong, &prev, &out, &stats, &changed, &k, &h, &nw, &top, &own, &nbands, &halo,
+                  (void*)&rpc};
+  return (int)launch_cluster(hysteresis_cluster, k * nbands, smem, s, args);
+}
+
+// The clusters of K6 (kind 0) or K5 (kind 1) that fit on the card at once
+// with `rpc` rows of nw words a CTA board, into *fit.  Returns a CUDA error
+// code.
+int pw_cluster_fit(int kind, int rpc, int nw, int* fit) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  size_t smem = cluster_smem_bytes(kind, rpc, nw);
+  cudaError_t err = kind == 0 ? cluster_config(zs_cluster<true>, smem, 0, &cfg, attr, fit)
+                              : cluster_config(hysteresis_cluster, smem, 0, &cfg, attr, fit);
+  return (int)err;
 }
 
 // K6, multi-launch: n_iter Zhang-Suen iterations from `src` (the call's

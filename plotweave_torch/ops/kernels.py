@@ -28,19 +28,26 @@
   halo rows and writes only its own.
 - K5 ``hysteresis_cuda`` and K6 ``zhang_suen_packed_cuda``
   (``csrc/bitboard_fixpoints.cu``): the bitboard fixpoints; K6 replaces
-  ``zhang_suen_packed_pallas``.  Each has two routes, chosen by size before
-  any launch unless the caller names one: a layer that fits in one thread
-  block cluster's shared memory runs the whole fixpoint resident there, one
-  launch per call (launch names ``zhang_suen_packed``, ``hysteresis``); a
-  larger layer runs the multi-launch kernels, one launch per subpass or
-  sweep and one host check per chunk (``zhang_suen_packed_multi``,
-  ``hysteresis_multi``).  ``zhang_suen_into_cuda`` is K6 writing its input,
-  the edges, and its result, the skeletons, as packed rows or dense bytes
-  from its resident launch (the multi-launch route: K6, then K1).  Their
-  slab modes (``hysteresis_slab_cuda``, ``zhang_suen_slab_cuda``; row
-  sharding, resident route only) run on a shard's rows between halo rows,
-  write only its own rows (K6 also into the unsharded outputs at the
-  shard's row) and a changed flag for the host's one read a round.
+  ``zhang_suen_packed_pallas``.  One cluster kernel each runs a band table,
+  every band resident in one thread block cluster's shared memory
+  (:func:`band_schedule`).  The route is chosen by size before any launch
+  unless the caller names one: a layer that fits one cluster is one band,
+  the whole fixpoint in one launch per call (launch names
+  ``zhang_suen_packed``, ``hysteresis``); a larger layer runs banded
+  (``zhang_suen_packed_banded``, ``hysteresis_banded``), its bands reading
+  their halo rows in place from the whole layer, every band of every layer
+  in one launch: K6 by rounds of m iterations (one at 4400 × 4400), K5 by
+  rounds with one host read of a flag each.  The multi-launch kernels (one
+  launch per subpass or sweep, ``zhang_suen_packed_multi``,
+  ``hysteresis_multi``) run only where a caller names ``route="multi"``.
+  ``zhang_suen_into_cuda`` is K6 writing its input, the edges, and its
+  result, the skeletons, as packed rows or dense bytes from its own
+  launches (the multi-launch route: K6, then K1).  Their slab modes
+  (``hysteresis_slab_cuda``, ``zhang_suen_slab_cuda``; row sharding) run
+  the same kernels over bands of a shard's own rows between halo rows
+  (:func:`slab_bands`), write only its own rows (K6 also into the unsharded
+  outputs at the shard's row) and a changed flag for the host's one read a
+  round.
 - K7 ``assign_nearest_cuda`` and ``assign_boards_cuda``
   (``csrc/assign_nearest.cu``): Lab and the nearest centre in one pass, as
   int32 labels or as the k one-hot bitboards, the latter also with the k
@@ -120,6 +127,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -182,7 +190,7 @@ EDGE_FAST_KSIZES = (1, 3, 5, 7, 9)
 # on Hopper)
 CLUSTER_SIZE = 16
 MAX_SMEM = 232448
-ROUTES = ("resident", "multi")
+ROUTES = ("resident", "banded", "multi")
 
 # K8: the centres one fit holds in registers (``kMaxK`` in csrc/kmeans.cu); the
 # seeds-and-fits launch's threads a CTA (``kThreads``: a tile is one row a
@@ -239,15 +247,16 @@ GREEDY_ROUTES = ("cta", "cluster")
 REFINE_MIN_N, REFINE_MAX_N = 3, 8192
 
 # kernel launches per wrapper and route, counted where each wrapper calls into its library
-LAUNCHES = {"bitpack": 0, "edge_candidates": 0, "zhang_suen_packed": 0, "zhang_suen_packed_multi": 0,
-            "hysteresis": 0, "hysteresis_multi": 0, "edge_candidates_slab": 0, "hysteresis_slab": 0,
+LAUNCHES = {"bitpack": 0, "edge_candidates": 0, "zhang_suen_packed": 0, "zhang_suen_packed_banded": 0,
+            "zhang_suen_packed_multi": 0, "hysteresis": 0, "hysteresis_banded": 0, "hysteresis_multi": 0, "edge_candidates_slab": 0, "hysteresis_slab": 0,
             "zhang_suen_packed_slab": 0, "morph_bits": 0, "assign_nearest": 0, "zhang_suen_dense": 0,
             "subsample": 0, "lab_sample": 0, "kmeans_fit": 0, "lloyd_fit": 0, "assign_points": 0, "morph_dense": 0,
             "greedy_tour": 0, "refine_tour": 0, "area_resize_frac": 0, "area_resize_int": 0, "bezier_sample": 0}
 
 # what the last call of each fixpoint route took: for the resident routes a
 # device tensor, K6 (k,) iterations per layer, K5 (k, 2) rounds and the most
-# sweeps one CTA ran per layer; for the multi-launch routes and K12 the
+# sweeps one CTA ran per layer; for the banded routes (host rounds, that
+# tensor of the last round); for the multi-launch routes and K12 the
 # iterations or sweeps launched; for K8's fits (``kmeans_fit``, ``lloyd_fit``)
 # the device tensors (iterations per attempt, compactness per attempt, index of
 # the best attempt); for row sharding's fixpoints (``parallel/spatial.py``)
@@ -338,8 +347,9 @@ _SIGNATURES = {
     "edge_candidates": {"pw_edge_candidates": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                                _P]},
     "bitboard_fixpoints": {"pw_zs_cluster_run": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                                 _I, _I, _P],
-                           "pw_hysteresis_cluster_run": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                                                 _I, _I, _I, _I, _P],
+                           "pw_hysteresis_cluster_run": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+                           "pw_cluster_fit": [_I, _I, _I, _P],
                            "pw_zs_packed_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                            "pw_hysteresis_run": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "morph_bits": {"pw_morph_steps_run": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
@@ -662,27 +672,132 @@ def gaussian_blur_slab_cuda(x: torch.Tensor, ksize: int, top: int, bottom: int, 
 
 
 def resident_smem_bytes(kernel: str, h: int, nw: int) -> int:
-    """Shared memory one CTA of the resident route takes for a layer of
-    ``h`` rows of ``nw`` words (``csrc/bitboard_fixpoints.cu``'s layout):
-    rows of ``nw + 2`` words, ``ceil(h / CLUSTER_SIZE)`` of each board, K6
-    two boards and a zero row, K5 two boards, four published rows and a zero
-    row; two int flags."""
+    """Shared memory one CTA of a cluster takes for a band window of ``h``
+    rows of ``nw`` words (``csrc/bitboard_fixpoints.cu``'s layout): rows of
+    ``nw + 2`` words, ``ceil(h / CLUSTER_SIZE)`` of each board, K6 two boards
+    and a zero row, K5 two boards, four published rows and a zero row; two
+    int flags."""
     rpc = -(-h // CLUSTER_SIZE)
     rows = 2 * rpc + (1 if kernel == "zhang_suen_packed" else 5)
     return rows * (nw + 2) * 4 + 8
 
 
 def resident(kernel: str, h: int, nw: int) -> bool:
-    """Whether a layer fits the resident route."""
+    """Whether a window of ``h`` rows (a whole layer: the resident route) fits one cluster."""
     return resident_smem_bytes(kernel, h, nw) <= MAX_SMEM
+
+
+def cluster_rows(kernel: str, nw: int) -> int:
+    """The most rows of ``nw`` words a band window of K5 or K6 holds in one cluster."""
+    per_cta = (MAX_SMEM - 8) // ((nw + 2) * 4) - (1 if kernel == "zhang_suen_packed" else 5)
+    return CLUSTER_SIZE * max(0, per_cta // 2)
+
+
+class BandSchedule(NamedTuple):
+    """K5's or K6's launch over a layer (``csrc/bitboard_fixpoints.cu``'s
+    ``Band``): ``bands`` ((r0, rows, w0, w1), ...), each band's own rows
+    [r0, r0 + rows) and the window [w0, w1) that its cluster loads; ``halo``,
+    the rows a window reads beyond its own on each side inside the layer (the
+    whole layer for one band); ``m``, K6's iterations a launch (its halo is 2
+    m; 1 for K5)."""
+
+    bands: tuple
+    halo: int
+    m: int
+
+
+def band_table(h: int, top: int, own: int, n: int, halo: int) -> tuple:
+    """``n`` bands over the own rows [top, top + own) of a layer of ``h``
+    rows, their own rows evenly split, each window ``halo`` rows a side
+    inside the layer → ((r0, rows, w0, w1), ...)."""
+    out = []
+    for j in range(n):
+        r0, r1 = top + j * own // n, top + (j + 1) * own // n
+        out.append((r0, r1 - r0, max(0, r0 - halo), min(h, r1 + halo)))
+    return tuple(out)
+
+
+def _widest(table: tuple) -> int:
+    return max(w1 - w0 for _, _, w0, w1 in table)
+
+
+def _fewest_bands(kernel: str, h: int, nw: int, top: int, own: int, halo: int, least: int = 1) -> tuple:
+    """The fewest bands, at least ``least``, whose windows fit one cluster
+    (one band's window is the whole layer) → (table, halo as launched)."""
+    cap = cluster_rows(kernel, nw)
+    if least <= 1 and h <= cap:
+        return band_table(h, top, own, 1, h), h
+    for n in range(max(2, least, -(-own // max(1, cap))), own + 1):
+        table = band_table(h, top, own, n, halo)
+        if _widest(table) <= cap:
+            return table, halo
+    raise ValueError(f"{kernel}: no band of rows of {nw} words with {halo} halo rows a side fits one cluster "
+                     f"({cap} rows)")
+
+
+def band_schedule(kernel: str, h: int, nw: int, max_iter: int = 120, band_rows: int | None = None) -> BandSchedule:
+    """K5's or K6's bands over a whole layer of ``h`` rows of ``nw`` words:
+    the fewest bands whose windows fit one cluster (at least ⌈h /
+    ``band_rows``⌉ where given), their own rows evenly split.  One band is
+    the resident route.  K5 reads one halo row a side.  K6 runs rounds of m
+    iterations with 2 m halo rows: the bands are the fewest that fit with m
+    = min(``max_iter``, cap / 8) (cap: :func:`cluster_rows`), so that a band
+    keeps at least half its window, and m is then the largest up to
+    ``max_iter`` for which they fit (at 4400 × 4400 px and ``max_iter`` 120:
+    two bands of 2,200 rows, m 120, one round)."""
+    least = -(-h // band_rows) if band_rows else 1
+    if kernel == "hysteresis":
+        table, halo = _fewest_bands(kernel, h, nw, 0, h, 1, least)
+        return BandSchedule(table, halo, 1)
+    max_iter = max(0, max_iter)
+    cap = cluster_rows(kernel, nw)
+    table, halo = _fewest_bands(kernel, h, nw, 0, h, 2 * min(max_iter, cap // 8), least)
+    if len(table) == 1:
+        return BandSchedule(table, halo, max_iter)
+    n, lo, hi = len(table), halo // 2, max_iter  # the largest m that fits, by bisection
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if _widest(band_table(h, 0, h, n, 2 * mid)) <= cap else (lo, mid - 1)
+    return BandSchedule(band_table(h, 0, h, n, 2 * lo), 2 * lo, lo)
+
+
+def slab_bands(kernel: str, h: int, nw: int, top: int, own: int, iters: int = 1,
+               band_rows: int | None = None) -> BandSchedule:
+    """The bands of a slab-mode call over the own rows [top, top + own) of
+    a slab of ``h`` rows: one band whose window is the whole slab where it
+    fits one cluster, else the fewest whose windows, ``2 * iters`` halo rows
+    a side for K6 and 1 for K5, do (at least ⌈own / ``band_rows``⌉)."""
+    least = -(-own // band_rows) if band_rows else 1
+    halo = 1 if kernel == "hysteresis" else 2 * iters
+    table, halo = _fewest_bands(kernel, h, nw, top, own, halo, least)
+    return BandSchedule(table, halo, 1 if kernel == "hysteresis" else iters)
+
+
+def cluster_fit(kernel: str, rows: int, nw: int) -> int:
+    """The clusters of K6 or K5 with band windows of ``rows`` rows of ``nw``
+    words that fit on the current card at once
+    (``cudaOccupancyMaxActiveClusters``): a launch runs min(layers × bands,
+    this) clusters, each looping over its (layer, band) items."""
+    lib = load("bitboard_fixpoints")
+    fit = ctypes.c_int(0)
+    err = lib.pw_cluster_fit(0 if kernel == "zhang_suen_packed" else 1, -(-rows // CLUSTER_SIZE), nw,
+                             ctypes.byref(fit))
+    _raise_on(lib, "cluster_fit", err)
+    return fit.value
+
+
+def _whole(h: int, m: int) -> BandSchedule:
+    """The resident route's one band: the whole layer."""
+    return BandSchedule(((0, h, 0, h),), h, m)
 
 
 def fixpoint_route(kernel: str, h: int, nw: int, route: str | None = None) -> str:
     """The route of K5 or K6 for a layer: ``route`` when given (one of
-    :data:`ROUTES`), else ``"resident"`` where the layer fits, else
-    ``"multi"``.  Raises for a resident route that does not fit."""
+    :data:`ROUTES`), else ``"resident"`` where the layer fits one cluster,
+    else ``"banded"``.  No size takes ``"multi"``.  Raises for a resident
+    route that does not fit."""
     if route is None:
-        return "resident" if resident(kernel, h, nw) else "multi"
+        return "resident" if resident(kernel, h, nw) else "banded"
     if route not in ROUTES:
         raise ValueError(f"{kernel}: route {route!r} is none of {ROUTES}")
     if route == "resident" and not resident(kernel, h, nw):
@@ -695,28 +810,122 @@ def _check_grid(name: str, k: int, h: int) -> None:
         raise ValueError(f"{name}: {k} layers of {h} rows exceed the multi-launch kernels' grid")
 
 
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _flag_set(flag: torch.Tensor) -> bool:
+    """The host's read of a changed flag on the device (one copy)."""
+    return bool(flag.cpu()[0])
+
+
+def _zs_launch(name: str, x, out, iters, edges, skels, changed, img_stride: int, group: int, layout: int, h: int,
+               nw: int, width: int, n_iter: int, rotated: bool, top: int, own: int, out_row0: int, out_h: int,
+               sched: BandSchedule) -> None:
+    """One launch of K6's cluster kernel (``pw_zs_cluster_run``) over
+    ``sched``'s bands of every layer of ``x`` (k, h, nw), counted as
+    ``name``."""
+    lib = load("bitboard_fixpoints")
+    err = lib.pw_zs_cluster_run(x.data_ptr(), _ptr(out), iters.data_ptr(), _ptr(edges), _ptr(skels), _ptr(changed),
+                                img_stride, group, layout, iters.numel(), h, nw, width, n_iter, int(rotated), top,
+                                own, out_row0, out_h, len(sched.bands), sched.halo,
+                                torch.cuda.current_stream().cuda_stream)
+    _count(name)
+    _raise_on(lib, name, err)
+
+
+def _hysteresis_launch(name: str, cand, strong, prev, out, stats, changed, h: int, nw: int, top: int, own: int,
+                       sched: BandSchedule) -> None:
+    """One launch of K5's cluster kernel (``pw_hysteresis_cluster_run``)
+    over ``sched``'s bands of every layer, counted as ``name``."""
+    lib = load("bitboard_fixpoints")
+    err = lib.pw_hysteresis_cluster_run(cand.data_ptr(), strong.data_ptr(), _ptr(prev), out.data_ptr(),
+                                        stats.data_ptr(), _ptr(changed), stats.shape[0], h, nw, top, own,
+                                        len(sched.bands), sched.halo, torch.cuda.current_stream().cuda_stream)
+    _count(name)
+    _raise_on(lib, name, err)
+
+
+def _zs_banded(packed: torch.Tensor, max_iter: int, rotated: bool, band_rows: int | None, store: tuple | None):
+    """K6's banded route: rounds of m iterations (:func:`band_schedule`),
+    one launch each, two boards in turn, one flag read a round where another
+    may follow, until ``max_iter`` or a round whose last iteration changed no
+    band's own rows.  ``store`` = (edges, skels, layout, width, group, image
+    stride): the input's own rows go to ``edges`` from the first round, each
+    round's result to ``skels``.  Returns the last round's board (None where
+    only the stores were asked for and one round sufficed)."""
+    k, h, nw = packed.numel() // (packed.shape[-2] * packed.shape[-1]), packed.shape[-2], packed.shape[-1]
+    sched = band_schedule("zhang_suen_packed", h, nw, max_iter, band_rows)
+    edges, skels, layout, width, group, img_stride = store or (None, None, 0, 0, 1, 0)
+    iters, flag = packed.new_empty(k), packed.new_empty(1)
+    boards, src, done, rounds = [None, None], packed, 0, 0
+    while True:
+        n = min(sched.m, max_iter - done)
+        last = done + n >= max_iter
+        dst = None
+        if store is None or not last:  # a board for the result, or for the next round's input
+            if boards[rounds % 2] is None:
+                boards[rounds % 2] = packed.new_empty(packed.shape)
+            dst = boards[rounds % 2]
+        _zs_launch("zhang_suen_packed_banded", src, dst, iters, edges if rounds == 0 else None, skels,
+                   None if last else flag, img_stride, group, layout, h, nw, width, n, rotated, 0, h, 0, h, sched)
+        done, rounds = done + n, rounds + 1
+        if last or not _flag_set(flag):
+            break
+        src = dst
+    STATS["zhang_suen_packed_banded"] = (rounds, iters)
+    return dst
+
+
+def _hysteresis_banded(cand: torch.Tensor, edges: torch.Tensor, top: int, own: int, sched: BandSchedule,
+                       changed: torch.Tensor | None, name: str) -> torch.Tensor:
+    """K5 over bands by rounds, one launch each: the own rows of the last
+    round's result are the next round's edges (two boards in turn), read by
+    the host once a round, until no band's own rows changed.  ``changed``
+    (slab mode), where given, keeps the first round's answer: whether the
+    own rows of the result differ from ``edges``."""
+    k, h, nw = cand.numel() // (cand.shape[-2] * cand.shape[-1]), edges.shape[-2], edges.shape[-1]
+    stats = edges.new_empty((k, 2))
+    flag = changed if changed is not None else edges.new_empty(1)
+    boards, prev, rounds = [None, None], None, 0
+    while True:
+        if boards[rounds % 2] is None:
+            boards[rounds % 2] = cand.new_empty(cand.shape)
+        out = boards[rounds % 2]
+        _hysteresis_launch(name, cand, edges, prev, out, stats, flag, h, nw, top, own, sched)
+        rounds += 1
+        if not _flag_set(flag):
+            STATS[name] = (rounds, stats)
+            return out
+        if rounds > 32 * cand.numel() + 1:  # every round after the first adds a bit of cand
+            raise RuntimeError(f"{name}: no fixpoint within the rounds cand allows")
+        if flag is changed:
+            flag = edges.new_empty(1)
+        prev = out
+
+
 def zhang_suen_packed_cuda(packed: torch.Tensor, max_iter: int = 120, rotated: bool = True,
-                           route: str | None = None) -> torch.Tensor:
+                           route: str | None = None, band_rows: int | None = None) -> torch.Tensor:
     """K6: the Zhang–Suen fixpoint of ``ops.thinning.zhang_suen_packed`` on
-    CUDA bitboards, by :func:`fixpoint_route`; returns a new board."""
+    CUDA bitboards, by :func:`fixpoint_route`; returns a new board.
+    ``band_rows`` bounds a band's own rows on the banded route."""
     k, h, nw = _check("zhang_suen_packed", packed)
     route = fixpoint_route("zhang_suen_packed", h, nw, route)
     if max_iter <= 0 or packed.numel() == 0:
         return packed.clone()
-    lib = load("bitboard_fixpoints")
     with _guard(packed.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        out = torch.empty_like(packed)
         if route == "resident":
-            iters = torch.empty(k, dtype=torch.int32, device=packed.device)
-            err = lib.pw_zs_cluster_run(packed.data_ptr(), out.data_ptr(), iters.data_ptr(), None, None, None, 0, 1,
-                                        0, k, h, nw, 0, max_iter, int(rotated), 0, h, 0, h, stream)
-            _count("zhang_suen_packed")
-            _raise_on(lib, "zhang_suen_packed", err)
+            out, iters = packed.new_empty(packed.shape), packed.new_empty(k)
+            _zs_launch("zhang_suen_packed", packed, out, iters, None, None, None, 0, 1, 0, h, nw, 0, max_iter,
+                       rotated, 0, h, 0, h, _whole(h, max_iter))
             STATS["zhang_suen_packed"] = iters
             return out
+        if route == "banded":
+            return _zs_banded(packed, max_iter, rotated, band_rows, None)
         _check_grid("zhang_suen_packed", k, h)
-        b = torch.empty_like(packed)
+        lib = load("bitboard_fixpoints")
+        stream = torch.cuda.current_stream().cuda_stream
+        out, b = torch.empty_like(packed), torch.empty_like(packed)
         flags = torch.empty(ZS_CHUNK, dtype=torch.int32, device=packed.device)
         src, done = packed, 0
         while done < max_iter:
@@ -744,7 +953,7 @@ def row_bytes(layout: str, w: int) -> int:
 def layer_offset(layer: int, group: int, h: int, rb: int, img_stride: int, row0: int = 0) -> int:
     """Where K6's store puts layer ``layer`` = b·group + l of its input in
     an output of ``h`` rows of ``rb`` bytes a layer, from row ``row0`` (a
-    slab's first own row in slab mode): byte b·img_stride + (l·h + row0)·rb
+    band's or slab's first own row): byte b·img_stride + (l·h + row0)·rb
     (``zs_cluster``'s ``half``)."""
     return (layer // group) * img_stride + ((layer % group) * h + row0) * rb
 
@@ -772,14 +981,15 @@ def _check_halves(name: str, packed: torch.Tensor, w: int, edges: torch.Tensor, 
 
 def zhang_suen_into_cuda(packed: torch.Tensor, w: int, edges: torch.Tensor, skels: torch.Tensor,
                          layout: str = "rows", max_iter: int = 120, rotated: bool = True,
-                         route: str | None = None) -> None:
+                         route: str | None = None, band_rows: int | None = None) -> None:
     """K6 with its stores: ``ops.thinning.zhang_suen_into_plain`` on CUDA
     bitboards.  Writes the input's layers (the edges) into ``edges`` and
     their fixpoint (the skeletons) into ``skels``, layer b·group + l at
     ``[b, l]`` of each, in ``layout`` (:data:`LAYOUTS`: packed rows, or dense
     bytes 255 / 1), by :func:`fixpoint_route`: the resident route in its one
-    launch (max_iter 0 too), the multi-launch route by K6's launches and then
-    K1 for each image's edges and skeletons."""
+    launch (max_iter 0 too), the banded route from its launches (one at
+    4400 × 4400), the multi-launch route by K6's launches and then K1 for
+    each image's edges and skeletons."""
     k, h, nw, b, group, img_stride = _check_halves("zhang_suen_into", packed, w, edges, skels, layout)
     route = fixpoint_route("zhang_suen_packed", h, nw, route)
     if packed.numel() == 0:
@@ -793,37 +1003,40 @@ def zhang_suen_into_cuda(packed: torch.Tensor, w: int, edges: torch.Tensor, skel
                 else:
                     boards_to_dense_cuda(layers, w, value, out=dst[i])
         return
-    lib = load("bitboard_fixpoints")
     with _guard(packed.device):
-        iters = torch.empty(k, dtype=torch.int32, device=packed.device)
-        err = lib.pw_zs_cluster_run(packed.data_ptr(), None, iters.data_ptr(), edges.data_ptr(), skels.data_ptr(),
-                                    None, img_stride, group, LAYOUTS[layout], k, h, nw, w, max_iter, int(rotated),
-                                    0, h, 0, h, torch.cuda.current_stream().cuda_stream)
-        _count("zhang_suen_packed")
-        _raise_on(lib, "zhang_suen_into", err)
+        if route == "banded":
+            _zs_banded(packed, max(0, max_iter), rotated, band_rows,
+                       (edges, skels, LAYOUTS[layout], w, group, img_stride))
+            return
+        iters = packed.new_empty(k)
+        _zs_launch("zhang_suen_packed", packed, None, iters, edges, skels, None, img_stride, group, LAYOUTS[layout],
+                   h, nw, w, max_iter, rotated, 0, h, 0, h, _whole(h, max_iter))
         STATS["zhang_suen_packed"] = iters
 
 
-def hysteresis_cuda(cand: torch.Tensor, strong: torch.Tensor, route: str | None = None) -> torch.Tensor:
+def hysteresis_cuda(cand: torch.Tensor, strong: torch.Tensor, route: str | None = None,
+                    band_rows: int | None = None) -> torch.Tensor:
     """K5: the hysteresis fixpoint of ``ops.canny.hysteresis`` on CUDA
-    bitboards, by :func:`fixpoint_route`; returns a new board."""
+    bitboards, by :func:`fixpoint_route`; returns a new board.  The banded
+    route runs one launch a round and reads one flag a round (its rounds in
+    ``STATS["hysteresis_banded"]``); ``band_rows`` bounds a band's own rows
+    there."""
     k, h, nw = _check("hysteresis", cand, strong)
     route = fixpoint_route("hysteresis", h, nw, route)
     if cand.numel() == 0:
         return cand.clone()
-    lib = load("bitboard_fixpoints")
     with _guard(cand.device):
-        stream = torch.cuda.current_stream().cuda_stream
         if route == "resident":
-            out = torch.empty_like(cand)
-            stats = torch.empty((k, 2), dtype=torch.int32, device=cand.device)  # zeroed by the library
-            err = lib.pw_hysteresis_cluster_run(cand.data_ptr(), strong.data_ptr(), out.data_ptr(),
-                                                stats.data_ptr(), None, k, h, nw, 0, h, stream)
-            _count("hysteresis")
-            _raise_on(lib, "hysteresis", err)
+            out, stats = cand.new_empty(cand.shape), cand.new_empty((k, 2))  # stats zeroed by the library
+            _hysteresis_launch("hysteresis", cand, strong, None, out, stats, None, h, nw, 0, h, _whole(h, 1))
             STATS["hysteresis"] = stats
             return out
+        if route == "banded":
+            return _hysteresis_banded(cand, strong, 0, h, band_schedule("hysteresis", h, nw, band_rows=band_rows),
+                                      None, "hysteresis_banded")
         _check_grid("hysteresis", k, h)
+        lib = load("bitboard_fixpoints")
+        stream = torch.cuda.current_stream().cuda_stream
         e0, e1 = torch.empty_like(cand), torch.empty_like(cand)
         flags = torch.empty(HYSTERESIS_CHUNK, dtype=torch.int32, device=cand.device)
         init, done = strong, 0
@@ -846,18 +1059,14 @@ def _slab_flag(name: str, changed: torch.Tensor, device: torch.device) -> None:
         raise ValueError(f"{name}: the changed flag must be one contiguous int32 on {device}")
 
 
-def _slab_resident(name: str, kernel: str, h: int, nw: int) -> None:
-    if not resident(kernel, h, nw):
-        raise ValueError(f"{name}: a slab of {h} rows of {nw} words does not fit one cluster's shared memory "
-                         "(the slab modes run the resident route only: shard the image over more slabs)")
-
-
 def hysteresis_slab_cuda(cand: torch.Tensor, edges: torch.Tensor, top: int, bottom: int,
-                         changed: torch.Tensor) -> torch.Tensor:
-    """K5's slab mode: ``ops.canny.hysteresis_slab_plain`` on CUDA bitboards
-    in one launch of the resident route.  ``changed`` (one int32 on the
-    device, e.g. a shard's slot of a round's flags) is set where an own row
-    gained a bit; the host reads it."""
+                         changed: torch.Tensor, band_rows: int | None = None) -> torch.Tensor:
+    """K5's slab mode: ``ops.canny.hysteresis_slab_plain`` on CUDA
+    bitboards.  ``changed`` (one int32 on the device, e.g. a shard's slot of
+    a round's flags) is set where an own row gained a bit; the host reads
+    it.  A slab that fits one cluster takes one launch; a larger one (or one
+    cut by ``band_rows``) runs as bands, by rounds inside the call until no
+    band's own rows changed, one launch and one flag read each."""
     k, h, nw = _check("hysteresis_slab", edges)
     own = slab_rows("hysteresis_slab", h, top, bottom, 1)
     kc, hc, nwc = _check("hysteresis_slab", cand)
@@ -865,35 +1074,33 @@ def hysteresis_slab_cuda(cand: torch.Tensor, edges: torch.Tensor, top: int, bott
         raise ValueError(f"hysteresis_slab: candidates {tuple(cand.shape)} are not the own rows of edges "
                          f"{tuple(edges.shape)} with halos {top}, {bottom}")
     _slab_flag("hysteresis_slab", changed, edges.device)
-    _slab_resident("hysteresis_slab", "hysteresis", h, nw)
-    lib = load("bitboard_fixpoints")
+    sched = slab_bands("hysteresis", h, nw, top, own, band_rows=band_rows)
     with _guard(edges.device):
-        out = torch.empty_like(cand)
-        stats = torch.empty((k, 2), dtype=torch.int32, device=edges.device)  # rounds and sweeps, not read
-        err = lib.pw_hysteresis_cluster_run(cand.data_ptr(), edges.data_ptr(), out.data_ptr(), stats.data_ptr(),
-                                            changed.data_ptr(), k, h, nw, top, own,
-                                            torch.cuda.current_stream().cuda_stream)
-        _count("hysteresis_slab")
-        _raise_on(lib, "hysteresis_slab", err)
+        if len(sched.bands) > 1:
+            return _hysteresis_banded(cand, edges, top, own, sched, changed, "hysteresis_slab")
+        out, stats = cand.new_empty(cand.shape), edges.new_empty((k, 2))  # rounds and sweeps, not read
+        _hysteresis_launch("hysteresis_slab", cand, edges, None, out, stats, changed, h, nw, top, own, sched)
     return out
 
 
 def zhang_suen_slab_cuda(x: torch.Tensor, top: int, bottom: int, iters: int, changed: torch.Tensor,
                          w: int | None = None, edges: torch.Tensor | None = None, skels: torch.Tensor | None = None,
-                         layout: str = "rows", row0: int = 0, rotated: bool = True) -> torch.Tensor:
+                         layout: str = "rows", row0: int = 0, rotated: bool = True,
+                         band_rows: int | None = None) -> torch.Tensor:
     """K6's slab mode: ``ops.thinning.zhang_suen_slab_plain`` on CUDA
-    bitboards in one launch of the resident route → the own rows' boards.
-    ``changed`` (one int32 on the device) is set where the last iteration
-    changed an own row.  ``edges`` (optional) and ``skels`` (B, group, H, row
-    bytes) uint8 on the device, each image contiguous and both with one
-    image stride, receive the own rows at rows [row0, row0 + rows) of each
-    layer, from the same launch."""
+    bitboards in one launch → the own rows' boards: one band where the slab
+    fits one cluster, else the fewest bands whose windows of ``2 * iters``
+    halo rows a side do (:func:`slab_bands`).  ``changed`` (one int32 on the
+    device) is set where the last iteration changed an own row.  ``edges``
+    (optional) and ``skels`` (B, group, H, row bytes) uint8 on the device,
+    each image contiguous and both with one image stride, receive the own
+    rows at rows [row0, row0 + rows) of each layer, from the same launch."""
     k, h, nw = _check("zhang_suen_slab", x)
     own = slab_rows("zhang_suen_slab", h, top, bottom, 2 * iters)
     _slab_flag("zhang_suen_slab", changed, x.device)
-    _slab_resident("zhang_suen_slab", "zhang_suen_packed", h, nw)
     if iters < 0:
         raise ValueError(f"zhang_suen_slab: {iters} iterations")
+    sched = slab_bands("zhang_suen_packed", h, nw, top, own, iters, band_rows)
     img_stride, group = 0, 1
     if skels is not None:
         if w is None or layout not in LAYOUTS:
@@ -912,18 +1119,12 @@ def zhang_suen_slab_cuda(x: torch.Tensor, top: int, bottom: int, iters: int, cha
             raise ValueError(f"zhang_suen_slab: outputs of {skels.shape[0]} x {group} layers for {k} layers")
     elif edges is not None:
         raise ValueError("zhang_suen_slab: edges are stored beside the skeletons only")
-    lib = load("bitboard_fixpoints")
     with _guard(x.device):
-        out = torch.empty((*x.shape[:-2], own, nw), dtype=torch.int32, device=x.device)
-        iter_counts = torch.empty(k, dtype=torch.int32, device=x.device)
-        err = lib.pw_zs_cluster_run(x.data_ptr(), out.data_ptr(), iter_counts.data_ptr(),
-                                    None if edges is None else edges.data_ptr(),
-                                    None if skels is None else skels.data_ptr(), changed.data_ptr(), img_stride, group,
-                                    LAYOUTS[layout] if skels is not None else 0, k, h, nw, w or 0, iters,
-                                    int(rotated), top, own, row0, skels.shape[2] if skels is not None else own,
-                                    torch.cuda.current_stream().cuda_stream)
-        _count("zhang_suen_packed_slab")
-        _raise_on(lib, "zhang_suen_slab", err)
+        out = x.new_empty((*x.shape[:-2], own, nw))
+        iter_counts = x.new_empty(k)
+        _zs_launch("zhang_suen_packed_slab", x, out, iter_counts, edges, skels, changed, img_stride, group,
+                   LAYOUTS[layout] if skels is not None else 0, h, nw, w or 0, iters, rotated, top, own, row0,
+                   skels.shape[2] if skels is not None else own, sched)
         STATS["zhang_suen_packed_slab"] = iter_counts
     return out
 
@@ -931,14 +1132,16 @@ def zhang_suen_slab_cuda(x: torch.Tensor, top: int, bottom: int, iters: int, cha
 def thinning_round(rows: int, nw: int, max_iter: int) -> int:
     """Row sharding's Zhang–Suen round, ``m`` iterations on slabs of
     ``rows`` own rows of ``nw`` words widened by 2 m rows a side: as long as
-    the neighbours can give (m ≤ rows / 2) and ``max_iter`` allows, halved
-    while the widened slab does not fit K6's resident route.  Each launch
-    stops at its slab's fixpoint, so a longer round costs rows, not
-    iterations, and saves rounds: a launch and a flag read each."""
+    the neighbours can give (m ≤ rows / 2) and ``max_iter`` allows.  Where
+    the widened slab does not fit one cluster, K6 runs it as bands
+    (:func:`slab_bands`), and m is fitted to a band: at most cap / 8 (cap:
+    :func:`cluster_rows`), so that a band keeps at least half its window.
+    Each launch stops at its bands' fixpoints, so a longer round costs rows,
+    not iterations, and saves rounds: a launch and a flag read each."""
     m = max(1, min(max_iter, rows // 2))
-    while m > 1 and not resident("zhang_suen_packed", rows + 4 * m, nw):
-        m //= 2
-    return m
+    if resident("zhang_suen_packed", rows + 4 * m, nw):
+        return m
+    return max(1, min(m, cluster_rows("zhang_suen_packed", nw) // 8))
 
 
 @functools.lru_cache(maxsize=None)

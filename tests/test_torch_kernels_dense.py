@@ -170,7 +170,7 @@ def test_build_raises_when_nvcc_fails(tmp_path, monkeypatch):
     ("hysteresis", 4, 1500, 2000, True),
     ("zhang_suen_packed", 4, 2000, 2000, True),  # the default max_dimension
     ("hysteresis", 4, 2000, 2000, True),
-    ("zhang_suen_packed", 1, 4400, 4400, False),  # too large for one cluster: the multi-launch route
+    ("zhang_suen_packed", 1, 4400, 4400, False),  # too large for one cluster: the banded route
     ("hysteresis", 1, 4400, 4400, False),
     ("hysteresis", 1, 3800, 3800, False),  # K5 holds three more rows than K6 per CTA
     ("zhang_suen_packed", 1, 3800, 3800, True),
@@ -178,21 +178,25 @@ def test_build_raises_when_nvcc_fails(tmp_path, monkeypatch):
 def test_fixpoint_route_by_size(kernel, k, h, w, resident):
     """The route of K5 and K6 is chosen by the shared memory a CTA of the
     resident route would take, before any launch (``csrc/bitboard_fixpoints.cu``
-    lays out ceil(h / 16) rows of nw + 2 words per board)."""
+    lays out ceil(h / 16) rows of nw + 2 words per board): resident where the
+    layer fits one cluster, banded where it does not; no size takes the
+    multi-launch route."""
     nw = -(-w // 32)
     rpc = -(-h // 16)
     rows = 2 * rpc + (1 if kernel == "zhang_suen_packed" else 5)
     assert kernels.resident_smem_bytes(kernel, h, nw) == rows * (nw + 2) * 4 + 8
     assert kernels.resident(kernel, h, nw) is resident
     assert (kernels.resident_smem_bytes(kernel, h, nw) <= kernels.MAX_SMEM) is resident
-    assert kernels.fixpoint_route(kernel, h, nw) == ("resident" if resident else "multi")
+    assert kernels.fixpoint_route(kernel, h, nw) == ("resident" if resident else "banded")
 
 
 @pytest.mark.parametrize("kernel", ["zhang_suen_packed", "hysteresis"])
 @pytest.mark.parametrize("h, w, route, expect", [
     (1500, 2000, "multi", "multi"),  # a named route overrides the size
     (1500, 2000, "resident", "resident"),
+    (1500, 2000, "banded", "banded"),  # bands of a layer that fits (``band_rows`` cuts them)
     (4400, 4400, "multi", "multi"),
+    (4400, 4400, "banded", "banded"),
     (4400, 4400, "resident", ValueError),  # does not fit one cluster
     (1500, 2000, "cluster", ValueError),  # no such route
 ])

@@ -362,7 +362,8 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
         "import sys\n"
         "import plotweave_torch.ops.kernels as k\n"
         "assert k.LAUNCHES == {'bitpack': 0, 'edge_candidates': 0, 'zhang_suen_packed': 0, "
-        "'zhang_suen_packed_multi': 0, 'hysteresis': 0, 'hysteresis_multi': 0, 'edge_candidates_slab': 0, "
+        "'zhang_suen_packed_banded': 0, 'zhang_suen_packed_multi': 0, 'hysteresis': 0, 'hysteresis_banded': 0, "
+        "'hysteresis_multi': 0, 'edge_candidates_slab': 0, "
         "'hysteresis_slab': 0, 'zhang_suen_packed_slab': 0, 'morph_bits': 0, "
         "'assign_nearest': 0, 'zhang_suen_dense': 0, 'subsample': 0, 'lab_sample': 0, 'kmeans_fit': 0, 'lloyd_fit': 0, "
         "'assign_points': 0, 'morph_dense': 0, 'greedy_tour': 0, 'refine_tour': 0, 'area_resize_frac': 0, "

@@ -375,8 +375,10 @@ def test_k6_slab_store_emulated(position, w, layout):
 
 def test_thinning_round():
     """m: as long as the neighbours can give 2 m rows and ``max_iter``
-    allows; halved while the widened slab does not fit K6's resident route
-    (the 4-shard chain and the 4400 x 4400 slabs take 120, one round)."""
+    allows (the 4-shard chain and the 4400 x 4400 slabs take 120, one
+    round); where the widened slab does not fit one cluster, K6 runs it as
+    bands and m is fitted to a band, at most a cluster's rows / 8, not
+    halved against the whole slab."""
     assert kernels.thinning_round(375, 63, 120) == 120
     assert kernels.thinning_round(1100, 138, 120) == 120
     assert kernels.thinning_round(187, 63, 120) == 93
@@ -384,8 +386,10 @@ def test_thinning_round():
     assert kernels.thinning_round(8, 2, 3) == 3
     assert kernels.thinning_round(1, 2, 120) == 1
     m = kernels.thinning_round(20000, 400, 120)
-    assert kernels.resident("zhang_suen_packed", 20000 + 4 * m, 400) or m == 1
-    assert not kernels.resident("zhang_suen_packed", 20000 + 8 * m, 400)
+    cap = kernels.cluster_rows("zhang_suen_packed", 400)
+    assert not kernels.resident("zhang_suen_packed", 20000 + 4 * m, 400) and m == min(120, cap // 8)
+    sched = kernels.slab_bands("zhang_suen_packed", 20000 + 4 * m, 400, 2 * m, 20000, m)
+    assert len(sched.bands) > 1 and max(w1 - w0 for *_, w0, w1 in sched.bands) <= cap
 
 
 def test_segments():
