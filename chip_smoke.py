@@ -285,7 +285,7 @@ COPY_KERNELS = ("direct_copy_kernel",)
 OWN_KERNELS = ("rows_to_boards", "boards_to_rows", "boards_to_dense", "dense_to_boards", "labels_to_boards",
                "morph_steps", "edge_tiles", "hysteresis_cluster", "hysteresis_sweep", "zs_cluster", "zs_subpass",
                "assign_nearest", "zs_tiles", "subsample", "lab_sample", "kmeans_fit", "lloyd_fit", "assign_points", "morph_runs",
-               "greedy_tour", "refine_tour", "area_frac", "area_int", "bezier_sample")
+               "greedy_tour", "refine_tour", "area_frac", "area_int", "bezier_families")
 # stage 03's mask open and close at the default config (ellipse 3, 1 and 1): K2's step list on the main path
 MAIN_PATH_STEPS = (("ellipse", 3, "e"), ("ellipse", 3, "d"), ("ellipse", 3, "d"), ("ellipse", 3, "e"))
 POSTER_PALETTE = [[30, 25, 20], [70, 90, 190], [140, 175, 220], [225, 220, 215]]  # synthetic_image's four tones, BGR
@@ -299,8 +299,9 @@ DEVICE_KMEANS_LAUNCHES = {"subsample": 1, "lab_sample": 1, "kmeans_fit": 1, "ass
 # compare); the seeding per draw 12: the distance 8, the min, the scaling, the cap and the conversion
 LLOYD_FLOPS_PER_CENTER, KPP_FLOPS_PER_DRAW, POWF_FLOPS = 9, 12, 40
 # K8's draw: integer operations per key, the hash (a multiply-add, two multiplies, three shifts and three XORs) and
-# the compare with the threshold; the draw needs each key once (the kernel recomputes it in five passes)
+# the compare with the threshold; the draw needs each key once (the kernel recomputes it in three passes)
 DRAW_OPS_PER_KEY = 10
+LARGE_LIST_PX = 40_000_000  # a draw whose candidate list (about n / 2,048) takes the large-list route
 BANDED_KERNELS = ("hysteresis_banded", "zhang_suen_packed_banded")  # K5, K6 on layers too large for a cluster
 MULTI_KERNELS = ("hysteresis_multi", "zhang_suen_packed_multi")  # K5, K6 multi-launch: only where a caller names it
 OFF_PATH = ("K1 rows", "K5 multi", "K6 multi")  # rows of the kernels line that no main path launches
@@ -1901,13 +1902,24 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
     n_px = 1500 * 2000
     draws = [(n_px, KMEANS_SAMPLE, seed) for seed in range(8)] + [
         (KMEANS_SAMPLE + 1, KMEANS_SAMPLE, 8), (n_px, 1, 9), (2, 1, 10), (5000, 700, 11),
-        (BIG_SIDE * BIG_SIDE, KMEANS_SAMPLE, 12), (n_px, n_px - 1, 13), (100_000, 999, 14), (70_000, 3, 15)]
+        (BIG_SIDE * BIG_SIDE, KMEANS_SAMPLE, 12), (n_px, n_px - 1, 13), (100_000, 999, 14), (70_000, 3, 15),
+        (32, 17, 16), (1024, 600, 17), (100_000, 50_000, 20), (LARGE_LIST_PX, KMEANS_SAMPLE, 18)]
     for n, limit, seed in draws:
         got = kmeans.subsample_indices(seed, n, limit, dev)
-        check(torch.equal(got.cpu(), kmeans.subsample_indices(seed, n, limit, "cpu")),
+        want = kmeans.subsample_indices(seed, n, limit, "cpu")
+        check(torch.equal(got.cpu(), want),
               f"K8 subsample n={n} limit={limit} seed={seed}: the card's draw != the plain draw")
+    # the last draw's candidates, the keys of the limit-th least key's top digit, exceed the shared-memory list
+    keys = kmeans.draw_keys(18, LARGE_LIST_PX)
+    listed = int(((keys >> 21) == (int(keys[want.long()].max()) >> 21)).sum())
+    check(listed > kernels.DRAW_LIST_CAP, f"K8 subsample at {LARGE_LIST_PX} px: {listed} candidates fit the "
+          f"{kernels.DRAW_LIST_CAP}-word list in shared memory; the large-list route went untested")
+    del keys
     print(f"K8 subsample == plain on the CPU index for index: {len(draws)} draws (3,000,000 -> 200,000 on 8 seeds, "
-          f"n = limit + 1, limit = 1, limit = n - 1, 2 pixels, {BIG_SIDE} x {BIG_SIDE}, 100,000 -> 999, 70,000 -> 3)")
+          f"n = limit + 1, limit = 1, limit = n - 1, 2 pixels, {BIG_SIDE} x {BIG_SIDE}, 100,000 -> 999, 70,000 -> 3, "
+          f"one CTA's 32 pixels, one cluster's 1,024, 100,000 -> 50,000 below the guessed coarse bucket, "
+          f"{LARGE_LIST_PX} -> 200,000 with {listed} candidates read in "
+          f"place, past the {kernels.DRAW_LIST_CAP} that shared memory holds)")
 
     # --- the poster's sample, drawn on the card: what the main path gives the fit
     poster, idx, sample = poster_sample()
@@ -3149,6 +3161,71 @@ def phase_banded_ab(other: str) -> dict:
     return result
 
 
+def resident_times() -> dict:
+    """K5, K6 storing the blob, and the chain, each at 4 x 1500 x 2000 (the
+    main path's layers, the resident route in one cluster a layer) on
+    :func:`chain_masks`' inputs, through the code of the checkout that
+    ``ROOT`` names: as :func:`banded_times`.  Run after ``phase_probe``."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.stages.s02_color_extract import chain_from_clean
+
+    k, h, w = CHAIN_SHAPE
+    bk, lo, hi = EDGE_PARAMS[3:]
+    cuda = torch.device("cuda")
+    _, bins = synthetic_image(1, h, w)
+    packed = np.packbits(np.stack([bins == j for j in range(k)]), axis=-1)
+    m = chain_masks()
+    cand, strong = kernels.edge_candidates_cuda(m, w, bk, lo, hi)
+    edges = kernels.hysteresis_cuda(cand, strong)
+    blob = torch.empty((2, k, h, -(-w // 8)), dtype=torch.uint8, device=cuda)
+
+    def k6():
+        kernels.zhang_suen_into_cuda(edges, w, blob[None, 0], blob[None, 1], "rows", 120, True)
+        return blob
+
+    calls = {"K5": (lambda: kernels.hysteresis_cuda(cand, strong), 20), "K6 into the blob": (k6, 20),
+             "chain": (lambda: chain_from_clean(packed, w, *EDGE_PARAMS, device=cuda), 20)}
+    out = {}
+    for name, (fn, reps) in calls.items():
+        kernels.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in kernels.LAUNCHES.items() if c}
+        out[name] = {"digest": hashlib.sha256(res.cpu().numpy().tobytes()).hexdigest(), "launches": launches,
+                     "ms": cuda_ms(fn, reps), "alone_ms": kernel_ms(fn, 10)}
+    return out
+
+
+def phase_resident_ab(other: str) -> dict:
+    """K5 and K6 on the main path's 4 x 1500 x 2000 layers (the resident
+    route), and the chain call, of this checkout against the one at
+    ``other``: :func:`resident_times` in turns other, this, this, other,
+    each in a process of its own.  Both must give the same bytes."""
+    runs = ab_turns(other, "resident_times", "resident")
+    result = {}
+    for name in ("K5", "K6 into the blob", "chain"):
+        rows = {key: [r[name] for r in v] for key, v in runs.items()}
+        seen = {r["digest"] for v in rows.values() for r in v}
+        check(len(seen) == 1, f"resident A/B {name}: the two checkouts differ: {sorted(seen)}")
+        row = {}
+        for key, v in rows.items():
+            names = sorted({n for r in v for n in r["alone_ms"]})
+            row[key] = {"launches": v[0]["launches"], "ms": [r["ms"] for r in v],
+                        "alone_ms": {n: [r["alone_ms"].get(n) for r in v] for n in names}}
+        result[name] = row
+        print(f"resident A/B {name} at {'x'.join(map(str, CHAIN_SHAPE))}: " + "; ".join(
+            f"{key} {row[key]['launches']}, " + " / ".join(f"{m:.4f}" for m in row[key]["ms"]) + " ms a call, alone "
+            + ", ".join(f"{n} " + " / ".join(f"{a:.4f}" if a else "-" for a in t) for n, t in row[key]["alone_ms"].items())
+            for key in ("other", "this")), flush=True)
+    print(json.dumps({"resident_ab": result}))
+    return result
+
+
 K8_AB_REPS = 7  # stage 02 runs a turn
 
 
@@ -3205,6 +3282,18 @@ def kmeans_times() -> dict:
                    "iterations": its.cpu().tolist(), "launches": launches, "ms": cuda_ms(fit, 20),
                    "alone_ms": sum(alone.values()) if alone else None, "kernels_alone_ms": alone}}
 
+    def draw():  # the device mode's draw at the main path's shape, 3,000,000 -> 200,000
+        return kmeans.subsample_indices(42, 1500 * 2000, KMEANS_SAMPLE, dev)
+
+    kernels.reset_launches()
+    idx_d = draw()
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in kernels.LAUNCHES.items() if c}
+    alone = kernel_ms(draw, 20)
+    out["draw"] = {"digest": hashlib.sha256(idx_d.cpu().numpy().tobytes()).hexdigest(), "launches": launches,
+                   "ms": cuda_ms(draw, 50), "alone_ms": sum(alone.values()) if alone else None,
+                   "device_ms": alone}  # by name: the parent's memset beside its kernel
+
     def stage():
         device_init_stage(img, 4, 40, 3, KMEANS_SAMPLE, 42, True, *EDGE_PARAMS)
         torch.cuda.synchronize()
@@ -3233,6 +3322,15 @@ def phase_kmeans_ab(other: str) -> dict:
     the iterations; the best centres within 1e-3 (the fits' sums run in
     another order).  The bound is phase 8's at the same shape."""
     runs = ab_turns(other, "kmeans_times", "K8")
+    draws = {key: [r["draw"] for r in v] for key, v in runs.items()}
+    check(len({d["digest"] for v in draws.values() for d in v}) == 1, "K8 A/B: the draws differ")
+    db = bound(4 * KMEANS_SAMPLE, 1500 * 2000 * DRAW_OPS_PER_KEY, INT32_OPS)
+    for key, v in draws.items():
+        print(f"K8 A/B draw {key}: launches {v[0]['launches']}; 3,000,000 -> 200,000 "
+              + " / ".join(f"{d['ms']:.4f}" for d in v) + " ms a call, alone "
+              + " / ".join(f"{d['alone_ms']:.4f}" if d["alone_ms"] else "not caught" for d in v)
+              + f" ms (bound {db['bound_ms']:.5f} ms, {db['bound_by']}; by device activity "
+              + "; ".join(", ".join(f"{n} {t:.4f}" for n, t in d["device_ms"].items()) for d in v) + ")", flush=True)
     fits = [r["fit"] for v in runs.values() for r in v]
     check(len({f["digest"] for f in fits}) == 1, "K8 A/B: the picks differ between turns or checkouts")
     check(len({tuple(f["iterations"]) for f in fits}) == 1, "K8 A/B: the iterations differ")
@@ -3240,7 +3338,8 @@ def phase_kmeans_ab(other: str) -> dict:
     check(err <= 1e-3, f"K8 A/B: the best centres differ by {err} > 1e-3")
     n, k, attempts = KMEANS_SAMPLE, 4, 3
     b = kmeans_fit_bound(n, k, attempts, sum(fits[0]["iterations"]) + attempts)
-    result = {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "best_err": err}
+    result = {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "best_err": err, "draw": draws,
+              "draw_bound_ms": db["bound_ms"]}
     for key, v in runs.items():
         result[key] = {"launches": v[0]["fit"]["launches"], "ms": [r["fit"]["ms"] for r in v],
                        "alone_ms": [r["fit"]["alone_ms"] for r in v],
@@ -3349,6 +3448,71 @@ def phase_k8_phases() -> dict:
                   f"{row['comp_us'][0]:.2f} + {row['comp_us'][1]:.2f} us; the fit {fit_us:.2f} us", flush=True)
     shutil.rmtree(out_dir, ignore_errors=True)
     print(json.dumps({"k8_phases": result}))
+    return result
+
+
+# csrc/kmeans.cu's draw phase slots (DrawClock), by slot: CTA 0's thread 0 between two marks
+DRAW_PHASES = ("pass 1: hash, histogram", "cluster merge, rows stored", "barrier 1", "bucket, list slots",
+               "pass 2: below, gather", "barrier 2", "selection of K", "output bases", "pass 3: compaction")
+DRAW_TOTAL_SLOT, DRAW_SLOTS = 15, 16
+
+
+def phase_draw_phases(cases=((1500 * 2000, KMEANS_SAMPLE, 42), (1500 * 2000, 1500 * 2000 - 1, 13),
+                             (BIG_SIDE * BIG_SIDE, KMEANS_SAMPLE, 12))) -> dict:
+    """CTA 0's clock64 cycles in each phase of K8's draw (``DRAW_PHASES``;
+    thread 0's view, the others wait at the barriers that end a phase), from
+    a build of ``csrc/kmeans.cu`` with ``-DPW_KMEANS_PHASES`` put in place
+    of the wrapper's library, so that ``kernels.subsample_cuda`` runs it as
+    it runs its own, held index-equal to the wrapper's draw; its ms a call
+    by CUDA events and alone by ``torch.profiler``, whose ratio to CTA 0's
+    cycles turns them into microseconds.  Run after ``phase_probe``."""
+    import ctypes
+
+    import torch
+
+    from plotweave_torch.ops import kernels, kmeans
+
+    out_dir = Path(tempfile.mkdtemp(prefix="pw_draw_phases_"))
+    path = out_dir / "kmeans_phases.so"
+    built = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS["kmeans"], "-DPW_KMEANS_PHASES", "-o", str(path),
+                            str(kernels.CSRC / "kmeans.cu")], capture_output=True, text=True)
+    check(built.returncode == 0, f"K8 with -DPW_KMEANS_PHASES did not build:\n{built.stdout}{built.stderr}")
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in kernels._SIGNATURES["kmeans"].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.pw_error_string.argtypes, lib.pw_error_string.restype = [ctypes.c_int], ctypes.c_char_p
+    lib.pw_draw_phases.argtypes = [ctypes.c_void_p]
+    dev = torch.device("cuda")
+    own = kernels.load("kmeans")
+    result = {}
+    try:
+        for n, limit, seed in cases:
+            words = kmeans.draw_words(seed)
+            kernels._libs["kmeans"] = own
+            want = kernels.subsample_cuda(words, n, limit, dev)
+            kernels._libs["kmeans"] = lib
+            got = kernels.subsample_cuda(words, n, limit, dev)
+            torch.cuda.synchronize()
+            name = f"{n} -> {limit}"
+            check(torch.equal(got, want), f"draw phases {name}: the phases build differs from the wrapper's")
+            cyc = (ctypes.c_ulonglong * DRAW_SLOTS)()
+            check(lib.pw_draw_phases(cyc) == 0, "draw phases: the phase cycles could not be read")
+            total = int(cyc[DRAW_TOTAL_SLOT])
+            ms = cuda_ms(lambda: kernels.subsample_cuda(words, n, limit, dev), 20)
+            alone = profiled_ms(lambda: kernels.subsample_cuda(words, n, limit, dev), "subsample", 20)
+            us = (alone or ms) * 1e3 / total  # microseconds a cycle of CTA 0
+            row = {"ms": ms, "alone_ms": alone, "cycles": total,
+                   "cycles_by_phase": {p: int(cyc[i]) for i, p in enumerate(DRAW_PHASES)},
+                   "us": {p: cyc[i] * us for i, p in enumerate(DRAW_PHASES)}}
+            result[name] = row
+            print(f"K8 draw phases {name}: {ms:.4f} ms a call, " + (f"{alone:.4f} alone" if alone else "alone not caught")
+                  + f" ({total} cycles of CTA 0, {total / ((alone or ms) * 1e3):.0f} a us); "
+                  + "; ".join(f"{p} {v:.2f}" for p, v in row["us"].items()) + " us", flush=True)
+    finally:
+        kernels._libs["kmeans"] = own
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(json.dumps({"draw_phases": result}))
     return result
 
 
@@ -3740,7 +3904,10 @@ def phase_vector_kernels(stats: dict) -> dict:
     versions on the card and ``cv2.resize(..., INTER_AREA)``; the times of
     both routes beside their plain versions, ``interpolate(mode="area")`` and
     their bounds.  K14 in one launch over 60,000 seeded cubics at n = 128
-    against its plain version, timed beside ``torch.einsum``."""
+    against its plain version, timed beside ``torch.einsum``; K14's launch
+    on the A3 traced poster's document (its families as ``svg_to_polylines``
+    hands them over, parsed here on the host) timed alone, which the vector
+    path's part checks and reports."""
     import cv2
     import numpy as np
     import torch
@@ -3822,11 +3989,25 @@ def phase_vector_kernels(stats: dict) -> dict:
     err = float((got - want).abs().max())
     check(err <= 1e-5 * float(cubics.abs().max()), f"K14 != plain at 60,000 cubics x 128: {err}")
     bt = {"curves": 60000, "n": 128, "max_abs_err": err, "ms": cuda_ms(lambda: kernels.bezier_sample_cuda(cubics, 128), 20),
-          "alone_ms": profiled_ms(lambda: kernels.bezier_sample_cuda(cubics, 128), "bezier_sample", 3),
+          "alone_ms": profiled_ms(lambda: kernels.bezier_sample_cuda(cubics, 128), "bezier_families", 3),
           "plain_ms": cuda_ms(lambda: bezier.sample_bezier_plain(cubics, 128), 3),
           **bound(cubics.numel() * 4 + 60000 * 128 * 8, 60000 * 128 * 28, FP32_OPS)}
     bt["library_ms"] = cuda_ms(lambda b=bezier.bernstein_basis(128, 4, dev): torch.einsum("nk,skc->snc", b, cubics), 20)
     stats["K14 batched"] = bt
+
+    from plotweave_torch.frontends.svg import svg_to_polylines
+
+    class Collect(bezier.BezierSampler):  # keeps the families; the points themselves are not needed here
+        def sample_families(self, families):
+            self.families = list(families)
+            return [np.zeros((len(c), n, 2), np.float32) for c, n in families]
+
+    collect = Collect("cpu")
+    svg_to_polylines(vector_poster(14), xp=collect)
+    words, table, pts = bezier.pack_families(collect.families, pin=True)
+    words_d, n_fam = words.to(dev), int((table[:, 0] >= 0).sum())
+    stats["K14 document"] = {"families": len(collect.families), "points": pts, "alone_ms": profiled_ms(
+        lambda: kernels.bezier_families_cuda(words_d, n_fam, pts), "bezier_families", 10)}
     print(f"K14 in one launch, 60,000 cubics x 128 samples: == plain within {err:.3e}; {bt['ms']:.4f} ms a call"
           + (f", {bt['alone_ms']:.4f} alone" if bt["alone_ms"] else "")
           + f", bound {bt['bound_ms']:.4f} ms by {bt['bound_by']} ({bt['bound_ms'] / (bt['alone_ms'] or bt['ms']):.0%} "
@@ -3838,13 +4019,14 @@ def phase_vector_path(work: Path, stats: dict) -> dict:
     """Phase 14, its second part: the vector entry point.  ``python -m
     plotweave_torch.frontends.svg2stream`` (its ``main``, in this process) on
     a seeded A3 traced poster with ``--sampling-backend torch`` on the card
-    (the launch counts zeroed just before and read just after) and with
-    ``numpy``: the same path count, polylines within rtol 1e-4 and atol 1e-3
-    of numpy float64, the torch stream decoding to EOF on the canvas; every
-    curve family K14 sampled there against its plain version on the card
-    (within 1e-5 of the largest |coordinate| of the call); the G-code
-    goldens through ``gcode_to_stream``; the seconds of the parse, the
-    sampling, the copy back, the G-code and the stream."""
+    (the launch counts zeroed just before and read just after: one K14
+    launch for the document) and with ``numpy``: the same path count,
+    polylines within rtol 1e-4 and atol 1e-3 of numpy float64, the torch
+    stream decoding to EOF on the canvas; the document's launch on the
+    families it sampled against its plain version on the card (within 1e-5
+    of the largest |coordinate|) and each family as a table of one (bit for
+    bit); the G-code goldens through ``gcode_to_stream``; the seconds of the
+    parse, the sampling, the copy back, the G-code and the stream."""
     import unittest.mock as mock
 
     import numpy as np
@@ -3870,9 +4052,9 @@ def phase_vector_path(work: Path, stats: dict) -> dict:
                 self.families: list = []
                 rec["samplers"].append(self)
 
-            def sample(self, ctrl, n):
-                self.families.append((ctrl, n))
-                return super().sample(ctrl, n)
+            def sample_families(self, families):
+                self.families.extend(families)
+                return super().sample_families(families)
 
         def timer(fn, key, keep=False):
             def wrapped(*args, **kwargs):
@@ -3903,8 +4085,10 @@ def phase_vector_path(work: Path, stats: dict) -> dict:
     card, host = run("torch"), run("numpy")
     launches = card["launches"]
     sampler = card["samplers"][0]
-    check(launches["bezier_sample"] == sampler.calls > 0 and sum(launches.values()) == sampler.calls,
-          f"the vector path launched {launches} for {sampler.calls} curve families")
+    check(launches["bezier_sample"] == 1 == sampler.documents and sum(launches.values()) == 1,
+          f"the vector path launched {launches} for its one document ({sampler.documents} sampled)")
+    check(sampler.calls == len(sampler.families) > 0, f"the sampler counted {sampler.calls} of "
+          f"{len(sampler.families)} curve families")
     check(not host["samplers"] and host["launches"]["bezier_sample"] == 0, "the numpy backend sampled on the card")
     paths = card["gcode text"].count("M3")
     check(paths == host["gcode text"].count("M3") > 0, "torch and numpy G-code differ in their path counts")
@@ -3925,35 +4109,50 @@ def phase_vector_path(work: Path, stats: dict) -> dict:
           f"rtol 1e-4 (worst excess {worst:.2e} of atol 1e-3); stream {len(card['bin'])} bytes decodes to EOF on the "
           f"canvas; launches {launches}")
 
-    # every family the path sampled: K14 against its plain version on the card, each call within 1e-5 of its
-    # largest |coordinate|; then the whole path's families again for the times
+    # the document's one launch on the path's own families: against the plain version on the card (within 1e-5 of
+    # the largest |coordinate|) and bit for bit against each family as a table of one; then the times, the
+    # families' launch a family (the route before the table) beside it
     dev = torch.device("cuda")
+    words, table, pts = bezier.pack_families(sampler.families, pin=True)
+    n_fam = int((table[:, 0] >= 0).sum())
+    early = stats.pop("K14 document")  # timed alone in phase 14's first part, on the same document
+    check((early["families"], early["points"]) == (len(sampler.families), pts),
+          f"the poster's document parsed early ({early}) differs from the vector path's")
+    words_d = words.to(dev)
+    got = kernels.bezier_families_cuda(words_d, n_fam, pts)
+    plain = bezier.sample_families_plain(words_d, n_fam, pts)
+    largest = float(words_d[: kernels.bezier_layout(words.numel(), n_fam, pts)[0]].view(torch.float32).abs().max())
+    err = float((got - plain).abs().max())
+    check(err <= 1e-5 * largest, f"K14 != plain beyond 1e-5 of the largest |coordinate| {largest}: {err}")
     fams = [(torch.from_numpy(np.ascontiguousarray(c, dtype=np.float32)).to(dev), n) for c, n in sampler.families]
-    err, rel = 0.0, 0.0
-    for c, n in fams:
-        d = float((kernels.bezier_sample_cuda(c, n) - bezier.sample_bezier_plain(c, n)).abs().max())
-        err, rel = max(err, d), max(rel, d / max(float(c.abs().max()), 1e-30))
-    check(rel <= 1e-5, f"K14 != plain beyond 1e-5 of the largest |coordinate|: {rel}")
+    for (c, n), (_, o, _, _) in zip(fams, table.tolist()):
+        check(o < 0 or torch.equal(kernels.bezier_sample_cuda(c, n).view(-1, 2), got[o: o + c.shape[0] * n]),
+              "K14's document launch differs from a family's table of one")
     bases = [bezier.bernstein_basis(n, c.shape[1], dev) for c, n in fams]
-    nbytes = sum(c.numel() * 4 + c.shape[0] * n * 8 for c, n in fams)
+    nbytes = words.numel() * 4 + pts * 8
     flops = sum(c.shape[0] * n * (2 * 2 * c.shape[1] + 12) for c, n in fams)  # the basis about 12, 2 a term a coordinate
-    st = {"max_abs_err": err, "max_rel_err": rel, "families": len(fams),
-          "curves": sum(c.shape[0] for c, _ in fams), "points": sum(c.shape[0] * n for c, n in fams),
-          "ms": cuda_ms(lambda: [kernels.bezier_sample_cuda(c, n) for c, n in fams], 3),
-          "plain_ms": cuda_ms(lambda: [bezier.sample_bezier_plain(c, n) for c, n in fams], 1),
+    st = {"max_abs_err": err, "max_rel_err": err / largest, "families": n_fam,
+          "curves": sum(c.shape[0] for c, _ in fams), "points": pts,
+          "ms": cuda_ms(lambda: kernels.bezier_families_cuda(words_d, n_fam, pts), 20),
+          "alone_ms": early["alone_ms"],
+          "per_family_ms": cuda_ms(lambda: [kernels.bezier_sample_cuda(c, n) for c, n in fams], 3),
+          "plain_ms": cuda_ms(lambda: bezier.sample_families_plain(words_d, n_fam, pts), 1),
           **bound(nbytes, flops, FP32_OPS), "batched": stats.pop("K14 batched")}
     st["library_ms"] = cuda_ms(lambda: [torch.einsum("nk,skc->snc", b, c) for b, (c, _) in zip(bases, fams)], 1)
     stats["K14"] = st
-    print(f"K14 == plain on the card on all {st['families']} curve families of the poster ({st['curves']} curves, "
-          f"{st['points']} points; largest error {err:.3e}, {rel:.2e} of the largest |coordinate|); their "
-          f"{st['families']} launches {st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms, torch.einsum "
-          f"{st['library_ms']:.3f} ms, bound {st['bound_ms']:.4f} ms by {st['bound_by']}")
+    print(f"K14 on the poster's document, one launch over {st['families']} curve families ({st['curves']} curves, "
+          f"{st['points']} points): == plain on the card within {err:.3e} ({err / largest:.2e} of the largest "
+          f"|coordinate|), == each family as a table of one bit for bit; {st['ms']:.4f} ms a call"
+          + (f", {st['alone_ms']:.4f} alone" if st["alone_ms"] else "")
+          + f", bound {st['bound_ms']:.5f} ms by {st['bound_by']}; a launch a family (the route before) "
+          f"{st['per_family_ms']:.3f} ms; plain {st['plain_ms']:.3f} ms, torch.einsum a family "
+          f"{st['library_ms']:.3f} ms")
     parse = card["svg"] - sampler.seconds["sample"] - sampler.seconds["copy"]
     print(f"vector path seconds (torch | numpy): wall {card['wall']:.2f} | {host['wall']:.2f}; parse {parse:.2f} | "
-          f"{host['svg']:.2f} (numpy's sampling inside); sampling on the card {sampler.seconds['sample']:.3f} "
-          f"(upload, {sampler.calls} launches, synchronised); copy back {sampler.seconds['copy']:.3f}; G-code "
-          f"{card['gcode']:.2f} | {host['gcode']:.2f}; stream {card['stream']:.2f} | {host['stream']:.2f}; the "
-          f"poster's generation {gen_s:.2f}")
+          f"{host['svg']:.2f} (numpy's sampling inside); sampling on the card {sampler.seconds['sample']:.4f} "
+          f"(packing, upload, {sampler.documents} launch, synchronised); copy back {sampler.seconds['copy']:.4f}; "
+          f"G-code {card['gcode']:.2f} | {host['gcode']:.2f}; stream {card['stream']:.2f} | {host['stream']:.2f}; "
+          f"the poster's generation {gen_s:.2f}")
 
     text = (GOLDEN / "gcode" / "sample.gcode").read_text()
     g1, _ = gcode.gcode_to_stream(text, invert_y=True, profile=MotionProfile(invert_y=True), speed_scale=1.3)
@@ -3962,6 +4161,83 @@ def phase_vector_path(work: Path, stats: dict) -> dict:
           "gcode_to_stream != the G-code goldens")
     print("gcode_to_stream(sample.gcode) == ref_g.bin (invert_y, speed 1.3) and ref_g2.bin (no reorder)")
     return launches
+
+
+def vector_times() -> dict:
+    """``svg2stream`` on the seeded A3 traced poster through the code of the
+    checkout that ``ROOT`` names, ``--sampling-backend torch`` and
+    ``numpy`` in turns, three runs each after one untimed torch run: wall
+    seconds (synchronised), the sampler's seconds (``sample``, ``copy``),
+    its families and documents (None where that checkout has no count of
+    documents), the launches and each backend's stream digest.  Run after
+    ``phase_probe``."""
+    import hashlib
+    import unittest.mock as mock
+
+    import torch
+
+    from plotweave_torch.frontends import svg2stream
+    from plotweave_torch.ops import bezier, kernels
+
+    kernels.load("bezier_sample")
+    samplers: list = []
+
+    class Recording(bezier.BezierSampler):
+        def __init__(self, device: str = "auto"):
+            super().__init__(device)
+            samplers.append(self)
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="pw_vector_ab_") as tmp:
+        poster = Path(tmp) / "poster.svg"
+        poster.write_text(vector_poster(14))
+        for turn, backend in enumerate(("torch",) + ("torch", "numpy") * 3):
+            samplers.clear()
+            kernels.reset_launches()
+            run = Path(tmp) / f"run{turn}"
+            with mock.patch.object(bezier, "BezierSampler", Recording), open(f"{run}.log", "w") as log, \
+                    contextlib.redirect_stdout(log):
+                t = time.perf_counter()
+                svg2stream.main([str(poster), "-o", f"{run}.bin", "--sampling-backend", backend])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            if turn == 0:
+                continue
+            row = out.setdefault(backend, {"wall_s": [], "sample_s": [], "copy_s": []})
+            row["wall_s"].append(wall)
+            row["launches"] = {n: c for n, c in kernels.LAUNCHES.items() if c}
+            row["digest"] = hashlib.sha256(Path(f"{run}.bin").read_bytes()).hexdigest()
+            if samplers:
+                row["sample_s"].append(samplers[0].seconds["sample"])
+                row["copy_s"].append(samplers[0].seconds["copy"])
+                row["families"], row["documents"] = samplers[0].calls, getattr(samplers[0], "documents", None)
+    return out
+
+
+def phase_vector_ab(other: str) -> dict:
+    """The vector entry point of this checkout (K14 a launch a document)
+    against the one at ``other`` (``git archive <rev> | tar -x -C
+    .checkout/other``): :func:`vector_times` in turns other, this, this,
+    other, each in a process of its own.  Each backend's stream must be
+    byte-equal across the checkouts (the numpy route is the byte contract;
+    the torch route samples the same points either way)."""
+    runs = ab_turns(other, "vector_times", "vector")
+    result = {}
+    for backend in ("torch", "numpy"):
+        rows = {key: [r[backend] for r in v] for key, v in runs.items()}
+        check(len({r["digest"] for v in rows.values() for r in v}) == 1,
+              f"vector A/B: the --sampling-backend {backend} streams differ between the checkouts")
+        result[backend] = rows
+        for key, v in rows.items():
+            print(f"vector A/B {backend} {key}: launches {v[0]['launches']}; wall "
+                  + " / ".join("[" + ", ".join(f"{x:.3f}" for x in r["wall_s"]) + "]" for r in v) + " s"
+                  + ("; sampling " + " / ".join("[" + ", ".join(f"{x:.4f}" for x in r["sample_s"]) + "]" for r in v)
+                     + " s, copy back " + " / ".join("[" + ", ".join(f"{x:.4f}" for x in r["copy_s"]) + "]"
+                                                      for r in v)
+                     + f" s; {v[0]['families']} families, documents {v[0]['documents']}"
+                     if v[0]["sample_s"] else ""), flush=True)
+    print(json.dumps({"vector_ab": result}))
+    return result
 
 
 def phase_shard_path(work: Path) -> None:
@@ -4613,8 +4889,8 @@ def main() -> None:
              "plotweave/ops/pallas_kernels.py:99", "K12"),
             ("K7 assign_nearest (boards with counts)", "device-kmeans", "assign_nearest",
              "plotweave_torch/csrc/assign_nearest.cu", "plotweave/stages/s02_color_extract.py:50", "K7 counts"),
-            ("K8 kmeans, subsample", "device-kmeans", "subsample", k8, "plotweave/stages/s02_color_extract.py:127",
-             "K8 subsample"),
+            ("K8 kmeans, subsample (three hashing passes, two grid barriers)", "device-kmeans", "subsample", k8,
+             "plotweave/stages/s02_color_extract.py:127", "K8 subsample"),
             ("K8 kmeans, lab_sample", "device-kmeans", "lab_sample", k8, "plotweave/stages/s02_color_extract.py:123",
              "K8 lab_sample"),
             ("K8 kmeans, seeds and fits in one launch (kmeans_fit)", "device-kmeans", "kmeans_fit", k8,
@@ -4633,7 +4909,8 @@ def main() -> None:
              "plotweave/ops/resize.py:150", "K13 frac"),
             ("K13 area_resize, integer", "resize", "area_resize_int", "plotweave_torch/csrc/area_resize.cu",
              "plotweave/ops/resize.py:180", "K13 int"),
-            ("K14 bezier_sample", "vector", "bezier_sample", "plotweave_torch/csrc/bezier_sample.cu",
+            ("K14 bezier_sample (one launch a document over its family table)", "vector", "bezier_sample",
+             "plotweave_torch/csrc/bezier_sample.cu",
              "plotweave/frontends/svg.py:82", "K14")]
     print("launches counted in: " + "; ".join(f"{name}: {PATH_RUNS[path]}" for name, path, *_ in rows))
     # the contract's keys last, so that no measurement's key can stand in for one of them

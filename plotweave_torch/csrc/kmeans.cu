@@ -12,15 +12,33 @@
 //   only part, ops/kmeans.py::draw_words).  Both steps are bijections of i,
 //   so no two of a seed's keys are equal.  The subsample is the `limit`
 //   pixels of least key, in increasing index order.  One cooperative launch
-//   of at most 1,024 CTAs of 1,024 threads, each owning a run of whole
-//   1,024-pixel tiles: a radix select over the key (11, 11, then 10 bits: a
-//   shared-memory histogram of the digit over the keys inside the prefix
-//   found so far, merged into device memory with integer atomics, one
-//   grid.sync(), then every CTA finds the same digit from the merged counts),
-//   which gives K, the limit-th least key; then each CTA counts its keys
-//   <= K, one grid.sync(), each takes its first output slot from every CTA's
-//   counts, and writes its tiles' indices, each tile ranked by one CTA-wide
-//   scan.  Keys are recomputed in each of the five passes, never stored.
+//   in clusters of 8 CTAs of 1,024 threads (as many clusters as the card
+//   holds at once, at most 32), CTA q owning the pixels [q chunk, (q + 1)
+//   chunk); three passes over the pixels, each hashing every key once, and
+//   two grid barriers:
+//   1. the histogram of the top digit (bits 21-31) in shared memory; the
+//      cluster's 8 histograms merged through distributed shared memory, each
+//      rank a 256-bin slice (keeping, for each of its bins, the ranks'
+//      exclusive prefix), stored as the cluster's row with its 64 coarse
+//      sums: no atomic in device memory, nothing to zero before the launch;
+//      barrier 1;
+//   2. every CTA reads the clusters' coarse sums, then their counts of the
+//      one coarse bucket's 32 bins, which give the bucket B of the limit-th
+//      least key, its rank inside B, the keys of B and this CTA's first slot
+//      in the candidate list (the clusters before it, then the ranks before
+//      it); then it counts its keys below B and writes its keys in B, as
+//      (key bits 0-20) << 10 | q, to its slots of the list; barrier 2;
+//   3. every CTA finds the exact limit-th least key K among the candidates
+//      (copied into shared memory where they fit, 16,384 words, else read
+//      in place; at most 2^21, since no two keys are equal): the second
+//      digit (bits 10-20) by a histogram, then the third (bits 0-9) over
+//      the at most 1,024 keys of the second digit's bucket; each CTA's
+//      output base is its keys below B and its candidates up to K, summed
+//      over the CTAs before it, so no third barrier; then it writes the
+//      indices of its keys <= K in index order, runs of up to 16 pixels a
+//      thread kept as bits of a word, one CTA-wide scan a round of 16 x
+//      1,024 pixels, each round's indices staged in shared memory and
+//      stored coalesced.
 // - pw_lab_sample: gathers `n` pixels of a BGR image by index and converts
 //   them to float Lab with lab.cuh's arithmetic, K7's bit for bit (this file
 //   is compiled with --fmad=false like K7).
@@ -74,10 +92,13 @@
 // the seeding's and the fit's operations.  A cooperative grid over all SMs would scan faster but pay a grid-wide
 // barrier a pass; three attempts already run side by side on 48 SMs.  The draw: the hash once a key, n x about
 // 10 integer operations (3e7 at 3,000,000 pixels, 1.8 us at the INT32 peak), against 0.8 MB written (0.24 us);
-// the kernel hashes each key five times.  On an H100 the times are in PERF.md.
+// the kernel hashes each key three times, and its two grid barriers and the reads after them are latency, not
+// work.  On an H100 the times are in PERF.md.
 //
 // Built with -DPW_KMEANS_PHASES, kmeans_fit and lloyd_fit record CTA 0's clock64 cycles for the row load, each
-// draw, each pass's scan and its reduction and barrier, and the compactness (phase_cycles, pw_kmeans_phases).
+// draw, each pass's scan and its reduction and barrier, and the compactness (phase_cycles, pw_kmeans_phases);
+// subsample_draw records them for each of its passes, merges, barriers and selections (draw_cycles,
+// pw_draw_phases).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -103,7 +124,14 @@ constexpr int kFitScratch = 4 * (kMaxVals * kWarps + 3 * kMaxVals + 5 * kMaxK);
 constexpr int kStaticSmem = 512;   // a bound on either fit kernel's static shared memory
 constexpr int kDrawThreads = 1024;  // threads per CTA of the draw; also the most CTAs it takes
 constexpr int kDrawWarps = kDrawThreads / 32;
-constexpr int kDigits = 2048;       // histogram buckets of one round of the draw's radix select
+constexpr int kDrawCluster = 8;     // CTAs a cluster of the draw, which merge their histograms
+constexpr int kMaxDrawClusters = 32;  // an H100 holds 30 clusters of the draw at once
+constexpr int kDigits = 2048;       // the top digit's buckets (key bits 21-31); also the second digit's (10-20)
+constexpr int kOwnBins = kDigits / kDrawCluster;  // the bins each rank of a cluster merges
+constexpr int kCoarse = 64, kFine = kDigits / kCoarse;  // the top digit read back in two levels
+constexpr int kRowWords = kDigits + kCoarse;  // a cluster's row in device memory: its bins, then its coarse bins
+constexpr int kListCap = 16384;     // candidates copied into shared memory for the selection (else read in place)
+constexpr int kRun = 16;            // the compaction's pixels a thread and round, kRun x kDrawThreads <= kListCap
 constexpr int kMaxSmem = 232448;    // 227 KB, the opt-in limit of one CTA
 
 __global__ void lab_sample(const uint8_t* __restrict__ bgr, const int32_t* __restrict__ idx, float* __restrict__ out,
@@ -170,76 +198,265 @@ __device__ __forceinline__ T block_exclusive_scan(T v, T* slots, T& total) {
   return excl;
 }
 
-// One cooperative launch; CTA q owns the pixels [q chunk, (q + 1) chunk).
-// hist: 3 rounds x kDigits counts, zeroed by the caller; counts: one per CTA.
-__global__ void __launch_bounds__(kDrawThreads)
-    subsample_draw(int n, int limit, uint32_t a, uint32_t b, long chunk, uint32_t* __restrict__ hist,
-                   int* __restrict__ counts, int32_t* __restrict__ out) {
-  __shared__ uint32_t h_s[kDigits];
-  __shared__ int slots[kDrawWarps];
-  __shared__ int found[2];
-  cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x;
-  const long lo = min((long)blockIdx.x * chunk, (long)n), hi = min(lo + chunk, (long)n);
-
-  // the radix select: 11, 11 and 10 bits of the key, counting only the keys inside the prefix found so far
-  uint32_t prefix = 0, mask = 0;
-  int need = limit;  // the rank, among the keys inside the prefix, of the limit-th least key
-  for (int round = 0; round < 3; ++round) {
-    const int sh = round == 0 ? 21 : round == 1 ? 10 : 0;
-    const uint32_t digit = round == 2 ? 0x3ffu : 0x7ffu;
-    for (int j = tid; j < kDigits; j += kDrawThreads) h_s[j] = 0;
-    __syncthreads();
-    for (long i = lo + tid; i < hi; i += kDrawThreads) {
-      const uint32_t key = draw_key((uint32_t)i, a, b);
-      if ((key & mask) == prefix) atomicAdd(&h_s[(key >> sh) & digit], 1u);
-    }
-    __syncthreads();
-    uint32_t* g = hist + round * kDigits;
-    for (int j = tid; j < kDigits; j += kDrawThreads)
-      if (h_s[j]) atomicAdd(&g[j], h_s[j]);
-    grid.sync();
-    // every CTA finds the same digit: the first whose running count reaches need
-    const int c0 = (int)__ldcg(g + 2 * tid), c1 = (int)__ldcg(g + 2 * tid + 1);
-    int sum;
-    const int below = block_exclusive_scan<int, kDrawWarps>(c0 + c1, slots, sum);
-    if (below < need && need <= below + c0) {
-      found[0] = 2 * tid;
-      found[1] = below;
-    } else if (below + c0 < need && need <= below + c0 + c1) {
-      found[0] = 2 * tid + 1;
-      found[1] = below + c0;
-    }
-    __syncthreads();
-    prefix |= (uint32_t)found[0] << sh;
-    mask |= digit << sh;
-    need -= found[1];
-    __syncthreads();  // found is written again in the next round
+#ifdef PW_KMEANS_PHASES
+// CTA 0's thread 0: the clock64 cycles of each phase of the last draw (slots named in chip_smoke.py::DRAW_PHASES),
+// and the whole launch in slot kDrawTotal.
+constexpr int kDrawSlots = 16, kDrawTotal = 15;
+__device__ unsigned long long draw_cycles[kDrawSlots];
+struct DrawClock {
+  unsigned long long start, t;
+  __device__ __forceinline__ void begin() { start = t = clock64(); }
+  __device__ __forceinline__ void mark(int slot) {
+    const unsigned long long now = clock64();
+    if (blockIdx.x == 0 && threadIdx.x == 0) draw_cycles[slot] = now - t;
+    t = now;
   }
+  __device__ __forceinline__ void total() {
+    if (blockIdx.x == 0 && threadIdx.x == 0) draw_cycles[kDrawTotal] = clock64() - start;
+  }
+};
+#else
+struct DrawClock {
+  __device__ __forceinline__ void begin() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void total() {}
+};
+#endif
 
-  // prefix is the limit-th least key: take every key up to it
-  int take = 0;
-  for (long i = lo + tid; i < hi; i += kDrawThreads) take += draw_key((uint32_t)i, a, b) <= prefix;
-  int take_cta;
-  block_exclusive_scan<int, kDrawWarps>(take, slots, take_cta);
-  if (tid == 0) counts[blockIdx.x] = take_cta;
-  grid.sync();
-  // thread q stands for CTA q (gridDim.x <= kDrawThreads): its first output slot
+static_assert(kMaxDrawClusters * kFine <= kDrawThreads, "a thread a cluster's fine count");
+static_assert(kRun * kDrawThreads <= kListCap && kRun <= 32, "a compaction round's stage and bits");
+
+// The draw's shared memory (dynamic): the histogram of pass 1 (kept until the peers of its cluster have merged
+// it), the exclusive prefixes over the cluster's ranks of the bins this CTA merges, the coarse and fine counts
+// read back after the first barrier, and the selection's histograms, tallies, sub-bucket and list copy.
+struct DrawSmem {
+  uint32_t hist[kDigits];              // pass 1: the top digit's histogram; after barrier 2: the second digit's
+  uint32_t prefix[kDigits];            // prefix[r kOwnBins + j]: ranks < r's count of this CTA's j-th merged bin
+  uint32_t fine[kMaxDrawClusters * kFine];  // after barrier 1: each cluster's counts of the coarse bucket's bins
+  uint32_t coarse[kCoarse];
+  uint32_t fine_tot[kFine];
+  uint32_t tally[kDrawThreads];        // tally[q]: CTA q's candidates <= K
+  uint32_t sub[1024];                  // the candidates of the sub-bucket (at most 1,024 distinct keys)
+  uint32_t list[kListCap];             // the candidates, where they fit
+  int slots[kDrawWarps];
+  int found[4];
+  uint32_t count;                      // pass 2: the list's cursor; the selection: the sub-bucket's
+  uint32_t below;                      // this CTA's keys below the bucket
+};
+
+// The first bin of counts[0, bins) (bins = 32 or 64) whose running count reaches need, by warp 0:
+// found[0] = the bin, found[1] = the count below it.  The caller syncs before reading found.
+__device__ __forceinline__ void warp_find_bin(const uint32_t* counts, int bins, int need, int* found) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x, per = bins / 32;
+  int own = 0;
+  for (int j = 0; j < per; ++j) own += (int)counts[lane * per + j];
+  const int incl = warp_inclusive_scan(own);
+  int run = incl - own;
+  if (run < need && need <= incl)
+    for (int j = 0; j < per; ++j) {
+      const int c = (int)counts[lane * per + j];
+      if (run < need && need <= run + c) {
+        found[0] = lane * per + j;
+        found[1] = run;
+      }
+      run += c;
+    }
+}
+
+// The same over counts[0, bins) with bins = 1,024 or 2,048, by the whole CTA (every thread calls it).
+__device__ __forceinline__ void block_find_bin(const uint32_t* counts, int bins, int need, int* slots, int* found) {
+  const int per = bins / kDrawThreads, tid = threadIdx.x;
+  int own = 0;
+  for (int j = 0; j < per; ++j) own += (int)counts[tid * per + j];
   int all;
-  const int q_base = block_exclusive_scan<int, kDrawWarps>(tid < (int)gridDim.x ? __ldcg(counts + tid) : 0, slots, all);
-  if (tid == (int)blockIdx.x) found[0] = q_base;
+  int run = block_exclusive_scan<int, kDrawWarps>(own, slots, all);
+  if (run < need && need <= run + own)
+    for (int j = 0; j < per; ++j) {
+      const int c = (int)counts[tid * per + j];
+      if (run < need && need <= run + c) {
+        found[0] = tid * per + j;
+        found[1] = run;
+      }
+      run += c;
+    }
   __syncthreads();
-  int base = found[0];
+}
 
-  // the compaction, a tile of kDrawThreads pixels at a time in index order
-  for (long t0 = lo; t0 < hi; t0 += kDrawThreads) {
-    const long i = t0 + tid;
-    const int is_taken = i < hi && draw_key((uint32_t)i, a, b) <= prefix;
-    int tile;
-    const int before = block_exclusive_scan<int, kDrawWarps>(is_taken, slots, tile);
-    if (is_taken) out[base + before] = (int32_t)i;
-    base += tile;
+// One cooperative launch in clusters of kDrawCluster CTAs; CTA q owns the pixels [q chunk, (q + 1) chunk).
+// rows: a row of kRowWords words a cluster (its counts of the top digit's bins, then of the coarse bins);
+// belows: a count a CTA; list: at most min(n, 2^21) candidates.  Nothing needs to be zeroed.
+__global__ void __launch_bounds__(kDrawThreads, 2)
+    subsample_draw(int n, int limit, uint32_t a, uint32_t b, long chunk, uint32_t* __restrict__ rows,
+                   int* __restrict__ belows, uint32_t* __restrict__ list, int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char draw_dyn[];
+  DrawSmem& s = *reinterpret_cast<DrawSmem*>(draw_dyn);
+  cg::grid_group grid = cg::this_grid();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, rank = (int)cluster.block_rank(), cid = blockIdx.x / kDrawCluster;
+  const int clusters = gridDim.x / kDrawCluster;
+  // pixel indices as unsigned: n < 2^31, so an index plus a stride never wraps
+  const uint32_t lo = (uint32_t)min((long)blockIdx.x * chunk, (long)n), hi = (uint32_t)min(lo + chunk, (long)n);
+  DrawClock clk;
+  clk.begin();
+
+  // pass 1: every key hashed, the histogram of its top digit (bits 21-31) in shared memory
+  for (int j = tid; j < kDigits; j += kDrawThreads) s.hist[j] = 0;
+  if (tid < kCoarse) s.coarse[tid] = 0;
+  if (tid < kFine) s.fine_tot[tid] = 0;
+  if (tid == 0) s.count = s.below = 0;
+  __syncthreads();
+  for (uint32_t i = lo + tid; i < hi; i += kDrawThreads) atomicAdd(&s.hist[draw_key(i, a, b) >> 21], 1u);
+  clk.mark(0);
+  // the cluster's histograms merged through distributed shared memory: rank r takes bins [r kOwnBins, (r + 1)
+  // kOwnBins), a thread a bin, the ranks' counts in rank order; one store a bin and cluster, one a coarse bin
+  cluster.sync();
+  if (tid < kOwnBins) {
+    const int j = rank * kOwnBins + tid;
+    uint32_t v[kDrawCluster];
+#pragma unroll
+    for (int r = 0; r < kDrawCluster; ++r) v[r] = cluster.map_shared_rank(s.hist, r)[j];
+    uint32_t run = 0;
+#pragma unroll
+    for (int r = 0; r < kDrawCluster; ++r) {
+      s.prefix[r * kOwnBins + tid] = run;
+      run += v[r];
+    }
+    rows[(long)cid * kRowWords + j] = run;
+    const uint32_t coarse = warp_sum(run);  // a warp's 32 bins are one coarse bin
+    if ((tid & 31) == 0) rows[(long)cid * kRowWords + kDigits + j / kFine] = coarse;
   }
+  clk.mark(1);
+  grid.sync();  // barrier 1: every cluster's row stored, every peer's histogram read
+  clk.mark(2);
+
+  // the bucket B of the limit-th least key: the coarse bin from every cluster's coarse row, then the bin inside
+  // it from every cluster's fine counts of it.  The keys are uniform, so the coarse bin is almost always the one
+  // where limit / n falls: its fine counts are read beside the coarse rows, and read again only where it is not
+  const int guess = (int)((double)limit / n * kCoarse);
+  auto fine_at = [&](int j, int bin) { return __ldcg(rows + (long)(j / kFine) * kRowWords + bin * kFine + j % kFine); };
+  const uint32_t early = tid < clusters * kFine ? fine_at(tid, guess) : 0u;
+  for (int j = tid; j < clusters * kCoarse; j += kDrawThreads)
+    atomicAdd(&s.coarse[j % kCoarse], __ldcg(rows + (long)(j / kCoarse) * kRowWords + kDigits + j % kCoarse));
+  __syncthreads();
+  warp_find_bin(s.coarse, kCoarse, limit, s.found);
+  __syncthreads();
+  const int cbin = s.found[0];
+  int need = limit - s.found[1];
+  if (tid < clusters * kFine) {
+    const uint32_t v = cbin == guess ? early : fine_at(tid, cbin);
+    s.fine[tid] = v;
+    atomicAdd(&s.fine_tot[tid % kFine], v);
+  }
+  __syncthreads();
+  warp_find_bin(s.fine_tot, kFine, need, s.found + 2);
+  __syncthreads();
+  const int fbin = s.found[2];
+  const uint32_t B = (uint32_t)(cbin * kFine + fbin);
+  need -= s.found[3];  // the rank of the limit-th least key among the bucket's keys
+  // this CTA's first slot in the list: the bucket's keys of the clusters before it, then of the ranks before it
+  // (the prefix kept by the rank that merged bin B)
+  int first = 0, total = 0;
+  if (tid < 32) {
+    for (int c = tid; c < clusters; c += 32) {
+      const int v = (int)s.fine[c * kFine + fbin];
+      total += v;
+      first += c < cid ? v : 0;
+    }
+    total = warp_sum(total);
+    first = warp_sum(first);
+  }
+  if (tid == 0) {
+    s.found[0] = first + (int)cluster.map_shared_rank(s.prefix, (int)(B / kOwnBins))[rank * kOwnBins + B % kOwnBins];
+    s.found[1] = total;
+  }
+  __syncthreads();
+  first = s.found[0];
+  const int m = s.found[1];  // the candidates of the whole grid
+  clk.mark(3);
+
+  // pass 2: every key hashed again; count the keys below the bucket, gather the bucket's keys
+  int below = 0;
+  for (uint32_t i = lo + tid; i < hi; i += kDrawThreads) {
+    const uint32_t key = draw_key(i, a, b), d = key >> 21;
+    below += d < B;
+    if (d == B) list[first + atomicAdd(&s.count, 1u)] = (key & 0x1fffffu) << 10 | blockIdx.x;
+  }
+  below = warp_sum(below);
+  if ((tid & 31) == 0) atomicAdd(&s.below, (uint32_t)below);
+  for (int j = tid; j < kDigits; j += kDrawThreads) s.hist[j] = 0;  // the peers read it before barrier 1
+  s.tally[tid] = 0;
+  __syncthreads();
+  if (tid == 0) {
+    belows[blockIdx.x] = (int)s.below;
+    s.count = 0;
+  }
+  clk.mark(4);
+  grid.sync();  // barrier 2: every candidate gathered, every count stored
+  clk.mark(5);
+
+  // the exact limit-th least key K among the m candidates (each (key bits 0-20) << 10 | its CTA), by their second
+  // digit (key bits 10-20), then their third (bits 0-9) over the at most 1,024 keys of the second digit's bucket;
+  // read from shared memory where the list fits, else from device memory
+  const bool resident = m <= kListCap;
+  for (int j = tid; j < m; j += kDrawThreads) {
+    const uint32_t w = __ldcg(list + j);
+    if (resident) s.list[j] = w;
+    atomicAdd(&s.hist[(w >> 20) & 0x7ffu], 1u);
+  }
+  __syncthreads();
+  auto cand = [&](int j) { return resident ? s.list[j] : __ldcg(list + j); };
+  block_find_bin(s.hist, kDigits, need, s.slots, s.found);
+  const uint32_t B2 = (uint32_t)s.found[0];
+  need -= s.found[1];
+  for (int j = tid; j < m; j += kDrawThreads) {
+    const uint32_t w = cand(j), d2 = (w >> 20) & 0x7ffu;
+    if (d2 < B2) atomicAdd(&s.tally[w & 0x3ffu], 1u);
+    else if (d2 == B2) s.sub[atomicAdd(&s.count, 1u)] = w;
+  }
+  __syncthreads();
+  // the sub-bucket's keys differ in bits 0-9 alone: each one's rank among them by counting (about one key at
+  // the main path's size; 1,024 at most)
+  const int subs = (int)s.count;
+  if (tid < subs) {
+    const uint32_t w = s.sub[tid], low = (w >> 10) & 0x3ffu;
+    int r = 0;
+    for (int j = 0; j < subs; ++j) r += ((s.sub[j] >> 10) & 0x3ffu) < low;
+    if (r + 1 == need) s.found[0] = (int)low;
+    if (r < need) atomicAdd(&s.tally[w & 0x3ffu], 1u);
+  }
+  __syncthreads();
+  const uint32_t B3 = (uint32_t)s.found[0];
+  const uint32_t K = B << 21 | B2 << 10 | B3;
+  clk.mark(6);
+  // thread q stands for CTA q (gridDim.x <= kDrawThreads): its keys <= K, those below the bucket and its tally
+  int all;
+  const int q_base = block_exclusive_scan<int, kDrawWarps>(
+      tid < (int)gridDim.x ? __ldcg(belows + tid) + (int)s.tally[tid] : 0, s.slots, all);
+  if (tid == (int)blockIdx.x) s.found[0] = q_base;
+  __syncthreads();
+  int base = s.found[0];
+  clk.mark(7);
+
+  // pass 3: the compaction in index order, runs of up to kRun pixels a thread (a taken pixel one bit of a
+  // word), one CTA-wide scan a round of up to kRun x kDrawThreads pixels; the round's indices staged in shared
+  // memory (the list's copy, dead now) and stored coalesced
+  for (uint32_t r0 = lo; r0 < hi; r0 += kRun * kDrawThreads) {
+    const uint32_t len = min(hi - r0, (uint32_t)kRun * kDrawThreads), per = (len + kDrawThreads - 1) / kDrawThreads;
+    const uint32_t s0 = r0 + tid * per, run = s0 < r0 + len ? min(per, r0 + len - s0) : 0u;
+    uint32_t taken = 0;
+#pragma unroll 4
+    for (uint32_t j = 0; j < run; ++j) taken |= (uint32_t)(draw_key(s0 + j, a, b) <= K) << j;
+    int round;
+    int o = block_exclusive_scan<int, kDrawWarps>(__popc(taken), s.slots, round);
+    for (; taken; taken &= taken - 1) s.list[o++] = s0 + __ffs((int)taken) - 1;
+    __syncthreads();
+    for (int j = tid; j < round; j += kDrawThreads) out[base + j] = (int32_t)s.list[j];
+    base += round;
+    __syncthreads();  // the stage is written again in the next round
+  }
+  clk.mark(8);
+  clk.total();
 }
 
 // ------------------------------------------------------- the seeds and fits
@@ -859,30 +1076,50 @@ int pw_lab_sample(const uint8_t* bgr, const int32_t* idx, float* out, int n, voi
 
 // The subsample of n pixels: the `limit` pixels of least key draw_key(i, a,
 // b), written to out (limit,) int32 in increasing index order; 1 <= limit <
-// n.  scratch: 3 * 2048 + 1024 uint32 words (three rounds' histograms, then a
-// count a CTA).  Makes a memset and one cooperative launch.  Returns a CUDA
-// error code.
+// n < 2^31.  scratch: kMaxDrawClusters * kRowWords + kDrawThreads words (a
+// row a cluster, a count a CTA), then min(n, 2^21) words of candidates;
+// nothing in it needs to be zeroed.  One cooperative launch in clusters of
+// kDrawCluster CTAs.  Returns a CUDA error code.
 int pw_subsample(int n, int limit, unsigned a, unsigned b, int32_t* out, uint32_t* scratch, void* stream) {
   if (n < 2 || limit < 1 || limit >= n) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(uint32_t) * 3 * kDigits, s);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, subsample_draw, kDrawThreads, 0);
+  static int max_clusters[64];  // a device's co-resident clusters of the draw, found at its first launch
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  long grid = (long)sms * per_sm;
-  grid = grid < kDrawThreads ? grid : kDrawThreads;
-  const long tiles = ((long)n + kDrawThreads - 1) / kDrawThreads;
-  grid = grid < tiles ? grid : tiles;
-  if (grid < 1) return (int)cudaErrorInvalidConfiguration;
-  long chunk = ((tiles + grid - 1) / grid) * kDrawThreads;  // whole tiles a CTA
-  grid = ((long)n + chunk - 1) / chunk;
-  uint32_t* hist = scratch;
-  int* counts = reinterpret_cast<int*>(scratch + 3 * kDigits);
-  void* args[] = {&n, &limit, &a, &b, &chunk, &hist, &counts, &out};
-  err = cudaLaunchCooperativeKernel((const void*)subsample_draw, dim3((unsigned)grid), dim3(kDrawThreads), args, 0, s);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)kDrawCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.blockDim = dim3(kDrawThreads);
+  cfg.dynamicSmemBytes = sizeof(DrawSmem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  int most = dev < 64 ? max_clusters[dev] : 0;
+  if (most == 0) {
+    err = cudaFuncSetAttribute(subsample_draw, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(DrawSmem));
+    cfg.gridDim = dim3(kDrawCluster);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&most, (const void*)subsample_draw, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (most < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    if (dev < 64) max_clusters[dev] = most;
+  }
+  const long per_cluster = (long)kDrawCluster * kDrawThreads;
+  long clusters = ((long)n + per_cluster - 1) / per_cluster;
+  clusters = clusters < most ? clusters : most;
+  clusters = clusters < kMaxDrawClusters ? clusters : kMaxDrawClusters;
+  const long grid = clusters * kDrawCluster;
+  long chunk = ((long)n + grid - 1) / grid;
+  chunk = (chunk + 31) / 32 * 32;
+  uint32_t* rows = scratch;
+  int* belows = reinterpret_cast<int*>(scratch + (long)kMaxDrawClusters * kRowWords);
+  uint32_t* list = scratch + (long)kMaxDrawClusters * kRowWords + kDrawThreads;
+  cfg.gridDim = dim3((unsigned)grid);
+  err = cudaLaunchKernelEx(&cfg, subsample_draw, n, limit, (uint32_t)a, (uint32_t)b, chunk, rows, belows, list, out);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -948,6 +1185,11 @@ int pw_lloyd_fit(const float* sample, int n, int k, int attempts, const float* i
 // The last launch's phase cycles (kPhaseSlots values; see PhaseClock).
 int pw_kmeans_phases(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, phase_cycles, sizeof(phase_cycles));
+}
+
+// The last draw's phase cycles (kDrawSlots values; see DrawClock).
+int pw_draw_phases(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, draw_cycles, sizeof(draw_cycles));
 }
 #endif
 

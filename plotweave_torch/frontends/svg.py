@@ -278,13 +278,20 @@ def parse_path_data(d: str, samples_per_unit: float = 0.5, xp=np) -> List[np.nda
         ctrl = np.stack(cubics)
         lens = np.linalg.norm(np.diff(ctrl, axis=1), axis=2).sum(axis=1)
         n = _samples_for(float(lens.max()), samples_per_unit)
-        cub_pts = np.asarray(sample_cubics_batched(ctrl, n, xp=xp))
+        cub_pts = sample_cubics_batched(ctrl, n, xp=xp)
     quad_pts = []
     if quads:
         ctrl = np.stack(quads)
         lens = np.linalg.norm(np.diff(ctrl, axis=1), axis=2).sum(axis=1)
         n = _samples_for(float(lens.max()), samples_per_unit)
-        quad_pts = np.asarray(sample_quads_batched(ctrl, n, xp=xp))
+        quad_pts = sample_quads_batched(ctrl, n, xp=xp)
+    if isinstance(xp, _Families):  # svg_to_polylines' document route: assembled after its one sampling call
+        return (subpaths, cub_pts, quad_pts)
+    return _assemble(subpaths, cub_pts, quad_pts)
+
+
+def _assemble(subpaths, cub_pts, quad_pts) -> List[np.ndarray]:
+    """Each subpath's points, a curve's samples after its first point."""
 
     out: List[np.ndarray] = []
     for sp in subpaths:
@@ -304,6 +311,29 @@ def parse_path_data(d: str, samples_per_unit: float = 0.5, xp=np) -> List[np.nda
     return out
 
 
+class _Families:
+    """The document route's ``xp``: records each curve family and hands back
+    its index in the document's table."""
+
+    def __init__(self):
+        self.table = []
+
+    def sample(self, ctrl, n):
+        self.table.append((ctrl, n))
+        return len(self.table) - 1
+
+    def polylines(self, items, sampler) -> List[np.ndarray]:
+        pts = sampler.sample_families(self.table)
+        out: List[np.ndarray] = []
+        for polys, m in items:
+            if isinstance(polys, tuple):  # a path's subpaths, its families' indices
+                polys = _assemble(polys[0], *(pts[f] if isinstance(f, int) else f for f in polys[1:]))
+            for p in polys:
+                hp = np.concatenate([p, np.ones((len(p), 1))], axis=1)
+                out.append((hp @ m.T)[:, :2])
+        return out
+
+
 # ------------------------------ document parsing ------------------------------
 
 _SVG_NS = "{http://www.w3.org/2000/svg}"
@@ -319,16 +349,19 @@ def svg_to_polylines(svg_text: str, samples_per_unit: float = 0.5, xp=np) -> Lis
     ``xp`` an ``ops.bezier.BezierSampler`` runs the batched curve sampling
     on its torch device (opt-in; float32, so sampled geometry may differ in
     the last ulps from the numpy float64 default — not part of the byte
-    contract)."""
+    contract): each path parsed once, the document's curve families sampled
+    in one ``sample_families`` call (one launch of K14 on the card), then
+    every polyline assembled and transformed in document order."""
     root = ET.fromstring(svg_text)
     out: List[np.ndarray] = []
+    families = None if xp is np else _Families()
 
     def walk(el, mat: Mat):
         m = mat @ parse_transform(el.get("transform"))
         tag = _local(el.tag)
         polys: List[np.ndarray] = []
         if tag == "path" and el.get("d"):
-            polys = parse_path_data(el.get("d"), samples_per_unit, xp=xp)
+            polys = parse_path_data(el.get("d"), samples_per_unit, xp=xp if families is None else families)
         elif tag == "line":
             polys = [np.array([[float(el.get("x1", 0)), float(el.get("y1", 0))],
                                [float(el.get("x2", 0)), float(el.get("y2", 0))]])]
@@ -352,6 +385,9 @@ def svg_to_polylines(svg_text: str, samples_per_unit: float = 0.5, xp=np) -> Lis
                 n = _samples_for(2 * math.pi * max(rx, ry), samples_per_unit, lo=16)
                 t = np.linspace(0, 2 * math.pi, n)
                 polys = [np.stack([cx + rx * np.cos(t), cy + ry * np.sin(t)], axis=1)]
+        if families is not None:  # transformed after the document's families are sampled
+            out.append((polys, m))
+            polys = []
 
         for p in polys:
             hp = np.concatenate([p, np.ones((len(p), 1))], axis=1)
@@ -361,6 +397,8 @@ def svg_to_polylines(svg_text: str, samples_per_unit: float = 0.5, xp=np) -> Lis
             walk(child, m)
 
     walk(root, np.eye(3))
+    if families is not None:
+        return families.polylines(out, xp)
     return out
 
 

@@ -183,8 +183,9 @@ def frontend_from_boards(
     """The front-end after the assignment, over bitboards → (edges,
     skeletons), each (..., k, H, W) uint8; see :func:`raster_frontend` for
     the parameters.  On the card: K2, K3+K4, K5, then K6 writing both outputs
-    (a layer too large for K6's resident route: K6's launches, then K1's), or
-    K1, K12 and K1."""
+    (a layer too large for K6's resident route takes its banded route, which
+    stores them too; K1 follows only the named ``route="multi"``), or K1,
+    K12 and K1."""
     steps = frontend_steps(extract_iters, edge_kernel, edge_iters)
     masks_b = morph_steps(masks_b, _valid_bits(w, masks_b.device), steps)
     # the hysteresis board feeds the packed thinner in the same encoding

@@ -57,8 +57,9 @@
   ``lloyd_fit_cuda`` and ``assign_points_cuda`` (``csrc/kmeans.cu``): the
   device k-means of ``kmeans_init: "device"``: the subsample's draw (a radix
   select over hashed keys and a compaction in index order, one cooperative
-  launch), the float Lab of the subsample (K7's arithmetic through
-  ``csrc/lab.cuh``), then in ONE launch the k-means++ seeds of every attempt
+  launch in clusters: three hashing passes, two grid barriers), the float
+  Lab of the subsample (K7's arithmetic through ``csrc/lab.cuh``), then in
+  ONE launch the k-means++ seeds of every attempt
   from host-drawn random numbers and every attempt's whole Lloyd loop with
   the choice of the best (one thread block cluster per attempt over rows
   held in shared memory where they fit, :func:`kpp_schedule`; integer
@@ -93,10 +94,12 @@
   pixel and channel, bit-exact with cv2 (the fractional route through the
   tap tables of ``ops/resize.py``, every product rounded before its add);
   replaces the XLA programs of ``_area_resize_frac`` and ``_area_resize_int``.
-- K14 ``bezier_sample_cuda`` (``csrc/bezier_sample.cu``): every cubic or
-  quadratic Bézier segment of a path at n parameters, one thread a point;
-  replaces the device program of ``sample_cubics_batched`` /
-  ``sample_quads_batched`` under the JAX package's ``--sampling-backend jax``.
+- K14 ``bezier_families_cuda`` (``csrc/bezier_sample.cu``): every curve
+  family of an SVG document (the cubic or quadratic Bézier segments of a
+  path at its n parameters) in one launch over a family table, one thread a
+  point; ``bezier_sample_cuda`` is one family as a table of one.  Replaces
+  the device program of ``sample_cubics_batched`` / ``sample_quads_batched``
+  under the JAX package's ``--sampling-backend jax``.
 
 Each source notes its design and bound.  Each is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library of its own with a plain C interface, at
@@ -198,8 +201,7 @@ ROUTES = ("resident", "banded", "multi")
 # shared scratch, which takes the place of the dead d² column (``kFitScratch``),
 # and the tiles the streamed route stages at once (``kStageTiles``);
 # the seeding's weights max(floor(d2 2^16), 1) capped at 2^36, and the rows it
-# takes (n 2^36 < 2^63); the draw's scratch (three rounds of 2,048 buckets, two
-# counts for each of at most 1,024 CTAs)
+# takes (n 2^36 < 2^63)
 KMEANS_MAX_K = 8
 KPP_THREADS = 512
 KPP_STATIC_SMEM = 512
@@ -209,7 +211,22 @@ KPP_SCALE_BITS = 16
 KPP_WEIGHT_CAP = 1 << 36
 KPP_MAX_N = 1 << 27
 KPP_ROUTES = ("resident", "streamed")
-DRAW_SCRATCH_WORDS = 3 * 2048 + 1024
+
+# K8's draw (csrc/kmeans.cu): threads a CTA (also the most CTAs), CTAs a
+# cluster and the most clusters, the top digit's buckets and their coarse
+# sums read back first (``kDrawThreads``, ``kDrawCluster``,
+# ``kMaxDrawClusters``, ``kDigits``, ``kCoarse``), the candidates the selection
+# copies into shared memory (``kListCap``) and the most one bucket holds (keys
+# are distinct: 2^21 of one top digit); its scratch, a row of the bins and
+# coarse sums a cluster and a count a CTA, then the candidates
+DRAW_THREADS, DRAW_CLUSTER, DRAW_MAX_CLUSTERS = 1024, 8, 32
+DRAW_DIGITS, DRAW_COARSE = 2048, 64
+DRAW_LIST_CAP, DRAW_MAX_BUCKET = 16384, 1 << 21
+DRAW_SCRATCH_WORDS = DRAW_MAX_CLUSTERS * (DRAW_DIGITS + DRAW_COARSE) + DRAW_THREADS
+
+# K14: points a CTA (``kThreads`` in csrc/bezier_sample.cu), the unit of its
+# start table
+BEZIER_THREADS = 256
 
 # K11's tile of output, rows x pixels (pixels a multiple of 16): the larger
 # one for a launch whose steps need no H plane (rects that roll their rows in
@@ -367,7 +384,8 @@ _SIGNATURES = {
                     "pw_refine_blocks": [_I]},
     "area_resize": {"pw_area_resize_frac": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
                     "pw_area_resize_int": [_P, _P, _I, _I, _I, _I, _I, _I, _P]},
-    "bezier_sample": {"pw_bezier_sample": [_P, _P, _I, _I, _I, _P]},
+    "bezier_sample": {"pw_bezier_sample": [_P, _P, _I, _I, _I, _P],
+                      "pw_bezier_families": [_P, _I, _I, _I, _I, _P, _P]},
 }
 
 
@@ -1485,9 +1503,9 @@ def kmeans_fit_cuda(sample: torch.Tensor, draws: torch.Tensor, iters: int, eps: 
 
 def subsample_cuda(words: tuple, n: int, limit: int, device) -> torch.Tensor:
     """K8's draw: ``ops.kmeans.subsample_indices_plain`` on a CUDA device in
-    one cooperative launch (and a memset), nothing read back.  ``words``:
-    the key words (a, b) of ``ops.kmeans.draw_words``; 1 <= ``limit`` <
-    ``n`` < 2^31 → (limit,) int32 indices, increasing."""
+    one cooperative launch in clusters, nothing zeroed before it and nothing
+    read back.  ``words``: the key words (a, b) of ``ops.kmeans.draw_words``;
+    1 <= ``limit`` < ``n`` < 2^31 → (limit,) int32 indices, increasing."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"subsample: expected a CUDA device, got {device}")
@@ -1496,7 +1514,7 @@ def subsample_cuda(words: tuple, n: int, limit: int, device) -> torch.Tensor:
     lib = load("kmeans")
     with _guard(device):
         out = torch.empty(limit, dtype=torch.int32, device=device)
-        scratch = torch.empty(DRAW_SCRATCH_WORDS, dtype=torch.int32, device=device)
+        scratch = torch.empty(DRAW_SCRATCH_WORDS + min(n, DRAW_MAX_BUCKET), dtype=torch.int32, device=device)
         err = lib.pw_subsample(n, limit, int(words[0]), int(words[1]), out.data_ptr(), scratch.data_ptr(),
                                torch.cuda.current_stream().cuda_stream)
         _count("subsample")
@@ -1849,9 +1867,9 @@ def area_resize_int_cuda(img: torch.Tensor, sy: int, sx: int) -> torch.Tensor:
 
 
 def bezier_sample_cuda(ctrl: torch.Tensor, n: int) -> torch.Tensor:
-    """K14: ``ops.bezier.sample_bezier_plain`` of CUDA (S, K, 2) float32
-    control points (K = 4 cubics, 3 quadratics) at ``n`` parameters → (S, n,
-    2) float32, one launch."""
+    """K14 on one family, a table of one: ``ops.bezier.sample_bezier_plain``
+    of CUDA (S, K, 2) float32 control points (K = 4 cubics, 3 quadratics) at
+    ``n`` parameters → (S, n, 2) float32, one launch."""
     _check_f32("bezier_sample", ctrl, (2,))
     if ctrl.dim() != 3 or ctrl.shape[1] not in (3, 4) or n < 1 or ctrl.shape[0] * n >= 2**31:
         raise ValueError(f"bezier_sample: expected (S, 3 or 4, 2) control points and n >= 1, got "
@@ -1864,3 +1882,38 @@ def bezier_sample_cuda(ctrl: torch.Tensor, n: int) -> torch.Tensor:
         _count("bezier_sample")
         _raise_on(lib, "bezier_sample", err)
     return out
+
+
+def bezier_families_cuda(words: torch.Tensor, n_fam: int, n_points: int) -> torch.Tensor:
+    """K14 on a document: ``ops.bezier.sample_families_plain`` of the CUDA
+    int32 buffer ``words`` that ``ops.bezier.pack_families`` made for
+    ``n_fam`` non-empty families of ``n_points`` points in all → (n_points,
+    2) float32, every family's points back to back, one launch."""
+    if not words.is_cuda or words.dtype != torch.int32 or not words.is_contiguous() or words.dim() != 1:
+        raise ValueError(f"bezier_families: expected a contiguous CUDA int32 buffer, got {words.dtype} "
+                         f"{tuple(words.shape)} on {words.device}")
+    table_off, first_off = bezier_layout(words.numel(), n_fam, n_points)
+    lib = load("bezier_sample")
+    with _guard(words.device):
+        out = torch.empty((n_points, 2), dtype=torch.float32, device=words.device)
+        if n_points:
+            err = lib.pw_bezier_families(words.data_ptr(), table_off, first_off, n_fam, n_points, out.data_ptr(),
+                                         torch.cuda.current_stream().cuda_stream)
+            _count("bezier_sample")
+            _raise_on(lib, "bezier_sample", err)
+    return out
+
+
+def bezier_layout(n_words: int, n_fam: int, n_points: int) -> tuple:
+    """(word of the family table, word of the CTAs' first families) in a
+    K14 buffer of ``n_words`` words for ``n_fam`` families and ``n_points``
+    points: the control points, padded to 4 words, then ``n_fam`` entries of
+    4 words, then ⌈n_points / BEZIER_THREADS⌉ + 1 start words, at the end."""
+    if not 0 <= n_points < 2**31 or n_fam < 0 or (n_points and not n_fam):
+        raise ValueError(f"bezier_families: expected fewer than 2^31 points in non-empty families, got "
+                         f"{n_points} in {n_fam}")
+    first_off = n_words - (-(-n_points // BEZIER_THREADS) + 1)
+    table_off = first_off - 4 * n_fam
+    if table_off < 0 or table_off % 4:
+        raise ValueError(f"bezier_families: {n_words} words do not hold {n_fam} families and {n_points} points")
+    return table_off, first_off

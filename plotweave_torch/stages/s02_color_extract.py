@@ -89,7 +89,8 @@ def chain_tail(masks: torch.Tensor, w: int, mk: int, oi: int, ci: int, bk: int, 
     take them as more layers, and each image's two halves are written in
     place, so image b's part, flattened, is the solo call's blob.  On the
     card: K2, K3+K4, K5 and K6, whose stores write both halves (a layer too
-    large for K6's resident route: K6's launches, then K1's)."""
+    large for K6's resident route takes its banded route, which stores them
+    too; K1 follows only the named ``route="multi"``)."""
     # the hysteresis board feeds the thinner in the same encoding
     edges_b = edges_from_boards(masks, w, mk, oi, ci, bk, lo, hi)
     *lead, k, h, _ = masks.shape

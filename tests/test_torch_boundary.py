@@ -105,7 +105,9 @@ COPIES = ['config.py', 'native/api.py', 'native/encoder.cpp', 'stages/common.py'
 # stage 08's fallback thinner on the port's Zhang-Suen, the tools' ``device`` argument and ``--raster-device`` flag
 # (their k-means runs on the card unless the caller asks for the CPU) and the palette's Lab through a tensor, the
 # front-ends' sampling backend ``torch`` in place of ``jax`` (a ``BezierSampler`` as ``xp``: K14 on the card unless
-# ``--sampling-device cpu``) and the docstring lines that describe it, and comments that named a path or a file of
+# ``--sampling-device cpu``), its document route in ``frontends/svg.py`` (each path parsed once, its families
+# recorded, the document's families sampled in one call, the polylines assembled after it in document order) and
+# the docstring lines that describe them, and comments that named a path or a file of
 # the JAX package's workspace (an entry that ends in "…" stands for any line that begins so)
 ALLOWED_DIFFERENCES = {'native/encoder.cpp': ["+// Copy of plotweave/native/encoder.cpp (the port's native library).",
                         '-// (gcode.py:99-132, itself pinned to …',
@@ -264,12 +266,51 @@ ALLOWED_DIFFERENCES = {'native/encoder.cpp': ["+// Copy of plotweave/native/enco
                       "-    # --sampling-backend jax — see sample_cubics_batched's dtype note)",
                       '+    # a BezierSampler as xp samples on its torch device (opt-in,',
                       "+    # --sampling-backend torch — see sample_cubics_batched's dtype note)",
+                      '-        cub_pts = np.asarray(sample_cubics_batched(ctrl, n, xp=xp))',
+                      '+        cub_pts = sample_cubics_batched(ctrl, n, xp=xp)',
+                      '-        quad_pts = np.asarray(sample_quads_batched(ctrl, n, xp=xp))',
+                      '+        quad_pts = sample_quads_batched(ctrl, n, xp=xp)',
+                      "+    if isinstance(xp, _Families):  # svg_to_polylines' document route: assembled after its one sampling call",
+                      '+        return (subpaths, cub_pts, quad_pts)',
+                      '+    return _assemble(subpaths, cub_pts, quad_pts)',
+                      '+def _assemble(subpaths, cub_pts, quad_pts) -> List[np.ndarray]:',
+                      '+    """Each subpath\'s points, a curve\'s samples after its first point."""',
+                      '+class _Families:',
+                      '+    """The document route\'s ``xp``: records each curve family and hands back',
+                      '+    its index in the document\'s table."""',
+                      '+    def __init__(self):',
+                      '+        self.table = []',
+                      '+    def sample(self, ctrl, n):',
+                      '+        self.table.append((ctrl, n))',
+                      '+        return len(self.table) - 1',
+                      '+    def polylines(self, items, sampler) -> List[np.ndarray]:',
+                      '+        pts = sampler.sample_families(self.table)',
+                      '+        out: List[np.ndarray] = []',
+                      '+        for polys, m in items:',
+                      "+            if isinstance(polys, tuple):  # a path's subpaths, its families' indices",
+                      '+                polys = _assemble(polys[0], *(pts[f] if isinstance(f, int) else f for f in polys[1:]))',
+                      '+            for p in polys:',
+                      '+                hp = np.concatenate([p, np.ones((len(p), 1))], axis=1)',
+                      '+                out.append((hp @ m.T)[:, :2])',
+                      '+        return out',
                       '-    ``xp=jax.numpy`` runs the batched curve sampling on the default JAX',
                       '-    device (opt-in; float32 on TPU, so sampled geometry may differ in the',
                       '-    last ulps from the numpy float64 default — not part of the byte',
+                      '-    contract)."""',
                       '+    ``xp`` an ``ops.bezier.BezierSampler`` runs the batched curve sampling',
                       '+    on its torch device (opt-in; float32, so sampled geometry may differ in',
-                      '+    the last ulps from the numpy float64 default — not part of the byte'],
+                      '+    the last ulps from the numpy float64 default — not part of the byte',
+                      "+    contract): each path parsed once, the document's curve families sampled",
+                      '+    in one ``sample_families`` call (one launch of K14 on the card), then',
+                      '+    every polyline assembled and transformed in document order."""',
+                      '+    families = None if xp is np else _Families()',
+                      '-            polys = parse_path_data(el.get("d"), samples_per_unit, xp=xp)',
+                      '+            polys = parse_path_data(el.get("d"), samples_per_unit, xp=xp if families is None else families)',
+                      "+        if families is not None:  # transformed after the document's families are sampled",
+                      '+            out.append((polys, m))',
+                      '+            polys = []',
+                      '+    if families is not None:',
+                      '+        return families.polylines(out, xp)'],
  'frontends/svg2gcode.py': ['-        choices=["numpy", "jax"],',
                             '+        choices=["numpy", "torch"],',
                             '-        "or the default JAX device (float32 on TPU; last-ulp geometry "',

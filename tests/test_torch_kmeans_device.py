@@ -6,12 +6,19 @@ held to the plain versions exactly.
 
 The draw: the ``limit`` pixels of least ``fmix32(i·a + b mod 2³²)`` (a
 bijection of i, so the keys are distinct), in increasing index order.  The
-emulation runs the kernel's CTAs (runs of whole tiles), its three radix
-rounds (a histogram per CTA merged into one, then the digit every CTA finds
-from the merged counts), which end on the limit-th least key K, the per-CTA
-counts of keys up to K, each CTA's first output slot, and the compaction
-tile by tile with one scan, into an output of garbage that every slot must
-be written in exactly once.
+emulation runs the kernel's three passes and two barriers: the CTAs in
+clusters (each a run of pixels), each CTA's histogram of the top digit, the
+cluster's merge (each rank a slice of the bins, the ranks' exclusive
+prefixes kept by the rank that merged a bin, a row of bins and coarse sums a
+cluster, in scratch of garbage); the bucket B from the coarse sums and then
+the fine counts of one coarse bucket (read beside the coarse sums for the
+bucket where limit / n falls, again where that guess is wrong), each CTA's first slot in the candidate
+list, the candidates written in a seeded order (every slot once); the
+selection of the limit-th least key K over the list, from shared memory or
+in place by the list's size, by the second digit's histogram and then each
+sub-bucket key's rank by counting, the tallies of each CTA's candidates up to K, each CTA's output
+base; the compaction in rounds of runs of up to 16 pixels a thread, staged and
+stored in order, into an output of garbage that every slot must be written in exactly once.
 
 The seeding: integer weights ``max(⌊d²·2¹⁶⌋, 1)``, the first row whose
 running sum exceeds ``⌊total·u⌋``.  The emulation runs 16 CTAs of a cluster,
@@ -35,8 +42,9 @@ from plotweave_torch.ops import kernels
 from plotweave_torch.ops import kmeans as tkm
 
 CLUSTER = kernels.CLUSTER_SIZE
-DIGITS = 2048
-ROUNDS = ((21, 0x7FF), (10, 0x7FF), (0, 0x3FF))  # (shift, digit mask) of the radix select's rounds
+DIGITS, COARSE = kernels.DRAW_DIGITS, kernels.DRAW_COARSE
+FINE = DIGITS // COARSE
+RUN = 16  # the compaction's pixels a thread and round (``kRun``)
 
 
 # --- the draw -----------------------------------------------------------------------
@@ -58,51 +66,126 @@ def exclusive(v: np.ndarray) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(v)[:-1]]).astype(np.int64)
 
 
-def draw_grid(n: int, max_grid: int, threads: int):
-    """``pw_subsample``'s CTAs and their chunk: whole tiles a CTA."""
-    tiles = -(-n // threads)
-    grid = min(max_grid, threads, tiles)
-    chunk = -(-tiles // grid) * threads
-    return -(-n // chunk), chunk
+def draw_grid(n: int, max_clusters: int, threads: int, cluster: int = kernels.DRAW_CLUSTER):
+    """``pw_subsample``'s CTAs and their chunk: as many clusters as the card
+    holds (``max_clusters``) but no more than the pixels fill, nor than
+    ``DRAW_MAX_CLUSTERS``; a chunk a multiple of 32 pixels."""
+    clusters = min(-(-n // (cluster * threads)), max_clusters, kernels.DRAW_MAX_CLUSTERS)
+    grid = clusters * cluster
+    return grid, -(-(-(-n // grid)) // 32) * 32
 
 
-def emulate_draw(seed: int, n: int, limit: int, max_grid: int, threads: int) -> np.ndarray:
+def find_bin(counts: np.ndarray, need: int, per: int) -> tuple:
+    """``warp_find_bin`` / ``block_find_bin``: the threads' sums of ``per``
+    bins each, their exclusive scan, the one thread whose range reaches
+    ``need``, then its bin → (bin, count below it)."""
+    sums = counts.reshape(-1, per).sum(1)
+    run = exclusive(sums)
+    hit = np.flatnonzero((run < need) & (need <= run + sums))
+    assert len(hit) == 1  # exactly one thread finds it
+    t = int(hit[0])
+    within = exclusive(counts[t * per: (t + 1) * per]) + run[t]
+    j = int(np.flatnonzero((within < need) & (need <= within + counts[t * per: (t + 1) * per]))[0])
+    return t * per + j, int(within[j])
+
+
+def emulate_draw(seed: int, n: int, limit: int, max_clusters: int, threads: int, cap: int,
+                 cluster: int = kernels.DRAW_CLUSTER):
+    """The kernel's schedule → (output, whether the selection read the list
+    from shared memory)."""
+    rng = np.random.default_rng(seed)
     keys = np_keys(seed, n).astype(np.int64)
-    grid, chunk = draw_grid(n, max_grid, threads)
-    ranges = [(q * chunk, min(q * chunk + chunk, n)) for q in range(grid)]
-    prefix, mask, need = 0, 0, limit
-    for sh, digit in ROUNDS:
-        merged = np.zeros(DIGITS, np.int64)
-        for lo, hi in ranges:  # each CTA's shared histogram, merged by atomics (any order)
-            k = keys[lo:hi]
-            inside = k[(k & mask) == prefix]
-            merged += np.bincount((inside >> sh) & digit, minlength=DIGITS)
-        pairs = merged.reshape(-1, 2)  # two buckets a thread
-        below = exclusive(pairs.sum(1))
-        first = (below < need) & (need <= below + pairs[:, 0])
-        second = (below + pairs[:, 0] < need) & (need <= below + pairs.sum(1))
-        assert first.sum() + second.sum() == 1  # exactly one thread finds the digit
-        t = int(np.flatnonzero(first | second)[0])
-        found = (2 * t, int(below[t])) if first[t] else (2 * t + 1, int(below[t] + pairs[t, 0]))
-        prefix |= found[0] << sh
-        mask |= digit << sh
-        need -= found[1]
-    assert need == 1 and (keys == prefix).sum() == 1  # prefix is one key, the limit-th least
-    counts = np.array([(keys[lo:hi] <= prefix).sum() for lo, hi in ranges])
-    base = exclusive(counts)
+    grid, chunk = draw_grid(n, max_clusters, threads, cluster)
+    assert grid <= threads  # thread q stands for CTA q in the output bases
+    clusters, own = grid // cluster, DIGITS // cluster
+    ranges = [(min(q * chunk, n), min(q * chunk + chunk, n)) for q in range(grid)]
+    # pass 1: each CTA's histogram of the top digit; the cluster's merge, each rank its slice of bins
+    hists = [np.bincount(keys[lo:hi] >> 21, minlength=DIGITS) for lo, hi in ranges]
+    rows = rng.integers(0, 2**32, (kernels.DRAW_MAX_CLUSTERS, DIGITS + COARSE))  # scratch: garbage
+    prefix = [np.full(DIGITS, -1, np.int64) for _ in range(grid)]  # held by the rank that merged the bin
+    for c in range(clusters):
+        for r in range(cluster):
+            j = np.arange(r * own, (r + 1) * own)
+            v = np.stack([hists[c * cluster + rr][j] for rr in range(cluster)])  # (ranks, bins)
+            prefix[c * cluster + r][:] = np.concatenate(exclusive_rows(v))
+            rows[c, j] = v.sum(0)
+            rows[c, DIGITS + j[::FINE] // FINE] = v.sum(0).reshape(-1, FINE).sum(1)  # a warp's bins, one coarse bin
+    # barrier 1; every CTA: the coarse bin, the bin, the rank inside it, its first slot in the list
+    guess = int(limit / n * COARSE)  # the fine counts read beside the coarse rows
+    early = rows[:clusters, guess * FINE: (guess + 1) * FINE].copy()
+    cbin, below = find_bin(rows[:clusters, DIGITS:].sum(0), limit, COARSE // 32)
+    need = limit - below
+    fine = early if cbin == guess else rows[:clusters, cbin * FINE: (cbin + 1) * FINE]
+    fbin, below = find_bin(fine.sum(0), need, FINE // 32)
+    bucket, need = cbin * FINE + fbin, need - below
+    m = int(fine[:, fbin].sum())
+    assert m == int(((keys >> 21) == bucket).sum()) <= min(n, kernels.DRAW_MAX_BUCKET)
+    cap_list = min(n, kernels.DRAW_MAX_BUCKET)
+    lst = rng.integers(0, 2**31, cap_list)  # garbage
+    written = np.zeros(cap_list, np.int64)
+    belows = rng.integers(0, 2**31, threads)  # garbage past the grid
+    for q, (lo, hi) in enumerate(ranges):
+        c, r = divmod(q, cluster)
+        owner = c * cluster + bucket // own
+        first = int(fine[:c, fbin].sum()) + int(prefix[owner][r * own + bucket % own])
+        k = keys[lo:hi]
+        belows[q] = int(((k >> 21) < bucket).sum())
+        mine = np.flatnonzero((k >> 21) == bucket)
+        slots = first + rng.permutation(len(mine))  # a shared atomic's order
+        lst[slots] = (k[mine] & 0x1FFFFF) << 10 | q
+        np.add.at(written, slots, 1)
+    assert (written[:m] == 1).all() and (written[m:] == 0).all()  # every slot of the list written once
+    # barrier 2; every CTA: K among the candidates, its tallies, its output base
+    shared = m <= cap
+    cand = lst[:m].copy() if shared else lst  # the copy in shared memory, or the list in place
+    words = cand[:m]
+    b2, below = find_bin(np.bincount((words >> 20) & 0x7FF, minlength=DIGITS), need, DIGITS // threads
+                         if threads < DIGITS else 1)
+    need -= below
+    d2 = (words >> 20) & 0x7FF
+    tally = np.bincount(words[d2 < b2] & 0x3FF, minlength=1024)
+    sub = rng.permutation(words[d2 == b2])
+    assert len(sub) <= 1024
+    low = (sub >> 10) & 0x3FF
+    rank = (low[None, :] < low[:, None]).sum(1)  # each key's rank among the sub-bucket's, by counting
+    assert sorted(rank.tolist()) == list(range(len(sub)))  # distinct keys
+    b3 = int(low[rank + 1 == need][0])
+    tally += np.bincount(sub[rank < need] & 0x3FF, minlength=1024)
+    key = bucket << 21 | b2 << 10 | b3
+    assert (keys <= key).sum() == limit and (keys == key).sum() == 1  # K is the limit-th least key
+    counts = np.where(np.arange(threads) < grid, belows + tally[:threads], 0)
+    assert (counts[:grid] == [(keys[lo:hi] <= key).sum() for lo, hi in ranges]).all()
+    bases = exclusive(counts)
+    # pass 3: rounds of up to 16 x threads pixels, a run of up to 16 a thread, one scan a round, the round's
+    # indices staged (in shared memory) and then stored in order
     out = np.full(limit, -7, np.int64)  # garbage
     writes = np.zeros(limit, np.int64)
     for q, (lo, hi) in enumerate(ranges):
-        run = base[q]
-        for t0 in range(lo, hi, threads):
-            i = np.arange(t0, t0 + threads)
-            taken = ((i < hi) & (keys[np.minimum(i, n - 1)] <= prefix)).astype(np.int64)
-            pos = run + exclusive(taken)
-            out[pos[taken == 1]] = i[taken == 1]
-            np.add.at(writes, pos[taken == 1], 1)
-            run += int(taken.sum())
+        base = int(bases[q])
+        for r0 in range(lo, hi, RUN * threads):
+            length = min(hi - r0, RUN * threads)
+            per = -(-length // threads)
+            assert per <= RUN
+            i = np.arange(r0, r0 + length)
+            taken = keys[i] <= key
+            thread = (i - r0) // per
+            pops = np.bincount(thread[taken], minlength=threads)
+            start = base + exclusive(pops)
+            rank_in_run = np.cumsum(taken) - 1 - exclusive(np.bincount(thread, weights=taken, minlength=threads)
+                                                           .astype(np.int64))[thread]
+            pos = start[thread] + rank_in_run
+            stage = np.full(length, -9, np.int64)  # garbage past the round's indices
+            stage[pos[taken] - base] = i[taken]
+            out[base: base + int(taken.sum())] = stage[: int(taken.sum())]
+            np.add.at(writes, np.arange(base, base + int(taken.sum())), 1)
+            base += int(taken.sum())
     assert (writes == 1).all()  # every slot written once
-    return out
+    return out, shared
+
+
+def exclusive_rows(v: np.ndarray) -> list:
+    """The ranks' exclusive prefix of each bin, rank-major (``prefix[r·own + j]``)."""
+    return list(np.cumsum(v, axis=0) - v)
 
 
 @pytest.mark.parametrize("n,limit", [(5000, 700), (1000, 1), (1000, 999), (701, 700), (2, 1), (100_000, 30_000)])
@@ -160,20 +243,26 @@ def test_draw_dispatch_raises():
         kernels.subsample_cuda(tkm.draw_words(1), 100, 10, "cpu")
 
 
-@pytest.mark.parametrize("n,limit,seed,max_grid,threads", [
-    (5000, 700, 11, 3, 64),
-    (5000, 4999, 12, 3, 64),  # the threshold is the greatest key but one
-    (3000, 1, 11, 2, 64),
-    (3000, 2999, 11, 5, 64),
-    (3001, 1500, 13, 7, 32),
-    (200_000, 20_000, 11, 132, 1024),
-    (200_000, 199_999, 14, 132, 1024),
-    (1025, 1024, 11, 264, 1024),
-    (70_000, 3, 15, 9, 256),
-    (2, 1, 11, 132, 1024),
+@pytest.mark.parametrize("n,limit,seed,max_clusters,threads,cap,shared", [
+    (5000, 700, 11, 3, 64, 16384, True),
+    (5000, 4999, 12, 3, 64, 16384, True),  # the threshold is the greatest key but one
+    (3000, 1, 11, 2, 64, 16384, True),
+    (3000, 2999, 11, 5, 64, 16384, True),
+    (3001, 1500, 13, 4, 32, 0, False),  # every list read in place
+    (200_000, 20_000, 11, 30, 1024, kernels.DRAW_LIST_CAP, True),
+    (200_000, 199_999, 14, 30, 1024, kernels.DRAW_LIST_CAP, True),
+    (300_000, 20_000, 16, 14, 1024, 100, False),  # the large-list route: about 146 candidates, a cap of 100
+    (300_000, 299_999, 17, 30, 1024, 146, False),
+    (1025, 1024, 11, 33, 1024, kernels.DRAW_LIST_CAP, True),
+    (70_000, 3, 15, 8, 64, kernels.DRAW_LIST_CAP, True),
+    (70_000, 69_000, 18, 8, 128, 30, False),
+    (2, 1, 11, 30, 1024, kernels.DRAW_LIST_CAP, True),
+    (9, 8, 19, 1, 32, 1, True),  # one CTA's worth of pixels
+    (100_000, 50_000, 20, 12, 1024, kernels.DRAW_LIST_CAP, True),  # K below the coarse bin where limit / n falls
 ])
-def test_draw_emulated_schedule_equals_plain(n, limit, seed, max_grid, threads):
-    got = emulate_draw(seed, n, limit, max_grid, threads)
+def test_draw_emulated_schedule_equals_plain(n, limit, seed, max_clusters, threads, cap, shared):
+    got, took_shared = emulate_draw(seed, n, limit, max_clusters, threads, cap)
+    assert took_shared == shared
     np.testing.assert_array_equal(got, tkm.subsample_indices_plain(seed, n, limit).numpy())
 
 
