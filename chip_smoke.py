@@ -89,8 +89,12 @@ Phases:
    1, limit = 1, limit = n - 1, 2 pixels, 4400 x 4400 pixels); K8's sampler
    (``pw_lab_sample``) against K7 over all 2^24 colours (its
    Lab, put through K7's distance rule in plain PyTorch, must give K7's
-   labels exactly; within 1e-3 of the plain Lab), a gather by index, and
-   indices outside the image on the card refused by ``lab_sample``;
+   labels exactly; within 1e-3 of the plain Lab), gathers by index equal to
+   the same pixels in place (indices off a 16-byte boundary, counts below
+   and not a multiple of a chunk, the image's last pixel, an image off a
+   4-byte boundary), indices outside the image on the card refused by
+   ``lab_sample``, and its bound from the 32-byte sectors the poster's
+   gather touches (``sample_bound``);
    ``pw_kmeans_fit``'s seeds (the launch with no iteration: the same picked
    rows and centres as the plain version for 16 seeds, k = 1, 2, 4, 8, on the
    poster's sample drawn on the card, on integer rows with duplicates, 777
@@ -169,8 +173,14 @@ Phases:
    byte-equal to its plain versions on the card and to ``cv2.resize(...,
    INTER_AREA)`` on the photo (fractional), 4000 x 3000 (2 x 2), 3000 x 3000
    to 1000 x 1000 (3 x 3), a gray 8000 x 6000 to 100 x 75 (an 80 x 80 box)
-   and to 97 x 73 (fractional, over 16 taps) and ten seeded random sizes and
-   channel counts, with both routes' times beside their plain versions',
+   and to 97 x 73 (fractional, over 16 taps), FRAC_CASES (1, 2 and 4
+   channels, widths not a multiple of 16, outputs of one pixel, a row or a
+   column, 4 channels over 16 taps; at 2 channels against the plain version
+   only, which cv2 does not take), RING_CASES (an upscale, against the plain
+   version only, and a downscale of 2,056 source rows a band: the ring route,
+   which the schedule is checked to take) and ten seeded random sizes and
+   channel counts, the fractional schedule's shared memory equal in C and Python,
+   with both routes' times beside their plain versions',
    ``interpolate(mode="area")`` and their bounds, and K14 in one launch over
    60,000 seeded cubics at 128 samples against its plain version and
    ``torch.einsum``; after phase 13, ``svg2stream`` (``python -m
@@ -250,7 +260,10 @@ and stage 02's device mode against another checkout's, in turns, and the
 launch's clock64 cycles by phase), ``phase_banded_ab(other)`` (K5, K6
 storing the blob and the chain at 1 × 4400 × 4400 against another
 checkout's, in turns: the banded route against the parent's multi-launch
-route and K1).  Each phase's wall seconds
+route and K1), ``phase_resize_ab(other)`` and ``phase_sample_ab(other)``
+(K13 and K8's sampler against another checkout's, in turns, outputs equal),
+``phase_resize_phases()`` (K13's clock64 cycles by phase and its CTAs'
+times) and ``phase_sample_phases()`` (the sampler's cycles by stage).  Each phase's wall seconds
 are printed before the ``kernels`` line.
 """
 
@@ -361,6 +374,31 @@ def k11_bound(numel: int, steps) -> dict:
         runs = kernels.element_runs(shape, ksize)[1]
         per_pixel += sum(min(dx1 - dx0, 3) + min(len(dys) - 1, 3) for dx0, dx1, dys in runs) + len(runs) - 1
     return bound(2 * numel, numel * per_pixel / 4, INT32_OPS)
+
+
+def gather_sectors(idx, offset: int = 0) -> int:
+    """The distinct 32-byte sectors that bytes 3i to 3i + 2 of the pixels
+    ``idx`` touch in an image whose first byte lies ``offset`` bytes past a
+    sector's start: what K8's sampler must read of the image."""
+    import torch
+
+    start = offset + 3 * idx.to(torch.int64)
+    return int(torch.unique(torch.cat([start // 32, (start + 2) // 32])).numel())
+
+
+def sample_bound(img, idx) -> dict:
+    """K8's sampler's least time on ``img`` and ``idx``: the 32-byte sectors
+    of the image that the drawn pixels touch (the card reads no less than a
+    sector), the indices and the (n, 3) float32 output, each moved once,
+    against K7's float operations a pixel with its gamma table (the kernel's
+    arithmetic); beside it ``bound_3b_ms``, the former count, 3 bytes a
+    drawn pixel."""
+    n = idx.numel()
+    sectors = gather_sectors(idx, img.data_ptr() % 32)
+    ops = k7_flops(img.reshape(-1, 3)[idx.long()], 0)
+    out = bound(32 * sectors + 4 * n + 12 * n, ops, FP32_OPS)
+    out.update(sectors=sectors, bound_3b_ms=bound(n * (4 + 3 + 12), ops + 3 * n * POWF_FLOPS, FP32_OPS)["bound_ms"])
+    return out
 
 
 def kmeans_fit_bound(n: int, k: int, attempts: int, passes: int) -> dict:
@@ -1779,6 +1817,7 @@ def phase_frontend(stats: dict) -> dict:
     skel32 = k12_call()
     stats["K1 pack"] = {"max_abs_err": 0,
                         "ms": cuda_ms(lambda: kernels.dense_to_boards_cuda(edges), 20),
+                        "alone_ms": profiled_ms(lambda: kernels.dense_to_boards_cuda(edges), "dense_to_boards", 20),
                         "plain_ms": cuda_ms(lambda: pack_bitboards_plain(edges), 3),
                         "int32_ms": cuda_ms(lambda: kernels.dense_to_boards_cuda(skel32), 20),
                         "int32_plain_ms": cuda_ms(lambda: pack_bitboards_plain(skel32), 3),
@@ -1827,7 +1866,8 @@ def phase_frontend(stats: dict) -> dict:
         st = stats[name]
         print(f"{name} at {what}: kernel {st['ms']:.4f} ms, plain PyTorch on the card {st['plain_ms']:.4f} ms, "
               f"bound {st['bound_ms']:.5f} ms by {st['bound_by']}"
-              + (f", alone {st['alone_ms']:.4f} ms (torch.profiler)" if st.get("alone_ms") else "")
+              + (f", alone {st['alone_ms']:.4f} ms (torch.profiler; {st['bound_ms'] / st['alone_ms']:.0%} of the bound)"
+                 if st.get("alone_ms") else "")
               + (f", plain in {st['plain_device_kernels']} device kernels" if "plain_device_kernels" in st else ""))
     st = stats["K1 pack"]
     print(f"  K1 dense int32 -> boards (K12's output): {st['int32_ms']:.4f} ms, plain {st['int32_plain_ms']:.4f} ms")
@@ -1858,22 +1898,23 @@ def rel_err(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
-    """K8 (sampler, seeding, fit, assignment), K7's counts and K11 against
-    their plain versions on the card; returns the launch counts of one
-    ``ops.kmeans.kmeans`` call on the card."""
+def sample_cases(rng) -> float:
+    """K8's sampler on the card: over all 2^24 BGR colours in place, its Lab
+    through K7's distance rule equal to K7's labels and within 1e-3 of the
+    plain Lab; gathers by index equal to the same pixels in place (200,000
+    random indices; an index tensor off a 16-byte boundary; counts below one
+    chunk and not a multiple of one; the image's last pixel, whose bytes end
+    the tensor, an image off a 4-byte boundary, and the first and last pixels
+    of images that start or end off a word); indices outside the image
+    refused before any launch."""
     import numpy as np
     import torch
 
-    from plotweave_torch.ops import kernels, kmeans, morphology
+    from plotweave_torch.ops import kernels, kmeans
     from plotweave_torch.ops.colorspace import bgr_to_lab_u8
-    from plotweave_torch.ops.frontend import (
-        assign_boards_counts_plain, assign_nearest_plain, nearest_of_lab, onehot_boards_plain)
+    from plotweave_torch.ops.frontend import nearest_of_lab
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(31)
-
-    # --- K8's sampler against K7, over every BGR colour once
     v = torch.arange(2**24, dtype=torch.int32, device=dev)
     img = torch.stack([v & 255, (v >> 8) & 255, v >> 16], dim=-1).to(torch.uint8).reshape(4096, 4096, 3)
     pens = torch.tensor([[30, 128, 128], [60, 150, 100], [90, 110, 160], [120, 170, 170], [150, 90, 120],
@@ -1886,6 +1927,25 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
     idx = torch.from_numpy(rng.integers(0, 2**24, KMEANS_SAMPLE).astype(np.int32))
     check(torch.equal(kmeans.lab_sample(img, idx), lab[idx.long().to(dev)]),
           "K8 lab_sample: a gather by index != the same pixels in place")
+    idx_d = idx.to(dev)
+    last = torch.tensor([2**24 - 1, 0, 2**24 - 1], dtype=torch.int32, device=dev)
+    odd = img.reshape(-1)[1:1 + 3 * 1_000_001].view(1_000_001, 3)  # an image whose first byte is off 4 bytes
+    cases = {"indices off a 16-byte boundary": (img, idx_d[1:1 + 100_003]), "one pixel": (img, idx_d[:1]),
+             "511 indices, below one chunk": (img, idx_d[:511]), "513 indices": (img, idx_d[:513]),
+             "the image's last pixel": (img, last)}
+    for what, (im, ix) in cases.items():
+        check(torch.equal(kernels.lab_sample_cuda(im, ix), lab[ix.long()]), f"K8 lab_sample, {what}: != in place")
+    want = bgr_to_lab_u8(odd.cpu()).to(dev)
+    got = kernels.lab_sample_cuda(odd)
+    odd_idx = torch.arange(0, 1_000_001, 7, dtype=torch.int32, device=dev)
+    check(float((got - want).abs().max()) <= 1e-3 and torch.equal(kernels.lab_sample_cuda(odd, odd_idx),
+                                                                    got[odd_idx.long()]),
+          "K8 lab_sample on an image off a 4-byte boundary: != plain, or its gather != in place")
+    ends = torch.tensor([0, 1_000_000, 0, 1_000_000], dtype=torch.int32, device=dev)
+    for start in (1, 2, 3):  # the first pixel, and the last (ending off 4 bytes), read byte by byte
+        view = img.reshape(-1)[start:start + 3 * 1_000_001].view(1_000_001, 3)
+        check(torch.equal(kernels.lab_sample_cuda(view, ends), kernels.lab_sample_cuda(view)[ends.long()]),
+              f"K8 lab_sample: the first and last pixel of an image at byte {start} != in place")
     for bad in ([-1], [2**24], [0, 2**24 + 5]):  # indices on the card, outside the image: refused before any launch
         try:
             kmeans.lab_sample(img, torch.tensor(bad, dtype=torch.int32, device=dev))
@@ -1893,10 +1953,31 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
         except ValueError:
             pass
     torch.cuda.synchronize()
-    del v, img, lab
     print(f"K8 lab_sample: its Lab gives K7's labels exactly on all 2^24 colours (8 centres), within {lab_err:.2e} "
-          f"of the plain Lab (tolerance 1e-3); a gather of {KMEANS_SAMPLE} indices == the pixels in place; indices "
-          f"outside the image on the card refused")
+          f"of the plain Lab (tolerance 1e-3); a gather of {KMEANS_SAMPLE} indices == the pixels in place, and "
+          + ", ".join(cases) + ", an image off a 4-byte boundary and the first and last pixels of images at bytes 1, 2 "
+          "and 3; indices outside the image on the card refused")
+    return lab_err
+
+
+def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
+    """K8 (sampler, seeding, fit, assignment), K7's counts and K11 against
+    their plain versions on the card; returns the launch counts of one
+    ``ops.kmeans.kmeans`` call on the card."""
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import kernels, kmeans, morphology
+    from plotweave_torch.ops.colorspace import bgr_to_lab_u8
+    from plotweave_torch.ops.frontend import (
+        assign_boards_counts_plain, assign_nearest_plain, onehot_boards_plain)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(31)
+
+    lab_err = sample_cases(rng)
+    pens = torch.tensor([[30, 128, 128], [60, 150, 100], [90, 110, 160], [120, 170, 170], [150, 90, 120],
+                         [180, 140, 200], [210, 120, 90], [245, 128, 128]], dtype=torch.float32, device=dev)
 
     # --- K8's draw against its plain version on the CPU, index for index
     n_px = 1500 * 2000
@@ -2113,7 +2194,7 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
         "max_abs_err": lab_err, "ms": cuda_ms(lambda: kernels.lab_sample_cuda(poster, idx_d), 20),
         "plain_ms": cuda_ms(lambda: bgr_to_lab_u8(poster.reshape(-1, 3)[idx_d.long()]), 5),
         "alone_ms": profiled_ms(lambda: kernels.lab_sample_cuda(poster, idx_d), "lab_sample", 20),
-        **bound(n * (4 + 3 + 12), k7_flops(px, 0) + 3 * n * POWF_FLOPS, FP32_OPS)}
+        **sample_bound(poster, idx_d)}
     stats["K8 kmeans_fit"] = {
         "max_abs_err": err, "ms": cuda_ms(lambda: kernels.kmeans_fit_cuda(sample, draws_d, 40), 10),
         "plain_ms": cuda_ms(lambda: kmeans.kmeans_fit_plain(sample, k, first, uniforms, 40), 1),
@@ -2129,6 +2210,8 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
         print(f"{key} at {n_px} -> {n} x 3, k = {k}, {attempts} attempts: {st['ms']:.4f} ms a call"
               + (f" ({st['alone_ms']:.4f} alone)" if st.get("alone_ms") else "")
               + f", plain PyTorch on the card {st['plain_ms']:.3f} ms, bound {st['bound_ms']:.5f} ms by {st['bound_by']}"
+              + (f" ({st['sectors']} sectors of 32 bytes; 3 bytes a pixel: {st['bound_3b_ms']:.5f} ms)"
+                 if "sectors" in st else "")
               + (f"; iterations {st['iterations']}, the sample scanned {passes} times" if "iterations" in st else ""))
 
     # --- the tools' k-means on the card: K8's fit and assignment, card vs CPU
@@ -3828,6 +3911,19 @@ RESIZE_CASES = [((3024, 4032, 3), (2000, 1500), "a 4032x3024 phone photo, fracti
                 ((3000, 3000, 3), (1000, 1000), "3000x3000, 3x3 (the reciprocal route)"),
                 ((6000, 8000), (100, 75), "gray 8000x6000 to 100x75, an 80x80 box"),
                 ((6000, 8000), (97, 73), "gray 8000x6000 to 97x73, fractional over 16 taps")]
+# K13's fractional route on its edges: 1, 2 and 4 channels, widths that are not multiples of 16,
+# outputs of one pixel (a row, a column, one), and a ratio over 16 taps with 4 channels
+FRAC_CASES = [((1500, 2017, 1), (1001, 743), "1 channel, 2017 wide to 1001x743"),
+              ((1234, 3001, 2), (611, 997), "2 channels, 3001 wide to 611x997"),
+              ((2049, 1031, 4), (517, 1000), "4 channels, 1031 wide to 517x1000"),
+              ((517, 3037, 3), (1, 1), "3037x517 to one pixel"),
+              ((3000, 2001, 3), (999, 1), "2001x3000 to one row of 999"),
+              ((1999, 2999, 1), (1, 1499), "gray 2999x1999 to one column of 1499"),
+              ((4000, 3001, 4), (89, 211), "4 channels, 3001x4000 to 89x211, over 16 taps")]
+# K13's ring route (a schedule of ``events`` 0): an upscale (cv2's INTER_AREA is bilinear there, so plain only), and
+# a downscale whose bands walk more source rows than the events hold (2,056 a band)
+RING_CASES = [((300, 200, 3), (517, 389), "200x300 up to 517x389, the ring route"),
+              ((4111, 300, 3), (7, 2), "300x4111 to 7x2, the ring route")]
 POSTER_VIEWBOX = (4200, 2970)  # user units: an A3 sheet at 10 units a millimetre
 
 
@@ -3941,7 +4037,15 @@ def phase_vector_kernels(stats: dict) -> dict:
 
     rng = np.random.default_rng(14)
     cases = [(photo, *RESIZE_CASES[0][1:]), (four_k, *RESIZE_CASES[1][1:])]
-    cases += [(image(shape), size, what) for shape, size, what in RESIZE_CASES[2:]]
+    cases += [(image(shape), size, what) for shape, size, what in RESIZE_CASES[2:] + FRAC_CASES + RING_CASES]
+    lib = kernels.load("area_resize")
+    for shape, (nw, nh), what in FRAC_CASES[-1:] + RESIZE_CASES[:1] + RESIZE_CASES[-1:] + RING_CASES:
+        c = (shape + (1,))[2]
+        sch = kernels._area_frac_plan(lib, dev, shape[0], shape[1], nh, nw, c)[0]
+        check(lib.pw_area_frac_smem(*(sch[k] for k in ("band_rows", "tile", "group", "pitch", "slots", "events")), c)
+              == sch["smem"], f"K13's shared memory: C != Python, {what}")
+        check((sch["events"] == 0) == (what in {w for *_, w in RING_CASES}), f"K13's route is not the expected, {what}")
+        print(f"K13 fractional schedule, {what}: " + ", ".join(f"{k} {v}" for k, v in sch.items()))
     for i in range(10):
         c = [None, 1, 3, 4][i % 4]
         if i % 3 == 0:  # an integer ratio
@@ -3957,12 +4061,14 @@ def phase_vector_kernels(stats: dict) -> dict:
     err = 0
     for x, (nw, nh), what in cases:
         got = (small_photo if x is photo else small_4k if x is four_k else resize.area_resize(x, nw, nh))
-        ref = cv2.resize(x.cpu().numpy(), (nw, nh), interpolation=cv2.INTER_AREA).reshape(got.shape)
         want = plain(x, nw, nh)
         err = max(err, int((got.int() - want.int()).abs().max()))
         check(torch.equal(got, want), f"K13 != plain: {what}")
-        check(np.array_equal(got.cpu().numpy(), ref), f"K13 != cv2.resize(INTER_AREA): {what}")
-    print(f"K13 == plain == cv2.resize(INTER_AREA) on {len(cases)} cases: " + "; ".join(w for *_, w in cases))
+        if (x.dim() == 2 or x.shape[2] != 2) and nw <= x.shape[1] and nh <= x.shape[0]:  # cv2: 1, 3, 4 channels
+            ref = cv2.resize(x.cpu().numpy(), (nw, nh), interpolation=cv2.INTER_AREA).reshape(got.shape)
+            check(np.array_equal(got.cpu().numpy(), ref), f"K13 != cv2.resize(INTER_AREA): {what}")
+    print(f"K13 == plain == cv2.resize(INTER_AREA) (plain only at 2 channels and upscales) on {len(cases)} cases: "
+          + "; ".join(w for *_, w in cases))
 
     for key, x, fn_name in (("K13 frac", photo, "area_frac"), ("K13 int", four_k, "area_int")):
         h, w = x.shape[:2]
@@ -4013,6 +4119,301 @@ def phase_vector_kernels(stats: dict) -> dict:
           + f", bound {bt['bound_ms']:.4f} ms by {bt['bound_by']} ({bt['bound_ms'] / (bt['alone_ms'] or bt['ms']):.0%} "
           f"of it), plain PyTorch on the card {bt['plain_ms']:.4f} ms, torch.einsum {bt['library_ms']:.4f} ms")
     return launches
+
+
+RESIZE_AB_REPS = 20  # calls timed a case and turn
+
+
+def resize_input(shape):
+    """Seeded bytes on the card, the same in every checkout and process."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
+
+
+def digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().view(-1).cpu().numpy().tobytes()).hexdigest()
+
+
+def resize_times() -> dict:
+    """K13 of the checkout that ``ROOT`` names, through its own code: the
+    4032x3024x3 photo to 2000x1500 (``resize.area_resize``, the fractional
+    route); the fractional kernel's wrapper at the same output size from
+    4000x3000x3 (2 x 2 taps against the photo's 4 x 4, at almost the same
+    bytes: what the taps cost); the fractional route's byte-by-byte cases
+    (a table over 16 taps: gray 8000x6000 to 97x73, 4 channels 3001x4000 to
+    89x211) and its ring route (200x300x3 up to 517x389); the integer route
+    on 4000x3000x3.  Per case the output's digest, the launches, ms a call
+    (CUDA events) and ms alone (``torch.profiler``).  Run after
+    ``phase_probe``."""
+    import inspect
+
+    import torch
+
+    from plotweave_torch.ops import kernels, resize
+
+    kernels.build(["area_resize"])
+    photo, four_k = resize_input((3024, 4032, 3)), resize_input((3000, 4000, 3))
+    gray, four_c, small = resize_input((6000, 8000)), resize_input((4000, 3001, 4)), resize_input((300, 200, 3))
+    if "xsi" in inspect.signature(kernels.area_resize_frac_cuda).parameters:  # a checkout whose wrapper takes tables
+        tabs = [torch.from_numpy(a).cuda() for a in resize._resize_area_tab(4000, 2000) + resize._resize_area_tab(3000, 1500)]
+
+        def frac_2x2():
+            return kernels.area_resize_frac_cuda(four_k, *tabs)
+    else:
+        def frac_2x2():
+            return kernels.area_resize_frac_cuda(four_k, 2000, 1500)
+    calls = {"frac 4032x3024x3 -> 2000x1500": lambda: resize.area_resize(photo, 2000, 1500),
+             "frac kernel 4000x3000x3 -> 2000x1500 (2 x 2 taps)": frac_2x2,
+             "frac gray 8000x6000 -> 97x73 (84 x 84 taps)": lambda: resize.area_resize(gray, 97, 73),
+             "frac 3001x4000x4 -> 89x211 (35 x 20 taps)": lambda: resize.area_resize(four_c, 89, 211),
+             "frac 200x300x3 -> 517x389 (upscale)": lambda: resize.area_resize(small, 517, 389),
+             "int 4000x3000x3 -> 2000x1500": lambda: resize.area_resize(four_k, 2000, 1500)}
+    out = {}
+    for name, fn in calls.items():
+        kernels.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = {"digest": digest(res), "launches": {n: c for n, c in kernels.LAUNCHES.items() if c},
+                     "ms": cuda_ms(fn, RESIZE_AB_REPS), "alone_ms": profiled_ms(fn, "area_", 10)}
+    return out
+
+
+def ab_table(runs: dict, what: str, bounds: dict) -> dict:
+    """Print and return an A/B's cases side by side: the outputs must be the
+    same in every turn; launches, ms a call and alone, and the share of each
+    case's bound alone."""
+    result = {}
+    for name in runs["this"][0]:
+        check(len({r[name]["digest"] for v in runs.values() for r in v}) == 1, f"{what} A/B {name}: outputs differ")
+        b = bounds.get(name)
+        result[name] = {"bound_ms": b}
+        for key in ("other", "this"):
+            rs = [r[name] for r in runs[key]]
+            result[name][key] = {"launches": rs[0]["launches"], "ms": [r["ms"] for r in rs],
+                                 "alone_ms": [r["alone_ms"] for r in rs]}
+            print(f"{what} A/B {name}, {key}: launches {rs[0]['launches']}; "
+                  + " / ".join(f"{r['ms']:.4f}" for r in rs) + " ms a call, alone "
+                  + " / ".join(f"{r['alone_ms']:.4f}" if r["alone_ms"] else "not caught" for r in rs) + " ms"
+                  + (" (" + " / ".join(f"{b / r['alone_ms']:.0%}" for r in rs if r["alone_ms"])
+                     + f" of its bound, {b:.5f} ms)" if b else ""), flush=True)
+    return result
+
+
+def phase_resize_ab(other: str) -> dict:
+    """K13 of this checkout against the one at ``other`` (``git archive <rev>
+    | tar -x -C .checkout/other``), in turns other, this, this, other, each
+    in a process of its own that runs :func:`resize_times` with ``ROOT`` set
+    to its checkout; the outputs must be equal in every turn."""
+    runs = ab_turns(other, "resize_times", "K13")
+    from plotweave_torch.ops import resize
+
+    def frac(shape, nw, nh):
+        taps = (resize._resize_area_tab(shape[1], nw)[0].shape[1], resize._resize_area_tab(shape[0], nh)[0].shape[1])
+        return resize_bound(shape, nw, nh, taps)["bound_ms"]
+
+    bounds = {"frac 4032x3024x3 -> 2000x1500": frac((3024, 4032, 3), 2000, 1500),
+              "frac kernel 4000x3000x3 -> 2000x1500 (2 x 2 taps)": resize_bound((3000, 4000, 3), 2000, 1500,
+                                                                                 (2, 2))["bound_ms"],
+              "frac gray 8000x6000 -> 97x73 (84 x 84 taps)": frac((6000, 8000), 97, 73),
+              "frac 3001x4000x4 -> 89x211 (35 x 20 taps)": frac((4000, 3001, 4), 89, 211),
+              "frac 200x300x3 -> 517x389 (upscale)": frac((300, 200, 3), 517, 389),
+              "int 4000x3000x3 -> 2000x1500": resize_bound((3000, 4000, 3), 2000, 1500, None)["bound_ms"]}
+    result = ab_table(runs, "K13", bounds)
+    print(json.dumps({"k13_ab": result}))
+    return result
+
+
+def sample_times() -> dict:
+    """K8's sampler of the checkout that ``ROOT`` names, through its own
+    wrapper, on the synthetic 2000 x 1500 poster: the device mode's gather,
+    3,000,000 -> 200,000 on the card's draw (seed 42), and every pixel of the
+    poster.  Per case the output's digest, the launches, ms a call and ms
+    alone.  Run after ``phase_probe``."""
+    import torch
+
+    from plotweave_torch.ops import kernels, kmeans
+
+    kernels.build(["kmeans"])
+    img = torch.from_numpy(synthetic_image(2, 1500, 2000)[0]).to("cuda")
+    idx = kmeans.subsample_indices(42, 1500 * 2000, KMEANS_SAMPLE, img.device)
+    calls = {"gather 3,000,000 -> 200,000": lambda: kernels.lab_sample_cuda(img, idx),
+             "gather of 512 (one chunk)": lambda: kernels.lab_sample_cuda(img, idx[:512]),
+             "every pixel of 3,000,000": lambda: kernels.lab_sample_cuda(img)}
+    out = {}
+    for name, fn in calls.items():
+        kernels.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = {"digest": digest(res), "launches": {n: c for n, c in kernels.LAUNCHES.items() if c},
+                     "ms": cuda_ms(fn, 50), "alone_ms": profiled_ms(fn, "lab_sample", 20)}
+    return out
+
+
+def phase_sample_ab(other: str) -> dict:
+    """K8's sampler of this checkout against the one at ``other``, in turns
+    other, this, this, other (:func:`sample_times` in a process each); the
+    outputs must be bit-equal in every turn.  The gather's bound counts the
+    32-byte sectors its pixels touch (:func:`sample_bound`)."""
+    import torch
+
+    from plotweave_torch.ops import kmeans
+
+    runs = ab_turns(other, "sample_times", "K8 sample")
+    img = torch.from_numpy(synthetic_image(2, 1500, 2000)[0]).to("cuda")
+    idx = kmeans.subsample_indices(42, 1500 * 2000, KMEANS_SAMPLE, img.device)
+    gather = sample_bound(img, idx)
+    every = torch.arange(1500 * 2000, dtype=torch.int32, device="cuda")
+    bounds = {"gather 3,000,000 -> 200,000": gather["bound_ms"], "gather of 512 (one chunk)": None,
+              "every pixel of 3,000,000": bound(3 * every.numel() + 12 * every.numel(),
+                                                k7_flops(img.reshape(-1, 3), 0), FP32_OPS)["bound_ms"]}
+    print(f"K8 sample A/B: the gather touches {gather['sectors']} of the poster's {-(-3 * every.numel() // 32)} "
+          f"32-byte sectors; bound {gather['bound_ms']:.5f} ms by {gather['bound_by']} (3 bytes a pixel: "
+          f"{gather['bound_3b_ms']:.5f} ms)")
+    result = ab_table(runs, "K8 sample", bounds)
+    result["sectors"], result["bound_3b_ms"] = gather["sectors"], gather["bound_3b_ms"]
+    print(json.dumps({"k8_sample_ab": result}))
+    return result
+
+
+def cta_times(ns, grid: int, cycles0: int) -> dict:
+    """From the CTAs' %globaltimer start and end (ns, a flat list of pairs):
+    the span from the first start to the last end, the spread of the starts,
+    the CTAs' mean and longest time, and CTA 0's cycles a nanosecond (its SM
+    clock over its life)."""
+    pairs = [(ns[2 * i], ns[2 * i + 1]) for i in range(min(grid, len(ns) // 2))]
+    t0 = min(p[0] for p in pairs)
+    lives = [e - b for b, e in pairs]
+    return {"span_us": (max(p[1] for p in pairs) - t0) / 1e3, "start_spread_us": (max(p[0] for p in pairs) - t0) / 1e3,
+            "mean_cta_us": sum(lives) / len(lives) / 1e3, "longest_cta_us": max(lives) / 1e3,
+            "cta0_ghz": cycles0 / lives[0] if lives[0] else None}
+
+
+# csrc/kmeans.cu's sampler phase slots (sample_cycles), CTA 0's thread 0 on its first chunk; then the total
+SAMPLE_PHASES = ("indices in, gathers issued", "words in", "barrier: the chunk's pixels and the table",
+                 "Lab, staged, barrier", "store")
+
+
+def phase_sample_phases() -> dict:
+    """CTA 0's clock64 cycles in each stage of K8's sampler's first chunk at
+    3,000,000 -> 200,000 (the poster's draw on the card), from a build of
+    ``csrc/kmeans.cu`` with ``-DPW_KMEANS_PHASES`` held bit-equal to the
+    wrapper's; its bare launch timed by CUDA events and alone by
+    ``torch.profiler``, and every CTA's start and end.  Run after
+    ``phase_probe``."""
+    import ctypes
+
+    import torch
+
+    from plotweave_torch.ops import kernels, kmeans
+
+    out_dir = Path(tempfile.mkdtemp(prefix="pw_k8_sample_"))
+    img = torch.from_numpy(synthetic_image(2, 1500, 2000)[0]).to("cuda")
+    idx = kmeans.subsample_indices(42, 1500 * 2000, KMEANS_SAMPLE, img.device)
+    want = kernels.lab_sample_cuda(img, idx)
+    got = torch.empty_like(want)
+    clock_khz = getattr(torch.cuda.get_device_properties(0), "clock_rate", 0)
+    path = out_dir / "kmeans_sample.so"
+    built = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS["kmeans"], "-DPW_KMEANS_PHASES", "-o", str(path),
+                            str(kernels.CSRC / "kmeans.cu")], capture_output=True, text=True)
+    check(built.returncode == 0, f"K8's sampler with -DPW_KMEANS_PHASES did not build:\n{built.stdout}{built.stderr}")
+    lib = ctypes.CDLL(str(path))
+    lib.pw_lab_sample.argtypes = kernels._SIGNATURES["kmeans"]["pw_lab_sample"]
+    lib.pw_sample_phases.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+
+    def launch():
+        err = lib.pw_lab_sample(img.data_ptr(), idx.data_ptr(), got.data_ptr(), idx.numel(), img.numel() // 3,
+                                torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"K8 sample phases: launch failed ({err})")
+
+    launch()
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K8 sample phases: the build differs from the wrapper's")
+    cyc, ns = (ctypes.c_ulonglong * 8)(), (ctypes.c_ulonglong * 8192)()
+    check(lib.pw_sample_phases(cyc, ns) == 0, "K8 sample phases: the cycles could not be read")
+    times = cta_times(list(ns), -(-idx.numel() // kernels.SAMPLE_CHUNK), int(cyc[6]))
+    result = {"ms": cuda_ms(launch, 50), "alone_ms": profiled_ms(launch, "lab_sample", 20), "cycles": int(cyc[6]),
+              "phases": {name: int(cyc[i]) for i, name in enumerate(SAMPLE_PHASES)}, "times": times}
+    print(f"K8 sample phases, 3,000,000 -> 200,000: {result['ms']:.4f} ms a bare launch, "
+          + (f"{result['alone_ms']:.4f} alone" if result["alone_ms"] else "alone not caught")
+          + f"; CTA 0's first chunk {result['cycles']} cycles"
+          + (f" ({result['cycles'] / clock_khz * 1e3:.2f} us at {clock_khz / 1e6:.2f} GHz)" if clock_khz else "")
+          + ": " + ", ".join(f"{name} {n}" for name, n in result["phases"].items())
+          + "; the CTAs by %globaltimer: " + ", ".join(f"{k} {v:.2f}" for k, v in times.items()), flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(json.dumps({"k8_sample_phases": result}))
+    return result
+
+
+# csrc/area_resize.cu's phase slots (resize_cycles), CTA 0's thread 0
+RESIZE_PHASES = ("set-up, first group issued", "later groups issued", "waits for a group", "sums", "store")
+
+
+def phase_resize_phases() -> dict:
+    """CTA 0's clock64 cycles in each phase of K13's fractional launch (the
+    set-up of tables and spans with the first group's copies issued, the later
+    groups' copies, the waits for each group, the horizontal and vertical
+    sums, the band's store), from a build of ``csrc/area_resize.cu`` with
+    ``-DPW_RESIZE_PHASES`` held byte-equal to the wrapper's, for CTA 0, the
+    middle CTA and the last, at the photo's 4032x3024x3 -> 2000x1500 and two
+    of FRAC_CASES; each bare launch's ms by CUDA events.  Run after
+    ``phase_probe``."""
+    import ctypes
+
+    import torch
+
+    from plotweave_torch.ops import kernels, resize
+
+    out_dir = Path(tempfile.mkdtemp(prefix="pw_k13_phases_"))
+    path = out_dir / "area_resize_phases.so"
+    built = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS["area_resize"], "-DPW_RESIZE_PHASES", "-o",
+                            str(path), str(kernels.CSRC / "area_resize.cu")], capture_output=True, text=True)
+    check(built.returncode == 0, f"K13 with -DPW_RESIZE_PHASES did not build:\n{built.stdout}{built.stderr}")
+    lib = ctypes.CDLL(str(path))
+    lib.pw_area_resize_frac.argtypes = kernels._SIGNATURES["area_resize"]["pw_area_resize_frac"]
+    lib.pw_resize_phases.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    clock_khz = getattr(torch.cuda.get_device_properties(0), "clock_rate", 0)
+    result = {}
+    for shape, (nw, nh), what in [((3024, 4032, 3), (2000, 1500), "the phone photo")] + FRAC_CASES[:1] + FRAC_CASES[-1:]:
+        x = resize_input(shape)
+        h, w, c = shape
+        plan = kernels._area_frac_plan(kernels.load("area_resize"), x.device, h, w, nh, nw, c)
+        sch = plan[0]
+        got = torch.empty((nh, nw, c), dtype=torch.uint8, device=x.device)
+
+        def launch():
+            err = kernels._area_frac_launch(lib, x, got, plan)
+            check(err == 0, f"K13 phases: launch failed ({err})")
+
+        launch()
+        torch.cuda.synchronize()
+        check(torch.equal(got, resize.area_resize(x, nw, nh)), f"K13 phases, {what}: the phases build differs")
+        cyc, ns = (ctypes.c_ulonglong * 24)(), (ctypes.c_ulonglong * 8192)()
+        check(lib.pw_resize_phases(cyc, ns) == 0, "K13 phases: the cycles could not be read")
+        times = cta_times(list(ns), min(sch["items"], sch["ctas"]), int(cyc[5]))
+        ms = cuda_ms(launch, 20)
+        row = {"ms": ms, "schedule": sch, "ctas": {}, "times": times}
+        result[what] = row
+        print(f"K13 phases, {what} ({w}x{h}x{c} -> {nw}x{nh}; band {sch['band_rows']} rows, tile {sch['tile']}, group "
+              f"{sch['group']}, kh {sch['kh']}, events {sch['events']}, {sch['items']} items on {sch['ctas']} CTAs): "
+              f"{ms:.4f} ms a bare launch; the CTAs by %globaltimer: " + ", ".join(f"{k} {v:.2f}" for k, v in times.items()),
+              flush=True)
+        for k, cta in enumerate(("CTA 0", "the middle CTA", "the last CTA")):
+            v = [int(x) for x in cyc[8 * k:8 * k + 8]]
+            total = v[5]
+            row["ctas"][cta] = {"cycles": total, "groups": v[6], "items": v[7],
+                                "phases": {name: v[i] for i, name in enumerate(RESIZE_PHASES)}}
+            print(f"  {cta}: {total} cycles"
+                  + (f" ({total / clock_khz * 1e3:.2f} us at the {clock_khz / 1e6:.2f} GHz rated clock)" if clock_khz
+                     else "") + f" over {v[7]} items, {v[6]} groups: "
+                  + ", ".join(f"{name} {v[i]} ({v[i] / max(total, 1):.0%})" for i, name in enumerate(RESIZE_PHASES)),
+                  flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(json.dumps({"k13_phases": result}))
+    return result
 
 
 def phase_vector_path(work: Path, stats: dict) -> dict:

@@ -41,7 +41,22 @@
 //      stored coalesced.
 // - pw_lab_sample: gathers `n` pixels of a BGR image by index and converts
 //   them to float Lab with lab.cuh's arithmetic, K7's bit for bit (this file
-//   is compiled with --fmad=false like K7).
+//   is compiled with --fmad=false like K7).  Its bound is the bytes it must
+//   move: the distinct 32-byte sectors that the gathered pixels touch (about
+//   half of a 3,000,000-pixel image's sectors for a 200,000-pixel sample), the
+//   indices and the (n, 3) float32 output.  Its time is a chain: the indices,
+//   then the gathers, then the Lab of every pixel, then the store.  So it is
+//   built as K7 is: the gamma of a byte, gamma_inv(b / 255), is a
+//   256-entry table in shared memory filled by that very device function (the
+//   same bits), so no powf is left a pixel; the grid is only the CTAs the
+//   device holds at once, each striding over chunks of kSampleChunk pixels; a
+//   quarter of the threads gather a chunk, each loading four indices as one
+//   int4 and issuing the eight word loads that hold their pixels' bytes before
+//   it uses any, while the other warps fill the table; then every thread
+//   converts one pixel (the Lab's dependent chains want many warps in
+//   flight); the chunk's Lab is staged in shared memory and written as
+//   16-byte vectors.  With no indices a chunk's bytes are read as K7 reads
+//   them, 16-byte vectors into shared memory.
 // - pw_kmeans_fit: the device mode's seeds and fits of every attempt in ONE launch (kernel kmeans_fit), one
 //   thread block cluster of 16 CTAs of 512 threads per attempt; CTA r owns rows [r P, (r + 1) P), P = ceil(n /
 //   16).  The rows are loaded once into shared memory where they fit (the resident route: three columns,
@@ -98,7 +113,7 @@
 // Built with -DPW_KMEANS_PHASES, kmeans_fit and lloyd_fit record CTA 0's clock64 cycles for the row load, each
 // draw, each pass's scan and its reduction and barrier, and the compactness (phase_cycles, pw_kmeans_phases);
 // subsample_draw records them for each of its passes, merges, barriers and selections (draw_cycles,
-// pw_draw_phases).
+// pw_draw_phases), and lab_sample the stages of its first chunk (sample_cycles, pw_sample_phases).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -134,19 +149,156 @@ constexpr int kListCap = 16384;     // candidates copied into shared memory for 
 constexpr int kRun = 16;            // the compaction's pixels a thread and round, kRun x kDrawThreads <= kListCap
 constexpr int kMaxSmem = 232448;    // 227 KB, the opt-in limit of one CTA
 
-__global__ void lab_sample(const uint8_t* __restrict__ bgr, const int32_t* __restrict__ idx, float* __restrict__ out,
-                           int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint8_t* px = bgr + 3 * (long)(idx ? idx[i] : i);
-  const float r = pw_lab::gamma_inv((float)px[2] / 255.0f);
-  const float g = pw_lab::gamma_inv((float)px[1] / 255.0f);
-  const float b = pw_lab::gamma_inv((float)px[0] / 255.0f);
-  float lab0, lab1, lab2;
-  pw_lab::lab_from_linear(r, g, b, lab0, lab1, lab2);
-  out[3 * (long)i] = lab0;
-  out[3 * (long)i + 1] = lab1;
-  out[3 * (long)i + 2] = lab2;
+constexpr int kSampleThreads = 512;  // the sampler's threads a CTA: a chunk's pixels, one a thread
+constexpr int kSamplePer = 4;                      // a loader's pixels: one int4 of indices
+constexpr int kSampleChunk = kSampleThreads;
+constexpr int kSampleLoaders = kSampleChunk / kSamplePer;
+constexpr int kSampleVecs = 3 * kSampleChunk / 16 + 2;  // 16-byte vectors over a chunk's bytes at any alignment
+
+#ifdef PW_KMEANS_PHASES
+// CTA 0's thread 0 (a loader) on its first chunk: the cycles until its
+// indices are in (its gathers issued), until its pixels' words are in, until
+// the chunk's pixels and the gamma table are (the barrier), of its Lab and
+// the stage's barrier, of the store; the total.
+constexpr int kSampleSlots = 8;
+__device__ unsigned long long sample_cycles[kSampleSlots];
+// Every CTA's thread 0: %globaltimer (ns) at its start and its end.
+constexpr int kSampleTimed = 4096;
+__device__ unsigned long long sample_ns[kSampleTimed][2];
+__device__ __forceinline__ unsigned long long sample_clock_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define PW_SAMPLE_MARK(slot)                                 \
+  if (clock_on) {                                            \
+    const unsigned long long now = clock64();                \
+    sample_cycles[slot] = now - stamp;                       \
+    stamp = now;                                             \
+  }
+#else
+#define PW_SAMPLE_MARK(slot)
+#endif
+
+// out (n, 3) float32 = the Lab of pixel idx[i] (pixel i where idx is null) of
+// the BGR bytes of px pixels, the CTAs striding over chunks of kSampleChunk
+// pixels.  With indices, the first kSampleLoaders threads gather a chunk: each
+// loads four indices as one int4 and then the two aligned words that hold each
+// pixel's three bytes, all eight loads issued before any is used, while the
+// other warps fill the gamma table; every thread then converts one pixel.
+__global__ void __launch_bounds__(kSampleThreads)
+    lab_sample(const uint8_t* __restrict__ bgr, const int32_t* __restrict__ idx, float* __restrict__ out, int n,
+               long px) {
+  __shared__ float gamma_s[256];
+  __shared__ uint32_t bgr_s[kSampleChunk];       // a pixel's B | G << 8 | R << 16
+  __shared__ __align__(16) float out_s[3 * kSampleChunk];  // the chunk's Lab, 3 floats a pixel
+  __shared__ uint4 px_v[kSampleVecs];            // with no indices: the chunk's bytes
+  const int tid = threadIdx.x;
+  const uint8_t* px_s = reinterpret_cast<const uint8_t*>(px_v);
+  const int n_chunks = (n + kSampleChunk - 1) / kSampleChunk;
+  const bool idx_vectors = idx != nullptr && ((uintptr_t)idx & 15) == 0;
+  bool have_table = false;
+#ifdef PW_KMEANS_PHASES
+  bool clock_on = blockIdx.x == 0 && tid == 0;
+  unsigned long long stamp = clock64();
+  const unsigned long long start = stamp, ns0 = sample_clock_ns();
+#endif
+  for (int chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
+    const long p0 = (long)chunk * kSampleChunk;
+    const int m = (int)min((long)kSampleChunk, (long)n - p0);
+    if (idx != nullptr) {
+      if (tid < kSampleLoaders) {
+        const int q = kSamplePer * tid;
+        int ix[kSamplePer];
+        if (idx_vectors && q + kSamplePer <= m) {
+          const int4 v = *reinterpret_cast<const int4*>(idx + p0 + q);
+          ix[0] = v.x;
+          ix[1] = v.y;
+          ix[2] = v.z;
+          ix[3] = v.w;
+        } else {
+#pragma unroll
+          for (int j = 0; j < kSamplePer; ++j) ix[j] = q + j < m ? idx[p0 + q + j] : -1;
+        }
+        // the aligned words that hold bytes 3i and 3i + 2 (the same word or the
+        // next), every load issued before any is used; a pixel whose words would
+        // reach outside the image's bytes (its first or last pixel, where the
+        // image does not start or end on a word) loads no word and is read byte
+        // by byte after the others' loads are issued
+        const uintptr_t lo_end = (uintptr_t)bgr, hi_end = (uintptr_t)(bgr + 3 * px);
+        uint32_t lo[kSamplePer], hi[kSamplePer];
+        bool inside[kSamplePer];
+#pragma unroll
+        for (int j = 0; j < kSamplePer; ++j) {
+          const uintptr_t a = (uintptr_t)(bgr + 3 * (long)(ix[j] < 0 ? 0 : ix[j]));
+          const uintptr_t w0 = a & ~(uintptr_t)3, w1 = (a + 2) & ~(uintptr_t)3;
+          inside[j] = w0 >= lo_end && w1 + 4 <= hi_end;
+          lo[j] = inside[j] ? *reinterpret_cast<const uint32_t*>(w0) : 0u;
+          hi[j] = inside[j] ? *reinterpret_cast<const uint32_t*>(w1) : 0u;
+        }
+        PW_SAMPLE_MARK(0);
+#pragma unroll
+        for (int j = 0; j < kSamplePer; ++j) {
+          const uint8_t* p = bgr + 3 * (long)(ix[j] < 0 ? 0 : ix[j]);
+          bgr_s[q + j] = inside[j] ? __funnelshift_r(lo[j], hi[j], 8 * (unsigned)((uintptr_t)p & 3))
+                                   : (uint32_t)p[0] | (uint32_t)p[1] << 8 | (uint32_t)p[2] << 16;
+        }
+        PW_SAMPLE_MARK(1);
+      }
+    } else {
+      const uint8_t* first = bgr + 3 * p0;
+      const int mis = (int)((uintptr_t)first & 15);
+      const uint8_t* end = bgr + 3 * (long)n;
+      for (int v = tid; v < (mis + 3 * m + 15) / 16; v += kSampleThreads) {
+        const uint8_t* g = first - mis + 16 * v;  // 16-byte aligned
+        if (g >= bgr && g + 16 <= end) {
+          px_v[v] = *reinterpret_cast<const uint4*>(g);
+        } else {
+          uint8_t* s = reinterpret_cast<uint8_t*>(px_v) + 16 * v;
+          for (int b = 0; b < 16; ++b)
+            if (g + b >= bgr && g + b < end) s[b] = g[b];
+        }
+      }
+    }
+    if (!have_table) {  // at the CTA's first chunk, on the warps that gather nothing
+      const int first = idx != nullptr ? kSampleLoaders : 0;
+      for (int i = tid - first; i >= 0 && i < 256; i += kSampleThreads - first)
+        gamma_s[i] = pw_lab::gamma_inv((float)i / 255.0f);
+      have_table = true;
+    }
+    __syncthreads();
+    PW_SAMPLE_MARK(2);
+    if (tid < m) {
+      uint32_t v;
+      if (idx != nullptr) {
+        v = bgr_s[tid];
+      } else {
+        const uint8_t* b = px_s + ((uintptr_t)(bgr + 3 * p0) & 15) + 3 * tid;
+        v = (uint32_t)b[0] | (uint32_t)b[1] << 8 | (uint32_t)b[2] << 16;
+      }
+      pw_lab::lab_from_linear(gamma_s[(v >> 16) & 255u], gamma_s[(v >> 8) & 255u], gamma_s[v & 255u], out_s[3 * tid],
+                              out_s[3 * tid + 1], out_s[3 * tid + 2]);
+    }
+    __syncthreads();
+    PW_SAMPLE_MARK(3);
+    float* dst = out + 3 * p0;  // 16-byte aligned: 12 kSampleChunk bytes a chunk from an aligned output
+    const int vecs = 3 * m / 4;
+    for (int v = tid; v < vecs; v += kSampleThreads)
+      reinterpret_cast<uint4*>(dst)[v] = reinterpret_cast<const uint4*>(out_s)[v];
+    for (int i = 4 * vecs + tid; i < 3 * m; i += kSampleThreads) dst[i] = out_s[i];
+    PW_SAMPLE_MARK(4);
+#ifdef PW_KMEANS_PHASES
+    if (clock_on) sample_cycles[6] = clock64() - start;
+    clock_on = false;
+#endif
+    __syncthreads();  // the shared arrays are written again by the next chunk
+  }
+#ifdef PW_KMEANS_PHASES
+  if (tid == 0 && blockIdx.x < kSampleTimed) {
+    sample_ns[blockIdx.x][0] = ns0;
+    sample_ns[blockIdx.x][1] = sample_clock_ns();
+  }
+#endif
 }
 
 // ---------------------------------------------------------------- the draw
@@ -1066,11 +1218,29 @@ __global__ void assign_points(const float* __restrict__ data, long n, const floa
 
 extern "C" {
 
-// out (n, 3) float32 = Lab of pixel idx[i] (int32; pixel i where idx is null)
-// of the BGR bytes.  Returns a CUDA error code (0 on success).
-int pw_lab_sample(const uint8_t* bgr, const int32_t* idx, float* out, int n, void* stream) {
+// out (n, 3) float32 = Lab of pixel idx[i] (int32, below px; pixel i where idx
+// is null) of the BGR bytes of px pixels.  Returns a CUDA error code (0 on
+// success).  out must be 16-byte aligned.  The grid is the CTAs the device
+// holds at once (found at a device's first launch), at most one a chunk.
+int pw_lab_sample(const uint8_t* bgr, const int32_t* idx, float* out, int n, long px, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  lab_sample<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(bgr, idx, out, n);
+  if ((uintptr_t)out & 15) return (int)cudaErrorMisalignedAddress;
+  static int most_ctas[64];  // a device's co-resident CTAs of the sampler
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int most = dev < 64 ? most_ctas[dev] : 0;
+  if (most == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lab_sample, kSampleThreads, 0);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    most = per_sm * sms > 0 ? per_sm * sms : 1;
+    if (dev < 64) most_ctas[dev] = most;
+  }
+  const int chunks = (int)(((long)n + kSampleChunk - 1) / kSampleChunk);
+  const int grid = chunks < most ? chunks : most;
+  lab_sample<<<grid, kSampleThreads, 0, static_cast<cudaStream_t>(stream)>>>(bgr, idx, out, n, px);
   return (int)cudaGetLastError();
 }
 
@@ -1190,6 +1360,13 @@ int pw_kmeans_phases(unsigned long long* out) {
 // The last draw's phase cycles (kDrawSlots values; see DrawClock).
 int pw_draw_phases(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, draw_cycles, sizeof(draw_cycles));
+}
+
+// The last sampler's phase cycles (kSampleSlots values; see sample_cycles)
+// and its CTAs' start and end times (kSampleTimed x 2; see sample_ns).
+int pw_sample_phases(unsigned long long* out, unsigned long long* ns) {
+  const cudaError_t err = cudaMemcpyFromSymbol(out, sample_cycles, sizeof(sample_cycles));
+  return (int)(err != cudaSuccess ? err : cudaMemcpyFromSymbol(ns, sample_ns, sizeof(sample_ns)));
 }
 #endif
 

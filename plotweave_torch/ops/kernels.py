@@ -90,10 +90,13 @@
   in every CTA's shared memory and one grid barrier an iteration; replaces
   the XLA loop of ``_refine_impl``.
 - K13 ``area_resize_frac_cuda`` and ``area_resize_int_cuda``
-  (``csrc/area_resize.cu``): the INTER_AREA downscale, one thread per output
-  pixel and channel, bit-exact with cv2 (the fractional route through the
-  tap tables of ``ops/resize.py``, every product rounded before its add);
-  replaces the XLA programs of ``_area_resize_frac`` and ``_area_resize_int``.
+  (``csrc/area_resize.cu``): the INTER_AREA downscale, bit-exact with cv2;
+  the fractional route through the tap tables of ``ops/resize.py``, every
+  product rounded before its add, a CTA a band of output rows and a tile of
+  columns that streams its source rows through shared memory and forms each
+  (source row, output column) horizontal sum once (:func:`area_frac_schedule`);
+  the integer route one thread an output pixel.  Replaces the XLA programs of
+  ``_area_resize_frac`` and ``_area_resize_int``.
 - K14 ``bezier_families_cuda`` (``csrc/bezier_sample.cu``): every curve
   family of an SVG document (the cubic or quadratic Bézier segments of a
   path at its n parameters) in one launch over a family table, one thread a
@@ -137,6 +140,7 @@ import torch
 
 from .filters import gaussian_kernel_q8, slab_rows
 from .morphology import structuring_element
+from .resize import _resize_area_tab
 from .thinning import _dense_planes
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -227,6 +231,26 @@ DRAW_SCRATCH_WORDS = DRAW_MAX_CLUSTERS * (DRAW_DIGITS + DRAW_COARSE) + DRAW_THRE
 # K14: points a CTA (``kThreads`` in csrc/bezier_sample.cu), the unit of its
 # start table
 BEZIER_THREADS = 256
+
+# K8's sampler (``kSampleThreads``, ``kSamplePer`` in csrc/kmeans.cu): threads a
+# CTA, one pixel of a chunk each, and the pixels each of the chunk's loaders
+# gathers (one int4 of indices)
+SAMPLE_THREADS, SAMPLE_PER_THREAD = 512, 4
+SAMPLE_CHUNK = SAMPLE_THREADS
+
+# K13's fractional route (csrc/area_resize.cu, ``area_frac_bands``): output rows
+# an item where the CTAs the card holds are not known, and the most an item
+# takes when its rows are fitted to them; output columns a tile (one thread a
+# column, a power of two up to ``kMaxTile``); source rows staged at once; the
+# shared memory a CTA may take before a wide ratio narrows the group and then
+# the tile (past it, up to MAX_SMEM); and the events' room (16 bytes a source
+# row of a band) past which a band takes the ring's route
+# (measured on the H100, PERF.md: 256 columns and 8 rows a group the fastest
+# of 64 to 256 and 4 to 16)
+AREA_BAND_ROWS, AREA_MAX_BAND_ROWS, AREA_TILE, AREA_GROUP = 16, 64, 256, 8
+AREA_MAX_TILE = 256
+AREA_SMEM_CAP = 64 * 1024
+AREA_EVENTS_CAP = 32 * 1024
 
 # K11's tile of output, rows x pixels (pixels a multiple of 16): the larger
 # one for a launch whose steps need no H plane (rects that roll their rows in
@@ -374,7 +398,7 @@ _SIGNATURES = {
                        "pw_assign_boards": [_P, _P, _P, _P, _I, _L, _I, _I, _P]},
     "zs_dense": {"pw_zs_tiles_run": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "kmeans": {"pw_subsample": [_I, _I, _U, _U, _P, _P, _P],
-               "pw_lab_sample": [_P, _P, _P, _I, _P],
+               "pw_lab_sample": [_P, _P, _P, _I, _L, _P],
                "pw_kmeans_fit": [_P, _I, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
                "pw_lloyd_fit": [_P, _I, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P],
                "pw_assign_points": [_P, _L, _P, _I, _P, _P]},
@@ -382,7 +406,9 @@ _SIGNATURES = {
     "greedy_tour": {"pw_greedy_tour": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]},
     "refine_tour": {"pw_refine_tour": [_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P],
                     "pw_refine_blocks": [_I]},
-    "area_resize": {"pw_area_resize_frac": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    "area_resize": {"pw_area_resize_frac": [_P, _P, _P, _P, _I, _P, _P] + [_I] * 15 + [_P],
+                    "pw_area_frac_smem": [_I] * 7,
+                    "pw_area_frac_ctas": [_I] * 8,
                     "pw_area_resize_int": [_P, _P, _I, _I, _I, _I, _I, _I, _P]},
     "bezier_sample": {"pw_bezier_sample": [_P, _P, _I, _I, _I, _P],
                       "pw_bezier_families": [_P, _I, _I, _I, _I, _P, _P]},
@@ -1427,7 +1453,7 @@ def lab_sample_cuda(image: torch.Tensor, idx: torch.Tensor | None = None) -> tor
         out = torch.empty((n, 3), dtype=torch.float32, device=image.device)
         if n:
             lib = load("kmeans")
-            err = lib.pw_lab_sample(image.data_ptr(), None if idx is None else idx.data_ptr(), out.data_ptr(), n,
+            err = lib.pw_lab_sample(image.data_ptr(), None if idx is None else idx.data_ptr(), out.data_ptr(), n, px,
                                     torch.cuda.current_stream().cuda_stream)
             _count("lab_sample")
             _raise_on(lib, "lab_sample", err)
@@ -1824,25 +1850,165 @@ def _check_image(name: str, img: torch.Tensor) -> tuple:
     return tuple(img.shape)
 
 
-def area_resize_frac_cuda(img: torch.Tensor, xsi: torch.Tensor, xal: torch.Tensor, ysi: torch.Tensor,
-                          yal: torch.Tensor) -> torch.Tensor:
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def area_frac_smem(band_rows: int, tile: int, group: int, pitch: int, slots: int, events: int, c: int) -> int:
+    """The dynamic shared memory of K13's fractional CTA (``pw_area_frac_smem``
+    in csrc/area_resize.cu): two stages of ``group`` source rows at ``pitch``
+    bytes, the band's staged output rows (each at its destination's alignment
+    to 16 bytes), on the pair route ``events`` source rows of 16 bytes, else a
+    ring of ``slots`` rows of float sums a thread and channel, an int4 of each
+    band row's taps and stage, four bounds and the two stages' mbarriers."""
+    ring = _round16(4 * slots * c * max(32, tile)) if events == 0 else 0
+    return 2 * group * pitch + band_rows * _round16(tile * c + 15) + ring + 16 * events + 16 * band_rows + 32
+
+
+def area_spans(si: np.ndarray, al: np.ndarray) -> tuple:
+    """(first, last) real source index of each destination index of a tap
+    table (``ops.resize._resize_area_tab``): its taps of alpha > 0, a prefix
+    of the row on consecutive indices; (-1, -2) where it has none."""
+    n = (al > 0).sum(axis=1)
+    first = np.where(n > 0, si[:, 0], -1)
+    last = np.where(n > 0, si[np.arange(len(n)), np.maximum(n - 1, 0)], -2)
+    return first, last
+
+
+def _open_rows(first: np.ndarray, last: np.ndarray, ssize: int) -> int:
+    """The most output rows that a walk up the source rows holds open at once,
+    counted as the span of their indices (a row of no tap inside it too):
+    the ring of sums the ring's route needs."""
+    rows = np.flatnonzero(first >= 0)
+    f, l = first[rows], last[rows]
+    sy = np.arange(ssize)
+    lo, hi = np.searchsorted(l, sy, "left"), np.searchsorted(f, sy, "right") - 1
+    live = hi >= lo
+    return int((rows[hi[live]] - rows[lo[live]] + 1).max()) if live.any() else 1
+
+
+def _band_spans(first: np.ndarray, last: np.ndarray, band_rows: int) -> int:
+    """The most source rows a band of ``band_rows`` output rows walks."""
+    starts = np.arange(0, len(first), band_rows)
+    stops = np.minimum(starts + band_rows, len(first)) - 1
+    return int((last[stops] - first[starts] + 1).max())
+
+
+@functools.lru_cache(maxsize=64)
+def area_frac_schedule(h: int, w: int, nh: int, nw: int, c: int, ctas: int = 0) -> dict:
+    """K13's fractional launch for an (h, w, c) image to (nh, nw): items of
+    ``band_rows`` output rows and ``tile`` output columns (``threads`` =
+    max(32, tile) a CTA), ``bands`` x ``tiles`` = ``items``; given ``ctas``,
+    the CTAs that the card holds at once, each band takes the rows that make
+    the items fit them (one item a CTA, up to :data:`AREA_MAX_BAND_ROWS`),
+    else :data:`AREA_BAND_ROWS`; ``group`` source rows staged at once at
+    ``pitch`` bytes a row (the widest tile's source span, from its 16-byte
+    boundary).  The pair route (``events``: the most source rows a band
+    walks, each a 16-byte event in shared memory) where every output row and
+    column has a tap and a row shares at most its first source row with the
+    row before it (a downscale), so that two rows are open at once at most,
+    their sums in registers; else the ring's route (``events`` 0; ``slots`` the most rows
+    open at once, a ring of sums in shared memory).  ``kh``, on the pair
+    route where no column has more than 4 real taps, the widest column's
+    taps (every column's first ``kh`` taps read as words, alpha 0 past its
+    own), else 0 (byte by byte); ``smem`` bytes; the
+    tables' widths
+    ``taps`` (th, tv).  The widest tile and group whose shared memory stays
+    within :data:`AREA_SMEM_CAP`, else within :data:`MAX_SMEM`; raises where
+    not even one column's span fits."""
+    xsi, xal = _resize_area_tab(w, nw)
+    ysi, yal = _resize_area_tab(h, nh)
+    xf, xl = area_spans(xsi, xal)
+    yf, yl = area_spans(ysi, yal)
+    open_rows = _open_rows(yf, yl, h)
+    pair = bool((yf >= 0).all() and (yl[:-1] <= yf[1:]).all() and open_rows <= 2 and (xf >= 0).all())
+    widest = int(np.where(xf >= 0, xl - xf + 1, 0).max())
+    top = min(AREA_TILE, 1 << (nw - 1).bit_length())  # no wider than the output
+    for cap in (AREA_SMEM_CAP, MAX_SMEM):
+        tile = top
+        while tile >= 1:
+            pad = -nw % tile
+            f = np.concatenate([xf, np.full(pad, -1)]).reshape(-1, tile)
+            l = np.concatenate([xl, np.full(pad, -2)]).reshape(-1, tile)
+            some = (f >= 0).any(axis=1)
+            lo = np.where(f >= 0, f, np.iinfo(np.int64).max).min(axis=1)
+            span = int((l.max(axis=1) - lo + 1)[some].max()) if some.any() else 0
+            pitch = _round16(span * c + 15)
+            tiles = -(-nw // tile)
+            most = max(1, min(AREA_MAX_BAND_ROWS, 0xFFFF // _round16(tile * c + 15), nh))
+            band_rows = min(most, -(-nh // max(1, ctas // tiles)) if ctas else AREA_BAND_ROWS, nh)
+            events = _band_spans(yf, yl, band_rows) if pair else 0
+            if 16 * events > AREA_EVENTS_CAP:
+                events = 0
+            slots = max(2, min(open_rows, band_rows)) if events == 0 else 2
+            kh = widest if events and widest <= 4 else 0
+            group = AREA_GROUP
+            while group >= 1:
+                smem = area_frac_smem(band_rows, tile, group, pitch, slots, events, c)
+                if smem <= cap:
+                    bands = -(-nh // band_rows)
+                    return {"band_rows": band_rows, "tile": tile, "threads": max(32, tile), "group": group,
+                            "pitch": pitch, "slots": slots, "events": events, "kh": kh, "smem": smem,
+                            "bands": bands, "tiles": tiles, "items": bands * tiles, "ctas": ctas,
+                            "taps": (xsi.shape[1], ysi.shape[1])}
+                group //= 2
+            tile //= 2
+    raise ValueError(f"area_resize_frac: one output column's source span at {w} -> {nw} x {c} channels does not fit "
+                     f"the shared memory of a CTA")
+
+
+# pw_area_resize_frac's schedule arguments, in its order
+AREA_FRAC_ARGS = ("band_rows", "tile", "group", "pitch", "slots", "events", "kh", "smem", "ctas")
+_area_plans: dict = {}  # (device, h, w, nh, nw, c) → K13's fractional schedule fitted there and its tables there
+
+
+def _area_frac_plan(lib, device: torch.device, h: int, w: int, nh: int, nw: int, c: int) -> tuple:
+    """K13's fractional launch of an (h, w, c) image to (nh, nw) on a card:
+    (:func:`area_frac_schedule` with its items fitted to the CTAs of its
+    instance that the card holds at once, the tap tables that schedule was
+    made from on the card: ``_resize_area_tab(w, nw)`` then ``(h, nh)``).
+    The CTAs' count comes from the occupancy of the schedule's own shared
+    memory, which the fit changes: refitted until the items fit or the count
+    stays the same."""
+    key = (device, h, w, nh, nw, c)
+    if key not in _area_plans:
+        sched, ctas = area_frac_schedule(h, w, nh, nw, c), 0
+        for _ in range(4):
+            n = lib.pw_area_frac_ctas(c, *(sched[k] for k in AREA_FRAC_ARGS[:7]))
+            if n < 1:
+                raise RuntimeError(f"area_resize_frac: no CTA of the schedule {sched} fits the card ({n})")
+            if n == ctas or sched["items"] <= n and sched["ctas"]:
+                break
+            ctas = n
+            sched = area_frac_schedule(h, w, nh, nw, c, ctas)
+        tables = tuple(torch.from_numpy(a).to(device) for a in _resize_area_tab(w, nw) + _resize_area_tab(h, nh))
+        _area_plans[key] = dict(sched, ctas=n), tables
+    return _area_plans[key]
+
+
+def _area_frac_launch(lib, img: torch.Tensor, out: torch.Tensor, plan: tuple) -> int:
+    """One ``pw_area_resize_frac`` of ``lib`` (the wrapper's library or a
+    measurement build of it) from ``img`` into ``out`` on ``plan``
+    (:func:`_area_frac_plan`) → its CUDA error code."""
+    sched, (xsi, xal, ysi, yal) = plan
+    return lib.pw_area_resize_frac(img.data_ptr(), out.data_ptr(), xsi.data_ptr(), xal.data_ptr(), xsi.shape[1],
+                                   ysi.data_ptr(), yal.data_ptr(), ysi.shape[1], *img.shape, *out.shape[:2],
+                                   *(sched[k] for k in AREA_FRAC_ARGS), torch.cuda.current_stream().cuda_stream)
+
+
+def area_resize_frac_cuda(img: torch.Tensor, new_w: int, new_h: int) -> torch.Tensor:
     """K13, fractional ratios: ``ops.resize.area_resize_frac_plain`` of a
-    CUDA (H, W, C) uint8 image through the tap tables of its width and height
-    (``ops.resize._resize_area_tab``: (w, taps) int32 indices and float32
-    alphas, (h, taps) likewise, contiguous on its device) → (h, w, C) uint8."""
+    CUDA (H, W, C) uint8 image → (new_h, new_w, C) uint8, in one launch on
+    the tap tables of its width and height and :func:`area_frac_schedule`
+    made from them, fitted to the card (:func:`_area_frac_plan`)."""
     h_in, w_in, c = _check_image("area_resize_frac", img)
-    for si, al, size in ((xsi, xal, w_in), (ysi, yal, h_in)):
-        if not (si.device == al.device == img.device and si.dtype == torch.int32 and al.dtype == torch.float32
-                and si.dim() == 2 and si.shape == al.shape and si.is_contiguous() and al.is_contiguous()
-                and si.shape[1] >= 1):
-            raise ValueError(f"area_resize_frac: expected (d, taps) int32 and float32 tables on {img.device}")
-    nh, nw = ysi.shape[0], xsi.shape[0]
+    if not (new_w >= 1 and new_h >= 1):
+        raise ValueError(f"area_resize_frac: expected an output of at least 1 x 1, got {new_w} x {new_h}")
     lib = load("area_resize")
     with _guard(img.device):
-        out = torch.empty((nh, nw, c), dtype=torch.uint8, device=img.device)
-        err = lib.pw_area_resize_frac(img.data_ptr(), out.data_ptr(), xsi.data_ptr(), xal.data_ptr(), xsi.shape[1],
-                                      ysi.data_ptr(), yal.data_ptr(), ysi.shape[1], w_in, c, nh, nw,
-                                      torch.cuda.current_stream().cuda_stream)
+        plan = _area_frac_plan(lib, img.device, h_in, w_in, new_h, new_w, c)
+        out = torch.empty((new_h, new_w, c), dtype=torch.uint8, device=img.device)
+        err = _area_frac_launch(lib, img, out, plan)
         _count("area_resize_frac")
         _raise_on(lib, "area_resize_frac", err)
     return out

@@ -91,16 +91,6 @@ def area_resize_int_plain(x: torch.Tensor, sy: int, sx: int) -> torch.Tensor:
     return torch.round(s.float() / (sy * sx)).clamp_(0, 255).to(torch.uint8)
 
 
-_tables: dict = {}  # (ssize, dsize, device) → the tap table on the card
-
-
-def _tab_on(ssize: int, dsize: int, device: torch.device):
-    key = (ssize, dsize, device)
-    if key not in _tables:
-        _tables[key] = tuple(torch.from_numpy(a).to(device) for a in _resize_area_tab(ssize, dsize))
-    return _tables[key]
-
-
 def area_resize(img, new_w: int, new_h: int) -> torch.Tensor:
     """Downscale a (H, W) or (H, W, C) uint8 image with area averaging; picks
     the bit-exact route for the ratio.  A tensor is resized on its device; an
@@ -121,7 +111,7 @@ def area_resize(img, new_w: int, new_h: int) -> torch.Tensor:
     elif x.is_cuda:
         from .kernels import area_resize_frac_cuda  # noqa: PLC0415
 
-        o = area_resize_frac_cuda(x, *_tab_on(w, new_w, x.device), *_tab_on(h, new_h, x.device))
+        o = area_resize_frac_cuda(x, new_w, new_h)
     else:
         o = area_resize_frac_plain(x, new_w, new_h)
     return o if img.dim() == 3 else o[:, :, 0]

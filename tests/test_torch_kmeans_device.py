@@ -1,8 +1,9 @@
-"""Kernel K8's draw and seeding on the CPU: the plain versions
+"""Kernel K8's draw, sampler and seeding on the CPU: the plain versions
 (``plotweave_torch/ops/kmeans.py``: ``subsample_indices_plain``,
-``kpp_init_plain``) held to their contracts, and numpy emulations of the two
-kernels' schedules (``csrc/kmeans.cu``: ``subsample_draw``, ``kpp_init``)
-held to the plain versions exactly.
+``lab_sample``, ``kpp_init_plain``) held to their contracts, and numpy
+emulations of the kernels' schedules (``csrc/kmeans.cu``:
+``subsample_draw``, ``lab_sample``, ``kpp_init``) held to the plain versions
+exactly; the sampler's gamma table and the 32-byte sectors of its bound.
 
 The draw: the ``limit`` pixels of least ``fmix32(i·a + b mod 2³²)`` (a
 bijection of i, so the keys are distinct), in increasing index order.  The
@@ -31,8 +32,10 @@ a CTA's own rows, or in one array over all rows), each starting from NaN.
 
 from __future__ import annotations
 
+import importlib.util
 import math
 from fractions import Fraction
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -40,11 +43,20 @@ import torch
 
 from plotweave_torch.ops import kernels
 from plotweave_torch.ops import kmeans as tkm
+from plotweave_torch.ops.colorspace import _div, _srgb_gamma_inv, bgr_to_lab_u8
 
 CLUSTER = kernels.CLUSTER_SIZE
 DIGITS, COARSE = kernels.DRAW_DIGITS, kernels.DRAW_COARSE
 FINE = DIGITS // COARSE
 RUN = 16  # the compaction's pixels a thread and round (``kRun``)
+
+
+def smoke():
+    """``chip_smoke.py`` (standard library only at import), for its bounds."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 # --- the draw -----------------------------------------------------------------------
@@ -280,6 +292,150 @@ def test_lab_sample_refuses_indices_outside_the_image(idx):
     img = torch.zeros((9, 11, 3), dtype=torch.uint8)
     with pytest.raises(ValueError, match="outside"):
         tkm.lab_sample(img, torch.tensor(idx, dtype=torch.int64))
+
+
+# --- the sampler --------------------------------------------------------------------
+
+SAMPLE_GARBAGE = np.float32(np.nan)
+
+
+def emulate_lab_sample(image: torch.Tensor, idx: torch.Tensor | None, grid: int, src_base: int = 0,
+                       idx_base: int = 0) -> torch.Tensor:
+    """K8's sampler (``csrc/kmeans.cu``, ``lab_sample``) CTA by CTA: the
+    image's bytes at address ``src_base`` of a memory of garbage, the indices
+    at ``idx_base``; ``grid`` CTAs striding over chunks of
+    :data:`kernels.SAMPLE_CHUNK` pixels; a loader's
+    :data:`kernels.SAMPLE_PER_THREAD` consecutive pixels, their indices one
+    int4 where the indices are 16-byte aligned and the loader's pixels lie in
+    the chunk, else one by one (-1 past the chunk, read as pixel 0); each
+    pixel's bytes from the aligned words that hold bytes 3i and 3i + 2 by a
+    funnel shift where both words lie inside the image's bytes, else byte by
+    byte (no word read outside the image), or with no indices the chunk's bytes from its 16-byte cover
+    (vectors inside the image whole, the ends byte by byte, garbage
+    elsewhere); each pixel's 3 floats staged at 3 p, the chunk stored as
+    whole 16-byte vectors and then its tail float by float, into an
+    output of garbage that every float must be written in exactly once.  The
+    floats carried through the stage are the pixels' three bytes, and the Lab
+    of the stored (n, 3) bytes is taken at the end in one call, as
+    ``lab_sample`` takes it: torch's CPU ``pow`` gives other bits in its
+    vector loop than in its scalar tail, so the plain Lab of a pixel depends
+    on where it stands in a tensor (the kernel's table takes the card's one
+    ``powf`` a byte, ``test_gamma_table_is_every_bytes_gamma``)."""
+    per, chunk = kernels.SAMPLE_PER_THREAD, kernels.SAMPLE_CHUNK
+    threads = chunk // per  # the loaders
+    flat = image.reshape(-1).numpy()
+    px = flat.size // 3
+    mem = np.full(src_base + flat.size + 8, 0xA5, np.uint8)
+    mem[src_base:src_base + flat.size] = flat
+    words = np.frombuffer(mem[: mem.size // 4 * 4].tobytes(), np.uint32)
+    n = px if idx is None else idx.numel()
+    ix_all = None if idx is None else idx.to(torch.int64).numpy()
+    out = np.full(3 * n, SAMPLE_GARBAGE, np.float32)
+    writes = np.zeros(3 * n, np.int64)
+    n_chunks = -(-n // chunk)
+    for cta in range(grid):
+        for c in range(cta, n_chunks, grid):
+            p0 = c * chunk
+            m = min(chunk, n - p0)
+            q = per * np.arange(threads)[:, None] + np.arange(per)[None, :]  # (thread, pixel)
+            inside = q < m
+            if idx is not None:
+                vector = (idx_base % 16 == 0) & (per * np.arange(threads) + per <= m)
+                ix = np.where(inside, ix_all[np.minimum(p0 + q, n - 1)], -1)
+                assert (ix[vector[:, None] & np.ones(per, bool)] >= 0).all()
+                addr = src_base + 3 * np.maximum(ix, 0)
+                w0, w1 = addr // 4, (addr + 2) // 4
+                word = (4 * w0 >= src_base) & (4 * w1 + 4 <= src_base + flat.size)  # else byte by byte
+                lo, hi = np.where(word, words[w0], 0), np.where(word, words[w1], 0)
+                shifted = ((hi.astype(np.uint64) << 32 | lo.astype(np.uint64)) >> (8 * (addr % 4)).astype(np.uint64))
+                by_bytes = (mem[addr].astype(np.uint32) | mem[addr + 1].astype(np.uint32) << 8
+                            | mem[addr + 2].astype(np.uint32) << 16)
+                vals = np.where(word, shifted.astype(np.uint32), by_bytes)
+            else:
+                first = src_base + 3 * p0
+                cover = first - first % 16
+                vecs = -(-(first % 16 + 3 * m) // 16)
+                assert vecs <= 3 * chunk // 16 + 2
+                staged = np.full(16 * vecs, 0xA5, np.uint8)
+                lo_b, hi_b = max(cover, src_base), min(cover + 16 * vecs, src_base + flat.size)
+                staged[lo_b - cover:hi_b - cover] = mem[lo_b:hi_b]
+                at = first % 16 + 3 * np.where(inside, q, 0)
+                vals = (staged[at].astype(np.uint32) | staged[at + 1].astype(np.uint32) << 8
+                        | staged[at + 2].astype(np.uint32) << 16)
+            bgr = np.stack([vals & 255, (vals >> 8) & 255, (vals >> 16) & 255], -1).astype(np.float32)
+            staged_out = bgr.reshape(-1)  # pixel p's 3 floats at 3 p
+            vecs = 3 * m // 4
+            out[3 * p0:3 * p0 + 4 * vecs] = staged_out[:4 * vecs]
+            out[3 * p0 + 4 * vecs:3 * p0 + 3 * m] = staged_out[4 * vecs:3 * m]
+            writes[3 * p0:3 * p0 + 3 * m] += 1
+    assert (writes == 1).all(), "every output float written exactly once"
+    return bgr_to_lab_u8(torch.from_numpy(out.reshape(n, 3).astype(np.uint8)))
+
+
+def sample_image(seed: int, shape) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, 256, (*shape, 3), dtype=np.uint8))
+
+
+@pytest.mark.parametrize("n_px,n,grid,src_base,idx_base", [
+    (3000, 1024, 2, 0, 0),      # two whole chunks
+    (3000, 1500, 2, 1, 0),      # a ragged last chunk, a CTA taking two chunks
+    (3000, 100, 4, 2, 0),       # below one chunk
+    (3000, 515, 1, 3, 4),       # indices off a 16-byte boundary: one by one
+    (5, 5, 1, 0, 0),            # every pixel drawn, pixel 0 and the image's last bytes
+    (7, 7, 1, 1, 0),            # the first and last pixel byte by byte: the image starts and ends off a word
+    (7, 7, 1, 2, 0),
+    (70_000, 20_000, 3, 13, 0),
+])
+def test_sampler_emulation_with_indices_equals_lab_sample(n_px, n, grid, src_base, idx_base):
+    img = sample_image(n_px, (n_px,))
+    idx = torch.from_numpy(np.sort(np.random.default_rng(n).choice(n_px, n, replace=False)).astype(np.int32))
+    idx[-1] = n_px - 1  # the image's last pixel: byte by byte where its second word would end past the image
+    want = tkm.lab_sample(img, idx)
+    got = emulate_lab_sample(img, idx, grid, src_base, idx_base)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape,grid,src_base", [((9, 11), 1, 0), ((512,), 1, 7), ((513,), 2, 15), ((40, 77), 3, 9),
+                                                 ((1, 1), 1, 3), ((2048,), 5, 1)])
+def test_sampler_emulation_every_pixel_equals_lab_sample(shape, grid, src_base):
+    img = sample_image(len(shape) + shape[0], shape)
+    want = tkm.lab_sample(img)
+    got = emulate_lab_sample(img, None, grid, src_base)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("order", ["bytes", "reversed", "random", "image"])
+def test_gamma_table_is_every_bytes_gamma(order):
+    """The sampler's 256-entry table, gamma_inv(b / 255) of the 256 bytes in
+    one pass, holds the bits that the plain conversion computes for each
+    byte over an image of them in any order (a whole number of the CPU's
+    vectors: its scalar tail takes another ``pow``), and each entry is within
+    one float32 step of the float64 power of its float32 base (the
+    exponent 2.4 as float32 rounds it)."""
+    table = _srgb_gamma_inv(_div(torch.arange(256, dtype=torch.float32), 255.0))
+    b = torch.arange(256, dtype=torch.int64)
+    b = {"bytes": b, "reversed": b.flip(0), "random": torch.from_numpy(np.random.default_rng(3).permutation(256)),
+         "image": torch.from_numpy(np.random.default_rng(4).integers(0, 256, 4096))}[order]
+    direct = _srgb_gamma_inv(_div(b.to(torch.float32), 255.0))
+    assert torch.equal(table[b].view(torch.int32), direct.view(torch.int32))
+    assert table[0] == 0 and table[255] == 1 and bool((table[1:] > table[:-1]).all())
+    u = np.arange(256, dtype=np.float32) / np.float32(255.0)
+    base = ((u + np.float32(0.055)) / np.float32(1.055)).astype(np.float64)
+    exact = np.where(u <= np.float32(0.04045), (u / np.float32(12.92)).astype(np.float64),
+                     base ** np.float64(np.float32(2.4)))
+    step = np.spacing(np.float32(exact)).astype(np.float64)
+    assert (np.abs(table.numpy().astype(np.float64) - exact) <= step).all()
+
+
+@pytest.mark.parametrize("n_px,n,offset", [(1000, 1, 0), (1000, 1000, 0), (3000, 200, 7), (100_000, 7_000, 31),
+                                           (300_000, 20_000, 16), (64, 11, 30)])
+def test_sample_sectors_count_the_32_byte_sectors_touched(n_px, n, offset):
+    """The sampler's bound counts each 32-byte sector that bytes 3i to 3i + 2
+    of a drawn pixel touch once: the fast count against a brute force over
+    the bytes."""
+    idx = torch.from_numpy(np.random.default_rng(n_px + n).choice(n_px, n, replace=False).astype(np.int32))
+    brute = {(offset + 3 * int(i) + b) // 32 for i in idx.tolist() for b in range(3)}
+    assert smoke().gather_sectors(idx, offset) == len(brute)
 
 
 # --- the seeding --------------------------------------------------------------------
