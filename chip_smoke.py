@@ -36,7 +36,12 @@ Phases:
    conversions (rows ↔ boards, boards → dense uint8 and int32, dense uint8,
    bool and int32 → boards, labels → boards, into a blob at an odd offset)
    on ragged widths (W mod 32 and mod 8 ≠ 0, W < 32, H = 1) and at
-   4 × 1500 × 2000; K1 folded into K2 and K6 (``fold_cases``): K2 from packed
+   4 × 1500 × 2000; K1's pixel → word kernels (``k1_pack_cases``) on views
+   at storage offsets 1–15 in buffers of nonzero bytes, widths off 16 bytes
+   (1500, 2001, 77), int32 INT_MIN, −1, 0, 1, INT_MAX, labels −1, k and
+   INT_MAX for k = 1, 4, 8, on every words-a-lane route; K1's five
+   directions timed alone on one input (L2) and over a rotation of 60 MB or
+   more of inputs (HBM) beside their bounds (``k1_times``); K1 folded into K2 and K6 (``fold_cases``): K2 from packed
    rows and its packed-row store, K6 writing the edges and skeletons as
    packed rows into a blob at an odd offset and as dense bytes, on every
    route, against K1 plus the unfused kernels and the plain composites, on
@@ -235,9 +240,11 @@ launches in the one run of phase 5 or 6 that drives it (the synthetic
 2000 × 1500 image for K2, K3+K4 and the resident K5 and K6, the
 4400 × 4400 image for the banded K5 and K6 (and for the rows of kernels
 that no main path launches any more, which must show 0 there: the
-multi-launch K5 and K6 and K1's boards → rows), the
-front-end calls for K7, K12 and K1's dense side, the device-k-means run for K8 and K7's counts,
-the tools' k-means call for K8's assignment, the swatch run for K11, the
+multi-launch K5 and K6 and K1's boards → rows and rows → boards), the
+front-end calls for K7, K12 and K1's boards → dense and int32 → boards (K1
+counted by kernel; labels → boards must show 0 in the default route's call),
+the device-k-means run for K8 and K7's counts, the tools' k-means call for
+K8's assignment, the swatch run for K11 and K1's uint8 → boards, the
 quality run for K9 and K10, phase 14's resize path for K13 and its poster
 run for K14), its
 device time, its plain version's, and its bound: the larger of its bytes (each input read once, each output written
@@ -255,6 +262,8 @@ clock64 cycles by phase), ``phase_k9_phases()`` and ``phase_k9_ab(other)``
 (the same for K9, with its chain floor: run the phases first),
 ``phase_k1_fold_ab(other)`` (the chain, K2 and K6 alone, the grouped call
 of 8 and the front-end against another checkout's, in turns),
+``phase_k1_pack_ab(other)`` (K1's five directions alone, L2 and HBM,
+against another checkout's, in turns, outputs equal),
 ``phase_kmeans_ab(other)`` and ``phase_k8_phases()`` (K8's seeds and fits
 and stage 02's device mode against another checkout's, in turns, and the
 launch's clock64 cycles by phase), ``phase_banded_ab(other)`` (K5, K6
@@ -295,7 +304,8 @@ CHAIN_LAUNCHES = {"morph_bits": 1, "edge_candidates": 1, "hysteresis": 1, "zhang
 # the kernels of plotweave_torch/csrc by a part of their names, as a profiler's trace shows them
 # PyTorch's kernel of ``copy_`` between strided views on one card: row sharding's halo exchange (``widen``)
 COPY_KERNELS = ("direct_copy_kernel",)
-OWN_KERNELS = ("rows_to_boards", "boards_to_rows", "boards_to_dense", "dense_to_boards", "labels_to_boards",
+OWN_KERNELS = ("rows_to_boards", "boards_to_rows", "boards_to_dense", "dense_to_boards_bytes",
+               "dense_to_boards_words", "labels_to_boards",
                "morph_steps", "edge_tiles", "hysteresis_cluster", "hysteresis_sweep", "zs_cluster", "zs_subpass",
                "assign_nearest", "zs_tiles", "subsample", "lab_sample", "kmeans_fit", "lloyd_fit", "assign_points", "morph_runs",
                "greedy_tour", "refine_tour", "area_frac", "area_int", "bezier_families")
@@ -317,7 +327,7 @@ DRAW_OPS_PER_KEY = 10
 LARGE_LIST_PX = 40_000_000  # a draw whose candidate list (about n / 2,048) takes the large-list route
 BANDED_KERNELS = ("hysteresis_banded", "zhang_suen_packed_banded")  # K5, K6 on layers too large for a cluster
 MULTI_KERNELS = ("hysteresis_multi", "zhang_suen_packed_multi")  # K5, K6 multi-launch: only where a caller names it
-OFF_PATH = ("K1 rows", "K5 multi", "K6 multi")  # rows of the kernels line that no main path launches
+OFF_PATH = ("K1 rows", "K1 rows to boards", "K1 labels", "K5 multi", "K6 multi")  # rows of the kernels line that no main path launches
 BIG_SIDE = 4400  # px: a layer of 4400 rows of 138 words does not fit one cluster's shared memory
 PATH_RUNS = {"main": "main path, synthetic 2000x1500, steps 1-13, card run",
              "big": f"main path, synthetic {BIG_SIDE}x{BIG_SIDE}, steps 1-4, card run",
@@ -412,7 +422,10 @@ def kmeans_fit_bound(n: int, k: int, attempts: int, passes: int) -> dict:
 
 
 def fail(msg: str) -> None:
+    """Print ``msg`` on both streams (a caller that keeps only one of them
+    still sees why) and exit with 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -438,6 +451,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 TRACE_CALLS = 3  # calls inside one profiler window: the trace may miss the device work right after it starts
 TRACE_PAUSE = 0.02  # seconds between them, so that each call's device events stand apart in time
+TRACE_ATTEMPTS = 5  # traces :func:`only_own_kernels` takes before it fails: a trace may lose or split a call
 
 
 def traced(fn, calls: int = TRACE_CALLS) -> list:
@@ -519,31 +533,43 @@ def only_own_kernels(fn, what: str, expect: dict, timed: str = "", calls: int = 
     """Fail if a trace of ``calls`` calls of ``fn`` shows a device kernel
     that is not one of ``plotweave_torch/csrc``'s (with ``copies``, nor
     PyTorch's ``copy_`` kernel, which moves rows between strided views and
-    is counted apart, under "copies"), or if the last call's
-    kernels are not ``expect`` ({part of the name: launches}) in any of three
-    traces (a trace that lost events is taken again); returns those.  With
+    is counted apart, under "copies"), or if no call of the trace ran
+    exactly ``expect`` ({part of the name: launches}) in any of
+    :data:`TRACE_ATTEMPTS` traces; returns those.  A trace may lose a call's
+    events, or split a call in two where the host stalled between its
+    launches, so each call the trace shows is held to ``expect``, the last
+    first, and a trace without a whole call is taken again.  With
     ``timed``, returns {"kernels": those, "alone_ms": the device ms a call of
     the kernels whose name holds ``timed``, over the calls after the first},
     from the same trace (a profiler session fewer than ``profiled_ms``)."""
-    for attempt in range(3):
-        groups = traced(fn, calls)
-        allowed = OWN_KERNELS + (COPY_KERNELS if copies else ())
-        foreign = sorted({e.name for g in groups for e in g if not any(own in e.name for own in allowed)})
-        check(not foreign, f"{what}: device kernels that are not the port's own: {foreign}")
+
+    def counted(group) -> tuple:
         short: dict = {}
         n_copies = 0
-        for e in (groups or [[]])[-1]:
+        for e in group:
             own = next((own for own in OWN_KERNELS if own in e.name), None)
             if own is None:
                 n_copies += 1
             else:
                 short[own] = short.get(own, 0) + 1
-        if short == expect:
+        return short, n_copies
+
+    whole = None
+    for attempt in range(TRACE_ATTEMPTS):
+        groups = traced(fn, calls)
+        allowed = OWN_KERNELS + (COPY_KERNELS if copies else ())
+        foreign = sorted({e.name for g in groups for e in g if not any(own in e.name for own in allowed)})
+        check(not foreign, f"{what}: device kernels that are not the port's own: {foreign}")
+        seen = [counted(g) for g in reversed(groups)]
+        whole = next((c for c in seen if c[0] == expect), None)
+        if whole is not None:
             break
-        print(f"  {what}: trace {attempt + 1} shows {short} in its last call, expected {expect}")
-    check(short == expect, f"{what}: the trace's last call ran {short}, expected {expect}")
+        print(f"  {what}: trace {attempt + 1} shows {[c[0] for c in seen]} in its calls (last first), "
+              f"expected {expect}")
+    check(whole is not None, f"{what}: no call of {TRACE_ATTEMPTS} traces ran {expect}")
+    short, n_copies = whole
     print(f"{what}: every device kernel in the trace of {len(groups)} calls is the port's own"
-          + (" or a copy" if copies else "") + f", and the last call ran {short}"
+          + (" or a copy" if copies else "") + f", and a call ran {short}"
           + (f" and {n_copies} copy kernels" if copies else "") + " (torch.profiler)")
     if copies:
         short = {**short, "copies": n_copies}
@@ -1038,6 +1064,8 @@ def phase_layout_and_edge_kernels(stats: dict) -> None:
                   f"K1 labels -> boards {shape}")
     print(f"K1 == plain: rows <-> boards, boards -> dense (uint8 x255, x1, int32), dense (uint8, bool, int32) -> "
           f"boards, labels -> boards, into a blob at an odd offset, {len(shapes)} shapes incl. {CHAIN_SHAPE}")
+    k1_pack_cases(rng)
+    k1_stats(stats)
 
     # K3+K4: gray images and binary boards on every template instance (ksize 1, 3, 5, 7, 9) and on the
     # general path (even ksize, 11, a sigma so small that the centre tap is 256), one sigma > 0, radii beyond
@@ -1116,6 +1144,227 @@ def phase_layout_and_edge_kernels(stats: dict) -> None:
                                assign_nearest_plain(img, c, len(c)).reshape(-1), f"K7 {shape} k={len(c)}")
     print("K7 boards == one-hot boards of K7's labels: 6 shapes x k = 4, 8, 1, aligned and 5 bytes off")
     fold_cases()
+
+
+# K1's pixel -> word kernels on the card: (shape, storage offsets of the bytes' views): widths off 16 bytes (1500
+# % 16 = 12, 2001, 77) and on it, H = 1, 1 to 4 layers of 1500 rows
+PACK_SHAPES = [((1, 1, 1500), range(16)), ((2, 7, 2001), range(16)), ((3, 5, 77), range(16)),
+               ((1, 3, 16), range(16)), ((4, 33, 1), range(16)), ((1, 1500, 2001), (0, 1, 7, 15)),
+               ((2, 1500, 2000), (0, 3, 8)), (CHAIN_SHAPE, (0, 1, 15))]
+INT_EDGES = (-(2**31), -1, 0, 1, 2**31 - 1)  # int32 values around the kernels' > 0 test
+
+
+def k1_counts() -> dict:
+    """K1's launches by kernel since the last reset, as "K1 <kernel>" keys."""
+    from plotweave_torch.ops import kernels
+
+    return {f"K1 {d}": n for d, n in kernels.K1_LAUNCHES.items()}
+
+
+def k1_pack_cases(rng) -> int:
+    """K1's dense -> boards and labels -> boards against their plain versions
+    on the card (byte-equal: all integer) on :data:`PACK_SHAPES`: uint8 (0,
+    1, 2, 127, 128, 255) and bool views at the listed storage offsets in
+    buffers of nonzero bytes, int32 (INT_MIN, -1, 0, 1, INT_MAX) at element
+    offsets 0-3 among positive values, labels (-1, 0..k-1, k, INT_MAX) at
+    element offsets 0-3 among in-range labels for k = 1, 4, 8, 12 (k = 4
+    only at 4 x 1500 x 2000); each case one launch, counted under its
+    kernel in ``K1_LAUNCHES``.  Returns the cases held."""
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import kernels
+    from plotweave_torch.ops.frontend import onehot_boards, onehot_boards_plain
+    from plotweave_torch.ops.thinning import pack_bitboards, pack_bitboards_plain
+
+    dev = torch.device("cuda")
+    n, each = 0, {"dense_to_boards_bytes": 0, "dense_to_boards_words": 0, "labels_to_boards": 0}
+    kernels.reset_launches()
+
+    def placed(values, offset: int, fill: int):
+        """``values`` at ``offset`` elements into a buffer of ``fill`` on the card."""
+        buf = torch.full((offset + values.numel() + 8,), fill, dtype=values.dtype, device=dev)
+        return buf[offset : offset + values.numel()].view(values.shape).copy_(values)
+
+    for shape, offsets in PACK_SHAPES:
+        *lead, w = shape
+        numel = int(np.prod(shape))
+        u8 = torch.from_numpy(rng.choice(np.array([0, 1, 2, 127, 128, 255], np.uint8), shape)).to(dev)
+        bits = u8 > 127
+        i32 = torch.from_numpy(rng.choice(np.array(INT_EDGES, np.int64), shape).astype(np.int32)).to(dev)
+        ref_u8, ref_bool, ref_i32 = pack_bitboards_plain(u8), pack_bitboards_plain(bits), pack_bitboards_plain(i32)
+        for offset in offsets:
+            n += 2
+            each["dense_to_boards_bytes"] += 2
+            got = kernels.dense_to_boards_cuda(placed(u8, offset, 0xA5))
+            check(torch.equal(got, ref_u8), f"K1 dense -> boards uint8 {shape} at byte offset {offset}")
+            view = placed(bits.view(torch.uint8), offset, 0xA5).view(torch.bool)
+            check(torch.equal(pack_bitboards(view), ref_bool), f"K1 dense -> boards bool {shape} at byte offset {offset}")
+        for offset in range(4):
+            n += 1
+            each["dense_to_boards_words"] += 1
+            check(torch.equal(kernels.dense_to_boards_cuda(placed(i32, offset, 7)), ref_i32),
+                  f"K1 dense -> boards int32 {shape} at element offset {offset}")
+        for k in ((4,) if numel > 10**7 else (1, 4, 8, 12)):
+            labels = torch.from_numpy(rng.choice(np.array([-1, *range(k), k, 2**31 - 1], np.int64), shape)
+                                      .astype(np.int32)).to(dev)
+            ref = onehot_boards_plain(labels, k)
+            for offset in range(4):
+                n += 1
+                each["labels_to_boards"] += 1
+                view = placed(labels, offset, 0)
+                got = onehot_boards(view, k) if offset % 2 else kernels.labels_to_boards_cuda(view, k)
+                check(torch.equal(got, ref), f"K1 labels -> boards {shape} k={k} at element offset {offset}")
+    counted = {name: kernels.K1_LAUNCHES[name] for name in each}
+    check(counted == each, f"K1 pixel -> word: launches by kernel {counted}, expected {each}")
+    print(f"K1 pixel -> word == plain: {n} cases on {len(PACK_SHAPES)} shapes (widths 1500, 2001, 77, 16, 1, 2000), "
+          f"uint8 and bool at byte offsets up to 15, int32 (INT_MIN, -1, 0, 1, INT_MAX) and labels (-1, 0..k-1, k, "
+          f"INT_MAX; k = 1, 4, 8, 12) at element offsets 0-3; launches {counted}")
+    return n
+
+
+K1_HBM_BYTES = 60e6  # a rotation of distinct inputs at least this large: each call reads HBM, not the 50 MB L2
+K1_TIME_REPS = 20
+
+
+def k1_inputs() -> dict:
+    """The inputs of K1's five directions, the same for every checkout: {case:
+    (inputs, bytes a call moves)}, the first input the one-input (L2) case,
+    the list a rotation of at least :data:`K1_HBM_BYTES` of inputs."""
+    import numpy as np
+    import torch
+
+    k, h, w = CHAIN_SHAPE
+    nw, dev = -(-w // 32), torch.device("cuda")
+    rng = np.random.default_rng(31)
+    masks = [random_boards(rng, k, h, w) for _ in range(2)]
+
+    def rotation(make, nbytes: int) -> list:
+        return [make(i) for i in range(int(np.ceil(K1_HBM_BYTES / nbytes)))]
+
+    u8 = rotation(lambda i: torch.from_numpy(np.roll(masks[i % 2], 7 * i, axis=-1)).to(dev), k * h * w)
+    i32 = rotation(lambda i: torch.from_numpy(np.where(np.roll(masks[i % 2], 7 * i, axis=-1) > 0, 2**31 - 1 - i,
+                                                       -i).astype(np.int32)).to(dev), 4 * k * h * w)
+    labels = rotation(lambda i: torch.from_numpy(rng.integers(-1, 5, (h, w), dtype=np.int32)).to(dev), 4 * h * w)
+    rows = rotation(lambda i: torch.from_numpy(np.packbits(np.roll(masks[i % 2], 7 * i, axis=-1) > 0, axis=-1)).to(dev),
+                    k * h * (w // 8))
+    big_nw = -(-BIG_SIDE // 32)
+    big = rotation(lambda i: random_words(rng, (1, BIG_SIDE, big_nw), dev), 4 * BIG_SIDE * big_nw)
+    boards = rotation(lambda i: random_words(rng, (k, h, nw), dev), 4 * k * h * nw)
+    return {"dense -> boards uint8": (u8, k * h * w + 4 * k * h * nw),
+            "dense -> boards int32": (i32, 4 * k * h * w + 4 * k * h * nw),
+            "labels -> boards": (labels, 4 * h * w + 4 * 4 * h * nw),
+            "rows -> boards": (rows, k * h * (w // 8) + 4 * k * h * nw),
+            "boards -> rows": (big, 4 * BIG_SIDE * big_nw + BIG_SIDE * -(-BIG_SIDE // 8)),
+            "boards -> dense": (boards, 4 * k * h * nw + k * h * w)}
+
+
+# case → (the kernel's name in a trace, its shape as printed)
+K1_CASES = {"dense -> boards uint8": ("dense_to_boards", f"{CHAIN_SHAPE}"),
+            "dense -> boards int32": ("dense_to_boards", f"{CHAIN_SHAPE}"),
+            "labels -> boards": ("labels_to_boards", f"{FRONTEND_SHAPE}, k = 4"),
+            "rows -> boards": ("rows_to_boards", f"{CHAIN_SHAPE}"),
+            "boards -> rows": ("boards_to_rows", f"(1, {BIG_SIDE}, {BIG_SIDE})"),
+            "boards -> dense": ("boards_to_dense", f"{CHAIN_SHAPE}, uint8 x255")}
+
+
+def k1_call(case: str):
+    """The wrapper call of ``case`` on an input (through the checkout's own wrapper)."""
+    from plotweave_torch.ops import kernels
+
+    k, h, w = CHAIN_SHAPE
+    return {"dense -> boards uint8": kernels.dense_to_boards_cuda, "dense -> boards int32": kernels.dense_to_boards_cuda,
+            "labels -> boards": lambda x: kernels.labels_to_boards_cuda(x, 4),
+            "rows -> boards": lambda x: kernels.rows_to_boards_cuda(x, w),
+            "boards -> rows": lambda x: kernels.boards_to_rows_cuda(x, BIG_SIDE),
+            "boards -> dense": lambda x: kernels.boards_to_dense_cuda(x, w, 255)}[case]
+
+
+def k1_times(inputs: dict | None = None) -> dict:
+    """K1's five directions (dense -> boards from uint8 and int32) through the
+    wrappers of the checkout that ``ROOT`` names, on ``inputs`` (default
+    :func:`k1_inputs`): per
+    case a digest of every input's output, ms a call (CUDA events, one
+    input), the kernel alone by ``torch.profiler`` on one input (its 12 MB
+    stay in the 50 MB L2) and over the rotation (each call reads HBM), and
+    the bytes bound.  Run after ``phase_probe``."""
+    import hashlib
+    import itertools
+
+    import torch
+
+    out = {}
+    for case, (xs, nbytes) in (inputs or k1_inputs()).items():
+        fn, (name, _) = k1_call(case), K1_CASES[case]
+        data = b"".join(fn(x).cpu().numpy().tobytes() for x in xs)
+        turn = itertools.cycle(xs)
+        out[case] = {"digest": hashlib.sha256(data).hexdigest(), "inputs": len(xs),
+                     "ms": cuda_ms(lambda: fn(xs[0]), K1_TIME_REPS),
+                     "alone_l2_ms": profiled_ms(lambda: fn(xs[0]), name, K1_TIME_REPS),
+                     "alone_hbm_ms": profiled_ms(lambda: fn(next(turn)), name, K1_TIME_REPS),
+                     **bound(nbytes, 0, INT32_OPS)}
+    return out
+
+
+def share(bound_ms: float, ms) -> str:
+    return f"{100 * bound_ms / ms:.1f} %" if ms else "not measured"
+
+
+def k1_stats(stats: dict) -> None:
+    """K1's five directions timed alone (:func:`k1_times`) into ``stats["K1
+    times"]``, and the kernels line's rows of the two directions no path
+    launches (rows -> boards, labels -> boards) with their plain versions."""
+    import torch
+
+    from plotweave_torch.ops.bitpack import rows_to_boards_plain
+    from plotweave_torch.ops.frontend import onehot_boards_plain
+
+    inputs = k1_inputs()
+    times = stats["K1 times"] = k1_times(inputs)
+    for case, t in times.items():
+        print(f"K1 {case} at {K1_CASES[case][1]}: {t['ms']:.4f} ms a call; alone {t['alone_l2_ms'] or 0:.4f} ms on "
+              f"one input (L2; {share(t['bound_ms'], t['alone_l2_ms'])} of the bound), {t['alone_hbm_ms'] or 0:.4f} ms "
+              f"over {t['inputs']} inputs (HBM; {share(t['bound_ms'], t['alone_hbm_ms'])}); bound {t['bound_ms']:.5f} "
+              f"ms by bytes")
+    w = CHAIN_SHAPE[-1]
+    for key, case, plain in (("K1 rows to boards", "rows -> boards", lambda x: rows_to_boards_plain(x, w)),
+                             ("K1 labels", "labels -> boards", lambda x: onehot_boards_plain(x, 4))):
+        x, t = inputs[case][0][0], times[case]
+        got = k1_call(case)(x)
+        check(torch.equal(got, plain(x)), f"K1 {case} != plain at {K1_CASES[case][1]}")
+        stats[key] = {"max_abs_err": 0, "ms": t["ms"], "alone_ms": t["alone_hbm_ms"], "alone_l2_ms": t["alone_l2_ms"],
+                      "plain_ms": cuda_ms(lambda: plain(x), 3), "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                      "library_ms": None}
+
+
+def phase_k1_pack_ab(other: str) -> dict:
+    """K1's pixel -> word kernels of this checkout against the one at
+    ``other`` (the parent's: ``git archive <rev> | tar -x -C
+    .checkout/other``): first :func:`k1_pack_cases` (byte equality on
+    misaligned views, odd widths, negatives, out-of-range labels), then
+    :func:`k1_times` in turns other, this, this, other, each in a process of
+    its own with ``ROOT`` set to its checkout.  Every case's outputs must be
+    equal in every turn; per case ms a call and alone on one input (L2) and
+    over a rotation (HBM), beside the bound."""
+    import numpy as np
+
+    k1_pack_cases(np.random.default_rng(23))
+    runs = ab_turns(other, "k1_times", "K1 pack")
+    result = {}
+    for case in K1_CASES:
+        rows = {key: [r[case] for r in v] for key, v in runs.items()}
+        seen = {r["digest"] for v in rows.values() for r in v}
+        check(len(seen) == 1, f"K1 pack A/B {case}: the two checkouts differ: {sorted(seen)}")
+        row = {key: {m: [r[m] for r in v] for m in ("ms", "alone_l2_ms", "alone_hbm_ms")} for key, v in rows.items()}
+        row["bound_ms"] = rows["this"][0]["bound_ms"]
+        result[case] = row
+        print(f"K1 pack A/B {case} at {K1_CASES[case][1]}, bound {row['bound_ms']:.5f} ms: " + "; ".join(
+            f"{key} " + ", ".join(f"{m} " + " / ".join(f"{x:.4f}" if x else "-" for x in row[key][m])
+                                  for m in ("ms", "alone_l2_ms", "alone_hbm_ms"))
+            + f" (HBM share {share(row['bound_ms'], min((x for x in row[key]['alone_hbm_ms'] if x), default=None))})"
+            for key in ("other", "this")), flush=True)
+    print(json.dumps({"k1_pack_ab": result}))
+    return result
 
 
 # (images, layers an image, H, W) of the fold's checks: ragged widths (W mod 32 and mod 8 != 0, W < 8), groups of
@@ -1395,6 +1644,8 @@ def phase_chain(stats: dict) -> None:
                         "alone_ms_each": each, "bound_ms_each": one, "alone_ms": sum(each) if each else None,
                         **bound(2 * (big.numel() * 4 + big_blob[0].numel()), 0, INT32_OPS)}
     check(stats["K1 rows"]["max_abs_err"] == 0, f"K1 boards -> rows != plain at 1x{BIG_SIDE}x{BIG_SIDE}")
+    stats["K1 rows"].update(one_alone_l2_ms=stats["K1 times"]["boards -> rows"]["alone_l2_ms"],
+                            one_alone_hbm_ms=stats["K1 times"]["boards -> rows"]["alone_hbm_ms"])
     if each:
         print(f"  K1's two boards -> rows launches of the {BIG_SIDE}x{BIG_SIDE} route alone (torch.profiler): "
               + ", ".join(f"{t:.4f} ms ({100 * one / t:.1f} % of its bound {one:.5f} ms)" for t in each))
@@ -1601,7 +1852,7 @@ def phase_main_path(work: Path) -> dict:
     t0 = time.perf_counter()
     times_cuda = run_main(image, work / "synthetic_cuda", "auto")
     wall_cuda = time.perf_counter() - t0
-    first = dict(kernels.LAUNCHES)
+    first = {**kernels.LAUNCHES, **k1_counts()}
     check(all(first[n] > 0 for n in MAIN_PATH_KERNELS), f"main path did not launch K2, K5 and K6: {first}")
     check({n: first[n] for n in CHAIN_LAUNCHES} == CHAIN_LAUNCHES and first["bitpack"] == 0,
           f"main path: the chain's launches are {first}, expected {CHAIN_LAUNCHES} and no K1")
@@ -1656,7 +1907,7 @@ def phase_main_path(work: Path) -> dict:
             kernels.reset_launches()
         runs[device] = run_main(image, out, device, out / "config.json", end_step=4)
         if device == "auto":
-            big = dict(kernels.LAUNCHES)
+            big = {**kernels.LAUNCHES, **k1_counts()}
             k5_rounds = kernels.STATS["hysteresis_banded"][0]
     # K2 loads the packed rows; the banded K6 stores the blob in its one launch, K5 launches once a round;
     # no K1 and no multi-launch kernel
@@ -1719,12 +1970,13 @@ def phase_frontend(stats: dict) -> dict:
         kernels.reset_launches()
         out[route] = raster_frontend(img, c, k=4, pallas_thinning=route)
         torch.cuda.synchronize()
-        launches[route] = dict(kernels.LAUNCHES)
-    # K7, K2, K3+K4, K5, then K6 storing both dense outputs, or K1, K12 and two more K1
+        launches[route] = {**kernels.LAUNCHES, **k1_counts()}
+    # K7, K2, K3+K4, K5, then K6 storing both dense outputs, or K1 (boards -> dense), K12, K1 (its int32 skeletons ->
+    # boards) and K1 again (boards -> dense)
     need = {False: {"assign_nearest": 1, "morph_bits": 1, "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 1,
                     "bitpack": 0},
             True: {"assign_nearest": 1, "morph_bits": 1, "edge_candidates": 1, "hysteresis": 1, "zhang_suen_packed": 0,
-                   "bitpack": 3}}
+                   "bitpack": 3, "K1 boards_to_dense": 2, "K1 dense_to_boards_words": 1, "K1 dense_to_boards_bytes": 0}}
     for route, counts in need.items():
         check(all(launches[route][n] == v for n, v in counts.items()),
               f"front-end route {route}: launches {launches[route]}, expected {counts}")
@@ -1744,11 +1996,14 @@ def phase_frontend(stats: dict) -> dict:
     edges, skel = out[False]
     print(f"front-end {h}x{w} k=4: card == CPU from the same labels, both routes; K12 route == K6 route; "
           f"{int(edges.count_nonzero())} edge px, {int(skel.count_nonzero())} skeleton px; "
-          f"launches default {launches[False]}, dense {launches[True]}")
+          f"launches default { {n: c for n, c in launches[False].items() if c} }, dense "
+          f"{ {n: c for n, c in launches[True].items() if c} }")
+    print("front-end K12 route, K1 by kernel: " + ", ".join(f"{n.removeprefix('K1 ')} {c}" for n, c in
+                                                                launches[True].items() if n.startswith("K1 ")))
     common = {"assign_nearest": 1, "morph_steps": 1, "edge_tiles": 1, "hysteresis_cluster": 1}
     for route, name, rest in ((False, "default route", {"zs_cluster": 1}),
                               (True, "dense route", {"zs_tiles": launches[True]["zhang_suen_dense"], "boards_to_dense": 2,
-                                                     "dense_to_boards": 1})):
+                                                     "dense_to_boards_words": 1})):
         stats[f"front-end trace {route}"] = only_own_kernels(
             lambda route=route: raster_frontend(img, c, k=4, pallas_thinning=route),
             f"front-end {h}x{w}, {name}, one call", {**common, **rest})
@@ -1815,14 +2070,21 @@ def phase_frontend(stats: dict) -> dict:
                          "alone_ms": profiled_ms(k1_dense, "boards_to_dense", 20),
                          **bound(2 * (board + edges.numel()), 0, INT32_OPS)}
     skel32 = k12_call()
-    stats["K1 pack"] = {"max_abs_err": 0,
-                        "ms": cuda_ms(lambda: kernels.dense_to_boards_cuda(edges), 20),
-                        "alone_ms": profiled_ms(lambda: kernels.dense_to_boards_cuda(edges), "dense_to_boards", 20),
-                        "plain_ms": cuda_ms(lambda: pack_bitboards_plain(edges), 3),
-                        "int32_ms": cuda_ms(lambda: kernels.dense_to_boards_cuda(skel32), 20),
-                        "int32_plain_ms": cuda_ms(lambda: pack_bitboards_plain(skel32), 3),
-                        "plain_device_kernels": sum(device_kernels(lambda: pack_bitboards_plain(edges)).values()),
-                        **bound(board + edges.numel(), 0, INT32_OPS)}
+    check(torch.equal(kernels.dense_to_boards_cuda(skel32), pack_bitboards_plain(skel32)),
+          "K1 int32 -> boards != plain on K12's skeletons")
+    # the byte kernel (dense_to_boards_bytes) on the edges and the int32 kernel (dense_to_boards_words) on K12's
+    # skeletons, each its own row of the kernels line; alone, phase 3's times of that kernel at the same shape
+    # (k1_times: each case launches only its own kernel): one input (L2) and a rotation (HBM, the headline)
+    times = stats["K1 times"]
+    for key, x, case in (("K1 pack", edges, "dense -> boards uint8"), ("K1 pack int32", skel32, "dense -> boards int32")):
+        t = times[case]
+        stats[key] = {"max_abs_err": 0, "ms": cuda_ms(lambda x=x: kernels.dense_to_boards_cuda(x), 20),
+                      "alone_ms": t["alone_hbm_ms"], "alone_l2_ms": t["alone_l2_ms"],
+                      "plain_ms": cuda_ms(lambda x=x: pack_bitboards_plain(x), 3),
+                      "plain_device_kernels": sum(device_kernels(lambda x=x: pack_bitboards_plain(x)).values()),
+                      **bound(x.numel() * x.element_size() + board, 0, INT32_OPS)}
+    stats["K1 dense"].update(one_alone_l2_ms=times["boards -> dense"]["alone_l2_ms"],
+                             one_alone_hbm_ms=times["boards -> dense"]["alone_hbm_ms"])
     k12 = skel32
     k12_iters = kernels.STATS["zhang_suen_dense"]
     # the iterations these edges need, per layer (K6 runs the same fixpoint),
@@ -1862,15 +2124,14 @@ def phase_frontend(stats: dict) -> dict:
     for name, what in (("K2 front-end", "the front-end's 8 steps, one call"), ("K12", f"4x{h}x{w}"),
                        ("K3+K4 front-end", f"4x{h}x{w} from a board, ksize 7"),
                        ("K1 dense", f"two boards -> dense uint8 at 4x{h}x{w}"),
-                       ("K1 pack", f"dense uint8 -> boards at 4x{h}x{w}")):
+                       ("K1 pack", f"dense uint8 -> boards at 4x{h}x{w}"),
+                       ("K1 pack int32", f"K12's int32 skeletons -> boards at 4x{h}x{w}")):
         st = stats[name]
         print(f"{name} at {what}: kernel {st['ms']:.4f} ms, plain PyTorch on the card {st['plain_ms']:.4f} ms, "
               f"bound {st['bound_ms']:.5f} ms by {st['bound_by']}"
               + (f", alone {st['alone_ms']:.4f} ms (torch.profiler; {st['bound_ms'] / st['alone_ms']:.0%} of the bound)"
                  if st.get("alone_ms") else "")
               + (f", plain in {st['plain_device_kernels']} device kernels" if "plain_device_kernels" in st else ""))
-    st = stats["K1 pack"]
-    print(f"  K1 dense int32 -> boards (K12's output): {st['int32_ms']:.4f} ms, plain {st['int32_plain_ms']:.4f} ms")
     for name, (prof_ms, bare_ms) in alone.items():
         print(f"{name} kernel alone: " + (f"{prof_ms:.4f} ms a call by torch.profiler" if prof_ms is not None
                                           else "not measured by torch.profiler (no device time in its trace)")
@@ -2232,10 +2493,13 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
     stats["K8 assign_points"] = {
         "max_abs_err": 0, "ms": cuda_ms(lambda: kernels.assign_points_cuda(data_d, cen_d), 20),
         "plain_ms": cuda_ms(lambda: kmeans.assign_points_plain(data_d, cen_d), 5),
+        "alone_ms": profiled_ms(lambda: kernels.assign_points_cuda(data_d, cen_d), "assign_points", 20),
         **bound(16 * len(data), len(data) * 4 * LLOYD_FLOPS_PER_CENTER, FP32_OPS)}
+    st = stats["K8 assign_points"]
     print(f"ops.kmeans.kmeans on the card == on the CPU (centres within 1e-3, {int(diff.sum())} near-tie labels of "
           f"{len(data)}); launches {({n: c for n, c in tool.items() if c})}; K8 assign_points == plain, "
-          f"{stats['K8 assign_points']['ms']:.4f} ms a call")
+          f"{st['ms']:.4f} ms a call, {st['alone_ms'] or 0:.4f} alone ({share(st['bound_ms'], st['alone_ms'])} of its "
+          f"bound {st['bound_ms']:.5f} ms by {st['bound_by']})")
 
     # --- K7's counts
     for shape, cs in (((1500, 2000, 3), pens[:4]), ((37, 45, 3), pens), ((5, 33, 3), pens[:1]), ((1, 1, 3), pens[:3])):
@@ -2452,7 +2716,7 @@ def phase_swatch_path(work: Path) -> dict:
     settings = {"extraction_mode": "swatch", "colors": POSTER_PALETTE, "color_names": names}
     kernels.reset_launches()
     times = run_main(image, work / "swatch_cuda", "auto", settings=settings)
-    counts = dict(kernels.LAUNCHES)
+    counts = {**kernels.LAUNCHES, **k1_counts()}
     check(counts["morph_dense"] == 1, f"swatch path: K11 launched {counts['morph_dense']} times, expected one for "
           f"the {len(names)} masks: {counts}")
     run_main(image, work / "swatch_cpu", "cpu", settings=settings)
@@ -2461,6 +2725,8 @@ def phase_swatch_path(work: Path) -> dict:
     check(not (work / "swatch_cuda" / "palette_by_name.json").exists(), "swatch mode wrote a palette")
     size = decodes(work / "swatch_cuda")
     iou = mask_iou(work / "swatch_cuda", work / "synthetic_cuda", sorted(names))
+    print("swatch path, K1 by kernel: " + ", ".join(f"{n.removeprefix('K1 ')} {c}" for n, c in counts.items()
+                                                      if n.startswith("K1 ")))
     print(f"swatch path, synthetic 2000x1500: card == cpu on every artifact ({size} stream bytes, decodes to EOF); "
           f"launches {({n: c for n, c in counts.items() if c})}; stage 02 {times['s02_color_extract']:.3f} s; mask IoU "
           f"against the k-means run, layer by layer: {({n: round(v, 3) for n, v in iou.items()})}")
@@ -4751,7 +5017,7 @@ def phase_mesh(work: Path, stats: dict) -> dict:
         check(torch.equal(got[0].cpu(), solo[0].cpu()) and torch.equal(got[1].cpu(), solo[1].cpu()),
               f"frontend_batch (pallas_thinning={route}) != one raster_frontend call over the batch")
         common = {"assign_nearest": 2, "morph_steps": 2, "edge_tiles": 2, "hysteresis_cluster": 2}
-        rest = ({"zs_tiles": launches.get("zhang_suen_dense"), "boards_to_dense": 4, "dense_to_boards": 2} if route
+        rest = ({"zs_tiles": launches.get("zhang_suen_dense"), "boards_to_dense": 4, "dense_to_boards_words": 2} if route
                 else {"zs_cluster": 2})
         only_own_kernels(lambda route=route: frontend_batch(data, imgs, c, k=4, pallas_thinning=route),
                          f"frontend_batch, {MESH_POSTERS} x {h}x{w} over [cuda:0, cuda:0], pallas_thinning={route}",
@@ -5252,15 +5518,24 @@ def main() -> None:
     src = "plotweave_torch/csrc/bitboard_fixpoints.cu"
     k1 = "plotweave_torch/csrc/bitpack.cu"
     k8 = "plotweave_torch/csrc/kmeans.cu"
-    # K1 where a path still launches it: K12's route of the front-end; the chain (the 4400 x 4400 one too, since
-    # the banded K6 stores its blob) and the front-end's K6 route fold it into K2 and K6.  The rows of OFF_PATH
-    # are kernels that no main path launches any more: their launches in the 4400 x 4400 run must be 0
-    rows = [("K1 bitpack, boards -> rows (no main path: the 4400x4400 chain's blob after K6's multi-launch route "
-             "until the banded K6 stored it)", "big", "bitpack", k1, "plotweave/ops/bitpack.py:15", "K1 rows"),
-            ("K1 bitpack, boards -> dense (two of the K12 route's three K1 launches)", "front-end dense", "bitpack", k1,
-             "plotweave/ops/thinning.py:178", "K1 dense"),
-            ("K1 bitpack, dense -> boards (one of the K12 route's three K1 launches)", "front-end dense",
-             "bitpack", k1, "plotweave/ops/thinning.py:166", "K1 pack"),
+    # K1 by kernel where a path still launches it: K12's route of the front-end (boards -> dense twice, its
+    # int32 skeletons -> boards once), the swatch path (stage 03/04's uint8 packs); the chain (the 4400 x 4400 one
+    # too, since the banded K6 stores its blob) and the front-end's K6 route fold it into K2 and K6.  The rows of OFF_PATH are kernels that no main path launches:
+    # their launches in the run named must be 0
+    rows = [("K1 bitpack, rows -> boards (no main path: K2 loads packed rows itself)", "big", "K1 rows_to_boards", k1,
+             "plotweave/ops/bitpack.py:27", "K1 rows to boards"),
+            ("K1 bitpack, boards -> rows (no main path: the 4400x4400 chain's blob after K6's multi-launch route "
+             "until the banded K6 stored it)", "big", "K1 boards_to_rows", k1, "plotweave/ops/bitpack.py:15",
+             "K1 rows"),
+            ("K1 bitpack, boards -> dense (two of the K12 route's three K1 launches)", "front-end dense",
+             "K1 boards_to_dense", k1, "plotweave/ops/thinning.py:178", "K1 dense"),
+            ("K1 bitpack, dense uint8 -> boards (dense_to_boards_bytes; the swatch path's stage 03/04 packs)",
+             "swatch", "K1 dense_to_boards_bytes", k1, "plotweave/ops/thinning.py:166", "K1 pack"),
+            ("K1 bitpack, dense int32 -> boards (dense_to_boards_words; one of the K12 route's three K1 launches: "
+             "K12's int32 skeletons)", "front-end dense", "K1 dense_to_boards_words", k1,
+             "plotweave/ops/thinning.py:166", "K1 pack int32"),
+            ("K1 bitpack, labels -> boards (no main path: frontend_from_labels; K7 forms the front-end's boards)",
+             "front-end", "K1 labels_to_boards", k1, "plotweave/ops/frontend.py:85", "K1 labels"),
             ("K2 morph_bits (its load converting the packed rows)", "main", "morph_bits",
              "plotweave_torch/csrc/morph_bits.cu", "plotweave/ops/morphology.py:133", "K2"),
             ("K3+K4 edge_candidates", "main", "edge_candidates", "plotweave_torch/csrc/edge_candidates.cu",
@@ -5321,7 +5596,7 @@ def main() -> None:
     idle = [row["name"] for row in table if row["launches"] < 1 and row["name"] not in off]
     check(not idle, f"kernels that their path's run did not launch: {idle}")
     ran = [row["name"] for row in table if row["launches"] and row["name"] in off]
-    check(not ran, f"kernels on no main path that the 4400x4400 run launched: {ran}")
+    check(not ran, f"kernels on no main path that their path's run launched: {ran}")
     print(json.dumps({"kernels": table}))
     print(info["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -48,6 +48,11 @@ __device__ __forceinline__ void store_row_word(uint8_t* __restrict__ row, int wo
 // do not overlap, so the multiply carries nothing)
 __device__ __forceinline__ uint32_t spread4(uint32_t nibble) { return (nibble * 0x00204081u) & 0x01010101u; }
 
+// the inverse: bit 8 j of u -> bit j (bytes of 0xff or 0, as __vcmpne4
+// gives them, too); the multiply puts bit 8 j on bit 24 + j and nothing
+// else on bits 24-31
+__device__ __forceinline__ uint32_t gather4(uint32_t u) { return ((u & 0x01010101u) * 0x01020408u) >> 24; }
+
 // The n <= 16 px of a dense uint8 row at p from bits [0, n) of `bits`:
 // `value` where a bit is set, else 0.  One 16-byte store where `vec` (p is
 // 16-byte aligned) and n is 16, else n byte stores.

@@ -4,9 +4,12 @@
   ``dense_to_boards_cuda`` and ``labels_to_boards_cuda`` (``csrc/bitpack.cu``):
   the conversions between packed rows (8 px a byte), bitboards (32 px a word)
   and dense pixels; replace the XLA fusions of ``bitpack_rows``,
-  ``bitunpack_rows``, ``pack_bitboards`` and ``unpack_bitboards``.  The raster
-  chain, the device k-means stage and the front-end's K6 route launch none of
-  them: K2's load and store and K6's stores convert (``csrc/bitlayout.cuh``).
+  ``bitunpack_rows``, ``pack_bitboards`` and ``unpack_bitboards``.  The
+  pixel → word kernels read each warp's span of pixels as 16-byte vectors
+  and form whole words from them.  The raster chain, the device k-means
+  stage and the front-end's K6 route launch none of them: K2's load and
+  store and K6's stores convert (``csrc/bitlayout.cuh``).
+  :data:`K1_LAUNCHES` counts K1 by kernel.
 - K2 ``morph_steps_cuda`` (``csrc/morph_bits.cu``): a whole sequence of
   packed dilations and erosions in one launch, each block holding a band of
   rows and the sequence's halo in shared memory; replaces the XLA fusion of
@@ -294,6 +297,11 @@ LAUNCHES = {"bitpack": 0, "edge_candidates": 0, "zhang_suen_packed": 0, "zhang_s
             "subsample": 0, "lab_sample": 0, "kmeans_fit": 0, "lloyd_fit": 0, "assign_points": 0, "morph_dense": 0,
             "greedy_tour": 0, "refine_tour": 0, "area_resize_frac": 0, "area_resize_int": 0, "bezier_sample": 0}
 
+# K1's launches by kernel (dense -> boards from bytes and from int32 are two),
+# each also counted under "bitpack" in LAUNCHES
+K1_LAUNCHES = {"rows_to_boards": 0, "boards_to_rows": 0, "boards_to_dense": 0, "dense_to_boards_bytes": 0,
+               "dense_to_boards_words": 0, "labels_to_boards": 0}
+
 # what the last call of each fixpoint route took: for the resident routes a
 # device tensor, K6 (k,) iterations per layer, K5 (k, 2) rounds and the most
 # sweeps one CTA ran per layer; for the banded routes (host rounds, that
@@ -323,6 +331,8 @@ def reset_launches() -> None:
     with _lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        for name in K1_LAUNCHES:
+            K1_LAUNCHES[name] = 0
 
 
 def _count(name: str, n: int = 1) -> None:
@@ -474,9 +484,12 @@ def _check_width(name: str, boards: torch.Tensor, w: int) -> None:
         raise ValueError(f"{name}: rows of {boards.shape[-1]} words do not hold {w} px")
 
 
-def _bitpack(fn: str, shape, dtype, src: torch.Tensor, n_rows: int, *args, out: torch.Tensor | None = None):
+def _bitpack(fn: str, shape, dtype, src: torch.Tensor, n_rows: int, *args, out: torch.Tensor | None = None,
+             kernel: str | None = None):
     """One launch of ``csrc/bitpack.cu``'s ``fn`` from ``src`` into a new
-    tensor of ``shape`` and ``dtype`` on its device, or into ``out``."""
+    tensor of ``shape`` and ``dtype`` on its device, or into ``out``, counted
+    in :data:`K1_LAUNCHES` under ``kernel`` (default ``fn`` without its
+    prefix)."""
     with _guard(src.device):
         if out is None:
             out = torch.empty(shape, dtype=dtype, device=src.device)
@@ -485,6 +498,8 @@ def _bitpack(fn: str, shape, dtype, src: torch.Tensor, n_rows: int, *args, out: 
             err = getattr(lib, fn)(src.data_ptr(), out.data_ptr(), n_rows, *args,
                                    torch.cuda.current_stream().cuda_stream)
             _count("bitpack")
+            with _lock:
+                K1_LAUNCHES[kernel or fn.removeprefix("pw_")] += 1
             _raise_on(lib, fn, err)
     return out
 
@@ -537,17 +552,20 @@ def boards_to_dense_cuda(boards: torch.Tensor, w: int, value: int = 1, dtype=tor
 
 def dense_to_boards_cuda(dense: torch.Tensor) -> torch.Tensor:
     """K1: CUDA dense (..., W) uint8, bool (set where nonzero) or int32 (set
-    where > 0) → (..., ⌈W/32⌉) int32 bitboards, bits at and beyond W zero."""
+    where > 0) → (..., ⌈W/32⌉) int32 bitboards, bits at and beyond W zero;
+    any alignment of the rows and of ``data_ptr()``."""
     _check_dense("dense_to_boards", dense, (torch.uint8, torch.bool, torch.int32))
     w = dense.shape[-1]
     src = dense.view(torch.uint8) if dense.dtype == torch.bool else dense
     return _bitpack("pw_dense_to_boards", (*dense.shape[:-1], -(-w // 32)), torch.int32, src,
-                    dense.numel() // max(w, 1), w, src.element_size())
+                    dense.numel() // max(w, 1), w, src.element_size(),
+                    kernel="dense_to_boards_bytes" if src.element_size() == 1 else "dense_to_boards_words")
 
 
 def labels_to_boards_cuda(labels: torch.Tensor, k: int) -> torch.Tensor:
     """K1: CUDA int32 labels (..., H, W) → the ``k`` one-hot bitboards (...,
-    k, H, ⌈W/32⌉): bit x of layer c is set where the label is c."""
+    k, H, ⌈W/32⌉): bit x of layer c is set where the label is c (none for a
+    label < 0 or >= k)."""
     _check_dense("labels_to_boards", labels, (torch.int32,))
     if labels.dim() < 2 or k <= 0:
         raise ValueError(f"labels_to_boards: expected (..., H, W) labels and k > 0, got {tuple(labels.shape)}, {k}")
