@@ -39,9 +39,14 @@ Phases:
    4 × 1500 × 2000; K1's pixel → word kernels (``k1_pack_cases``) on views
    at storage offsets 1–15 in buffers of nonzero bytes, widths off 16 bytes
    (1500, 2001, 77), int32 INT_MIN, −1, 0, 1, INT_MAX, labels −1, k and
-   INT_MAX for k = 1, 4, 8, on every words-a-lane route; K1's five
-   directions timed alone on one input (L2) and over a rotation of 60 MB or
-   more of inputs (HBM) beside their bounds (``k1_times``); K1 folded into K2 and K6 (``fold_cases``): K2 from packed
+   INT_MAX for k = 1, 4, 8, on every words-a-lane route; K1's packed-row
+   kernels (``k1_rows_cases``): ``bitpack_rows`` of uint8, bool and int32
+   and ``bitunpack_rows`` (one launch each), rows → boards and boards →
+   rows into a blob of sentinels, on views at storage offsets 0–15, odd
+   widths and 8 × 4400 × 4400; K1's directions timed alone on one input (L2)
+   and over a rotation of 60 MB or more of inputs (HBM) beside their bounds
+   (``k1_times``), ``bitpack_rows`` and ``bitunpack_rows`` as a call and
+   alone, rows ↔ boards also at 8 × 4400 × 4400; K1 folded into K2 and K6 (``fold_cases``): K2 from packed
    rows and its packed-row store, K6 writing the edges and skeletons as
    packed rows into a blob at an odd offset and as dense bytes, on every
    route, against K1 plus the unfused kernels and the plain composites, on
@@ -119,7 +124,9 @@ Phases:
    the choice of the best attempt, twice in a row bit-equal, the one-launch
    loop bit-equal to its own single-iteration launches, and a fit whose
    seeds split a blob held step by step to the plain step); ``pw_assign_points``
-   and ``ops.kmeans.kmeans`` card vs CPU; K7's counts equal to a bincount of
+   and ``ops.kmeans.kmeans`` card vs CPU, and ``pw_assign_points`` against its
+   plain version and timed alone at 3,000,000 points, k = 4 (the pixels of a
+   2000 x 1500 image, as ``tools/process_colors.py`` hands them over); K7's counts equal to a bincount of
    its own labels; K11 byte-equal to its plain version on gray and binary
    images, rect / ellipse / cross, ``ksize`` 1, 2, 3, 5, 7, 31, iterations
    0-3, all four programs, odd shapes, H or W below the radius, a batch,
@@ -240,7 +247,8 @@ launches in the one run of phase 5 or 6 that drives it (the synthetic
 2000 × 1500 image for K2, K3+K4 and the resident K5 and K6, the
 4400 × 4400 image for the banded K5 and K6 (and for the rows of kernels
 that no main path launches any more, which must show 0 there: the
-multi-launch K5 and K6 and K1's boards → rows and rows → boards), the
+multi-launch K5 and K6, K1's boards → rows and rows → boards, and the
+one-launch ``bitpack_rows`` (uint8, int32) and ``bitunpack_rows``), the
 front-end calls for K7, K12 and K1's boards → dense and int32 → boards (K1
 counted by kernel; labels → boards must show 0 in the default route's call),
 the device-k-means run for K8 and K7's counts, the tools' k-means call for
@@ -262,8 +270,10 @@ clock64 cycles by phase), ``phase_k9_phases()`` and ``phase_k9_ab(other)``
 (the same for K9, with its chain floor: run the phases first),
 ``phase_k1_fold_ab(other)`` (the chain, K2 and K6 alone, the grouped call
 of 8 and the front-end against another checkout's, in turns),
-``phase_k1_pack_ab(other)`` (K1's five directions alone, L2 and HBM,
-against another checkout's, in turns, outputs equal),
+``phase_k1_pack_ab(other)`` (K1's pixel → word directions alone, L2 and
+HBM, against another checkout's, in turns, outputs equal),
+``phase_k1_rows_ab(other)`` (the same for K1's packed-row directions:
+rows ↔ boards at three shapes, ``bitpack_rows`` and ``bitunpack_rows``),
 ``phase_kmeans_ab(other)`` and ``phase_k8_phases()`` (K8's seeds and fits
 and stage 02's device mode against another checkout's, in turns, and the
 launch's clock64 cycles by phase), ``phase_banded_ab(other)`` (K5, K6
@@ -305,7 +315,8 @@ CHAIN_LAUNCHES = {"morph_bits": 1, "edge_candidates": 1, "hysteresis": 1, "zhang
 # PyTorch's kernel of ``copy_`` between strided views on one card: row sharding's halo exchange (``widen``)
 COPY_KERNELS = ("direct_copy_kernel",)
 OWN_KERNELS = ("rows_to_boards", "boards_to_rows", "boards_to_dense", "dense_to_boards_bytes",
-               "dense_to_boards_words", "labels_to_boards",
+               "dense_to_boards_words", "labels_to_boards", "dense_to_rows_bytes", "dense_to_rows_words",
+               "rows_to_dense",
                "morph_steps", "edge_tiles", "hysteresis_cluster", "hysteresis_sweep", "zs_cluster", "zs_subpass",
                "assign_nearest", "zs_tiles", "subsample", "lab_sample", "kmeans_fit", "lloyd_fit", "assign_points", "morph_runs",
                "greedy_tour", "refine_tour", "area_frac", "area_int", "bezier_families")
@@ -327,7 +338,8 @@ DRAW_OPS_PER_KEY = 10
 LARGE_LIST_PX = 40_000_000  # a draw whose candidate list (about n / 2,048) takes the large-list route
 BANDED_KERNELS = ("hysteresis_banded", "zhang_suen_packed_banded")  # K5, K6 on layers too large for a cluster
 MULTI_KERNELS = ("hysteresis_multi", "zhang_suen_packed_multi")  # K5, K6 multi-launch: only where a caller names it
-OFF_PATH = ("K1 rows", "K1 rows to boards", "K1 labels", "K5 multi", "K6 multi")  # rows of the kernels line that no main path launches
+OFF_PATH = ("K1 rows", "K1 rows to boards", "K1 labels", "K1 pack rows", "K1 pack rows int32", "K1 unpack rows",
+            "K5 multi", "K6 multi")  # rows of the kernels line that no main path launches
 BIG_SIDE = 4400  # px: a layer of 4400 rows of 138 words does not fit one cluster's shared memory
 PATH_RUNS = {"main": "main path, synthetic 2000x1500, steps 1-13, card run",
              "big": f"main path, synthetic {BIG_SIDE}x{BIG_SIDE}, steps 1-4, card run",
@@ -489,17 +501,18 @@ def device_us(e) -> float:
     return getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
 
 
-def profiled_ms(fn, name: str, reps: int):
+def profiled_ms(fn, name, reps: int):
     """Device milliseconds per call of ``fn`` in the kernels whose name holds
-    ``name``, from ``torch.profiler``'s CUDA activity: the mean over the
-    whole calls the trace caught (all but the first); None where it caught
-    none."""
+    ``name`` (or one of the names of a tuple), from ``torch.profiler``'s CUDA
+    activity: the mean over the whole calls the trace caught (all but the
+    first); None where it caught none."""
+    names = (name,) if isinstance(name, str) else name
     try:
         groups = traced(fn, reps + 1)[1:]
     except RuntimeError as e:  # a measurement only: say so and go on
         print(f"  torch.profiler failed: {e}")
         return None
-    us = sum(device_us(e) for g in groups for e in g if name in e.name)
+    us = sum(device_us(e) for g in groups for e in g if any(n in e.name for n in names))
     return us / len(groups) / 1e3 if us else None
 
 
@@ -1065,6 +1078,7 @@ def phase_layout_and_edge_kernels(stats: dict) -> None:
     print(f"K1 == plain: rows <-> boards, boards -> dense (uint8 x255, x1, int32), dense (uint8, bool, int32) -> "
           f"boards, labels -> boards, into a blob at an odd offset, {len(shapes)} shapes incl. {CHAIN_SHAPE}")
     k1_pack_cases(rng)
+    k1_rows_cases(rng)
     k1_stats(stats)
 
     # K3+K4: gray images and binary boards on every template instance (ksize 1, 3, 5, 7, 9) and on the
@@ -1223,12 +1237,96 @@ def k1_pack_cases(rng) -> int:
     return n
 
 
+# K1's packed-row kernels on the card: (shape, storage offsets of the views): widths off 8 and 16 bytes (1500,
+# 2001, 77, 13), W < 8, a whole word, rows of 4400 px (550 bytes), 1500 rows, the main path's shape and the
+# plotter's eight pens at the large side
+ROWS_SHAPES = [((1, 1, 1500), range(16)), ((2, 7, 2001), range(16)), ((3, 5, 77), range(16)),
+               ((1, 3, 32), range(16)), ((4, 33, 1), range(16)), ((2, 5, 13), range(16)), ((1, 9, 4400), range(16)),
+               ((1, 1500, 2001), (0, 1, 7, 15)), (CHAIN_SHAPE, (0, 1, 15)), ((8, BIG_SIDE, BIG_SIDE), (0, 5))]
+
+
+def k1_rows_cases(rng) -> int:
+    """K1's packed-row kernels against their plain versions on the card
+    (byte-equal: all integer) on :data:`ROWS_SHAPES`: ``bitpack_rows`` of
+    uint8 (0, 1, 2, 127, 128, 255) and bool views at the listed storage
+    offsets in buffers of nonzero bytes and of int32 (INT_MIN, -1, 0, 1,
+    INT_MAX) at element offsets 0-3 among positive values, each one launch
+    of ``dense_to_rows_bytes`` or ``dense_to_rows_words``; ``bitunpack_rows``
+    (one launch of ``rows_to_dense``) and ``rows_to_boards_cuda`` of packed
+    rows with their padding bits set at those offsets; ``boards_to_rows_cuda``
+    of boards with their padding bits set into a buffer of sentinels at
+    those offsets, every byte outside the rows keeping its sentinel.  Each
+    case counted under its kernel in ``K1_LAUNCHES``.  Returns the cases
+    held."""
+    import numpy as np
+    import torch
+
+    from plotweave_torch.ops import bitpack, kernels
+
+    dev = torch.device("cuda")
+    n, each = 0, dict.fromkeys(("dense_to_rows_bytes", "dense_to_rows_words", "rows_to_dense", "rows_to_boards",
+                                "boards_to_rows"), 0)
+    kernels.reset_launches()
+
+    def placed(values, offset: int, fill: int):
+        """``values`` at ``offset`` elements into a buffer of ``fill`` on the card, and the buffer."""
+        buf = torch.full((offset + values.numel() + 8,), fill, dtype=values.dtype, device=dev)
+        return buf[offset : offset + values.numel()].view(values.shape).copy_(values), buf
+
+    for shape, offsets in ROWS_SHAPES:
+        *lead, w = shape
+        big = int(np.prod(shape)) > 10**8
+        u8 = torch.from_numpy(rng.choice(np.array([0, 1, 2, 127, 128, 255], np.uint8), shape)).to(dev)
+        bits = u8 > 127
+        i32 = torch.from_numpy(rng.choice(np.array(INT_EDGES, np.int32), shape)).to(dev)
+        rows = torch.from_numpy(rng.integers(0, 256, (*lead, -(-w // 8)), dtype=np.uint8)).to(dev)
+        rows[..., -1] |= (1 << (-w % 8)) - 1  # padding bits set: every conversion drops them
+        boards = random_words(rng, (*lead, -(-w // 32)), dev)
+        ref_u8, ref_bool, ref_i32 = (bitpack.bitpack_rows_plain(x) for x in (u8, bits, i32))
+        ref_dense, ref_boards = bitpack.bitunpack_rows_plain(rows, w), bitpack.rows_to_boards_plain(rows, w)
+        ref_rows = bitpack.boards_to_rows_plain(boards, w)
+        for offset in offsets:
+            n += 5
+            for key in ("dense_to_rows_bytes", "rows_to_dense", "rows_to_boards", "boards_to_rows"):
+                each[key] += 1 + (key == "dense_to_rows_bytes")
+            check(torch.equal(bitpack.bitpack_rows(placed(u8, offset, 0xA5)[0]), ref_u8),
+                  f"K1 bitpack_rows uint8 {shape} at byte offset {offset}")
+            view = placed(bits.view(torch.uint8), offset, 0xA5)[0].view(torch.bool)
+            check(torch.equal(bitpack.bitpack_rows(view), ref_bool), f"K1 bitpack_rows bool {shape} at byte offset {offset}")
+            view = placed(rows, offset, 0xA5)[0]
+            check(torch.equal(bitpack.bitunpack_rows(view, w), ref_dense),
+                  f"K1 bitunpack_rows {shape} at byte offset {offset}")
+            check(torch.equal(kernels.rows_to_boards_cuda(view, w), ref_boards),
+                  f"K1 rows -> boards {shape} at byte offset {offset}")
+            out, buf = placed(torch.zeros_like(ref_rows), offset, 0xAB)
+            out.fill_(0xAB)
+            kernels.boards_to_rows_cuda(boards, w, out=out)
+            check(torch.equal(out, ref_rows) and bool((buf[:offset] == 0xAB).all())
+                  and bool((buf[offset + out.numel():] == 0xAB).all()),
+                  f"K1 boards -> rows {shape} into a buffer at byte offset {offset}, or a byte outside it written")
+        for offset in ((0, 3) if big else range(4)):
+            n += 1
+            each["dense_to_rows_words"] += 1
+            check(torch.equal(bitpack.bitpack_rows(placed(i32, offset, 7)[0]), ref_i32),
+                  f"K1 bitpack_rows int32 {shape} at element offset {offset}")
+        del u8, bits, i32, ref_u8, ref_bool, ref_i32, ref_dense
+    counted = {name: kernels.K1_LAUNCHES[name] for name in each}
+    check(counted == each and sum(kernels.K1_LAUNCHES.values()) == sum(each.values()),
+          f"K1 packed rows: launches by kernel {dict(kernels.K1_LAUNCHES)}, expected {each}")
+    print(f"K1 packed rows == plain: {n} cases on {len(ROWS_SHAPES)} shapes (widths 1500, 2001, 77, 32, 1, 13, 4400, "
+          f"2000; 8x{BIG_SIDE}x{BIG_SIDE}): bitpack_rows of uint8 and bool at byte offsets up to 15 and of int32 "
+          f"(INT_MIN, -1, 0, 1, INT_MAX) at element offsets 0-3, bitunpack_rows and rows -> boards (padding bits "
+          f"set), boards -> rows into a buffer of sentinels; one launch a call: {counted}")
+    return n
+
+
 K1_HBM_BYTES = 60e6  # a rotation of distinct inputs at least this large: each call reads HBM, not the 50 MB L2
 K1_TIME_REPS = 20
+K1_PENS = 8  # layers of the large rows <-> boards case: the plotter's eight pens at BIG_SIDE
 
 
 def k1_inputs() -> dict:
-    """The inputs of K1's five directions, the same for every checkout: {case:
+    """The inputs of K1's timed cases, the same for every checkout: {case:
     (inputs, bytes a call moves)}, the first input the one-input (L2) case,
     the list a rotation of at least :data:`K1_HBM_BYTES` of inputs."""
     import numpy as np
@@ -1248,46 +1346,73 @@ def k1_inputs() -> dict:
     labels = rotation(lambda i: torch.from_numpy(rng.integers(-1, 5, (h, w), dtype=np.int32)).to(dev), 4 * h * w)
     rows = rotation(lambda i: torch.from_numpy(np.packbits(np.roll(masks[i % 2], 7 * i, axis=-1) > 0, axis=-1)).to(dev),
                     k * h * (w // 8))
-    big_nw = -(-BIG_SIDE // 32)
+    big_nw, big_wb = -(-BIG_SIDE // 32), -(-BIG_SIDE // 8)
     big = rotation(lambda i: random_words(rng, (1, BIG_SIDE, big_nw), dev), 4 * BIG_SIDE * big_nw)
     boards = rotation(lambda i: random_words(rng, (k, h, nw), dev), 4 * k * h * nw)
+    pens_rows = rotation(lambda i: torch.from_numpy(rng.integers(0, 256, (K1_PENS, BIG_SIDE, big_wb), dtype=np.uint8))
+                         .to(dev), K1_PENS * BIG_SIDE * big_wb)
+    pens_boards = rotation(lambda i: random_words(rng, (K1_PENS, BIG_SIDE, big_nw), dev), 4 * K1_PENS * BIG_SIDE * big_nw)
+    pens = K1_PENS * BIG_SIDE * (big_wb + 4 * big_nw)
     return {"dense -> boards uint8": (u8, k * h * w + 4 * k * h * nw),
             "dense -> boards int32": (i32, 4 * k * h * w + 4 * k * h * nw),
             "labels -> boards": (labels, 4 * h * w + 4 * 4 * h * nw),
             "rows -> boards": (rows, k * h * (w // 8) + 4 * k * h * nw),
-            "boards -> rows": (big, 4 * BIG_SIDE * big_nw + BIG_SIDE * -(-BIG_SIDE // 8)),
-            "boards -> dense": (boards, 4 * k * h * nw + k * h * w)}
+            "boards -> rows": (big, 4 * BIG_SIDE * big_nw + BIG_SIDE * big_wb),
+            "boards -> dense": (boards, 4 * k * h * nw + k * h * w),
+            "boards -> rows 4x1500x2000": (boards, 4 * k * h * nw + k * h * (w // 8)),
+            "rows -> boards 8x4400x4400": (pens_rows, pens),
+            "boards -> rows 8x4400x4400": (pens_boards, pens),
+            "bitpack_rows uint8": (u8, k * h * w + k * h * (w // 8)),
+            "bitpack_rows int32": (i32, 4 * k * h * w + k * h * (w // 8)),
+            "bitunpack_rows": (rows, k * h * (w // 8) + k * h * w)}
 
 
-# case → (the kernel's name in a trace, its shape as printed)
+PENS_SHAPE = f"({K1_PENS}, {BIG_SIDE}, {BIG_SIDE})"
+# case → (the kernel's name in a trace, or the names of every kernel that the parent's two-launch route ran, its
+# shape as printed)
 K1_CASES = {"dense -> boards uint8": ("dense_to_boards", f"{CHAIN_SHAPE}"),
             "dense -> boards int32": ("dense_to_boards", f"{CHAIN_SHAPE}"),
             "labels -> boards": ("labels_to_boards", f"{FRONTEND_SHAPE}, k = 4"),
             "rows -> boards": ("rows_to_boards", f"{CHAIN_SHAPE}"),
             "boards -> rows": ("boards_to_rows", f"(1, {BIG_SIDE}, {BIG_SIDE})"),
-            "boards -> dense": ("boards_to_dense", f"{CHAIN_SHAPE}, uint8 x255")}
+            "boards -> dense": ("boards_to_dense", f"{CHAIN_SHAPE}, uint8 x255"),
+            "boards -> rows 4x1500x2000": ("boards_to_rows", f"{CHAIN_SHAPE}"),
+            "rows -> boards 8x4400x4400": ("rows_to_boards", PENS_SHAPE),
+            "boards -> rows 8x4400x4400": ("boards_to_rows", PENS_SHAPE),
+            "bitpack_rows uint8": (("dense_to_rows", "dense_to_boards", "boards_to_rows"), f"{CHAIN_SHAPE}"),
+            "bitpack_rows int32": (("dense_to_rows", "dense_to_boards", "boards_to_rows"), f"{CHAIN_SHAPE}"),
+            "bitunpack_rows": (("rows_to_dense", "rows_to_boards", "boards_to_dense"), f"{CHAIN_SHAPE}, 0/1 uint8")}
+# the cases of K1's packed-row directions (phase_k1_rows_ab)
+K1_ROWS_CASES = ("rows -> boards", "rows -> boards 8x4400x4400", "boards -> rows", "boards -> rows 4x1500x2000",
+                 "boards -> rows 8x4400x4400", "bitpack_rows uint8", "bitpack_rows int32", "bitunpack_rows")
 
 
 def k1_call(case: str):
-    """The wrapper call of ``case`` on an input (through the checkout's own wrapper)."""
-    from plotweave_torch.ops import kernels
+    """The wrapper call of ``case`` on an input (through the checkout's own
+    wrapper; ``bitpack_rows`` and ``bitunpack_rows`` through the public
+    functions, whatever launches they make)."""
+    from plotweave_torch.ops import bitpack, kernels
 
     k, h, w = CHAIN_SHAPE
     return {"dense -> boards uint8": kernels.dense_to_boards_cuda, "dense -> boards int32": kernels.dense_to_boards_cuda,
             "labels -> boards": lambda x: kernels.labels_to_boards_cuda(x, 4),
             "rows -> boards": lambda x: kernels.rows_to_boards_cuda(x, w),
             "boards -> rows": lambda x: kernels.boards_to_rows_cuda(x, BIG_SIDE),
-            "boards -> dense": lambda x: kernels.boards_to_dense_cuda(x, w, 255)}[case]
+            "boards -> dense": lambda x: kernels.boards_to_dense_cuda(x, w, 255),
+            "boards -> rows 4x1500x2000": lambda x: kernels.boards_to_rows_cuda(x, w),
+            "rows -> boards 8x4400x4400": lambda x: kernels.rows_to_boards_cuda(x, BIG_SIDE),
+            "boards -> rows 8x4400x4400": lambda x: kernels.boards_to_rows_cuda(x, BIG_SIDE),
+            "bitpack_rows uint8": bitpack.bitpack_rows, "bitpack_rows int32": bitpack.bitpack_rows,
+            "bitunpack_rows": lambda x: bitpack.bitunpack_rows(x, w)}[case]
 
 
-def k1_times(inputs: dict | None = None) -> dict:
-    """K1's five directions (dense -> boards from uint8 and int32) through the
-    wrappers of the checkout that ``ROOT`` names, on ``inputs`` (default
-    :func:`k1_inputs`): per
-    case a digest of every input's output, ms a call (CUDA events, one
-    input), the kernel alone by ``torch.profiler`` on one input (its 12 MB
-    stay in the 50 MB L2) and over the rotation (each call reads HBM), and
-    the bytes bound.  Run after ``phase_probe``."""
+def k1_times(inputs: dict | None = None, cases=None) -> dict:
+    """K1's timed cases (``cases``, default all) through the wrappers of the
+    checkout that ``ROOT`` names, on ``inputs`` (default :func:`k1_inputs`):
+    per case a digest of every input's output, ms a call (CUDA events, one
+    input), the kernels alone by ``torch.profiler`` on one input (the 12 MB
+    planes stay in the 50 MB L2) and over the rotation (each call reads
+    HBM), and the bytes bound.  Run after ``phase_probe``."""
     import hashlib
     import itertools
 
@@ -1295,6 +1420,8 @@ def k1_times(inputs: dict | None = None) -> dict:
 
     out = {}
     for case, (xs, nbytes) in (inputs or k1_inputs()).items():
+        if cases is not None and case not in cases:
+            continue
         fn, (name, _) = k1_call(case), K1_CASES[case]
         data = b"".join(fn(x).cpu().numpy().tobytes() for x in xs)
         turn = itertools.cycle(xs)
@@ -1306,17 +1433,23 @@ def k1_times(inputs: dict | None = None) -> dict:
     return out
 
 
+def k1_rows_times() -> dict:
+    """:func:`k1_times` of K1's packed-row cases (:data:`K1_ROWS_CASES`)."""
+    return k1_times(cases=K1_ROWS_CASES)
+
+
 def share(bound_ms: float, ms) -> str:
     return f"{100 * bound_ms / ms:.1f} %" if ms else "not measured"
 
 
 def k1_stats(stats: dict) -> None:
-    """K1's five directions timed alone (:func:`k1_times`) into ``stats["K1
-    times"]``, and the kernels line's rows of the two directions no path
-    launches (rows -> boards, labels -> boards) with their plain versions."""
+    """K1's timed cases (:func:`k1_times`) into ``stats["K1 times"]``, and the
+    kernels line's rows of the directions no path launches (rows -> boards,
+    labels -> boards, bitpack_rows from uint8 and int32, bitunpack_rows)
+    with their plain versions."""
     import torch
 
-    from plotweave_torch.ops.bitpack import rows_to_boards_plain
+    from plotweave_torch.ops.bitpack import bitpack_rows_plain, bitunpack_rows_plain, rows_to_boards_plain
     from plotweave_torch.ops.frontend import onehot_boards_plain
 
     inputs = k1_inputs()
@@ -1328,7 +1461,10 @@ def k1_stats(stats: dict) -> None:
               f"ms by bytes")
     w = CHAIN_SHAPE[-1]
     for key, case, plain in (("K1 rows to boards", "rows -> boards", lambda x: rows_to_boards_plain(x, w)),
-                             ("K1 labels", "labels -> boards", lambda x: onehot_boards_plain(x, 4))):
+                             ("K1 labels", "labels -> boards", lambda x: onehot_boards_plain(x, 4)),
+                             ("K1 pack rows", "bitpack_rows uint8", bitpack_rows_plain),
+                             ("K1 pack rows int32", "bitpack_rows int32", bitpack_rows_plain),
+                             ("K1 unpack rows", "bitunpack_rows", lambda x: bitunpack_rows_plain(x, w))):
         x, t = inputs[case][0][0], times[case]
         got = k1_call(case)(x)
         check(torch.equal(got, plain(x)), f"K1 {case} != plain at {K1_CASES[case][1]}")
@@ -1337,33 +1473,57 @@ def k1_stats(stats: dict) -> None:
                       "library_ms": None}
 
 
+def k1_ab(other: str, times: str, what: str, cases) -> dict:
+    """:func:`ab_turns` of ``times`` (a :func:`k1_times` of ``cases``) for
+    this checkout and the one at ``other``: every case's outputs must be
+    equal in every turn; per case ms a call and alone on one input (L2) and
+    over a rotation (HBM), beside the bound."""
+    runs = ab_turns(other, times, what)
+    result = {}
+    for case in cases:
+        rows = {key: [r[case] for r in v] for key, v in runs.items()}
+        seen = {r["digest"] for v in rows.values() for r in v}
+        check(len(seen) == 1, f"{what} A/B {case}: the two checkouts differ: {sorted(seen)}")
+        row = {key: {m: [r[m] for r in v] for m in ("ms", "alone_l2_ms", "alone_hbm_ms")} for key, v in rows.items()}
+        row["bound_ms"] = rows["this"][0]["bound_ms"]
+        result[case] = row
+        print(f"{what} A/B {case} at {K1_CASES[case][1]}, bound {row['bound_ms']:.5f} ms: " + "; ".join(
+            f"{key} " + ", ".join(f"{m} " + " / ".join(f"{x:.4f}" if x else "-" for x in row[key][m])
+                                  for m in ("ms", "alone_l2_ms", "alone_hbm_ms"))
+            + f" (HBM share {share(row['bound_ms'], min((x for x in row[key]['alone_hbm_ms'] if x), default=None))})"
+            for key in ("other", "this")), flush=True)
+    return result
+
+
 def phase_k1_pack_ab(other: str) -> dict:
     """K1's pixel -> word kernels of this checkout against the one at
     ``other`` (the parent's: ``git archive <rev> | tar -x -C
     .checkout/other``): first :func:`k1_pack_cases` (byte equality on
     misaligned views, odd widths, negatives, out-of-range labels), then
     :func:`k1_times` in turns other, this, this, other, each in a process of
-    its own with ``ROOT`` set to its checkout.  Every case's outputs must be
-    equal in every turn; per case ms a call and alone on one input (L2) and
-    over a rotation (HBM), beside the bound."""
+    its own with ``ROOT`` set to its checkout (:func:`k1_ab`)."""
     import numpy as np
 
     k1_pack_cases(np.random.default_rng(23))
-    runs = ab_turns(other, "k1_times", "K1 pack")
-    result = {}
-    for case in K1_CASES:
-        rows = {key: [r[case] for r in v] for key, v in runs.items()}
-        seen = {r["digest"] for v in rows.values() for r in v}
-        check(len(seen) == 1, f"K1 pack A/B {case}: the two checkouts differ: {sorted(seen)}")
-        row = {key: {m: [r[m] for r in v] for m in ("ms", "alone_l2_ms", "alone_hbm_ms")} for key, v in rows.items()}
-        row["bound_ms"] = rows["this"][0]["bound_ms"]
-        result[case] = row
-        print(f"K1 pack A/B {case} at {K1_CASES[case][1]}, bound {row['bound_ms']:.5f} ms: " + "; ".join(
-            f"{key} " + ", ".join(f"{m} " + " / ".join(f"{x:.4f}" if x else "-" for x in row[key][m])
-                                  for m in ("ms", "alone_l2_ms", "alone_hbm_ms"))
-            + f" (HBM share {share(row['bound_ms'], min((x for x in row[key]['alone_hbm_ms'] if x), default=None))})"
-            for key in ("other", "this")), flush=True)
+    result = k1_ab(other, "k1_times", "K1 pack", K1_CASES)
     print(json.dumps({"k1_pack_ab": result}))
+    return result
+
+
+def phase_k1_rows_ab(other: str) -> dict:
+    """K1's packed-row kernels of this checkout against the one at ``other``
+    (the parent's, as for :func:`phase_k1_pack_ab`): first
+    :func:`k1_rows_cases` (byte equality on misaligned views, odd widths,
+    the three dtypes, 8 x 4400 x 4400, stores into a buffer of sentinels),
+    then :func:`k1_rows_times` in turns other, this, this, other
+    (:func:`k1_ab`): rows <-> boards at three shapes, ``bitpack_rows`` from
+    uint8 and int32 and ``bitunpack_rows`` through the public functions
+    (in the parent two launches each, their kernels summed alone)."""
+    import numpy as np
+
+    k1_rows_cases(np.random.default_rng(25))
+    result = k1_ab(other, "k1_rows_times", "K1 rows", K1_ROWS_CASES)
+    print(json.dumps({"k1_rows_ab": result}))
     return result
 
 
@@ -2225,6 +2385,8 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
     """K8 (sampler, seeding, fit, assignment), K7's counts and K11 against
     their plain versions on the card; returns the launch counts of one
     ``ops.kmeans.kmeans`` call on the card."""
+    import itertools
+
     import numpy as np
     import torch
 
@@ -2500,6 +2662,26 @@ def phase_kmeans_and_dense_kernels(stats: dict) -> dict:
           f"{len(data)}); launches {({n: c for n, c in tool.items() if c})}; K8 assign_points == plain, "
           f"{st['ms']:.4f} ms a call, {st['alone_ms'] or 0:.4f} alone ({share(st['bound_ms'], st['alone_ms'])} of its "
           f"bound {st['bound_ms']:.5f} ms by {st['bound_by']})")
+    # at its real size: the pixels of a 2000 x 1500 image, as tools/process_colors.py hands them to kmeans(),
+    # 3,000,000 points, k = 4; alone on one input (36 MB in, 12 MB out: near the 50 MB L2) and over two (HBM)
+    px = [torch.from_numpy(synthetic_image(seed, 1500, 2000)[0].reshape(-1, 3).astype(np.float32)).to(dev)
+          for seed in (2, 3)]
+    check(torch.equal(kernels.assign_points_cuda(px[0], cen_d), kmeans.assign_points_plain(px[0], cen_d)),
+          f"K8 assign_points != plain on the card at {len(px[0])} points")
+    turn = itertools.cycle(px)
+    n_px = len(px[0])
+    st["px_3m"] = {"points": n_px, "ms": cuda_ms(lambda: kernels.assign_points_cuda(px[0], cen_d), 20),
+                   "alone_l2_ms": profiled_ms(lambda: kernels.assign_points_cuda(px[0], cen_d), "assign_points", 20),
+                   "alone_hbm_ms": profiled_ms(lambda: kernels.assign_points_cuda(next(turn), cen_d), "assign_points",
+                                               20),
+                   "plain_ms": cuda_ms(lambda: kmeans.assign_points_plain(px[0], cen_d), 3),
+                   **bound(16 * n_px, n_px * 4 * LLOYD_FLOPS_PER_CENTER, FP32_OPS)}
+    big = st["px_3m"]
+    print(f"K8 assign_points == plain at {n_px} points (a 2000x1500 image), k = 4: {big['ms']:.4f} ms a call, alone "
+          f"{big['alone_l2_ms'] or 0:.4f} on one input ({share(big['bound_ms'], big['alone_l2_ms'])} of its bound), "
+          f"{big['alone_hbm_ms'] or 0:.4f} over two ({share(big['bound_ms'], big['alone_hbm_ms'])}); bound "
+          f"{big['bound_ms']:.5f} ms by {big['bound_by']}; plain {big['plain_ms']:.4f} ms; the 50,000-point case "
+          f"{share(st['bound_ms'], st['alone_ms'])}")
 
     # --- K7's counts
     for shape, cs in (((1500, 2000, 3), pens[:4]), ((37, 45, 3), pens), ((5, 33, 3), pens[:1]), ((1, 1, 3), pens[:3])):
@@ -5536,6 +5718,12 @@ def main() -> None:
              "plotweave/ops/thinning.py:166", "K1 pack int32"),
             ("K1 bitpack, labels -> boards (no main path: frontend_from_labels; K7 forms the front-end's boards)",
              "front-end", "K1 labels_to_boards", k1, "plotweave/ops/frontend.py:85", "K1 labels"),
+            ("K1 bitpack, dense uint8 -> rows (dense_to_rows_bytes: bitpack_rows in one launch; no main path)", "big",
+             "K1 dense_to_rows_bytes", k1, "plotweave/ops/bitpack.py:15", "K1 pack rows"),
+            ("K1 bitpack, dense int32 -> rows (dense_to_rows_words: bitpack_rows in one launch; no main path)", "big",
+             "K1 dense_to_rows_words", k1, "plotweave/ops/bitpack.py:15", "K1 pack rows int32"),
+            ("K1 bitpack, rows -> dense (rows_to_dense: bitunpack_rows in one launch; no main path)", "big",
+             "K1 rows_to_dense", k1, "plotweave/ops/bitpack.py:27", "K1 unpack rows"),
             ("K2 morph_bits (its load converting the packed rows)", "main", "morph_bits",
              "plotweave_torch/csrc/morph_bits.cu", "plotweave/ops/morphology.py:133", "K2"),
             ("K3+K4 edge_candidates", "main", "edge_candidates", "plotweave_torch/csrc/edge_candidates.cu",

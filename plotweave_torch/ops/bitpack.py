@@ -55,25 +55,22 @@ def boards_to_rows_plain(boards: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def bitpack_rows(masks: torch.Tensor) -> torch.Tensor:
-    """(..., W) uint8, bool or int32 (> 0 = set) → (..., ceil(W/8)) uint8."""
+    """(..., W) uint8, bool or int32 (> 0 = set) → (..., ceil(W/8)) uint8;
+    on a card one launch of K1."""
     if _on_card("bitpack_rows", masks):
-        from .kernels import boards_to_rows_cuda, dense_to_boards_cuda  # noqa: PLC0415
+        from .kernels import dense_to_rows_cuda  # noqa: PLC0415
 
-        boards = dense_to_boards_cuda(masks[None] if masks.dim() == 1 else masks)
-        rows = boards_to_rows_cuda(boards, masks.shape[-1])
-        return rows[0] if masks.dim() == 1 else rows
+        return dense_to_rows_cuda(masks)
     return bitpack_rows_plain(masks)
 
 
 def bitunpack_rows(packed: torch.Tensor, width: int) -> torch.Tensor:
     """(..., ceil(W/8)) uint8 → (..., width) 0/1 uint8 (inverse of
-    :func:`bitpack_rows`)."""
+    :func:`bitpack_rows`); on a card one launch of K1."""
     if _on_card("bitunpack_rows", packed):
-        from .kernels import boards_to_dense_cuda, rows_to_boards_cuda  # noqa: PLC0415
+        from .kernels import rows_to_dense_cuda  # noqa: PLC0415
 
-        boards = rows_to_boards_cuda(packed[None] if packed.dim() == 1 else packed, width)
-        dense = boards_to_dense_cuda(boards, width, 1)
-        return dense[0] if packed.dim() == 1 else dense
+        return rows_to_dense_cuda(packed, width)
     return bitunpack_rows_plain(packed, width)
 
 

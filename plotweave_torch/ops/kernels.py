@@ -1,15 +1,16 @@
 """Hand-written CUDA kernels: build, binding and wrappers.
 
-- K1 ``rows_to_boards_cuda``, ``boards_to_rows_cuda``, ``boards_to_dense_cuda``,
-  ``dense_to_boards_cuda`` and ``labels_to_boards_cuda`` (``csrc/bitpack.cu``):
-  the conversions between packed rows (8 px a byte), bitboards (32 px a word)
-  and dense pixels; replace the XLA fusions of ``bitpack_rows``,
-  ``bitunpack_rows``, ``pack_bitboards`` and ``unpack_bitboards``.  The
-  pixel → word kernels read each warp's span of pixels as 16-byte vectors
-  and form whole words from them.  The raster chain, the device k-means
-  stage and the front-end's K6 route launch none of them: K2's load and
-  store and K6's stores convert (``csrc/bitlayout.cuh``).
-  :data:`K1_LAUNCHES` counts K1 by kernel.
+- K1 ``dense_to_rows_cuda``, ``rows_to_dense_cuda``, ``rows_to_boards_cuda``,
+  ``boards_to_rows_cuda``, ``boards_to_dense_cuda``, ``dense_to_boards_cuda``
+  and ``labels_to_boards_cuda`` (``csrc/bitpack.cu``): the conversions
+  between packed rows (8 px a byte), bitboards (32 px a word) and dense
+  pixels; replace the XLA fusions of ``bitpack_rows``, ``bitunpack_rows``
+  (one launch each, straight between pixels and packed rows),
+  ``pack_bitboards`` and ``unpack_bitboards``.  A warp forms a run of 32
+  words and moves the span of pixels or row bytes they cover as 16-byte
+  vectors.  The raster chain, the device k-means stage and the front-end's
+  K6 route launch none of them: K2's load and store and K6's stores convert
+  (``csrc/bitlayout.cuh``).  :data:`K1_LAUNCHES` counts K1 by kernel.
 - K2 ``morph_steps_cuda`` (``csrc/morph_bits.cu``): a whole sequence of
   packed dilations and erosions in one launch, each block holding a band of
   rows and the sequence's halo in shared memory; replaces the XLA fusion of
@@ -297,10 +298,11 @@ LAUNCHES = {"bitpack": 0, "edge_candidates": 0, "zhang_suen_packed": 0, "zhang_s
             "subsample": 0, "lab_sample": 0, "kmeans_fit": 0, "lloyd_fit": 0, "assign_points": 0, "morph_dense": 0,
             "greedy_tour": 0, "refine_tour": 0, "area_resize_frac": 0, "area_resize_int": 0, "bezier_sample": 0}
 
-# K1's launches by kernel (dense -> boards from bytes and from int32 are two),
+# K1's launches by kernel (dense -> boards and dense -> rows from bytes and from int32 are two each),
 # each also counted under "bitpack" in LAUNCHES
 K1_LAUNCHES = {"rows_to_boards": 0, "boards_to_rows": 0, "boards_to_dense": 0, "dense_to_boards_bytes": 0,
-               "dense_to_boards_words": 0, "labels_to_boards": 0}
+               "dense_to_boards_words": 0, "labels_to_boards": 0, "dense_to_rows_bytes": 0,
+               "dense_to_rows_words": 0, "rows_to_dense": 0}
 
 # what the last call of each fixpoint route took: for the resident routes a
 # device tensor, K6 (k,) iterations per layer, K5 (k, 2) rounds and the most
@@ -394,7 +396,9 @@ _SIGNATURES = {
                 "pw_boards_to_rows": [_P, _P, _L, _I, _P],
                 "pw_boards_to_dense": [_P, _P, _L, _I, _I, _I, _P],
                 "pw_dense_to_boards": [_P, _P, _L, _I, _I, _P],
-                "pw_labels_to_boards": [_P, _P, _L, _I, _I, _I, _P]},
+                "pw_labels_to_boards": [_P, _P, _L, _I, _I, _I, _P],
+                "pw_dense_to_rows": [_P, _P, _L, _I, _I, _P],
+                "pw_rows_to_dense": [_P, _P, _L, _I, _P]},
     "edge_candidates": {"pw_edge_candidates": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                                _P]},
     "bitboard_fixpoints": {"pw_zs_cluster_run": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -504,14 +508,29 @@ def _bitpack(fn: str, shape, dtype, src: torch.Tensor, n_rows: int, *args, out: 
     return out
 
 
+def _packed_rows(name: str, rows: torch.Tensor, w: int) -> int:
+    """The number of packed rows of ``w`` px in CUDA ``rows`` (..., ⌈w/8⌉) uint8."""
+    _check_dense(name, rows, (torch.uint8,))
+    if w <= 0 or rows.shape[-1] != -(-w // 8):
+        raise ValueError(f"{name}: rows of {rows.shape[-1]} bytes do not hold {w} px")
+    return rows.numel() // rows.shape[-1]
+
+
 def rows_to_boards_cuda(rows: torch.Tensor, w: int) -> torch.Tensor:
     """K1: CUDA packed rows (..., ⌈w/8⌉) uint8, 8 px a byte MSB first → (...,
-    ⌈w/32⌉) int32 bitboards, bits at and beyond ``w`` zero."""
-    _check_dense("rows_to_boards", rows, (torch.uint8,))
-    if w <= 0 or rows.shape[-1] != -(-w // 8):
-        raise ValueError(f"rows_to_boards: rows of {rows.shape[-1]} bytes do not hold {w} px")
-    n_rows = rows.numel() // rows.shape[-1]
+    ⌈w/32⌉) int32 bitboards, bits at and beyond ``w`` zero; any alignment of
+    ``data_ptr()``."""
+    n_rows = _packed_rows("rows_to_boards", rows, w)
     return _bitpack("pw_rows_to_boards", (*rows.shape[:-1], -(-w // 32)), torch.int32, rows, n_rows, w)
+
+
+def rows_to_dense_cuda(rows: torch.Tensor, w: int) -> torch.Tensor:
+    """K1: CUDA packed rows (..., ⌈w/8⌉) uint8 → (..., w) 0/1 uint8 in one
+    launch (``ops.bitpack.bitunpack_rows``); any alignment of ``data_ptr()``."""
+    n_rows = _packed_rows("rows_to_dense", rows, w)
+    if n_rows * w >= 2**31:
+        raise ValueError(f"rows_to_dense: {n_rows * w} pixels exceed the kernel's index range")
+    return _bitpack("pw_rows_to_dense", (*rows.shape[:-1], w), torch.uint8, rows, n_rows, w)
 
 
 def boards_to_rows_cuda(boards: torch.Tensor, w: int, out: torch.Tensor | None = None) -> torch.Tensor:
@@ -560,6 +579,19 @@ def dense_to_boards_cuda(dense: torch.Tensor) -> torch.Tensor:
     return _bitpack("pw_dense_to_boards", (*dense.shape[:-1], -(-w // 32)), torch.int32, src,
                     dense.numel() // max(w, 1), w, src.element_size(),
                     kernel="dense_to_boards_bytes" if src.element_size() == 1 else "dense_to_boards_words")
+
+
+def dense_to_rows_cuda(dense: torch.Tensor) -> torch.Tensor:
+    """K1: CUDA dense (..., W) uint8, bool (set where nonzero) or int32 (set
+    where > 0) → (..., ⌈W/8⌉) packed rows, 8 px a byte MSB first, in one
+    launch (``ops.bitpack.bitpack_rows``); any alignment of the rows and of
+    ``data_ptr()``."""
+    _check_dense("dense_to_rows", dense, (torch.uint8, torch.bool, torch.int32))
+    w = dense.shape[-1]
+    src = dense.view(torch.uint8) if dense.dtype == torch.bool else dense
+    return _bitpack("pw_dense_to_rows", (*dense.shape[:-1], -(-w // 8)), torch.uint8, src,
+                    dense.numel() // max(w, 1), w, src.element_size(),
+                    kernel="dense_to_rows_bytes" if src.element_size() == 1 else "dense_to_rows_words")
 
 
 def labels_to_boards_cuda(labels: torch.Tensor, k: int) -> torch.Tensor:
