@@ -1,0 +1,9 @@
+"""The share of its roofline that k2_morph reached over the traced window, in %:
+its least time (``roofline/k2_morph.py``, summed over the window's calls) over
+its device time in the trace."""
+
+from portbench.harness import roofline_share
+
+
+def read(run):
+    return roofline_share(run, "k2_morph")
